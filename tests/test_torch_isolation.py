@@ -1,0 +1,85 @@
+"""The PyTorch port stands alone: no file of ``tensorlink_tpu_torch/``
+(nor ``chip_smoke.py``) imports JAX or the JAX package, importing the
+port leaves JAX unloaded, and the entry points never fall back to the
+CPU on their own."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from tensorlink_tpu_torch import resolve_device
+from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
+from tensorlink_tpu_torch.parallel.inference import InferenceEngine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "tensorlink_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "tensorlink_tpu")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 10
+    bad = [
+        (os.path.relpath(p, REPO), root)
+        for p in files for root in _imported_roots(p) if root in FORBIDDEN
+    ]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = [
+        "tensorlink_tpu_torch.parallel.serving",
+        "tensorlink_tpu_torch.models.llama",
+        "tensorlink_tpu_torch.convert",
+        "tensorlink_tpu_torch.ops.decode_glue",
+        "tensorlink_tpu_torch.ops.paged_decode",
+    ]
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in mods)
+        + "bad = [m for m in sys.modules if m.split('.')[0] in "
+        + repr(FORBIDDEN) + "]\n"
+        + "assert not bad, bad\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+
+
+def test_entry_points_need_a_device_where_cuda_is_absent():
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Llama(LlamaConfig.tiny())
+    model = Llama(LlamaConfig.tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(model, max_len=32)
+    eng = InferenceEngine(model, max_len=32, device="cpu")
+    assert eng.device.type == "cpu"
