@@ -8,18 +8,30 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: card, power limit and toolchain versions;
-2. build: compiles the CUDA paged-decode kernel (nvcc, sm_90a) and
-   JIT-compiles the Triton fused residual+norm kernel, in parallel;
+2. build: compiles the CUDA sources (paged decode, flash attention; one
+   nvcc each, sm_90a) and JIT-compiles the Triton fused residual+norm
+   kernel, all in parallel, and prints ptxas's register lines;
 3. paged-decode kernel vs its plain PyTorch version at Llama-3-8B head
    shapes (T = 1 and T = 128; mixed lengths with sentinel-tailed block
    tables, a validity mask with a retired row, a window, int8 pools, and
    the one-row form of a prefill chunk);
 4. fused-norm kernel vs its plain version (rms, and layer with bias);
-5. the slice: Llama-3-8B at full width and depth (random bf16 weights
+5. flash: the flash-attention forward (B1) and backward (B2) kernels vs
+   their plain versions in bf16 at the paths' shapes (BERT-base with a
+   padding mask, Llama-3-8B causal GQA, a causal window, a ragged length
+   with a fully masked row), each timed beside its plain version, its
+   bound and SDPA;
+6. serving: Llama-3-8B at full width and depth (random bf16 weights
    from a seed) served by ``PagedContinuousBatchingEngine`` over
    ``InferenceEngine``: 12 greedy requests, launch counts checked against
    the path, and a teacher-forced check of every emitted token against
-   the port's no-cache forward.
+   the port's no-cache forward (which runs B1 for the long prompts);
+7. training: BERT-base fine-tuning at batch 8 x seq 512 (f32 master
+   params from a seed, bf16 compute, Adam, dropout 0.1) through
+   ``Trainer``: 30 steps with a falling loss, B1/B2 launch counts, one
+   step's gradients against the plain attention path, step time, MFU, a
+   profiled step, and the batch 32 x seq 128 headline shape under "auto"
+   and "flash".
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Nothing of JAX or ``tensorlink_tpu``
@@ -27,6 +39,8 @@ is imported.
 """
 
 import concurrent.futures
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -35,12 +49,21 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
 
+from tensorlink_tpu_torch.config import TrainConfig
+from tensorlink_tpu_torch.models.bert import BertClassifier, BertConfig
 from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
 from tensorlink_tpu_torch.ops import _build
 from tensorlink_tpu_torch.ops.decode_glue import (
     fused_residual_norm,
     fused_residual_norm_reference,
+)
+from tensorlink_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
+    flash_attention_fwd_lse,
+    flash_attention_fwd_lse_reference,
 )
 from tensorlink_tpu_torch.ops.paged_decode import (
     paged_decode_attention,
@@ -48,12 +71,30 @@ from tensorlink_tpu_torch.ops.paged_decode import (
 )
 from tensorlink_tpu_torch.parallel.inference import GenerationConfig, InferenceEngine
 from tensorlink_tpu_torch.parallel.serving import PagedContinuousBatchingEngine
+from tensorlink_tpu_torch.train.trainer import Trainer, softmax_cross_entropy
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PAGED_ATOL, PAGED_RTOL = 2e-2, 1e-2  # bf16 outputs, f32 accumulation both sides
 NORM_ATOL, NORM_RTOL = 1e-2, 1e-2  # bf16 outputs of an f32 row reduction
 LOGIT_GAP_TOL = 0.5  # teacher-forced: emitted token within this of the row max
+# flash: o is a bf16 output of f32 sums whose P operand is rounded to bf16
+# (as in B3: atol + rtol elementwise); lse is f32 math on the same scores;
+# each gradient is a bf16 output of f32 sums over up to T terms whose
+# P / dS operands are rounded to bf16: relative Frobenius error
+FLASH_O_ATOL, FLASH_O_RTOL = 2e-2, 1e-2
+FLASH_LSE_ATOL = 1e-3
+FLASH_GRAD_REL = 1e-2
+# training: kernel vs plain attention gradients of one bf16 step. A leaf
+# passes at cosine >= 0.99 with the plain path; where the plain bf16 path
+# is itself farther than cosine 0.999 from the f32 gradient (a leaf whose
+# gradient sits near bf16's rounding noise), the kernel path must be no
+# farther from the f32 gradient than NOISE_RATIO times the plain path
+TRAIN_COSINE_MIN = 0.99
+TRAIN_SIGNAL_COSINE = 0.999
+TRAIN_NOISE_RATIO = 2.0
+TRAIN_LOSS_TOL = 1e-2
+CLASSES = 3  # the reference bench's classifier width
 DEV = "cuda"
 
 
@@ -118,10 +159,13 @@ def phase_device() -> tuple[str, str]:
     return torch.cuda.get_device_name(0), name_power
 
 
+CUDA_SOURCES = ("paged_decode.cu", "flash_attention.cu")
+
+
 def phase_build() -> None:
-    def build_cuda():
+    def build_cuda(source):
         t0 = time.perf_counter()
-        path, log = _build.build("paged_decode.cu", verbose=True)
+        path, log = _build.build(source, verbose=True)
         return time.perf_counter() - t0, path, log
 
     def build_triton():
@@ -131,14 +175,16 @@ def phase_build() -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        fc, ft = ex.submit(build_cuda), ex.submit(build_triton)
-        cuda_s, path, log = fc.result()
+    with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES) + 1) as ex:
+        fcs = {src: ex.submit(build_cuda, src) for src in CUDA_SOURCES}
+        ft = ex.submit(build_triton)
+        built = {src: f.result() for src, f in fcs.items()}
         triton_s = ft.result()
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-    say(f"[build] paged_decode.cu nvcc {cuda_s:.1f} s -> {path}")
-    for ln in regs:
-        say(f"[build]   ptxas: {ln}")
+    for src, (cuda_s, path, log) in built.items():
+        say(f"[build] {src} nvcc {cuda_s:.1f} s -> {path}")
+        for ln in log.splitlines():
+            if "registers" in ln or "Compiling entry" in ln:
+                say(f"[build]   ptxas: {ln.strip()}")
     say(f"[build] decode_glue triton jit {triton_s:.1f} s")
 
 
@@ -319,6 +365,184 @@ def phase_norm(flush) -> dict:
     return dict(main, max_abs_err=worst)
 
 
+# name: (B, H, Hkv, T, D, causal, window, mask)
+FLASH_CASES = {
+    # BERT-base's training shape: rows of 512, 480, 300, 129 valid keys,
+    # the rest all valid
+    "bert": (8, 12, 12, 512, 64, False, None, "bert"),
+    # Llama-3-8B's no-cache forward
+    "llama": (1, 32, 8, 2048, 128, True, None, None),
+    "window": (1, 32, 8, 1024, 128, True, 256, None),
+    # a length no tile divides, with a fully masked row
+    "ragged": (2, 12, 12, 300, 64, False, None, "ragged"),
+}
+
+
+def _flash_inputs(g, B, H, Hkv, T, D, mask):
+    def rnd(*shape):
+        return torch.randn(shape, generator=g).to(DEV, torch.bfloat16)
+
+    # [B, T, heads, D] storage read as [B, heads, T, D] views: the layout
+    # the training path hands the kernels
+    q, k, v, do = (rnd(B, T, h, D).transpose(1, 2) for h in (H, Hkv, Hkv, H))
+    kv = None
+    if mask == "bert":
+        lens = torch.tensor([512, 480, 300, 129] + [T] * (B - 4))
+        kv = (torch.arange(T)[None] < lens[:, None]).to(DEV)
+    elif mask == "ragged":
+        kv = torch.rand((B, T), generator=g) > 0.3
+        kv[1] = False
+        kv = kv.to(DEV)
+    return q, k, v, do, kv
+
+
+def _flash_keep(B, T, kv, causal, window):
+    """[B, T, T] attended (query, key) pairs of one head."""
+    qp = torch.arange(T, device=DEV)[:, None]
+    kp = torch.arange(T, device=DEV)[None, :]
+    keep = torch.ones((T, T), dtype=torch.bool, device=DEV)
+    if causal:
+        keep &= kp <= qp
+    if window is not None:
+        keep &= kp > qp - window
+        if not causal:
+            keep &= kp < qp + window
+    keep = keep[None].expand(B, T, T)
+    if kv is not None:
+        keep = keep & kv[:, None, :]
+    return keep
+
+
+def _sdpa_fn(q, k, v, do, keep, is_causal: bool, grad: bool):
+    """One F.scaled_dot_product_attention call (forward, or forward and
+    backward) on the same inputs, with GQA pre-repeated and the boolean
+    keep mask — a yardstick only; the port never calls it. The first
+    backend (flash, cuDNN, memory-efficient, math) that accepts the call
+    is the one timed. -> (fn, backend name)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    H = q.shape[1]
+    rep = H // k.shape[1]
+    qq = q.contiguous().requires_grad_(grad)
+    kk = k.repeat_interleave(rep, dim=1).contiguous().requires_grad_(grad)
+    vv = v.repeat_interleave(rep, dim=1).contiguous().requires_grad_(grad)
+    gg = do.contiguous()
+    kw = ({"is_causal": True} if is_causal
+          else {"attn_mask": keep[:, None].contiguous()})
+
+    def call():
+        out = F.scaled_dot_product_attention(qq, kk, vv, **kw)
+        if grad:
+            torch.autograd.grad(out, (qq, kk, vv), gg)
+
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def fn(be=be):
+            with sdpa_kernel([be]):
+                call()
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return fn, be.name
+    raise RuntimeError("no SDPA backend accepted the call")
+
+
+def _bound(nbytes, flops):
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f_ms = flops / BF16_FLOPS * 1e3
+    return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
+
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def phase_flash(flush) -> dict:
+    """B1 and B2 against their plain versions on the card, in bf16, at the
+    paths' shapes; each timed beside its plain version, its bound and
+    SDPA. Returns the BERT case's rows (the training path's shape), with
+    the worst errors over every case."""
+    g = torch.Generator().manual_seed(5)
+    rows = {}
+    worst_f = worst_b = 0.0
+    for name, (B, H, Hkv, T, D, causal, window, mask) in FLASH_CASES.items():
+        q, k, v, do, kv = _flash_inputs(g, B, H, Hkv, T, D, mask)
+        kw = {"causal": causal, "window": window}
+        o, lse = flash_attention_fwd_lse(q, k, v, kv, **kw)
+        ro, rlse = flash_attention_fwd_lse_reference(q, k, v, kv, **kw)
+        grads = flash_attention_bwd(q, k, v, ro, rlse, do, kv, **kw)
+        rgrads = flash_attention_bwd_reference(q, k, v, ro, rlse, do, kv, **kw)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(x.float()).all()) for x in (o, lse, *grads)),
+              f"flash {name}: non-finite output")
+        e_o = (o.float() - ro.float()).abs()
+        o_ok = bool((e_o <= FLASH_O_ATOL + FLASH_O_RTOL * ro.float().abs()).all())
+        e_lse = float((lse - rlse).abs().max())
+        rel = {n: _rel(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, rgrads)}
+        e_g = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(grads, rgrads))
+
+        keep = _flash_keep(B, T, kv, causal, window)
+        pairs = int(keep.sum()) * H
+        el = q.element_size()
+        qo = B * T * H * D * el  # q, o, do, dq
+        kv_b = B * T * Hkv * D * el  # k, v, dk, dv
+        m_b = 0 if kv is None else B * T
+        # forward reads q, k, v (and the mask), writes o and lse; backward
+        # reads q, k, v, do and lse (and the mask), writes dq, dk, dv
+        fwd_bytes = 2 * qo + 2 * kv_b + m_b + B * H * T * 4
+        bwd_bytes = 3 * qo + 4 * kv_b + m_b + B * H * T * 4
+        fb, fby = _bound(fwd_bytes, 4 * D * pairs)
+        bb, bby = _bound(bwd_bytes, 10 * D * pairs)
+        is_causal = causal and window is None and kv is None
+        lib_f, be_f = _sdpa_fn(q, k, v, do, keep, is_causal, grad=False)
+        lib_b, be_b = _sdpa_fn(q, k, v, do, keep, is_causal, grad=True)
+        row = {
+            "case": name, "B": B, "H": H, "Hkv": Hkv, "T": T, "D": D,
+            "causal": causal, "window": window, "mask": mask,
+            "pairs": pairs,
+            "fwd": {
+                "max_abs_err": float(e_o.max()), "lse_max_abs_err": e_lse,
+                "ms": time_ms(lambda: flash_attention_fwd_lse(q, k, v, kv, **kw), flush),
+                "plain_ms": time_ms(lambda: flash_attention_fwd_lse_reference(
+                    q, k, v, kv, **kw), flush, iters=5),
+                "library_ms": time_ms(lib_f, flush, iters=10), "library": be_f,
+                "bound_ms": fb, "bound_by": fby,
+                "bytes": fwd_bytes, "flops": 4 * D * pairs,
+            },
+            "bwd": {
+                "max_abs_err": e_g, "rel_frobenius": rel,
+                "ms": time_ms(lambda: flash_attention_bwd(
+                    q, k, v, ro, rlse, do, kv, **kw), flush),
+                "plain_ms": time_ms(lambda: flash_attention_bwd_reference(
+                    q, k, v, ro, rlse, do, kv, **kw), flush, iters=5),
+                "library_ms": time_ms(lib_b, flush, iters=10),
+                "library": f"{be_b} forward+backward",
+                "bound_ms": bb, "bound_by": bby,
+                "bytes": bwd_bytes, "flops": 10 * D * pairs,
+            },
+        }
+        say(f"[flash] {json.dumps(row)}")
+        check(o_ok, f"flash {name}: o beyond atol {FLASH_O_ATOL} + rtol {FLASH_O_RTOL}")
+        check(e_lse <= FLASH_LSE_ATOL, f"flash {name}: lse err {e_lse}")
+        check(max(rel.values()) <= FLASH_GRAD_REL,
+              f"flash {name}: gradient relative error {rel}")
+        worst_f = max(worst_f, float(e_o.max()))
+        worst_b = max(worst_b, e_g)
+        rows[name] = row
+        del q, k, v, do, o, ro, grads, rgrads, lib_f, lib_b
+    say(f"[flash] all cases within tolerance; worst max abs err: o {worst_f}, "
+        f"gradients {worst_b}")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {
+        "fwd": dict({k: rows["bert"]["fwd"][k] for k in keys}, max_abs_err=worst_f),
+        "bwd": dict({k: rows["bert"]["bwd"][k] for k in keys}, max_abs_err=worst_b),
+    }
+
+
 def _requests(vocab: int):
     """12 prompts, 1..1500 tokens across chunk (128) and block (16)
     edges; six share a 256-token prefix (requests 0, 1 and 8..11, so the
@@ -374,23 +598,36 @@ def phase_slice(name_power: str, cfg: LlamaConfig) -> dict:
     check(k2 == exp2 and k2 > 0, "fused-norm launch count off the path")
     check(st["prefix_matched_tokens"] > 0, "no prefix was shared")
 
-    # teacher-forced: the no-cache forward (plain attention) over prompt
-    # plus output must rank each emitted token within LOGIT_GAP_TOL of
-    # its row's maximum
+    # teacher-forced: the no-cache forward over prompt plus output must
+    # rank each emitted token within LOGIT_GAP_TOL of its row's maximum.
+    # Each sequence is padded at its end to a multiple of 128, so the
+    # reference's routing rule (_tile_ok lengths, T >= 512) sends the long
+    # ones to B1; causal attention keeps the pad out of the checked rows.
     gaps, exact = [], 0
+    flash_attention_fwd_lse.launches = 0
+    n_flash = 0
     with torch.no_grad():
         for p, o in zip(prompts, outs):
             ids = np.concatenate([p, o[:-1]])
-            logits = model(torch.from_numpy(ids).to(DEV)[None])[0, len(p) - 1:].float()
+            n = len(ids)
+            ids = np.concatenate([ids, np.zeros(-n % 128, ids.dtype)])
+            n_flash += len(ids) >= 512
+            logits = model(torch.from_numpy(ids).to(DEV)[None])[0, len(p) - 1:n].float()
             check(bool(torch.isfinite(logits).all()), "non-finite logits")
             tok = torch.from_numpy(o).to(DEV)
             gap = logits.max(dim=-1).values - logits.gather(1, tok[:, None])[:, 0]
             gaps.append(float(gap.max()))
             exact += int((gap == 0).sum())
     n_tok = sum(len(o) for o in outs)
+    k_flash = flash_attention_fwd_lse.launches
+    n_long = sum(len(p) >= 513 for p in prompts)
     say(f"[slice] teacher-forced: worst logit gap {max(gaps):.4f} "
-        f"(tolerance {LOGIT_GAP_TOL}); {exact}/{n_tok} tokens are the exact argmax")
+        f"(tolerance {LOGIT_GAP_TOL}); {exact}/{n_tok} tokens are the exact argmax; "
+        f"flash_attention_fwd_lse launches {k_flash} (expected {n_flash} "
+        f"sequences of >= 512 x {L} layers; {n_long} prompts of >= 513 tokens)")
     check(max(gaps) <= LOGIT_GAP_TOL, "teacher-forced check failed")
+    check(k_flash == n_flash * L and n_flash == n_long and k_flash > 0,
+          "no-cache forward: flash launch count off the path")
 
     ttft = [sch.timings(rid)["ttft_s"] for rid in rids]
     tps = sch.decode_only_tokens / sch.decode_only_s if sch.decode_only_s else None
@@ -458,6 +695,236 @@ def _profile_decode(sch, vocab: int, name_power: str) -> None:
     say(f"[profile] {json.dumps(res)}")
 
 
+def _bert_loss(module, params, batch, rng):
+    logits = functional_call(
+        module, params, (batch["input_ids"],),
+        {"attention_mask": batch["attention_mask"], "rng": rng,
+         "train": rng is not None},
+    )
+    return softmax_cross_entropy(logits, batch["labels"])
+
+
+def _bert_batch(B, T, vocab, lens=None, seed=0):
+    r = np.random.default_rng(seed)
+    am = np.ones((B, T), np.int32)
+    for b, n in enumerate(lens or []):
+        am[b, n:] = 0
+    return {
+        "input_ids": torch.from_numpy(r.integers(0, vocab, (B, T))).to(DEV),
+        "attention_mask": torch.from_numpy(am).to(DEV),
+        "labels": torch.from_numpy(r.integers(0, CLASSES, (B,))).to(DEV),
+    }
+
+
+def _timed_steps(trainer, state, batch, gen, n, warm=3):
+    """n steps from ``state`` (each ended by a device read of its loss);
+    -> (final state, losses, per-step seconds after ``warm`` steps)."""
+    losses, secs = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        state, st = trainer.train_step(state, batch, gen)
+        losses.append(float(st["loss"]))
+        if i >= warm:
+            secs.append(time.perf_counter() - t0)
+    return state, losses, secs
+
+
+# kernel-name groups of a training step's profile (first match wins)
+KERNEL_GROUPS = (
+    ("flash_fwd (B1)", ("flash_fwd_kernel",)),
+    ("flash_bwd (B2)", ("flash_bwd_",)),
+    ("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+    ("embedding backward", ("indexing_backward", "embedding_backward")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def _profile_step(trainer, state, batch, gen) -> dict:
+    """One training step under torch.profiler: kernel time over the
+    step's wall time is the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, st = trainer.train_step(state, batch, gen)
+        float(st["loss"])
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [
+        e for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0
+    ]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    groups: dict[str, float] = {}
+    for e in kernels:
+        group = next((g for g, keys in KERNEL_GROUPS if any(k in e.key for k in keys)),
+                     "other")
+        groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+    return {
+        "profiled_step_s": wall,
+        "device_busy_s": busy_us / 1e6 if busy_us else "not measured",
+        "device_busy_share": busy_us / 1e6 / wall if busy_us else "not measured",
+        "kernel_ms_by_group": groups,
+        # the host side of the same step: CPU time of every op, kernel
+        # launches, tensor allocations
+        "host_cpu_ms": sum(e.self_cpu_time_total for e in host) / 1e3,
+        "kernel_launches": sum(e.count for e in host if e.key in (
+            "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")),
+        "tensor_allocations": sum(e.count for e in host if e.key in (
+            "aten::empty", "aten::empty_strided")),
+        "top_kernels_ms": {
+            e.key[:60]: [e.self_device_time_total / 1e3, e.count] for e in top[:10]
+        },
+    }
+
+
+def _grad_agreement(kernel, plain, f32) -> dict:
+    """Per-leaf agreement of (loss, grads) triples; see TRAIN_* above."""
+    (lk, gk), (lp, gp), (lf, gf) = kernel, plain, f32
+
+    def cos(a, b):
+        a, b = a.flatten().double(), b.flatten().double()
+        return float(a @ b / (a.norm() * b.norm()))
+
+    direct, floor, failed, k_bias = {}, {}, [], {}
+    for name, g in gp.items():
+        if name.endswith("attn.k.b"):
+            # zero in exact arithmetic (a softmax row is invariant to a
+            # shift common to all its keys): both paths hold rounding noise
+            k_bias[name] = float(gk[name].norm())
+            continue
+        if float(g.norm()) == 0:
+            continue
+        c = cos(gk[name], g)
+        if c >= TRAIN_COSINE_MIN:
+            direct[name] = c
+            continue
+        e_k = float((gk[name].double() - gf[name].double()).norm())
+        e_p = float((g.double() - gf[name].double()).norm())
+        floor[name] = {"cos_kernel_plain": c, "cos_plain_f32": cos(g, gf[name]),
+                       "err_kernel_f32": e_k, "err_plain_f32": e_p}
+        if cos(g, gf[name]) >= TRAIN_SIGNAL_COSINE or e_k > TRAIN_NOISE_RATIO * e_p:
+            failed.append(name)
+    return {
+        "loss_kernel": float(lk), "loss_plain": float(lp), "loss_f32": float(lf),
+        "leaves": len(direct) + len(floor),
+        "cosine_ge_0.99": len(direct),
+        "min_cosine_direct": min(direct.values()) if direct else None,
+        "near_noise_floor": floor,
+        "min_cos_kernel_f32": min(cos(gk[n], gf[n]) for n in direct),
+        "min_cos_plain_f32": min(cos(gp[n], gf[n]) for n in direct),
+        "k_bias_max_norm_kernel": max(k_bias.values()) if k_bias else None,
+        "failed": failed,
+    }
+
+
+def phase_train(name_power: str) -> dict:
+    """BERT-base fine-tuning through the port's Trainer at batch 8 x seq
+    512, where attention runs B1 forward and B2 backward."""
+    cfg = BertConfig.base()
+    B, T, steps = 8, 512, 30
+    model = BertClassifier(cfg, CLASSES, device=DEV, seed=0)  # f32 params
+    tcfg = TrainConfig(batch_size=B, micro_batches=1, optimizer="adam",
+                       learning_rate=1e-4, dtype="bfloat16", grad_clip_norm=1.0)
+    trainer = Trainer(model, _bert_loss, tcfg, device=DEV)
+    state0 = trainer.init_state()
+    n_params = sum(p.numel() for p in state0.params.values())
+    batch = _bert_batch(B, T, cfg.vocab_size, lens=[512, 480, 300, 129])
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    L = cfg.num_layers
+
+    flash_attention_fwd_lse.launches = 0
+    flash_attention_bwd.launches = 0
+    state, losses, secs = _timed_steps(trainer, state0, batch, gen, steps)
+    k1, k2 = flash_attention_fwd_lse.launches, flash_attention_bwd.launches
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    step_s = float(np.median(secs))
+    flops = 6.0 * n_params * B * T + 12.0 * L * B * T * T * cfg.dim
+    res = {
+        "model": "BERT-base classifier", "params": n_params, "batch": B,
+        "seq": T, "steps": steps, "loss_first5_mean": first,
+        "loss_last5_mean": last, "losses": losses,
+        "launches_fwd": k1, "launches_bwd": k2,
+        "expected_launches": L * steps,
+        "step_ms_median": step_s * 1e3, "step_ms_min": min(secs) * 1e3,
+        "step_ms_max": max(secs) * 1e3,
+        "samples_per_s": B / step_s, "flops_per_step": flops,
+        "mfu": flops / step_s / BF16_FLOPS,
+        "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "card": name_power,
+    }
+    say(f"[train] {json.dumps(res)}")
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    check(last < first, f"loss did not fall: {first} -> {last}")
+    check(k1 == L * steps and k2 == L * steps,
+          f"flash launches {k1}/{k2}, expected {L * steps} each")
+
+    # the first step's gradients through the kernels against the plain
+    # attention path, same params and batch, dropout off; both held
+    # against the f32 gradient of the plain path
+    grads = {}
+    for tag, impl, dtype in (("kernel", None, None),
+                             ("plain", "reference", None),
+                             ("f32", "reference", "float32")):
+        tr = trainer
+        if impl is not None:
+            tr = Trainer(
+                BertClassifier(dataclasses.replace(cfg, attn_impl=impl),
+                               CLASSES, device=DEV, seed=None),
+                _bert_loss,
+                tcfg if dtype is None else dataclasses.replace(tcfg, dtype=dtype),
+                device=DEV,
+            )
+        grads[tag] = tr.loss_and_grads(state0.params, batch)
+        del tr
+    gres = _grad_agreement(*(grads[t] for t in ("kernel", "plain", "f32")))
+    say(f"[train] first-step gradients vs plain attention: {json.dumps(gres)}")
+    check(not gres["failed"], f"gradient disagreement: {gres['failed']}")
+    check(abs(gres["loss_kernel"] - gres["loss_plain"]) <= TRAIN_LOSS_TOL,
+          "loss differs")
+    del grads
+
+    prof = _profile_step(trainer, state, batch, gen)
+    prof["card"] = name_power
+    say(f"[train] profile: {json.dumps(prof)}")
+
+    # the headline shape, batch 32 x seq 128: "auto" takes the plain
+    # attention path below MIN_KERNEL_SEQ_AUTO, "flash" forces the kernels
+    # (in turns: auto, flash, flash, auto; 3 warm-up + 10 timed steps each)
+    hb = _bert_batch(32, 128, cfg.vocab_size, seed=1)
+    trainers = {"auto": trainer, "flash": Trainer(
+        BertClassifier(dataclasses.replace(cfg, attn_impl="flash"), CLASSES,
+                       device=DEV, seed=None),
+        _bert_loss, tcfg, device=DEV)}
+    head = {impl: {"step_ms_runs": [], "flash_launches": 0, "loss_finite": True}
+            for impl in trainers}
+    for impl in ("auto", "flash", "flash", "auto"):
+        flash_attention_fwd_lse.launches = 0
+        _, hl, hs = _timed_steps(trainers[impl], state, hb, gen, 13)
+        h = head[impl]
+        h["step_ms_runs"].append(float(np.median(hs)) * 1e3)
+        h["flash_launches"] += flash_attention_fwd_lse.launches
+        h["loss_finite"] &= bool(np.isfinite(hl).all())
+    hflops = 6.0 * n_params * 32 * 128 + 12.0 * L * 32 * 128 * 128 * cfg.dim
+    for h in head.values():
+        ms = float(np.mean(h["step_ms_runs"]))
+        h.update(step_ms=ms, samples_per_s=32e3 / ms,
+                 mfu=hflops / (ms / 1e3) / BF16_FLOPS)
+    head["card"] = name_power
+    say(f"[train] headline batch 32 x seq 128: {json.dumps(head)}")
+    check(head["auto"]["flash_launches"] == 0, "auto at seq 128 ran the kernel")
+    check(head["flash"]["flash_launches"] == 2 * 13 * L,
+          "flash at seq 128 skipped the kernel")
+    check(head["auto"]["loss_finite"] and head["flash"]["loss_finite"],
+          "non-finite loss at the headline shape")
+    return {"launches_fwd": k1, "launches_bwd": k2}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -466,8 +933,13 @@ def main() -> int:
     flush = L2Flush()
     paged = phase_paged(flush)
     norm = phase_norm(flush)
+    flash = phase_flash(flush)
     cfg = LlamaConfig.llama3_8b()
     launches = phase_slice(name_power, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train = phase_train(name_power)
     kernels = [
         {
             "name": "paged_decode_attention", "route": "cuda",
@@ -484,6 +956,22 @@ def main() -> int:
             "launches": launches["launches_norm"],
             **{k: norm[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")},
+        },
+        {
+            "name": "flash_attention_fwd_lse", "route": "cuda",
+            "source": "tensorlink_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:247",
+            "launches": train["launches_fwd"],
+            **{k: flash["fwd"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by", "library_ms")},
+        },
+        {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "tensorlink_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:470",
+            "launches": train["launches_bwd"],
+            **{k: flash["bwd"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by", "library_ms")},
         },
     ]
     say(smi())

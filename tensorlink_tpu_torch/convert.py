@@ -1,11 +1,14 @@
-"""Carry the JAX package's params across into the port's modules.
+"""Carry params between the JAX package's trees and the port's modules.
 
 The port's parameter names are the JAX param tree's keys joined with
 ".", so ``params_from_jax`` is a flatten plus the ``InferenceEngine``
 dtype policy: >=2-D floating leaves (the matrices) go to
 ``param_dtype``, lower-rank floating leaves (norm scales, biases) stay
-f32. The tree's leaves are numpy arrays (``jax.device_get`` of a param
-tree, or ``np.asarray`` per leaf); this module imports no JAX.
+f32. ``param_dtype=torch.float32`` gives the trainer's f32 masters. The
+tree's leaves are numpy arrays (``jax.device_get`` of a param tree, or
+``np.asarray`` per leaf); ``state_dict_to_jax`` goes the other way, so
+params trained in the port can be compared with the JAX package's. This
+module imports no JAX.
 """
 
 from __future__ import annotations
@@ -49,6 +52,23 @@ def params_from_jax(tree, param_dtype: torch.dtype = torch.float32
         out[prefix] = t.to(policy_dtype(t, param_dtype))
 
     walk("", tree)
+    return out
+
+
+def state_dict_to_jax(state) -> dict:
+    """Flat ``{"a.b.c": tensor}`` -> nested ``{"a": {"b": {"c": ndarray}}}``
+    in the JAX param tree's shape (without the empty Dropout subtrees).
+    bf16 leaves come back as f32 arrays."""
+    out: dict = {}
+    for name, t in state.items():
+        node = out
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        node[leaf] = t.numpy()
     return out
 
 

@@ -1,0 +1,126 @@
+"""BERT (port of ``tensorlink_tpu/models/bert.py``).
+
+``Bert`` is the encoder (token + position + type embeddings, LayerNorm,
+post-LN ``TransformerBlock``s with exact GELU, tanh pooler over [CLS]);
+``BertClassifier`` adds dropout and a dense head. Child names match the
+JAX param tree, so ``convert.params_from_jax`` of a JAX ``BertClassifier``
+tree loads directly (``bert.tok_emb.table``, ``bert.encoder.0.attn.q.w``,
+``head.w``, ...). Attention goes through ``cfg.attn_impl``: under "auto"
+a padded batch at seq 512 runs the flash kernels B1/B2 in both
+directions. ``bert_pipeline_parts`` waits for the pipeline slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from tensorlink_tpu_torch import resolve_device
+from tensorlink_tpu_torch.nn.layers import (
+    Dense,
+    Dropout,
+    Embedding,
+    LayerNorm,
+    init_parameters,
+)
+from tensorlink_tpu_torch.nn.transformer import TransformerBlock, TransformerStack
+
+
+@dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    dim: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    hidden_dim: int = 3072
+    max_len: int = 512
+    type_vocab_size: int = 2
+    dropout: float = 0.1
+    layer_norm_eps: float = 1e-12
+    attn_impl: str = "auto"  # auto | flash | reference
+
+    @classmethod
+    def base(cls) -> "BertConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls) -> "BertConfig":
+        return cls(vocab_size=128, dim=32, num_layers=2, num_heads=2,
+                   hidden_dim=64, max_len=64)
+
+
+class Bert(nn.Module):
+    """``Bert(cfg, device=None, dtype=torch.float32, seed=0)``: parameters
+    on ``device`` (CUDA unless told otherwise), filled from ``seed``
+    (``nn.layers.init_parameters``)."""
+
+    def __init__(self, cfg: BertConfig = BertConfig(), *, device=None,
+                 dtype: torch.dtype = torch.float32, seed: int | None = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        kw = {"device": dev, "dtype": dtype}
+        self.tok_emb = Embedding(cfg.vocab_size, cfg.dim, **kw)
+        self.pos_emb = Embedding(cfg.max_len, cfg.dim, **kw)
+        self.type_emb = Embedding(cfg.type_vocab_size, cfg.dim, **kw)
+        self.emb_norm = LayerNorm(cfg.dim, eps=cfg.layer_norm_eps, **kw)
+        self.emb_drop = Dropout(cfg.dropout)
+        self.encoder = TransformerStack(
+            cfg.num_layers,
+            TransformerBlock,
+            dim=cfg.dim,
+            num_heads=cfg.num_heads,
+            hidden_dim=cfg.hidden_dim,
+            norm_style="post",
+            norm="layer",
+            norm_eps=cfg.layer_norm_eps,
+            activation="gelu_exact",
+            use_bias=True,
+            dropout=cfg.dropout,
+            attn_impl=cfg.attn_impl,
+            **kw,
+        )
+        self.pooler = Dense(cfg.dim, cfg.dim, **kw)
+        init_parameters(self, dev, seed)
+
+    def forward(self, input_ids, *, token_type_ids=None, attention_mask=None,
+                rng: torch.Generator | None = None, train: bool = False):
+        """-> {"last_hidden_state": [B, T, dim], "pooled": [B, dim]}.
+        ``attention_mask`` [B, T]: 1 = real token."""
+        B, T = input_ids.shape
+        pos = torch.arange(T, device=input_ids.device)[None, :]
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = self.tok_emb(input_ids) + self.pos_emb(pos) + self.type_emb(token_type_ids)
+        x = self.emb_norm(x)
+        x = self.emb_drop(x, rng=rng, train=train)
+        mask = None
+        if attention_mask is not None:
+            mask = attention_mask[:, None, None, :].bool()
+        h = self.encoder(x, mask=mask, rng=rng, train=train)
+        pooled = torch.tanh(self.pooler(h[:, 0]))
+        return {"last_hidden_state": h, "pooled": pooled}
+
+
+class BertClassifier(nn.Module):
+    """BertForSequenceClassification equivalent: [CLS] pooled output,
+    dropout, dense head -> logits [B, num_classes]."""
+
+    def __init__(self, cfg: BertConfig, num_classes: int, *, device=None,
+                 dtype: torch.dtype = torch.float32, seed: int | None = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.num_classes = num_classes
+        self.bert = Bert(cfg, device=dev, dtype=dtype, seed=None)
+        self.drop = Dropout(cfg.dropout)
+        self.head = Dense(cfg.dim, num_classes, device=dev, dtype=dtype)
+        init_parameters(self, dev, seed)
+
+    def forward(self, input_ids, *, attention_mask=None,
+                rng: torch.Generator | None = None, train: bool = False, **kw):
+        out = self.bert(input_ids, attention_mask=attention_mask, rng=rng,
+                        train=train, **kw)
+        pooled = self.drop(out["pooled"], rng=rng, train=train)
+        return self.head(pooled)

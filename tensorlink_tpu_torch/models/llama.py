@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from tensorlink_tpu_torch import resolve_device
-from tensorlink_tpu_torch.nn.layers import Dense, Embedding, RMSNorm
+from tensorlink_tpu_torch.nn.layers import Dense, Embedding, RMSNorm, init_parameters
 from tensorlink_tpu_torch.nn.transformer import TransformerBlock, TransformerStack
 
 
@@ -86,10 +86,7 @@ class LlamaConfig:
 class Llama(nn.Module):
     """``Llama(cfg, device=None, dtype=torch.float32, seed=0)``: builds
     the parameters on ``device`` (CUDA unless told otherwise) and fills
-    them from a ``torch.Generator`` seeded with ``seed`` — LeCun-normal
-    projections, N(0, 0.02) embeddings, unit norm gains, as the JAX
-    package initializes (the draws themselves differ: tests convert the
-    JAX package's params instead of comparing inits)."""
+    them from ``seed`` (``nn.layers.init_parameters``)."""
 
     def __init__(self, cfg: LlamaConfig = LlamaConfig(), *, device=None,
                  dtype: torch.dtype = torch.float32, seed: int | None = 0):
@@ -119,16 +116,12 @@ class Llama(nn.Module):
             rope=True,
             rope_theta=cfg.rope_theta,
             attn_window=cfg.attn_window,
+            attn_impl=cfg.attn_impl,
             **kw,
         )
         self.norm_f = RMSNorm(cfg.dim, eps=cfg.rms_eps, **kw)
         self.lm_head = Dense(cfg.dim, cfg.vocab_size, use_bias=False, **kw)
-        if seed is not None:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(int(seed))
-            for mod in self.modules():
-                if hasattr(mod, "reset_parameters"):
-                    mod.reset_parameters(gen)
+        init_parameters(self, dev, seed)
 
     @property
     def device(self) -> torch.device:

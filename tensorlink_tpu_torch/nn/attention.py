@@ -1,6 +1,8 @@
 """Attention (port of ``tensorlink_tpu/nn/attention.py``): the plain
-reference implementation, RoPE, and ``MultiHeadAttention`` with its
-no-cache path and its paged-cache path.
+reference implementation, RoPE, ``resolve_attn_impl``, and
+``MultiHeadAttention`` with its no-cache path (through the module's
+``attn_impl``: the plain reference, or ``ops.flash``'s routing to the
+flash kernels B1/B2) and its paged-cache path.
 
 Paged cache form (``init_paged_cache``; the serving engine owns it):
   ``k``/``v``     [num_blocks, block_size, Hkv, D] pools shared by all
@@ -23,6 +25,8 @@ wait for a later slice.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 from torch import nn
@@ -58,6 +62,7 @@ def dot_product_attention(
     *,
     causal: bool = False,
     mask: torch.Tensor | None = None,  # [B, 1|H, Tq, Tk] bool, True=attend
+    bias: torch.Tensor | None = None,  # additive [1|B, H, Tq, Tk]
     q_offset: int = 0,
     scale: float | None = None,
     window: int | None = None,
@@ -80,6 +85,8 @@ def dot_product_attention(
         logits = torch.where(keep[None, None], logits, NEG_INF)
     if mask is not None:
         logits = torch.where(mask, logits, NEG_INF)
+    if bias is not None:
+        logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
@@ -104,6 +111,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = xf[..., :half], xf[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def resolve_attn_impl(impl) -> Callable:
+    """Map an ``attn_impl`` name to its function:
+
+    - "reference": ``dot_product_attention`` above;
+    - "auto": ``ops.flash.flash_attention_impl`` — the flash kernels on
+      the shapes the reference routes to its kernel (``T >= 512``), the
+      plain reference otherwise;
+    - "flash": the same with ``min_kernel_seq=0`` (the kernel at every
+      eligible shape);
+    - a callable: itself.
+
+    The sequence-parallel impls ("ring", "ulysses") wait for the SP
+    slice."""
+    if callable(impl):
+        return impl
+    if impl == "reference":
+        return dot_product_attention
+    if impl in ("flash", "auto"):
+        # lazy: ops.flash imports this module
+        from tensorlink_tpu_torch.ops.flash import flash_attention_impl
+
+        if impl == "flash":
+            import functools
+
+            return functools.partial(flash_attention_impl, min_kernel_seq=0)
+        return flash_attention_impl
+    if impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn_impl {impl!r} (sequence parallel) waits for the SP slice"
+        )
+    raise ValueError(f"unknown attn_impl {impl!r}")
 
 
 def paged_write_slots(index: torch.Tensor, block_table: torch.Tensor,
@@ -140,6 +180,7 @@ class MultiHeadAttention(nn.Module):
         causal: bool = False,
         scale: float | None = None,
         window: int | None = None,
+        attn_impl: str | Callable = "auto",
         *,
         device=None,
         dtype=torch.float32,
@@ -153,9 +194,36 @@ class MultiHeadAttention(nn.Module):
         self.rope = rope
         self.rope_theta = rope_theta
         self.causal = causal
-        if window is not None and window < 1:
-            raise ValueError(f"window must be >= 1, got {window}")
+        self._attn = resolve_attn_impl(attn_impl)
+        if window is not None:
+            if window < 1:
+                raise ValueError(f"window must be >= 1, got {window}")
+            # an impl that ignores the window would silently widen
+            # attention to full context: only the reference, the flash
+            # routing, or a callable that declares support may take one
+            from tensorlink_tpu_torch.ops.flash import flash_attention_impl
+
+            base = self._attn
+            while hasattr(base, "func"):  # unwrap partials
+                base = base.func
+            declares = getattr(self._attn, "supports_window", False) or getattr(
+                base, "supports_window", False
+            )
+            if base not in (dot_product_attention, flash_attention_impl) \
+                    and not declares:
+                raise ValueError(
+                    "sliding-window attention requires attn_impl "
+                    "'reference', 'flash', or 'auto', or a callable marked "
+                    "`supports_window = True` that honors the window kwarg"
+                )
         self.window = window
+        if scale is not None and self._attn is not dot_product_attention:
+            # only the reference honors a custom scale; the flash kernels
+            # use 1/sqrt(D)
+            raise ValueError(
+                "custom attention scale requires the reference attention "
+                "implementation"
+            )
         self.scale = scale
         qdim = self.num_heads * self.head_dim
         kvdim = self.num_kv_heads * self.head_dim
@@ -165,8 +233,15 @@ class MultiHeadAttention(nn.Module):
         self.v = Dense(dim, kvdim, use_bias, **kw)
         self.o = Dense(qdim, dim, use_bias, **kw)
 
-    def forward(self, x, *, mask=None, cache=None, positions=None):
+    def forward(self, x, *, mask=None, cache=None, positions=None,
+                bias=None):
         B, T, _ = x.shape
+        if bias is not None and self._attn is not dot_product_attention:
+            # the flash routing swallows unknown kwargs: an additive bias
+            # must not be silently dropped
+            raise NotImplementedError(
+                "additive attention bias requires attn_impl='reference'"
+            )
         q = self.q(x).reshape(B, T, self.num_heads, self.head_dim)
         k = self.k(x).reshape(B, T, self.num_kv_heads, self.head_dim)
         v = self.v(x).reshape(B, T, self.num_kv_heads, self.head_dim)
@@ -186,11 +261,16 @@ class MultiHeadAttention(nn.Module):
             q = apply_rope(q, positions, self.rope_theta)
             k = apply_rope(k, positions, self.rope_theta)
         if cache is not None:
+            if bias is not None:
+                raise NotImplementedError(
+                    "additive attention bias with a paged cache is not "
+                    "supported"
+                )
             out, new_cache = self._apply_paged(q, k, v, cache, mask)
             return self.o(out.reshape(B, T, -1)), new_cache
-        out = dot_product_attention(
-            q, k, v, causal=self.causal, mask=mask, scale=self.scale,
-            window=self.window,
+        out = self._attn(
+            q, k, v, causal=self.causal, mask=mask, q_offset=0, bias=bias,
+            scale=self.scale, window=self.window,
         )
         return self.o(out.reshape(B, T, -1))
 

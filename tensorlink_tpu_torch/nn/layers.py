@@ -1,11 +1,15 @@
-"""Core layers (port of ``tensorlink_tpu/nn/layers.py``), eval forward.
+"""Core layers (port of ``tensorlink_tpu/nn/layers.py``).
 
 Parameter names and layouts match the JAX package key for key, so its
 params convert one-to-one (``convert.params_from_jax``): ``Dense.w`` is
 ``[in, out]`` with ``y = x @ w + b``, ``Embedding.table`` is
 ``[vocab, dim]``, norms carry ``scale`` (and ``bias``). Norms compute in
 f32 and cast back to the input dtype; weights are cast to the
-activation dtype at use, as in the JAX modules.
+activation dtype at use, as in the JAX modules. Every forward is plain
+differentiable PyTorch: the trainer takes gradients with respect to
+parameters it substitutes (``torch.func.functional_call``), so the
+modules' own parameters are created without ``requires_grad``.
+``Dropout`` holds no parameters.
 """
 
 from __future__ import annotations
@@ -14,6 +18,21 @@ import math
 
 import torch
 from torch import nn
+
+
+def init_parameters(module: nn.Module, device, seed: int | None) -> None:
+    """Fill every parameter of ``module`` from a generator on ``device``
+    seeded with ``seed`` (None leaves them as allocated): LeCun-normal
+    Dense weights, N(0, 0.02) embeddings, unit norm gains and zero biases,
+    as the JAX package initializes (the draws themselves differ: tests
+    convert the JAX package's params instead of comparing inits)."""
+    if seed is None:
+        return
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    for mod in module.modules():
+        if hasattr(mod, "reset_parameters"):
+            mod.reset_parameters(gen)
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -93,6 +112,27 @@ class LayerNorm(nn.Module):
         if self.bias is not None:
             y = y + self.bias.float()
         return y.to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """Explicit-generator dropout: a no-op unless ``train=True`` and a
+    ``torch.Generator`` is given (on the input's device). Keeps each
+    element with probability ``1 - rate`` and scales survivors by
+    ``1 / (1 - rate)``; the mask comes from the generator, so a run is
+    reproducible from its seed (the draws differ from the JAX package's
+    threefry stream)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, *, rng: torch.Generator | None = None,
+                train: bool = False) -> torch.Tensor:
+        if not train or self.rate == 0.0 or rng is None:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
 class RMSNorm(nn.Module):

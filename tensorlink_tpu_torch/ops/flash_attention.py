@@ -1,0 +1,293 @@
+"""Flash attention forward (B1) and backward (B2) (port of
+``tensorlink_tpu/ops/pallas/flash_attention.py``).
+
+Operands use the reference's layout: q ``[B, H, Tq, D]``, k and v
+``[B, Hkv, Tk, D]`` (``Hkv`` divides ``H``; query head h reads kv head
+``h // (H // Hkv)``), an optional key mask ``kv_mask [B, Tk]`` (nonzero =
+attend), ``causal`` and a sliding ``window`` under the positional rule of
+``nn.attention.band_keep``. A query row with no attended key gives o = 0
+and lse = ``LSE_MASKED``.
+
+``flash_attention_fwd_lse`` and ``flash_attention_bwd`` are the wrappers
+``ops.flash`` calls. A CUDA tensor launches the hand-written kernels in
+``csrc/flash_attention.cu`` (built with ``nvcc`` at first use, bound with
+``ctypes``); they read any [B, heads, T, D] view whose D is contiguous,
+so the caller's [B, T, H, D] tensors pass as transposed views, and the
+outputs come back as views over [B, T, heads, D] storage. A CPU tensor
+takes the plain PyTorch version of the same math
+(``flash_attention_fwd_lse_reference``, ``flash_attention_bwd_reference``).
+A CUDA input outside the kernels' limits (bf16, D in ``HEAD_DIMS``, 16-byte
+rows) raises: nothing routes a CUDA tensor to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tensorlink_tpu_torch.nn.attention import band_keep
+
+NEG_INF = -1e30
+# LSE of a fully masked row: exp(s - LSE_MASKED) == 0 for any finite score,
+# so the backward's p and ds vanish exactly where the forward gave 0
+LSE_MASKED = 1e30
+
+# limits of csrc/flash_attention.cu
+HEAD_DIMS = (64, 128)
+KERNEL_BLOCK = 64  # the kernels' query and key tile
+
+
+def _check_shapes(q, k, v, kv_mask):
+    B, H, Tq, D = q.shape
+    Bk, Hkv, Tk, Dk = k.shape
+    if k.shape != v.shape or Bk != B or Dk != D:
+        raise ValueError(
+            f"bad kv shapes q={tuple(q.shape)} k={tuple(k.shape)} "
+            f"v={tuple(v.shape)}"
+        )
+    if H % Hkv:
+        raise ValueError(f"H={H} not a multiple of Hkv={Hkv}")
+    if kv_mask is not None and tuple(kv_mask.shape) != (B, Tk):
+        raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != {(B, Tk)}")
+    return B, H, Hkv, Tq, Tk, D
+
+
+def _check_window(window):
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def _keep(kv_mask, Tq, Tk, causal, window, device):
+    """[B|1, 1, Tq, Tk] bool keep mask, or None when every pair attends."""
+    pos = band_keep(
+        torch.arange(Tq, device=device)[:, None],
+        torch.arange(Tk, device=device)[None, :], causal, window,
+    )
+    keep = None if pos is None else pos[None, None]
+    if kv_mask is not None:
+        kv = (kv_mask != 0)[:, None, None, :]
+        keep = kv if keep is None else keep & kv
+    return keep
+
+
+def _repeat_kv(x, H):
+    return x if x.shape[1] == H else x.repeat_interleave(H // x.shape[1], dim=1)
+
+
+def flash_attention_fwd_lse_reference(q, k, v, kv_mask=None, *,
+                                      causal: bool = False,
+                                      window: int | None = None):
+    """The plain home of B1's math: full f32 scores, masked softmax with
+    the zero-normalizer guard. -> (o [B, H, Tq, D] in q's dtype, lse
+    [B, H, Tq] f32)."""
+    B, H, Hkv, Tq, Tk, D = _check_shapes(q, k, v, kv_mask)
+    s = torch.einsum(
+        "bhqd,bhkd->bhqk", q.float(), _repeat_kv(k, H).float()
+    ) * (D ** -0.5)
+    keep = _keep(kv_mask, Tq, Tk, causal, window, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, _repeat_kv(v, H).float()) / l_safe
+    lse = torch.where(l > 0.0, m + torch.log(l_safe), LSE_MASKED)[..., 0]
+    return o.to(q.dtype), lse
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, kv_mask=None, *,
+                                  causal: bool = False,
+                                  window: int | None = None):
+    """The plain home of B2's math: p = exp(s - lse) with the forward's
+    masks, dp = do v^T, delta = rowsum(p * dp), ds = p (dp - delta) scale;
+    dk and dv summed over each GQA group. -> (dq, dk, dv) in the inputs'
+    dtypes.
+
+    delta is the reference's rowsum(do * o) in exact arithmetic, taken
+    from p and dp themselves: from a bf16-rounded o it is off by ~2^-9
+    |do||o|, which swamps ds wherever attention is near uniform. ``o`` is
+    kept for the reference's signature and shape checks."""
+    B, H, Hkv, Tq, Tk, D = _check_shapes(q, k, v, kv_mask)
+    scale = D ** -0.5
+    qf, dof = q.float(), do.float()
+    kf, vf = _repeat_kv(k, H).float(), _repeat_kv(v, H).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    keep = _keep(kv_mask, Tq, Tk, causal, window, q.device)
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    if H != Hkv:  # sum each GQA group back to its kv head
+        dk = dk.reshape(B, Hkv, H // Hkv, Tk, D).sum(dim=2)
+        dv = dv.reshape(B, Hkv, H // Hkv, Tk, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_fwd_lse(q, k, v, kv_mask=None, *, causal: bool = False,
+                            window: int | None = None,
+                            block_q: int = KERNEL_BLOCK,
+                            block_k: int = KERNEL_BLOCK):
+    """-> (o [B, H, Tq, D], lse [B, H, Tq] f32). ``block_q``/``block_k``
+    name the tile the caller resolved (``ops.flash.flash_block_for``); the
+    kernel has one tile, ``KERNEL_BLOCK``, and raises on any other."""
+    _check_shapes(q, k, v, kv_mask)
+    _check_window(window)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_lse_reference(
+            q, k, v, kv_mask, causal=causal, window=window
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    _check_blocks(block_q, block_k)
+    return _launch_fwd(q, k, v, kv_mask, causal, window)
+
+
+flash_attention_fwd_lse.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, kv_mask=None, *,
+                        causal: bool = False, window: int | None = None,
+                        block_q: int = KERNEL_BLOCK,
+                        block_k: int = KERNEL_BLOCK):
+    """Blockwise dq [B, H, Tq, D], dk/dv [B, Hkv, Tk, D] from the forward's
+    lse and the cotangent ``do`` of its output o (whose delta term is
+    recomputed from p and dp, see ``flash_attention_bwd_reference``). f32
+    accumulation, outputs in the inputs' dtypes; GQA groups summed."""
+    _check_shapes(q, k, v, kv_mask)
+    _check_window(window)
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(
+            f"o {tuple(o.shape)} / do {tuple(do.shape)} / lse "
+            f"{tuple(lse.shape)} do not match q {tuple(q.shape)}"
+        )
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(
+            q, k, v, o, lse, do, kv_mask, causal=causal, window=window
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    _check_blocks(block_q, block_k)
+    return _launch_bwd(q, k, v, lse, do, kv_mask, causal, window)
+
+
+flash_attention_bwd.launches = 0
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"flash-attention kernel: {msg}")
+
+
+def _check_blocks(block_q, block_k):
+    _check(block_q == KERNEL_BLOCK and block_k == KERNEL_BLOCK,
+           f"blocks ({block_q}, {block_k}): the kernel's tile is "
+           f"{KERNEL_BLOCK}")
+
+
+def _strides(x):
+    return (x.stride(0), x.stride(1), x.stride(2))
+
+
+def _check_views(q, views):
+    """What the kernels can read: bf16 [B, heads, T, D] views with D
+    contiguous and 16-byte rows, all on q's card."""
+    D = q.shape[-1]
+    _check(D in HEAD_DIMS, f"head dim {D} (kernel takes {HEAD_DIMS})")
+    for name, x in views.items():
+        _check(x.device == q.device, f"{name} is not on {q.device}")
+        _check(x.dtype == torch.bfloat16, f"{name} dtype {x.dtype} (bfloat16)")
+        _check(x.stride(3) == 1 or x.shape[3] == 1,
+               f"{name} needs a contiguous head dim, strides {x.stride()}")
+        _check(all(s % 8 == 0 for s in _strides(x)) and x.data_ptr() % 16 == 0,
+               f"{name} rows must be 16-byte aligned, strides {x.stride()}")
+
+
+def _mask_u8(kv_mask, q):
+    if kv_mask is None:
+        return None
+    _check(kv_mask.device == q.device, f"kv_mask is not on {q.device}")
+    return (kv_mask != 0).to(torch.uint8).contiguous()
+
+
+def _call(fn, q, ptrs, strides, dims):
+    lib = _lib()
+    ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    st_arr = (ctypes.c_longlong * len(strides))(*strides)
+    dim_arr = (ctypes.c_int * len(dims))(*dims)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, fn)(ptr_arr, st_arr, dim_arr, q.shape[-1] ** -0.5,
+                          stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash-attention kernel launch failed: CUDA error {rc} "
+            f"({lib.tl_flash_error_string(rc).decode()})"
+        )
+
+
+def _dims(q, k, causal, window):
+    B, H, Tq, D = q.shape
+    return (B, H, k.shape[1], Tq, k.shape[2], D, int(bool(causal)),
+            0 if window is None else int(window))
+
+
+def _launch_fwd(q, k, v, kv_mask, causal, window):
+    B, H, Tq, D = q.shape
+    _check_views(q, {"q": q, "k": k, "v": v})
+    mask = _mask_u8(kv_mask, q)
+    o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), o.data_ptr(),
+            lse.data_ptr()]
+    strides = (*_strides(q), *_strides(k), *_strides(v), *_strides(o))
+    _call("tl_flash_fwd", q, ptrs, strides, _dims(q, k, causal, window))
+    flash_attention_fwd_lse.launches += 1
+    return o, lse
+
+
+def _launch_bwd(q, k, v, lse, do, kv_mask, causal, window):
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    _check_views(q, {"q": q, "k": k, "v": v, "do": do})
+    _check(lse.device == q.device and lse.dtype == torch.float32
+           and lse.is_contiguous(), "lse must be contiguous float32 [B, H, Tq]")
+    mask = _mask_u8(kv_mask, q)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dk = torch.empty((B, Tk, Hkv, D), dtype=k.dtype, device=q.device).transpose(1, 2)
+    dv = torch.empty((B, Tk, Hkv, D), dtype=v.dtype, device=q.device).transpose(1, 2)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), None if mask is None else mask.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
+    strides = tuple(
+        s for x in (q, k, v, do, dq, dk, dv) for s in _strides(x)
+    )
+    _call("tl_flash_bwd", q, ptrs, strides, _dims(q, k, causal, window))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def _lib() -> ctypes.CDLL:
+    from tensorlink_tpu_torch.ops._build import load
+
+    lib = load("flash_attention.cu")
+    if not getattr(lib, "_tl_typed", False):
+        P = ctypes.c_void_p
+        for fn in (lib.tl_flash_fwd, lib.tl_flash_bwd):
+            # ptrs, strides, dims, scale, stream
+            fn.argtypes = [P, P, P, ctypes.c_float, P]
+            fn.restype = ctypes.c_int
+        lib.tl_flash_error_string.argtypes = [ctypes.c_int]
+        lib.tl_flash_error_string.restype = ctypes.c_char_p
+        lib._tl_typed = True
+    return lib

@@ -1,0 +1,214 @@
+"""Single-device training engine (port of ``tensorlink_tpu/train/trainer.py``):
+``TrainState``, ``Trainer``, and the losses.
+
+The step is eager PyTorch. Master params and optimizer moments stay f32;
+the loss runs on a copy of every floating param cast to ``cfg.dtype``
+(``torch.func.functional_call`` in the caller's ``loss_fn``), so the
+gradients land in f32 on the masters. Gradient accumulation runs over
+``cfg.micro_batches`` slices of the batch. The non-finite sentinel is
+computed on the device before clipping, and no step reads the device
+from the host: ``train_step`` returns its stats as device tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from tensorlink_tpu_torch import resolve_device
+from tensorlink_tpu_torch.config import TrainConfig
+from tensorlink_tpu_torch.train.optim import (
+    Optimizer,
+    apply_updates,
+    clip_by_global_norm,
+    make_optimizer,
+    make_schedule,
+)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE; labels are int ids. Computed in f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - ll).mean()
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return (pred.float() - target.float()).square().mean()
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: dict[str, torch.Tensor]
+    opt_state: Any
+    step: torch.Tensor  # 0-d int32 on the params' device
+
+    @classmethod
+    def create(cls, params, optimizer: Optimizer) -> "TrainState":
+        device = next(iter(params.values())).device
+        return cls(
+            params=params,
+            opt_state=optimizer.init(params),
+            step=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+
+def _where(cond: torch.Tensor, old, new):
+    """``new`` with every tensor replaced by ``old``'s where ``cond``."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(cond, old, new)
+    if isinstance(new, dict):
+        return {k: _where(cond, old[k], v) for k, v in new.items()}
+    if isinstance(new, (list, tuple)):
+        return type(new)(_where(cond, o, n) for o, n in zip(old, new))
+    return new
+
+
+class Trainer:
+    """Train steps for a (module, loss_fn) pair on one device.
+
+    ``loss_fn(module, params, batch, rng) -> scalar loss``: ``params`` is a
+    dict of the module's parameters, already cast to the compute dtype,
+    to run the module with (``torch.func.functional_call(module, params,
+    args, kwargs)``); ``rng`` is the caller's ``torch.Generator`` for
+    dropout, or None. The Trainer owns the optimizer state, clipping, the
+    dtype policy and gradient accumulation.
+
+    ``device``: where the state lives (CUDA unless ``device="cpu"``; no
+    silent CPU fallback). ``donate``, ``tracer``, ``metrics`` and
+    ``flight`` are accepted for the reference's signature and ignored
+    until the observability slice: no span, metric or flight event is
+    emitted. ``train_only="lora"`` and ``fsdp`` raise: LoRA and FSDP wait
+    for their slices.
+    """
+
+    def __init__(
+        self,
+        module: torch.nn.Module,
+        loss_fn: Callable,
+        cfg: TrainConfig = TrainConfig(),
+        optimizer: Optimizer | None = None,
+        donate: bool = True,
+        tracer=None,
+        metrics=None,
+        flight=None,
+        *,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        if cfg.fsdp:
+            raise NotImplementedError("FSDP waits for the data-parallel slice")
+        if cfg.train_only == "lora":
+            raise NotImplementedError("LoRA training waits for the LoRA slice")
+        self.module = module
+        self.loss_fn = loss_fn
+        self.cfg = cfg
+        sched = make_schedule(
+            cfg.schedule, cfg.learning_rate, cfg.warmup_steps, cfg.total_steps
+        )
+        self.optimizer = optimizer or make_optimizer(
+            cfg.optimizer, sched, cfg.weight_decay,
+            moment_dtype=cfg.opt_moment_dtype,
+        )
+        self.compute_dtype = getattr(torch, cfg.dtype)
+
+    # -- state ----------------------------------------------------------
+    def init_state(self, params: dict[str, torch.Tensor] | None = None) -> TrainState:
+        """f32 master copies of ``params`` (default: the module's own) on
+        the trainer's device, and fresh optimizer state."""
+        if params is None:
+            params = dict(self.module.named_parameters())
+        fixed = [k for k, p in params.items() if not p.is_floating_point()]
+        if fixed:
+            raise ValueError(f"non-floating params cannot be trained: {fixed}")
+        params = {
+            k: p.detach().to(self.device, torch.float32)
+            for k, p in params.items()
+        }
+        return TrainState.create(params, self.optimizer)
+
+    def _cast(self, params):
+        return {k: p.to(self.compute_dtype) for k, p in params.items()}
+
+    def _batch(self, batch):
+        return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+
+    def loss_and_grads(self, params, batch, rng=None):
+        """(loss, {name: f32 grad}) of ``loss_fn`` at ``params`` (the f32
+        masters), through the compute-dtype copy."""
+        leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+        loss = self.loss_fn(self.module, self._cast(leaves), batch, rng)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        out = {
+            k: torch.zeros_like(p) if g is None else g
+            for (k, p), g in zip(leaves.items(), grads)
+        }
+        return loss.detach(), out
+
+    # -- the step -------------------------------------------------------
+    def _step(self, state: TrainState, batch, rng):
+        micro = self.cfg.micro_batches
+        if micro <= 1:
+            loss, grads = self.loss_and_grads(state.params, batch, rng)
+        else:
+            n = next(iter(batch.values())).shape[0]
+            if n % micro:
+                raise ValueError(
+                    f"batch of {n} not divisible by micro_batches={micro}"
+                )
+            grads, losses = None, []
+            for i in range(micro):
+                mb = {k: v.reshape(micro, n // micro, *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                loss_i, g = self.loss_and_grads(state.params, mb, rng)
+                g = {k: x.float() / micro for k, x in g.items()}
+                grads = g if grads is None else {
+                    k: grads[k] + g[k] for k in grads
+                }
+                losses.append(loss_i)
+            loss = torch.stack(losses).mean()
+
+        # non-finite sentinel, on the device and BEFORE clipping (clipping
+        # a tree with an inf leaf turns the norm nan and poisons every
+        # grad): g * 0 is 0 where g is finite and nan elsewhere
+        gl = list(grads.values())
+        grads_finite = torch.isfinite(
+            torch.stack(torch._foreach_norm(torch._foreach_mul(gl, 0.0))).sum()
+        )
+        nonfinite = ~(torch.isfinite(loss) & grads_finite)
+        if self.cfg.grad_clip_norm:
+            grads, gnorm = clip_by_global_norm(grads, self.cfg.grad_clip_norm)
+        else:
+            gnorm = torch.zeros((), device=self.device)
+        updates, opt_state = self.optimizer.update(
+            grads, state.opt_state, state.params, state.step
+        )
+        params = apply_updates(state.params, updates)
+        new_state = TrainState(params=params, opt_state=opt_state,
+                               step=state.step + 1)
+        if self.cfg.skip_nonfinite_updates:
+            # the OLD state wholesale (params, moments, step): a poisoned
+            # batch leaves no trace, not even a moment update or a
+            # schedule tick
+            new_state = TrainState(
+                params=_where(nonfinite, state.params, new_state.params),
+                opt_state=_where(nonfinite, state.opt_state, new_state.opt_state),
+                step=torch.where(nonfinite, state.step, new_state.step),
+            )
+        return new_state, {"loss": loss, "grad_norm": gnorm,
+                           "nonfinite": nonfinite}
+
+    # -- public ----------------------------------------------------------
+    def train_step(self, state: TrainState, batch, rng: torch.Generator | None = None):
+        """One optimizer step -> (new state, {"loss", "grad_norm",
+        "nonfinite"} as device tensors). ``state`` is not modified."""
+        return self._step(state, self._batch(batch), rng)
+
+    def eval_loss(self, state: TrainState, batch, rng=None):
+        with torch.no_grad():
+            return self.loss_fn(self.module, self._cast(state.params),
+                                self._batch(batch), rng)

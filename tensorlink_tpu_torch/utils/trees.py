@@ -1,0 +1,37 @@
+"""Helpers over parameter collections (port of
+``tensorlink_tpu/utils/trees.py``): a "tree" is a tensor, a list or tuple
+of trees, or a dict (a state dict) of trees."""
+
+from __future__ import annotations
+
+import torch
+
+
+def leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a tree, in order (dicts in insertion order)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for sub in tree.values() for t in leaves(sub)]
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in leaves(sub)]
+    raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
+
+
+def tree_size(tree) -> int:
+    """Total number of tensor elements."""
+    return sum(t.numel() for t in leaves(tree))
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes of the tensors."""
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32, as a 0-d
+    tensor on the leaves' device (no host sync)."""
+    ts = [t.float() for t in leaves(tree)]
+    if not ts:
+        return torch.zeros(())
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(ts)))

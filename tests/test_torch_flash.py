@@ -1,0 +1,206 @@
+"""PyTorch port, ops/flash_attention.py (B1, B2) and ops/flash.py, against
+the JAX package on the same seeded inputs (f32, CPU).
+
+- the port's plain B1 and B2 (what its wrappers run for CPU tensors, and
+  what ``chip_smoke.py`` holds the CUDA kernels against) against the
+  Pallas kernels in interpret mode, blocks of 64 so every case spans
+  several blocks: o and lse within atol/rtol 2e-5, dq/dk/dv within 1e-4
+  (f32 sums of up to 256 terms, taken in another order);
+- ``flash_attention``'s autograd gradients against ``jax.grad`` of the JAX
+  ``flash_attention(..., interpret=True)`` (1e-4);
+- the fully-masked-row rule of ``_fallback_attn`` (exact zeros);
+- ``flash_attention_impl``'s routing decision against the reference's,
+  on the same shapes and mask forms;
+- the block-override registry's validation.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tensorlink_tpu.ops import flash as jflash
+from tensorlink_tpu.ops.pallas.flash_attention import (
+    flash_attention_bwd as j_bwd,
+    flash_attention_fwd_lse as j_fwd,
+)
+from tensorlink_tpu_torch.ops import flash as tflash
+from tensorlink_tpu_torch.ops.flash_attention import (
+    KERNEL_BLOCK,
+    flash_attention_bwd,
+    flash_attention_fwd_lse,
+)
+
+FWD_TOL = 2e-5
+GRAD_TOL = 1e-4
+
+# name: (B, H, Hkv, T, D, causal, window, mask)
+CASES = {
+    "plain": (1, 2, 2, 128, 64, False, None, None),
+    "kv_mask_masked_row": (2, 2, 2, 128, 64, False, None, "rows"),
+    "causal": (1, 2, 2, 256, 64, True, None, None),
+    "causal_window": (1, 2, 2, 256, 64, True, 70, "rows"),
+    "gqa": (1, 4, 2, 128, 64, True, None, "rows"),
+    "d128": (1, 2, 2, 128, 128, False, None, "rows"),
+}
+
+
+def _inputs(B, H, Hkv, T, D, mask, seed=0):
+    r = np.random.default_rng(seed)
+    q = r.standard_normal((B, H, T, D)).astype(np.float32)
+    k = r.standard_normal((B, Hkv, T, D)).astype(np.float32)
+    v = r.standard_normal((B, Hkv, T, D)).astype(np.float32)
+    do = r.standard_normal((B, H, T, D)).astype(np.float32)
+    kv = None
+    if mask == "rows":
+        kv = (r.random((B, T)) > 0.3).astype(np.float32)
+        kv[-1] = 0.0  # a batch row whose every key is masked
+        if B > 1:
+            kv[0, T // 2:] = 0.0  # and one padded to half its length
+    return q, k, v, do, kv
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_kernels_match_pallas_interpret(name):
+    B, H, Hkv, T, D, causal, window, mask = CASES[name]
+    q, k, v, do, kv = _inputs(B, H, Hkv, T, D, mask)
+    kw = {"causal": causal, "window": window}
+    jo, jlse = j_fwd(_j(q), _j(k), _j(v), _j(kv), block_q=64, block_k=64,
+                     interpret=True, **kw)
+    to, tlse = flash_attention_fwd_lse(_t(q), _t(k), _t(v), _t(kv), **kw)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=FWD_TOL, rtol=FWD_TOL)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=FWD_TOL, rtol=FWD_TOL)
+
+    jg = j_bwd(_j(q), _j(k), _j(v), jo, jlse, _j(do), _j(kv), block_q=64,
+               block_k=64, interpret=True, **kw)
+    tg = flash_attention_bwd(_t(q), _t(k), _t(v), to, tlse, _t(do), _t(kv), **kw)
+    for name_, a, b in zip(("dq", "dk", "dv"), tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL, err_msg=name_)
+
+
+def test_flash_attention_grads_match_jax_grad():
+    """[B, T, H, D] autograd through the port's Function (B1 forward, B2
+    backward) against jax.grad through the JAX custom_vjp."""
+    B, H, Hkv, T, D = 2, 4, 2, 128, 64
+    q, k, v, w, kv = _inputs(B, H, Hkv, T, D, "rows", seed=1)
+    q, k, v, w = (x.swapaxes(1, 2).copy() for x in (q, k, v, w))
+
+    def jloss(q_, k_, v_):
+        o = jflash.flash_attention(q_, k_, v_, jnp.asarray(kv), True, True, None)
+        return jnp.sum(o * w)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                                jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = tflash.flash_attention(tq, tk, tv, torch.from_numpy(kv), True, None)
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, a, b in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), jgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal,window", [(False, None), (True, None), (True, 9)])
+def test_fallback_zeros_fully_masked_rows(causal, window):
+    """Off the kernel rule (T 100) both packages take _fallback_attn:
+    a row whose visible keys are all masked outputs exact zeros."""
+    B, H, T, D = 2, 2, 100, 16
+    r = np.random.default_rng(2)
+    q, k, v = (r.standard_normal((B, T, H, D)).astype(np.float32) for _ in range(3))
+    kv = (r.random((B, T)) > 0.5).astype(np.float32)
+    kv[0] = 0.0
+    kv[1, :20] = 0.0  # causal rows 0..19 of row 1 see no valid key
+    ref = np.asarray(jflash.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kv),
+        causal, False, window))
+    out = tflash.flash_attention(_t(q), _t(k), _t(v), _t(kv), causal, window)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+    assert not out[0].any()
+
+
+# (Tq, Tk, mask form, q_offset, min_kernel_seq)
+ROUTES = [
+    (512, 512, None, 0, None),
+    (256, 256, None, 0, None),
+    (256, 256, None, 0, 0),
+    (100, 100, None, 0, 0),
+    (64, 64, "kv", 0, 0),
+    (512, 512, "kv", 0, None),
+    (512, 512, "kv1", 0, None),
+    (512, 512, "full", 0, None),
+    (512, 512, "heads", 0, None),
+    (512, 512, None, 3, None),
+    (128, 256, None, 0, 0),
+]
+
+
+def _mask(form, B, H, Tq, Tk, r):
+    if form is None:
+        return None
+    shape = {"kv": (B, 1, 1, Tk), "kv1": (1, 1, 1, Tk),
+             "full": (B, 1, Tq, Tk), "heads": (B, H, 1, Tk)}[form]
+    m = r.random(shape) > 0.2
+    m[..., 0] = True
+    return m
+
+
+@pytest.mark.parametrize("route", ROUTES, ids=[str(r) for r in ROUTES])
+def test_routing_matches_reference(route, monkeypatch):
+    Tq, Tk, form, q_offset, min_seq = route
+    B, H, D = 2, 2, 8
+    r = np.random.default_rng(3)
+    q = r.standard_normal((B, Tq, H, D)).astype(np.float32)
+    k = r.standard_normal((B, Tk, H, D)).astype(np.float32)
+    mask = _mask(form, B, H, Tq, Tk, r)
+    seen = {}
+
+    def spy(tag):
+        def f(q_, k_, v_, kv_mask=None, causal=False, *rest):
+            seen[tag] = None if kv_mask is None else np.asarray(kv_mask)
+            return q_
+        return f
+
+    monkeypatch.setattr(jflash, "flash_attention", spy("jax"))
+    monkeypatch.setattr(tflash, "flash_attention", spy("port"))
+    kw = {} if min_seq is None else {"min_kernel_seq": min_seq}
+    jflash.flash_attention_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), causal=True,
+        mask=None if mask is None else jnp.asarray(mask), q_offset=q_offset,
+        interpret=True, **kw)
+    tflash.flash_attention_impl(
+        _t(q), _t(k), _t(k), causal=True, mask=_t(mask), q_offset=q_offset, **kw)
+    assert ("jax" in seen) == ("port" in seen), seen.keys()
+    if "jax" in seen and seen["jax"] is not None:
+        np.testing.assert_array_equal(seen["port"], seen["jax"])
+
+
+def test_block_override_registry():
+    tflash.clear_flash_block_overrides()
+    try:
+        assert tflash.flash_block_for(512) == KERNEL_BLOCK
+        tflash.set_flash_block_override(512, 64)
+        tflash.set_flash_block_override(1024, 64, batch=8)
+        assert tflash.flash_block_for(512, 8) == 64
+        assert tflash.flash_block_for(1024, 8) == 64
+        assert tflash.flash_block_for(1024, 2) == KERNEL_BLOCK
+        assert tflash.flash_block_overrides() == [(512, None, 64), (1024, 8, 64)]
+        with pytest.raises(ValueError, match="divide"):
+            tflash.set_flash_block_override(512, 96)
+        with pytest.raises(ValueError, match="divide"):
+            tflash.set_flash_block_override(512, 0)
+        # divides, but the CUDA kernel has one tile: refused when set
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            tflash.set_flash_block_override(512, 128)
+    finally:
+        tflash.clear_flash_block_overrides()
+    assert tflash.flash_block_overrides() == []
+    assert tflash.flash_block_for(512) == KERNEL_BLOCK

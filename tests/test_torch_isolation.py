@@ -12,8 +12,12 @@ import pytest
 import torch
 
 from tensorlink_tpu_torch import resolve_device
+from tensorlink_tpu_torch.config import TrainConfig
+from tensorlink_tpu_torch.data.loader import prefetch_to_device
+from tensorlink_tpu_torch.models.bert import Bert, BertClassifier, BertConfig
 from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
 from tensorlink_tpu_torch.parallel.inference import InferenceEngine
+from tensorlink_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "tensorlink_tpu_torch")
@@ -55,6 +59,14 @@ def test_importing_the_port_loads_no_jax():
         "tensorlink_tpu_torch.convert",
         "tensorlink_tpu_torch.ops.decode_glue",
         "tensorlink_tpu_torch.ops.paged_decode",
+        "tensorlink_tpu_torch.ops.flash",
+        "tensorlink_tpu_torch.ops.flash_attention",
+        "tensorlink_tpu_torch.models.bert",
+        "tensorlink_tpu_torch.train.trainer",
+        "tensorlink_tpu_torch.train.optim",
+        "tensorlink_tpu_torch.data.loader",
+        "tensorlink_tpu_torch.config",
+        "tensorlink_tpu_torch.utils.trees",
     ]
     code = (
         "import sys\n"
@@ -83,3 +95,18 @@ def test_entry_points_need_a_device_where_cuda_is_absent():
         InferenceEngine(model, max_len=32)
     eng = InferenceEngine(model, max_len=32, device="cpu")
     assert eng.device.type == "cpu"
+
+
+def test_training_entry_points_need_a_device_where_cuda_is_absent():
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Bert(BertConfig.tiny())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BertClassifier(BertConfig.tiny(), 3)
+    model = BertClassifier(BertConfig.tiny(), 3, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(model, lambda *a: None, TrainConfig())
+    assert Trainer(model, lambda *a: None, TrainConfig(), device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(prefetch_to_device(iter([{"x": [1]}])))
