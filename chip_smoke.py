@@ -13,19 +13,25 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernel, all in parallel, and prints ptxas's register lines;
 3. paged-decode kernel vs its plain PyTorch version at Llama-3-8B head
    shapes (T = 1 and T = 128; mixed lengths with sentinel-tailed block
-   tables, a validity mask with a retired row, a window, int8 pools, and
-   the one-row form of a prefill chunk);
+   tables, a validity mask with a retired row, a window, int8 pools, the
+   one-row form of a prefill chunk, decode over rows of whole pages, and
+   the one-row chunk at lengths 128, 1024 and 2048; then f32 tensors on
+   the general variant, D 64 with a mask per query, and T = 4 decode rows
+   with a mask per query), each held to the variant it must launch, with
+   its relative error and the fraction of its bound it reached;
 4. fused-norm kernel vs its plain version (rms, and layer with bias);
 5. flash: the flash-attention forward (B1) and backward (B2) kernels vs
    their plain versions in bf16 at the paths' shapes (BERT-base with a
    padding mask, Llama-3-8B causal GQA, a causal window, a ragged length
    with a fully masked row), each timed beside its plain version, its
-   bound and SDPA;
+   bound and SDPA, and B2 beside its first design's time;
 6. serving: Llama-3-8B at full width and depth (random bf16 weights
    from a seed) served by ``PagedContinuousBatchingEngine`` over
    ``InferenceEngine``: 12 greedy requests, launch counts checked against
-   the path, and a teacher-forced check of every emitted token against
-   the port's no-cache forward (which runs B1 for the long prompts);
+   the path (decode steps on B3's decode variant, prefill chunks on its
+   prefill variant, none on the general one), and a teacher-forced check
+   of every emitted token against the port's no-cache forward (which runs
+   B1 for the long prompts);
 7. training: BERT-base fine-tuning at batch 8 x seq 512 (f32 master
    params from a seed, bf16 compute, Adam, dropout 0.1) through
    ``Trainer``: 30 steps with a falling loss, B1/B2 launch counts, one
@@ -66,6 +72,7 @@ from tensorlink_tpu_torch.ops.flash_attention import (
     flash_attention_fwd_lse_reference,
 )
 from tensorlink_tpu_torch.ops.paged_decode import (
+    VARIANTS,
     paged_decode_attention,
     paged_decode_reference,
 )
@@ -76,6 +83,10 @@ from tensorlink_tpu_torch.train.trainer import Trainer, softmax_cross_entropy
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PAGED_ATOL, PAGED_RTOL = 2e-2, 1e-2  # bf16 outputs, f32 accumulation both sides
+# and, per case, the relative Frobenius error of the whole output: the
+# atol alone is half a typical |o| over a long row, so a fault confined to
+# one partition could pass it; bf16 rounding of o and of P gives ~3e-3
+PAGED_REL = 1e-2
 NORM_ATOL, NORM_RTOL = 1e-2, 1e-2  # bf16 outputs of an f32 row reduction
 LOGIT_GAP_TOL = 0.5  # teacher-forced: emitted token within this of the row max
 # flash: o is a bf16 output of f32 sums whose P operand is rounded to bf16
@@ -126,14 +137,14 @@ class L2Flush:
         self.buf.zero_()
 
 
-def time_ms(fn, flush: L2Flush, iters: int = 20) -> float:
-    """Mean device ms of ``fn`` over ``iters`` launches, each timed with
-    CUDA events after an L2 flush. A ~1 ms device sleep ahead of the
-    first event lets the host enqueue the launch before the card gets
-    there, so host launch overhead stays out of the device time."""
+def time_runs(fn, flush: L2Flush, iters: int = 20) -> np.ndarray:
+    """Device ms of ``iters`` launches of ``fn``, each timed with CUDA
+    events after an L2 flush. A ~1 ms device sleep ahead of the first
+    event lets the host enqueue the launch before the card gets there, so
+    host launch overhead stays out of the device time."""
     for _ in range(3):
         fn()
-    total = 0.0
+    times = []
     for _ in range(iters):
         flush()
         torch.cuda._sleep(2_000_000)
@@ -143,8 +154,22 @@ def time_ms(fn, flush: L2Flush, iters: int = 20) -> float:
         fn()
         b.record()
         b.synchronize()
-        total += a.elapsed_time(b)
-    return total / iters
+        times.append(a.elapsed_time(b))
+    return np.asarray(times)
+
+
+def time_ms(fn, flush: L2Flush, iters: int = 20) -> float:
+    """Mean device ms of ``fn`` (see ``time_runs``): every reported
+    ``ms`` is this mean."""
+    return float(time_runs(fn, flush, iters).mean())
+
+
+def time_mean_median(fn, flush: L2Flush, iters: int = 20) -> tuple[float, float]:
+    """(mean, median) device ms of ``fn`` over the same launches; the
+    median is printed beside the mean, since one launch delayed by
+    something else on the machine can carry the mean with it."""
+    t = time_runs(fn, flush, iters)
+    return float(t.mean()), float(np.median(t))
 
 
 # --------------------------------------------------------------- phases
@@ -183,25 +208,34 @@ def phase_build() -> None:
     for src, (cuda_s, path, log) in built.items():
         say(f"[build] {src} nvcc {cuda_s:.1f} s -> {path}")
         for ln in log.splitlines():
-            if "registers" in ln or "Compiling entry" in ln:
+            if "registers" in ln or "Compiling entry" in ln or "spill" in ln:
                 say(f"[build]   ptxas: {ln.strip()}")
     say(f"[build] decode_glue triton jit {triton_s:.1f} s")
 
 
 def _paged_inputs(g, T, case):
-    """Llama-3-8B head shapes: H 32, Hkv 8, D 128, bs 16, MB 128, B 8."""
-    B, H, Hkv, D, bs, MB = 8, 32, 8, 128, 16, 128
+    """Llama-3-8B head shapes: H 32, Hkv 8, D 128, bs 16, MB 128, B 8;
+    D 64 for "d64_qmask", f32 q and pools for "f32"."""
+    B, H, Hkv, bs, MB = 8, 32, 8, 16, 128
+    D = 64 if case == "d64_qmask" else 128
+    dt = torch.float32 if case == "f32" else torch.bfloat16
     NB = B * MB + 64
     dev = DEV
-    lengths = torch.tensor(
-        [T, 17 + T, 130 + T, 511, 1000, 1503, 1919, 2048], dtype=torch.int32
-    ).clamp(max=MB * bs)
+    if case == "full_pages":
+        lengths = torch.tensor([16, 128, 256, 512, 1024, 1536, 2032, 2048],
+                               dtype=torch.int32)
+    elif case.startswith("chunk_"):
+        lengths = torch.full((B,), int(case[len("chunk_"):]), dtype=torch.int32)
+    else:
+        lengths = torch.tensor(
+            [T, 17 + T, 130 + T, 511, 1000, 1503, 1919, 2048], dtype=torch.int32
+        ).clamp(max=MB * bs)
     perm = torch.randperm(NB, generator=g)
     bt = torch.full((B, MB), NB, dtype=torch.int32)
     for b in range(B):
         n = -(-int(lengths[b]) // bs)  # live blocks; the tail stays sentinel
         bt[b, :n] = perm[b * MB:b * MB + n].int()
-    q = torch.randn((B, T, H, D), generator=g).to(dev, torch.bfloat16)
+    q = torch.randn((B, T, H, D), generator=g).to(dev, dt)
     mask = None
     window = None
     k_scale = v_scale = None
@@ -213,8 +247,8 @@ def _paged_inputs(g, T, case):
         k_scale = (torch.rand((NB, bs, Hkv), generator=g) / 64).to(dev)
         v_scale = (torch.rand((NB, bs, Hkv), generator=g) / 64).to(dev)
     else:
-        k = torch.randn((NB, bs, Hkv, D), generator=g).to(dev, torch.bfloat16)
-        v = torch.randn((NB, bs, Hkv, D), generator=g).to(dev, torch.bfloat16)
+        k = torch.randn((NB, bs, Hkv, D), generator=g).to(dev, dt)
+        v = torch.randn((NB, bs, Hkv, D), generator=g).to(dev, dt)
     if case == "mask":
         # validity mask over the view (the decode steps' form), with
         # holes, and row 0 retired: sentinel table, nothing valid
@@ -224,10 +258,21 @@ def _paged_inputs(g, T, case):
         valid[0] = False
         bt[0] = NB
         mask = valid[:, None, None, :].to(dev)
+    if case == "full_pages":
+        # the decode steps' validity mask over rows that end on a page
+        # boundary: every live key valid
+        mask = (torch.arange(MB * bs)[None, :] < lengths[:, None])[:, None, None, :].to(dev)
+    if case.endswith("qmask"):
+        # a mask per query [B, 1, T, Lv] over the view, with holes
+        kpos = torch.arange(MB * bs)
+        valid = kpos[None, None, :] < lengths[:, None, None]
+        valid = valid & (torch.rand((B, T, MB * bs), generator=g) > 0.1)
+        mask = valid[:, None].to(dev)
     if case == "window":
         window = 100
-    if case == "one_row":
-        # the engine's prefill-chunk form: one row (here 1503 tokens)
+    if case == "one_row" or case.startswith("chunk_"):
+        # the engine's prefill-chunk form: one row (here 1503 tokens, or
+        # the chunk's own length)
         q, bt, lengths = q[5:6].contiguous(), bt[5:6], lengths[5:6]
     args = (q, k, v, bt.to(dev), lengths.to(dev))
     kwargs = {"k_scale": k_scale, "v_scale": v_scale, "mask": mask,
@@ -288,42 +333,66 @@ def _paged_library_fn(args, kwargs):
     return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=keep)
 
 
+# (T, case, variant it must launch): the first design's ten cases, the
+# decode form over whole pages, the prefill chunk (one row) at three
+# lengths, then the variants' other branches: f32 q and pools (general),
+# D 64 with a mask per query (prefill), and 4 queries a row with a mask
+# per query (decode: T x group = 16 rows, the speculative verify form)
+PAGED_CASES = (
+    [(T, case, "decode" if T == 1 else "prefill") for T in (1, 128)
+     for case in ("mixed", "mask", "window", "int8", "one_row")]
+    + [(1, "full_pages", "decode"), (128, "chunk_128", "prefill"),
+       (128, "chunk_1024", "prefill"), (128, "chunk_2048", "prefill"),
+       (1, "f32", "general"), (128, "d64_qmask", "prefill"),
+       (4, "qmask", "decode")]
+)
+
+
 def phase_paged(flush) -> dict:
     g = torch.Generator().manual_seed(1)
-    worst = 0.0
+    worst = worst_rel = 0.0
     main = None
-    for T in (1, 128):
-        for case in ("mixed", "mask", "window", "int8", "one_row"):
-            args, kwargs = _paged_inputs(g, T, case)
-            out = paged_decode_attention(*args, **kwargs)
-            ref = paged_decode_reference(*args, **kwargs)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs()
-            ok = bool((err <= PAGED_ATOL + PAGED_RTOL * ref.float().abs()).all())
-            check(bool(torch.isfinite(out.float()).all()), f"paged {case} T={T}: non-finite")
-            mx = float(err.max())
-            worst = max(worst, mx)
-            ms = time_ms(lambda: paged_decode_attention(*args, **kwargs), flush)
-            plain_ms = time_ms(lambda: paged_decode_reference(*args, **kwargs), flush, iters=5)
-            lib_ms = time_ms(_paged_library_fn(args, kwargs), flush, iters=10)
-            nbytes, flops = _paged_cost(args, kwargs)
-            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            f_ms = flops / BF16_FLOPS * 1e3
-            row = {
-                "T": T, "case": case, "max_abs_err": mx, "ms": ms,
-                "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": max(b_ms, f_ms),
-                "bound_by": "bytes" if b_ms >= f_ms else "operations",
-                "bytes": nbytes, "flops": flops,
-            }
-            say(f"[paged] {json.dumps(row)}")
-            check(ok, f"paged {case} T={T}: max abs err {mx} beyond "
-                  f"atol {PAGED_ATOL} + rtol {PAGED_RTOL}")
-            if T == 1 and case == "mask":
-                main = row  # the decode steps' form
+    for T, case, want in PAGED_CASES:
+        args, kwargs = _paged_inputs(g, T, case)
+        before = dict(paged_decode_attention.launches_by_variant)
+        out = paged_decode_attention(*args, **kwargs)
+        variant = [k for k, n in paged_decode_attention.launches_by_variant.items()
+                   if n != before[k]]
+        ref = paged_decode_reference(*args, **kwargs)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        ok = bool((err <= PAGED_ATOL + PAGED_RTOL * ref.float().abs()).all())
+        check(bool(torch.isfinite(out.float()).all()), f"paged {case} T={T}: non-finite")
+        mx = float(err.max())
+        rel = _rel(out, ref)
+        worst, worst_rel = max(worst, mx), max(worst_rel, rel)
+        ms, median_ms = time_mean_median(
+            lambda: paged_decode_attention(*args, **kwargs), flush)
+        plain_ms = time_ms(lambda: paged_decode_reference(*args, **kwargs), flush, iters=5)
+        lib_ms, lib_median_ms = time_mean_median(
+            _paged_library_fn(args, kwargs), flush, iters=10)
+        nbytes, flops = _paged_cost(args, kwargs)
+        bound, bound_by = _bound(nbytes, flops)
+        row = {
+            "T": T, "case": case, "variant": variant, "max_abs_err": mx,
+            "rel_frobenius": rel, "ms": ms, "median_ms": median_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_median_ms": lib_median_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "frac_of_bound": bound / ms, "bytes": nbytes, "flops": flops,
+        }
+        say(f"[paged] {json.dumps(row)}")
+        check(ok, f"paged {case} T={T}: max abs err {mx} beyond "
+              f"atol {PAGED_ATOL} + rtol {PAGED_RTOL}")
+        check(rel <= PAGED_REL, f"paged {case} T={T}: relative Frobenius "
+              f"error {rel} beyond {PAGED_REL}")
+        check(variant == [want], f"paged {case} T={T}: ran {variant}, not {want}")
+        if T == 1 and case == "mask":
+            main = row  # the decode steps' form
     main = dict(main, max_abs_err=worst)
-    say(f"[paged] all cases within atol {PAGED_ATOL} + rtol {PAGED_RTOL}; "
-        f"worst max abs err {worst}")
+    say(f"[paged] all cases within atol {PAGED_ATOL} + rtol {PAGED_RTOL} and "
+        f"relative Frobenius error {PAGED_REL}; worst max abs err {worst}, "
+        f"worst relative {worst_rel}")
     return main
 
 
@@ -364,6 +433,13 @@ def phase_norm(flush) -> dict:
             main = row  # Llama's form
     return dict(main, max_abs_err=worst)
 
+
+# B2's first design (two S/dP passes in the dq kernel, synchronous loads,
+# 32-row dkv tiles): the mean of 20 launches on NVIDIA H100 80GB HBM3,
+# 700.00 W, as this script measured it in another run (PERF.md, kernel
+# table), printed beside the current mean; tools/kernel_ab.py times both
+# designs in one run
+B2_FIRST_DESIGN_MS = {"bert": 0.277, "llama": 1.78, "window": 0.259}
 
 # name: (B, H, Hkv, T, D, causal, window, mask)
 FLASH_CASES = {
@@ -455,6 +531,12 @@ def _bound(nbytes, flops):
     return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
 
 
+def _timed(prefix: str, fn, flush, iters: int = 20) -> dict:
+    """{prefix + "ms": mean, prefix + "median_ms": median} of ``fn``."""
+    mean, median = time_mean_median(fn, flush, iters)
+    return {f"{prefix}ms": mean, f"{prefix}median_ms": median}
+
+
 def _rel(a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
@@ -506,20 +588,21 @@ def phase_flash(flush) -> dict:
             "pairs": pairs,
             "fwd": {
                 "max_abs_err": float(e_o.max()), "lse_max_abs_err": e_lse,
-                "ms": time_ms(lambda: flash_attention_fwd_lse(q, k, v, kv, **kw), flush),
+                **_timed("", lambda: flash_attention_fwd_lse(q, k, v, kv, **kw), flush),
                 "plain_ms": time_ms(lambda: flash_attention_fwd_lse_reference(
                     q, k, v, kv, **kw), flush, iters=5),
-                "library_ms": time_ms(lib_f, flush, iters=10), "library": be_f,
+                **_timed("library_", lib_f, flush, iters=10), "library": be_f,
                 "bound_ms": fb, "bound_by": fby,
                 "bytes": fwd_bytes, "flops": 4 * D * pairs,
             },
             "bwd": {
                 "max_abs_err": e_g, "rel_frobenius": rel,
-                "ms": time_ms(lambda: flash_attention_bwd(
+                **_timed("", lambda: flash_attention_bwd(
                     q, k, v, ro, rlse, do, kv, **kw), flush),
                 "plain_ms": time_ms(lambda: flash_attention_bwd_reference(
                     q, k, v, ro, rlse, do, kv, **kw), flush, iters=5),
-                "library_ms": time_ms(lib_b, flush, iters=10),
+                "first_design_mean_ms": B2_FIRST_DESIGN_MS.get(name),
+                **_timed("library_", lib_b, flush, iters=10),
                 "library": f"{be_b} forward+backward",
                 "bound_ms": bb, "bound_by": bby,
                 "bytes": bwd_bytes, "flops": 10 * D * pairs,
@@ -578,6 +661,7 @@ def phase_slice(name_power: str, cfg: LlamaConfig) -> dict:
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     prompts = _requests(cfg.vocab_size)
     paged_decode_attention.launches = 0
+    paged_decode_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)
     fused_residual_norm.launches = 0
     t_run = time.perf_counter()
     rids = [sch.submit(p) for p in prompts]
@@ -585,16 +669,22 @@ def phase_slice(name_power: str, cfg: LlamaConfig) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
     k1, k2 = paged_decode_attention.launches, fused_residual_norm.launches
+    by_variant = dict(paged_decode_attention.launches_by_variant)
     outs = [sch.result(rid) for rid in rids]
     st = sch.stats()
     check(all(len(o) == max_new for o in outs), "a request did not finish")
     L = cfg.num_layers
     exp1 = L * (st["decode_steps"] + st["prefill_chunks"])
     exp2 = L * st["decode_steps"]
-    say(f"[slice] launches: paged_decode {k1} (expected {exp1}), "
+    exp_var = {"general": 0, "decode": L * st["decode_steps"],
+               "prefill": L * st["prefill_chunks"]}
+    say(f"[slice] launches: paged_decode {k1} (expected {exp1}; by variant "
+        f"{by_variant}, expected {exp_var}), "
         f"fused_norm {k2} (expected {exp2}); decode steps "
         f"{st['decode_steps']}, prefill chunks {st['prefill_chunks']}")
     check(k1 == exp1 and k1 > 0, "paged-decode launch count off the path")
+    check(by_variant == exp_var and min(by_variant["decode"], by_variant["prefill"]) > 0,
+          "paged-decode launches off the decode/prefill variants")
     check(k2 == exp2 and k2 > 0, "fused-norm launch count off the path")
     check(st["prefix_matched_tokens"] > 0, "no prefix was shared")
 

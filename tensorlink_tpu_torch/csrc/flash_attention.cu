@@ -13,60 +13,71 @@
 // attended key gives o = 0 and lse = 1e30, which makes the backward's
 // p = exp(s - lse) exactly 0 there.
 //
-// Design (first version, simple and right). Every product runs on the
-// tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate), with
-// operand fragments read from padded shared-memory tiles by ldmatrix; the
+// Design. Every product runs on the tensor cores through mma.sync
+// m16n8k16 (bf16 in, f32 accumulate), with operand fragments read from
+// padded shared-memory tiles by ldmatrix (helpers in mma_common.cuh); the
 // softmax state and every accumulator stay in registers in f32.
-// - Forward: one block of 4 warps per (query tile of 64, head, batch row);
-//   each warp owns 16 query rows. The block stages its Q tile once, then
-//   walks only the key tiles its causal / window band can reach (the loop
-//   bounds replace the TPU grid's block skipping), staging K and V tiles of
-//   64 keys, and folds each into the online softmax (running max, row sums,
-//   output accumulator). P goes from the score accumulators straight into
-//   the A operand of P.V.
-// - Backward: a dq kernel (one block per query tile) walks its key tiles
-//   twice, recomputing S and dP on the tensor cores and p = exp(s - lse):
-//   the first pass sums delta = rowsum(p * dp), the second forms
-//   ds = p (dp - delta) scale and accumulates dQ += dS K. Then a dkv
-//   kernel (one block per (key tile of 64, kv head, batch row),
-//   walking the query tiles of 32 that its band reaches, for every query
-//   head of its GQA group: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO,
-//   dK += dS^T Q). dK and dV of a GQA group are summed inside the block,
-//   so no per-query-head buffer exists. delta equals rowsum(dO * O), the
-//   TPU kernels' form, in exact arithmetic; taken from the bf16-rounded O
-//   it is off by ~2^-9 |dO||O|, which swamps ds wherever attention is near
-//   uniform (dp close to delta) and wrecked the q/k gradients of BERT's
-//   upper layers. From the kernel's own p and dp, the ds of a row sums to
-//   zero as it must, for the price of one more S/dP pass in the dq kernel.
+// - Forward (first design, unchanged): one block of 4 warps per (query tile
+//   of 64, head, batch row); each warp owns 16 query rows. The block stages
+//   its Q tile once, then walks only the key tiles its causal / window band
+//   can reach (the loop bounds replace the TPU grid's block skipping),
+//   staging K and V tiles of 64 keys with synchronous 16-byte loads, and
+//   folds each into the online softmax. P goes from the score accumulators
+//   straight into the A operand of P.V.
+// - Backward, dq kernel (one block per query tile of 64): ONE pass over the
+//   key tiles, where the first design walked them twice (a pass just for
+//   delta = rowsum(p * dp)). It recomputes S and dP = dO V^T on the tensor
+//   cores and p = exp(s - lse), and accumulates the exact delta, C = P K and
+//   A = (P o (dP - d~)) K, where d~ = rowsum(dO o O) from the forward's bf16
+//   O is only an estimate of delta; then dQ = scale (A - (delta - d~) C),
+//   exact for any d~ (see the kernel's note for why d~ is there). delta
+//   must come from the kernel's own p and dp: the TPU kernels' rowsum(dO o
+//   O) from the bf16-rounded O is off by ~2^-9 |dO||O|, which swamps ds
+//   where attention is near uniform and wrecked BERT's upper-layer q/k
+//   gradients. The dq kernel publishes delta for the dkv kernel.
+// - Backward, dkv kernel (one block per (key tile of 64, kv head, batch
+//   row)): walks the (query head of its GQA group, query tile of 64) units
+//   its band reaches: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO,
+//   dK += dS^T Q. dK and dV of a GQA group are summed inside the block, so
+//   no per-query-head buffer exists. Where a key tile has many units (a
+//   long causal GQA band, 4 heads x 32 tiles at Llama's shape) two quads of
+//   4 warps take alternate units and add their sums at the end, which
+//   halves the longest block's walk; otherwise one quad walks them.
+// - Both backward kernels stage the next tile while the current one is used:
+//   cp.async 16-byte copies into a two-stage ring (K/V tiles in the dq
+//   kernel; Q, dO, lse and delta tiles in the dkv kernel). Causal grids
+//   launch their heaviest tiles first. A key tile whose keys are all masked
+//   (padding) is skipped. Kernels without a causal or window band compile
+//   the positional test out. ptxas caps registers for two blocks an SM at
+//   D 128 and three at D 64 (scoring half a tile at a time where the
+//   accumulators need the room); chip_smoke.py's [build] lines print the
+//   register and spill report.
 // Ragged edges (T not a multiple of a tile) are zero-filled in shared
 // memory and masked; D is 64 or 128; the type is bf16.
 //
 // What bounds it on this card: 4 D flops per attended (query, key) pair
-// forward and at least 10 D backward, against reading q, k, v (and do)
-// and writing o (or dq, dk, dv) once. At BERT-base's training shape (T 512,
-// D 64, a padding mask) the forward's least time is set by those bytes and
-// the backward's by the tensor cores; at a long causal sequence (T 2048,
-// D 128) by the tensor cores both ways. This first design sits well above
-// both (PERF.md): it leaves for later cp.async or TMA staging of the next
-// K/V tile while the current one is used (loads here are synchronous
-// 16-byte loads), wgmma, warp specialisation, and a cheaper exact delta.
+// forward and at least 10 D backward (this backward does 16 D: S and dP are
+// formed in both kernels), against reading q, k, v (and do) and writing o
+// (or dq, dk, dv) once. At BERT-base's training shape (T 512, D 64, a
+// padding mask) the forward's least time is set by those bytes and the
+// backward's by the tensor cores; at a long causal sequence (T 2048, D 128)
+// by the tensor cores both ways. Not used yet: wgmma, which needs 64-row
+// warpgroup tiles with B in shared memory and would lift the tensor-core
+// rate above what mma.sync reaches (the backward's 8 products per tile
+// pair are where it would pay first), TMA, and warp specialisation; the
+// forward keeps its synchronous loads.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace tlk;
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kBQ = 64;        // forward / dq: query rows per block
 constexpr int kBK = 64;        // key rows per tile (dkv: per block)
-constexpr int kBQd = 32;       // dkv: query rows per inner tile
-constexpr float kNegInf = -1e30f;
+constexpr int kBQd = 64;       // dkv: query rows per staged tile
 constexpr float kLseMasked = 1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct View {  // a [B, heads, T, D] operand; strides in elements, D contiguous
   const bf16* p;
@@ -83,60 +94,6 @@ struct Shape {
   float scale;
   const uint8_t* kv_mask;  // [B, Tk], nonzero = attend; null = all keys
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lane l supplies the row address of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// c[16x8] += a[16x16] * b[16x8]; bf16 inputs, f32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment addresses inside a row-major shared tile with leading dim LD.
-// A operand (16 rows from r0, 16 columns from c0), and the B operand of
-// two n-tiles read transposed (16 k-rows from r0, 16 n-columns from c0):
-// both use the same per-lane row addresses.
-template <int LD>
-__device__ __forceinline__ const bf16* frag_a(const bf16* s, int r0, int c0,
-                                              int lane) {
-  return s + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
-}
-
-// B operand of two n-tiles (n rows n0..n0+15 of a [n][k] tile, k from c0)
-template <int LD>
-__device__ __forceinline__ const bf16* frag_b(const bf16* s, int n0, int c0,
-                                              int lane) {
-  return s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 +
-         ((lane >> 3) & 1) * 8;
-}
 
 // rows r0..r0+ROWS-1 of a [T, D] slab (row stride st) into a padded tile;
 // rows at or past T are zero-filled
@@ -185,16 +142,6 @@ __device__ __forceinline__ void query_range(int k0, int k1, int Tq,
     hi = min(hi, k1 + window);
     if (!causal) lo = max(lo, k0 - window + 1);
   }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // --------------------------------------------------------------- forward
@@ -333,20 +280,56 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // -------------------------------------------------------------- backward
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(View q, View k, View v, View dout,
+// rows r0..r0+ROWS-1 of a [T, D] slab into a padded tile with cp.async;
+// rows at or past T are zero-filled
+template <int D, int ROWS, int NTH = kThreads>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
+                                                long long st, int r0, int T) {
+  constexpr int LD = D + 8, CH = D / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += NTH) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = r0 + r < T;
+    cp_async16(dst + r * LD + c,
+               ok ? src + static_cast<long long>(r0 + r) * st + c : src,
+               ok ? 16 : 0);
+  }
+}
+
+// dq in one pass over the key tiles. With p = exp(s - lse), dp = dO V^T and
+// the row's delta = sum_k p dp, dQ = scale * sum_k p (dp - delta) k. delta
+// is only known after the last key tile, so the pass centres dp on an
+// estimate d~ = rowsum(dO o O) taken from the forward's bf16 O before it
+// starts, and accumulates A = sum_k p (dp - d~) k, C = sum_k p k and the
+// exact delta = sum_k p dp, in f32 from the kernel's own p and dp; then
+// dQ = scale * (A - (delta - d~) C), which is exact for any d~. The
+// centring keeps A's bf16 operand as small as ds itself: with d~ = 0 the
+// operand p dp carries a rounding error of 2^-9 |p dp| that does not
+// cancel, and it made BERT's upper-layer q gradients 4.6x noisier than
+// the plain path's. delta is published for the dkv kernel. BAND (causal or
+// a window) compiles the positional test in; without it a key's keep is
+// one bit of the tile's mask.
+template <int D, bool BAND>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
+    flash_bwd_dq_kernel(View q, View k, View v, View o, View dout,
                         const float* __restrict__ lse,
                         float* __restrict__ delta, OutView dq, Shape s) {
-  constexpr int LD = D + 8, KS = D / 16, NT = kBK / 8, DT = D / 8;
+  constexpr int LD = D + 8, KS = D / 16, DT = D / 8;
+  // keys scored at a time: at D 128 half a tile keeps the two [16, D]
+  // accumulators and the score fragments inside the register file; at
+  // D 64 three blocks share an SM (ptxas caps registers at 168)
+  constexpr int KSUB = D == 128 ? 32 : 64;
+  constexpr int NT = KSUB / 8;
+  constexpr int STAGE = 2 * kBK * LD;  // K and V tiles
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* dos = qs + kBQ * LD;
-  bf16* ks = dos + kBQ * LD;
-  bf16* vs = ks + kBK * LD;
-  uint8_t* keep_s = reinterpret_cast<uint8_t*>(vs + kBK * LD);
+  bf16* ring = dos + kBQ * LD;  // [2][K tile, V tile]
+  uint8_t* keep_ring = reinterpret_cast<uint8_t*>(ring + 2 * STAGE);
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
+  // causal: the last query tiles see the most keys, so they launch first
+  // (blockIdx.y is the slowest-moving index of the launch order)
+  const int tile = s.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int b = blockIdx.z, h = blockIdx.x, q0 = tile * kBQ;
   const int hk = h / (s.H / s.Hkv);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -362,126 +345,183 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < 2; ++r)
     lse2[r] = qr[r] < s.Tq ? lse[rowbase + qr[r]] * kLog2e : kLseMasked;
 
-  load_tile<D, kBQ>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
-  load_tile<D, kBQ>(dos, dout.p + b * dout.sb + h * dout.sh, dout.st, q0,
-                    s.Tq);
+  load_tile_async<D, kBQ>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
+  // d~ of this thread's two rows: each lane of the quad dots a quarter
+  float dt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float acc = 0.f;
+    if (qr[r] < s.Tq) {
+      const long long off = qr[r];
+      const bf16* orow = o.p + b * o.sb + h * o.sh + off * o.st + tig * (D / 4);
+      const bf16* grow =
+          dout.p + b * dout.sb + h * dout.sh + off * dout.st + tig * (D / 4);
+#pragma unroll
+      for (int c = 0; c < D / 4; c += 8) {
+        const uint4 ov = __ldg(reinterpret_cast<const uint4*>(orow + c));
+        const uint4 gv = __ldg(reinterpret_cast<const uint4*>(grow + c));
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 of = __bfloat1622float2(o2[i]);
+          const float2 gf = __bfloat1622float2(g2[i]);
+          acc = fmaf(of.x, gf.x, fmaf(of.y, gf.y, acc));
+        }
+      }
+    }
+    dt[r] = quad_sum(acc);
+  }
+  load_tile_async<D, kBQ>(dos, dout.p + b * dout.sb + h * dout.sh, dout.st,
+                          q0, s.Tq);
 
   int klo, khi;
   key_range(q0, q0 + kBQ - 1, s.Tk, s.causal, s.window, klo, khi);
+  const int kt0 = (klo / kBK) * kBK;
+  const int n = khi > kt0 ? (khi - kt0 + kBK - 1) / kBK : 0;
+  auto issue = [&](int i) {
+    bf16* ks = ring + (i & 1) * STAGE;
+    const int k0 = kt0 + i * kBK;
+    load_tile_async<D, kBK>(ks, kb, k.st, k0, s.Tk);
+    load_tile_async<D, kBK>(ks + kBK * LD, vb, v.st, k0, s.Tk);
+    if (threadIdx.x < kBK) {
+      const int kk = k0 + threadIdx.x;
+      keep_ring[(i & 1) * kBK + threadIdx.x] =
+          kk < s.Tk && (km == nullptr || km[kk] != 0);
+    }
+  };
 
-  float acc[DT][4];
+  float acc_a[DT][4], acc_c[DT][4];
 #pragma unroll
   for (int i = 0; i < DT; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc_a[i][e] = acc_c[i][e] = 0.f;
 
-  // pass 0 sums delta = rowsum(p * dp) over the row's visible keys (and
-  // writes it for the dkv kernel); pass 1 forms ds = p (dp - delta) and
-  // accumulates dQ
-  for (int pass = 0; pass < 2; ++pass) {
-  for (int k0 = (klo / kBK) * kBK; k0 < khi; k0 += kBK) {
+  if (n > 0) issue(0);
+  cp_async_commit();  // with the Q and dO tiles
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile i (and Q, dO) has landed
     __syncthreads();
-    load_tile<D, kBK>(ks, kb, k.st, k0, s.Tk);
-    load_tile<D, kBK>(vs, vb, v.st, k0, s.Tk);
-    if (threadIdx.x < kBK) {
-      const int kk = k0 + threadIdx.x;
-      keep_s[threadIdx.x] = kk < s.Tk && (km == nullptr || km[kk] != 0);
-    }
-    __syncthreads();
-
-    float sc[NT][4], dp[NT][4];
+    const bf16* ks = ring + (i & 1) * STAGE;
+    const bf16* vs = ks + kBK * LD;
+    const uint8_t* keep_s = keep_ring + (i & 1) * kBK;
+    const int k0 = kt0 + i * kBK;
+    // the tile's key mask as bits; a tile whose keys are all masked
+    // (padding) adds nothing
+    const uint32_t kbits[2] = {__ballot_sync(0xffffffffu, keep_s[lane]),
+                               __ballot_sync(0xffffffffu, keep_s[lane + 32])};
+#pragma unroll 1
+    for (int c0 = 0; (kbits[0] | kbits[1]) && c0 < kBK; c0 += KSUB) {
+      float sc[NT][4], dp[NT][4];
 #pragma unroll
-    for (int i = 0; i < NT; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.f;
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t a[4], ad[4];
-      ldsm_x4(a, frag_a<LD>(qs, warp * 16, kk * 16, lane));
-      ldsm_x4(ad, frag_a<LD>(dos, warp * 16, kk * 16, lane));
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t a[4], ad[4];
+        ldsm_x4(a, frag_a<LD>(qs, warp * 16, kk * 16, lane));
+        ldsm_x4(ad, frag_a<LD>(dos, warp * 16, kk * 16, lane));
 #pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bb[4];
-        ldsm_x4(bb, frag_b<LD>(ks, np * 16, kk * 16, lane));
-        mma(sc[2 * np], a, bb[0], bb[1]);
-        mma(sc[2 * np + 1], a, bb[2], bb[3]);
-        ldsm_x4(bb, frag_b<LD>(vs, np * 16, kk * 16, lane));
-        mma(dp[2 * np], ad, bb[0], bb[1]);
-        mma(dp[2 * np + 1], ad, bb[2], bb[3]);
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t bb[4];
+          ldsm_x4(bb, frag_b<LD>(ks, c0 + np * 16, kk * 16, lane));
+          mma(sc[2 * np], a, bb[0], bb[1]);
+          mma(sc[2 * np + 1], a, bb[2], bb[3]);
+          ldsm_x4(bb, frag_b<LD>(vs, c0 + np * 16, kk * 16, lane));
+          mma(dp[2 * np], ad, bb[0], bb[1]);
+          mma(dp[2 * np + 1], ad, bb[2], bb[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, kl = c0 + j * 8 + 2 * tig + (e & 1);
+          bool keep = (kbits[kl >> 5] >> (kl & 31)) & 1u;
+          if (BAND) keep = keep && band_keep(qr[r], k0 + kl, s.causal, s.window);
+          const float p = keep ? exp2f(sc[j][e] * sl2 - lse2[r]) : 0.f;
+          dl[r] += p * dp[j][e];
+          sc[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dt[r]);
+        }
+      // C += P K, A += (P o (dP - d~)) K (K read transposed: k-rows are keys)
+#pragma unroll
+      for (int j = 0; j < KSUB / 16; ++j) {
+        uint32_t pc[4], pd[4];
+        pack_a(pc, sc[2 * j], sc[2 * j + 1]);
+        pack_a(pd, dp[2 * j], dp[2 * j + 1]);
+#pragma unroll
+        for (int dd = 0; dd < DT / 2; ++dd) {
+          uint32_t bb[4];
+          ldsm_x4_t(bb, frag_a<LD>(ks, c0 + j * 16, dd * 16, lane));
+          mma(acc_c[2 * dd], pc, bb[0], bb[1]);
+          mma(acc_c[2 * dd + 1], pc, bb[2], bb[3]);
+          mma(acc_a[2 * dd], pd, bb[0], bb[1]);
+          mma(acc_a[2 * dd + 1], pd, bb[2], bb[3]);
+        }
       }
     }
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, kl = i * 8 + 2 * tig + (e & 1);
-        const bool keep =
-            keep_s[kl] && band_keep(qr[r], k0 + kl, s.causal, s.window);
-        const float p = keep ? exp2f(sc[i][e] * sl2 - lse2[r]) : 0.f;
-        if (pass == 0)
-          dl[r] += p * dp[i][e];
-        else
-          sc[i][e] = p * (dp[i][e] - dl[r]) * s.scale;  // ds
-      }
-    if (pass == 0) continue;
-    // dQ += dS K (K read transposed: k-rows are keys)
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      const uint32_t a[4] = {
-          pack_bf16(sc[2 * j][0], sc[2 * j][1]),
-          pack_bf16(sc[2 * j][2], sc[2 * j][3]),
-          pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
-          pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
-#pragma unroll
-      for (int dd = 0; dd < DT / 2; ++dd) {
-        uint32_t bb[4];
-        ldsm_x4_t(bb, frag_a<LD>(ks, j * 16, dd * 16, lane));
-        mma(acc[2 * dd], a, bb[0], bb[1]);
-        mma(acc[2 * dd + 1], a, bb[2], bb[3]);
-      }
-    }
+    __syncthreads();  // tile i is consumed before it is refilled
   }
-  if (pass == 0) {  // finish delta and publish it for the dkv kernel
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      dl[r] = quad_sum(dl[r]);
-      if (tig == 0 && qr[r] < s.Tq) delta[rowbase + qr[r]] = dl[r];
-    }
-  }
-  }
+  cp_async_wait<0>();
 
   bf16* out = dq.p + b * dq.sb + h * dq.sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    dl[r] = quad_sum(dl[r]);
     if (qr[r] >= s.Tq) continue;
+    if (tig == 0) delta[rowbase + qr[r]] = dl[r];
     bf16* row = out + static_cast<long long>(qr[r]) * dq.st;
 #pragma unroll
     for (int i = 0; i < DT; ++i)
       *reinterpret_cast<__nv_bfloat162*>(row + i * 8 + 2 * tig) =
-          __floats2bfloat162_rn(acc[i][2 * r], acc[i][2 * r + 1]);
+          __floats2bfloat162_rn(
+              s.scale * (acc_a[i][2 * r] - (dl[r] - dt[r]) * acc_c[i][2 * r]),
+              s.scale *
+                  (acc_a[i][2 * r + 1] - (dl[r] - dt[r]) * acc_c[i][2 * r + 1]));
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// dK and dV of one (key tile of 64, kv head, batch row), over the
+// (query head of the GQA group, query tile) units its band reaches. With
+// QUADS = 2 the units are dealt to two quads of 4 warps in turn, so a long
+// causal GQA band runs two units at a time; each warp owns 16 key rows and
+// the two quads' sums of the same rows are added through shared memory at
+// the end. With QUADS = 1 (few units a block) one quad walks them all and
+// two (D 128) or three (D 64) blocks share an SM.
+template <int D, int QUADS, bool BAND>
+__global__ void __launch_bounds__(128 * QUADS,
+                                    QUADS == 2 ? 1 : (D == 64 ? 3 : 2))
     flash_bwd_dkv_kernel(View q, View k, View v, View dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, OutView dk,
                          OutView dv, Shape s) {
-  constexpr int LD = D + 8, KS = D / 16, NQ = kBQd / 8, DT = D / 8;
+  constexpr int LD = D + 8, KS = D / 16, DT = D / 8;
+  // queries scored at a time: half a unit's tile, for the register file's
+  // sake (dK and dV accumulators are [16, D] each)
+  constexpr int QSUB = 32;
+  constexpr int NQ = QSUB / 8;
+  constexpr int TILE = 2 * kBQd * LD;  // Q and dO rows of one unit
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + kBK * LD;
-  bf16* qs = vs + kBK * LD;
-  bf16* dos = qs + kBQd * LD;
-  float* lse_s = reinterpret_cast<float*>(dos + kBQd * LD);
-  float* dl_s = lse_s + kBQd;
+  constexpr int NTH = 128 * QUADS;
+  bf16* ring = vs + kBK * LD;  // [2 stages][QUADS][Q tile, dO tile]
+  float* lse_ring =
+      reinterpret_cast<float*>(ring + 2 * QUADS * TILE);  // [2][QUADS][kBQd]
+  float* dl_ring = lse_ring + 2 * QUADS * kBQd;         // [2][QUADS][kBQd]
 
-  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * kBK;
+  // causal: the first key tiles are seen by the most queries, and launch
+  // first (blockIdx.y is the slowest-moving index of the launch order)
+  const int b = blockIdx.z, hk = blockIdx.x, k0 = blockIdx.y * kBK;
   const int group = s.H / s.Hkv;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int quad = QUADS == 1 ? 0 : warp >> 2, qw = warp & 3;
   const int gid = lane >> 2, tig = lane & 3;
-  const int kr[2] = {k0 + warp * 16 + gid, k0 + warp * 16 + gid + 8};
+  const int kr[2] = {k0 + qw * 16 + gid, k0 + qw * 16 + gid + 8};
   bool kkeep[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r)
@@ -490,11 +530,42 @@ __global__ void __launch_bounds__(kThreads)
                 s.kv_mask[static_cast<long long>(b) * s.Tk + kr[r]] != 0);
   const float sl2 = s.scale * kLog2e;
 
-  load_tile<D, kBK>(ks, k.p + b * k.sb + hk * k.sh, k.st, k0, s.Tk);
-  load_tile<D, kBK>(vs, v.p + b * v.sb + hk * v.sh, v.st, k0, s.Tk);
+  load_tile_async<D, kBK, NTH>(ks, k.p + b * k.sb + hk * k.sh, k.st,
+                                       k0, s.Tk);
+  load_tile_async<D, kBK, NTH>(vs, v.p + b * v.sb + hk * v.sh, v.st,
+                                       k0, s.Tk);
 
   int qlo, qhi;
   query_range(k0, k0 + kBK - 1, s.Tq, s.causal, s.window, qlo, qhi);
+  const int qt0 = (qlo / kBQd) * kBQd;
+  const int nqt = qhi > qt0 ? (qhi - qt0 + kBQd - 1) / kBQd : 0;
+  // a key tile whose keys are all masked (padding) has zero gradients
+  const bool any_key = __syncthreads_or(kkeep[0] || kkeep[1]);
+  const int n = any_key ? group * nqt : 0;  // units
+  const int npairs = (n + QUADS - 1) / QUADS;  // round p: unit QUADS p + quad
+  auto issue = [&](int p) {
+#pragma unroll
+    for (int g = 0; g < QUADS; ++g) {
+      const int u = QUADS * p + g;
+      if (u >= n) break;
+      const int h = hk * group + u / nqt, q0 = qt0 + (u % nqt) * kBQd;
+      const int slot = (p & 1) * QUADS + g;
+      bf16* qs = ring + slot * TILE;
+      load_tile_async<D, kBQd, NTH>(
+          qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
+      load_tile_async<D, kBQd, NTH>(
+          qs + kBQd * LD, dout.p + b * dout.sb + h * dout.sh, dout.st, q0,
+          s.Tq);
+      if (tid < kBQd) {
+        const int qq = q0 + tid;
+        const bool in = qq < s.Tq;
+        const long long at =
+            (static_cast<long long>(b) * s.H + h) * s.Tq + (in ? qq : 0);
+        cp_async4(lse_ring + slot * kBQd + tid, lse + at, in ? 4 : 0);
+        cp_async4(dl_ring + slot * kBQd + tid, delta + at, in ? 4 : 0);
+      }
+    }
+  };
 
   float dka[DT][4], dva[DT][4];
 #pragma unroll
@@ -502,96 +573,122 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
 
-  for (int h = hk * group; h < (hk + 1) * group; ++h) {
-    const bf16* qb = q.p + b * q.sb + h * q.sh;
-    const bf16* gb = dout.p + b * dout.sb + h * dout.sh;
-    const long long rowbase = (static_cast<long long>(b) * s.H + h) * s.Tq;
-    for (int q0 = (qlo / kBQd) * kBQd; q0 < qhi; q0 += kBQd) {
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile<D, kBQd>(qs, qb, q.st, q0, s.Tq);
-      load_tile<D, kBQd>(dos, gb, dout.st, q0, s.Tq);
-      if (threadIdx.x < kBQd) {
-        const int qq = q0 + threadIdx.x;
-        const bool in = qq < s.Tq;
-        lse_s[threadIdx.x] = in ? lse[rowbase + qq] * kLog2e : kLseMasked;
-        dl_s[threadIdx.x] = in ? delta[rowbase + qq] : 0.f;
-      }
-      __syncthreads();
-
-      float sc[NQ][4], dp[NQ][4];
+  if (npairs > 0) issue(0);
+  cp_async_commit();  // with the K and V tiles
+  for (int p = 0; p < npairs; ++p) {
+    if (p + 1 < npairs) issue(p + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int u = QUADS * p + quad;
+    if (u < n) {  // quad-uniform
+      const int slot = (p & 1) * QUADS + quad;
+      const bf16* qs = ring + slot * TILE;
+      const bf16* dos = qs + kBQd * LD;
+      const float* lse_s = lse_ring + slot * kBQd;
+      const float* dl_s = dl_ring + slot * kBQd;
+      const int q0 = qt0 + (u % nqt) * kBQd;
+#pragma unroll 1
+      for (int c0 = 0; c0 < kBQd; c0 += QSUB) {
+        float sc[NQ][4], dp[NQ][4];
 #pragma unroll
-      for (int i = 0; i < NQ; ++i)
+        for (int j = 0; j < NQ; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.f;
+          for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t a[4], av[4];
-        ldsm_x4(a, frag_a<LD>(ks, warp * 16, kk * 16, lane));
-        ldsm_x4(av, frag_a<LD>(vs, warp * 16, kk * 16, lane));
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t a[4], av[4];
+          ldsm_x4(a, frag_a<LD>(ks, qw * 16, kk * 16, lane));
+          ldsm_x4(av, frag_a<LD>(vs, qw * 16, kk * 16, lane));
 #pragma unroll
-        for (int np = 0; np < NQ / 2; ++np) {
-          uint32_t bb[4];
-          ldsm_x4(bb, frag_b<LD>(qs, np * 16, kk * 16, lane));
-          mma(sc[2 * np], a, bb[0], bb[1]);
-          mma(sc[2 * np + 1], a, bb[2], bb[3]);
-          ldsm_x4(bb, frag_b<LD>(dos, np * 16, kk * 16, lane));
-          mma(dp[2 * np], av, bb[0], bb[1]);
-          mma(dp[2 * np + 1], av, bb[2], bb[3]);
+          for (int np = 0; np < NQ / 2; ++np) {
+            uint32_t bb[4];
+            ldsm_x4(bb, frag_b<LD>(qs, c0 + np * 16, kk * 16, lane));
+            mma(sc[2 * np], a, bb[0], bb[1]);
+            mma(sc[2 * np + 1], a, bb[2], bb[3]);
+            ldsm_x4(bb, frag_b<LD>(dos, c0 + np * 16, kk * 16, lane));
+            mma(dp[2 * np], av, bb[0], bb[1]);
+            mma(dp[2 * np + 1], av, bb[2], bb[3]);
+          }
         }
-      }
-      // rows are keys, columns are queries: p^T and ds^T
+        // rows are keys, columns are queries: p^T and ds^T
 #pragma unroll
-      for (int i = 0; i < NQ; ++i)
+        for (int j = 0; j < NQ; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1, ql = i * 8 + 2 * tig + (e & 1);
-          const int qq = q0 + ql;
-          const bool keep = kkeep[r] && qq < s.Tq &&
-                            band_keep(qq, kr[r], s.causal, s.window);
-          const float p = keep ? exp2f(sc[i][e] * sl2 - lse_s[ql]) : 0.f;
-          sc[i][e] = p;
-          dp[i][e] = p * (dp[i][e] - dl_s[ql]) * s.scale;
-        }
-      // dV += P^T dO, dK += dS^T Q (dO and Q read transposed)
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, ql = c0 + j * 8 + 2 * tig + (e & 1);
+            // a query past Tq needs no test: its zero-filled q, dO and
+            // delta make its p finite and its dP, ds and P^T dO zero
+            bool keep = kkeep[r];
+            if (BAND)
+              keep = keep && band_keep(q0 + ql, kr[r], s.causal, s.window);
+            const float pv =
+                keep ? exp2f(sc[j][e] * sl2 - lse_s[ql] * kLog2e) : 0.f;
+            sc[j][e] = pv;
+            dp[j][e] = pv * (dp[j][e] - dl_s[ql]) * s.scale;
+          }
+        // dV += P^T dO, dK += dS^T Q (dO and Q read transposed)
 #pragma unroll
-      for (int j = 0; j < kBQd / 16; ++j) {
-        const uint32_t ap[4] = {
-            pack_bf16(sc[2 * j][0], sc[2 * j][1]),
-            pack_bf16(sc[2 * j][2], sc[2 * j][3]),
-            pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
-            pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
-        const uint32_t ad[4] = {
-            pack_bf16(dp[2 * j][0], dp[2 * j][1]),
-            pack_bf16(dp[2 * j][2], dp[2 * j][3]),
-            pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]),
-            pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3])};
+        for (int j = 0; j < QSUB / 16; ++j) {
+          uint32_t ap[4], ad[4];
+          pack_a(ap, sc[2 * j], sc[2 * j + 1]);
+          pack_a(ad, dp[2 * j], dp[2 * j + 1]);
 #pragma unroll
-        for (int dd = 0; dd < DT / 2; ++dd) {
-          uint32_t bb[4];
-          ldsm_x4_t(bb, frag_a<LD>(dos, j * 16, dd * 16, lane));
-          mma(dva[2 * dd], ap, bb[0], bb[1]);
-          mma(dva[2 * dd + 1], ap, bb[2], bb[3]);
-          ldsm_x4_t(bb, frag_a<LD>(qs, j * 16, dd * 16, lane));
-          mma(dka[2 * dd], ad, bb[0], bb[1]);
-          mma(dka[2 * dd + 1], ad, bb[2], bb[3]);
+          for (int dd = 0; dd < DT / 2; ++dd) {
+            uint32_t bb[4];
+            ldsm_x4_t(bb, frag_a<LD>(dos, c0 + j * 16, dd * 16, lane));
+            mma(dva[2 * dd], ap, bb[0], bb[1]);
+            mma(dva[2 * dd + 1], ap, bb[2], bb[3]);
+            ldsm_x4_t(bb, frag_a<LD>(qs, c0 + j * 16, dd * 16, lane));
+            mma(dka[2 * dd], ad, bb[0], bb[1]);
+            mma(dka[2 * dd + 1], ad, bb[2], bb[3]);
+          }
         }
       }
     }
+    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
+  // quad 1 hands its sums to quad 0 through the (now idle) ring
+  float* red = reinterpret_cast<float*>(ring);  // [2][kBK][D]: dk, dv
+  if (QUADS == 2 && quad == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qw * 16 + gid + 8 * r;
+#pragma unroll
+      for (int i = 0; i < DT; ++i) {
+        float* pk = red + row * D + i * 8 + 2 * tig;
+        float* pv = pk + kBK * D;
+        pk[0] = dka[i][2 * r];
+        pk[1] = dka[i][2 * r + 1];
+        pv[0] = dva[i][2 * r];
+        pv[1] = dva[i][2 * r + 1];
+      }
+    }
+  }
+  __syncthreads();
+  if (quad == 1) return;
+  const bool add = QUADS == 2;
   bf16* kout = dk.p + b * dk.sb + hk * dk.sh;
   bf16* vout = dv.p + b * dv.sb + hk * dv.sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (kr[r] >= s.Tk) continue;
+    const int row = qw * 16 + gid + 8 * r;
     bf16* krow = kout + static_cast<long long>(kr[r]) * dk.st;
     bf16* vrow = vout + static_cast<long long>(kr[r]) * dv.st;
 #pragma unroll
     for (int i = 0; i < DT; ++i) {
+      const float* pk = red + row * D + i * 8 + 2 * tig;
+      const float* pv = pk + kBK * D;
       *reinterpret_cast<__nv_bfloat162*>(krow + i * 8 + 2 * tig) =
-          __floats2bfloat162_rn(dka[i][2 * r], dka[i][2 * r + 1]);
+          __floats2bfloat162_rn(dka[i][2 * r] + (add ? pk[0] : 0.f),
+                                dka[i][2 * r + 1] + (add ? pk[1] : 0.f));
       *reinterpret_cast<__nv_bfloat162*>(vrow + i * 8 + 2 * tig) =
-          __floats2bfloat162_rn(dva[i][2 * r], dva[i][2 * r + 1]);
+          __floats2bfloat162_rn(dva[i][2 * r] + (add ? pv[0] : 0.f),
+                                dva[i][2 * r + 1] + (add ? pv[1] : 0.f));
     }
   }
 }
@@ -616,31 +713,49 @@ int launch_fwd(View q, View k, View v, OutView o, float* lse, Shape s,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_bwd(View q, View k, View v, View dout, const float* lse,
+constexpr int kDkvTwoQuadUnits = 16;
+
+template <int D, int QUADS, bool BAND>
+cudaError_t launch_dkv(View q, View k, View v, View dout, const float* lse,
+                       const float* delta, OutView dk, OutView dv, Shape s,
+                       cudaStream_t stream) {
+  constexpr int LD = D + 8;
+  const size_t smem = sizeof(bf16) * (2 * kBK + 4 * QUADS * kBQd) * LD +
+                      sizeof(float) * 4 * QUADS * kBQd;
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, QUADS, BAND>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(s.Hkv, (s.Tk + kBK - 1) / kBK, s.B);
+  flash_bwd_dkv_kernel<D, QUADS, BAND><<<grid, 128 * QUADS, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, s);
+  return cudaGetLastError();
+}
+
+template <int D, bool BAND>
+int launch_bwd(View q, View k, View v, View o, View dout, const float* lse,
                float* delta, OutView dq, OutView dk, OutView dv, Shape s,
                cudaStream_t stream) {
   constexpr int LD = D + 8;
   cudaError_t err = cudaSuccess;
   if (s.Tq > 0) {  // dq first: it writes the delta the dkv kernel reads
-    const size_t smem = sizeof(bf16) * (2 * kBQ + 2 * kBK) * LD + kBK;
-    err = allow_smem(flash_bwd_dq_kernel<D>, smem);
+    const size_t smem = sizeof(bf16) * (2 * kBQ + 4 * kBK) * LD + 2 * kBK;
+    err = allow_smem(flash_bwd_dq_kernel<D, BAND>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((s.Tq + kBQ - 1) / kBQ, s.H, s.B);
-    flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-        q, k, v, dout, lse, delta, dq, s);
+    const dim3 grid(s.H, (s.Tq + kBQ - 1) / kBQ, s.B);
+    flash_bwd_dq_kernel<D, BAND><<<grid, kThreads, smem, stream>>>(
+        q, k, v, o, dout, lse, delta, dq, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (s.Tk > 0) {
-    const size_t smem =
-        sizeof(bf16) * (2 * kBK + 2 * kBQd) * LD + sizeof(float) * 2 * kBQd;
-    err = allow_smem(flash_bwd_dkv_kernel<D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((s.Tk + kBK - 1) / kBK, s.Hkv, s.B);
-    flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
-        q, k, v, dout, lse, delta, dk, dv, s);
-    err = cudaGetLastError();
+    // two quads per block when a key tile has many (query head, query
+    // tile) units to walk: a long GQA band, where one quad's serial walk
+    // would set the kernel's time
+    const int units = (s.H / s.Hkv) * ((s.Tq + kBQd - 1) / kBQd);
+    err = units >= kDkvTwoQuadUnits
+              ? launch_dkv<D, 2, BAND>(q, k, v, dout, lse, delta, dk, dv, s,
+                                       stream)
+              : launch_dkv<D, 1, BAND>(q, k, v, dout, lse, delta, dk, dv, s,
+                                       stream);
   }
   return static_cast<int>(err);
 }
@@ -704,27 +819,36 @@ int tl_flash_fwd(const void* const* ptrs, const long long* strides,
 }
 
 // Backward. ptrs = {q, k, v, do, lse, kv_mask (or null), delta (f32
-// [B, H, Tq] workspace), dq, dk, dv}; strides of the views q, k, v, do, dq,
-// dk, dv (21 values); dims as for the forward.
+// [B, H, Tq] workspace), dq, dk, dv, o (the forward's output)}; strides of
+// the views q, k, v, do, dq, dk, dv, o (24 values); dims as for the
+// forward.
 int tl_flash_bwd(const void* const* ptrs, const long long* strides,
                  const int* dims, float scale, void* stream) {
-  if (!shape_ok(dims) || !strides_ok(strides, 7)) return cudaErrorInvalidValue;
-  const int dense[] = {0, 1, 2, 3, 7, 8, 9};
+  if (!shape_ok(dims) || !strides_ok(strides, 8)) return cudaErrorInvalidValue;
+  const int dense[] = {0, 1, 2, 3, 7, 8, 9, 10};
   for (int i : dense)
     if (!aligned(ptrs[i])) return cudaErrorMisalignedAddress;
   const Shape s = make_shape(dims, scale, ptrs[5]);
   if (s.B == 0) return 0;
   const View q = view(ptrs[0], strides), k = view(ptrs[1], strides + 3),
-             v = view(ptrs[2], strides + 6), dout = view(ptrs[3], strides + 9);
+             v = view(ptrs[2], strides + 6), dout = view(ptrs[3], strides + 9),
+             o = view(ptrs[10], strides + 21);
   const OutView dq = out_view(const_cast<void*>(ptrs[7]), strides + 12),
                 dk = out_view(const_cast<void*>(ptrs[8]), strides + 15),
                 dv = out_view(const_cast<void*>(ptrs[9]), strides + 18);
   const float* lse = static_cast<const float*>(ptrs[4]);
   float* delta = static_cast<float*>(const_cast<void*>(ptrs[6]));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dims[5] == 64
-             ? launch_bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, s, st)
-             : launch_bwd<128>(q, k, v, dout, lse, delta, dq, dk, dv, s, st);
+  const bool band = s.causal || s.window > 0;
+  if (dims[5] == 64)
+    return band ? launch_bwd<64, true>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, s, st)
+                : launch_bwd<64, false>(q, k, v, o, dout, lse, delta, dq, dk,
+                                        dv, s, st);
+  return band ? launch_bwd<128, true>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, s, st)
+              : launch_bwd<128, false>(q, k, v, o, dout, lse, delta, dq, dk,
+                                       dv, s, st);
 }
 
 const char* tl_flash_error_string(int err) {

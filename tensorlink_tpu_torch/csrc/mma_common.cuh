@@ -1,0 +1,132 @@
+// Tensor-core and async-copy helpers shared by the port's attention
+// kernels (flash_attention.cu, paged_decode.cu), for sm_90a.
+//
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) with operand fragments read
+// from row-major shared tiles by ldmatrix, and 16- or 4-byte cp.async
+// copies from device memory into shared memory (a source size of 0 fills
+// the destination with zeros, which is how ragged edges and unmapped
+// pages are padded without a branch around the copy).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tlk {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices; lane l supplies the row address of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// c[16x8] += a[16x16] * b[16x8]; bf16 inputs, f32 accumulators
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Fragment addresses inside a row-major shared tile with leading dim LD.
+// A operand (16 rows from r0, 16 columns from c0), and the B operand of
+// two n-tiles read transposed (16 k-rows from r0, 16 n-columns from c0):
+// both use the same per-lane row addresses.
+template <int LD>
+__device__ __forceinline__ const bf16* frag_a(const bf16* s, int r0, int c0,
+                                              int lane) {
+  return s + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
+}
+
+// B operand of two n-tiles (n rows n0..n0+15 of a [n][k] tile, k from c0)
+template <int LD>
+__device__ __forceinline__ const bf16* frag_b(const bf16* s, int n0, int c0,
+                                              int lane) {
+  return s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 +
+         ((lane >> 3) & 1) * 8;
+}
+
+// A (score) fragment of k-step j from the f32 accumulators of n-tiles
+// 2j and 2j + 1 (the C layout of one mma is the A layout of the next)
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 16 bytes device -> shared; src_bytes 0 writes 16 zero bytes (src is
+// then not read but must still be a valid address expression)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// two int8 values (low byte first) -> the bf16x2 register of an mma
+// operand; |x| <= 128 is exact in bf16
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(int8_t lo, int8_t hi) {
+  return pack_bf16(static_cast<float>(lo), static_cast<float>(hi));
+}
+
+}  // namespace tlk

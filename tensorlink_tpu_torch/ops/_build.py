@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds, not minutes). Libraries land in
-``tensorlink_tpu_torch/_build/`` under a name that carries the source's
-hash, so an edited source rebuilds and an unchanged one loads as is.
+``tensorlink_tpu_torch/_build/`` under a name that carries the hash of
+the source and of the shared headers in ``csrc/``, so an edit to either
+rebuilds and an unchanged source loads as is.
 The ``nvcc --version`` each build used is recorded beside it.
 
 Nothing here runs at import: the first call that needs a kernel builds
@@ -46,11 +47,19 @@ def nvcc_version() -> str:
 
 
 def library_path(source: str) -> str:
-    """Where ``csrc/<source>`` builds to (hash of its bytes in the name)."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    """Where ``csrc/<source>`` builds to: the name carries a hash of the
+    source's bytes and of every shared header (``csrc/*.cuh``) it may
+    include, so editing either rebuilds."""
+    h = hashlib.sha256()
+    names = [source] + sorted(
+        n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh")
+    )
+    for name in names:
+        h.update(name.encode() + b"\0")
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:12]}.so")
 
 
 def build(source: str, *, verbose: bool = False) -> tuple[str, str]:
@@ -64,7 +73,7 @@ def build(source: str, *, verbose: bool = False) -> tuple[str, str]:
     tmp = f"{out_path}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [
         nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-o", tmp,
+        "-Xcompiler", "-fPIC", "-I", CSRC_DIR, "-o", tmp,
         os.path.join(CSRC_DIR, source),
     ]
     if verbose:

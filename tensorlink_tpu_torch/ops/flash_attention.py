@@ -109,8 +109,10 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, kv_mask=None, *,
 
     delta is the reference's rowsum(do * o) in exact arithmetic, taken
     from p and dp themselves: from a bf16-rounded o it is off by ~2^-9
-    |do||o|, which swamps ds wherever attention is near uniform. ``o`` is
-    kept for the reference's signature and shape checks."""
+    |do||o|, which swamps ds wherever attention is near uniform. The
+    kernel reads ``o`` only to centre its one-pass dq sums (the result
+    is exact for any o); this version keeps it for the signature and
+    shape checks."""
     B, H, Hkv, Tq, Tk, D = _check_shapes(q, k, v, kv_mask)
     scale = D ** -0.5
     qf, dof = q.float(), do.float()
@@ -176,7 +178,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, kv_mask=None, *,
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention path for device {q.device}")
     _check_blocks(block_q, block_k)
-    return _launch_bwd(q, k, v, lse, do, kv_mask, causal, window)
+    return _launch_bwd(q, k, v, o, lse, do, kv_mask, causal, window)
 
 
 flash_attention_bwd.launches = 0
@@ -215,6 +217,8 @@ def _mask_u8(kv_mask, q):
     if kv_mask is None:
         return None
     _check(kv_mask.device == q.device, f"kv_mask is not on {q.device}")
+    if kv_mask.dtype == torch.bool and kv_mask.is_contiguous():
+        return kv_mask.view(torch.uint8)  # same bytes: no conversion kernel
     return (kv_mask != 0).to(torch.uint8).contiguous()
 
 
@@ -255,10 +259,10 @@ def _launch_fwd(q, k, v, kv_mask, causal, window):
     return o, lse
 
 
-def _launch_bwd(q, k, v, lse, do, kv_mask, causal, window):
+def _launch_bwd(q, k, v, o, lse, do, kv_mask, causal, window):
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
-    _check_views(q, {"q": q, "k": k, "v": v, "do": do})
+    _check_views(q, {"q": q, "k": k, "v": v, "do": do, "o": o})
     _check(lse.device == q.device and lse.dtype == torch.float32
            and lse.is_contiguous(), "lse must be contiguous float32 [B, H, Tq]")
     mask = _mask_u8(kv_mask, q)
@@ -268,9 +272,10 @@ def _launch_bwd(q, k, v, lse, do, kv_mask, causal, window):
     dv = torch.empty((B, Tk, Hkv, D), dtype=v.dtype, device=q.device).transpose(1, 2)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), None if mask is None else mask.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            o.data_ptr()]
     strides = tuple(
-        s for x in (q, k, v, do, dq, dk, dv) for s in _strides(x)
+        s for x in (q, k, v, do, dq, dk, dv, o) for s in _strides(x)
     )
     _call("tl_flash_bwd", q, ptrs, strides, _dims(q, k, causal, window))
     flash_attention_bwd.launches += 1

@@ -8,6 +8,16 @@ step (T = 1). A CUDA tensor launches the hand-written kernel in
 ``ctypes``); a CPU tensor takes ``paged_decode_reference``, the plain
 PyTorch version of the same math. Anything else raises: there is no
 switch that routes CUDA tensors to the plain version.
+
+The kernel has three variants, chosen from dtypes and shapes alone by
+``kernel_variant`` (the engine's bf16 decode steps take "decode", its
+prefill chunks "prefill"; f32 tensors, other head dims and masks whose
+width is not a multiple of 16 take "general"). ``partition_plan`` says
+how many blocks share each row's keys (fixed partitions of the view at
+decode, even shares of each tile's live range at prefill), from shapes
+alone, so the host never reads ``lengths``. Each variant counts its own
+launches in ``paged_decode_attention.launches_by_variant``; the total
+stays in ``paged_decode_attention.launches``.
 """
 
 from __future__ import annotations
@@ -20,12 +30,77 @@ from tensorlink_tpu_torch.ops.quant import dequantize_kv
 
 NEG_INF = -1e30  # finite: exp underflows to 0.0, NaN-free
 
-# limits of csrc/paged_decode.cu (kMaxD, kMaxRows)
-MAX_HEAD_DIM = 256
-MAX_GROUP = 32
+# limits of csrc/paged_decode.cu
+MAX_HEAD_DIM = 256  # general variant (kMaxD)
+MAX_GROUP = 32  # general variant (kMaxRows)
+MMA_HEAD_DIMS = (64, 128)  # decode and prefill variants
+STAGE_KEYS = 64  # keys per pipeline stage (kStageKeys)
+DECODE_ROWS = 16  # T * group query rows of a decode block (kDecodeRows)
+PREFILL_ROWS = 64  # query rows of a prefill tile (kPrefillRows)
+DECODE_PARTITION = 256  # keys per decode partition
+SMS = 132  # H100 SXM streaming multiprocessors
+# prefill: split the key range while the grid fits in one wave of two
+# resident blocks per SM
+PREFILL_TARGET_BLOCKS = 2 * SMS
+# general variant's split target (kTargetBlocks) and chunk (kKC)
+GENERAL_TARGET_BLOCKS = 4 * SMS
+GENERAL_CHUNK = 32
 
+VARIANTS = ("general", "decode", "prefill")
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def kernel_variant(q_dtype, kv_dtype, T: int, H: int, Hkv: int, D: int,
+                   Lv: int, masked: bool) -> str:
+    """Which kernel variant takes a call: "decode" for bf16 q over bf16
+    or int8 pools with D in ``MMA_HEAD_DIMS`` and at most
+    ``DECODE_ROWS`` query rows (T x GQA group) per kv head; "prefill"
+    for the same types with more rows; "general" for everything else, including a mask whose width ``Lv``
+    is not a multiple of 16 (the fast variants copy mask rows 16 bytes
+    at a time)."""
+    group = H // Hkv
+    fast = (
+        q_dtype == torch.bfloat16
+        and kv_dtype in (torch.bfloat16, torch.int8)
+        and D in MMA_HEAD_DIMS
+        and not (masked and Lv % 16)
+    )
+    if not fast:
+        return "general"
+    return "decode" if T * group <= DECODE_ROWS else "prefill"
+
+
+def partition_plan(variant: str, B: int, T: int, H: int, Hkv: int,
+                   Lv: int) -> tuple[int, int]:
+    """-> (keys per partition, partitions per row). Decode cuts every
+    row's view of ``Lv`` keys into fixed partitions of
+    ``DECODE_PARTITION`` keys. Prefill splits each query tile's live key
+    range evenly, in whole ``STAGE_KEYS`` stages, into as many parts as
+    the grid (query tiles x kv heads x rows) can take and stay within
+    ``PREFILL_TARGET_BLOCKS``, the blocks the card holds at once (a
+    second wave would double the time); its keys-per-partition is the
+    most one part can hold. The general variant splits each row's live
+    range evenly into the returned count (its keys-per-partition is 0)."""
+    group = H // Hkv
+    if variant == "general":
+        tq = min(MAX_GROUP // group, T)
+        base = -(-T // tq) * Hkv * B
+        n = min(-(-GENERAL_TARGET_BLOCKS // base), -(-Lv // GENERAL_CHUNK) // 2)
+        return 0, max(n, 1)
+    if variant == "decode":
+        kp = DECODE_PARTITION
+    else:
+        base = -(-T // (PREFILL_ROWS // group)) * Hkv * B
+        n = max(1, min(PREFILL_TARGET_BLOCKS // base, -(-Lv // STAGE_KEYS)))
+        kp = STAGE_KEYS * -(-Lv // (n * STAGE_KEYS))
+    return kp, -(-Lv // kp)
+
+
+def workspace_elems(B: int, T: int, H: int, D: int, nsplit: int) -> int:
+    """float32 elements of the partial-state workspace: (m, l, acc[D]) per
+    (row, query, head, partition); none without a split."""
+    return 0 if nsplit == 1 else B * T * H * nsplit * (D + 2)
 
 
 def paged_decode_reference(
@@ -117,6 +192,7 @@ def paged_decode_attention(
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -167,15 +243,19 @@ def _launch(q, k, v, block_table, lengths, k_scale, v_scale, mask, window):
             f"mask must be bool [B, 1, T|1, Lv], got {tuple(mask.shape)}",
         )
         mask_T = mask.shape[2]
+    variant = kernel_variant(q.dtype, k.dtype, T, H, Hkv, D, MB * bs,
+                             mask is not None)
+    if variant != "general":
+        _check(all(t is None or t.data_ptr() % 16 == 0
+                   for t in (q, k, v, mask)),
+               "q, pools and mask must start on 16-byte boundaries")
+    kp, nsplit = partition_plan(variant, B, T, H, Hkv, MB * bs)
     out = torch.empty_like(q)
-    lib = _lib()
-    nsplit = lib.tl_paged_decode_splits(B, T, H, Hkv, bs, MB)
-    # partial softmax states of a split key range: (m, l, acc[D]) per
-    # (row, query, head, split)
+    n_part = workspace_elems(B, T, H, D, nsplit)
     part = None
-    if nsplit > 1:
-        part = torch.empty(B * T * H * nsplit * (D + 2), dtype=torch.float32,
-                           device=q.device)
+    if n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=q.device)
+    lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.tl_paged_decode(
@@ -184,17 +264,19 @@ def _launch(q, k, v, block_table, lengths, k_scale, v_scale, mask, window):
             None if v_scale is None else v_scale.data_ptr(),
             block_table.data_ptr(), lengths.data_ptr(),
             None if mask is None else mask.data_ptr(),
-            out.data_ptr(), None if part is None else part.data_ptr(), nsplit,
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            VARIANTS.index(variant), kp, nsplit,
             B, T, H, Hkv, D, NB, bs, MB, mask_T,
             0 if window is None else int(window), D ** -0.5,
             _Q_CODES[q.dtype], _KV_CODES[k.dtype], stream,
         )
     if rc != 0:
         raise RuntimeError(
-            "paged-decode kernel launch failed: CUDA error "
+            f"paged-decode kernel ({variant}) launch failed: CUDA error "
             f"{rc} ({lib.tl_cuda_error_string(rc).decode()})"
         )
     paged_decode_attention.launches += 1
+    paged_decode_attention.launches_by_variant[variant] += 1
     return out
 
 
@@ -206,13 +288,11 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.tl_paged_decode.argtypes = [
             P, P, P, P, P, P, P, P, P,  # q k v k_scale v_scale bt len mask out
-            P, I,  # part nsplit
+            P, I, I, I,  # part variant kp nsplit
             I, I, I, I, I, I, I, I, I, I,  # B T H Hkv D NB bs MB mask_T window
             ctypes.c_float, I, I, P,  # scale q_dtype kv_dtype stream
         ]
         lib.tl_paged_decode.restype = I
-        lib.tl_paged_decode_splits.argtypes = [I, I, I, I, I, I]
-        lib.tl_paged_decode_splits.restype = I
         lib.tl_cuda_error_string.argtypes = [I]
         lib.tl_cuda_error_string.restype = ctypes.c_char_p
         lib._tl_typed = True

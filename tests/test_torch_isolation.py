@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no file of ``tensorlink_tpu_torch/``
-(nor ``chip_smoke.py``) imports JAX or the JAX package, importing the
+(nor ``chip_smoke.py`` or ``tools/kernel_ab.py``) imports JAX or the JAX package, importing the
 port leaves JAX unloaded, and the entry points never fall back to the
 CPU on their own."""
 
@@ -25,7 +25,8 @@ FORBIDDEN = ("jax", "jaxlib", "tensorlink_tpu")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tools", "kernel_ab.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

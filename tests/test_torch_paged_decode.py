@@ -1,7 +1,9 @@
 """PyTorch port, ops/paged_decode.py: the plain ``paged_decode_reference``
 against the JAX package's ``paged_decode_reference`` on the same inputs
 (f32, atol 1e-5: the same gather/mask/softmax, einsum sums in another
-order), and the wrapper's CPU dispatch.
+order) at the decode and prefill forms, the wrapper's CPU dispatch, and
+its host-side logic: which kernel variant takes a call and how each
+row's view is cut into key partitions.
 
 The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
 against this plain version there.
@@ -16,8 +18,16 @@ from tensorlink_tpu.ops.pallas.paged_decode import (
     paged_decode_reference as jax_reference,
 )
 from tensorlink_tpu_torch.ops.paged_decode import (
+    DECODE_PARTITION,
+    PREFILL_ROWS,
+    PREFILL_TARGET_BLOCKS,
+    STAGE_KEYS,
+    VARIANTS,
+    kernel_variant,
     paged_decode_attention,
     paged_decode_reference,
+    partition_plan,
+    workspace_elems,
 )
 
 ATOL = 1e-5
@@ -108,3 +118,121 @@ def test_wrapper_rejects_what_it_cannot_run():
     meta = [t.to("meta") for t in args]
     with pytest.raises(ValueError, match="device"):
         paged_decode_attention(*meta)
+
+
+# the prefill form: one row (the engine's chunk), T a multiple of the
+# kernel's 64-row tile at GQA group 4 (16 query positions per tile), block
+# size 16, a live length over several pages with a sentinel tail
+P_H, P_HKV, P_D, P_BS, P_MB, P_NB = 8, 2, 64, 16, 14, 20
+
+
+def _prefill_inputs(T, length, int8, seed=1):
+    r = np.random.default_rng(seed)
+    bt = np.full((1, P_MB), P_NB, np.int32)
+    n = -(-length // P_BS)
+    bt[0, :n] = r.permutation(P_NB)[:n]
+    q = r.normal(size=(1, T, P_H, P_D)).astype(np.float32)
+    shape = (P_NB, P_BS, P_HKV, P_D)
+    if int8:
+        k = r.integers(-127, 128, shape).astype(np.int8)
+        v = r.integers(-127, 128, shape).astype(np.int8)
+        ks = (r.random(shape[:3]) / 50).astype(np.float32)
+        vs = (r.random(shape[:3]) / 50).astype(np.float32)
+    else:
+        k = r.normal(size=shape).astype(np.float32)
+        v = r.normal(size=shape).astype(np.float32)
+        ks = vs = None
+    return q, k, v, bt, np.array([length], np.int32), ks, vs
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("window", [None, 40], ids=["nowin", "win40"])
+@pytest.mark.parametrize("T,length", [(32, 32), (32, 150), (64, 200)])
+def test_prefill_form_matches_jax(T, length, window, int8):
+    """The plain version at the prefill form (what chip_smoke.py holds the
+    prefill variant against) vs the JAX reference, f32, atol 1e-5."""
+    q, k, v, bt, lengths, ks, vs = _prefill_inputs(T, length, int8)
+    ref = np.asarray(jax_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt),
+        jnp.asarray(lengths),
+        k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs), window=window,
+    ))
+    out = paged_decode_attention(
+        _torch(q), _torch(k), _torch(v), _torch(bt), _torch(lengths),
+        k_scale=_torch(ks), v_scale=_torch(vs), window=window,
+    ).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+    # the same call in the kernel's types takes the prefill variant
+    kv = torch.int8 if int8 else torch.bfloat16
+    assert kernel_variant(torch.bfloat16, kv, T, P_H, P_HKV, P_D,
+                          P_MB * P_BS, False) == "prefill"
+
+
+@pytest.mark.parametrize(
+    "q_dtype,kv_dtype,T,H,Hkv,D,Lv,masked,want",
+    [
+        # the engine's decode step and prefill chunk (Llama-3-8B heads)
+        (torch.bfloat16, torch.bfloat16, 1, 32, 8, 128, 2048, True, "decode"),
+        (torch.bfloat16, torch.bfloat16, 128, 32, 8, 128, 2048, False, "prefill"),
+        (torch.bfloat16, torch.int8, 1, 32, 8, 128, 2048, True, "decode"),
+        (torch.bfloat16, torch.int8, 128, 32, 8, 128, 2048, False, "prefill"),
+        # speculative verify rows: T * group up to 16 stays decode
+        (torch.bfloat16, torch.bfloat16, 4, 32, 8, 128, 2048, True, "decode"),
+        (torch.bfloat16, torch.bfloat16, 5, 32, 8, 128, 2048, True, "prefill"),
+        (torch.bfloat16, torch.bfloat16, 1, 16, 1, 64, 512, False, "decode"),
+        (torch.bfloat16, torch.bfloat16, 1, 32, 1, 64, 512, False, "prefill"),
+        # outside the tensor-core variants
+        (torch.float32, torch.bfloat16, 1, 32, 8, 128, 2048, True, "general"),
+        (torch.bfloat16, torch.float32, 1, 32, 8, 128, 2048, True, "general"),
+        (torch.bfloat16, torch.bfloat16, 1, 32, 8, 96, 2048, True, "general"),
+        (torch.bfloat16, torch.bfloat16, 1, 4, 2, 8, 16, False, "general"),
+        (torch.bfloat16, torch.bfloat16, 1, 32, 8, 128, 2040, True, "general"),
+        (torch.bfloat16, torch.bfloat16, 1, 32, 8, 128, 2040, False, "decode"),
+    ],
+)
+def test_kernel_variant(q_dtype, kv_dtype, T, H, Hkv, D, Lv, masked, want):
+    assert kernel_variant(q_dtype, kv_dtype, T, H, Hkv, D, Lv, masked) == want
+
+
+@pytest.mark.parametrize("variant", ["decode", "prefill"])
+@pytest.mark.parametrize(
+    "B,T,H,Hkv,Lv",
+    [(8, 1, 32, 8, 2048), (1, 128, 32, 8, 2048), (8, 128, 32, 8, 2048),
+     (1, 1, 32, 8, 2048), (3, 1, 8, 2, 100), (1, 64, 8, 8, 64), (2, 7, 4, 4, 1000)],
+)
+def test_partition_plan_respects_kernel_limits(variant, B, T, H, Hkv, Lv):
+    """Partitions are whole 64-key stages, cover the view exactly once,
+    and (prefill) split only until the grid reaches the target."""
+    kp, nsplit = partition_plan(variant, B, T, H, Hkv, Lv)
+    assert kp >= STAGE_KEYS and kp % STAGE_KEYS == 0
+    assert (nsplit - 1) * kp < Lv <= nsplit * kp
+    if variant == "decode":
+        assert kp == DECODE_PARTITION
+    else:
+        base = -(-T // (PREFILL_ROWS // (H // Hkv))) * Hkv * B
+        if nsplit > 1:  # split only while the grid fits the target
+            assert base * nsplit <= PREFILL_TARGET_BLOCKS
+    n = workspace_elems(B, T, H, 128, nsplit)
+    assert n == (0 if nsplit == 1 else B * T * H * nsplit * 130)
+
+
+def test_partition_plan_of_the_engine_shapes():
+    # decode: 8 fixed partitions of 256 keys over a 2048-key view
+    assert partition_plan("decode", 8, 1, 32, 8, 2048) == (256, 8)
+    # one prefill chunk: 8 tiles x 8 kv heads = 64 blocks, split 4 ways
+    assert partition_plan("prefill", 1, 128, 32, 8, 2048) == (512, 4)
+    # eight rows of chunks fill the card unsplit
+    assert partition_plan("prefill", 8, 128, 32, 8, 2048) == (2048, 1)
+    # the general variant keeps the first design's even split of live keys
+    assert partition_plan("general", 8, 1, 32, 8, 2048) == (0, 9)
+    assert partition_plan("general", 128, 1, 32, 8, 2048) == (0, 1)
+
+
+def test_cpu_calls_count_no_variant_launch():
+    q, k, v, bt, lengths, ks, vs = _prefill_inputs(32, 150, False)
+    before = dict(paged_decode_attention.launches_by_variant)
+    paged_decode_attention(_torch(q), _torch(k), _torch(v), _torch(bt),
+                           _torch(lengths))
+    assert paged_decode_attention.launches_by_variant == before
+    assert set(before) == set(VARIANTS)
