@@ -8,9 +8,11 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: card, power limit and toolchain versions;
-2. build: compiles the CUDA sources (paged decode, flash attention; one
-   nvcc each, sm_90a) and JIT-compiles the Triton fused residual+norm
-   kernel, all in parallel, and prints ptxas's register lines;
+2. build: compiles the three CUDA sources (paged decode, fused
+   residual+norm, flash attention; one nvcc each, sm_90a, all started
+   together), prints ptxas's register lines and the number of HGMMA
+   (wgmma) instructions in the flash forward's kernels, then times an
+   empty kernel ("[floor]": the launch floor the norm rows print);
 3. paged-decode kernel vs its plain PyTorch version at Llama-3-8B head
    shapes (T = 1 and T = 128; mixed lengths with sentinel-tailed block
    tables, a validity mask with a retired row, a window, int8 pools, the
@@ -19,12 +21,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    the general variant, D 64 with a mask per query, and T = 4 decode rows
    with a mask per query), each held to the variant it must launch, with
    its relative error and the fraction of its bound it reached;
-4. fused-norm kernel vs its plain version (rms, and layer with bias);
+4. fused-norm kernel vs its plain version (rms and layer with bias at
+   8 x 4096; LayerNorm of f32 rows whose mean is 1e3 beside a spread of
+   ~1.4; D 4100 and 4097, which the 16-byte vector does not divide; 64
+   rows x 5120; 4 rows x 32768 f32, split over a cluster of 4 blocks),
+   each with its host us per call, the launch floor and the
+   time of torch.add + F.rms_norm / F.layer_norm as a two-call reference;
 5. flash: the flash-attention forward (B1) and backward (B2) kernels vs
    their plain versions in bf16 at the paths' shapes (BERT-base with a
    padding mask, Llama-3-8B causal GQA, a causal window, a ragged length
    with a fully masked row), each timed beside its plain version, its
-   bound and SDPA, and B2 beside its first design's time;
+   bound and SDPA and its first design's time; B1 with its host us per
+   call;
 6. serving: Llama-3-8B at full width and depth (random bf16 weights
    from a seed) served by ``PagedContinuousBatchingEngine`` over
    ``InferenceEngine``: 12 greedy requests, launch counts checked against
@@ -48,6 +56,7 @@ import concurrent.futures
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -64,6 +73,7 @@ from tensorlink_tpu_torch.ops import _build
 from tensorlink_tpu_torch.ops.decode_glue import (
     fused_residual_norm,
     fused_residual_norm_reference,
+    launch_geometry,
 )
 from tensorlink_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
@@ -82,6 +92,7 @@ from tensorlink_tpu_torch.train.trainer import Trainer, softmax_cross_entropy
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PAGED_ATOL, PAGED_RTOL = 2e-2, 1e-2  # bf16 outputs, f32 accumulation both sides
 # and, per case, the relative Frobenius error of the whole output: the
 # atol alone is half a typical |o| over a long row, so a fault confined to
@@ -90,10 +101,13 @@ PAGED_REL = 1e-2
 NORM_ATOL, NORM_RTOL = 1e-2, 1e-2  # bf16 outputs of an f32 row reduction
 LOGIT_GAP_TOL = 0.5  # teacher-forced: emitted token within this of the row max
 # flash: o is a bf16 output of f32 sums whose P operand is rounded to bf16
-# (as in B3: atol + rtol elementwise); lse is f32 math on the same scores;
-# each gradient is a bf16 output of f32 sums over up to T terms whose
-# P / dS operands are rounded to bf16: relative Frobenius error
+# (as in B3: atol + rtol elementwise, and the relative Frobenius error of
+# the whole output, since over a long row the atol is half a typical |o|);
+# lse is f32 math on the same scores; each gradient is a bf16 output of f32
+# sums over up to T terms whose P / dS operands are rounded to bf16:
+# relative Frobenius error
 FLASH_O_ATOL, FLASH_O_RTOL = 2e-2, 1e-2
+FLASH_O_REL = 1e-2
 FLASH_LSE_ATOL = 1e-3
 FLASH_GRAD_REL = 1e-2
 # training: kernel vs plain attention gradients of one bf16 step. A leaf
@@ -173,18 +187,48 @@ def time_mean_median(fn, flush: L2Flush, iters: int = 20) -> tuple[float, float]
 
 
 # --------------------------------------------------------------- phases
+def host_us(fn, calls: int = 200, samples: int = 5) -> float:
+    """Host microseconds per call of ``fn``, the median of ``samples``
+    samples: each ``calls`` calls enqueued behind a ~50 ms device sleep,
+    so the launch queue never blocks and the host clock reads the
+    wrapper's own cost."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(samples):
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(per_call))
+
+
 def phase_device() -> tuple[str, str]:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
-    import triton
-
     name_power = smi()
     say(f"[device] {name_power} | torch {torch.__version__} cuda "
-        f"{torch.version.cuda} | triton {triton.__version__} | "
-        f"{_build.nvcc_version().splitlines()[-1]}")
+        f"{torch.version.cuda} | {_build.nvcc_version().splitlines()[-1]}")
     return torch.cuda.get_device_name(0), name_power
 
 
-CUDA_SOURCES = ("paged_decode.cu", "flash_attention.cu")
+CUDA_SOURCES = ("paged_decode.cu", "decode_glue.cu", "flash_attention.cu")
+
+
+def hgmma_counts(lib_path: str) -> dict:
+    """{kernel: number of HGMMA instructions} in the library's SASS."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            fn = ln.split("Function : ")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in ln:
+            counts[fn] += 1
+    return counts
 
 
 def phase_build() -> None:
@@ -193,24 +237,31 @@ def phase_build() -> None:
         path, log = _build.build(source, verbose=True)
         return time.perf_counter() - t0, path, log
 
-    def build_triton():
-        t0 = time.perf_counter()
-        x = torch.zeros((1, 8), dtype=torch.bfloat16, device=DEV)
-        fused_residual_norm(x, x, torch.ones(8, device=DEV), kind="rms")
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES) + 1) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES)) as ex:
         fcs = {src: ex.submit(build_cuda, src) for src in CUDA_SOURCES}
-        ft = ex.submit(build_triton)
         built = {src: f.result() for src, f in fcs.items()}
-        triton_s = ft.result()
     for src, (cuda_s, path, log) in built.items():
         say(f"[build] {src} nvcc {cuda_s:.1f} s -> {path}")
         for ln in log.splitlines():
-            if "registers" in ln or "Compiling entry" in ln or "spill" in ln:
+            # and any wgmma serialization ptxas reports (C75xx)
+            if any(w in ln for w in ("registers", "Compiling entry", "spill",
+                                     "Performance Loss")):
                 say(f"[build]   ptxas: {ln.strip()}")
-    say(f"[build] decode_glue triton jit {triton_s:.1f} s")
+    fwd = {k: n for k, n in hgmma_counts(built["flash_attention.cu"][1]).items()
+           if "flash_fwd_kernel" in k}
+    for k, n in fwd.items():
+        say(f"[build] HGMMA {n} in {k}")
+    check(bool(fwd) and min(fwd.values()) > 0,
+          f"a flash forward kernel has no HGMMA instruction: {fwd}")
+
+
+def phase_floor(flush) -> float:
+    """Mean device ms of an empty kernel (torch.cuda._sleep(0)), timed as
+    every kernel here is: the least any launch reads."""
+    t = time_runs(lambda: torch.cuda._sleep(0), flush)
+    floor = {"floor_ms": float(t.mean()), "median_ms": float(np.median(t))}
+    say(f"[floor] {json.dumps(floor)}")
+    return floor["floor_ms"]
 
 
 def _paged_inputs(g, T, case):
@@ -396,49 +447,76 @@ def phase_paged(flush) -> dict:
     return main
 
 
-def phase_norm(flush) -> dict:
+# (kind, bias, rows, D, dtype, mean offset): the decode step's two forms
+# at Llama-3-8B's width, then LayerNorm of f32 rows whose mean (2e3) dwarfs
+# their spread (~1.4), where a one-pass variance cancels; D 4100 (8-byte
+# vectors) and 4097 (scalar), which the 16-byte vector does not divide; 64
+# rows x 5120; and rows of 32768 f32, which a cluster of 4 blocks splits
+NORM_CASES = (
+    ("rms", False, 8, 4096, torch.bfloat16, 0.0),
+    ("layer", True, 8, 4096, torch.bfloat16, 0.0),
+    ("layer", True, 8, 4096, torch.float32, 1e3),
+    ("layer", True, 8, 4100, torch.bfloat16, 0.0),
+    ("rms", False, 8, 4097, torch.bfloat16, 0.0),
+    ("rms", False, 64, 5120, torch.bfloat16, 0.0),
+    ("layer", True, 4, 32768, torch.float32, 0.0),
+)
+
+
+def phase_norm(flush, floor_ms: float) -> dict:
     g = torch.Generator().manual_seed(2)
-    rows, D = 8, 4096
     main = None
     worst = 0.0
-    for kind, with_bias in (("rms", False), ("layer", True)):
-        x = torch.randn((rows, D), generator=g).to(DEV, torch.bfloat16)
-        res = torch.randn((rows, D), generator=g).to(DEV, torch.bfloat16)
+    for kind, with_bias, rows, D, dt, offset in NORM_CASES:
+        x = (torch.randn((rows, D), generator=g) + offset).to(DEV, dt)
+        res = (torch.randn((rows, D), generator=g) + offset).to(DEV, dt)
         scale = (1 + 0.1 * torch.randn(D, generator=g)).to(DEV)
         bias = (0.1 * torch.randn(D, generator=g)).to(DEV) if with_bias else None
-        r, y = fused_residual_norm(x, res, scale, bias, eps=1e-5, kind=kind)
-        r0, y0 = fused_residual_norm_reference(x, res, scale, bias, eps=1e-5, kind=kind)
+        kw = {"eps": 1e-5, "kind": kind}
+        r, y = fused_residual_norm(x, res, scale, bias, **kw)
+        r0, y0 = fused_residual_norm_reference(x, res, scale, bias, **kw)
         torch.cuda.synchronize()
         errs = []
         for a, b in ((r, r0), (y, y0)):
             e = (a.float() - b.float()).abs()
             check(bool((e <= NORM_ATOL + NORM_RTOL * b.float().abs()).all()),
-                  f"fused norm {kind}: err {float(e.max())} beyond tolerance")
+                  f"fused norm {kind} {rows}x{D} {dt}: err {float(e.max())} "
+                  f"beyond tolerance")
             errs.append(float(e.max()))
         mx = max(errs)
         worst = max(worst, mx)
-        ms = time_ms(lambda: fused_residual_norm(x, res, scale, bias, eps=1e-5, kind=kind), flush)
-        plain_ms = time_ms(lambda: fused_residual_norm_reference(
-            x, res, scale, bias, eps=1e-5, kind=kind), flush)
-        nbytes = 4 * rows * D * 2 + D * 4 * (2 if with_bias else 1)
-        flops = rows * D * 8
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        f_ms = flops / BF16_FLOPS * 1e3
-        row = {"kind": kind, "bias": with_bias, "rows": rows, "D": D,
-               "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": None, "bound_ms": max(b_ms, f_ms),
-               "bound_by": "bytes" if b_ms >= f_ms else "operations"}
-        say(f"[norm] {json.dumps(row)}")
+        call = lambda: fused_residual_norm(x, res, scale, bias, **kw)  # noqa: E731
+        sc, bs = scale.to(dt), None if bias is None else bias.to(dt)
         if kind == "rms":
-            main = row  # Llama's form
+            two = lambda: F.rms_norm(torch.add(x, res), (D,), sc, 1e-5)  # noqa: E731
+        else:
+            two = lambda: F.layer_norm(torch.add(x, res), (D,), sc, bs, 1e-5)  # noqa: E731
+        el = x.element_size()
+        nbytes = 4 * rows * D * el + D * 4 * (2 if with_bias else 1)
+        b_ms, bound_by = _bound(nbytes, rows * D * 8, F32_FLOPS)
+        row = {"kind": kind, "bias": with_bias, "rows": rows, "D": D,
+               "dtype": str(dt).replace("torch.", ""), "mean_offset": offset,
+               "geometry": dict(zip(("C", "threads", "vec", "nv"),
+                                    launch_geometry(D, el, 4))),
+               "max_abs_err": mx, **_timed("", call, flush),
+               "plain_ms": time_ms(lambda: fused_residual_norm_reference(
+                   x, res, scale, bias, **kw), flush),
+               "library_ms": None, "two_call_ms": time_ms(two, flush),
+               "bound_ms": b_ms, "bound_by": bound_by, "floor_ms": floor_ms,
+               "host_us": host_us(call)}
+        say(f"[norm] {json.dumps(row)}")
+        if main is None:
+            main = row  # Llama's decode form
     return dict(main, max_abs_err=worst)
 
 
-# B2's first design (two S/dP passes in the dq kernel, synchronous loads,
-# 32-row dkv tiles): the mean of 20 launches on NVIDIA H100 80GB HBM3,
-# 700.00 W, as this script measured it in another run (PERF.md, kernel
-# table), printed beside the current mean; tools/kernel_ab.py times both
-# designs in one run
+# The first designs: B1's (mma.sync, synchronous loads, one 64-row tile)
+# and B2's (two S/dP passes in the dq kernel, synchronous loads, 32-row
+# dkv tiles), the mean of 20 launches on NVIDIA H100 80GB HBM3, 700.00 W,
+# as this script measured them in other runs (PERF.md, kernel table),
+# printed beside the current mean; tools/kernel_ab.py times both designs
+# in one run
+B1_FIRST_DESIGN_MS = {"bert": 0.0678, "llama": 0.276, "window": 0.0547}
 B2_FIRST_DESIGN_MS = {"bert": 0.277, "llama": 1.78, "window": 0.259}
 
 # name: (B, H, Hkv, T, D, causal, window, mask)
@@ -525,9 +603,10 @@ def _sdpa_fn(q, k, v, do, keep, is_causal: bool, grad: bool):
     raise RuntimeError("no SDPA backend accepted the call")
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, peak=BF16_FLOPS):
+    """(least ms for these bytes and operations, which of the two binds)."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    f_ms = flops / BF16_FLOPS * 1e3
+    f_ms = flops / peak * 1e3
     return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
 
 
@@ -549,7 +628,7 @@ def phase_flash(flush) -> dict:
     the worst errors over every case."""
     g = torch.Generator().manual_seed(5)
     rows = {}
-    worst_f = worst_b = 0.0
+    worst_f = worst_b = worst_rel_o = 0.0
     for name, (B, H, Hkv, T, D, causal, window, mask) in FLASH_CASES.items():
         q, k, v, do, kv = _flash_inputs(g, B, H, Hkv, T, D, mask)
         kw = {"causal": causal, "window": window}
@@ -562,6 +641,7 @@ def phase_flash(flush) -> dict:
               f"flash {name}: non-finite output")
         e_o = (o.float() - ro.float()).abs()
         o_ok = bool((e_o <= FLASH_O_ATOL + FLASH_O_RTOL * ro.float().abs()).all())
+        rel_o = _rel(o, ro)
         e_lse = float((lse - rlse).abs().max())
         rel = {n: _rel(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, rgrads)}
         e_g = max(float((a.float() - b.float()).abs().max())
@@ -587,8 +667,11 @@ def phase_flash(flush) -> dict:
             "causal": causal, "window": window, "mask": mask,
             "pairs": pairs,
             "fwd": {
-                "max_abs_err": float(e_o.max()), "lse_max_abs_err": e_lse,
+                "max_abs_err": float(e_o.max()), "rel_frobenius": rel_o,
+                "lse_max_abs_err": e_lse,
                 **_timed("", lambda: flash_attention_fwd_lse(q, k, v, kv, **kw), flush),
+                "host_us": host_us(lambda: flash_attention_fwd_lse(q, k, v, kv, **kw)),
+                "first_design_mean_ms": B1_FIRST_DESIGN_MS.get(name),
                 "plain_ms": time_ms(lambda: flash_attention_fwd_lse_reference(
                     q, k, v, kv, **kw), flush, iters=5),
                 **_timed("library_", lib_f, flush, iters=10), "library": be_f,
@@ -610,15 +693,18 @@ def phase_flash(flush) -> dict:
         }
         say(f"[flash] {json.dumps(row)}")
         check(o_ok, f"flash {name}: o beyond atol {FLASH_O_ATOL} + rtol {FLASH_O_RTOL}")
+        check(rel_o <= FLASH_O_REL, f"flash {name}: o relative Frobenius "
+              f"error {rel_o} beyond {FLASH_O_REL}")
         check(e_lse <= FLASH_LSE_ATOL, f"flash {name}: lse err {e_lse}")
         check(max(rel.values()) <= FLASH_GRAD_REL,
               f"flash {name}: gradient relative error {rel}")
         worst_f = max(worst_f, float(e_o.max()))
+        worst_rel_o = max(worst_rel_o, rel_o)
         worst_b = max(worst_b, e_g)
         rows[name] = row
         del q, k, v, do, o, ro, grads, rgrads, lib_f, lib_b
     say(f"[flash] all cases within tolerance; worst max abs err: o {worst_f}, "
-        f"gradients {worst_b}")
+        f"gradients {worst_b}; worst o relative Frobenius {worst_rel_o}")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "fwd": dict({k: rows["bert"]["fwd"][k] for k in keys}, max_abs_err=worst_f),
@@ -1021,8 +1107,9 @@ def main() -> int:
     kind, name_power = phase_device()
     phase_build()
     flush = L2Flush()
+    floor_ms = phase_floor(flush)
     paged = phase_paged(flush)
-    norm = phase_norm(flush)
+    norm = phase_norm(flush, floor_ms)
     flash = phase_flash(flush)
     cfg = LlamaConfig.llama3_8b()
     launches = phase_slice(name_power, cfg)
@@ -1040,8 +1127,8 @@ def main() -> int:
                                      "bound_ms", "bound_by", "library_ms")},
         },
         {
-            "name": "fused_residual_norm", "route": "triton",
-            "source": "tensorlink_tpu_torch/ops/decode_glue.py",
+            "name": "fused_residual_norm", "route": "cuda",
+            "source": "tensorlink_tpu_torch/csrc/decode_glue.cu",
             "replaces": "tensorlink_tpu/ops/pallas/decode_glue.py:90",
             "launches": launches["launches_norm"],
             **{k: norm[k] for k in ("max_abs_err", "ms", "plain_ms",

@@ -13,17 +13,24 @@
 // attended key gives o = 0 and lse = 1e30, which makes the backward's
 // p = exp(s - lse) exactly 0 there.
 //
-// Design. Every product runs on the tensor cores through mma.sync
-// m16n8k16 (bf16 in, f32 accumulate), with operand fragments read from
-// padded shared-memory tiles by ldmatrix (helpers in mma_common.cuh); the
-// softmax state and every accumulator stay in registers in f32.
-// - Forward (first design, unchanged): one block of 4 warps per (query tile
-//   of 64, head, batch row); each warp owns 16 query rows. The block stages
-//   its Q tile once, then walks only the key tiles its causal / window band
-//   can reach (the loop bounds replace the TPU grid's block skipping),
-//   staging K and V tiles of 64 keys with synchronous 16-byte loads, and
-//   folds each into the online softmax. P goes from the score accumulators
-//   straight into the A operand of P.V.
+// Design.
+// - Forward (B1), on Hopper's warpgroup tensor cores: one block per (query
+//   tile of 64 rows, head, batch row). A producer warp loads the Q tile
+//   once and streams the K and V tiles of the block's band (the loop
+//   bounds replace the TPU grid's block skipping) by TMA into a 2-3 stage
+//   ring of 128-byte-swizzled shared memory, with full/empty mbarriers;
+//   setmaxnreg hands its registers to the consumer warpgroup, which owns
+//   the 64 query rows: S = Q K^T and O += P V run on wgmma (m64n64k16
+//   from shared memory; P from registers, V read MN-major), the online
+//   softmax in registers between them. TMA zero-fills rows past T. Key tiles whose keys are all masked
+//   are neither loaded nor multiplied, the positional test is compiled in
+//   only under a band and run only on the tiles its edge crosses, and
+//   causal grids launch their heaviest query tiles first. PTX by hand
+//   (wgmma_common.cuh), no CUTLASS.
+// - The backward (B2) runs on mma.sync m16n8k16 (bf16 in, f32 accumulate),
+//   with operand fragments read from padded shared-memory tiles by
+//   ldmatrix (mma_common.cuh); the softmax state and every accumulator stay
+//   in registers in f32.
 // - Backward, dq kernel (one block per query tile of 64): ONE pass over the
 //   key tiles, where the first design walked them twice (a pass just for
 //   delta = rowsum(p * dp)). It recomputes S and dP = dO V^T on the tensor
@@ -51,7 +58,7 @@
 //   the positional test out. ptxas caps registers for two blocks an SM at
 //   D 128 and three at D 64 (scoring half a tile at a time where the
 //   accumulators need the room); chip_smoke.py's [build] lines print the
-//   register and spill report.
+//   register and spill report, and the forward's HGMMA count.
 // Ragged edges (T not a multiple of a tile) are zero-filled in shared
 // memory and masked; D is 64 or 128; the type is bf16.
 //
@@ -61,20 +68,19 @@
 // (or dq, dk, dv) once. At BERT-base's training shape (T 512, D 64, a
 // padding mask) the forward's least time is set by those bytes and the
 // backward's by the tensor cores; at a long causal sequence (T 2048, D 128)
-// by the tensor cores both ways. Not used yet: wgmma, which needs 64-row
-// warpgroup tiles with B in shared memory and would lift the tensor-core
-// rate above what mma.sync reaches (the backward's 8 products per tile
-// pair are where it would pay first), TMA, and warp specialisation; the
-// forward keeps its synchronous loads.
+// by the tensor cores both ways. Not used yet in the backward: wgmma, TMA
+// and warp specialisation (its 8 products per tile pair are where wgmma
+// would pay next).
 
 #include "mma_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
 using namespace tlk;
 
 constexpr int kThreads = 128;  // 4 warps
-constexpr int kBQ = 64;        // forward / dq: query rows per block
+constexpr int kBQ = 64;        // dq: query rows per block
 constexpr int kBK = 64;        // key rows per tile (dkv: per block)
 constexpr int kBQd = 64;       // dkv: query rows per staged tile
 constexpr float kLseMasked = 1e30f;
@@ -94,22 +100,6 @@ struct Shape {
   float scale;
   const uint8_t* kv_mask;  // [B, Tk], nonzero = attend; null = all keys
 };
-
-// rows r0..r0+ROWS-1 of a [T, D] slab (row stride st) into a padded tile;
-// rows at or past T are zero-filled
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long st, int r0, int T) {
-  constexpr int LD = D + 8, CH = D / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < T)
-      val = __ldg(reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(r0 + r) * st + c));
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
 
 __device__ __forceinline__ bool band_keep(int q, int k, int causal,
                                           int window) {
@@ -145,121 +135,275 @@ __device__ __forceinline__ void query_range(int k0, int k1, int Tq,
 }
 
 // --------------------------------------------------------------- forward
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(View q, View k, View v, OutView o,
-                     float* __restrict__ lse, Shape s) {
-  constexpr int LD = D + 8, KS = D / 16, NT = kBK / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kBQ * LD;
-  bf16* vs = ks + kBK * LD;
-  uint8_t* keep_s = reinterpret_cast<uint8_t*>(vs + kBK * LD);
+// Warp-specialized on wgmma and TMA. A block owns kFwdRows query rows of
+// one (head, batch row): warpgroup 0 is the producer, whose first warp
+// loads the Q tile once and then walks the key tiles (kFwdBK keys) of the
+// block's band into a ring of FwdLayout::kStages stages by TMA, each stage
+// a K tile and a V tile on one full barrier; warpgroup 1, the consumer,
+// owns the rows. For every key tile the consumer forms S = Q K^T with
+// wgmma (both operands K-major in shared memory), folds it into the
+// online softmax in registers, and adds P V with wgmma, P packed from the
+// score accumulators into wgmma's register A operand and V read MN-major
+// (the transpose bit); then it releases the stage on its empty barrier.
+// Two blocks share an SM, so one block's softmax runs under the other's
+// products. A 128-row block (two consumer warpgroups sharing each K/V
+// tile, one block an SM) read slower at every shape timed (PERF.md), so
+// the forward's query tile is 64 rows, the same as KERNEL_BLOCK. The
+// producer also turns the tile's kv_mask (and Tk) into 64 keep bits,
+// published with the stage; a tile with no kept key is neither loaded nor
+// multiplied, and the consumer skips the tiles its rows cannot reach. The softmax is branch-free per score: the band becomes a
+// bit range per row and tile (BAND compiles it in), and exp2 is one MUFU
+// op. Keeping P V in flight under the next tile's softmax (tried) read
+// slower at every shape timed, so each tile's products complete in turn.
+constexpr int kFwdRows = 64;  // query rows a block (one wgmma M)
+constexpr int kFwdBK = 64;    // keys per stage
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int hk = h / (s.H / s.Hkv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const bf16* kb = k.p + b * k.sb + hk * k.sh;
-  const bf16* vb = v.p + b * v.sb + hk * v.sh;
-  const uint8_t* km =
-      s.kv_mask ? s.kv_mask + static_cast<long long>(b) * s.Tk : nullptr;
+template <int D>
+struct FwdLayout {
+  static constexpr int kQBytes = kFwdRows * D * 2;    // Q tile
+  static constexpr int kKVBytes = kFwdBK * D * 2;     // one K or V tile
+  // two blocks an SM: three stages fit at D 64, two at D 128
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kRing = kStages * 2 * kKVBytes;
+  static constexpr int kBars = 1 + 2 * kStages;  // q_full, full[], empty[]
+  // 1024 bytes of slack to align the tiles to the swizzle atom
+  static constexpr size_t kSmem =
+      1024 + kQBytes + kRing + 8 * kBars + 8 * kStages;
+};
+
+// 2^x in one MUFU op, subnormal results flushed to zero (x = -1e30 gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keys k0 .. k0 + 63 that query q may attend under the band, as bits
+// (bit i: key k0 + i); computed once a row a tile, so the per-score test
+// below is one bit, not a branchy positional test
+__device__ __forceinline__ uint64_t band_bits(int q, int k0, int causal,
+                                              int window) {
+  int lo = 0, hi = kFwdBK - 1;  // kept key offsets [lo, hi]
+  if (causal) hi = min(hi, q - k0);
+  if (window > 0) {
+    lo = max(lo, q - window + 1 - k0);
+    if (!causal) hi = min(hi, q + window - 1 - k0);
+  }
+  const uint64_t upto = hi >= 63 ? ~0ull : (2ull << max(hi, 0)) - 1;
+  const uint64_t from = ~0ull << min(lo, 63);
+  return hi < lo ? 0ull : (upto & from);
+}
+
+// One tile of the online softmax, in place: sc holds this thread's S
+// scores (accumulator layout: rows qr[e / 2 % 2], keys 8 j + 2 tig +
+// e % 2) and becomes P; m (log2 domain) and the partial row sums l are
+// updated; alpha gets the factor the O accumulator must be scaled by.
+// bits are the tile's kept keys; BAND adds the positional band. Branch-free
+// per score.
+template <bool BAND>
+__device__ __forceinline__ void fwd_softmax(float (&sc)[32], uint64_t bits,
+                                            const int (&qr)[2], int k0,
+                                            int tig, float sl2,
+                                            const Shape& s, float (&m)[2],
+                                            float (&l)[2], float (&alpha)[2]) {
+  uint64_t tb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    uint64_t rb = bits;
+    if (BAND) rb &= band_bits(qr[r], k0, s.causal, s.window);
+    tb[r] = rb >> (2 * tig);  // bit 8 j + e % 2: this thread's keys
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const bool keep = (tb[r] >> (8 * j + (e & 1))) & 1ull;
+      const float x = keep ? sc[4 * j + e] * sl2 : kNegInf;
+      sc[4 * j + e] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+  float mu[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    alpha[r] = ex2(m[r] - mx[r]);
+    m[r] = mx[r];
+    l[r] *= alpha[r];  // per-thread partial row sums; summed at the end
+    // a row with no kept key yet keeps m = -1e30; its p must be 0, not
+    // 2^(-1e30 + 1e30)
+    mu[r] = mx[r] == kNegInf ? 0.f : mx[r];
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int r = (e >> 1) & 1;
+    const float p = ex2(sc[e] - mu[r]);
+    sc[e] = p;
+    l[r] += p;
+  }
+}
+
+template <int D, bool BAND>
+__global__ void __launch_bounds__(256, 2)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, OutView o,
+                     float* __restrict__ lse, Shape s) {
+  using L = FwdLayout<D>;
+  constexpr int DR = D / 64;  // 128-byte column regions of a tile
+  constexpr int ST = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ring = qs + L::kQBytes;  // stage i: K tile, then V tile
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + L::kRing);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + ST;
+  uint32_t* kbits = reinterpret_cast<uint32_t*>(empty + ST);  // [ST][2]
+
+  // causal: the last query tiles see the most keys, so they launch first
+  // (blockIdx.y is the slowest-moving index of the launch order)
+  const int tile = s.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int b = blockIdx.z, h = blockIdx.x, q0 = tile * kFwdRows;
+  int klo, khi;
+  key_range(q0, min(q0 + kFwdRows, s.Tq) - 1, s.Tk, s.causal, s.window, klo,
+            khi);
+  const int kt0 = (klo / kFwdBK) * kFwdBK;
+  const int n = khi > kt0 ? (khi - kt0 + kFwdBK - 1) / kFwdBK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 4);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    // ------------------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    const int hk = h / (s.H / s.Hkv);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, L::kQBytes);
+#pragma unroll
+      for (int r = 0; r < DR; ++r)
+        tma_load_4d(qs + r * kFwdRows * 128, &tq, q_full, 64 * r, q0, h, b);
+    }
+    const uint8_t* km =
+        s.kv_mask ? s.kv_mask + static_cast<long long>(b) * s.Tk : nullptr;
+    for (int i = 0; i < n; ++i) {
+      const int st = i % ST;
+      const int k0 = kt0 + i * kFwdBK;
+      const int ka = k0 + lane, kb = k0 + 32 + lane;
+      const uint32_t w0 = __ballot_sync(
+          0xffffffffu, ka < s.Tk && (km == nullptr || km[ka] != 0));
+      const uint32_t w1 = __ballot_sync(
+          0xffffffffu, kb < s.Tk && (km == nullptr || km[kb] != 0));
+      if (lane == 0) {
+        mbar_wait(empty + st, ((i / ST) & 1) ^ 1);
+        kbits[2 * st] = w0;
+        kbits[2 * st + 1] = w1;
+        if (w0 | w1) {
+          unsigned char* ks = ring + st * 2 * L::kKVBytes;
+          mbar_arrive_expect_tx(full + st, 2 * L::kKVBytes);
+#pragma unroll
+          for (int r = 0; r < DR; ++r) {
+            tma_load_4d(ks + r * kFwdBK * 128, &tk, full + st, 64 * r, k0,
+                        hk, b);
+            tma_load_4d(ks + L::kKVBytes + r * kFwdBK * 128, &tv, full + st,
+                        64 * r, k0, hk, b);
+          }
+        } else {
+          mbar_arrive(full + st);  // all keys masked: nothing to load
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // ----------------------------------------------------------- consumers
+  // the producer's 128 - 40 registers a thread go to the consumer
+  setmaxnreg_inc<216>();
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31, gid = lane >> 2, tig = lane & 3;
   const int qr[2] = {q0 + warp * 16 + gid, q0 + warp * 16 + gid + 8};
   const float sl2 = s.scale * kLog2e;  // scores in the log2 domain
+  const uint32_t q_addr = smem_u32(qs);
 
-  load_tile<D, kBQ>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
-
-  int klo, khi;
-  key_range(q0, q0 + kBQ - 1, s.Tk, s.causal, s.window, klo, khi);
-
-  float acc[DT][4];
+  float acc[D / 2];  // O: [64, D] of the warpgroup, f32
 #pragma unroll
-  for (int i = 0; i < DT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-  for (int k0 = (klo / kBK) * kBK; k0 < khi; k0 += kBK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, kBK>(ks, kb, k.st, k0, s.Tk);
-    load_tile<D, kBK>(vs, vb, v.st, k0, s.Tk);
-    if (threadIdx.x < kBK) {
-      const int kk = k0 + threadIdx.x;
-      keep_s[threadIdx.x] = kk < s.Tk && (km == nullptr || km[kk] != 0);
-    }
-    __syncthreads();
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n; ++i) {
+    const int st = i % ST;
+    const int k0 = kt0 + i * kFwdBK;
+    mbar_wait(full + st, (i / ST) & 1);
+    const uint64_t bits = (static_cast<uint64_t>(kbits[2 * st + 1]) << 32) |
+                          kbits[2 * st];
+    // no pair of the block's rows [q0, q0 + 63] and the tile's keys inside
+    // the band
+    const bool dead =
+        BAND && ((s.causal && k0 > q0 + 63) ||
+                 (s.window > 0 && (k0 + kFwdBK - 1 <= q0 - s.window ||
+                                   (!s.causal && k0 >= q0 + 63 + s.window))));
+    if (bits != 0 && !dead) {
+      const uint32_t k_addr = smem_u32(ring + st * 2 * L::kKVBytes);
+      const uint32_t v_addr = k_addr + L::kKVBytes;
+      float sc[32];  // S: [64, kFwdBK]
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_m64n64k16(
+            sc,
+            desc_sw128(q_addr + (kk / 4) * kFwdRows * 128 + (kk % 4) * 32,
+                       16, 1024),
+            desc_sw128(k_addr + (kk / 4) * kFwdBK * 128 + (kk % 4) * 32, 16,
+                       1024),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
 
-    float sc[NT][4];
+      float alpha[2];
+      fwd_softmax<BAND>(sc, bits, qr, k0, tig, sl2, s, m, l, alpha);
 #pragma unroll
-    for (int i = 0; i < NT; ++i)
+      for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+      // O += P V: score n-tiles 2j, 2j + 1 are the A operand of k-step j
+      uint32_t pa[4][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, frag_a<LD>(qs, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bb[4];
-        ldsm_x4(bb, frag_b<LD>(ks, np * 16, kk * 16, lane));
-        mma(sc[2 * np], a, bb[0], bb[1]);
-        mma(sc[2 * np + 1], a, bb[2], bb[3]);
+      for (int j = 0; j < 4; ++j) {
+        pa[j][0] = pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
+        pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+        pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+        pa[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
       }
-    }
-
-    float mx[2] = {m[0], m[1]};
+      wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < NT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, kl = i * 8 + 2 * tig + (e & 1);
-        const bool keep =
-            keep_s[kl] && band_keep(qr[r], k0 + kl, s.causal, s.window);
-        const float x = keep ? sc[i][e] * sl2 : kNegInf;
-        sc[i][e] = x;
-        mx[r] = fmaxf(mx[r], x);
+      for (int j = 0; j < 4; ++j) {
+        const uint64_t dv = desc_sw128(v_addr + j * 2048, kFwdBK * 128, 1024);
+        if constexpr (D == 64)
+          wgmma_rs_m64n64k16_tb(acc, pa[j], dv, 1);
+        else
+          wgmma_rs_m64n128k16_tb(acc, pa[j], dv, 1);
       }
-    float alpha[2];
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      alpha[r] = exp2f(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha[r];  // per-thread partial row sums; summed at the end
+      for (int j = 0; j < 4; ++j) fence_regs(pa[j]);
     }
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float p = sc[i][e] == kNegInf ? 0.f : exp2f(sc[i][e] - m[r]);
-        sc[i][e] = p;
-        l[r] += p;
-      }
-#pragma unroll
-    for (int i = 0; i < DT; ++i) {
-      acc[i][0] *= alpha[0];
-      acc[i][1] *= alpha[0];
-      acc[i][2] *= alpha[1];
-      acc[i][3] *= alpha[1];
-    }
-    // O += P V: the score accumulators of n-tiles 2j, 2j+1 are the A
-    // operand of k-step j
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      const uint32_t a[4] = {
-          pack_bf16(sc[2 * j][0], sc[2 * j][1]),
-          pack_bf16(sc[2 * j][2], sc[2 * j][3]),
-          pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
-          pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {
-        uint32_t bb[4];
-        ldsm_x4_t(bb, frag_a<LD>(vs, j * 16, dp * 16, lane));
-        mma(acc[2 * dp], a, bb[0], bb[1]);
-        mma(acc[2 * dp + 1], a, bb[2], bb[3]);
-      }
-    }
+    if (lane == 0) mbar_arrive(empty + st);  // the stage may be refilled
   }
 
   bf16* ob = o.p + b * o.sb + h * o.sh;
@@ -270,9 +414,10 @@ __global__ void __launch_bounds__(kThreads)
     const float inv = lr > 0.f ? 1.f / lr : 0.f;
     bf16* row = ob + static_cast<long long>(qr[r]) * o.st;
 #pragma unroll
-    for (int i = 0; i < DT; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(row + i * 8 + 2 * tig) =
-          __floats2bfloat162_rn(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + 2 * tig) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                acc[4 * j + 2 * r + 1] * inv);
     if (tig == 0)
       lse[(static_cast<long long>(b) * s.H + h) * s.Tq + qr[r]] =
           lr > 0.f ? (m[r] + log2f(lr)) * kLn2 : kLseMasked;
@@ -701,16 +846,69 @@ cudaError_t allow_smem(K kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int D>
-int launch_fwd(View q, View k, View v, OutView o, float* lse, Shape s,
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, taken from the driver the runtime has loaded, so
+// the library needs no -lcuda at link time
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiledFn>(nullptr);
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// a [B, heads, T, D] bf16 view (element strides sb, sh, st; D contiguous)
+// as the 4-d tensor map {D, T, heads, B}, read in boxes of 64 columns x
+// `rows` rows, 128-byte swizzled; rows past T arrive as zeros
+bool make_map(CUtensorMap* map, const void* p, const long long* st3, int D,
+              int T, int heads, int B, int rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st3[2]) * 2,
+                                 static_cast<cuuint64_t>(st3[1]) * 2,
+                                 static_cast<cuuint64_t>(st3[0]) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t es[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+             dims, strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool BAND>
+int launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk,
+               const CUtensorMap& tv, OutView o, float* lse, Shape s,
                cudaStream_t stream) {
-  constexpr int LD = D + 8;
-  const size_t smem = sizeof(bf16) * (kBQ + 2 * kBK) * LD + kBK;
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem);
+  using L = FwdLayout<D>;
+  cudaError_t err = allow_smem(flash_fwd_kernel<D, BAND>, L::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s.Tq + kBQ - 1) / kBQ, s.H, s.B);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, o, lse, s);
+  const dim3 grid(s.H, (s.Tq + kFwdRows - 1) / kFwdRows, s.B);
+  flash_fwd_kernel<D, BAND><<<grid, 256, L::kSmem, stream>>>(tq, tk, tv, o,
+                                                             lse, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_fwd_band(const CUtensorMap& tq, const CUtensorMap& tk,
+                    const CUtensorMap& tv, OutView o, float* lse, Shape s,
+                    cudaStream_t stream) {
+  return s.causal || s.window > 0
+             ? launch_fwd<D, true>(tq, tk, tv, o, lse, s, stream)
+             : launch_fwd<D, false>(tq, tk, tv, o, lse, s, stream);
 }
 
 constexpr int kDkvTwoQuadUnits = 16;
@@ -798,8 +996,9 @@ extern "C" {
 
 // Forward. ptrs = {q, k, v, kv_mask (or null), o, lse}; strides = (b, h, t)
 // element strides of the [B, heads, T, D] views q, k, v, o (12 values);
-// dims = {B, H, Hkv, Tq, Tk, D, causal, window (<= 0: none)}. bf16 q/k/v/o,
-// f32 lse [B, H, Tq] contiguous, uint8 kv_mask [B, Tk] contiguous. Returns a
+// dims = {B, H, Hkv, Tq, Tk, D, causal, window (<= 0: none)}. bf16 q/k/v/o, f32 lse
+// [B, H, Tq] contiguous, uint8 kv_mask [B, Tk] contiguous. q, k and v are
+// read by TMA: 16-byte aligned base pointers and strides. Returns a
 // cudaError_t (0 = launched).
 int tl_flash_fwd(const void* const* ptrs, const long long* strides,
                  const int* dims, float scale, void* stream) {
@@ -809,13 +1008,22 @@ int tl_flash_fwd(const void* const* ptrs, const long long* strides,
     if (!aligned(ptrs[i])) return cudaErrorMisalignedAddress;
   const Shape s = make_shape(dims, scale, ptrs[3]);
   if (s.B == 0 || s.Tq == 0) return 0;
-  const View q = view(ptrs[0], strides), k = view(ptrs[1], strides + 3),
-             v = view(ptrs[2], strides + 6);
+  const int D = dims[5];
+  // with no keys (Tk 0) no K/V box is ever loaded; the maps only need to
+  // be valid, so they are made over q
+  const bool keys = s.Tk > 0;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, ptrs[0], strides, D, s.Tq, s.H, s.B, kFwdRows) ||
+      !make_map(&tk, keys ? ptrs[1] : ptrs[0], keys ? strides + 3 : strides,
+                D, keys ? s.Tk : s.Tq, keys ? s.Hkv : s.H, s.B, kFwdBK) ||
+      !make_map(&tv, keys ? ptrs[2] : ptrs[0], keys ? strides + 6 : strides,
+                D, keys ? s.Tk : s.Tq, keys ? s.Hkv : s.H, s.B, kFwdBK))
+    return cudaErrorInvalidValue;
   const OutView o = out_view(const_cast<void*>(ptrs[4]), strides + 9);
   float* lse = static_cast<float*>(const_cast<void*>(ptrs[5]));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dims[5] == 64 ? launch_fwd<64>(q, k, v, o, lse, s, st)
-                       : launch_fwd<128>(q, k, v, o, lse, s, st);
+  return D == 64 ? launch_fwd_band<64>(tq, tk, tv, o, lse, s, st)
+                 : launch_fwd_band<128>(tq, tk, tv, o, lse, s, st);
 }
 
 // Backward. ptrs = {q, k, v, do, lse, kv_mask (or null), delta (f32

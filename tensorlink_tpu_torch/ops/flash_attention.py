@@ -11,13 +11,16 @@ and lse = ``LSE_MASKED``.
 ``flash_attention_fwd_lse`` and ``flash_attention_bwd`` are the wrappers
 ``ops.flash`` calls. A CUDA tensor launches the hand-written kernels in
 ``csrc/flash_attention.cu`` (built with ``nvcc`` at first use, bound with
-``ctypes``); they read any [B, heads, T, D] view whose D is contiguous,
-so the caller's [B, T, H, D] tensors pass as transposed views, and the
-outputs come back as views over [B, T, heads, D] storage. A CPU tensor
+``ctypes``): the forward on wgmma fed by TMA, the backward on mma.sync.
+They read any [B, heads, T, D] view whose D is contiguous and whose base
+and strides are 16-byte aligned, so the caller's [B, T, H, D] tensors
+pass as transposed views, and the outputs come back as views over
+[B, T, heads, D] storage. A CPU tensor
 takes the plain PyTorch version of the same math
 (``flash_attention_fwd_lse_reference``, ``flash_attention_bwd_reference``).
-A CUDA input outside the kernels' limits (bf16, D in ``HEAD_DIMS``, 16-byte
-rows) raises: nothing routes a CUDA tensor to the plain version.
+A CUDA input outside the kernels' limits (bf16, D in ``HEAD_DIMS``,
+16-byte aligned base and strides) raises: nothing routes a CUDA tensor
+to the plain version.
 """
 
 from __future__ import annotations
@@ -140,7 +143,7 @@ def flash_attention_fwd_lse(q, k, v, kv_mask=None, *, causal: bool = False,
                             block_k: int = KERNEL_BLOCK):
     """-> (o [B, H, Tq, D], lse [B, H, Tq] f32). ``block_q``/``block_k``
     name the tile the caller resolved (``ops.flash.flash_block_for``); the
-    kernel has one tile, ``KERNEL_BLOCK``, and raises on any other."""
+    kernels take one, ``KERNEL_BLOCK``, and raise on any other."""
     _check_shapes(q, k, v, kv_mask)
     _check_window(window)
     if q.device.type == "cpu":
@@ -201,7 +204,10 @@ def _strides(x):
 
 def _check_views(q, views):
     """What the kernels can read: bf16 [B, heads, T, D] views with D
-    contiguous and 16-byte rows, all on q's card."""
+    contiguous, all on q's card, whose base pointers and (b, h, t) strides
+    are multiples of 16 bytes: the forward reads q, k and v through TMA
+    tensor maps, which address nothing else, and the backward's 16-byte
+    copies need the same."""
     D = q.shape[-1]
     _check(D in HEAD_DIMS, f"head dim {D} (kernel takes {HEAD_DIMS})")
     for name, x in views.items():
@@ -209,8 +215,12 @@ def _check_views(q, views):
         _check(x.dtype == torch.bfloat16, f"{name} dtype {x.dtype} (bfloat16)")
         _check(x.stride(3) == 1 or x.shape[3] == 1,
                f"{name} needs a contiguous head dim, strides {x.stride()}")
-        _check(all(s % 8 == 0 for s in _strides(x)) and x.data_ptr() % 16 == 0,
-               f"{name} rows must be 16-byte aligned, strides {x.stride()}")
+        _check(x.data_ptr() % 16 == 0,
+               f"{name} base pointer {x.data_ptr():#x} is not 16-byte "
+               f"aligned (TMA needs it)")
+        _check(all(s % 8 == 0 for s in _strides(x)),
+               f"{name} strides {x.stride()} are not multiples of 16 "
+               f"bytes (TMA needs them)")
 
 
 def _mask_u8(kv_mask, q):

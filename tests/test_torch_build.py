@@ -4,6 +4,8 @@ and of every ``csrc/*.cuh``, so an edit to a header that a kernel
 includes rebuilds it instead of loading a stale library. Runs on the
 CPU: nothing is compiled."""
 
+import os
+
 from tensorlink_tpu_torch.ops import _build
 
 
@@ -44,5 +46,7 @@ def test_library_path_changes_with_the_source(tmp_path, monkeypatch):
 
 
 def test_each_source_of_the_package_has_its_own_library():
-    paths = {_build.library_path(s) for s in ("paged_decode.cu", "flash_attention.cu")}
-    assert len(paths) == 2
+    sources = ("paged_decode.cu", "flash_attention.cu", "decode_glue.cu")
+    assert all(os.path.exists(os.path.join(_build.CSRC_DIR, s)) for s in sources)
+    paths = {_build.library_path(s) for s in sources}
+    assert len(paths) == 3

@@ -11,7 +11,9 @@ the JAX package on the same seeded inputs (f32, CPU).
 - the fully-masked-row rule of ``_fallback_attn`` (exact zeros);
 - ``flash_attention_impl``'s routing decision against the reference's,
   on the same shapes and mask forms;
-- the block-override registry's validation.
+- the block-override registry's validation;
+- the forward launcher's refusal of views its TMA tensor maps cannot
+  address (raised before any build, so it runs here on the CPU).
 """
 
 import jax
@@ -26,6 +28,7 @@ from tensorlink_tpu.ops.pallas.flash_attention import (
     flash_attention_fwd_lse as j_fwd,
 )
 from tensorlink_tpu_torch.ops import flash as tflash
+from tensorlink_tpu_torch.ops import flash_attention as tfa
 from tensorlink_tpu_torch.ops.flash_attention import (
     KERNEL_BLOCK,
     flash_attention_bwd,
@@ -204,3 +207,23 @@ def test_block_override_registry():
         tflash.clear_flash_block_overrides()
     assert tflash.flash_block_overrides() == []
     assert tflash.flash_block_for(512) == KERNEL_BLOCK
+
+
+@pytest.mark.parametrize("fault", ["base_pointer", "t_stride"])
+def test_forward_launcher_raises_on_views_tma_cannot_address(fault):
+    """B1's forward reads q, k and v through TMA tensor maps, which need a
+    16-byte aligned base and strides that are multiples of 16 bytes. Its
+    launcher raises on any other view (before it builds or launches
+    anything) instead of routing it elsewhere."""
+    B, H, T, D = 1, 2, 128, 64
+    good = torch.zeros((B, T, H, D), dtype=torch.bfloat16).transpose(1, 2)
+    buf = torch.zeros(B * T * (H * D + 4) + 8, dtype=torch.bfloat16)
+    if fault == "base_pointer":  # one element (2 bytes) off an aligned base
+        bad = torch.as_strided(buf, (B, H, T, D), (T * H * D, D, H * D, 1), 1)
+    else:  # rows of H * D + 4 elements: a T stride of 264 bytes
+        bad = torch.as_strided(buf, (B, H, T, D),
+                               (T * (H * D + 4), D, H * D + 4, 1))
+    assert buf.data_ptr() % 16 == 0
+    for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
+        with pytest.raises(ValueError, match="TMA"):
+            tfa._launch_fwd(*args, None, False, None)

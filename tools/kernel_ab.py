@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the paged-decode kernel (B3) and the flash-attention backward
-(B2) of two checkouts of the port in one run on one CUDA card, with one
-statistic for both.
+"""Time the hand kernels of two checkouts of the port in one run on one
+CUDA card, with one statistic for both: the paged-decode kernel (B3),
+the flash-attention forward (B1) and backward (B2), and the fused
+residual+norm (B4).
 
     python3 tools/kernel_ab.py OLD_ROOT NEW_ROOT
 
@@ -14,11 +15,15 @@ case's inputs with that root's ``chip_smoke`` builders from the same
 seed, and times the case: B3 at the decode steps' form (T 1, B 8,
 mixed lengths, with and without a validity mask) and at T 128 (eight
 rows, and the prefill chunk's one row of 1503 keys); B2 at BERT-base's
-training shape, Llama-3-8B's causal shape and a causal window of 256.
-Each time is the mean and the median of 20 launches, each timed with
-CUDA events after an L2 flush. Prints one JSON line per process, then
-one per case with each root's mean and median over its two turns, and
-the card's name and power limit.
+training shape, Llama-3-8B's causal shape and a causal window of 256;
+B1 at the same three shapes; B4 at the decode step's 8 rows x 4096 in
+bf16, RMSNorm and LayerNorm with a bias. Each time is the mean and the
+median of 20 launches, each timed with CUDA events after an L2 flush.
+For B4 it also reports the host microseconds per wrapper call, ten
+samples a turn: each the host clock over 200 calls enqueued behind a
+~50 ms device sleep, so the launch queue never blocks. Prints one JSON line per process, then one
+per case with each root's mean and median over its two turns, and the
+card's name and power limit.
 """
 
 import json
@@ -28,6 +33,8 @@ import sys
 
 PAGED_CASES = ((1, "mixed"), (1, "mask"), (128, "mixed"), (128, "one_row"))
 FLASH_CASES = ("bert", "llama", "window")
+NORM_CASES = (("rms", False), ("layer", True))  # 8 rows x 4096, bf16
+HOST_CALLS, HOST_SAMPLES = 200, 10
 
 
 def time_runs(fn, flush, iters: int = 20) -> list[float]:
@@ -49,14 +56,37 @@ def time_runs(fn, flush, iters: int = 20) -> list[float]:
     return times
 
 
+def host_us(fn) -> list[float]:
+    """HOST_SAMPLES samples of the host microseconds per call of ``fn``,
+    each over HOST_CALLS calls enqueued behind a long device sleep."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(HOST_SAMPLES):
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        samples.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+    return samples
+
+
 def one_root(root: str) -> dict:
-    """Every case's launch times (ms) with the kernels of ``root``."""
+    """Every case's launch times (ms) with the kernels of ``root``, and B4's
+    host us per call."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
     import chip_smoke as cs
+    from tensorlink_tpu_torch.ops.decode_glue import fused_residual_norm
     from tensorlink_tpu_torch.ops.flash_attention import (
         flash_attention_bwd,
+        flash_attention_fwd_lse,
         flash_attention_fwd_lse_reference,
     )
     from tensorlink_tpu_torch.ops.paged_decode import paged_decode_attention
@@ -73,8 +103,22 @@ def one_root(root: str) -> dict:
             torch.Generator().manual_seed(5), B, H, Hkv, T, D, mask)
         kw = {"causal": causal, "window": window}
         o, lse = flash_attention_fwd_lse_reference(q, k, v, kv, **kw)
+        out[f"B1 {name}"] = time_runs(
+            lambda: flash_attention_fwd_lse(q, k, v, kv, **kw), flush)
         out[f"B2 {name}"] = time_runs(
             lambda: flash_attention_bwd(q, k, v, o, lse, do, kv, **kw), flush)
+    g = torch.Generator().manual_seed(2)
+    for kind, with_bias in NORM_CASES:
+        x, res = (torch.randn((8, 4096), generator=g).to("cuda", torch.bfloat16)
+                  for _ in range(2))
+        scale = (1 + 0.1 * torch.randn(4096, generator=g)).to("cuda")
+        bias = (0.1 * torch.randn(4096, generator=g)).to("cuda") if with_bias else None
+
+        def call(x=x, res=res, scale=scale, bias=bias, kind=kind):
+            return fused_residual_norm(x, res, scale, bias, eps=1e-5, kind=kind)
+
+        out[f"B4 {kind} 8x4096"] = time_runs(call, flush)
+        out[f"B4 {kind} 8x4096 host_us"] = host_us(call)
     return out
 
 
