@@ -24,8 +24,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. fused-norm kernel vs its plain version (rms and layer with bias at
    8 x 4096; LayerNorm of f32 rows whose mean is 1e3 beside a spread of
    ~1.4; D 4100 and 4097, which the 16-byte vector does not divide; 64
-   rows x 5120; 4 rows x 32768 f32, split over a cluster of 4 blocks),
-   each with its host us per call, the launch floor and the
+   rows x 5120; 4 rows x 32768 f32, split over a cluster of 4 blocks;
+   GPT-2-medium's decode step, 8 x 1024 LayerNorm + bias), each with its
+   host us per call, the launch floor and the
    time of torch.add + F.rms_norm / F.layer_norm as a two-call reference;
 5. flash: the flash-attention forward (B1) and backward (B2) kernels vs
    their plain versions in bf16 at the paths' shapes (BERT-base with a
@@ -40,14 +41,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    prefill variant, none on the general one), and a teacher-forced check
    of every emitted token against the port's no-cache forward (which runs
    B1 for the long prompts);
-7. training: BERT-base fine-tuning at batch 8 x seq 512 (f32 master
+7. static: the same model through ``InferenceEngine.generate`` (the
+   default path of ``examples/serve_llm.py``): 4 left-padded prompts of
+   700 to 2000 tokens, 64 greedy tokens, decode on the blockwise path over
+   2304 cache slots; B4 once a layer a decode step, B1 never, every token
+   teacher-forced; prefill seconds, decode ms a step and its kernel time;
+8. contiguous: GPT-2-medium (random bf16 weights) served by the contiguous
+   ``ContinuousBatchingEngine`` (the ``--continuous`` path): 16 greedy
+   requests of 1 to 900 tokens, B4 in its LayerNorm + bias form on every
+   decode step, every token teacher-forced; TTFT and tokens/s;
+9. rolling: Mistral-7B's width at 4 of its 32 layers through
+   ``InferenceEngine(rolling_cache=True).generate`` (the ``--window``
+   path): 2 prompts, 4200 greedy tokens, so the ring of prompt + window
+   slots wraps; B4 on every decode step, every token teacher-forced
+   against the windowed no-cache forward (B1 with its window), and the
+   full cache's engine beside it for its tokens and bytes;
+10. training: BERT-base fine-tuning at batch 8 x seq 512 (f32 master
    params from a seed, bf16 compute, Adam, dropout 0.1) through
    ``Trainer``: 30 steps with a falling loss, B1/B2 launch counts, one
    step's gradients against the plain attention path, step time, MFU, a
    profiled step, and the batch 32 x seq 128 headline shape under "auto"
    and "flash".
 
-The last two lines are a JSON summary of the kernels and
+Each leg's launch counts are set to 0 just before it runs and read just
+after; B4's count in the kernels line sums the four serving legs. The
+last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Nothing of JAX or ``tensorlink_tpu``
 is imported.
 """
@@ -68,9 +86,15 @@ from torch.func import functional_call
 
 from tensorlink_tpu_torch.config import TrainConfig
 from tensorlink_tpu_torch.models.bert import BertClassifier, BertConfig
+from tensorlink_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
+from tensorlink_tpu_torch.nn.attention import (
+    DECODE_BLOCK,
+    DECODE_BLOCKWISE_MIN_WINDOWLESS,
+)
 from tensorlink_tpu_torch.ops import _build
 from tensorlink_tpu_torch.ops.decode_glue import (
+    FORMS,
     fused_residual_norm,
     fused_residual_norm_reference,
     launch_geometry,
@@ -87,7 +111,10 @@ from tensorlink_tpu_torch.ops.paged_decode import (
     paged_decode_reference,
 )
 from tensorlink_tpu_torch.parallel.inference import GenerationConfig, InferenceEngine
-from tensorlink_tpu_torch.parallel.serving import PagedContinuousBatchingEngine
+from tensorlink_tpu_torch.parallel.serving import (
+    ContinuousBatchingEngine,
+    PagedContinuousBatchingEngine,
+)
 from tensorlink_tpu_torch.train.trainer import Trainer, softmax_cross_entropy
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -451,7 +478,8 @@ def phase_paged(flush) -> dict:
 # at Llama-3-8B's width, then LayerNorm of f32 rows whose mean (2e3) dwarfs
 # their spread (~1.4), where a one-pass variance cancels; D 4100 (8-byte
 # vectors) and 4097 (scalar), which the 16-byte vector does not divide; 64
-# rows x 5120; and rows of 32768 f32, which a cluster of 4 blocks splits
+# rows x 5120; rows of 32768 f32, which a cluster of 4 blocks splits; and
+# GPT-2-medium's decode step, 8 slots x 1024 with LayerNorm + bias
 NORM_CASES = (
     ("rms", False, 8, 4096, torch.bfloat16, 0.0),
     ("layer", True, 8, 4096, torch.bfloat16, 0.0),
@@ -460,6 +488,7 @@ NORM_CASES = (
     ("rms", False, 8, 4097, torch.bfloat16, 0.0),
     ("rms", False, 64, 5120, torch.bfloat16, 0.0),
     ("layer", True, 4, 32768, torch.float32, 0.0),
+    ("layer", True, 8, 1024, torch.bfloat16, 0.0),
 )
 
 
@@ -712,6 +741,44 @@ def phase_flash(flush) -> dict:
     }
 
 
+def _teacher_forced(tag: str, model, prompts, outs) -> dict:
+    """Teacher-forced check of every emitted token: the port's no-cache
+    forward over prompt plus output must rank each emitted token within
+    LOGIT_GAP_TOL of its row's maximum. Each sequence is padded at its
+    end to a multiple of 128, so the reference's routing rule (_tile_ok
+    lengths, T >= 512) sends the long ones to B1 (with the model's window,
+    if it has one); causal attention keeps the pad out of the checked
+    rows. Fails the run on a wider gap, or unless B1 ran once a layer for
+    each sequence of >= 512."""
+    gaps, exact, n_flash = [], 0, 0
+    flash_attention_fwd_lse.launches = 0
+    with torch.no_grad():
+        for p, o in zip(prompts, outs):
+            ids = np.concatenate([p, o[:-1]])
+            n = len(ids)
+            ids = np.concatenate([ids, np.zeros(-n % 128, ids.dtype)])
+            n_flash += len(ids) >= 512
+            hidden = model(torch.from_numpy(ids).to(DEV)[None], logits=False)
+            logits = model.head(hidden[0, len(p) - 1:n]).float()
+            check(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logits")
+            tok = torch.from_numpy(np.asarray(o)).to(DEV)
+            gap = logits.max(dim=-1).values - logits.gather(1, tok[:, None])[:, 0]
+            gaps.append(float(gap.max()))
+            exact += int((gap == 0).sum())
+    n_tok = sum(len(o) for o in outs)
+    k_flash = flash_attention_fwd_lse.launches
+    L = len(model.blocks.blocks())
+    say(f"[{tag}] teacher-forced: worst logit gap {max(gaps):.4f} "
+        f"(tolerance {LOGIT_GAP_TOL}); {exact}/{n_tok} tokens are the exact "
+        f"argmax; flash_attention_fwd_lse launches {k_flash} (expected "
+        f"{n_flash} sequences of >= 512 x {L} layers)")
+    check(max(gaps) <= LOGIT_GAP_TOL, f"{tag}: teacher-forced check failed")
+    check(k_flash == n_flash * L and k_flash > 0,
+          f"{tag}: no-cache forward: flash launch count off the path")
+    return {"worst_gap": max(gaps), "exact": exact, "tokens": n_tok,
+            "sequences_ge_512": n_flash}
+
+
 def _requests(vocab: int):
     """12 prompts, 1..1500 tokens across chunk (128) and block (16)
     edges; six share a 256-token prefix (requests 0, 1 and 8..11, so the
@@ -730,9 +797,9 @@ def _requests(vocab: int):
     return out
 
 
-def phase_slice(name_power: str, cfg: LlamaConfig) -> dict:
+def phase_slice(name_power: str, model: Llama) -> dict:
     t0 = time.perf_counter()
-    model = Llama(cfg, device=DEV, dtype=torch.bfloat16, seed=0)
+    cfg = model.cfg
     eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
                           param_dtype=torch.bfloat16, device=DEV)
     max_new = 32
@@ -742,7 +809,7 @@ def phase_slice(name_power: str, cfg: LlamaConfig) -> dict:
     )
     torch.cuda.synchronize()
     say(f"[slice] Llama-3-8B {cfg.num_layers} layers dim {cfg.dim} "
-        f"vocab {cfg.vocab_size}: params + engine ready in "
+        f"vocab {cfg.vocab_size}: engine ready in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     prompts = _requests(cfg.vocab_size)
@@ -774,46 +841,21 @@ def phase_slice(name_power: str, cfg: LlamaConfig) -> dict:
     check(k2 == exp2 and k2 > 0, "fused-norm launch count off the path")
     check(st["prefix_matched_tokens"] > 0, "no prefix was shared")
 
-    # teacher-forced: the no-cache forward over prompt plus output must
-    # rank each emitted token within LOGIT_GAP_TOL of its row's maximum.
-    # Each sequence is padded at its end to a multiple of 128, so the
-    # reference's routing rule (_tile_ok lengths, T >= 512) sends the long
-    # ones to B1; causal attention keeps the pad out of the checked rows.
-    gaps, exact = [], 0
-    flash_attention_fwd_lse.launches = 0
-    n_flash = 0
-    with torch.no_grad():
-        for p, o in zip(prompts, outs):
-            ids = np.concatenate([p, o[:-1]])
-            n = len(ids)
-            ids = np.concatenate([ids, np.zeros(-n % 128, ids.dtype)])
-            n_flash += len(ids) >= 512
-            logits = model(torch.from_numpy(ids).to(DEV)[None])[0, len(p) - 1:n].float()
-            check(bool(torch.isfinite(logits).all()), "non-finite logits")
-            tok = torch.from_numpy(o).to(DEV)
-            gap = logits.max(dim=-1).values - logits.gather(1, tok[:, None])[:, 0]
-            gaps.append(float(gap.max()))
-            exact += int((gap == 0).sum())
-    n_tok = sum(len(o) for o in outs)
-    k_flash = flash_attention_fwd_lse.launches
+    tf = _teacher_forced("slice", model, prompts, outs)
     n_long = sum(len(p) >= 513 for p in prompts)
-    say(f"[slice] teacher-forced: worst logit gap {max(gaps):.4f} "
-        f"(tolerance {LOGIT_GAP_TOL}); {exact}/{n_tok} tokens are the exact argmax; "
-        f"flash_attention_fwd_lse launches {k_flash} (expected {n_flash} "
-        f"sequences of >= 512 x {L} layers; {n_long} prompts of >= 513 tokens)")
-    check(max(gaps) <= LOGIT_GAP_TOL, "teacher-forced check failed")
-    check(k_flash == n_flash * L and n_flash == n_long and k_flash > 0,
-          "no-cache forward: flash launch count off the path")
+    check(tf["sequences_ge_512"] == n_long,
+          f"{n_long} prompts of >= 513 tokens, {tf['sequences_ge_512']} "
+          "teacher-forced sequences of >= 512")
 
     ttft = [sch.timings(rid)["ttft_s"] for rid in rids]
     tps = sch.decode_only_tokens / sch.decode_only_s if sch.decode_only_s else None
     res = {
-        "requests": len(rids), "tokens": n_tok, "wall_s": wall,
+        "requests": len(rids), "tokens": tf["tokens"], "wall_s": wall,
         "ttft_s_mean": float(np.mean(ttft)), "ttft_s_p50": float(np.median(ttft)),
         "ttft_s_max": float(np.max(ttft)),
         "decode_tokens_per_s": tps,
         "decode_only_steps_tokens": sch.decode_only_tokens,
-        "output_tokens_per_s": n_tok / wall,
+        "output_tokens_per_s": tf["tokens"] / wall,
         "kv_blocks_peak": st["peak_blocks_in_use"],
         "kv_block_bytes": sch.kv_block_bytes,
         "prefix_matched_tokens": st["prefix_matched_tokens"],
@@ -825,7 +867,7 @@ def phase_slice(name_power: str, cfg: LlamaConfig) -> dict:
     return {"launches_paged": k1, "launches_norm": k2}
 
 
-def _profile_decode(sch, vocab: int, name_power: str) -> None:
+def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile") -> dict:
     """Where a decode step's time goes: 8 fresh 64-token requests are
     prefilled, then one scheduler step of pure decode (8 model steps)
     runs plainly and the next under ``torch.profiler``; the device's
@@ -836,7 +878,7 @@ def _profile_decode(sch, vocab: int, name_power: str) -> None:
 
     r = np.random.default_rng(4)
     rids = [sch.submit(r.integers(0, vocab, (64,)), max_new=25) for _ in range(8)]
-    while sch._pending:
+    while getattr(sch, "_pending", None):  # the paged engine's chunked prefill
         sch.step()
     t0 = time.perf_counter()
     sch.step()
@@ -868,7 +910,298 @@ def _profile_decode(sch, vocab: int, name_power: str) -> None:
         },
         "card": name_power,
     }
-    say(f"[profile] {json.dumps(res)}")
+    say(f"[{tag}] {json.dumps(res)}")
+    return res
+
+
+# ------------------------------------------------------ contiguous-cache legs
+# [static]: examples/serve_llm.py's default path, InferenceEngine.generate on
+# a static left-padded batch; T0 + new rounds up to 2304 cache slots, above
+# the 2048 where decode takes the blockwise loop
+STATIC_LENS = (700, 1200, 1650, 2000)
+STATIC_NEW = 64
+STATIC_MAX_LEN = 4096
+STATIC_PROFILE_STEP = 40  # decode steps 40..47 run under the profiler
+# [contiguous]: the --continuous path, 16 requests of 1..900 tokens (eight
+# submitted after the first scheduler step); GPT-2's position table ends at
+# 1024, so max_len does too
+CONT_LENS = (1, 37, 900, 128, 512, 255, 700, 64, 3, 800, 333, 129, 31, 600, 450, 96)
+CONT_NEW = 64
+CONT_MAX_LEN = 1024
+# [rolling]: the --window path at Mistral-7B's width, depth cut to 4 layers:
+# the ring (T0 + window = 4352 slots) wraps only after more than 4096 decode
+# steps, which 32 layers would take ~8x the chip time to reach
+ROLL_LENS = (256, 200)
+ROLL_NEW = 4200
+ROLL_MAX_LEN = 4608
+ROLL_LAYERS = 4
+ROLL_PROFILE_STEP = 4100  # after the ring's first wrap
+
+
+def _zero_counts() -> None:
+    """Every kernel's launch count to 0, just before a path runs."""
+    paged_decode_attention.launches = 0
+    paged_decode_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+    fused_residual_norm.launches = 0
+    fused_residual_norm.launches_by_form = dict.fromkeys(FORMS, 0)
+    flash_attention_fwd_lse.launches = 0
+    flash_attention_bwd.launches = 0
+
+
+def _counts() -> dict:
+    return {
+        "paged_decode": paged_decode_attention.launches,
+        "fused_norm": fused_residual_norm.launches,
+        "fused_norm_by_form": dict(fused_residual_norm.launches_by_form),
+        "flash_fwd": flash_attention_fwd_lse.launches,
+        "flash_bwd": flash_attention_bwd.launches,
+    }
+
+
+def _check_decode_launches(tag: str, c: dict, expected: int, form: str) -> None:
+    """B4 once a layer a decode step, all in ``form``; no other kernel
+    (the prefill masks are general, so B1 stays off, as in the JAX
+    package; the contiguous cache has no block table for B3)."""
+    say(f"[{tag}] launches: {json.dumps(c)}; expected fused_norm {expected} "
+        f"({form}), none of the others")
+    check(c["fused_norm"] == expected > 0
+          and c["fused_norm_by_form"][form] == expected,
+          f"{tag}: fused-norm launches off the path")
+    check(c["flash_fwd"] == c["flash_bwd"] == c["paged_decode"] == 0,
+          f"{tag}: an attention kernel ran on the contiguous path")
+
+
+def _left_padded(lens, vocab: int, seed: int):
+    """(prompts, ids [B, T0], pad mask): prompts of ``lens`` tokens,
+    left-padded to the longest."""
+    r = np.random.default_rng(seed)
+    prompts = [r.integers(0, vocab, (n,)) for n in lens]
+    T0 = max(lens)
+    ids = np.zeros((len(lens), T0), np.int64)
+    pad = np.zeros_like(ids)
+    for b, p in enumerate(prompts):
+        ids[b, T0 - len(p):] = p
+        pad[b, T0 - len(p):] = 1
+    return prompts, ids, pad
+
+
+def _cache_bytes(eng, B: int, slots: int) -> int:
+    attn = eng.model.blocks.blocks()[0].attn
+    item = torch.empty((), dtype=eng.cache_dtype).element_size()
+    return (2 * len(eng.model.blocks.blocks()) * B * slots
+            * attn.num_kv_heads * attn.head_dim * item)
+
+
+def _generate_traced(tag: str, eng, ids, pad, max_new: int, first: int,
+                     name_power: str, active: int = 8) -> dict:
+    """``eng.generate`` of ``max_new`` greedy tokens, with a pre-hook on
+    the model's calls (call 0 the prefill, call i decode step i): at
+    step 1 a device sync stamps the prefill's end; steps first .. first +
+    active - 1 run under torch.profiler between two syncs. -> the tokens,
+    host seconds in all and to the prefill's end, ms a decode step over
+    the steps outside the profiled window, and the window's kernel ms a
+    step (the device's busy share is that over the unprofiled step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    stamps, calls = {}, [0]
+
+    def pre_hook(module, args):
+        i = calls[0]
+        calls[0] += 1
+        if i in (1, first, first + active):
+            torch.cuda.synchronize()
+            stamps[i] = time.perf_counter()
+        if i == first:
+            prof.start()
+        elif i == first + active:
+            prof.stop()
+
+    handle = eng.model.register_forward_pre_hook(pre_hook)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(ids, GenerationConfig(max_new_tokens=max_new),
+                           pad_mask=pad)
+        total_s = time.perf_counter() - t0
+    finally:
+        handle.remove()
+    check(first + active in stamps, f"{tag}: the profiled window did not close")
+    steps = max_new - 1
+    window_s = stamps[first + active] - stamps[first]
+    decode_ms = (total_s - (stamps[1] - t0) - window_s) / (steps - active) * 1e3
+    kernels = {
+        e.key: e.self_device_time_total / active / 1e3
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0
+    }
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: kv[1], reverse=True)[:8]
+    res = {
+        "decode_ms_per_step": decode_ms,
+        "profiled_window_ms_per_step": window_s / active * 1e3,
+        "kernel_ms_per_decode_step": busy if busy > 0 else "not measured",
+        "device_busy_share": busy / decode_ms if busy > 0 else "not measured",
+        "top_kernels_ms_per_step": {k[:48]: v for k, v in top},
+        "card": name_power,
+    }
+    say(f"[{tag} profile] {json.dumps(res)}")
+    return {"out": out, "total_s": total_s, "prefill_s": stamps[1] - t0,
+            "decode_ms": decode_ms}
+
+
+def phase_static(name_power: str, model: Llama) -> dict:
+    """Llama-3-8B (the model phase_slice served) through
+    ``InferenceEngine.generate``: 4 left-padded prompts, greedy; B4 on
+    every decode step of every layer, B1 never; every token within
+    LOGIT_GAP_TOL of the teacher-forced row maximum."""
+    cfg = model.cfg
+    eng = InferenceEngine(model, max_len=STATIC_MAX_LEN,
+                          cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV)
+    prompts, ids, pad = _left_padded(STATIC_LENS, cfg.vocab_size, seed=6)
+    B, T0 = ids.shape
+    slots, rolling = eng.cache_plan(T0, STATIC_NEW)
+    check(not rolling and slots > DECODE_BLOCKWISE_MIN_WINDOWLESS
+          and slots % DECODE_BLOCK == 0,
+          f"static: {slots} cache slots do not take the blockwise decode")
+    _zero_counts()
+    run = _generate_traced("static", eng, ids, pad, STATIC_NEW,
+                           STATIC_PROFILE_STEP, name_power)
+    c = _counts()
+    out, total_s, prefill_s = run["out"], run["total_s"], run["prefill_s"]
+    steps = STATIC_NEW - 1
+    _check_decode_launches("static", c, cfg.num_layers * steps, "rms")
+    check(out.shape == (B, STATIC_NEW), f"static: tokens of shape {out.shape}")
+    tf = _teacher_forced("static", model, prompts, list(out))
+    res = {
+        "model": "Llama-3-8B", "layers": cfg.num_layers, "batch": B, "T0": T0,
+        "prompt_lens": list(STATIC_LENS), "new_tokens": STATIC_NEW,
+        "cache_slots": slots, "cache_bytes": _cache_bytes(eng, B, slots),
+        "prefill_s": prefill_s, "generate_s": total_s,
+        "decode_ms_per_step": run["decode_ms"],
+        "tokens_per_s": B * STATIC_NEW / total_s,
+        "decode_tokens_per_s": B * steps / (total_s - prefill_s),
+        "launches_fused_norm": c["fused_norm"], "card": name_power,
+    }
+    say(f"[static] {json.dumps(res)}")
+    return {"launches_norm": c["fused_norm"], "worst_gap": tf["worst_gap"]}
+
+
+def phase_contiguous(name_power: str) -> dict:
+    """GPT-2-medium (random bf16 weights from seed 0) served by the
+    contiguous ``ContinuousBatchingEngine``: 16 greedy requests, eight of
+    them submitted after the first scheduler step; B4 in its LayerNorm +
+    bias form on every decode step of every layer."""
+    gcfg = GPT2Config.medium()
+    t0 = time.perf_counter()
+    model = GPT2(gcfg, device=DEV, dtype=torch.bfloat16, seed=0)
+    eng = InferenceEngine(model, max_len=CONT_MAX_LEN, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV)
+    sch = ContinuousBatchingEngine(
+        eng, slots=8, decode_chunk=8, prefill_block=32,
+        gen=GenerationConfig(max_new_tokens=CONT_NEW),
+    )
+    torch.cuda.synchronize()
+    say(f"[contiguous] GPT-2-medium {gcfg.num_layers} layers dim {gcfg.dim} "
+        f"vocab {gcfg.vocab_size}: params + engine ready in "
+        f"{time.perf_counter() - t0:.1f} s, cache {sch.kv_bytes} bytes")
+    r = np.random.default_rng(7)
+    prompts = [r.integers(0, gcfg.vocab_size, (n,)) for n in CONT_LENS]
+    _zero_counts()
+    t_run = time.perf_counter()
+    rids = [sch.submit(p) for p in prompts[:8]]
+    sch.step()
+    rids += [sch.submit(p) for p in prompts[8:]]
+    sch.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    c = _counts()
+    st = sch.stats()
+    outs = [sch.result(rid) for rid in rids]
+    check(all(len(o) == CONT_NEW for o in outs), "contiguous: a request did not finish")
+    _check_decode_launches("contiguous", c, gcfg.num_layers * st["decode_steps"],
+                           "layer+bias")
+    tf = _teacher_forced("contiguous", model, prompts, outs)
+    ttft = [sch.timings(rid)["ttft_s"] for rid in rids]
+    res = {
+        "model": "GPT-2-medium", "requests": len(rids), "tokens": tf["tokens"],
+        "wall_s": wall, "ttft_s_mean": float(np.mean(ttft)),
+        "ttft_s_p50": float(np.median(ttft)), "ttft_s_max": float(np.max(ttft)),
+        "decode_tokens_per_s": (sch.decode_only_tokens / sch.decode_only_s
+                                if sch.decode_only_s else None),
+        "decode_only_steps_tokens": sch.decode_only_tokens,
+        "output_tokens_per_s": tf["tokens"] / wall,
+        "decode_steps": st["decode_steps"], "prefills": st["prefill_chunks"],
+        "cache_bytes": sch.kv_bytes, "card": name_power,
+    }
+    say(f"[contiguous] {json.dumps(res)}")
+    _profile_decode(sch, gcfg.vocab_size, name_power, tag="contiguous profile")
+    return {"launches_norm": c["fused_norm"], "worst_gap": tf["worst_gap"]}
+
+
+def phase_rolling(name_power: str) -> dict:
+    """Mistral-7B's width at 4 layers (random bf16 weights from seed 0)
+    through ``InferenceEngine(rolling_cache=True).generate``: 2
+    left-padded prompts, greedy, long enough that the ring wraps; B4 on
+    every decode step; every token within LOGIT_GAP_TOL of the no-cache
+    windowed forward's row maximum; the full cache's engine run beside it
+    for its tokens and bytes."""
+    mcfg = dataclasses.replace(LlamaConfig.mistral_7b(), num_layers=ROLL_LAYERS)
+    model = Llama(mcfg, device=DEV, dtype=torch.bfloat16, seed=0)
+    kw = {"max_len": ROLL_MAX_LEN, "cache_dtype": torch.bfloat16,
+          "param_dtype": torch.bfloat16, "device": DEV}
+    ring = InferenceEngine(model, rolling_cache=True, **kw)
+    full = InferenceEngine(model, **kw)
+    prompts, ids, pad = _left_padded(ROLL_LENS, mcfg.vocab_size, seed=8)
+    B, T0 = ids.shape
+    slots, rolling = ring.cache_plan(T0, ROLL_NEW)
+    full_slots, _ = full.cache_plan(T0, ROLL_NEW)
+    check(rolling and slots == T0 + mcfg.attn_window < full_slots,
+          f"rolling: plan {slots} slots (ring {rolling}), full {full_slots}")
+    made = []  # the caches generate allocates, to read the ring back
+
+    def init_caches(*a, **k):
+        made.append(Llama.init_caches(model, *a, **k))
+        return made[-1]
+
+    model.init_caches = init_caches
+    try:
+        _zero_counts()
+        run = _generate_traced("rolling", ring, ids, pad, ROLL_NEW,
+                               ROLL_PROFILE_STEP, name_power)
+        c = _counts()
+    finally:
+        del model.init_caches
+    steps = ROLL_NEW - 1
+    _check_decode_launches("rolling", c, ROLL_LAYERS * steps, "rms")
+    cache = made[-1][0]["attn"]
+    writes = T0 + c["fused_norm"] // ROLL_LAYERS  # the prompt, then a slot a step
+    check("rolling" in cache and cache["k"].shape[1] == slots < writes,
+          f"rolling: the ring of {cache['k'].shape[1]} slots took {writes} writes")
+    out = run["out"]
+    run_full = _generate_traced("rolling full-cache", full, ids, pad,
+                                ROLL_NEW, ROLL_PROFILE_STEP, name_power)
+    tf = _teacher_forced("rolling", model, prompts, list(out))
+    res = {
+        "model": f"Mistral-7B width, {ROLL_LAYERS} of 32 layers",
+        "batch": B, "T0": T0, "prompt_lens": list(ROLL_LENS),
+        "new_tokens": ROLL_NEW, "window": mcfg.attn_window,
+        "ring_slots": slots, "ring_writes": writes,
+        "ring_cache_bytes": _cache_bytes(ring, B, slots),
+        "full_cache_slots": full_slots,
+        "full_cache_bytes": _cache_bytes(full, B, full_slots),
+        "prefill_s": run["prefill_s"], "ring_generate_s": run["total_s"],
+        "ring_decode_ms_per_step": run["decode_ms"],
+        "full_prefill_s": run_full["prefill_s"],
+        "full_generate_s": run_full["total_s"],
+        "full_decode_ms_per_step": run_full["decode_ms"],
+        "tokens_equal_to_full_cache": int((out == run_full["out"]).sum()),
+        "tokens": int(out.size), "card": name_power,
+    }
+    say(f"[rolling] {json.dumps(res)}")
+    return {"launches_norm": c["fused_norm"], "worst_gap": tf["worst_gap"]}
 
 
 def _bert_loss(module, params, batch, rng):
@@ -1111,12 +1444,26 @@ def main() -> int:
     paged = phase_paged(flush)
     norm = phase_norm(flush, floor_ms)
     flash = phase_flash(flush)
-    cfg = LlamaConfig.llama3_8b()
-    launches = phase_slice(name_power, cfg)
+    model = Llama(LlamaConfig.llama3_8b(), device=DEV, dtype=torch.bfloat16,
+                  seed=0)
+    launches = phase_slice(name_power, model)
+    static = phase_static(name_power, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    contiguous = phase_contiguous(name_power)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rolling = phase_rolling(name_power)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train = phase_train(name_power)
+    norm_paths = {"paged serving": launches["launches_norm"],
+                  "static": static["launches_norm"],
+                  "contiguous": contiguous["launches_norm"],
+                  "rolling": rolling["launches_norm"]}
+    say(f"[launches] fused_residual_norm by path: {json.dumps(norm_paths)}")
     kernels = [
         {
             "name": "paged_decode_attention", "route": "cuda",
@@ -1130,7 +1477,7 @@ def main() -> int:
             "name": "fused_residual_norm", "route": "cuda",
             "source": "tensorlink_tpu_torch/csrc/decode_glue.cu",
             "replaces": "tensorlink_tpu/ops/pallas/decode_glue.py:90",
-            "launches": launches["launches_norm"],
+            "launches": sum(norm_paths.values()),
             **{k: norm[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")},
         },

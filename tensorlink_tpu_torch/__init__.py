@@ -5,10 +5,11 @@ module's counterpart is found by path. It never imports JAX or
 ``tensorlink_tpu``: modules the port needs from there that use no
 framework are copied in (``parallel/kvpool.py``).
 
-Entry points (``Llama``, ``InferenceEngine``,
-``PagedContinuousBatchingEngine``) run on ``cuda`` unless the caller
-passes ``device="cpu"``; with no device given and no CUDA present they
-raise instead of quietly falling back to the CPU. Kernel wrappers follow
+Entry points (``Llama``, ``GPT2``, ``InferenceEngine``,
+``ContinuousBatchingEngine``, ``PagedContinuousBatchingEngine``) run on
+``cuda`` unless the caller passes ``device="cpu"``; with no device given
+and no CUDA present they raise instead of quietly falling back to the
+CPU. Kernel wrappers follow
 the same rule per tensor: a CUDA tensor launches the hand-written
 kernel (or the wrapper raises), a CPU tensor takes the plain PyTorch
 version.

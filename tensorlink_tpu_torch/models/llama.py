@@ -147,3 +147,18 @@ class Llama(nn.Module):
         if caches is not None:
             return out, new_caches
         return out
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """Logits of final hidden states (``forward(..., logits=False)``)."""
+        return self.lm_head(h)
+
+    def init_caches(self, batch: int, max_len: int,
+                    dtype: torch.dtype = torch.bfloat16,
+                    rolling: bool = False) -> list[dict]:
+        """One contiguous ``{"attn": cache}`` a block, on the model's
+        device (``MultiHeadAttention.init_cache``)."""
+        return [
+            {"attn": blk.attn.init_cache(batch, max_len, dtype, rolling,
+                                         device=self.device)}
+            for blk in self.blocks.blocks()
+        ]

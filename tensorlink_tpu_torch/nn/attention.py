@@ -1,8 +1,23 @@
 """Attention (port of ``tensorlink_tpu/nn/attention.py``): the plain
-reference implementation, RoPE, ``resolve_attn_impl``, and
+reference implementation, RoPE, ``resolve_attn_impl``, the
+length-bounded ``decode_attention_blockwise``, and
 ``MultiHeadAttention`` with its no-cache path (through the module's
 ``attn_impl``: the plain reference, or ``ops.flash``'s routing to the
-flash kernels B1/B2) and its paged-cache path.
+flash kernels B1/B2), its contiguous-cache path and its paged-cache path.
+
+Contiguous cache form (``init_cache``; one region of ``max_len`` slots a
+row):
+  ``k``/``v``  [B, max_len, Hkv, D];
+  ``index``    a 0-d int32 tensor — every row writes at the same slot
+               (the static ``generate`` loop) — or [B] int32, each row's
+               own write position (the serving engine's slot form);
+  ``rolling``  present (value None) on a ring cache, whose writes wrap
+               modulo its capacity;
+  ``frontier`` optional host ``(lo, hi)`` ints with ``lo <= index <= hi``
+               for every row that is still decoding: the block bounds of
+               the blockwise decode, so that no layer reads the index back
+               from the device. Without it the blockwise decode covers
+               every block, which gives the same outputs.
 
 Paged cache form (``init_paged_cache``; the serving engine owns it):
   ``k``/``v``     [num_blocks, block_size, Hkv, D] pools shared by all
@@ -14,14 +29,13 @@ Paged cache form (``init_paged_cache``; the serving engine owns it):
                   ``num_blocks`` marks unmapped entries, and writes
                   through it are dropped.
 
-The paged write updates the pools IN PLACE (the JAX package returns new
-pools; here the engine's preallocated device buffers are the state) and
-returns a new cache dict whose ``index`` has advanced by T. The read goes
-through ``ops.paged_decode.paged_decode_attention``: the hand-written
-kernel for CUDA tensors, its plain version for CPU tensors.
-
-The contiguous (per-slot region) cache path and the fused q/k/v layout
-wait for a later slice.
+Both caches are written IN PLACE (the JAX package returns new arrays;
+here the preallocated device buffers are the state), and the module
+returns a new cache dict whose ``index`` has advanced by T. The paged
+read goes through ``ops.paged_decode.paged_decode_attention``: the
+hand-written kernel for CUDA tensors, its plain version for CPU tensors.
+The contiguous read is plain PyTorch, as it is XLA code in the JAX
+package. The fused q/k/v layout waits for a later slice.
 """
 
 from __future__ import annotations
@@ -89,6 +103,76 @@ def dot_product_attention(
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+DECODE_BLOCK = 256
+# windowless decode takes the blockwise path only above this cache size
+# (slots); the reference's threshold, kept so both packages route alike
+DECODE_BLOCKWISE_MIN_WINDOWLESS = 8 * DECODE_BLOCK
+
+
+def decode_attention_blockwise(
+    q: torch.Tensor,  # [B, Tq, H, D]
+    k: torch.Tensor,  # [B, L, Hkv, D] — the whole cache
+    v: torch.Tensor,
+    live_len: int,  # host int: slots [0, live_len) may be real
+    *,
+    mask: torch.Tensor | None = None,  # [B, 1|H, 1|Tq, L] bool over slots
+    block: int = DECODE_BLOCK,
+    start: int = 0,  # host int: no slot below it is attendable
+) -> torch.Tensor:
+    """Length-bounded decode attention: the online softmax over the cache
+    blocks ``[start // block, ceil(live_len / block))``, clamped to the
+    capacity, so a step's cost tracks the live prefix (and, with a
+    window, the window) rather than the capacity. Both bounds are host
+    ints the caller already knows; reading them from the device would
+    cost a host sync per layer per step. Validity and causality come
+    from ``mask`` alone: slots at or past ``live_len`` must be masked by
+    the caller. Requires ``L % block == 0``.
+
+    Each block's softmax state (max, sum, p @ v) is formed in one batched
+    pass and the states are merged by their maxima: the reference's merge,
+    which its ``fori_loop`` applies one block at a time (a static-shape
+    program needs the loop for a dynamic length), done for all blocks at
+    once, so a layer costs the same few eager ops at any live length. A
+    row with no attendable slot gives zeros."""
+    B, Tq, H, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    if L % block:
+        raise ValueError(
+            f"blockwise decode needs cache {L} % block {block} == 0"
+        )
+    rep = H // Hkv
+    # clamped: a frontier within T slots of the end must not run a block
+    # past the capacity
+    nb = min(-(-int(live_len) // block), L // block)
+    b0 = max(int(start), 0) // block
+    if b0 >= nb:
+        return torch.zeros_like(q)
+    n, sl = nb - b0, slice(b0 * block, nb * block)
+    # GQA without repeating the cache: query heads grouped by kv head
+    qg = q.reshape(B, Tq, Hkv, rep, D)
+    kb, vb = k[:, sl], v[:, sl]
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kb).float() * D ** -0.5
+    s = s.reshape(B, H, Tq, n, block)
+    if mask is not None:
+        mb = mask[..., sl]
+        mb = mb.reshape(*mb.shape[:-1], n, block)
+        s = torch.where(mb, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)  # [B, H, Tq, n, 1]
+    p = torch.exp(s - m)
+    if mask is not None:
+        p = torch.where(mb, p, 0.0)
+    den = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum(
+        "bgrqjk,bjkgd->bgrqjd", p.to(vb.dtype).reshape(B, Hkv, rep, Tq, n, block),
+        vb.reshape(B, n, block, Hkv, D),
+    ).float().reshape(B, H, Tq, n, D)
+    alpha = torch.exp(m - m.amax(dim=3, keepdim=True))
+    den = (alpha * den).sum(dim=3)  # [B, H, Tq, 1]
+    acc = (alpha * pv).sum(dim=3)  # [B, H, Tq, D]
+    out = acc / torch.where(den == 0.0, 1.0, den)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -167,6 +251,31 @@ def paged_write_slots(index: torch.Tensor, block_table: torch.Tensor,
     return rows, toks, blk[rows, toks], (tpos % block_size)[rows, toks]
 
 
+def write_rows(caches, news, index: torch.Tensor) -> None:
+    """In place, for each (cache [B, cap, ...], new [B, T, ...]) pair:
+    token t of row r goes to slot ``index[r] + t``, and a write at or
+    past the capacity is dropped (a clamp would corrupt the row's last
+    real slot). Without a host sync: a dropped write lands on slot
+    cap - 1 carrying the value that slot holds once the kept writes are
+    done (the row's token there, or the slot's old value), so writes that
+    share a slot agree and the scatter's order does not matter."""
+    B, cap = caches[0].shape[:2]
+    T = news[0].shape[1]
+    idx = index.long()
+    slots = idx[:, None] + torch.arange(T, device=idx.device)[None, :]
+    rows = torch.arange(B, device=idx.device)
+    kept = slots < cap
+    kept_last = idx < cap
+    t_last = (cap - 1 - idx).clamp(0, T - 1)
+    dst = (rows[:, None], slots.clamp(max=cap - 1))
+    for cache, new in zip(caches, news):
+        new = new.to(cache.dtype)
+        bcast = (1,) * (new.dim() - 2)
+        last = torch.where(kept_last.view(B, *bcast), new[rows, t_last],
+                           cache[:, cap - 1])
+        cache[dst] = torch.where(kept.view(B, T, *bcast), new, last[:, None])
+
+
 class MultiHeadAttention(nn.Module):
     def __init__(
         self,
@@ -234,7 +343,7 @@ class MultiHeadAttention(nn.Module):
         self.o = Dense(qdim, dim, use_bias, **kw)
 
     def forward(self, x, *, mask=None, cache=None, positions=None,
-                bias=None):
+                bias=None, fresh_keys=None):
         B, T, _ = x.shape
         if bias is not None and self._attn is not dot_product_attention:
             # the flash routing swallows unknown kwargs: an additive bias
@@ -245,34 +354,193 @@ class MultiHeadAttention(nn.Module):
         q = self.q(x).reshape(B, T, self.num_heads, self.head_dim)
         k = self.k(x).reshape(B, T, self.num_kv_heads, self.head_dim)
         v = self.v(x).reshape(B, T, self.num_kv_heads, self.head_dim)
-        if cache is not None and "block_table" not in cache:
-            raise NotImplementedError(
-                "only the paged KV cache is ported; the contiguous cache "
-                "waits for a later slice"
-            )
-        if positions is None:
-            if cache is not None and self.rope:
-                raise ValueError(
-                    "paged rows sit at different logical positions: pass "
-                    "positions explicitly"
-                )
-            positions = torch.arange(T, device=x.device)[None, :]
         if self.rope:
+            if positions is None:
+                if cache is not None and cache["index"].dim() == 1:
+                    raise ValueError(
+                        "per-row cache indices with rope require explicit "
+                        "positions (rows sit at different logical positions)"
+                    )
+                base = 0 if cache is None else cache["index"]
+                positions = base + torch.arange(T, device=x.device)[None, :]
             q = apply_rope(q, positions, self.rope_theta)
             k = apply_rope(k, positions, self.rope_theta)
-        if cache is not None:
+        if cache is None:
+            out = self._attn(
+                q, k, v, causal=self.causal, mask=mask, q_offset=0, bias=bias,
+                scale=self.scale, window=self.window,
+            )
+            return self.o(out.reshape(B, T, -1))
+        if "block_table" in cache:
             if bias is not None:
                 raise NotImplementedError(
                     "additive attention bias with a paged cache is not "
                     "supported"
                 )
             out, new_cache = self._apply_paged(q, k, v, cache, mask)
-            return self.o(out.reshape(B, T, -1)), new_cache
-        out = self._attn(
-            q, k, v, causal=self.causal, mask=mask, q_offset=0, bias=bias,
-            scale=self.scale, window=self.window,
+        elif cache["index"].dim() == 1:
+            out, new_cache = self._apply_rows(q, k, v, cache, mask, bias)
+        else:
+            out, new_cache = self._apply_contiguous(
+                q, k, v, cache, mask, bias, fresh_keys
+            )
+        return self.o(out.reshape(B, T, -1)), new_cache
+
+    def _blocks_min(self) -> int:
+        """Cache size above which a decode step takes the blockwise path:
+        a window skips straight to its band, so any cache of more than
+        one block pays off; windowless, only a large one."""
+        if self.window is not None:
+            return DECODE_BLOCK
+        return DECODE_BLOCKWISE_MIN_WINDOWLESS
+
+    def _apply_rows(self, q, k, v, cache, mask, bias):
+        """Per-row ``[B]`` index (the serving slot form): each row writes
+        its T tokens at its own index, dropped at capacity, and attends
+        its region under the caller's mask (validity over history),
+        causality folded as a per-query slot bound, and the window band
+        in slot space (slot s holds logical position s - pads, the pads
+        constant a row)."""
+        if "rolling" in cache:
+            raise NotImplementedError(
+                "per-row cache indices with a rolling cache would need "
+                "per-row wrap bookkeeping; serve windowed models from the "
+                "monotone cache"
+            )
+        B, T = q.shape[0], q.shape[1]
+        ck, cv, idx = cache["k"], cache["v"], cache["index"]
+        cap = ck.shape[1]
+        if mask is not None and mask.shape[-1] != cap:
+            raise ValueError(
+                "per-row cache indices need a cache-width mask (last dim "
+                f"{cap}), got {tuple(mask.shape)}"
+            )
+        write_rows((ck, cv), (k, v), idx)
+        new_cache = {"k": ck, "v": cv, "index": idx + T}
+        ar = torch.arange(T, device=q.device)
+        live_t = idx.long()[:, None] + ar[None, :] + 1  # [B, T]
+        kslot = torch.arange(cap, device=q.device)[None, None, None, :]
+        valid = kslot < live_t[:, None, :, None]  # [B, 1, T, cap]
+        mask = valid if mask is None else mask & valid
+        win = self.window
+        if win is not None:
+            win_start = (live_t - win).clamp_min(0)
+            mask = mask & (kslot >= win_start[:, None, :, None])
+        if (cap > self._blocks_min() and cap % DECODE_BLOCK == 0
+                and bias is None and self.scale is None):
+            lo, hi = cache.get("frontier", (0, cap))
+            out = decode_attention_blockwise(
+                q, ck.to(q.dtype), cv.to(q.dtype), hi + T, mask=mask,
+                start=0 if win is None else max(lo + 1 - win, 0),
+            )
+        else:
+            out = self._attn(
+                q, ck.to(q.dtype), cv.to(q.dtype), causal=False, mask=mask,
+                q_offset=0, bias=bias, scale=self.scale, window=None,
+            )
+        return out, new_cache
+
+    def _apply_contiguous(self, q, k, v, cache, mask, bias, fresh_keys):
+        """Scalar index: every row writes its T tokens at ``index`` (wrapped
+        modulo the capacity on a ring), then attends either the T fresh
+        keys (the prefill contract below) or the cache."""
+        B, T = q.shape[0], q.shape[1]
+        ck, cv, idx = cache["k"], cache["v"], cache["index"]
+        cap = ck.shape[1]
+        rolling = "rolling" in cache
+        ar = torch.arange(T, device=q.device)
+        if rolling:
+            if T > cap:
+                # wrapped duplicates would overwrite each other in an
+                # undefined order
+                raise ValueError(
+                    f"rolling write of {T} tokens exceeds ring capacity "
+                    f"{cap}: later tokens would overwrite earlier ones in "
+                    "undefined order; chunk the write"
+                )
+            # a write that crosses the ring edge lands each token in its
+            # own slot
+            slots = (idx.long() + ar) % cap
+        else:
+            if T > cap:
+                raise ValueError(f"write of {T} tokens into a cache of {cap}")
+            # the reference's update-slice start clamps to keep the write
+            # inside the cache
+            slots = idx.long().clamp(0, cap - T) + ar
+        ck.index_copy_(1, slots, k.to(ck.dtype))
+        cv.index_copy_(1, slots, v.to(cv.dtype))
+        new_cache = {"k": ck, "v": cv, "index": idx + T}
+        if rolling:
+            new_cache["rolling"] = None
+        # fresh-keys prefill contract: a write whose mask covers exactly
+        # the T fresh keys attends the just-projected k/v, not the mostly
+        # empty cache; an explicit fresh_keys wins. A T == 1 write with a
+        # width-1 mask into a wider cache is a one-token prompt's prefill.
+        # A caller at index > 0 attends the cache and needs a cache-width
+        # mask; a fresh write there is poisoned below.
+        fresh = (
+            fresh_keys if fresh_keys is not None
+            else mask is not None and mask.shape[-1] == T
+            and (T > 1 or cap > T)
         )
-        return self.o(out.reshape(B, T, -1))
+        if fresh and (mask is None or mask.shape[-1] != T):
+            raise ValueError(
+                "fresh_keys=True needs a T-wide mask over the just-projected "
+                f"keys (got mask {None if mask is None else tuple(mask.shape)}"
+                f", T={T})"
+            )
+        if not fresh and mask is not None and mask.shape[-1] != cap:
+            raise ValueError(
+                f"cache attention needs a cache-width mask (last dim {cap}), "
+                f"got {tuple(mask.shape)}; a prompt-width mask is the "
+                "fresh-keys prefill form (fresh_keys=True / the T-wide "
+                "inference)"
+            )
+        if not fresh:
+            k, v = ck, cv
+            # slots beyond what has been written
+            valid = torch.arange(cap, device=q.device)[None, None, None, :] \
+                < idx + T
+            mask = valid if mask is None else mask & valid
+        win = self.window
+        if (not fresh and T == 1 and cap > self._blocks_min()
+                and cap % DECODE_BLOCK == 0 and bias is None
+                and self.scale is None and not rolling):
+            # the ring never takes the blockwise path: past its first wrap
+            # the live count exceeds the capacity, and its capacity is
+            # already window-sized
+            lo, hi = cache.get("frontier", (0, cap))
+            start = 0
+            if win is not None:
+                # the lone query at live - 1 attends [live - window, live)
+                win_start = (idx + T - win).clamp_min(0)
+                kpos = torch.arange(cap, device=q.device)[None, None, None, :]
+                mask = mask & (kpos >= win_start)
+                start = max(lo + T - win, 0)
+            out = decode_attention_blockwise(
+                q, k.to(q.dtype), v.to(q.dtype), hi + T, mask=mask,
+                start=start,
+            )
+        elif rolling:
+            # past the first wrap slot order is not position order: the
+            # caller's mask (slot -> position bookkeeping) is the only
+            # authority
+            out = self._attn(
+                q, k.to(q.dtype), v.to(q.dtype), causal=False, mask=mask,
+                q_offset=0, bias=bias, scale=self.scale, window=None,
+            )
+        else:
+            out = self._attn(
+                q, k.to(q.dtype), v.to(q.dtype), causal=self.causal,
+                mask=mask, q_offset=idx, bias=bias, scale=self.scale,
+                window=win,
+            )
+        if fresh:
+            # the contract holds only for an empty cache: at index > 0 the
+            # cached context would be silently dropped, so the output is
+            # poisoned on the device instead
+            out = torch.where(idx == 0, out, float("nan"))
+        return out, new_cache
 
     def _apply_paged(self, q, k, v, cache, mask):
         """Scatter the T fresh tokens through each row's block table into
@@ -325,6 +593,22 @@ class MultiHeadAttention(nn.Module):
             mask=mask, window=self.window,
         )
         return out, new_cache
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   rolling: bool = False, *, device=None) -> dict:
+        """Contiguous cache form (see the module docstring) at index 0.
+        ``rolling=True`` marks a ring: ``max_len`` is then its capacity
+        (typically prompt + window), writes wrap modulo it, and the caller
+        owns slot-position masking (``parallel/inference.py``)."""
+        shape = (batch, max_len, self.num_kv_heads, self.head_dim)
+        cache = {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "index": torch.zeros((), dtype=torch.int32, device=device),
+        }
+        if rolling:
+            cache["rolling"] = None
+        return cache
 
     def init_paged_cache(
         self, num_blocks: int, block_size: int, batch: int, max_blocks: int,

@@ -1,6 +1,6 @@
 """Transformer blocks (port of ``tensorlink_tpu/nn/transformer.py``):
 ``FeedForward`` (plain or gated SwiGLU), ``TransformerBlock`` — pre-LN
-(GPT-2/Llama, with its T == 1 decode fast path) or post-LN (BERT) — and
+(GPT-2/Llama, with its T == 1 eval decode fast path) or post-LN (BERT) — and
 ``TransformerStack``. Training mode (``train=True`` with a
 ``torch.Generator`` as ``rng``) applies dropout where the reference does:
 the attention output, inside ``FeedForward`` after the activation, and
@@ -109,9 +109,9 @@ class TransformerBlock(nn.Module):
         new_cache = None
         if cache is not None:
             a, new_cache = a
-        if cache is not None and x.shape[1] == 1:
-            # decode step: residual add + norm2 in one kernel launch on
-            # CUDA (ops/decode_glue.py); the wrapper raises outside the
+        if cache is not None and not train and x.shape[1] == 1:
+            # eval decode step: residual add + norm2 in one kernel launch
+            # on CUDA (ops/decode_glue.py); the wrapper raises outside the
             # kernel's limits instead of falling back
             x, h = fused_residual_norm(
                 a, x, self.norm2.scale, getattr(self.norm2, "bias", None),

@@ -16,6 +16,8 @@ so it is bound by those bytes. ``launch_geometry`` picks its launch on
 the host: the cluster size C, the threads of a block, the vector width
 and the vectors a thread holds. Its limit is ``1 <= D <= MAX_D`` in
 f32, bf16 or f16; anything else raises instead of falling back.
+``fused_residual_norm.launches`` counts the kernel's launches and
+``fused_residual_norm.launches_by_form`` splits them by norm form.
 ``fused_residual_norm_split_reference`` repeats the kernel's order of
 reduction (each thread's moments merged with Chan's formula over lanes,
 warps and the cluster's blocks) in PyTorch.
@@ -86,6 +88,9 @@ def fused_residual_norm(
 
 
 fused_residual_norm.launches = 0
+# launches by norm form ("rms" or "layer", "+bias" when a bias was given)
+FORMS = ("rms", "rms+bias", "layer", "layer+bias")
+fused_residual_norm.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
 
@@ -295,6 +300,8 @@ def _launch(x, res, scale, bias, eps, kind):
                 f"({lib.tl_fused_norm_error_string(rc).decode()})"
             )
         fused_residual_norm.launches += 1
+        fused_residual_norm.launches_by_form[
+            kind + ("" if bias is None else "+bias")] += 1
     return r_out.reshape(x.shape), y_out.reshape(x.shape)
 
 

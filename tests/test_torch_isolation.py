@@ -15,6 +15,7 @@ from tensorlink_tpu_torch import resolve_device
 from tensorlink_tpu_torch.config import TrainConfig
 from tensorlink_tpu_torch.data.loader import prefetch_to_device
 from tensorlink_tpu_torch.models.bert import Bert, BertClassifier, BertConfig
+from tensorlink_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
 from tensorlink_tpu_torch.parallel.inference import InferenceEngine
 from tensorlink_tpu_torch.train.trainer import Trainer
@@ -57,6 +58,9 @@ def test_importing_the_port_loads_no_jax():
     mods = [
         "tensorlink_tpu_torch.parallel.serving",
         "tensorlink_tpu_torch.models.llama",
+        "tensorlink_tpu_torch.models.gpt2",
+        "tensorlink_tpu_torch.parallel.inference",
+        "tensorlink_tpu_torch.nn.attention",
         "tensorlink_tpu_torch.convert",
         "tensorlink_tpu_torch.ops.decode_glue",
         "tensorlink_tpu_torch.ops.paged_decode",
@@ -96,6 +100,12 @@ def test_entry_points_need_a_device_where_cuda_is_absent():
         InferenceEngine(model, max_len=32)
     eng = InferenceEngine(model, max_len=32, device="cpu")
     assert eng.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPT2(GPT2Config.tiny())
+    gpt2 = GPT2(GPT2Config.tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(gpt2, max_len=32)
+    assert gpt2.init_caches(1, 8)[0]["attn"]["k"].device.type == "cpu"
 
 
 def test_training_entry_points_need_a_device_where_cuda_is_absent():

@@ -1,4 +1,9 @@
-"""PyTorch port, parallel/serving.py: the port's
+"""PyTorch port, parallel/serving.py. The port's contiguous
+``ContinuousBatchingEngine`` is token-identical to the JAX package's
+(greedy, f32, same params) on staggered traffic and to the port's own
+``generate``; an EOS frees its slot for a queued request; a windowed
+model serves from the monotone cache; a rolling engine is refused; and
+finished results are bounded. The port's
 ``PagedContinuousBatchingEngine`` is token-identical to the JAX package's
 (greedy, f32, same params) under traffic that exercises the scheduler:
 more requests than slots, a shared prefix (hits and a copy-on-write of a
@@ -19,6 +24,7 @@ from tensorlink_tpu.models.llama import LlamaConfig as JLlamaConfig
 from tensorlink_tpu.parallel.inference import GenerationConfig as JGen
 from tensorlink_tpu.parallel.inference import InferenceEngine as JEngine
 from tensorlink_tpu.parallel.serving import (
+    ContinuousBatchingEngine as JContiguous,
     PagedContinuousBatchingEngine as JPaged,
 )
 from tensorlink_tpu.runtime.mesh import make_mesh
@@ -26,6 +32,7 @@ from tensorlink_tpu_torch.convert import params_from_jax
 from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
 from tensorlink_tpu_torch.parallel.inference import GenerationConfig, InferenceEngine
 from tensorlink_tpu_torch.parallel.serving import (
+    ContinuousBatchingEngine,
     PagedContinuousBatchingEngine,
     PoolExhaustedError,
     PoolOverloadedError,
@@ -193,3 +200,122 @@ def test_filter_logits_matches_jax(top_k, top_p):
     np.testing.assert_array_equal(np.isinf(out), np.isinf(ref))
     np.testing.assert_allclose(out[~np.isinf(out)], ref[~np.isinf(ref)],
                                atol=1e-6, rtol=0)
+
+
+# ------------------------------------------------- contiguous engine
+CKW = {"slots": 2, "decode_chunk": 3, "prefill_block": 4}
+
+
+def _staggered(sch, prompts, first=3):
+    """Submit ``first`` prompts, run one scheduler step, submit the rest
+    (they queue behind busy slots); collect every result."""
+    rids = [sch.submit(p) for p in prompts[:first]]
+    sch.step()
+    rids += [sch.submit(p) for p in prompts[first:]]
+    return [np.asarray(sch.result(rid)) for rid in rids]
+
+
+def test_contiguous_token_identical_to_jax_and_generate(engines):
+    """Staggered prompts of 1..12 tokens (across prefill buckets of 4)
+    through 2 slots: tokens equal the JAX contiguous engine's and the
+    port's ``generate`` of each prompt alone."""
+    jeng, teng = engines
+    r = np.random.default_rng(11)
+    prompts = [r.integers(0, 128, (n,)) for n in (5, 3, 12, 4, 1, 6, 2, 9)]
+    ref = _staggered(JContiguous(jeng, gen=JGen(max_new_tokens=MAX_NEW), **CKW),
+                     prompts)
+    sch = ContinuousBatchingEngine(
+        teng, gen=GenerationConfig(max_new_tokens=MAX_NEW), **CKW
+    )
+    out = _staggered(sch, prompts)
+    for o, rf, p in zip(out, ref, prompts):
+        np.testing.assert_array_equal(o, rf)
+        solo = teng.generate(p[None], GenerationConfig(max_new_tokens=MAX_NEW))
+        np.testing.assert_array_equal(o, solo[0])
+    st = sch.stats()
+    assert st["prefill_chunks"] == len(prompts) and st["busy_slots"] == 0
+    assert st["decode_steps"] % CKW["decode_chunk"] == 0
+
+
+def test_contiguous_eos_frees_slot_for_readmission(engines):
+    """One slot: A ends at EOS mid-stream, B (queued) takes the same
+    slot and decodes its own tokens up to its EOS point."""
+    _, teng = engines
+    r = np.random.default_rng(12)
+    a, b = r.integers(0, 128, (5,)), r.integers(0, 128, (6,))
+    free = teng.generate(a[None], GenerationConfig(max_new_tokens=8))[0]
+    eos = int(free[2])
+    gen = GenerationConfig(max_new_tokens=8, eos_token_id=eos)
+    ref_a = teng.generate(a[None], gen)[0]
+    ref_b = teng.generate(b[None], gen)[0]
+    sch = ContinuousBatchingEngine(teng, gen=gen, slots=1, decode_chunk=2,
+                                   prefill_block=4)
+    ra, rb = sch.submit(a), sch.submit(b)
+    assert sch.stats()["queued"] == 1
+    out_a, out_b = sch.result(ra), sch.result(rb)
+    end = int(np.argmax(free == eos))
+    assert len(out_a) == end + 1 and out_a[-1] == eos
+    np.testing.assert_array_equal(out_a, ref_a[:end + 1])
+    assert len(out_b) == 8 or out_b[-1] == eos
+    np.testing.assert_array_equal(out_b, ref_b[:len(out_b)])
+    assert sch._requests[rb].slot == sch._requests[ra].slot == 0
+    assert sch.stats()["busy_slots"] == 0
+
+
+def test_contiguous_windowed_model_parity():
+    """``mistral_tiny`` (window 8) through the scheduler: the per-row
+    window band in slot space gives the JAX engine's tokens, for prompts
+    longer and shorter than the window."""
+    jm = JLlama(JLlamaConfig.mistral_tiny())
+    p = jm.init(jax.random.key(3))
+    jeng = JEngine(make_mesh(MeshConfig()), jm, p, max_len=64,
+                   cache_dtype=jnp.float32, param_dtype=jnp.float32)
+    tm = Llama(LlamaConfig.mistral_tiny(), device="cpu", seed=None)
+    teng = InferenceEngine(tm, params_from_jax(jax.device_get(p)), max_len=64,
+                           cache_dtype=torch.float32,
+                           param_dtype=torch.float32, device="cpu")
+    r = np.random.default_rng(7)
+    prompts = [r.integers(0, 128, (n,)) for n in (12, 4, 9)]
+    kw = {"slots": 2, "decode_chunk": 4, "prefill_block": 4}
+    gen = {"max_new_tokens": 16}
+    ref = _staggered(JContiguous(jeng, gen=JGen(**gen), **kw), prompts, first=2)
+    out = _staggered(ContinuousBatchingEngine(
+        teng, gen=GenerationConfig(**gen), **kw), prompts, first=2)
+    for o, rf in zip(out, ref):
+        np.testing.assert_array_equal(o, rf)
+
+
+def test_rolling_engine_is_refused():
+    tm = Llama(LlamaConfig.mistral_tiny(), device="cpu")
+    ring = InferenceEngine(tm, max_len=32, rolling_cache=True, device="cpu",
+                           cache_dtype=torch.float32)
+    for cls in (ContinuousBatchingEngine, PagedContinuousBatchingEngine):
+        with pytest.raises(NotImplementedError, match="rolling"):
+            cls(ring, slots=2)
+
+
+def test_contiguous_rejections_and_bounded_results(engines):
+    _, teng = engines
+    sch = ContinuousBatchingEngine(
+        teng, gen=GenerationConfig(max_new_tokens=3), keep_results=2, **CKW
+    )
+    with pytest.raises(PromptTooLongError):
+        sch.submit(np.zeros(30, np.int64))  # 30 + 3 > max_len 32
+    with pytest.raises(ValueError):
+        sch.submit(np.zeros(0, np.int64))
+    rids = [sch.submit(np.arange(4) + i) for i in range(4)]
+    sch.run_until_idle()
+    for rid in rids[-2:]:
+        np.testing.assert_array_equal(sch.result(rid), sch.result(rid))
+    for rid in rids[:2]:
+        with pytest.raises(KeyError, match="evicted"):
+            sch.result(rid)
+    assert sch.stats()["requests"] <= 2
+    full = ContinuousBatchingEngine(
+        teng, gen=GenerationConfig(max_new_tokens=4), max_queue=1,
+        **{**CKW, "slots": 1},
+    )
+    full.submit(np.arange(4))
+    full.submit(np.arange(4))  # queued behind the busy slot
+    with pytest.raises(QueueFullError):
+        full.submit(np.arange(4))
