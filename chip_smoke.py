@@ -45,7 +45,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    default path of ``examples/serve_llm.py``): 4 left-padded prompts of
    700 to 2000 tokens, 64 greedy tokens, decode on the blockwise path over
    2304 cache slots; B4 once a layer a decode step, B1 never, every token
-   teacher-forced; prefill seconds, decode ms a step and its kernel time;
+   teacher-forced; prefill seconds, decode ms a step and its kernel time,
+   and a second call of the same shape;
 8. contiguous: GPT-2-medium (random bf16 weights) served by the contiguous
    ``ContinuousBatchingEngine`` (the ``--continuous`` path): 16 greedy
    requests of 1 to 900 tokens, B4 in its LayerNorm + bias form on every
@@ -62,6 +63,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    step's gradients against the plain attention path, step time, MFU, a
    profiled step, and the batch 32 x seq 128 headline shape under "auto"
    and "flash".
+
+Legs 6-9 run their decode as CUDA-graph replays (the engines' default)
+with ``pipeline_depth`` 2 chunks in flight on the serving engines; the
+launch gates hold through the graphs' replay credit, and each leg checks
+that every decode chunk (or step) but each graph's first was a replay
+and prints a ``[... graphs]`` line (graphs, captures, capture s,
+replays, pool bytes). Each leg then runs the same requests on an eager
+engine of the same class (``cuda_graphs=False``) under the same gates
+and prints ``[... eager vs captured]`` (the share of equal tokens and
+each run's worst teacher-forced gap over the first decode chunk) and
+``[... step]`` (each run's model-step wall, kernel ms and busy share
+from a profiled window of steady-state steps, and its whole wall).
+Before them, ``[sampler]`` checks the counter sampler's hash bits on the
+card against the CPU's.
 
 Each leg's launch counts are set to 0 just before it runs and read just
 after; B4's count in the kernels line sums the four serving legs. The
@@ -110,7 +125,12 @@ from tensorlink_tpu_torch.ops.paged_decode import (
     paged_decode_attention,
     paged_decode_reference,
 )
-from tensorlink_tpu_torch.parallel.inference import GenerationConfig, InferenceEngine
+from tensorlink_tpu_torch.parallel.inference import (
+    GenerationConfig,
+    InferenceEngine,
+    counter_bits,
+    sample_logits_at,
+)
 from tensorlink_tpu_torch.parallel.serving import (
     ContinuousBatchingEngine,
     PagedContinuousBatchingEngine,
@@ -289,6 +309,27 @@ def phase_floor(flush) -> float:
     floor = {"floor_ms": float(t.mean()), "median_ms": float(np.median(t))}
     say(f"[floor] {json.dumps(floor)}")
     return floor["floor_ms"]
+
+
+def phase_sampler() -> None:
+    """The counter sampler on the card against the CPU for a few (seed,
+    position) rows at Llama-3's vocabulary: the same hash bits (gated,
+    exact) and the draws they give (printed)."""
+    seeds = torch.tensor([0, 1, 11, 2**31 + 7, -5, 123456789, 42, 7])
+    pos = torch.tensor([0, 1, 300, 4095, 2**33 + 1, 17, 2048, 99])
+    V = 128256
+    bits_cpu = counter_bits(seeds, pos, V)
+    bits_gpu = counter_bits(seeds.to(DEV), pos.to(DEV), V).cpu()
+    logits = torch.randn(len(seeds), V, generator=torch.Generator().manual_seed(5))
+    kw = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+    tok_cpu = sample_logits_at(logits, seeds, pos, **kw)
+    tok_gpu = sample_logits_at(logits.to(DEV), seeds.to(DEV), pos.to(DEV), **kw).cpu()
+    same = bool(torch.equal(bits_cpu, bits_gpu))
+    say(f"[sampler] {len(seeds)} (seed, position) rows x {V}: hash bits equal "
+        f"CPU/CUDA {same}; draws equal {int((tok_cpu == tok_gpu).sum())}/{len(seeds)}")
+    # the draws also pass through log and the filter's softmax, whose last
+    # bits may differ between devices: printed, not gated
+    check(same, "sampler: CUDA hash bits differ from the CPU's")
 
 
 def _paged_inputs(g, T, case):
@@ -741,7 +782,7 @@ def phase_flash(flush) -> dict:
     }
 
 
-def _teacher_forced(tag: str, model, prompts, outs) -> dict:
+def _teacher_forced(tag: str, model, prompts, outs, first: int = 8) -> dict:
     """Teacher-forced check of every emitted token: the port's no-cache
     forward over prompt plus output must rank each emitted token within
     LOGIT_GAP_TOL of its row's maximum. Each sequence is padded at its
@@ -749,8 +790,9 @@ def _teacher_forced(tag: str, model, prompts, outs) -> dict:
     lengths, T >= 512) sends the long ones to B1 (with the model's window,
     if it has one); causal attention keeps the pad out of the checked
     rows. Fails the run on a wider gap, or unless B1 ran once a layer for
-    each sequence of >= 512."""
-    gaps, exact, n_flash = [], 0, 0
+    each sequence of >= 512. Also returns the worst gap over the first
+    decode chunk (tokens 1 .. ``first``: token 0 is the prefill's)."""
+    gaps, exact, n_flash, head = [], 0, 0, []
     flash_attention_fwd_lse.launches = 0
     with torch.no_grad():
         for p, o in zip(prompts, outs):
@@ -764,19 +806,39 @@ def _teacher_forced(tag: str, model, prompts, outs) -> dict:
             tok = torch.from_numpy(np.asarray(o)).to(DEV)
             gap = logits.max(dim=-1).values - logits.gather(1, tok[:, None])[:, 0]
             gaps.append(float(gap.max()))
+            head.append(float(gap[1:1 + first].max()) if len(o) > 1 else 0.0)
             exact += int((gap == 0).sum())
     n_tok = sum(len(o) for o in outs)
     k_flash = flash_attention_fwd_lse.launches
     L = len(model.blocks.blocks())
     say(f"[{tag}] teacher-forced: worst logit gap {max(gaps):.4f} "
-        f"(tolerance {LOGIT_GAP_TOL}); {exact}/{n_tok} tokens are the exact "
-        f"argmax; flash_attention_fwd_lse launches {k_flash} (expected "
+        f"(tolerance {LOGIT_GAP_TOL}; first decode chunk {max(head):.4f}); "
+        f"{exact}/{n_tok} tokens are the exact argmax; "
+        f"flash_attention_fwd_lse launches {k_flash} (expected "
         f"{n_flash} sequences of >= 512 x {L} layers)")
     check(max(gaps) <= LOGIT_GAP_TOL, f"{tag}: teacher-forced check failed")
     check(k_flash == n_flash * L and k_flash > 0,
           f"{tag}: no-cache forward: flash launch count off the path")
-    return {"worst_gap": max(gaps), "exact": exact, "tokens": n_tok,
-            "sequences_ge_512": n_flash}
+    return {"worst_gap": max(gaps), "first_chunk_gap": max(head),
+            "exact": exact, "tokens": n_tok, "sequences_ge_512": n_flash}
+
+
+def _agreement(tag: str, captured, eager, tf_c: dict, tf_e: dict) -> None:
+    """Print (not gate: on random bf16 weights greedy tokens part where
+    logit gaps are hundredths) the share of tokens the eager run emits
+    equal to the captured run's, and each run's worst teacher-forced gap
+    over the first decode chunk."""
+    same = sum(int((np.asarray(a) == np.asarray(b)).sum())
+               for a, b in zip(captured, eager))
+    total = sum(len(a) for a in captured)
+    res = {"tokens_equal": same, "tokens": total, "share": same / total,
+           "first_chunk_gap_captured": tf_c["first_chunk_gap"],
+           "first_chunk_gap_eager": tf_e["first_chunk_gap"]}
+    say(f"[{tag} eager vs captured] {json.dumps(res)}")
+
+
+def _graph_line(tag: str, st: dict) -> None:
+    say(f"[{tag} graphs] {json.dumps(st)}")
 
 
 def _requests(vocab: int):
@@ -797,25 +859,26 @@ def _requests(vocab: int):
     return out
 
 
-def phase_slice(name_power: str, model: Llama) -> dict:
-    t0 = time.perf_counter()
+def _serve_paged(model: Llama, prompts, max_new: int, cuda_graphs: bool):
+    """The 12 requests through a fresh paged engine; launch counts set to
+    0 just before and read just after, then checked against the path.
+    -> (engine, request ids, outputs, wall s, counts)."""
     cfg = model.cfg
+    t0 = time.perf_counter()
     eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
                           param_dtype=torch.bfloat16, device=DEV)
-    max_new = 32
     sch = PagedContinuousBatchingEngine(
         eng, slots=8, block_size=16, prefill_chunk=128, decode_chunk=8,
-        gen=GenerationConfig(max_new_tokens=max_new),
+        gen=GenerationConfig(max_new_tokens=max_new), cuda_graphs=cuda_graphs,
     )
     torch.cuda.synchronize()
+    mode = "captured" if cuda_graphs else "eager"
     say(f"[slice] Llama-3-8B {cfg.num_layers} layers dim {cfg.dim} "
-        f"vocab {cfg.vocab_size}: engine ready in "
+        f"vocab {cfg.vocab_size}, {mode} decode, pipeline depth "
+        f"{sch.pipeline_depth}: engine ready in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
-    prompts = _requests(cfg.vocab_size)
-    paged_decode_attention.launches = 0
-    paged_decode_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)
-    fused_residual_norm.launches = 0
+    _zero_counts()
     t_run = time.perf_counter()
     rids = [sch.submit(p) for p in prompts]
     sch.run_until_idle()
@@ -831,8 +894,8 @@ def phase_slice(name_power: str, model: Llama) -> dict:
     exp2 = L * st["decode_steps"]
     exp_var = {"general": 0, "decode": L * st["decode_steps"],
                "prefill": L * st["prefill_chunks"]}
-    say(f"[slice] launches: paged_decode {k1} (expected {exp1}; by variant "
-        f"{by_variant}, expected {exp_var}), "
+    say(f"[slice] {mode} launches: paged_decode {k1} (expected {exp1}; by "
+        f"variant {by_variant}, expected {exp_var}), "
         f"fused_norm {k2} (expected {exp2}); decode steps "
         f"{st['decode_steps']}, prefill chunks {st['prefill_chunks']}")
     check(k1 == exp1 and k1 > 0, "paged-decode launch count off the path")
@@ -840,7 +903,20 @@ def phase_slice(name_power: str, model: Llama) -> dict:
           "paged-decode launches off the decode/prefill variants")
     check(k2 == exp2 and k2 > 0, "fused-norm launch count off the path")
     check(st["prefix_matched_tokens"] > 0, "no prefix was shared")
+    if cuda_graphs:
+        g = st["graphs"]
+        check(g["captured"] == 1 and g["replays"] == st["decode_steps"] // 8 - 1,
+              f"slice: every decode chunk but the first must be a replay: {g}")
+    return sch, rids, outs, wall, {"paged": k1, "norm": k2}
 
+
+def phase_slice(name_power: str, model: Llama) -> dict:
+    cfg = model.cfg
+    max_new = 32
+    prompts = _requests(cfg.vocab_size)
+    sch, rids, outs, wall, k = _serve_paged(model, prompts, max_new, True)
+    st = sch.stats()
+    _graph_line("slice", st["graphs"])
     tf = _teacher_forced("slice", model, prompts, outs)
     n_long = sum(len(p) >= 513 for p in prompts)
     check(tf["sequences_ge_512"] == n_long,
@@ -863,29 +939,55 @@ def phase_slice(name_power: str, model: Llama) -> dict:
         "card": name_power,
     }
     say(f"[slice] {json.dumps(res)}")
-    _profile_decode(sch, cfg.vocab_size, name_power)
-    return {"launches_paged": k1, "launches_norm": k2}
+    prof = _profile_decode(sch, cfg.vocab_size, name_power)
+    del sch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    esch, _, eouts, ewall, _ = _serve_paged(model, prompts, max_new, False)
+    tf_e = _teacher_forced("slice eager", model, prompts, eouts)
+    _agreement("slice", outs, eouts, tf, tf_e)
+    eprof = _profile_decode(esch, cfg.vocab_size, name_power, tag="profile eager")
+    _step_line("slice", prof, eprof, wall, ewall)
+    del esch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches_paged": k["paged"], "launches_norm": k["norm"]}
+
+
+PROFILE_STEPS = 4  # scheduler steps in each timed window
+PROFILE_NEW = 160  # tokens a profiling request: 20 chunks of 8, so all 8
+# rows still decode through both windows after the paged chunked prefills
 
 
 def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile") -> dict:
-    """Where a decode step's time goes: 8 fresh 64-token requests are
-    prefilled, then one scheduler step of pure decode (8 model steps)
-    runs plainly and the next under ``torch.profiler``; the device's
-    kernel time over the profiled step's wall time is its busy share.
-    A profiler that records no device time is reported, not fatal: the
-    line is diagnosis, not a check."""
+    """Where a decode step's time goes: 8 fresh requests are prefilled,
+    one pure-decode scheduler step warms the pipeline, then a window of
+    PROFILE_STEPS steps runs between two device syncs plainly and the
+    next under ``torch.profiler`` (CUPTI sees the kernels of graph
+    replays, not the per-op CPU rows). The wall a model step is the plain
+    window over its model steps; the busy share is the device's kernel
+    time over the profiled window's wall. A profiler that records no
+    device time is reported, not fatal: the line is diagnosis, not a
+    check."""
     from torch.profiler import ProfilerActivity, profile
 
     r = np.random.default_rng(4)
-    rids = [sch.submit(r.integers(0, vocab, (64,)), max_new=25) for _ in range(8)]
+    rids = [sch.submit(r.integers(0, vocab, (64,)), max_new=PROFILE_NEW)
+            for _ in range(8)]
     while getattr(sch, "_pending", None):  # the paged engine's chunked prefill
         sch.step()
-    t0 = time.perf_counter()
     sch.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_STEPS):
+        sch.step()
+    torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sch.step()
+        for _ in range(PROFILE_STEPS):
+            sch.step()
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
     sch.run_until_idle()
@@ -900,11 +1002,16 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile") -> d
     ]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+    n_model = PROFILE_STEPS * sch.decode_chunk
+    norm_us = sum(e.self_device_time_total for e in kernels if "norm" in e.key.lower())
     res = {
-        "decode_step_s": plain_s, "model_steps": sch.decode_chunk,
-        "profiled_step_s": prof_s,
-        "device_busy_s": busy_us / 1e6 if busy_us else "not measured",
+        "decode_step_s": plain_s / PROFILE_STEPS, "model_steps": sch.decode_chunk,
+        "model_step_ms": plain_s / n_model * 1e3,
+        "profiled_step_s": prof_s / PROFILE_STEPS,
+        "kernel_ms_per_model_step": busy_us / 1e3 / n_model if busy_us else "not measured",
         "device_busy_share": busy_us / 1e6 / prof_s if busy_us else "not measured",
+        "norm_kernel_share": norm_us / busy_us if busy_us else "not measured",
+        "pipeline_depth": sch.pipeline_depth,
         "top_kernels_ms": {
             e.key[:48]: [e.self_device_time_total / 1e3, e.count] for e in top[:8]
         },
@@ -912,6 +1019,15 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile") -> d
     }
     say(f"[{tag}] {json.dumps(res)}")
     return res
+
+
+def _step_line(tag: str, cap: dict, eager: dict, wall_c: float, wall_e: float) -> None:
+    """Captured against eager: the decode step's wall and busy share, and
+    each whole run's wall, on one line."""
+    keys = ("model_step_ms", "kernel_ms_per_model_step", "device_busy_share")
+    res = {"captured": {k: cap[k] for k in keys}, "eager": {k: eager[k] for k in keys},
+           "run_wall_s": {"captured": wall_c, "eager": wall_e}}
+    say(f"[{tag} step] {json.dumps(res)}")
 
 
 # ------------------------------------------------------ contiguous-cache legs
@@ -935,7 +1051,9 @@ ROLL_LENS = (256, 200)
 ROLL_NEW = 4200
 ROLL_MAX_LEN = 4608
 ROLL_LAYERS = 4
-ROLL_PROFILE_STEP = 4100  # after the ring's first wrap
+# after the ring's first wrap (step 4097), and both windows (steps 4104..4119)
+# inside one block range of the full cache's blockwise read (4096..4351)
+ROLL_PROFILE_STEP = 4112
 
 
 def _zero_counts() -> None:
@@ -994,22 +1112,21 @@ def _cache_bytes(eng, B: int, slots: int) -> int:
 
 def _generate_traced(tag: str, eng, ids, pad, max_new: int, first: int,
                      name_power: str, active: int = 8) -> dict:
-    """``eng.generate`` of ``max_new`` greedy tokens, with a pre-hook on
-    the model's calls (call 0 the prefill, call i decode step i): at
-    step 1 a device sync stamps the prefill's end; steps first .. first +
-    active - 1 run under torch.profiler between two syncs. -> the tokens,
-    host seconds in all and to the prefill's end, ms a decode step over
-    the steps outside the profiled window, and the window's kernel ms a
-    step (the device's busy share is that over the unprofiled step)."""
+    """``eng.generate`` of ``max_new`` greedy tokens, with the engine's
+    step hook (called before decode step i, on the host, replay or not):
+    at step 1 a device sync stamps the prefill's end; steps first -
+    active .. first - 1 run between two syncs (the plain window, ms a
+    step), steps first .. first + active - 1 under torch.profiler between
+    two syncs (kernel ms a step; the busy share is that over the plain
+    step). -> the tokens, host seconds in all and to the prefill's end,
+    and ms a decode step."""
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    stamps, calls = {}, [0]
+    stamps = {}
 
-    def pre_hook(module, args):
-        i = calls[0]
-        calls[0] += 1
-        if i in (1, first, first + active):
+    def hook(i):
+        if i in (1, first - active, first, first + active):
             torch.cuda.synchronize()
             stamps[i] = time.perf_counter()
         if i == first:
@@ -1017,7 +1134,7 @@ def _generate_traced(tag: str, eng, ids, pad, max_new: int, first: int,
         elif i == first + active:
             prof.stop()
 
-    handle = eng.model.register_forward_pre_hook(pre_hook)
+    eng.step_hook = hook
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1025,11 +1142,10 @@ def _generate_traced(tag: str, eng, ids, pad, max_new: int, first: int,
                            pad_mask=pad)
         total_s = time.perf_counter() - t0
     finally:
-        handle.remove()
+        eng.step_hook = None
     check(first + active in stamps, f"{tag}: the profiled window did not close")
-    steps = max_new - 1
+    decode_ms = (stamps[first] - stamps[first - active]) / active * 1e3
     window_s = stamps[first + active] - stamps[first]
-    decode_ms = (total_s - (stamps[1] - t0) - window_s) / (steps - active) * 1e3
     kernels = {
         e.key: e.self_device_time_total / active / 1e3
         for e in prof.key_averages()
@@ -1037,78 +1153,107 @@ def _generate_traced(tag: str, eng, ids, pad, max_new: int, first: int,
         and e.self_device_time_total > 0
     }
     busy = sum(kernels.values())
+    norm = sum(v for k, v in kernels.items() if "norm" in k.lower())
     top = sorted(kernels.items(), key=lambda kv: kv[1], reverse=True)[:8]
     res = {
-        "decode_ms_per_step": decode_ms,
+        "model_step_ms": decode_ms,
         "profiled_window_ms_per_step": window_s / active * 1e3,
-        "kernel_ms_per_decode_step": busy if busy > 0 else "not measured",
+        "kernel_ms_per_model_step": busy if busy > 0 else "not measured",
         "device_busy_share": busy / decode_ms if busy > 0 else "not measured",
+        "norm_kernel_share": norm / busy if busy > 0 else "not measured",
         "top_kernels_ms_per_step": {k[:48]: v for k, v in top},
         "card": name_power,
     }
     say(f"[{tag} profile] {json.dumps(res)}")
     return {"out": out, "total_s": total_s, "prefill_s": stamps[1] - t0,
-            "decode_ms": decode_ms}
+            "decode_ms": decode_ms, "profile": res}
+
+
+def _second_call_s(eng, ids, pad, max_new: int) -> float:
+    """Host seconds of a second ``generate`` of the same shape (its graphs
+    and cache kept from the first)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(ids, GenerationConfig(max_new_tokens=max_new), pad_mask=pad)
+    return time.perf_counter() - t0
 
 
 def phase_static(name_power: str, model: Llama) -> dict:
     """Llama-3-8B (the model phase_slice served) through
-    ``InferenceEngine.generate``: 4 left-padded prompts, greedy; B4 on
-    every decode step of every layer, B1 never; every token within
-    LOGIT_GAP_TOL of the teacher-forced row maximum."""
+    ``InferenceEngine.generate``: 4 left-padded prompts, greedy, decode
+    steps as graph replays, then the same call again (graphs kept) and
+    the same call on an eager engine; B4 on every decode step of every
+    layer, B1 never; every token of both runs within LOGIT_GAP_TOL of the
+    teacher-forced row maximum."""
     cfg = model.cfg
-    eng = InferenceEngine(model, max_len=STATIC_MAX_LEN,
-                          cache_dtype=torch.bfloat16,
-                          param_dtype=torch.bfloat16, device=DEV)
     prompts, ids, pad = _left_padded(STATIC_LENS, cfg.vocab_size, seed=6)
     B, T0 = ids.shape
-    slots, rolling = eng.cache_plan(T0, STATIC_NEW)
-    check(not rolling and slots > DECODE_BLOCKWISE_MIN_WINDOWLESS
-          and slots % DECODE_BLOCK == 0,
-          f"static: {slots} cache slots do not take the blockwise decode")
-    _zero_counts()
-    run = _generate_traced("static", eng, ids, pad, STATIC_NEW,
-                           STATIC_PROFILE_STEP, name_power)
-    c = _counts()
-    out, total_s, prefill_s = run["out"], run["total_s"], run["prefill_s"]
     steps = STATIC_NEW - 1
-    _check_decode_launches("static", c, cfg.num_layers * steps, "rms")
-    check(out.shape == (B, STATIC_NEW), f"static: tokens of shape {out.shape}")
-    tf = _teacher_forced("static", model, prompts, list(out))
+    runs = {}
+    for mode in ("captured", "eager"):
+        eng = InferenceEngine(model, max_len=STATIC_MAX_LEN,
+                              cache_dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16, device=DEV,
+                              cuda_graphs=mode == "captured")
+        slots, rolling = eng.cache_plan(T0, STATIC_NEW)
+        check(not rolling and slots > DECODE_BLOCKWISE_MIN_WINDOWLESS
+              and slots % DECODE_BLOCK == 0,
+              f"static: {slots} cache slots do not take the blockwise decode")
+        tag = "static" if mode == "captured" else "static eager"
+        _zero_counts()
+        run = _generate_traced(tag, eng, ids, pad, STATIC_NEW,
+                               STATIC_PROFILE_STEP, name_power)
+        run["counts"] = c = _counts()
+        _check_decode_launches(tag, c, cfg.num_layers * steps, "rms")
+        check(run["out"].shape == (B, STATIC_NEW),
+              f"{tag}: tokens of shape {run['out'].shape}")
+        run["tf"] = _teacher_forced(tag, model, prompts, list(run["out"]))
+        if mode == "captured":
+            g = eng.graph_stats()
+            _graph_line("static", g)
+            # one graph a block range: 8 blocks of 256 up to slot 2048, 9 after
+            check(g["captured"] == 2 and g["replays"] == steps - 2,
+                  f"static: decode steps off the graphs: {g}")
+            run["second_call_s"] = _second_call_s(eng, ids, pad, STATIC_NEW)
+            run["cache_bytes"] = _cache_bytes(eng, B, slots)
+        runs[mode] = run
+        eng._gen_state = None  # free the 1.2 GB cache before the next engine
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    cap, eag = runs["captured"], runs["eager"]
+    _agreement("static", list(cap["out"]), list(eag["out"]), cap["tf"], eag["tf"])
+    _step_line("static", cap["profile"], eag["profile"], cap["total_s"], eag["total_s"])
     res = {
         "model": "Llama-3-8B", "layers": cfg.num_layers, "batch": B, "T0": T0,
         "prompt_lens": list(STATIC_LENS), "new_tokens": STATIC_NEW,
-        "cache_slots": slots, "cache_bytes": _cache_bytes(eng, B, slots),
-        "prefill_s": prefill_s, "generate_s": total_s,
-        "decode_ms_per_step": run["decode_ms"],
-        "tokens_per_s": B * STATIC_NEW / total_s,
-        "decode_tokens_per_s": B * steps / (total_s - prefill_s),
-        "launches_fused_norm": c["fused_norm"], "card": name_power,
+        "cache_slots": slots, "cache_bytes": cap["cache_bytes"],
+        "prefill_s": cap["prefill_s"], "generate_s": cap["total_s"],
+        "generate_s_second_call": cap["second_call_s"],
+        "decode_ms_per_step": cap["decode_ms"],
+        "eager_decode_ms_per_step": eag["decode_ms"],
+        "tokens_per_s": B * STATIC_NEW / cap["total_s"],
+        "tokens_per_s_second_call": B * STATIC_NEW / cap["second_call_s"],
+        "decode_tokens_per_s": B * steps / (cap["total_s"] - cap["prefill_s"]),
+        "launches_fused_norm": cap["counts"]["fused_norm"], "card": name_power,
     }
     say(f"[static] {json.dumps(res)}")
-    return {"launches_norm": c["fused_norm"], "worst_gap": tf["worst_gap"]}
+    return {"launches_norm": cap["counts"]["fused_norm"],
+            "worst_gap": cap["tf"]["worst_gap"]}
 
 
-def phase_contiguous(name_power: str) -> dict:
-    """GPT-2-medium (random bf16 weights from seed 0) served by the
-    contiguous ``ContinuousBatchingEngine``: 16 greedy requests, eight of
-    them submitted after the first scheduler step; B4 in its LayerNorm +
-    bias form on every decode step of every layer."""
-    gcfg = GPT2Config.medium()
-    t0 = time.perf_counter()
-    model = GPT2(gcfg, device=DEV, dtype=torch.bfloat16, seed=0)
+def _serve_contiguous(model, prompts, cuda_graphs: bool):
+    """The 16 requests through a fresh contiguous engine (eight submitted
+    after the first scheduler step); B4's launches checked against the
+    decode steps. -> (engine, request ids, outputs, wall s, counts)."""
+    gcfg = model.cfg
     eng = InferenceEngine(model, max_len=CONT_MAX_LEN, cache_dtype=torch.bfloat16,
                           param_dtype=torch.bfloat16, device=DEV)
     sch = ContinuousBatchingEngine(
         eng, slots=8, decode_chunk=8, prefill_block=32,
-        gen=GenerationConfig(max_new_tokens=CONT_NEW),
+        gen=GenerationConfig(max_new_tokens=CONT_NEW), cuda_graphs=cuda_graphs,
     )
-    torch.cuda.synchronize()
-    say(f"[contiguous] GPT-2-medium {gcfg.num_layers} layers dim {gcfg.dim} "
-        f"vocab {gcfg.vocab_size}: params + engine ready in "
-        f"{time.perf_counter() - t0:.1f} s, cache {sch.kv_bytes} bytes")
-    r = np.random.default_rng(7)
-    prompts = [r.integers(0, gcfg.vocab_size, (n,)) for n in CONT_LENS]
+    tag = "contiguous" if cuda_graphs else "contiguous eager"
     _zero_counts()
     t_run = time.perf_counter()
     rids = [sch.submit(p) for p in prompts[:8]]
@@ -1120,9 +1265,34 @@ def phase_contiguous(name_power: str) -> dict:
     c = _counts()
     st = sch.stats()
     outs = [sch.result(rid) for rid in rids]
-    check(all(len(o) == CONT_NEW for o in outs), "contiguous: a request did not finish")
-    _check_decode_launches("contiguous", c, gcfg.num_layers * st["decode_steps"],
+    check(all(len(o) == CONT_NEW for o in outs), f"{tag}: a request did not finish")
+    _check_decode_launches(tag, c, gcfg.num_layers * st["decode_steps"],
                            "layer+bias")
+    if cuda_graphs:
+        g = st["graphs"]
+        check(g["captured"] == 1 and g["replays"] == st["decode_steps"] // 8 - 1,
+              f"{tag}: every decode chunk but the first must be a replay: {g}")
+    return sch, rids, outs, wall, c
+
+
+def phase_contiguous(name_power: str) -> dict:
+    """GPT-2-medium (random bf16 weights from seed 0) served by the
+    contiguous ``ContinuousBatchingEngine``: 16 greedy requests, eight of
+    them submitted after the first scheduler step, decode chunks as graph
+    replays, then the same requests eagerly; B4 in its LayerNorm + bias
+    form on every decode step of every layer."""
+    gcfg = GPT2Config.medium()
+    t0 = time.perf_counter()
+    model = GPT2(gcfg, device=DEV, dtype=torch.bfloat16, seed=0)
+    r = np.random.default_rng(7)
+    prompts = [r.integers(0, gcfg.vocab_size, (n,)) for n in CONT_LENS]
+    sch, rids, outs, wall, c = _serve_contiguous(model, prompts, True)
+    st = sch.stats()
+    say(f"[contiguous] GPT-2-medium {gcfg.num_layers} layers dim {gcfg.dim} "
+        f"vocab {gcfg.vocab_size}: params + run in "
+        f"{time.perf_counter() - t0:.1f} s, cache {sch.kv_bytes} bytes, "
+        f"pipeline depth {sch.pipeline_depth}")
+    _graph_line("contiguous", st["graphs"])
     tf = _teacher_forced("contiguous", model, prompts, outs)
     ttft = [sch.timings(rid)["ttft_s"] for rid in rids]
     res = {
@@ -1137,17 +1307,27 @@ def phase_contiguous(name_power: str) -> dict:
         "cache_bytes": sch.kv_bytes, "card": name_power,
     }
     say(f"[contiguous] {json.dumps(res)}")
-    _profile_decode(sch, gcfg.vocab_size, name_power, tag="contiguous profile")
+    prof = _profile_decode(sch, gcfg.vocab_size, name_power, tag="contiguous profile")
+    del sch
+    gc.collect()
+    torch.cuda.empty_cache()
+    esch, _, eouts, ewall, _ = _serve_contiguous(model, prompts, False)
+    tf_e = _teacher_forced("contiguous eager", model, prompts, eouts)
+    _agreement("contiguous", outs, eouts, tf, tf_e)
+    eprof = _profile_decode(esch, gcfg.vocab_size, name_power,
+                            tag="contiguous profile eager")
+    _step_line("contiguous", prof, eprof, wall, ewall)
     return {"launches_norm": c["fused_norm"], "worst_gap": tf["worst_gap"]}
 
 
 def phase_rolling(name_power: str) -> dict:
     """Mistral-7B's width at 4 layers (random bf16 weights from seed 0)
     through ``InferenceEngine(rolling_cache=True).generate``: 2
-    left-padded prompts, greedy, long enough that the ring wraps; B4 on
-    every decode step; every token within LOGIT_GAP_TOL of the no-cache
-    windowed forward's row maximum; the full cache's engine run beside it
-    for its tokens and bytes."""
+    left-padded prompts, greedy, long enough that the ring wraps, decode
+    steps as graph replays, then the same call on an eager engine; B4 on
+    every decode step; every token of both runs within LOGIT_GAP_TOL of
+    the no-cache windowed forward's row maximum; the full cache's engine
+    (captured too) run beside it for its tokens and bytes."""
     mcfg = dataclasses.replace(LlamaConfig.mistral_7b(), num_layers=ROLL_LAYERS)
     model = Llama(mcfg, device=DEV, dtype=torch.bfloat16, seed=0)
     kw = {"max_len": ROLL_MAX_LEN, "cache_dtype": torch.bfloat16,
@@ -1166,6 +1346,7 @@ def phase_rolling(name_power: str) -> dict:
         made.append(Llama.init_caches(model, *a, **k))
         return made[-1]
 
+    steps = ROLL_NEW - 1
     model.init_caches = init_caches
     try:
         _zero_counts()
@@ -1174,8 +1355,11 @@ def phase_rolling(name_power: str) -> dict:
         c = _counts()
     finally:
         del model.init_caches
-    steps = ROLL_NEW - 1
     _check_decode_launches("rolling", c, ROLL_LAYERS * steps, "rms")
+    g = ring.graph_stats()
+    _graph_line("rolling", g)
+    check(g["captured"] == 1 and g["replays"] == steps - 1,
+          f"rolling: decode steps off the graph: {g}")
     cache = made[-1][0]["attn"]
     writes = T0 + c["fused_norm"] // ROLL_LAYERS  # the prompt, then a slot a step
     check("rolling" in cache and cache["k"].shape[1] == slots < writes,
@@ -1183,7 +1367,18 @@ def phase_rolling(name_power: str) -> dict:
     out = run["out"]
     run_full = _generate_traced("rolling full-cache", full, ids, pad,
                                 ROLL_NEW, ROLL_PROFILE_STEP, name_power)
+    _graph_line("rolling full-cache", full.graph_stats())
+    full._gen_state = None
     tf = _teacher_forced("rolling", model, prompts, list(out))
+    eager = InferenceEngine(model, rolling_cache=True, cuda_graphs=False, **kw)
+    _zero_counts()
+    run_e = _generate_traced("rolling eager", eager, ids, pad, ROLL_NEW,
+                             ROLL_PROFILE_STEP, name_power)
+    _check_decode_launches("rolling eager", _counts(), ROLL_LAYERS * steps, "rms")
+    tf_e = _teacher_forced("rolling eager", model, prompts, list(run_e["out"]))
+    _agreement("rolling", list(out), list(run_e["out"]), tf, tf_e)
+    _step_line("rolling", run["profile"], run_e["profile"], run["total_s"],
+               run_e["total_s"])
     res = {
         "model": f"Mistral-7B width, {ROLL_LAYERS} of 32 layers",
         "batch": B, "T0": T0, "prompt_lens": list(ROLL_LENS),
@@ -1194,6 +1389,7 @@ def phase_rolling(name_power: str) -> dict:
         "full_cache_bytes": _cache_bytes(full, B, full_slots),
         "prefill_s": run["prefill_s"], "ring_generate_s": run["total_s"],
         "ring_decode_ms_per_step": run["decode_ms"],
+        "ring_eager_decode_ms_per_step": run_e["decode_ms"],
         "full_prefill_s": run_full["prefill_s"],
         "full_generate_s": run_full["total_s"],
         "full_decode_ms_per_step": run_full["decode_ms"],
@@ -1439,6 +1635,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     kind, name_power = phase_device()
     phase_build()
+    phase_sampler()
     flush = L2Flush()
     floor_ms = phase_floor(flush)
     paged = phase_paged(flush)

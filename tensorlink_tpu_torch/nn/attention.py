@@ -17,17 +17,23 @@ row):
                for every row that is still decoding: the block bounds of
                the blockwise decode, so that no layer reads the index back
                from the device. Without it the blockwise decode covers
-               every block, which gives the same outputs.
+               every block, which gives the same outputs. The bounds
+               matter only through ``decode_blocks`` (the blocks read),
+               which is what a captured decode step bakes in.
 
 Paged cache form (``init_paged_cache``; the serving engine owns it):
-  ``k``/``v``     [num_blocks, block_size, Hkv, D] pools shared by all
-                  rows (int8 with ``k_scale``/``v_scale`` [num_blocks,
-                  block_size, Hkv] f32 siblings when quantized);
+  ``k``/``v``     [num_blocks + 1, block_size, Hkv, D] pools shared by
+                  all rows (int8 with ``k_scale``/``v_scale``
+                  [num_blocks + 1, block_size, Hkv] f32 siblings when
+                  quantized); row ``num_blocks`` is a scratch block that
+                  takes every dropped write and is never read;
   ``index``       [B] int32 — each row's logical write position;
   ``block_table`` [B, max_blocks] int32 — row r's logical block j lives
                   in pool block ``block_table[r, j]``; the sentinel
                   ``num_blocks`` marks unmapped entries, and writes
-                  through it are dropped.
+                  through it (or past the table) land in the scratch
+                  block: no write needs a host-side filter, so a decode
+                  step can be captured in a CUDA graph.
 
 Both caches are written IN PLACE (the JAX package returns new arrays;
 here the preallocated device buffers are the state), and the module
@@ -143,10 +149,7 @@ def decode_attention_blockwise(
             f"blockwise decode needs cache {L} % block {block} == 0"
         )
     rep = H // Hkv
-    # clamped: a frontier within T slots of the end must not run a block
-    # past the capacity
-    nb = min(-(-int(live_len) // block), L // block)
-    b0 = max(int(start), 0) // block
+    b0, nb = decode_block_range(L, live_len, start, block)
     if b0 >= nb:
         return torch.zeros_like(q)
     n, sl = nb - b0, slice(b0 * block, nb * block)
@@ -173,6 +176,16 @@ def decode_attention_blockwise(
     acc = (alpha * pv).sum(dim=3)  # [B, H, Tq, D]
     out = acc / torch.where(den == 0.0, 1.0, den)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def decode_block_range(cap: int, live_len: int, start: int = 0,
+                       block: int = DECODE_BLOCK) -> tuple[int, int]:
+    """-> the blocks ``[b0, nb)`` ``decode_attention_blockwise`` reads for
+    host bounds ``live_len`` and ``start`` over a cache of ``cap`` slots;
+    clamped, so a frontier within T slots of the end never runs a block
+    past the capacity."""
+    nb = min(-(-int(live_len) // block), cap // block)
+    return max(int(start), 0) // block, nb
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -233,22 +246,37 @@ def resolve_attn_impl(impl) -> Callable:
 def paged_write_slots(index: torch.Tensor, block_table: torch.Tensor,
                       T: int, num_blocks: int, block_size: int):
     """Where the T fresh tokens of every row land in the pools:
-    ``(rows, tokens, blocks, offsets)`` of the writes that are KEPT.
-    Token t of row r goes to logical position ``index[r] + t``, i.e.
-    block ``block_table[r, pos // bs]`` at offset ``pos % bs``. Writes
-    through the sentinel (unmapped entries, and rows past their table)
-    are dropped by filtering — never clamped into a real block. The
-    filter reads the device (one host sync); callers that run many
-    layers at the same index compute it once and pass it in the cache
-    as ``write_slots``."""
-    B, MB = block_table.shape
+    ``(blocks, offsets)``, both [B, T]. Token t of row r goes to logical
+    position ``index[r] + t``, i.e. block ``block_table[r, pos // bs]`` at
+    offset ``pos % bs``. A write through the sentinel (an unmapped entry,
+    or a position past the row's table) goes to the scratch block
+    ``num_blocks``, never clamped into a real block: every write is kept,
+    so there is no filter and no host sync. Callers that run many layers
+    at the same index compute this once and pass it in the cache as
+    ``write_slots``."""
+    MB = block_table.shape[1]
     tpos = index.long()[:, None] + torch.arange(T, device=index.device)[None, :]
     bslot = tpos // block_size
     blk = torch.gather(block_table.long(), 1, bslot.clamp(max=MB - 1))
     blk = torch.where(bslot >= MB, num_blocks, blk)
-    keep = (blk >= 0) & (blk < num_blocks)
-    rows, toks = keep.nonzero(as_tuple=True)
-    return rows, toks, blk[rows, toks], (tpos % block_size)[rows, toks]
+    return blk, tpos % block_size
+
+
+def paged_write(cache: dict, k: torch.Tensor, v: torch.Tensor, slots) -> None:
+    """In place: every row's T fresh k/v [B, T, Hkv, D] into the pools at
+    ``slots = paged_write_slots(...)`` (dropped writes into the scratch
+    block), quantized first on int8 pools."""
+    blk, off = slots
+    if "k_scale" in cache:
+        qk, sk = quantize_kv_int8(k)
+        qv, sv = quantize_kv_int8(v)
+        cache["k"][blk, off] = qk
+        cache["v"][blk, off] = qv
+        cache["k_scale"][blk, off] = sk
+        cache["v_scale"][blk, off] = sv
+    else:
+        cache["k"][blk, off] = k.to(cache["k"].dtype)
+        cache["v"][blk, off] = v.to(cache["v"].dtype)
 
 
 def write_rows(caches, news, index: torch.Tensor) -> None:
@@ -394,6 +422,26 @@ class MultiHeadAttention(nn.Module):
             return DECODE_BLOCK
         return DECODE_BLOCKWISE_MIN_WINDOWLESS
 
+    def _blockwise_bounds(self, cap: int, T: int, frontier):
+        """Host ``(live_len, start)`` of a cached step's blockwise read, or
+        None when a cache of ``cap`` slots takes the full-width read. The
+        queries' earliest window start is ``lo + 1 - window``."""
+        if (cap <= self._blocks_min() or cap % DECODE_BLOCK
+                or self.scale is not None):
+            return None
+        lo, hi = frontier if frontier is not None else (0, cap)
+        win = self.window
+        return hi + T, 0 if win is None else max(lo + 1 - win, 0)
+
+    def decode_blocks(self, cap: int, frontier, *, rolling: bool = False):
+        """The cache blocks ``(b0, nb)`` a T == 1 decode step over ``cap``
+        slots reads for this host ``frontier``, or None when it reads the
+        whole cache (full width, the ring). The step depends on the
+        frontier only through them, so a captured step is keyed by
+        them."""
+        bounds = None if rolling else self._blockwise_bounds(cap, 1, frontier)
+        return None if bounds is None else decode_block_range(cap, *bounds)
+
     def _apply_rows(self, q, k, v, cache, mask, bias):
         """Per-row ``[B]`` index (the serving slot form): each row writes
         its T tokens at its own index, dropped at capacity, and attends
@@ -426,12 +474,12 @@ class MultiHeadAttention(nn.Module):
         if win is not None:
             win_start = (live_t - win).clamp_min(0)
             mask = mask & (kslot >= win_start[:, None, :, None])
-        if (cap > self._blocks_min() and cap % DECODE_BLOCK == 0
-                and bias is None and self.scale is None):
-            lo, hi = cache.get("frontier", (0, cap))
+        bounds = None if bias is not None else self._blockwise_bounds(
+            cap, T, cache.get("frontier"))
+        if bounds is not None:
             out = decode_attention_blockwise(
-                q, ck.to(q.dtype), cv.to(q.dtype), hi + T, mask=mask,
-                start=0 if win is None else max(lo + 1 - win, 0),
+                q, ck.to(q.dtype), cv.to(q.dtype), bounds[0], mask=mask,
+                start=bounds[1],
             )
         else:
             out = self._attn(
@@ -503,23 +551,21 @@ class MultiHeadAttention(nn.Module):
                 < idx + T
             mask = valid if mask is None else mask & valid
         win = self.window
-        if (not fresh and T == 1 and cap > self._blocks_min()
-                and cap % DECODE_BLOCK == 0 and bias is None
-                and self.scale is None and not rolling):
-            # the ring never takes the blockwise path: past its first wrap
-            # the live count exceeds the capacity, and its capacity is
-            # already window-sized
-            lo, hi = cache.get("frontier", (0, cap))
-            start = 0
+        # the ring never takes the blockwise path: past its first wrap the
+        # live count exceeds the capacity, and its capacity is already
+        # window-sized
+        bounds = None
+        if not fresh and T == 1 and bias is None and not rolling:
+            bounds = self._blockwise_bounds(cap, T, cache.get("frontier"))
+        if bounds is not None:
             if win is not None:
                 # the lone query at live - 1 attends [live - window, live)
                 win_start = (idx + T - win).clamp_min(0)
                 kpos = torch.arange(cap, device=q.device)[None, None, None, :]
                 mask = mask & (kpos >= win_start)
-                start = max(lo + T - win, 0)
             out = decode_attention_blockwise(
-                q, k.to(q.dtype), v.to(q.dtype), hi + T, mask=mask,
-                start=start,
+                q, k.to(q.dtype), v.to(q.dtype), bounds[0], mask=mask,
+                start=bounds[1],
             )
         elif rolling:
             # past the first wrap slot order is not position order: the
@@ -559,23 +605,12 @@ class MultiHeadAttention(nn.Module):
                 f"paged cache needs a per-row [B] index, got ndim {idx.dim()}"
             )
         ck, cv = cache["k"], cache["v"]
-        NB, bs = ck.shape[0], ck.shape[1]
+        NB, bs = ck.shape[0] - 1, ck.shape[1]  # row NB: the scratch block
         Lv = bt.shape[1] * bs
         slots = cache.get("write_slots")
         if slots is None:
             slots = paged_write_slots(idx, bt, T, NB, bs)
-        rows, toks, blk, off = slots
-        quant = "k_scale" in cache
-        if quant:
-            qk, sk = quantize_kv_int8(k)
-            qv, sv = quantize_kv_int8(v)
-            ck[blk, off] = qk[rows, toks]
-            cv[blk, off] = qv[rows, toks]
-            cache["k_scale"][blk, off] = sk[rows, toks]
-            cache["v_scale"][blk, off] = sv[rows, toks]
-        else:
-            ck[blk, off] = k[rows, toks].to(ck.dtype)
-            cv[blk, off] = v[rows, toks].to(cv.dtype)
+        paged_write(cache, k, v, slots)
         new_cache = {
             name: val for name, val in cache.items() if name != "write_slots"
         }
@@ -587,9 +622,13 @@ class MultiHeadAttention(nn.Module):
                     f"dim {Lv}), got {tuple(mask.shape)}"
                 )
             mask = mask.expand(B, 1, mask.shape[2], Lv).contiguous()
+        # the real blocks only (leading-dim views, still contiguous): the
+        # kernel's sentinel test is against their count
+        ks, vs = cache.get("k_scale"), cache.get("v_scale")
         out = paged_decode_attention(
-            q.contiguous(), ck, cv, bt, new_cache["index"].int(),
-            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            q.contiguous(), ck[:NB], cv[:NB], bt, new_cache["index"].int(),
+            k_scale=None if ks is None else ks[:NB],
+            v_scale=None if vs is None else vs[:NB],
             mask=mask, window=self.window,
         )
         return out, new_cache
@@ -615,13 +654,13 @@ class MultiHeadAttention(nn.Module):
         dtype=torch.bfloat16, quant: str | None = None, *, device=None,
     ) -> dict:
         """Paged cache form (see the module docstring): pools of
-        ``num_blocks`` blocks, per-row write index 0, block table at the
-        sentinel. ``quant="int8"``: int8 pools with f32 scales initialized
-        to 1.0 (unwritten blocks dequantize to exact zeros); ``dtype`` is
-        then ignored for k/v."""
+        ``num_blocks`` blocks plus the scratch block, per-row write index
+        0, block table at the sentinel. ``quant="int8"``: int8 pools with
+        f32 scales initialized to 1.0 (unwritten blocks dequantize to
+        exact zeros); ``dtype`` is then ignored for k/v."""
         if quant not in (None, "int8"):
             raise ValueError(f"unknown paged cache quant {quant!r}")
-        shape = (num_blocks, block_size, self.num_kv_heads, self.head_dim)
+        shape = (num_blocks + 1, block_size, self.num_kv_heads, self.head_dim)
         cache = {
             "index": torch.zeros((batch,), dtype=torch.int32, device=device),
             "block_table": torch.full(

@@ -4,15 +4,21 @@ sampling math, and ``InferenceEngine``, which holds a model on one
 device under the serving dtype policy, sizes its KV cache, and runs the
 static-batch ``generate``: one prefill of the left-padded prompts into a
 contiguous cache (or a ring, ``rolling_cache=True``), then T == 1 decode
-steps in an eager loop standing in for the JAX package's ``lax.scan``.
+steps. Each decode step reads its index from a device counter and
+writes the cache, the validity (or ring slot -> position) map and the
+output in place, so on CUDA it runs as a replayed CUDA graph
+(``runtime/graphs.py``), the counterpart of the reference's jitted
+``lax.scan``; on the CPU, or with ``cuda_graphs=False``, the same step
+runs eagerly.
 
 Greedy sampling is ``argmax`` over f32 logits (ties go to the first
 index). Sampling with a temperature cannot reproduce JAX's threefry
-draws. The serving engines keep their property instead: a token depends
-only on (request seed, logical position), drawn from a
-``torch.Generator`` seeded from both (``position_generator``), never on
-the slot or the co-tenants. ``generate`` draws every step of a call from
-one generator seeded with its ``seed`` argument.
+draws; it keeps the reference's property instead: a draw is a function
+of (seed, position) alone (``sample_logits_at``: Gumbel noise from a
+counter hash of seed, position and vocabulary index, in tensor ops, the
+same bits on the CPU and on CUDA). The serving engines key it by
+(request seed, logical position), never the slot or the co-tenants;
+``generate`` by (its ``seed`` and the row, step).
 
 Mesh/tensor parallelism, weight-only int8 and the sequence-sharded cache
 wait for later slices.
@@ -29,6 +35,11 @@ from torch import nn
 from tensorlink_tpu_torch import resolve_device
 from tensorlink_tpu_torch.convert import apply_dtype_policy
 from tensorlink_tpu_torch.nn.attention import DECODE_BLOCK
+from tensorlink_tpu_torch.runtime.graphs import GraphCache
+
+# generate checks whether every row has ended (a host read) once every
+# this many decode steps
+EOS_CHECK_STEPS = 8
 
 
 @dataclass(frozen=True)
@@ -45,7 +56,7 @@ def _filter_logits(logits, temperature, top_k, top_p=1.0):
     from, as (unnormalized, possibly -inf-masked) f32 logits.
     ``temperature`` must be > 0 here."""
     logits = logits.float() / temperature
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    neg_inf = float("-inf")  # a scalar: no host-to-device copy
     if top_k:
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
         logits = torch.where(logits < kth, neg_inf, logits)
@@ -60,33 +71,62 @@ def _filter_logits(logits, temperature, top_k, top_p=1.0):
     return logits
 
 
-_M64 = (1 << 64) - 1
+_M32 = 0xFFFFFFFF
 
 
-def position_generator(seed: int, position: int,
-                       device: torch.device) -> torch.Generator:
-    """The generator for the token at logical ``position`` of a request
-    with ``seed``: a function of the two alone. The pair is mixed with
-    splitmix64 so every bit of the generator's seed depends on both
-    (the CPU generator reads only the low 32 bits of its seed)."""
-    z = ((int(seed) & 0xFFFFFFFF) << 32) | (int(position) & 0xFFFFFFFF)
-    z = (z + 0x9E3779B97F4A7C15) & _M64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-    g = torch.Generator(device=device)
-    g.manual_seed((z ^ (z >> 31)) >> 1)
-    return g
+def _shr(x: torch.Tensor, n: int) -> torch.Tensor:
+    # >> is arithmetic on int64; the mask makes it logical
+    return (x >> n) & (_M32 >> n)
 
 
-def sample_logits(logits, temperature, top_k=0, top_p=1.0, generator=None):
-    """[..., V] logits -> token ids. Greedy at temperature 0; otherwise a
-    Gumbel-max draw from the filtered distribution, with the uniforms
-    taken from ``generator``."""
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c mod 2**32 for x in [0, 2**32) held in int64: c in two 16-bit
+    halves, so no product reaches 2**63 (no signed overflow anywhere)."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective 32-bit integer finalizer (lowbias32's constants) on
+    int64 lanes holding values in [0, 2**32)."""
+    x = x ^ _shr(x, 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ _shr(x, 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ _shr(x, 16)
+
+
+def counter_bits(seed: torch.Tensor, position: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[S] seeds, [S] positions (int64) -> [S, vocab] int64 hash bits in
+    [0, 2**32): a function of (the seed's low 32 bits, the position's,
+    the vocabulary index) alone, the same on every device."""
+    row = _mix32(_mix32(seed.long() & _M32) ^ (position.long() & _M32))
+    col = _mix32(torch.arange(vocab, device=row.device, dtype=torch.int64)
+                 ^ 0x9E3779B9)
+    return _mix32(row[:, None] ^ col[None, :])
+
+
+def sample_logits_at(logits, seed, position, temperature, top_k=0, top_p=1.0):
+    """[S, V] logits -> [S] token ids. Greedy (``argmax``) at temperature
+    0; otherwise a Gumbel-max draw from the filtered distribution whose
+    uniforms are ``counter_bits(seed, position)``'s top 23 bits, centred
+    (k + 0.5 is exact in f32 for k < 2**23, so u is never 0 or 1): row
+    s's draw depends on (seed[s], position[s]) and its logits only. No
+    host read, no generator: capturable."""
     if temperature == 0.0:
         return torch.argmax(logits.float(), dim=-1)
     f = _filter_logits(logits, temperature, top_k, top_p)
-    u = torch.rand(f.shape, generator=generator, device=f.device)
+    bits = counter_bits(seed, position, f.shape[-1])
+    u = (_shr(bits, 9).float() + 0.5) * (1.0 / (1 << 23))
     return torch.argmax(f - torch.log(-torch.log(u)), dim=-1)
+
+
+def generate_row_seeds(seed: int, batch: int, device) -> torch.Tensor:
+    """``generate``'s per-row sampling key: (its seed, the row) mixed
+    into one 32-bit seed a row; the step is the position."""
+    rows = torch.arange(batch, device=device, dtype=torch.int64)
+    return _mix32(_mix32(torch.full_like(rows, int(seed) & _M32)) ^ rows)
 
 
 class InferenceEngine:
@@ -104,6 +144,16 @@ class InferenceEngine:
     (norm scales, biases) stay f32. ``rolling_cache=True`` serves a
     sliding-window model from a ring of prompt + window slots, however
     long the generation runs.
+
+    ``cuda_graphs`` (CUDA only): ``generate``'s decode steps run as
+    replays of captured graphs (True) or eagerly (False); the same step
+    either way. The engine keeps the device state of the newest
+    ``generate`` shape — (batch, prompt length, generation config) — with
+    its graphs, one a set of blocks the step reads, and frees it when a
+    call of another shape arrives: a graph pins the cache it was captured
+    on, so only the newest shape's cache stays allocated between calls.
+    ``step_hook``, when set, is called with the step index before each
+    decode step (for measurement; a replay runs no module hooks).
     """
 
     def __init__(
@@ -116,8 +166,12 @@ class InferenceEngine:
         param_dtype: torch.dtype = torch.bfloat16,
         device=None,
         rolling_cache: bool = False,
+        cuda_graphs: bool = True,
     ):
         self.device = resolve_device(device)
+        self.cuda_graphs = bool(cuda_graphs)
+        self.step_hook = None
+        self._gen_state: dict | None = None
         self.model = model
         if params is not None:
             model.load_state_dict(params, strict=True, assign=True)
@@ -160,8 +214,9 @@ class InferenceEngine:
     def generate_async(self, ids, gen: GenerationConfig | None = None, *,
                        pad_mask=None, seed: int = 0) -> torch.Tensor:
         """Like ``generate`` but returns the device tensor [B, max_new]:
-        no host read, unless ``eos_token_id`` is set, when each step reads
-        whether every row has ended so the loop can stop early."""
+        no host read, unless ``eos_token_id`` is set, when every
+        ``EOS_CHECK_STEPS`` steps it reads whether every row has ended so
+        the loop can stop early."""
         gen = gen or GenerationConfig()
         if not 0.0 < gen.top_p <= 1.0:
             # top_p 0 would mask every token; "off" is 1.0
@@ -187,27 +242,55 @@ class InferenceEngine:
         """ids: [B, T0] left-padded prompts (``pad_mask`` 1 on real
         tokens); returns [B, max_new_tokens] int64, filled with
         ``eos_token_id`` after a row ends. Sampling at a temperature
-        draws from a generator seeded with ``seed``."""
+        draws from the counter sampler keyed by (``seed``, row, step)."""
         return self.generate_async(ids, gen, pad_mask=pad_mask, seed=seed).cpu().numpy()
+
+    def graph_stats(self) -> dict:
+        """The newest ``generate`` shape's graph counters (zeros before the
+        first call): graphs held, captured, capture s, replays, pool
+        bytes."""
+        st = self._gen_state
+        return (st["graphs"] if st else GraphCache(self.device)).stats()
+
+    def _state(self, key: tuple, B: int, L: int, rolling: bool) -> dict:
+        """The device state of a ``generate`` shape: caches sharing one
+        write index, the step counter, fed token, per-row valid count and
+        sampling seed, the ended flags, the validity (or ring slot ->
+        position) map and the output; kept for the newest shape only."""
+        st = self._gen_state
+        if st is not None and st["key"] == key:
+            return st
+        self._gen_state = None  # drop the old shape's cache and graphs
+        dev = self.device
+        index = torch.zeros((), dtype=torch.int32, device=dev)
+        caches = self.model.init_caches(B, L, dtype=self.cache_dtype,
+                                        rolling=rolling)
+        for c in caches:
+            c["attn"]["index"] = index
+        max_new = key[-1].max_new_tokens
+        st = self._gen_state = {
+            "key": key, "caches": caches, "index": index,
+            "step": torch.zeros((), dtype=torch.int64, device=dev),
+            "tok": torch.zeros((B,), dtype=torch.int64, device=dev),
+            "n_valid": torch.zeros((B,), dtype=torch.int64, device=dev),
+            "seed": torch.zeros((B,), dtype=torch.int64, device=dev),
+            "done": torch.zeros((B,), dtype=torch.bool, device=dev),
+            "valid": torch.zeros((B, L), device=dev,
+                                 dtype=torch.int64 if rolling else torch.bool),
+            "out": torch.zeros((B, max_new), dtype=torch.int64, device=dev),
+            "graphs": GraphCache(dev, enabled=self.cuda_graphs),
+        }
+        return st
 
     def _run(self, ids, pad, gen: GenerationConfig, seed: int) -> torch.Tensor:
         model, dev = self.model, self.device
         B, T0 = ids.shape
         max_new, eos, W = gen.max_new_tokens, gen.eos_token_id, self.window
         L, rolling = self.cache_plan(T0, max_new)
-        g = None
-        if gen.temperature != 0.0:
-            g = torch.Generator(device=dev)
-            g.manual_seed(int(seed))
-
-        def sample(logits):
-            return sample_logits(logits, gen.temperature, gen.top_k,
-                                 gen.top_p, generator=g)
-
+        st = self._state((B, T0, L, rolling, gen), B, L, rolling)
+        caches = st["caches"]
         # logical positions: pads get 0, the first real token 0
         pos = (pad.cumsum(dim=-1) - 1).clamp_min(0)
-        n_valid = pad.sum(dim=-1)
-        caches = model.init_caches(B, L, dtype=self.cache_dtype, rolling=rolling)
         # prefill over the T0 fresh keys: a key must be a real prompt token
         # at or before the query (left padding: slot order is logical
         # order); a ring's module ignores positions, so the band rides here
@@ -216,43 +299,79 @@ class InferenceEngine:
         mask = (kslot <= qslot) & pad.bool()[:, None, None, :]
         if rolling:
             mask = mask & (pos[:, None, None, :] > pos[:, None, :, None] - W)
-        hidden, caches = model(ids, caches=caches, positions=pos, mask=mask,
-                               logits=False)
-        tok = sample(model.head(hidden[:, -1]))
-        out = torch.empty((B, max_new), dtype=torch.long, device=dev)
-        out[:, 0] = tok
-        done = tok == eos if eos is not None else None
+        st["index"].zero_()
+        for c in caches:
+            c["attn"].pop("frontier", None)
+        hidden, _ = model(ids, caches=caches, positions=pos, mask=mask,
+                          logits=False)
+        st["index"].fill_(T0)
+        st["seed"].copy_(generate_row_seeds(seed, B, dev))
+        tok = sample_logits_at(model.head(hidden[:, -1]), st["seed"],
+                               torch.zeros_like(st["seed"]), gen.temperature,
+                               gen.top_k, gen.top_p)
+        st["tok"].copy_(tok)
+        st["out"][:, 0] = tok
+        if eos is not None:
+            st["done"].copy_(tok == eos)
+        st["n_valid"].copy_(pad.sum(dim=-1))
+        st["step"].fill_(1)
         # slot bookkeeping: valid slots of the monotone cache, or each ring
         # slot's logical position (-1: never written or pad), the only
         # masking authority once writes wrap
-        valid = torch.zeros((B, L), dtype=torch.bool, device=dev)
-        valid[:, :T0] = pad.bool()
+        valid = st["valid"]
         if rolling:
-            valid = torch.where(
-                valid, torch.nn.functional.pad(pos, (0, L - T0)), -1
-            )
+            valid.fill_(-1)
+            valid[:, :T0] = torch.where(pad.bool(), pos, -1)
+        else:
+            valid.zero_()
+            valid[:, :T0] = pad.bool()
+        attns = [blk.attn for blk in model.blocks.blocks()]
         for i in range(1, max_new):
+            if self.step_hook is not None:
+                self.step_hook(i)
             # the carried token was sampled at step i - 1: it goes to slot
-            # T0 + i - 1 (mod L on a ring) at logical position n_valid + i - 1
-            positions = (n_valid + i - 1)[:, None]
-            wslot = T0 + i - 1
-            if rolling:
-                valid[:, wslot % L] = positions[:, 0]
-                mask = ((valid >= 0) & (valid > positions - W))[:, None, None, :]
-            else:
-                valid[:, wslot] = True
-                mask = valid[:, None, None, :]
-            for c in caches:
-                c["attn"]["frontier"] = (wslot, wslot)
-            logits, caches = model(tok[:, None], caches=caches,
-                                   positions=positions, mask=mask)
-            tok = sample(logits[:, -1])
-            if eos is not None:
-                tok = torch.where(done, eos, tok)
-                done = done | (tok == eos)
-            out[:, i] = tok
-            if eos is not None and i + 1 < max_new and bool(done.all()):
-                out[:, i + 1:] = eos
+            # T0 + i - 1 (mod L on a ring); the step's host bounds matter
+            # only through the blocks they select, the graph's key
+            frontier = (T0 + i - 1, T0 + i - 1)
+            key = tuple(a.decode_blocks(L, frontier, rolling=rolling)
+                        for a in attns)
+            st["graphs"].run(key, lambda: self._decode_step(st, gen, frontier))
+            if (eos is not None and i % EOS_CHECK_STEPS == 0
+                    and i + 1 < max_new and bool(st["done"].all())):
+                # every row has ended: the rest is eos (the reference
+                # never stops early; its tokens there are eos too)
+                st["out"][:, i + 1:] = eos
                 break
-        return out
+        return st["out"].clone()
 
+    def _decode_step(self, st: dict, gen: GenerationConfig, frontier) -> None:
+        """One T == 1 decode step of ``generate``, in place on ``st``: the
+        step index ``i`` is a device counter, so the same work serves every
+        step whose frontier selects the same blocks."""
+        B, L = st["valid"].shape
+        T0 = st["key"][1]
+        eos = gen.eos_token_id
+        i = st["step"]
+        # the token fed now sits at logical position n_valid + i - 1
+        positions = (st["n_valid"] + i - 1)[:, None]
+        wslot = (i + (T0 - 1)).view(1)
+        valid = st["valid"]
+        if "rolling" in st["caches"][0]["attn"]:
+            valid.scatter_(1, (wslot % L).expand(B)[:, None], positions)
+            mask = (valid >= 0) & (valid > positions - self.window)
+        else:
+            valid.index_fill_(1, wslot, True)
+            mask = valid
+        for c in st["caches"]:
+            c["attn"]["frontier"] = frontier
+        logits, _ = self.model(st["tok"][:, None], caches=st["caches"],
+                               positions=positions, mask=mask[:, None, None, :])
+        st["index"].add_(1)
+        tok = sample_logits_at(logits[:, -1], st["seed"], i.expand(B),
+                               gen.temperature, gen.top_k, gen.top_p)
+        if eos is not None:
+            tok = torch.where(st["done"], eos, tok)
+            st["done"].logical_or_(tok == eos)
+        st["out"].index_copy_(1, i.view(1), tok[:, None])
+        st["tok"].copy_(tok)
+        i.add_(1)

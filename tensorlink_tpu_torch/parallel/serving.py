@@ -15,9 +15,11 @@ scheduler iteration, ``result`` drives the loop until a request ends.
   distinct prefill shapes), attends its own fresh keys, and its k/v are
   written straight into the slot's region in place;
 - **decode** runs ``decode_chunk`` T == 1 steps over every slot per
-  scheduler step (a Python loop standing in for the JAX package's
-  ``lax.scan``); a row whose request ended parks, and its slot is free
-  for the next admission.
+  scheduler step, the counterpart of the JAX package's jitted
+  ``lax.scan``: on CUDA one replay of a captured graph
+  (``runtime/graphs.py``), on the CPU the same chunk body eagerly; a row
+  whose request ended parks, and its slot is free for the next
+  admission once the chunk that ended it has drained.
 
 ``PagedContinuousBatchingEngine`` (its subclass) keeps every layer's k/v
 in shared pools of fixed-size blocks addressed through per-slot block
@@ -41,11 +43,23 @@ block ids each slot maps:
   the sentinel, so later writes through it drop) before its blocks
   return to the pool.
 
-Device state: the JAX engines donate their state tree to each program
-and keep ``pipeline_depth`` chunks in flight. Here the caches, write
-index and per-slot vectors are preallocated device buffers updated in
-place, and each scheduler step reads its decode chunk's tokens back
-before it returns (no chunk stays in flight).
+Device state: the JAX engines donate their state tree to each program.
+Here the caches, write index, per-slot vectors (fed token, valid count,
+budget, liveness, sampling seed) and the chunk's [K, S] token output are
+preallocated device buffers that the chunk body updates in place, so a
+captured graph keeps reading the live buffers. The chunk body reads no
+host value but its graph key (the blocks of a blockwise read on the
+contiguous cache above 2048 slots) and makes no host read.
+
+Chunks in flight: as in the reference, ``pipeline_depth`` (default 2)
+decode chunks stay in flight. Each dispatch copies the chunk's tokens
+into one of ``pipeline_depth + 1`` pinned host buffers and records an
+event; ``step`` drains the oldest chunk once more than
+``pipeline_depth`` are in flight (all of them when idle), which is the
+one host sync. A prefill's first token stays a device scalar (copied
+out the same way) until the first chunk after it drains; TTFT is stamped
+when its event is seen complete. Requests finish, and their slots and
+blocks free, at drain.
 
 Not ported yet (see ROADMAP): speculation, priorities, deadlines and
 retry-after, metering and receipts, disaggregated prefill export and
@@ -66,14 +80,14 @@ from tensorlink_tpu_torch.nn.attention import paged_write_slots
 from tensorlink_tpu_torch.parallel.inference import (
     GenerationConfig,
     InferenceEngine,
-    position_generator,
-    sample_logits,
+    sample_logits_at,
 )
 from tensorlink_tpu_torch.parallel.kvpool import (
     BlockPool,
     PoolExhaustedError,
     PrefixIndex,
 )
+from tensorlink_tpu_torch.runtime.graphs import GraphCache
 
 __all__ = [
     "ContinuousBatchingEngine",
@@ -130,6 +144,9 @@ class _Request:
     first_token_at: float | None = None
     finished_at: float | None = None
     prefill_chunks: int = 0
+    # the prefill's first token on its way to the host: (host tensor,
+    # event or None), taken at the first drain after it
+    first_token: tuple | None = None
 
 
 class ContinuousBatchingEngine:
@@ -137,11 +154,15 @@ class ContinuousBatchingEngine:
     regions on one device.
 
     ``slots``: decode batch width (a slot row is one request).
-    ``decode_chunk``: T == 1 steps per scheduler step. ``prefill_block``:
-    prompt lengths round up to a multiple of this. ``max_queue``: pending
-    admissions beyond which ``submit`` raises an ``OverloadedError`` when
-    no slot is free. ``keep_results``: finished requests kept readable
-    through ``result``.
+    ``decode_chunk``: T == 1 steps per scheduler step (one captured graph
+    on CUDA). ``pipeline_depth``: decode chunks kept in flight before the
+    host syncs the oldest (0: every step reads its own chunk back).
+    ``prefill_block``: prompt lengths round up to a multiple of this.
+    ``max_queue``: pending admissions beyond which ``submit`` raises an
+    ``OverloadedError`` when no slot is free. ``keep_results``: finished
+    requests kept readable through ``result``. ``cuda_graphs`` (CUDA
+    only): decode chunks run as graph replays (True) or eagerly (False),
+    the same chunk body either way.
     """
 
     def __init__(
@@ -151,9 +172,11 @@ class ContinuousBatchingEngine:
         slots: int = 8,
         gen: GenerationConfig | None = None,
         decode_chunk: int = 8,
+        pipeline_depth: int = 2,
         prefill_block: int = 32,
         max_queue: int | None = None,
         keep_results: int = 1024,
+        cuda_graphs: bool = True,
     ):
         if engine.rolling:
             raise NotImplementedError(
@@ -168,7 +191,8 @@ class ContinuousBatchingEngine:
                 f"top_p must be in (0, 1] (1.0 = off), got {self.gen.top_p}"
             )
         self.slots = S = int(slots)
-        self.decode_chunk = int(decode_chunk)
+        self.decode_chunk = K = int(decode_chunk)
+        self.pipeline_depth = max(int(pipeline_depth), 0)
         self.prefill_block = int(prefill_block)
         self.max_queue = max_queue
         self.keep_results = max(int(keep_results), 1)
@@ -180,7 +204,19 @@ class ContinuousBatchingEngine:
         self._tok = torch.zeros((S,), dtype=torch.int64, device=dev)
         self._remaining = torch.zeros((S,), dtype=torch.int32, device=dev)
         self._live = torch.zeros((S,), dtype=torch.bool, device=dev)
-        self._slot_seed = [0] * S
+        self._seed = torch.zeros((S,), dtype=torch.int64, device=dev)
+        self._rows = torch.arange(S, device=dev)
+        self._out = torch.zeros((K, S), dtype=torch.int64, device=dev)
+        self._graphs = GraphCache(dev, enabled=cuda_graphs)
+        # dispatched, not yet drained: (host tokens [K, S], event or None,
+        # the dispatch-time slot -> request snapshot)
+        self._inflight: collections.deque = collections.deque()
+        pin = dev.type == "cuda"
+        self._host_out = [
+            torch.zeros((K, S), dtype=torch.int64, pin_memory=pin)
+            for _ in range(self.pipeline_depth + 1)
+        ]
+        self._dispatched = 0
 
         # host-side scheduler state
         self._queue: list[_Request] = []
@@ -189,13 +225,17 @@ class ContinuousBatchingEngine:
         self._slot_req: list[_Request | None] = [None] * S
         self._free: list[int] = list(range(S))[::-1]
         self._next_rid = 0
+        # upper bound of each slot's device write index once every
+        # dispatched chunk has run
+        self._slot_ub = [0] * S
 
         # counters
         self.prefill_chunks = 0  # prefill programs run
-        self.decode_steps = 0  # T == 1 model steps run
-        # steps that ran decode and no prefill: wall time (each step ends
-        # in a device read, so the sum is device-inclusive) and the
-        # tokens they emitted
+        self.decode_steps = 0  # T == 1 model steps dispatched
+        self._drained_tokens = 0
+        # steps that ran decode and no prefill: wall time (each drain ends
+        # in a device sync, so the sum is device-inclusive) and the tokens
+        # drained in them
         self.decode_only_s = 0.0
         self.decode_only_tokens = 0
         self._init_state()
@@ -212,6 +252,14 @@ class ContinuousBatchingEngine:
         # advanced it by one a decoded token
         self._slot_base = [0] * S
         self.kv_bytes = sum(t.numel() * t.element_size() for kv in self._kv for t in kv)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the device without a stream sync (a blocking
+        copy would wait for every chunk in flight)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     # ------------------------------------------------------------ submit
     def submit(self, ids, *, max_new: int | None = None, seed: int = 0) -> int:
@@ -274,15 +322,17 @@ class ContinuousBatchingEngine:
     def _admit(self, req: _Request) -> None:
         """Prefill the prompt into a free slot's region: left-padded to
         its bucket Tp, attending its fresh keys, written in place at
-        slots [0, Tp); the first token is sampled and read back."""
+        slots [0, Tp); the first token is sampled on the device and read
+        at the next drain."""
         slot = self._free.pop()
         req.slot = slot
         self._slot_req[slot] = req
         t0 = int(req.ids.size)
         Tp = self._bucket(t0)
         dev = self.device
-        ids = torch.zeros((1, Tp), dtype=torch.long, device=dev)
-        ids[0, Tp - t0:] = torch.from_numpy(req.ids).to(dev)
+        buf = np.zeros((1, Tp), np.int64)
+        buf[0, Tp - t0:] = req.ids
+        ids = self._to_device(buf)
         real = torch.arange(Tp, device=dev) >= Tp - t0
         pos = (real.long().cumsum(dim=0) - 1).clamp_min(0)[None, :]
         qslot = torch.arange(Tp, device=dev)[:, None]
@@ -295,97 +345,178 @@ class ContinuousBatchingEngine:
         model = self.engine.model
         hidden, _ = model(ids, caches=caches, positions=pos,
                           mask=mask[None, None], logits=False)
-        tok0 = self._sample_one(model.head(hidden[0, -1]), req.seed, t0)
-        done0 = torch.tensor(req.max_new <= 1, device=dev)
-        if self.gen.eos_token_id is not None:
-            done0 = done0 | (tok0 == self.gen.eos_token_id)
-        self._cache_index[slot] = Tp
-        self._slot_base[slot] = Tp
         self._valid[slot] = False
         self._valid[slot, :Tp] = real
-        self._n_valid[slot] = t0
-        self._tok[slot] = tok0
-        self._slot_seed[slot] = req.seed
-        self._remaining[slot] = req.max_new - 1
-        self._live[slot] = ~done0
+        self._cache_index[slot] = Tp
+        self._slot_base[slot] = Tp
+        self._slot_ub[slot] = Tp
+        self._start_row(slot, model.head(hidden[0, -1]), req.seed, t0,
+                        req.max_new, True)
         self.prefill_chunks += 1
         req.prefill_chunks += 1
-        first = int(tok0)
-        req.first_token_at = time.perf_counter()
-        self._append_token(req, first)
+        req.first_token = self._stash_first(self._tok[slot])
 
-    def _sample_one(self, logits_row, seed: int, position: int):
+    def _start_row(self, slot: int, logits_row, seed: int, n_valid: int,
+                   max_new: int, final: bool) -> None:
+        """Sample a prefill's first token on the device and set the slot's
+        per-row state: fed token, valid count, seed, budget, liveness."""
+        dev = self.device
+        seed_t = torch.full((1,), seed, dtype=torch.int64, device=dev)
+        pos_t = torch.full((1,), n_valid, dtype=torch.int64, device=dev)
         gen = self.gen
-        g = None
-        if gen.temperature != 0.0:
-            g = position_generator(seed, position, logits_row.device)
-        return sample_logits(
-            logits_row, gen.temperature, gen.top_k, gen.top_p, generator=g
-        )
+        tok0 = sample_logits_at(logits_row[None], seed_t, pos_t,
+                                gen.temperature, gen.top_k, gen.top_p)[0]
+        self._tok[slot] = tok0
+        self._n_valid[slot] = n_valid
+        self._seed[slot] = seed
+        self._remaining[slot] = max_new - 1 if final else 0
+        if not final or max_new <= 1:
+            self._live[slot] = False
+        elif gen.eos_token_id is None:
+            self._live[slot] = True
+        else:
+            self._live[slot] = tok0 != gen.eos_token_id
+
+    def _stash_first(self, tok0) -> tuple:
+        """Start a first token's copy to the host: (host tensor, event)."""
+        if tok0.device.type != "cuda":
+            return tok0.clone(), None
+        host = torch.empty((), dtype=torch.int64, pin_memory=True)
+        host.copy_(tok0, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _maybe_record_ttft(self, req: _Request) -> None:
+        """Stamp TTFT once the first token has reached the host (the
+        reference's ``is_ready`` poll, here the copy's event)."""
+        if req.first_token_at is not None or req.first_token is None:
+            return
+        event = req.first_token[1]
+        if event is None or event.query():
+            req.first_token_at = time.perf_counter()
+
+    def _take_first(self, req: _Request) -> None:
+        """Fold the prefill's first token into the request's stream."""
+        if req.first_token is None:
+            return
+        host, event = req.first_token
+        if event is not None:
+            event.synchronize()
+        self._maybe_record_ttft(req)
+        req.first_token = None
+        self._append_token(req, int(host))
 
     # ------------------------------------------------------------ decode
-    def _step_caches(self, index, k: int) -> list[dict]:
-        """Per-layer cache dicts for decode step ``k`` of a chunk, with the
-        host bounds of the running rows' write frontiers (dead rows decode
-        garbage that nobody reads)."""
-        fronts = [
-            self._slot_base[s] + len(r.tokens) - 1
-            for s, r in enumerate(self._slot_req) if r is not None
-        ]
-        frontier = (min(fronts), max(fronts) + k)
+    def _step_caches(self, index, frontier) -> list[dict]:
+        """Per-layer cache dicts for a decode step, with the host bounds of
+        the decoding rows' write frontiers (dead rows decode garbage that
+        nobody reads)."""
         return [
             {"attn": {"k": kk, "v": vv, "index": index, "frontier": frontier}}
             for kk, vv in self._kv
         ]
 
-    @torch.no_grad()
-    def _decode_chunk(self) -> np.ndarray:
-        """``decode_chunk`` T == 1 steps over every slot -> tokens
-        [K, S] on the host (fill token where a row is not live)."""
-        model, S, L = self.engine.model, self.slots, self.L
-        dev = self.device
+    def _frontier(self, decoding: list[int]):
+        """Host ``(lo, hi)`` bounding every decoding row's write index over
+        the next chunk's K steps: ``hi`` from the index's upper bound once
+        the chunks in flight have run, plus K - 1; ``lo`` from the tokens
+        drained so far (it may lag, which only widens a windowed read)."""
+        K = self.decode_chunk
+        lo = min(
+            self._slot_base[s] + max(len(self._slot_req[s].tokens) - 1, 0)
+            for s in decoding
+        )
+        return lo, max(self._slot_ub[s] for s in decoding) + K - 1
+
+    def _chunk_key(self, frontier):
+        """What a chunk bakes in: the blocks each layer's blockwise read
+        spans (None on the full-width read, which reads no host value)."""
+        return tuple(
+            blk.attn.decode_blocks(self.L, frontier)
+            for blk in self.engine.model.blocks.blocks()
+        )
+
+    def _chunk_body(self, frontier) -> None:
+        """``decode_chunk`` T == 1 steps over every slot, in place on the
+        device state; step k's tokens (fill where a row is not live) go to
+        ``self._out[k]``. No host read, no rebinding: a captured graph of
+        this body keeps serving every later chunk."""
+        model, L = self.engine.model, self.L
         gen = self.gen
         fill = gen.eos_token_id if gen.eos_token_id is not None else 0
-        rows = torch.arange(S, device=dev)
-        out = torch.empty((self.decode_chunk, S), dtype=torch.int64, device=dev)
+        index, live = self._cache_index, self._live
         for k in range(self.decode_chunk):
-            index, live = self._cache_index, self._live
             # the fed token's slot becomes attendable for live rows; an
             # index at capacity updates nothing (OR with False)
             at = index.long().clamp(max=L - 1)
-            self._valid[rows, at] |= live & (index < L)
+            self._valid[self._rows, at] |= live & (index < L)
             logits, _ = model(
                 self._tok[:, None],
-                caches=self._step_caches(index, k),
+                caches=self._step_caches(index, frontier),
                 positions=self._n_valid[:, None],
                 mask=self._valid[:, None, None, :],
             )
             step = live.int()
             # every row's k/v was written at its index; only live rows
             # consumed the slot
-            self._cache_index = index + step
-            self._n_valid = self._n_valid + step
-            nxt = self._sample_rows(logits[:, -1])
-            out[k] = torch.where(live, nxt, fill)
-            self._remaining = self._remaining - step
+            index.add_(step)
+            self._n_valid.add_(step)
+            nxt = sample_logits_at(logits[:, -1], self._seed, self._n_valid,
+                                   gen.temperature, gen.top_k, gen.top_p)
+            self._out[k].copy_(torch.where(live, nxt, fill))
+            self._remaining.sub_(step)
             ended = self._remaining <= 0
             if gen.eos_token_id is not None:
                 ended = ended | (nxt == gen.eos_token_id)
-            self._tok = torch.where(live, nxt, self._tok)
-            self._live = live & ~ended
-            self.decode_steps += 1
-        return out.cpu().numpy()
+            self._tok.copy_(torch.where(live, nxt, self._tok))
+            live.logical_and_(~ended)
 
-    def _sample_rows(self, logits):
-        if self.gen.temperature == 0.0:
-            return sample_logits(logits, 0.0)
-        # (seed, position) per row; rows that are not live draw too and
-        # are discarded
-        n_valid = self._n_valid.tolist()
-        return torch.stack([
-            self._sample_one(logits[s], self._slot_seed[s], n_valid[s])
-            for s in range(self.slots)
-        ])
+    @torch.no_grad()
+    def _dispatch_decode(self, decoding: list[int]) -> None:
+        """Run one chunk (a graph replay on CUDA) and start its tokens'
+        copy to the host; the chunk joins the in-flight queue."""
+        frontier = self._frontier(decoding)
+        self._graphs.run(self._chunk_key(frontier),
+                         lambda: self._chunk_body(frontier))
+        self.decode_steps += self.decode_chunk
+        host = self._host_out[self._dispatched % len(self._host_out)]
+        self._dispatched += 1
+        event = None
+        if self.device.type == "cuda":
+            host.copy_(self._out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host.copy_(self._out)
+        live = set(decoding)
+        snap = tuple(
+            r if s in live else None for s, r in enumerate(self._slot_req)
+        )
+        self._inflight.append((host, event, snap))
+        self._advance_ub(decoding)
+
+    def _advance_ub(self, decoding: list[int]) -> None:
+        for s in decoding:
+            req = self._slot_req[s]
+            self._slot_ub[s] = min(self._slot_ub[s] + self.decode_chunk,
+                                   self._slot_base[s] + req.max_new - 1)
+
+    def _drain_one(self) -> None:
+        """Sync the oldest chunk in flight (the one host sync) and hand its
+        tokens to the requests of its dispatch-time snapshot."""
+        host, event, snap = self._inflight.popleft()
+        if event is not None:
+            event.synchronize()
+        for req in snap:
+            if req is not None:
+                self._take_first(req)
+        toks = host.numpy()
+        for k in range(toks.shape[0]):
+            for s, req in enumerate(snap):
+                if req is not None and not req.done:
+                    self._append_token(req, int(toks[k, s]))
+                    self._drained_tokens += 1
 
     # ---------------------------------------------------------- lifetime
     def _finish(self, req: _Request) -> None:
@@ -418,32 +549,33 @@ class ContinuousBatchingEngine:
     def _decoding_slots(self) -> list[int]:
         return [s for s, r in enumerate(self._slot_req) if r is not None]
 
+    def _busy(self) -> bool:
+        """Work besides decoding that keeps the scheduler going."""
+        return bool(self._queue)
+
     def step(self) -> bool:
         """One scheduler iteration: admit waiting prompts, run the step's
-        prefill work, run one decode chunk and hand its tokens to their
-        requests. Returns False when fully idle."""
+        prefill work, dispatch one decode chunk, then drain the oldest
+        chunks until ``pipeline_depth`` stay in flight (all of them when
+        nothing was dispatched). Returns False when fully idle."""
         t_start = time.perf_counter()
-        chunks0 = self.prefill_chunks
+        chunks0, drained0 = self.prefill_chunks, self._drained_tokens
         self._admit_waiting()
         self._prefill_step()
         decoding = self._decoding_slots()
-        emitted = 0
         if decoding:
-            live = set(decoding)
-            snap = [
-                r if s in live else None for s, r in enumerate(self._slot_req)
-            ]
-            toks = self._decode_chunk()
-            for k in range(toks.shape[0]):
-                for s, req in enumerate(snap):
-                    if req is not None and not req.done:
-                        self._append_token(req, int(toks[k, s]))
-                        emitted += 1
+            self._dispatch_decode(decoding)
+        for r in self._slot_req:
+            if r is not None:
+                self._maybe_record_ttft(r)
         prefilled = self.prefill_chunks != chunks0
+        busy = bool(decoding) or prefilled
+        while len(self._inflight) > (self.pipeline_depth if busy else 0):
+            self._drain_one()
         if decoding and not prefilled:
             self.decode_only_s += time.perf_counter() - t_start
-            self.decode_only_tokens += emitted
-        return bool(prefilled or decoding or self._queue)
+            self.decode_only_tokens += self._drained_tokens - drained0
+        return busy or bool(self._inflight) or self._busy()
 
     def result(self, rid: int) -> np.ndarray:
         """Drive the loop until request ``rid`` finishes; its tokens."""
@@ -477,7 +609,8 @@ class ContinuousBatchingEngine:
         }
 
     def stats(self) -> dict:
-        """Host-side scheduler snapshot."""
+        """Host-side scheduler snapshot, with the decode graphs' counters
+        (graphs held, captured, capture s, replays, pool bytes)."""
         return {
             "slots": self.slots,
             "busy_slots": sum(r is not None for r in self._slot_req),
@@ -485,6 +618,8 @@ class ContinuousBatchingEngine:
             "requests": len(self._requests),
             "prefill_chunks": self.prefill_chunks,
             "decode_steps": self.decode_steps,
+            "inflight_chunks": len(self._inflight),
+            "graphs": self._graphs.stats(),
         }
 
 
@@ -686,12 +821,21 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         row = np.full((self.max_blocks,), self.pool.num_blocks, np.int32)
         blocks = self._slot_blocks[slot]
         row[: len(blocks)] = blocks
-        self._block_table[slot] = torch.from_numpy(row).to(self.device)
+        self._block_table[slot] = self._to_device(row)
         if start is not None:
             self._cache_index[slot] = start
 
-    def _step_caches(self, index, k: int) -> list[dict]:
+    def _step_caches(self, index, frontier) -> list[dict]:
         return self._caches(index, self._block_table, 1)
+
+    def _frontier(self, decoding: list[int]):
+        return None  # the paged read takes its bounds from the device
+
+    def _chunk_key(self, frontier):
+        return ()  # the chunk reads no host value: one graph
+
+    def _advance_ub(self, decoding: list[int]) -> None:
+        pass  # ``_grow_blocks`` advanced it before the dispatch
 
     def _caches(self, index, block_table, T):
         """Per-layer cache dicts over the shared pools, with the write
@@ -726,23 +870,14 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         # band) in logical coordinates; pad tokens past nreal write
         # blocks the decode steps overwrite before reading
         hidden, _ = self.engine.model(
-            torch.from_numpy(buf).to(dev), caches=self._caches(index, bt, C),
+            self._to_device(buf), caches=self._caches(index, bt, C),
             positions=positions, mask=None, logits=False,
         )
         n_end = pos + nreal
-        last = self.engine.model.head(hidden[0, nreal - 1])
-        tok0 = self._sample_one(last, job["seed"], n_end)
-        max_new = job["max_new"]
-        done0 = torch.tensor(max_new <= 1, device=dev)
-        if self.gen.eos_token_id is not None:
-            done0 = done0 | (tok0 == self.gen.eos_token_id)
         self._cache_index[slot] = n_end
         self._valid[slot] = torch.arange(self.L, device=dev) < n_end
-        self._n_valid[slot] = n_end
-        self._tok[slot] = tok0
-        self._slot_seed[slot] = job["seed"]
-        self._remaining[slot] = max_new - 1 if is_final else 0
-        self._live[slot] = torch.tensor(is_final, device=dev) & ~done0
+        self._start_row(slot, self.engine.model.head(hidden[0, nreal - 1]),
+                        job["seed"], n_end, job["max_new"], is_final)
         self.prefill_chunks += 1
         job["pos"] = n_end
         req = self._slot_req[slot]
@@ -755,10 +890,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 # written: a concurrent request sharing it hits at once
                 for b in self.index.register(req.ids, self._slot_blocks[slot]):
                     self.pool.mark_cached(b)
-            first = int(tok0)
-            if req.first_token_at is None:
-                req.first_token_at = time.perf_counter()
-            self._append_token(req, first)
+            req.first_token = self._stash_first(self._tok[slot])
         return True
 
     def _retire_row(self, slot: int) -> None:
@@ -787,10 +919,17 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
 
     def _preempt(self, slot: int) -> None:
         """Evict a live request to free its blocks and re-queue it; it
-        re-prefills prompt + banked tokens and continues token-identical."""
+        re-prefills prompt + banked tokens and continues token-identical.
+        The row retires on the device first (later chunks drop its
+        writes), then every chunk in flight drains (their tokens are
+        genuine, and may finish the request), then the blocks go back."""
         req = self._slot_req[slot]
         self.preemptions += 1
         self._retire_row(slot)
+        while self._inflight:
+            self._drain_one()
+        if req.done:
+            return  # finished in flight; _finish freed everything
         self._release_slot_blocks(slot)
         self._slot_req[slot] = None
         req.slot = None
@@ -816,8 +955,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     def _grow_blocks(self, decoding: list[int]) -> list[int]:
         """Extend block tables ahead of the decode write frontier: the
         next chunk advances each live row by up to ``decode_chunk``
-        positions, so the blocks must exist before it runs. Returns the
-        decoding set minus any preempted slots."""
+        positions, so the blocks must exist before it is dispatched.
+        ``_slot_ub`` moves by ``decode_chunk`` at every dispatch, so it
+        already covers the chunks still in flight, which the host has not
+        seen the tokens of. Returns the decoding set minus any preempted
+        slots."""
         bs = self.block_size
         for slot in decoding:
             req = self._slot_req[slot]
@@ -850,13 +992,16 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         ]
         return self._grow_blocks(decoding) if decoding else decoding
 
+    def _busy(self) -> bool:
+        return bool(self._queue or self._pending)
+
     def step(self) -> bool:
         """One scheduler iteration: admit, run at most one prefill chunk,
-        grow block tables, run one decode chunk and hand its tokens to
-        their requests. Returns False when fully idle."""
+        grow block tables, dispatch one decode chunk, drain. Returns False
+        when fully idle."""
         busy = super().step()
         self.peak_blocks_in_use = max(self.peak_blocks_in_use, self.pool.in_use)
-        return busy or bool(self._pending)
+        return busy
 
     def prefix_hit_rate(self) -> float:
         if not self.prompt_tokens_total:
