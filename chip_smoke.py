@@ -18,9 +18,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    tables, a validity mask with a retired row, a window, int8 pools, the
    one-row form of a prefill chunk, decode over rows of whole pages, and
    the one-row chunk at lengths 128, 1024 and 2048; then f32 tensors on
-   the general variant, D 64 with a mask per query, and T = 4 decode rows
-   with a mask per query), each held to the variant it must launch, with
-   its relative error and the fraction of its bound it reached;
+   the general variant, D 64 with a mask per query, T = 4 decode rows
+   with a mask per query, and the speculative verify pass at T = 4 and 5,
+   B 8, no mask, lengths to 2000, on the variant ``kernel_variant``
+   names), each held to the variant it must launch, with its relative
+   error, the fraction of its bound it reached and SDPA on the gathered
+   view;
 4. fused-norm kernel vs its plain version (rms and layer with bias at
    8 x 4096; LayerNorm of f32 rows whose mean is 1e3 beside a spread of
    ~1.4; D 4100 and 4097, which the 16-byte vector does not divide; 64
@@ -47,10 +50,34 @@ Phases, each printing its own lines; any failure exits non-zero:
    2304 cache slots; B4 once a layer a decode step, B1 never, every token
    teacher-forced; prefill seconds, decode ms a step and its kernel time,
    and a second call of the same shape;
+7a. spec paged: the same Llama-3-8B on the paged engine with speculative
+   decoding: 8 greedy requests of 32 tokens (half the prompts repeat a
+   64-token phrase), first without speculation, then n-gram
+   (``SpecConfig(k=4, rounds=2)``), the target as its own draft (k 3)
+   and adaptive K (``SpecConfig.auto(k=4)``, the same draft); B3 once a
+   layer a verify pass (on the variant ``kernel_variant`` names for
+   T = K+1) and a prefill chunk, none on the general variant; B4 once a
+   layer a draft step and never in n-gram mode; one graph, every spec
+   chunk but its first a replay; the self-draft above one token a weight
+   pass; acceptance, tokens a weight pass, the spec chunk's wall, kernel
+   ms and busy share, TTFT, decode tokens/s and the share of tokens equal
+   to the run without speculation;
+7b. overload: the paged Llama-3-8B engine with a pool of 88 blocks for 4
+   requests needing 96, max_queue 2, priorities BATCH, STANDARD,
+   INTERACTIVE, BATCH: preemption takes the least protected class first
+   (BATCH before STANDARD before INTERACTIVE), every stream is
+   teacher-forced and equal to an unpressured run; a queued BATCH request
+   is displaced by an INTERACTIVE arrival (``OverloadedError``,
+   ``retry_after_s`` > 0); an unmeetable deadline is refused at submit;
+   ``result(deadline_s=)`` cancels a request with 2 chunks in flight and
+   the pool's free count returns to what it was;
 8. contiguous: GPT-2-medium (random bf16 weights) served by the contiguous
    ``ContinuousBatchingEngine`` (the ``--continuous`` path): 16 greedy
    requests of 1 to 900 tokens, B4 in its LayerNorm + bias form on every
    decode step, every token teacher-forced; TTFT and tokens/s;
+8a. spec contiguous: GPT-2-medium on the contiguous engine with n-gram
+   speculation (k 4, 2 rounds): the verify pass is per-row T = 5 through
+   the plain attention, so no kernel launches in decode (B4 0);
 9. rolling: Mistral-7B's width at 4 of its 32 layers through
    ``InferenceEngine(rolling_cache=True).generate`` (the ``--window``
    path): 2 prompts, 4200 greedy tokens, so the ring of prompt + window
@@ -64,7 +91,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    profiled step, and the batch 32 x seq 128 headline shape under "auto"
    and "flash".
 
-Legs 6-9 run their decode as CUDA-graph replays (the engines' default)
+Legs 6-9, 7a, 7b and 8a run their decode as CUDA-graph replays (the engines' default)
 with ``pipeline_depth`` 2 chunks in flight on the serving engines; the
 launch gates hold through the graphs' replay credit, and each leg checks
 that every decode chunk (or step) but each graph's first was a replay
@@ -79,7 +106,9 @@ Before them, ``[sampler]`` checks the counter sampler's hash bits on the
 card against the CPU's.
 
 Each leg's launch counts are set to 0 just before it runs and read just
-after; B4's count in the kernels line sums the four serving legs. The
+after; B4's count in the kernels line sums the four serving legs and
+the captured speculative draft runs, B3's the paged leg and the
+captured speculative runs. The
 last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Nothing of JAX or ``tensorlink_tpu``
 is imported.
@@ -122,6 +151,7 @@ from tensorlink_tpu_torch.ops.flash_attention import (
 )
 from tensorlink_tpu_torch.ops.paged_decode import (
     VARIANTS,
+    kernel_variant,
     paged_decode_attention,
     paged_decode_reference,
 )
@@ -133,7 +163,11 @@ from tensorlink_tpu_torch.parallel.inference import (
 )
 from tensorlink_tpu_torch.parallel.serving import (
     ContinuousBatchingEngine,
+    DeadlineExceededError,
+    OverloadedError,
     PagedContinuousBatchingEngine,
+    Priority,
+    SpecConfig,
 )
 from tensorlink_tpu_torch.train.trainer import Trainer, softmax_cross_entropy
 
@@ -343,6 +377,11 @@ def _paged_inputs(g, T, case):
     if case == "full_pages":
         lengths = torch.tensor([16, 128, 256, 512, 1024, 1536, 2032, 2048],
                                dtype=torch.int32)
+    elif case == "verify":
+        # the speculative verify pass: K + 1 queries a row, no mask, rows
+        # of mixed lengths up to 2000
+        lengths = torch.tensor([T + 40, 300, 517, 811, 1024, 1500, 1777, 2000],
+                               dtype=torch.int32)
     elif case.startswith("chunk_"):
         lengths = torch.full((B,), int(case[len("chunk_"):]), dtype=torch.int32)
     else:
@@ -456,14 +495,17 @@ def _paged_library_fn(args, kwargs):
 # decode form over whole pages, the prefill chunk (one row) at three
 # lengths, then the variants' other branches: f32 q and pools (general),
 # D 64 with a mask per query (prefill), and 4 queries a row with a mask
-# per query (decode: T x group = 16 rows, the speculative verify form)
+# per query (decode: T x group = 16 rows); last the speculative verify
+# pass at K = 3 and K = 4 (T 4 and 5, no mask), whose variant
+# ``kernel_variant`` names (None here): Llama-3-8B's group of 4 gives 16
+# and 20 query rows, so decode at T 4 and prefill at T 5
 PAGED_CASES = (
     [(T, case, "decode" if T == 1 else "prefill") for T in (1, 128)
      for case in ("mixed", "mask", "window", "int8", "one_row")]
     + [(1, "full_pages", "decode"), (128, "chunk_128", "prefill"),
        (128, "chunk_1024", "prefill"), (128, "chunk_2048", "prefill"),
        (1, "f32", "general"), (128, "d64_qmask", "prefill"),
-       (4, "qmask", "decode")]
+       (4, "qmask", "decode"), (4, "verify", None), (5, "verify", None)]
 )
 
 
@@ -471,8 +513,14 @@ def phase_paged(flush) -> dict:
     g = torch.Generator().manual_seed(1)
     worst = worst_rel = 0.0
     main = None
+    verify = {}
     for T, case, want in PAGED_CASES:
         args, kwargs = _paged_inputs(g, T, case)
+        if want is None:
+            q, k = args[0], args[1]
+            want = kernel_variant(q.dtype, k.dtype, T, q.shape[2], k.shape[2],
+                                  q.shape[3], args[3].shape[1] * k.shape[1],
+                                  kwargs["mask"] is not None)
         before = dict(paged_decode_attention.launches_by_variant)
         out = paged_decode_attention(*args, **kwargs)
         variant = [k for k, n in paged_decode_attention.launches_by_variant.items()
@@ -508,7 +556,9 @@ def phase_paged(flush) -> dict:
         check(variant == [want], f"paged {case} T={T}: ran {variant}, not {want}")
         if T == 1 and case == "mask":
             main = row  # the decode steps' form
-    main = dict(main, max_abs_err=worst)
+        if case == "verify":
+            verify[T] = row
+    main = dict(main, max_abs_err=worst, verify=verify)
     say(f"[paged] all cases within atol {PAGED_ATOL} + rtol {PAGED_RTOL} and "
         f"relative Frobenius error {PAGED_REL}; worst max abs err {worst}, "
         f"worst relative {worst_rel}")
@@ -960,20 +1010,32 @@ PROFILE_NEW = 160  # tokens a profiling request: 20 chunks of 8, so all 8
 # rows still decode through both windows after the paged chunked prefills
 
 
-def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile") -> dict:
+def _model_steps(sch) -> int:
+    """Model passes a scheduler step dispatches: ``decode_chunk`` T == 1
+    steps, or under speculation ``rounds`` verify passes plus, in draft
+    mode, ``rounds * (k + 1)`` draft steps."""
+    if sch.spec is None:
+        return sch.decode_chunk
+    cfg = sch.spec.cfg
+    return cfg.rounds * (1 + (cfg.k + 1 if sch.spec.mode == "draft" else 0))
+
+
+def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
+                    max_new: int = PROFILE_NEW, cancel_after: bool = False) -> dict:
     """Where a decode step's time goes: 8 fresh requests are prefilled,
     one pure-decode scheduler step warms the pipeline, then a window of
     PROFILE_STEPS steps runs between two device syncs plainly and the
     next under ``torch.profiler`` (CUPTI sees the kernels of graph
     replays, not the per-op CPU rows). The wall a model step is the plain
-    window over its model steps; the busy share is the device's kernel
-    time over the profiled window's wall. A profiler that records no
-    device time is reported, not fatal: the line is diagnosis, not a
-    check."""
+    window over its model steps (``_model_steps``); the busy share is the
+    device's kernel time over the profiled window's wall. A profiler that
+    records no device time is reported, not fatal: the line is
+    diagnosis, not a check. ``cancel_after`` cancels the profiling
+    requests after the windows instead of decoding them to the end."""
     from torch.profiler import ProfilerActivity, profile
 
     r = np.random.default_rng(4)
-    rids = [sch.submit(r.integers(0, vocab, (64,)), max_new=PROFILE_NEW)
+    rids = [sch.submit(r.integers(0, vocab, (64,)), max_new=max_new)
             for _ in range(8)]
     while getattr(sch, "_pending", None):  # the paged engine's chunked prefill
         sch.step()
@@ -990,9 +1052,13 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile") -> d
             sch.step()
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
+    if cancel_after:
+        for rid in rids:
+            sch.cancel(rid)
     sch.run_until_idle()
-    for rid in rids:
-        sch.result(rid)
+    if not cancel_after:
+        for rid in rids:
+            sch.result(rid)
 
     # kernels only: a CPU op's device time repeats its kernels' time
     kernels = [
@@ -1002,13 +1068,14 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile") -> d
     ]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
-    n_model = PROFILE_STEPS * sch.decode_chunk
+    n_model = PROFILE_STEPS * _model_steps(sch)
     norm_us = sum(e.self_device_time_total for e in kernels if "norm" in e.key.lower())
     res = {
-        "decode_step_s": plain_s / PROFILE_STEPS, "model_steps": sch.decode_chunk,
+        "decode_step_s": plain_s / PROFILE_STEPS, "model_steps": _model_steps(sch),
         "model_step_ms": plain_s / n_model * 1e3,
         "profiled_step_s": prof_s / PROFILE_STEPS,
         "kernel_ms_per_model_step": busy_us / 1e3 / n_model if busy_us else "not measured",
+        "kernel_ms_per_step": busy_us / 1e3 / PROFILE_STEPS if busy_us else "not measured",
         "device_busy_share": busy_us / 1e6 / prof_s if busy_us else "not measured",
         "norm_kernel_share": norm_us / busy_us if busy_us else "not measured",
         "pipeline_depth": sch.pipeline_depth,
@@ -1400,6 +1467,367 @@ def phase_rolling(name_power: str) -> dict:
     return {"launches_norm": c["fused_norm"], "worst_gap": tf["worst_gap"]}
 
 
+# ------------------------------------------------------- speculation legs
+# [spec paged]: 8 greedy requests of SPEC_NEW tokens on Llama-3-8B; the
+# even ones hold a repeated 64-token phrase (prompt lookup finds matches,
+# as on code and documents); three of the prompts are long enough for B1
+# in the teacher-forced check
+SPEC_LENS = (300, 700, 200, 560, 260, 900, 160, 640)
+SPEC_NEW = 32
+SPEC_PHRASE = 64
+SPEC_PROFILE_NEW = 128  # a profiling request: rows still decode through
+# both windows at up to rounds * (k + 1) = 10 tokens a step; they are
+# cancelled after the windows
+SPEC_RUNS = (  # (tag, SpecConfig, the target as its own draft)
+    ("ngram", SpecConfig(k=4, rounds=2), False),
+    ("draft", SpecConfig(k=3, rounds=2), True),
+    ("adaptive", SpecConfig.auto(k=4), True),
+)
+# [overload]: 4 requests whose budgets need 96 blocks of 16 from a pool
+# of 88 (their prompts take 80), with mixed priorities; the first is long
+# enough for B1 in the teacher-forced check
+OVER_LENS = (480, 280, 260, 240)
+OVER_PRIOS = (Priority.BATCH, Priority.STANDARD, Priority.INTERACTIVE,
+              Priority.BATCH)
+OVER_NEW = 64
+OVER_BLOCKS = 88
+
+
+def _spec_requests(vocab: int):
+    r = np.random.default_rng(11)
+    phrase = r.integers(0, vocab, (SPEC_PHRASE,))
+    out = []
+    for i, n in enumerate(SPEC_LENS):
+        p = r.integers(0, vocab, (n,))
+        if i % 2 == 0:
+            # 16 tokens of its own, then the phrase over and over
+            p[16:] = np.tile(phrase, -(-n // SPEC_PHRASE))[:n - 16]
+        out.append(p)
+    return out
+
+
+def _check_spec_launches(tag: str, c: dict, by_variant: dict, st: dict,
+                         layers: int, cfg, spec_cfg) -> None:
+    """B3 once a layer a verify pass (at T = K+1, on the variant
+    ``kernel_variant`` names) and a prefill chunk (prefill variant), none
+    on the general one; B4 once a draft layer a draft step (0 in n-gram
+    mode); no B1 or B2 in serving."""
+    sp = st.get("spec")
+    D = cfg.dim // cfg.num_heads
+    exp = dict.fromkeys(VARIANTS, 0)
+    exp["prefill"] += layers * st["prefill_chunks"]
+    if sp is None:
+        exp["decode"] += layers * st["decode_steps"]
+        exp_norm = layers * st["decode_steps"]
+    else:
+        vvar = kernel_variant(torch.bfloat16, torch.bfloat16, spec_cfg.k + 1,
+                              cfg.num_heads, cfg.num_kv_heads, D, 2048, False)
+        exp[vvar] += layers * sp["verify_passes"]
+        exp_norm = layers * sp["draft_steps"]
+    say(f"[{tag}] launches: paged_decode {c['paged_decode']} by variant "
+        f"{by_variant} (expected {exp}); fused_norm {c['fused_norm']} "
+        f"(expected {exp_norm}); flash {c['flash_fwd']} / {c['flash_bwd']}")
+    check(by_variant == exp and c["paged_decode"] == sum(exp.values()) > 0,
+          f"{tag}: paged-decode launches off the path")
+    check(c["fused_norm"] == exp_norm, f"{tag}: fused-norm launches off the path")
+    check(c["flash_fwd"] == c["flash_bwd"] == 0, f"{tag}: flash ran in serving")
+
+
+def _check_replays(tag: str, st: dict) -> None:
+    """One graph; every chunk but its first a replay."""
+    g = st["graphs"]
+    sp = st.get("spec")
+    chunks = (st["decode_steps"] // 8 if sp is None
+              else sp["verify_passes"] // sp["rounds"])
+    _graph_line(tag, g)
+    check(g["graphs"] == 1 and g["captured"] == 1 and g["replays"] == chunks - 1,
+          f"{tag}: every chunk but the first must be a replay of one graph: {g}")
+
+
+def _serve_spec(tag: str, model, prompts, spec_cfg, self_draft: bool,
+                cuda_graphs: bool):
+    """The requests through a fresh paged engine (speculative unless
+    ``spec_cfg`` is None), launch counts set to 0 just before and read
+    just after, checked against the path. -> (engine, request ids,
+    outputs, wall s, counts)."""
+    cfg = model.cfg
+    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV)
+    sch = PagedContinuousBatchingEngine(
+        eng, slots=8, block_size=16, prefill_chunk=128, decode_chunk=8,
+        gen=GenerationConfig(max_new_tokens=SPEC_NEW), cuda_graphs=cuda_graphs,
+        draft=eng if self_draft else None, speculative=spec_cfg,
+    )
+    _zero_counts()
+    t0 = time.perf_counter()
+    rids = [sch.submit(p) for p in prompts]
+    sch.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _counts()
+    by_variant = dict(paged_decode_attention.launches_by_variant)
+    st = sch.stats()
+    outs = [sch.result(rid) for rid in rids]
+    check(all(len(o) == SPEC_NEW for o in outs), f"{tag}: a request did not finish")
+    _check_spec_launches(tag, c, by_variant, st, cfg.num_layers, cfg, spec_cfg)
+    if cuda_graphs:
+        _check_replays(tag, st)
+    return sch, rids, outs, wall, c
+
+
+def _spec_line(tag: str, sch, rids, outs, plain_outs, wall: float, prof: dict,
+               name_power: str) -> dict:
+    sp = sch.stats()["spec"]
+    ttft = [sch.timings(rid)["ttft_s"] for rid in rids]
+    same = None if plain_outs is None else sum(
+        int((np.asarray(a) == np.asarray(b)).sum()) for a, b in zip(outs, plain_outs))
+    res = {
+        "mode": sp["mode"], "k": sp["k"], "rounds": sp["rounds"],
+        "adaptive": sp["adaptive"], "k_mean": sp.get("k_mean"),
+        "acceptance_rate": sp["acceptance_rate"],
+        "tokens_per_weight_pass": sp["accepted_tokens_per_weight_pass"],
+        "weight_passes": sp["weight_passes"], "verify_passes": sp["verify_passes"],
+        "draft_steps": sp["draft_steps"], "idle_draft_steps": sp["idle_draft_steps"],
+        "fallbacks": sp["fallback_total"],
+        "spec_chunk_ms": prof["decode_step_s"] * 1e3 if prof else "not measured",
+        "kernel_ms_per_chunk": prof["kernel_ms_per_step"] if prof else "not measured",
+        "device_busy_share": prof["device_busy_share"] if prof else "not measured",
+        "decode_tokens_per_s": (sch.decode_only_tokens / sch.decode_only_s
+                                if sch.decode_only_s else None),
+        "ttft_s_mean": float(np.mean(ttft)), "ttft_s_p50": float(np.median(ttft)),
+        "ttft_s_max": float(np.max(ttft)), "wall_s": wall,
+        "tokens_equal_to_nonspec": same, "tokens": sum(len(o) for o in outs),
+        "card": name_power,
+    }
+    say(f"[{tag}] {json.dumps(res)}")
+    return res
+
+
+def _free_cuda() -> None:
+    """Return what a dropped engine held (its pools, caches, graphs)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_spec_paged(name_power: str, model: Llama) -> dict:
+    """Speculative decoding on the paged engine at Llama-3-8B: the
+    non-spec run of the requests, then n-gram (k 4), the target as its
+    own draft (k 3) and adaptive K (``SpecConfig.auto(k=4)``, the same
+    draft), each captured and then eager, under the launch, replay and
+    teacher-forced gates; the self-draft must emit more than one token a
+    weight pass, and adaptive K must keep one graph."""
+    cfg = model.cfg
+    prompts = _spec_requests(cfg.vocab_size)
+    sch, _, plain_outs, _, _ = _serve_spec(
+        "spec paged nonspec", model, prompts, None, False, True)
+    del sch
+    _free_cuda()
+    launches = {"paged": 0, "norm": 0}
+    for name, spec_cfg, self_draft in SPEC_RUNS:
+        tag = f"spec paged {name}"
+        sch, rids, outs, wall, c = _serve_spec(tag, model, prompts, spec_cfg,
+                                               self_draft, True)
+        launches["paged"] += c["paged_decode"]
+        launches["norm"] += c["fused_norm"]
+        tf = _teacher_forced(tag, model, prompts, outs)
+        prof = _profile_decode(sch, cfg.vocab_size, name_power,
+                               tag=f"{tag} profile", max_new=SPEC_PROFILE_NEW,
+                               cancel_after=True)
+        res = _spec_line(tag, sch, rids, outs, plain_outs, wall, prof, name_power)
+        if self_draft and not spec_cfg.adaptive:
+            check(res["tokens_per_weight_pass"] > 1.0,
+                  f"{tag}: the self-draft emitted no more than one token a pass")
+        del sch
+        _free_cuda()
+        esch, erids, eouts, ewall, _ = _serve_spec(f"{tag} eager", model, prompts,
+                                                   spec_cfg, self_draft, False)
+        tf_e = _teacher_forced(f"{tag} eager", model, prompts, eouts)
+        _agreement(tag, outs, eouts, tf, tf_e)
+        eres = _spec_line(f"{tag} eager", esch, erids, eouts, plain_outs, ewall,
+                          None, name_power)
+        if self_draft and not spec_cfg.adaptive:
+            check(eres["tokens_per_weight_pass"] > 1.0,
+                  f"{tag} eager: the self-draft emitted no more than one token a pass")
+        del esch
+        _free_cuda()
+    return launches
+
+
+def phase_spec_contiguous(name_power: str) -> dict:
+    """GPT-2-medium on the contiguous engine with n-gram speculation (k 4,
+    2 rounds): the verify pass is per-row T = 5 through the plain
+    attention, so no attention kernel runs and B4 never (no T == 1 step);
+    the [contiguous] leg's 16 requests, captured then eager, with every
+    token teacher-forced."""
+    gcfg = GPT2Config.medium()
+    model = GPT2(gcfg, device=DEV, dtype=torch.bfloat16, seed=0)
+    r = np.random.default_rng(7)
+    prompts = [r.integers(0, gcfg.vocab_size, (n,)) for n in CONT_LENS]
+    spec_cfg = SpecConfig(k=4, rounds=2)
+    runs = {}
+    for graphs in (True, False):
+        tag = "spec contiguous" + ("" if graphs else " eager")
+        eng = InferenceEngine(model, max_len=CONT_MAX_LEN, cache_dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16, device=DEV)
+        sch = ContinuousBatchingEngine(
+            eng, slots=8, decode_chunk=8, prefill_block=32,
+            gen=GenerationConfig(max_new_tokens=CONT_NEW), cuda_graphs=graphs,
+            speculative=spec_cfg,
+        )
+        _zero_counts()
+        t0 = time.perf_counter()
+        rids = [sch.submit(p) for p in prompts[:8]]
+        sch.step()
+        rids += [sch.submit(p) for p in prompts[8:]]
+        sch.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = _counts()
+        st = sch.stats()
+        outs = [sch.result(rid) for rid in rids]
+        check(all(len(o) == CONT_NEW for o in outs), f"{tag}: a request did not finish")
+        say(f"[{tag}] launches: {json.dumps(c)}; expected none (verify passes "
+            f"{st['spec']['verify_passes']})")
+        check(c["fused_norm"] == c["paged_decode"] == c["flash_fwd"]
+              == c["flash_bwd"] == 0 and st["spec"]["verify_passes"] > 0,
+              f"{tag}: a kernel ran on the n-gram contiguous path")
+        if graphs:
+            _check_replays(tag, st)
+        tf = _teacher_forced(tag, model, prompts, outs)
+        prof = (_profile_decode(sch, gcfg.vocab_size, name_power,
+                                tag=f"{tag} profile", max_new=SPEC_PROFILE_NEW,
+                                cancel_after=True)
+                if graphs else None)
+        _spec_line(tag, sch, rids, outs, None, wall, prof, name_power)
+        runs[graphs] = (outs, tf)
+        del sch, eng
+        _free_cuda()
+    _agreement("spec contiguous", runs[True][0], runs[False][0], runs[True][1],
+               runs[False][1])
+    return {"worst_gap": runs[True][1]["worst_gap"]}
+
+
+def _overload_run(tag: str, eng, prompts, cuda_graphs: bool, ref_outs):
+    """Priority preemption under a pool too small for the budgets, then
+    displacement, deadline refusal and a cancel with chunks in flight,
+    on one paged engine."""
+    gen = GenerationConfig(max_new_tokens=OVER_NEW)
+    sch = PagedContinuousBatchingEngine(
+        eng, slots=4, block_size=16, num_blocks=OVER_BLOCKS, prefill_chunk=128,
+        decode_chunk=8, max_queue=2, pipeline_depth=2, gen=gen,
+        cuda_graphs=cuda_graphs)
+    # each preemption: (rid, its priority, the priorities it could have
+    # been chosen from: every other running request but the one whose
+    # block growth forced it)
+    pre, protect = [], [None]
+    inner_preempt, inner_alloc = sch._preempt, sch._alloc_with_preemption
+
+    def alloc(n, slot):
+        protect[0] = slot
+        try:
+            return inner_alloc(n, slot)
+        finally:
+            protect[0] = None
+
+    def preempt(slot):
+        req = sch._slot_req[slot]
+        others = [int(r.priority) for s, r in enumerate(sch._slot_req)
+                  if r is not None and s != protect[0]] or [int(req.priority)]
+        pre.append((req.rid, int(req.priority), others))
+        return inner_preempt(slot)
+
+    sch._preempt, sch._alloc_with_preemption = preempt, alloc
+    rids = [sch.submit(p, priority=q) for p, q in zip(prompts, OVER_PRIOS)]
+    sch.run_until_idle()
+    outs = [sch.result(rid) for rid in rids]
+    say(f"[{tag}] preemptions (rid, priority, candidates' priorities): {pre}")
+    check(pre and pre[0][1] == int(Priority.BATCH),
+          f"{tag}: the first preemption must take a BATCH stream: {pre}")
+    check(all(p == max(others) for _, p, others in pre),
+          f"{tag}: a preemption passed over a less protected class: {pre}")
+    same = [bool((np.asarray(o) == np.asarray(rf)).all())
+            for o, rf in zip(outs, ref_outs)]
+    preempted = sorted({rid for rid, _, _ in pre})
+    # displacement: four fillers take the slots, two BATCH requests fill
+    # the queue, an INTERACTIVE arrival displaces the newer one
+    fill = [sch.submit(p, max_new=16) for p in prompts]
+    qb = [sch.submit(p, max_new=16, priority="batch") for p in prompts[:2]]
+    ri = sch.submit(prompts[2], max_new=16, priority="interactive")
+    sch.run_until_idle()
+    try:
+        sch.result(qb[1])
+        displaced = None
+    except OverloadedError as e:
+        displaced = (e.reason, e.retry_after_s)
+    check(displaced is not None and displaced[0] == "displaced" and displaced[1] > 0,
+          f"{tag}: the queued BATCH request was not displaced: {displaced}")
+    check(all(len(sch.result(r)) == 16 for r in fill + [qb[0], ri]),
+          f"{tag}: a request beside the displacement did not finish")
+    # a deadline the measured TPOT cannot meet is refused at submit
+    tpot = sch.stats()["admission"]["tpot_ewma_s"]
+    try:
+        sch.submit(prompts[0], max_new=OVER_NEW, deadline_s=1e-3)
+        refused = False
+    except DeadlineExceededError:
+        refused = True
+    check(refused, f"{tag}: an unmeetable deadline was admitted (TPOT {tpot})")
+    # result(deadline_s=) cancels a running request with chunks in flight
+    free0 = sch.pool.available
+    rid = sch.submit(prompts[1], max_new=OVER_NEW)
+    while sch.stats()["inflight_chunks"] < 2:
+        sch.step()
+    try:
+        sch.result(rid, deadline_s=1e-6)
+        cancelled = False
+    except DeadlineExceededError:
+        cancelled = True
+    st = sch.stats()
+    freed = {"cancelled": cancelled, "free_before": free0,
+             "free_after": sch.pool.available, "busy_slots": st["busy_slots"],
+             "inflight": st["inflight_chunks"]}
+    check(cancelled and sch.pool.available == free0 and st["busy_slots"] == 0,
+          f"{tag}: the cancelled request's blocks did not come back: {freed}")
+    res = {"preempted_rids": preempted, "preemptions": len(pre),
+           "streams_equal_to_unpressured": same, "displaced": displaced,
+           "deadline_refused_with_tpot_s": tpot, "cancel": freed,
+           "admission": st["admission"], "graphs": st["graphs"]}
+    say(f"[{tag}] {json.dumps(res)}")
+    return sch, outs, same
+
+
+def phase_overload(name_power: str, model: Llama) -> dict:
+    """Admission control on the paged Llama-3-8B engine: an unpressured
+    run of 4 requests, then the same requests (BATCH, STANDARD,
+    INTERACTIVE, BATCH) from a pool of OVER_BLOCKS blocks, captured and
+    eager: BATCH is preempted first and INTERACTIVE never while a lower
+    class runs; every stream passes the teacher-forced gate and equals
+    the unpressured run; then displacement, deadline refusal and a
+    cancel with chunks in flight."""
+    cfg = model.cfg
+    r = np.random.default_rng(13)
+    prompts = [r.integers(0, cfg.vocab_size, (n,)) for n in OVER_LENS]
+    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV)
+    ref = PagedContinuousBatchingEngine(
+        eng, slots=4, block_size=16, prefill_chunk=128, decode_chunk=8,
+        gen=GenerationConfig(max_new_tokens=OVER_NEW))
+    ref_outs = [ref.result(rid) for rid in [ref.submit(p) for p in prompts]]
+    check(ref.preemptions == 0, "overload: the unpressured run preempted")
+    del ref
+    _free_cuda()
+    same_all = []
+    for graphs in (True, False):
+        tag = "overload" + ("" if graphs else " eager")
+        sch, outs, same = _overload_run(tag, eng, prompts, graphs, ref_outs)
+        _teacher_forced(tag, model, prompts, outs)
+        same_all.append(same)
+        del sch
+        _free_cuda()
+    check(all(all(s) for s in same_all),
+          f"overload: a preempted stream parted from the unpressured run: {same_all}")
+    return {"streams_equal": same_all}
+
+
 def _bert_loss(module, params, batch, rng):
     logits = functional_call(
         module, params, (batch["input_ids"],),
@@ -1645,10 +2073,15 @@ def main() -> int:
                   seed=0)
     launches = phase_slice(name_power, model)
     static = phase_static(name_power, model)
+    spec = phase_spec_paged(name_power, model)
+    phase_overload(name_power, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     contiguous = phase_contiguous(name_power)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_spec_contiguous(name_power)
     gc.collect()
     torch.cuda.empty_cache()
     rolling = phase_rolling(name_power)
@@ -1659,14 +2092,18 @@ def main() -> int:
     norm_paths = {"paged serving": launches["launches_norm"],
                   "static": static["launches_norm"],
                   "contiguous": contiguous["launches_norm"],
-                  "rolling": rolling["launches_norm"]}
+                  "rolling": rolling["launches_norm"],
+                  "spec paged (draft steps)": spec["norm"]}
+    paged_paths = {"paged serving": launches["launches_paged"],
+                   "spec paged (verify passes, prefill chunks)": spec["paged"]}
     say(f"[launches] fused_residual_norm by path: {json.dumps(norm_paths)}")
+    say(f"[launches] paged_decode_attention by path: {json.dumps(paged_paths)}")
     kernels = [
         {
             "name": "paged_decode_attention", "route": "cuda",
             "source": "tensorlink_tpu_torch/csrc/paged_decode.cu",
             "replaces": "tensorlink_tpu/ops/pallas/paged_decode.py:285",
-            "launches": launches["launches_paged"],
+            "launches": sum(paged_paths.values()),
             **{k: paged[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
         },

@@ -18,7 +18,10 @@ of (seed, position) alone (``sample_logits_at``: Gumbel noise from a
 counter hash of seed, position and vocabulary index, in tensor ops, the
 same bits on the CPU and on CUDA). The serving engines key it by
 (request seed, logical position), never the slot or the co-tenants;
-``generate`` by (its ``seed`` and the row, step).
+``generate`` by (its ``seed`` and the row, step). Speculative decoding's
+draws (``spec_verify`` here, the draft's proposals in
+``parallel/speculative.py``) add a salt to the key, so they never share
+bits with that stream.
 
 Mesh/tensor parallelism, weight-only int8 and the sequence-sharded cache
 wait for later slices.
@@ -97,29 +100,120 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ _shr(x, 16)
 
 
-def counter_bits(seed: torch.Tensor, position: torch.Tensor, vocab: int) -> torch.Tensor:
+def _salt_word(salt: int) -> int:
+    """A stream salt spread over 32 bits (golden-ratio multiply)."""
+    return (int(salt) * 0x9E3779B9 + 0x7F4A7C15) & _M32
+
+
+def counter_bits(seed: torch.Tensor, position: torch.Tensor, vocab: int,
+                 salt: int = 0) -> torch.Tensor:
     """[S] seeds, [S] positions (int64) -> [S, vocab] int64 hash bits in
     [0, 2**32): a function of (the seed's low 32 bits, the position's,
-    the vocabulary index) alone, the same on every device."""
+    ``salt``, the vocabulary index) alone, the same on every device.
+    Salt 0 is the sampling stream; a nonzero salt is another stream."""
     row = _mix32(_mix32(seed.long() & _M32) ^ (position.long() & _M32))
+    if salt:
+        row = _mix32(row ^ _salt_word(salt))
     col = _mix32(torch.arange(vocab, device=row.device, dtype=torch.int64)
                  ^ 0x9E3779B9)
     return _mix32(row[:, None] ^ col[None, :])
 
 
-def sample_logits_at(logits, seed, position, temperature, top_k=0, top_p=1.0):
+def _uniform(bits: torch.Tensor) -> torch.Tensor:
+    """Hash bits -> f32 uniforms in (0, 1): the top 23 bits, centred
+    (k + 0.5 is exact in f32 for k < 2**23, so u is never 0 or 1)."""
+    return (_shr(bits, 9).float() + 0.5) * (1.0 / (1 << 23))
+
+
+def _gumbel_argmax(logp: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """A draw from softmax(``logp``) by Gumbel-max over hash bits."""
+    return torch.argmax(logp - torch.log(-torch.log(_uniform(bits))), dim=-1)
+
+
+def sample_logits_at(logits, seed, position, temperature, top_k=0, top_p=1.0,
+                     salt: int = 0):
     """[S, V] logits -> [S] token ids. Greedy (``argmax``) at temperature
     0; otherwise a Gumbel-max draw from the filtered distribution whose
-    uniforms are ``counter_bits(seed, position)``'s top 23 bits, centred
-    (k + 0.5 is exact in f32 for k < 2**23, so u is never 0 or 1): row
-    s's draw depends on (seed[s], position[s]) and its logits only. No
-    host read, no generator: capturable."""
+    uniforms come from ``counter_bits(seed, position, salt=salt)``: row
+    s's draw depends on (seed[s], position[s], salt) and its logits only.
+    No host read, no generator: capturable."""
     if temperature == 0.0:
         return torch.argmax(logits.float(), dim=-1)
     f = _filter_logits(logits, temperature, top_k, top_p)
-    bits = counter_bits(seed, position, f.shape[-1])
-    u = (_shr(bits, 9).float() + 0.5) * (1.0 / (1 << 23))
-    return torch.argmax(f - torch.log(-torch.log(u)), dim=-1)
+    return _gumbel_argmax(f, counter_bits(seed, position, f.shape[-1], salt))
+
+
+def spec_verify(tgt_logits, proposals, key, temperature, top_k=0, top_p=1.0,
+                draft_logits=None, k_live=None):
+    """Speculative accept/reject for every row at once: K drafted tokens
+    against the K+1 target positions of one verify-K weight pass.
+
+    ``tgt_logits`` [S, K+1, V]: the target's logits at the fed tokens
+    ``[tok, d_1, .., d_K]`` (position i scores the token after fed token
+    i). ``proposals`` [S, K]: ``d_1..d_K``. ``key``: ``(seed [S],
+    position [S], salt)``, the row's counter-hash key
+    (``SpeculativeDecoder.verify_key``). ``draft_logits`` [S, K, V] or
+    None: the draft distribution each proposal was drawn from; None is a
+    deterministic (delta) proposer, the n-gram draft. ``k_live`` [S] or
+    None (= K): how many leading proposals each row really drew;
+    acceptance stops there and the token at position ``k_live`` is drawn
+    from the target itself, not from the rejection residual.
+
+    Returns ``(n_emit [S], emitted [S, K+1])``: the first ``n_emit``
+    entries extend each row (``n_emit`` >= 1). Greedy: exact argmax match,
+    so the emitted tokens are the target's own greedy stream at any
+    ``k_live``. Temperature > 0: standard rejection sampling (accept d_i
+    with probability min(1, p/q), else draw from max(p - q, 0)
+    renormalized), whose output distribution is the filtered target's.
+    The acceptance uniforms and the correction's Gumbel noise are
+    disjoint columns of one ``counter_bits`` row keyed by (seed, position,
+    salt), so a row's draws depend on its request alone. Tensor ops over
+    all rows, no host read."""
+    S, K = proposals.shape
+    dev = proposals.device
+    props = proposals.long()
+    kcap = (torch.full((S,), K, dtype=torch.long, device=dev) if k_live is None
+            else k_live.long())
+    if temperature == 0.0:
+        t = torch.argmax(tgt_logits.float(), dim=-1)  # [S, K+1]
+        match = (props == t[:, :K]).long()
+        n_acc = torch.minimum(torch.cumprod(match, dim=1).sum(dim=1), kcap)
+        return n_acc + 1, t
+    lt = torch.log_softmax(
+        _filter_logits(tgt_logits, temperature, top_k, top_p), dim=-1)
+    V = lt.shape[-1]
+    lt_at = lt[:, :K].gather(2, props[..., None])[..., 0]  # [S, K]
+    if draft_logits is None:
+        ld_at = torch.zeros_like(lt_at)  # delta: log q(d_i) = 0
+        # one-hot by scatter: F.one_hot reads the ids back to check them
+        q = torch.zeros_like(lt_at[..., None].expand(S, K, V)).scatter(
+            2, props[..., None], 1.0)
+    else:
+        ld = torch.log_softmax(
+            _filter_logits(draft_logits, temperature, top_k, top_p), dim=-1)
+        ld_at = ld.gather(2, props[..., None])[..., 0]
+        q = torch.exp(ld)
+    seed, position, salt = key
+    bits = counter_bits(seed, position, V + K, salt)  # [S, V + K]
+    u = _uniform(bits[:, V:])
+    # a proposal the filtered target excludes has lt_at = -inf: accept
+    # probability 0
+    accept = u < torch.exp(torch.clamp(lt_at - ld_at, max=0.0))
+    n_acc = torch.minimum(torch.cumprod(accept.long(), dim=1).sum(dim=1), kcap)
+    p_t = torch.exp(lt)  # [S, K+1, V]
+    resid = torch.clamp(p_t[:, :K] - q, min=0.0)
+    rs = resid.sum(dim=-1, keepdim=True)
+    # degenerate residual (the draft covers the target here): the target
+    resid = torch.where(rs > 0, resid / torch.where(rs > 0, rs, 1.0), p_t[:, :K])
+    cand = torch.cat([resid, p_t[:, K:]], dim=1)
+    cand = torch.where(
+        (torch.arange(K + 1, device=dev)[None, :] < kcap[:, None])[..., None],
+        cand, p_t)
+    row = cand.gather(1, n_acc[:, None, None].expand(S, 1, V))[:, 0]
+    corr = _gumbel_argmax(torch.log(row + 1e-38), bits[:, :V])
+    emitted = torch.cat([props, torch.zeros_like(props[:, :1])], dim=1)
+    emitted = emitted.scatter(1, n_acc[:, None], corr[:, None])
+    return n_acc + 1, emitted
 
 
 def generate_row_seeds(seed: int, batch: int, device) -> torch.Tensor:

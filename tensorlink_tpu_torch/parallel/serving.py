@@ -35,21 +35,43 @@ block ids each slot maps:
   chunks, right-padded, at most one chunk per scheduler step,
   interleaved with decode.
 - **decode** grows each slot's block table lazily, just ahead of its
-  write frontier. When the pool runs short, the newest request is
-  preempted: its blocks free, it re-queues, and it resumes
-  token-identical because sampling depends on (request seed, logical
-  position) only.
+  write frontier. When the pool runs short, the least protected request
+  (lowest priority class, newest within it) is preempted: its blocks
+  free, it re-queues, and it resumes token-identical because sampling
+  depends on (request seed, logical position) only.
 - a finished request's slot is retired on the device (block table to
   the sentinel, so later writes through it drop) before its blocks
   return to the pool.
 
+**Admission control** (both engines): ``submit`` takes a ``priority``
+(:class:`Priority`), which orders admission from the queue, which
+queued request a full queue sheds first (displacement) and, on the paged
+engine, which running request is preempted; and a ``deadline_s``:
+``submit`` refuses a deadline that the measured time per output token
+proves unmeetable, and a queued or running request whose deadline passes
+is cancelled (slot and blocks freed). Shed requests get a typed
+``OverloadedError`` with a ``retry_after_s`` derived from measured TPOT
+and the backlog. ``cancel`` and ``result(deadline_s=)`` abort a request;
+the scheduler lock makes ``submit`` and ``cancel`` safe against a thread
+that pumps ``step``.
+
+**Speculative decoding** (both engines; ``speculative=SpecConfig``,
+``draft=InferenceEngine``, ``parallel/speculative.py``): each dispatched
+chunk runs ``rounds`` rounds of draft-K then verify-K+1 in one target
+weight pass, and rolls each row's write frontier back to its first
+rejection in place (contiguous: the write index; paged: the logical
+index, whose rejected writes land in blocks the row owns or the scratch
+block). A per-row effective K (the adaptive controller's) is a
+preallocated device tensor, so one spec-chunk graph serves any mix of K.
+
 Device state: the JAX engines donate their state tree to each program.
 Here the caches, write index, per-slot vectors (fed token, valid count,
-budget, liveness, sampling seed) and the chunk's [K, S] token output are
-preallocated device buffers that the chunk body updates in place, so a
-captured graph keeps reading the live buffers. The chunk body reads no
-host value but its graph key (the blocks of a blockwise read on the
-contiguous cache above 2048 slots) and makes no host read.
+budget, liveness, sampling seed, effective K), the speculation state and
+the chunk's token output are preallocated device buffers that the chunk
+body updates in place, so a captured graph keeps reading the live
+buffers. The chunk body reads no host value but its graph key (the
+blocks of a blockwise read on the contiguous cache above 2048 slots) and
+makes no host read.
 
 Chunks in flight: as in the reference, ``pipeline_depth`` (default 2)
 decode chunks stay in flight. Each dispatch copies the chunk's tokens
@@ -61,15 +83,18 @@ out the same way) until the first chunk after it drains; TTFT is stamped
 when its event is seen complete. Requests finish, and their slots and
 blocks free, at drain.
 
-Not ported yet (see ROADMAP): speculation, priorities, deadlines and
-retry-after, metering and receipts, disaggregated prefill export and
+Not ported yet (see ROADMAP): metering and receipts, metrics and events
+(the counts live in ``stats()``), disaggregated prefill export and
 import, autotune and the compile cache, device timing, chaos hooks,
-self-healing, ``aresult``.
+speculation self-healing and draft auto-pairing, ``asubmit`` /
+``aresult``.
 """
 
 from __future__ import annotations
 
 import collections
+import enum
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -81,24 +106,72 @@ from tensorlink_tpu_torch.parallel.inference import (
     GenerationConfig,
     InferenceEngine,
     sample_logits_at,
+    spec_verify,
 )
 from tensorlink_tpu_torch.parallel.kvpool import (
     BlockPool,
     PoolExhaustedError,
     PrefixIndex,
 )
+from tensorlink_tpu_torch.parallel.speculative import (
+    AdaptiveKController,
+    SpecConfig,
+    SpeculativeDecoder,
+    ngram_propose,
+)
 from tensorlink_tpu_torch.runtime.graphs import GraphCache
 
 __all__ = [
     "ContinuousBatchingEngine",
+    "DeadlineExceededError",
     "OverloadedError",
     "PagedContinuousBatchingEngine",
     "PoolExhaustedError",
     "PoolOverloadedError",
+    "Priority",
     "PromptTooLongError",
     "QueueFullError",
     "ServingError",
+    "SpecConfig",
+    "serve_error_from_wire",
+    "serve_error_to_wire",
 ]
+
+# retry-after TPOT stand-in before the first request finishes (a cold
+# engine has measured nothing); every later estimate is the EWMA of this
+# engine's own completions
+_RETRY_TPOT_FALLBACK_S = 0.02
+
+# rows of a speculative chunk's output per round, after its K+1 tokens:
+# n_emit, n_acc, fallback, n_prop, draft steps no row needed
+_SPEC_EXTRA = 5
+
+
+class Priority(enum.IntEnum):
+    """SLO class on ``submit()``. Lower value = more protected: the
+    scheduler admits, queues and, under pool pressure, preserves requests
+    in this order (a BATCH stream is preempted or shed before any
+    STANDARD one, STANDARD before INTERACTIVE; within a class, newest
+    first). Token-identical preempt/resume makes demotion safe."""
+
+    INTERACTIVE = 0
+    STANDARD = 1
+    BATCH = 2
+
+
+_PRIO_NAMES = {int(p): p.name.lower() for p in Priority}
+
+
+def _coerce_priority(p) -> int:
+    if isinstance(p, str):
+        try:
+            return int(Priority[p.upper()])
+        except KeyError:
+            raise ValueError(
+                f"unknown priority {p!r} (use "
+                f"{'/'.join(n.name for n in Priority)})"
+            ) from None
+    return int(Priority(int(p)))
 
 
 class ServingError(RuntimeError):
@@ -110,25 +183,80 @@ class PromptTooLongError(ServingError):
 
 
 class OverloadedError(ServingError):
-    """The scheduler shed this request; ``reason`` names the resource."""
+    """Typed 429: the scheduler shed this request. ``retry_after_s`` is
+    derived from measured TPOT x the token backlog ahead of a new arrival
+    / decode width x pool pressure. ``reason`` names the resource
+    (``queue_full``, ``pool_exhausted``, ``displaced``)."""
 
-    def __init__(self, msg: str, *, reason: str = "overloaded"):
+    def __init__(self, msg: str, *, retry_after_s: float | None = None,
+                 reason: str = "overloaded"):
         super().__init__(msg)
+        self.retry_after_s = retry_after_s
         self.reason = reason
 
 
 class QueueFullError(OverloadedError):
     """Admission queue at max_queue with every slot busy."""
 
-    def __init__(self, msg: str):
-        super().__init__(msg, reason="queue_full")
+    def __init__(self, msg: str, **kw):
+        kw.setdefault("reason", "queue_full")
+        super().__init__(msg, **kw)
 
 
 class PoolOverloadedError(OverloadedError, PoolExhaustedError):
-    """Queue at max_queue while slots are free: starved on KV blocks."""
+    """Queue at max_queue while slots are free: starved on KV blocks.
+    Catchable as either ``PoolExhaustedError`` or ``OverloadedError``."""
 
-    def __init__(self, msg: str):
-        super().__init__(msg, reason="pool_exhausted")
+    def __init__(self, msg: str, **kw):
+        kw.setdefault("reason", "pool_exhausted")
+        super().__init__(msg, **kw)
+
+
+class DeadlineExceededError(ServingError):
+    """The request's deadline is (or became) unmeetable: refused at
+    admission when measured TPOT proves the decode alone cannot finish in
+    time, or cancelled later (slot and blocks freed) when the deadline
+    passes while it is queued, running or awaited."""
+
+    def __init__(self, msg: str, *, rid: int | None = None):
+        super().__init__(msg)
+        self.rid = rid
+
+
+# typed scheduler errors crossing a wire: a remote rejection re-raises
+# as the same type, retry-after included
+_WIRE_ERRORS = {
+    cls.__name__: cls
+    for cls in (
+        ServingError, PromptTooLongError, OverloadedError, QueueFullError,
+        PoolOverloadedError, DeadlineExceededError, PoolExhaustedError,
+        # result(timeout_s=): the request still runs and can be collected
+        TimeoutError,
+    )
+}
+
+
+def serve_error_to_wire(e: BaseException) -> dict:
+    """Scheduler exception -> SERVE_FAILED reply dict."""
+    out = {
+        "type": "SERVE_FAILED",
+        "error_type": type(e).__name__,
+        "error": str(e)[:300],
+    }
+    ra = getattr(e, "retry_after_s", None)
+    if ra is not None:
+        out["retry_after_s"] = ra
+    return out
+
+
+def serve_error_from_wire(resp: dict) -> BaseException:
+    """SERVE_FAILED reply -> the typed exception to raise locally; an
+    unknown type degrades to ``ServingError``."""
+    cls = _WIRE_ERRORS.get(str(resp.get("error_type")), ServingError)
+    msg = str(resp.get("error", "remote serving leg failed"))
+    if issubclass(cls, OverloadedError):
+        return cls(msg, retry_after_s=resp.get("retry_after_s"))
+    return cls(msg)
 
 
 @dataclass
@@ -138,6 +266,12 @@ class _Request:
     max_new: int
     seed: int
     submitted_at: float
+    priority: int = int(Priority.STANDARD)
+    deadline_s: float | None = None
+    deadline_at: float | None = None  # perf_counter absolute
+    # terminal failure (shed, deadline miss, cancel): result() raises it
+    failed: BaseException | None = None
+    tenant: str | None = None
     slot: int | None = None
     tokens: list[int] = field(default_factory=list)
     done: bool = False
@@ -147,6 +281,10 @@ class _Request:
     # the prefill's first token on its way to the host: (host tensor,
     # event or None), taken at the first drain after it
     first_token: tuple | None = None
+    # speculation (0 when it is off)
+    spec_rounds: int = 0  # verify passes this request was live for
+    spec_proposed: int = 0  # drafted tokens verified for it
+    spec_accepted: int = 0  # drafted tokens accepted into its stream
 
 
 class ContinuousBatchingEngine:
@@ -158,11 +296,14 @@ class ContinuousBatchingEngine:
     on CUDA). ``pipeline_depth``: decode chunks kept in flight before the
     host syncs the oldest (0: every step reads its own chunk back).
     ``prefill_block``: prompt lengths round up to a multiple of this.
-    ``max_queue``: pending admissions beyond which ``submit`` raises an
-    ``OverloadedError`` when no slot is free. ``keep_results``: finished
-    requests kept readable through ``result``. ``cuda_graphs`` (CUDA
-    only): decode chunks run as graph replays (True) or eagerly (False),
-    the same chunk body either way.
+    ``max_queue``: pending admissions beyond which ``submit`` sheds (a
+    strictly lower-priority queued request, else the arrival) with an
+    ``OverloadedError``. ``keep_results``: finished requests kept
+    readable through ``result``. ``cuda_graphs`` (CUDA only): decode
+    chunks run as graph replays (True) or eagerly (False), the same chunk
+    body either way. ``speculative`` (a ``SpecConfig``, or True for the
+    default one) turns on speculative decoding, n-gram unless ``draft``
+    (an ``InferenceEngine`` on the same device and vocabulary) is given.
     """
 
     def __init__(
@@ -177,6 +318,8 @@ class ContinuousBatchingEngine:
         max_queue: int | None = None,
         keep_results: int = 1024,
         cuda_graphs: bool = True,
+        draft: InferenceEngine | None = None,
+        speculative: SpecConfig | bool | None = None,
     ):
         if engine.rolling:
             raise NotImplementedError(
@@ -191,12 +334,37 @@ class ContinuousBatchingEngine:
                 f"top_p must be in (0, 1] (1.0 = off), got {self.gen.top_p}"
             )
         self.slots = S = int(slots)
-        self.decode_chunk = K = int(decode_chunk)
+        self.decode_chunk = int(decode_chunk)
         self.pipeline_depth = max(int(pipeline_depth), 0)
         self.prefill_block = int(prefill_block)
         self.max_queue = max_queue
         self.keep_results = max(int(keep_results), 1)
         self.L = L = engine.cache_len
+        self._lock = threading.Lock()
+
+        # speculative decoding: a draft engine implies draft-model mode;
+        # ``speculative`` alone (True or a SpecConfig) n-gram mode
+        self.spec: SpeculativeDecoder | None = None
+        if draft is not None or speculative:
+            cfg = speculative if isinstance(speculative, SpecConfig) else SpecConfig()
+            self.spec = SpeculativeDecoder(engine, draft, cfg)
+        self._kctl: AdaptiveKController | None = None
+        if self.spec is not None and self.spec.cfg.adaptive:
+            # n-gram proposals are free: only the position cost pulls K
+            # down then
+            self._kctl = AdaptiveKController(
+                self.spec.cfg,
+                draft_cost=0.0 if self.spec.mode == "ngram" else None,
+            )
+        # the masked-K array staged for the next dispatch (the paged
+        # engine stages it before growing blocks, so the two agree)
+        self._k_dispatch: list[int] | None = None
+        self.spec_rounds_total = 0  # (live row, verify pass) pairs
+        self.spec_emitted_total = 0
+        self.spec_accepted_total = 0
+        self.spec_proposed_total = 0
+        self.spec_fallback_total = 0
+        self.spec_idle_draft_steps = 0  # draft steps no row needed
 
         dev = self.device
         self._valid = torch.zeros((S, L), dtype=torch.bool, device=dev)
@@ -206,14 +374,20 @@ class ContinuousBatchingEngine:
         self._live = torch.zeros((S,), dtype=torch.bool, device=dev)
         self._seed = torch.zeros((S,), dtype=torch.int64, device=dev)
         self._rows = torch.arange(S, device=dev)
-        self._out = torch.zeros((K, S), dtype=torch.int64, device=dev)
+        if self.spec is None:
+            out_shape = (self.decode_chunk, S)
+        else:
+            cfg = self.spec.cfg
+            out_shape = (cfg.rounds, cfg.k + 1 + _SPEC_EXTRA, S)
+        self._out = torch.zeros(out_shape, dtype=torch.int64, device=dev)
         self._graphs = GraphCache(dev, enabled=cuda_graphs)
-        # dispatched, not yet drained: (host tokens [K, S], event or None,
-        # the dispatch-time slot -> request snapshot)
+        # dispatched, not yet drained: (host output, event or None, the
+        # dispatch-time slot -> request snapshot, slot -> the most
+        # positions the chunk may advance that slot)
         self._inflight: collections.deque = collections.deque()
         pin = dev.type == "cuda"
         self._host_out = [
-            torch.zeros((K, S), dtype=torch.int64, pin_memory=pin)
+            torch.zeros(out_shape, dtype=torch.int64, pin_memory=pin)
             for _ in range(self.pipeline_depth + 1)
         ]
         self._dispatched = 0
@@ -226,12 +400,27 @@ class ContinuousBatchingEngine:
         self._free: list[int] = list(range(S))[::-1]
         self._next_rid = 0
         # upper bound of each slot's device write index once every
-        # dispatched chunk has run
+        # dispatched chunk has run, and (paged) the advance a slot's bound
+        # already includes for the chunk about to be dispatched
         self._slot_ub = [0] * S
+        self._staged_adv: dict[int, int] = {}
+
+        # admission control: measured TPOT/TTFT EWMAs feed retry-after
+        # and deadline feasibility; shed, miss and cancel counts stats()
+        self._tpot_ewma: float | None = None
+        self._ttft_ewma: float | None = None
+        self._sheds = 0
+        self._shed_by_prio: dict[int, int] = {}
+        self._last_shed_at: float | None = None
+        self._deadline_misses = 0
+        self._deadlined = 0  # live requests carrying a deadline
+        self._cancelled = 0
 
         # counters
         self.prefill_chunks = 0  # prefill programs run
         self.decode_steps = 0  # T == 1 model steps dispatched
+        self.verify_passes = 0  # speculative verify passes dispatched
+        self.draft_steps = 0  # draft-model T == 1 steps dispatched
         self._drained_tokens = 0
         # steps that ran decode and no prefill: wall time (each drain ends
         # in a device sync, so the sum is device-inclusive) and the tokens
@@ -239,6 +428,7 @@ class ContinuousBatchingEngine:
         self.decode_only_s = 0.0
         self.decode_only_tokens = 0
         self._init_state()
+        self._init_spec_state()
 
     def _init_state(self) -> None:
         """Every layer's [S, L] cache regions and the per-slot write
@@ -247,11 +437,36 @@ class ContinuousBatchingEngine:
         caches = eng.model.init_caches(S, self.L, dtype=eng.cache_dtype)
         self._kv = [(c["attn"]["k"], c["attn"]["v"]) for c in caches]
         self._cache_index = torch.zeros((S,), dtype=torch.int32, device=self.device)
-        # host mirror: the write index each slot's prefill left behind
-        # (the prompt's padded length); a running request has since
-        # advanced it by one a decoded token
+        # host mirror: each slot's device write index is _slot_base plus
+        # the request's tokens banked so far, less one (the last sampled
+        # token is not yet fed)
         self._slot_base = [0] * S
         self.kv_bytes = sum(t.numel() * t.element_size() for kv in self._kv for t in kv)
+
+    def _init_spec_state(self) -> None:
+        """Speculation's device state, allocated once: the per-slot draft
+        cache (draft mode; the target view's layout, so one write index
+        serves both) and, at temperature > 0, the draft logits [S, K, V]
+        the verifier reads; or the slot-aligned token ids n-gram lookup
+        drafts from, with K + 1 scratch columns past L that take the
+        writes past the end (no host-side filter). ``_k_eff`` [S] is the
+        per-row effective K, filled before each dispatch."""
+        if self.spec is None:
+            return
+        S, L, K = self.slots, self.L, self.spec.cfg.k
+        dev = self.device
+        self._k_eff = torch.full((S,), K, dtype=torch.int32, device=dev)
+        self._dlg = None
+        if self.spec.mode == "draft":
+            self._draft_kv = self.spec.init_draft_caches(S, L)
+            self._draft_fn = self.spec.build_draft_fn(self.gen)
+            if self.gen.temperature > 0.0:
+                V = self.engine.model.cfg.vocab_size
+                self._dlg = torch.zeros((S, K, V), dtype=torch.float32, device=dev)
+            self.draft_kv_bytes = sum(t.numel() * t.element_size()
+                                      for kv in self._draft_kv for t in kv)
+        else:
+            self._ids = torch.zeros((S, L + K + 1), dtype=torch.int64, device=dev)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the device without a stream sync (a blocking
@@ -262,30 +477,55 @@ class ContinuousBatchingEngine:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     # ------------------------------------------------------------ submit
-    def submit(self, ids, *, max_new: int | None = None, seed: int = 0) -> int:
+    def submit(self, ids, *, max_new: int | None = None, seed: int = 0,
+               priority: Priority | int | str = Priority.STANDARD,
+               deadline_s: float | None = None,
+               tenant: str | None = None) -> int:
         """Enqueue one prompt (1-D token array); returns a request id.
-        Raises ``PromptTooLongError`` when prompt + budget cannot fit a
-        slot, and an ``OverloadedError`` past ``max_queue`` pending
-        requests."""
+
+        ``priority`` (:class:`Priority`, its value or name) orders
+        admission and protects the stream under pressure. ``deadline_s``
+        (seconds from now): ``DeadlineExceededError`` here when measured
+        TPOT proves the decode alone cannot finish in time; later, a
+        request whose deadline passes is cancelled and its ``result``
+        raises the same type. ``tenant``: a billing identity kept on the
+        request. Raises ``PromptTooLongError`` when prompt + budget
+        cannot fit a slot, and an ``OverloadedError`` (``QueueFullError``
+        / ``PoolOverloadedError``) with ``retry_after_s`` past
+        ``max_queue`` pending requests, unless a strictly lower-priority
+        queued request can be shed instead."""
         ids = np.asarray(ids).reshape(-1)
         if ids.size == 0:
             raise ValueError("empty prompt")
         max_new = int(max_new if max_new is not None else self.gen.max_new_tokens)
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
-        self._check_fit(int(ids.size), max_new)
-        # fill free slots first, so max_queue bounds work that waits
-        self._admit_waiting()
-        self._check_backpressure()
-        rid = self._next_rid
-        self._next_rid += 1
-        req = _Request(
-            rid=rid, ids=ids.astype(np.int64), max_new=max_new,
-            seed=int(seed), submitted_at=time.perf_counter(),
-        )
-        self._requests[rid] = req
-        self._queue.append(req)
-        self._admit_waiting()
+        prio = _coerce_priority(priority)
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        with self._lock:
+            self._check_fit(int(ids.size), max_new)
+            self._check_deadline_feasible(max_new, deadline_s)
+            # expired work frees its slot and blocks before this arrival
+            # competes for them
+            self._expire_deadlines_locked()
+            # fill free slots first, so max_queue bounds work that waits
+            self._admit_waiting()
+            self._check_backpressure(prio)
+            rid = self._next_rid
+            self._next_rid += 1
+            now = time.perf_counter()
+            req = _Request(
+                rid=rid, ids=ids.astype(np.int64), max_new=max_new,
+                seed=int(seed), submitted_at=now, priority=prio,
+                deadline_s=deadline_s,
+                deadline_at=None if deadline_s is None else now + deadline_s,
+                tenant=str(tenant)[:128] if tenant else None,
+            )
+            if deadline_s is not None:
+                self._deadlined += 1
+            self._requests[rid] = req
+            self._admit_or_queue(req)
         return rid
 
     def _bucket(self, t0: int) -> int:
@@ -304,17 +544,145 @@ class ContinuousBatchingEngine:
                 f"slot cache region ({self.L} slots)"
             )
 
-    def _check_backpressure(self) -> None:
+    # ------------------------------------------------- admission control
+    def _check_deadline_feasible(self, max_new: int, deadline_s) -> None:
+        """Refuse work whose deadline is provably unmeetable: ``max_new``
+        tokens cost at least ``(max_new - 1) x`` measured TPOT of decode.
+        With nothing measured yet, nothing is provable."""
+        if deadline_s is None or self._tpot_ewma is None:
+            return
+        floor = (max_new - 1) * self._tpot_ewma
+        if floor <= deadline_s:
+            return
+        self._deadline_misses += 1
+        raise DeadlineExceededError(
+            f"deadline {deadline_s}s is provably unmeetable: {max_new} "
+            f"tokens x measured TPOT {self._tpot_ewma:.5f}s/token = "
+            f"{floor:.3f}s of decode alone"
+        )
+
+    def _pool_pressure_locked(self) -> float:
+        return 1.0  # contiguous slots: the queue estimate is complete
+
+    def _retry_after_locked(self) -> float:
+        """TPOT x the token backlog ahead of a new arrival / decode width
+        x pool pressure, from the EWMA of this engine's finished requests
+        (a fixed guess until one has finished)."""
+        tpot = self._tpot_ewma if self._tpot_ewma is not None else _RETRY_TPOT_FALLBACK_S
+        ahead = 0
+        for r in self._slot_req:
+            if r is not None and not r.done:
+                ahead += max(r.max_new - len(r.tokens), 1)
+        for r in self._queue:
+            ahead += max(r.max_new - len(r.tokens), 1)
+        eta = tpot * ahead / max(self.slots, 1)
+        return round(max(eta * self._pool_pressure_locked(), tpot), 4)
+
+    def _note_shed(self, prio: int) -> None:
+        self._sheds += 1
+        self._shed_by_prio[prio] = self._shed_by_prio.get(prio, 0) + 1
+        self._last_shed_at = time.perf_counter()
+
+    def _displace_for_locked(self, prio: int) -> bool:
+        """Make queue room for an arrival by shedding the newest queued
+        request of a strictly lower class (its ``result`` raises the
+        ``OverloadedError`` it would have got at submit). False when
+        nothing queued is lower: the arrival itself must shed."""
+        if not self._queue:
+            return False
+        victim = max(self._queue, key=lambda r: (r.priority, r.rid))
+        if victim.priority <= prio:
+            return False
+        ra = self._retry_after_locked()
+        self._abort_locked(victim, OverloadedError(
+            f"request {victim.rid} shed: displaced by a {_PRIO_NAMES[prio]} "
+            f"admission under backpressure; retry in {ra}s",
+            retry_after_s=ra, reason="displaced",
+        ))
+        return True
+
+    def _abort_locked(self, req: _Request, error: BaseException) -> None:
+        """Terminal failure of a queued or running request: ``failed`` set
+        (``result`` raises it), queue entry removed, slot (and, paged,
+        device row and blocks) freed through ``_finish``."""
+        req.failed = error
+        if isinstance(error, DeadlineExceededError):
+            self._deadline_misses += 1
+        elif isinstance(error, OverloadedError):
+            self._note_shed(req.priority)
+        else:
+            self._cancelled += 1
+        if req in self._queue:
+            self._queue.remove(req)
+        if req.slot is not None and not req.done:
+            self._drain_for_abort(req)
+        if not req.done:
+            self._finish(req)
+
+    def _drain_for_abort(self, req: _Request) -> None:
+        """Before ``_finish`` of a running request: its device row stops
+        (a slot's contiguous region is private and the next admission's
+        prefill resets the row, so nothing needs draining). The paged
+        engine retires the row and drains the chunks in flight first."""
+        self._live[req.slot] = False
+
+    def cancel(self, rid: int, *, error: BaseException | None = None) -> bool:
+        """Cancel a queued or running request: its slot (and paged blocks)
+        free and ``result(rid)`` raises ``error`` (a ``ServingError`` by
+        default). False when the request is unknown or already done."""
+        with self._lock:
+            req = self._requests.get(rid)
+            if req is None or req.done:
+                return False
+            self._abort_locked(req, error or ServingError(f"request {rid} cancelled"))
+            return True
+
+    def _expire_deadlines_locked(self) -> None:
+        """Cancel queued and running requests whose deadline has passed;
+        nothing to do when no live request carries one."""
+        if not self._deadlined:
+            return
+        now = time.perf_counter()
+        expired = [r for r in self._queue
+                   if r.deadline_at is not None and r.deadline_at < now]
+        expired += [r for r in self._slot_req
+                    if r is not None and not r.done
+                    and r.deadline_at is not None and r.deadline_at < now]
+        for req in expired:
+            self._abort_locked(req, DeadlineExceededError(
+                f"request {req.rid} missed its {req.deadline_s}s deadline; "
+                "cancelled", rid=req.rid,
+            ))
+
+    def _check_backpressure(self, prio: int = int(Priority.STANDARD)) -> None:
         if self.max_queue is None or self._free or len(self._queue) < self.max_queue:
             return
+        if self._displace_for_locked(prio):
+            return  # a lower-priority queued request was shed instead
+        ra = self._retry_after_locked()
+        self._note_shed(prio)
         raise QueueFullError(
-            f"{len(self._queue)} requests pending (max_queue={self.max_queue})"
+            f"{len(self._queue)} requests pending (max_queue="
+            f"{self.max_queue}); retry in {ra}s",
+            retry_after_s=ra,
         )
+
+    def _admit_or_queue(self, req: _Request) -> None:
+        if self._free:
+            self._admit(req)  # the prefill runs now
+        else:
+            self._queue.append(req)
+
+    def _next_queued_locked(self) -> _Request:
+        """Admission order: priority class first, FIFO (rid) within; a
+        preempted request keeps its rid, so it resumes ahead of later
+        arrivals of its class."""
+        return min(self._queue, key=lambda r: (r.priority, r.rid))
 
     # --------------------------------------------------------- admission
     def _admit_waiting(self) -> None:
         while self._free and self._queue:
-            req = min(self._queue, key=lambda r: r.rid)
+            req = self._next_queued_locked()
             self._queue.remove(req)
             self._admit(req)
 
@@ -322,8 +690,9 @@ class ContinuousBatchingEngine:
     def _admit(self, req: _Request) -> None:
         """Prefill the prompt into a free slot's region: left-padded to
         its bucket Tp, attending its fresh keys, written in place at
-        slots [0, Tp); the first token is sampled on the device and read
-        at the next drain."""
+        slots [0, Tp) (the draft's cache too, in draft mode; the ids
+        buffer in n-gram mode); the first token is sampled on the device
+        and read at the next drain."""
         slot = self._free.pop()
         req.slot = slot
         self._slot_req[slot] = req
@@ -336,15 +705,15 @@ class ContinuousBatchingEngine:
         real = torch.arange(Tp, device=dev) >= Tp - t0
         pos = (real.long().cumsum(dim=0) - 1).clamp_min(0)[None, :]
         qslot = torch.arange(Tp, device=dev)[:, None]
-        mask = (qslot >= qslot.T) & real[None, :]  # key at or before query
-        index = torch.zeros((), dtype=torch.int32, device=dev)
-        caches = [
-            {"attn": {"k": k[slot:slot + 1], "v": v[slot:slot + 1], "index": index}}
-            for k, v in self._kv
-        ]
+        mask = ((qslot >= qslot.T) & real[None, :])[None, None]  # key at or before query
         model = self.engine.model
-        hidden, _ = model(ids, caches=caches, positions=pos,
-                          mask=mask[None, None], logits=False)
+        hidden, _ = model(ids, caches=self._slot_caches(self._kv, slot),
+                          positions=pos, mask=mask, logits=False)
+        if self.spec is not None and self.spec.mode == "draft":
+            self.spec.draft.model(ids, caches=self._slot_caches(self._draft_kv, slot),
+                                  positions=pos, mask=mask, logits=False)
+        elif self.spec is not None:
+            self._ids[slot, :Tp] = ids[0]
         self._valid[slot] = False
         self._valid[slot, :Tp] = real
         self._cache_index[slot] = Tp
@@ -355,6 +724,14 @@ class ContinuousBatchingEngine:
         self.prefill_chunks += 1
         req.prefill_chunks += 1
         req.first_token = self._stash_first(self._tok[slot])
+
+    def _slot_caches(self, kv, slot: int) -> list[dict]:
+        """One slot's [1, L] views of cache (k, v) pairs, at index 0."""
+        index = torch.zeros((), dtype=torch.int32, device=self.device)
+        return [
+            {"attn": {"k": k[slot:slot + 1], "v": v[slot:slot + 1], "index": index}}
+            for k, v in kv
+        ]
 
     def _start_row(self, slot: int, logits_row, seed: int, n_valid: int,
                    max_new: int, final: bool) -> None:
@@ -389,12 +766,18 @@ class ContinuousBatchingEngine:
 
     def _maybe_record_ttft(self, req: _Request) -> None:
         """Stamp TTFT once the first token has reached the host (the
-        reference's ``is_ready`` poll, here the copy's event)."""
+        reference's ``is_ready`` poll, here the copy's event); an aborted
+        request's TTFT is no latency and is not stamped."""
         if req.first_token_at is not None or req.first_token is None:
+            return
+        if req.failed is not None:
             return
         event = req.first_token[1]
         if event is None or event.query():
             req.first_token_at = time.perf_counter()
+            ttft = req.first_token_at - req.submitted_at
+            self._ttft_ewma = (ttft if self._ttft_ewma is None
+                               else 0.8 * self._ttft_ewma + 0.2 * ttft)
 
     def _take_first(self, req: _Request) -> None:
         """Fold the prefill's first token into the request's stream."""
@@ -408,26 +791,37 @@ class ContinuousBatchingEngine:
         self._append_token(req, int(host))
 
     # ------------------------------------------------------------ decode
-    def _step_caches(self, index, frontier) -> list[dict]:
-        """Per-layer cache dicts for a decode step, with the host bounds of
-        the decoding rows' write frontiers (dead rows decode garbage that
-        nobody reads)."""
+    def _step_caches(self, index, frontier, T: int = 1) -> list[dict]:
+        """Per-layer cache dicts for a T-token decode or verify pass over
+        every slot, with the host bounds of the decoding rows' write
+        frontiers (dead rows decode garbage that nobody reads)."""
         return [
             {"attn": {"k": kk, "v": vv, "index": index, "frontier": frontier}}
             for kk, vv in self._kv
         ]
 
+    def _chunk_advance(self, slot: int | None = None) -> int:
+        """The most positions the next chunk can advance a slot by:
+        ``decode_chunk``, or ``rounds * (k + 1)`` under speculation with
+        the slot's staged effective K (k_max when none is staged)."""
+        if self.spec is None:
+            return self.decode_chunk
+        k = self.spec.cfg.k
+        if slot is not None and self._k_dispatch is not None:
+            k = self._k_dispatch[slot]
+        return self.spec.cfg.rounds * (k + 1)
+
     def _frontier(self, decoding: list[int]):
         """Host ``(lo, hi)`` bounding every decoding row's write index over
-        the next chunk's K steps: ``hi`` from the index's upper bound once
-        the chunks in flight have run, plus K - 1; ``lo`` from the tokens
-        drained so far (it may lag, which only widens a windowed read)."""
-        K = self.decode_chunk
+        the next chunk's T == 1 steps: ``hi`` from the index's upper bound
+        once the chunks in flight have run, plus the chunk's advance less
+        one; ``lo`` from the tokens drained so far (it may lag, which only
+        widens a windowed read)."""
         lo = min(
             self._slot_base[s] + max(len(self._slot_req[s].tokens) - 1, 0)
             for s in decoding
         )
-        return lo, max(self._slot_ub[s] for s in decoding) + K - 1
+        return lo, max(self._slot_ub[s] for s in decoding) + self._chunk_advance() - 1
 
     def _chunk_key(self, frontier):
         """What a chunk bakes in: the blocks each layer's blockwise read
@@ -436,6 +830,18 @@ class ContinuousBatchingEngine:
             blk.attn.decode_blocks(self.L, frontier)
             for blk in self.engine.model.blocks.blocks()
         )
+
+    def _spec_key(self, frontier):
+        """A spec chunk's graph key: the target's blocks for its T == 1
+        frontier and for the verify pass's K + 1 queries, and the draft's
+        blocks. The effective K is a device operand, not part of it."""
+        K = self.spec.cfg.k
+        vfront = None if frontier is None else (frontier[0], frontier[1] + K)
+        key = (self._chunk_key(frontier), self._chunk_key(vfront))
+        if self.spec.mode == "draft":
+            key += (tuple(blk.attn.decode_blocks(self.L, frontier)
+                          for blk in self.spec.draft.model.blocks.blocks()),)
+        return key
 
     def _chunk_body(self, frontier) -> None:
         """``decode_chunk`` T == 1 steps over every slot, in place on the
@@ -472,14 +878,132 @@ class ContinuousBatchingEngine:
             self._tok.copy_(torch.where(live, nxt, self._tok))
             live.logical_and_(~ended)
 
+    def _spec_open_mask(self, f0):
+        """History validity for the verify and draft passes, open at and
+        after each row's frontier: the T == K+1 per-row attention bounds
+        query t at slot ``index + t`` itself, so opening the fresh region
+        admits only the pass's own causal prefix. (The paged engine
+        returns None: its rows are unpadded and attend in logical
+        coordinates.)"""
+        ar = torch.arange(self.L, device=self.device)[None, :]
+        return (self._valid | (ar >= f0[:, None]))[:, None, None, :]
+
+    def _spec_chunk_body(self, frontier) -> None:
+        """``rounds`` rounds of draft-K then verify-K+1 in one target
+        weight pass, in place on the device state. Per round and live row
+        it emits 1..k_eff+1 tokens (the accepted prefix, then the
+        correction or bonus) and rolls the write frontier back to the
+        first rejection: the write index is reset in place, the rejected
+        writes sit at or past it, never become valid, and the next round
+        overwrites them before reading them.
+
+        Round r writes ``self._out[r]``: rows 0..K the emitted tokens,
+        then n_emit (0 where the row was not live), n_acc (accepted
+        proposals before the EOS and budget clips), fallback (n-gram
+        rows with no match), n_prop (proposals the row stood behind) and
+        the draft steps no row needed. No host read."""
+        spec, model, gen = self.spec, self.engine.model, self.gen
+        K, R, L = spec.cfg.k, spec.cfg.rounds, self.L
+        eos = gen.eos_token_id
+        dev = self.device
+        index, live = self._cache_index, self._live
+        k_eff = self._k_eff.clamp(1, K)
+        idxk = torch.arange(K + 1, device=dev)
+        ar = torch.arange(L, device=dev)[None, :]
+        zero = torch.zeros((), dtype=torch.long, device=dev)
+        for r in range(R):
+            f0 = index.clone()
+            live0 = live.clone()
+            tok, n_valid, seed = self._tok, self._n_valid, self._seed
+            mask = self._spec_open_mask(f0)
+            if spec.mode == "draft":
+                props, k_live, idle = self._draft_fn(
+                    self._draft_kv, tok, n_valid, seed, f0, mask, k_eff,
+                    live0, frontier, self._dlg)
+                fb = torch.zeros_like(live0)
+            else:
+                props, found = ngram_propose(self._ids[:, :L], self._valid, f0,
+                                             tok, K, spec.cfg.ngram)
+                fb = live0 & ~found
+                k_live, idle = k_eff.long(), zero
+            # ONE target weight pass verifies all K proposals (+ the bonus
+            # position): feed [tok, d_1..d_K]
+            toks_in = torch.cat([tok[:, None], props], dim=1)
+            logits, _ = model(
+                toks_in, caches=self._step_caches(f0, frontier, K + 1),
+                positions=n_valid.long()[:, None] + idxk[None, :], mask=mask,
+            )
+            n_raw, emitted = spec_verify(
+                logits, props, spec.verify_key(seed, n_valid), gen.temperature,
+                gen.top_k, gen.top_p, draft_logits=self._dlg, k_live=k_live)
+            # draft quality before the EOS and budget clips: a clipped
+            # emission is the request ending, not a rejection
+            n_acc = torch.where(live0, n_raw - 1, 0)
+            n_prop = torch.where(live0, k_live, 0)
+            if eos is not None:
+                hit = (emitted == eos) & (idxk[None, :] < n_raw[:, None])
+                eos_pos = torch.where(hit, idxk[None, :], K + 1).amin(dim=1)
+                n_raw = torch.minimum(n_raw, eos_pos + 1)
+            n_raw = torch.minimum(n_raw, self._remaining.long().clamp_min(1))
+            n_emit = torch.where(live0, n_raw, 0)
+            self._remaining.sub_(n_emit.int())
+            ended = self._remaining <= 0
+            if eos is not None:
+                ended = ended | (eos_pos < n_emit)
+            tok_new = emitted.gather(1, (n_emit - 1).clamp_min(0)[:, None])[:, 0]
+            self._valid.logical_or_((ar >= f0[:, None].long())
+                                    & (ar < (f0.long() + n_emit)[:, None]))
+            index.copy_(f0 + n_emit.int())
+            n_valid.add_(n_emit.int())
+            tok.copy_(torch.where(live0, tok_new, tok))
+            live.logical_and_(~ended)
+            if spec.mode == "ngram":
+                # bank the fed tokens for later lookups; slots past the
+                # frontier hold rejected tokens until overwritten, and
+                # writes past L land in the scratch columns
+                self._ids.scatter_(1, f0.long()[:, None] + idxk[None, :], toks_in)
+            out = self._out[r]
+            out[:K + 1].copy_(emitted.T)
+            out[K + 1].copy_(n_emit)
+            out[K + 2].copy_(n_acc)
+            out[K + 3].copy_(fb.long())
+            out[K + 4].copy_(n_prop)
+            out[K + 5].copy_(idle.expand(self.slots))
+
+    def _spec_k_array(self) -> list[int]:
+        """Per-slot effective K for the next spec chunk: the controller's
+        choice for occupied slots, k_max for free or parked rows (the
+        device masks them by liveness)."""
+        K = self.spec.cfg.k
+        if self._kctl is None:
+            return [K] * self.slots
+        return [K if r is None else min(self._kctl.k_for(r.rid), K)
+                for r in self._slot_req]
+
     @torch.no_grad()
     def _dispatch_decode(self, decoding: list[int]) -> None:
-        """Run one chunk (a graph replay on CUDA) and start its tokens'
+        """Run one chunk (a graph replay on CUDA) and start its output's
         copy to the host; the chunk joins the in-flight queue."""
         frontier = self._frontier(decoding)
-        self._graphs.run(self._chunk_key(frontier),
-                         lambda: self._chunk_body(frontier))
-        self.decode_steps += self.decode_chunk
+        if self.spec is None:
+            self._graphs.run(self._chunk_key(frontier),
+                             lambda: self._chunk_body(frontier))
+            self.decode_steps += self.decode_chunk
+        else:
+            ks = self._k_dispatch if self._k_dispatch is not None else self._spec_k_array()
+            self._k_dispatch = ks
+            if self._kctl is not None:
+                self._kctl.note_dispatch(ks[s] for s in decoding)
+            self._k_eff.copy_(self._to_device(np.asarray(ks, np.int32)))
+            self._graphs.run(self._spec_key(frontier),
+                             lambda: self._spec_chunk_body(frontier))
+            cfg = self.spec.cfg
+            self.verify_passes += cfg.rounds
+            if self.spec.mode == "draft":
+                self.draft_steps += cfg.rounds * (cfg.k + 1)
+        adv = {s: self._chunk_advance(s) for s in decoding}
+        self._k_dispatch = None
+        self._staged_adv.clear()
         host = self._host_out[self._dispatched % len(self._host_out)]
         self._dispatched += 1
         event = None
@@ -493,30 +1017,79 @@ class ContinuousBatchingEngine:
         snap = tuple(
             r if s in live else None for s, r in enumerate(self._slot_req)
         )
-        self._inflight.append((host, event, snap))
-        self._advance_ub(decoding)
+        self._inflight.append((host, event, snap, adv))
+        self._advance_ub(adv)
 
-    def _advance_ub(self, decoding: list[int]) -> None:
-        for s in decoding:
+    def _advance_ub(self, adv: dict) -> None:
+        for s, n in adv.items():
             req = self._slot_req[s]
-            self._slot_ub[s] = min(self._slot_ub[s] + self.decode_chunk,
+            self._slot_ub[s] = min(self._slot_ub[s] + n,
                                    self._slot_base[s] + req.max_new - 1)
 
     def _drain_one(self) -> None:
-        """Sync the oldest chunk in flight (the one host sync) and hand its
-        tokens to the requests of its dispatch-time snapshot."""
-        host, event, snap = self._inflight.popleft()
+        """Sync the oldest chunk in flight (the one host sync), hand its
+        tokens to the requests of its dispatch-time snapshot, and tighten
+        each still-running slot's upper bound to its now known write index
+        plus the chunks still in flight."""
+        host, event, snap, _ = self._inflight.popleft()
         if event is not None:
             event.synchronize()
         for req in snap:
             if req is not None:
                 self._take_first(req)
         toks = host.numpy()
-        for k in range(toks.shape[0]):
+        if self.spec is None:
+            for k in range(toks.shape[0]):
+                for s, req in enumerate(snap):
+                    if req is not None and not req.done:
+                        self._append_token(req, int(toks[k, s]))
+                        self._drained_tokens += 1
+        else:
+            self._drain_spec(toks, snap)
+        for s, req in enumerate(snap):
+            if req is None or req.done or self._slot_req[s] is not req:
+                continue
+            # a drain inside block growth (a preemption) comes after the
+            # slot's bound took the next chunk's advance: keep it
+            ahead = self._staged_adv.get(s, 0) + sum(
+                e[3].get(s, 0) for e in self._inflight if e[2][s] is req)
+            exact = self._slot_base[s] + len(req.tokens) - 1
+            self._slot_ub[s] = min(self._slot_ub[s], exact + ahead)
+
+    def _drain_spec(self, out: np.ndarray, snap) -> None:
+        """One speculative chunk's output ``[R, K+1+5, S]``: per live (row,
+        round) pair the emitted tokens (exactly ``n_emit`` a weight pass)
+        and acceptance ``n_acc / n_prop``, which also feeds the adaptive
+        controller."""
+        K = self.spec.cfg.k
+        rounds = emitted = accepted = proposed = 0
+        for r in range(out.shape[0]):
             for s, req in enumerate(snap):
-                if req is not None and not req.done:
-                    self._append_token(req, int(toks[k, s]))
+                cnt = int(out[r, K + 1, s])
+                if req is None or cnt <= 0:
+                    continue
+                rounds += 1
+                emitted += cnt
+                acc, prop = int(out[r, K + 2, s]), int(out[r, K + 4, s])
+                accepted += acc
+                proposed += prop
+                if self._kctl is not None:
+                    self._kctl.observe(req.rid, prop, acc)
+                if not req.done:
+                    req.spec_rounds += 1
+                    req.spec_proposed += prop
+                    req.spec_accepted += acc
+                for k in range(cnt):
+                    if req.done:
+                        break
+                    self._append_token(req, int(out[r, k, s]))
                     self._drained_tokens += 1
+        self.spec_rounds_total += rounds
+        self.spec_emitted_total += emitted
+        self.spec_accepted_total += accepted
+        self.spec_proposed_total += proposed
+        self.spec_fallback_total += int(out[:, K + 3].sum())
+        self.spec_idle_draft_steps += int(out[:, K + 5, 0].sum())
 
     # ---------------------------------------------------------- lifetime
     def _finish(self, req: _Request) -> None:
@@ -527,6 +1100,16 @@ class ContinuousBatchingEngine:
         if slot is not None and self._slot_req[slot] is req:
             self._slot_req[slot] = None
             self._free.append(slot)
+        if req.deadline_at is not None:
+            self._deadlined = max(self._deadlined - 1, 0)
+        # measured TPOT (deadline floor, retry-after): aborted requests
+        # are left out, their finish time is the abort's
+        if req.failed is None and req.first_token_at is not None and len(req.tokens) > 1:
+            tpot = (req.finished_at - req.first_token_at) / (len(req.tokens) - 1)
+            self._tpot_ewma = (tpot if self._tpot_ewma is None
+                               else 0.8 * self._tpot_ewma + 0.2 * tpot)
+        if self._kctl is not None:
+            self._kctl.forget(req.rid)
         # bounded result retention: a steady stream must not grow host
         # memory forever
         self._done_order.append(req.rid)
@@ -554,17 +1137,26 @@ class ContinuousBatchingEngine:
         return bool(self._queue)
 
     def step(self) -> bool:
-        """One scheduler iteration: admit waiting prompts, run the step's
-        prefill work, dispatch one decode chunk, then drain the oldest
-        chunks until ``pipeline_depth`` stay in flight (all of them when
-        nothing was dispatched). Returns False when fully idle."""
+        """One scheduler iteration: expire deadlines, admit waiting
+        prompts, run the step's prefill work, dispatch one decode chunk,
+        then drain the oldest chunks until ``pipeline_depth`` stay in
+        flight (all of them when nothing was dispatched). Returns False
+        when fully idle."""
+        with self._lock:
+            return self._step_locked()
+
+    def _step_locked(self) -> bool:
         t_start = time.perf_counter()
         chunks0, drained0 = self.prefill_chunks, self._drained_tokens
+        self._expire_deadlines_locked()
         self._admit_waiting()
         self._prefill_step()
         decoding = self._decoding_slots()
         if decoding:
             self._dispatch_decode(decoding)
+        # a staged masked-K array or advance must not leak into a later step
+        self._k_dispatch = None
+        self._staged_adv.clear()
         for r in self._slot_req:
             if r is not None:
                 self._maybe_record_ttft(r)
@@ -577,19 +1169,43 @@ class ContinuousBatchingEngine:
             self.decode_only_tokens += self._drained_tokens - drained0
         return busy or bool(self._inflight) or self._busy()
 
-    def result(self, rid: int) -> np.ndarray:
-        """Drive the loop until request ``rid`` finishes; its tokens."""
-        req = self._requests.get(rid)
+    def result(self, rid: int, *, timeout_s: float | None = None,
+               deadline_s: float | None = None) -> np.ndarray:
+        """Drive the loop until request ``rid`` finishes; its tokens.
+
+        ``deadline_s`` bounds the wait with cancellation: past it the
+        request is aborted (slot and blocks freed) and
+        ``DeadlineExceededError`` raised. ``timeout_s`` raises
+        ``TimeoutError`` and leaves the request running. A request that
+        was shed, cancelled or missed its deadline raises that failure."""
+        with self._lock:
+            req = self._requests.get(rid)
         if req is None:
             raise KeyError(
                 f"unknown request id {rid} (never submitted, or its result "
                 f"was evicted after {self.keep_results} newer completions)"
             )
+        now = time.perf_counter()
+        cancel_at = None if deadline_s is None else now + deadline_s
+        timeout_at = None if timeout_s is None else now + timeout_s
         while not req.done:
             if not self.step() and not req.done:
                 raise ServingError(
                     f"request {rid} cannot complete: scheduler idle"
                 )
+            now = time.perf_counter()
+            if cancel_at is not None and now > cancel_at and not req.done:
+                err = DeadlineExceededError(
+                    f"request {rid} not done within deadline_s={deadline_s}; "
+                    "cancelled and freed", rid=rid,
+                )
+                if self.cancel(rid, error=err):
+                    raise err
+                continue  # finished meanwhile: fall through to its outcome
+            if timeout_at is not None and now > timeout_at and not req.done:
+                raise TimeoutError(f"request {rid} not done in {timeout_s}s")
+        if req.failed is not None:
+            raise req.failed
         return np.asarray(req.tokens, np.int64)
 
     def run_until_idle(self) -> None:
@@ -608,10 +1224,66 @@ class ContinuousBatchingEngine:
             "prefill_chunks": req.prefill_chunks,
         }
 
+    def _spec_stats(self) -> dict:
+        """Speculation counters under the reference's keys. A weight pass
+        is one (live row, verify round) pair, so accepted tokens per
+        weight pass > 1 is the gain over plain decode. Port keys besides:
+        ``verify_passes`` and ``draft_steps`` dispatched, and
+        ``idle_draft_steps`` (draft steps no row needed, which the
+        reference skips and a captured chunk runs masked)."""
+        prop = self.spec_proposed_total
+        wp = self.spec_rounds_total
+        out = {
+            "mode": self.spec.mode,
+            "k": self.spec.cfg.k,
+            "rounds": self.spec.cfg.rounds,
+            "weight_passes": wp,
+            "emitted_tokens": self.spec_emitted_total,
+            "accepted_total": self.spec_accepted_total,
+            "proposed_total": prop,
+            "acceptance_rate": (round(self.spec_accepted_total / prop, 4)
+                                if prop else 0.0),
+            "accepted_tokens_per_weight_pass": (
+                round(self.spec_emitted_total / wp, 4) if wp else 0.0),
+            "fallback_total": self.spec_fallback_total,
+            "live_requests": {
+                r.rid: round(r.spec_accepted / r.spec_proposed, 4)
+                for r in self._slot_req if r is not None and r.spec_proposed
+            },
+            "adaptive": self._kctl is not None,
+            "verify_passes": self.verify_passes,
+            "draft_steps": self.draft_steps,
+            "idle_draft_steps": self.spec_idle_draft_steps,
+        }
+        if self._kctl is not None:
+            out["k_mean"] = round(self._kctl.k_mean(), 3)
+            out["k_prior"] = self._kctl.prior()
+        return out
+
     def stats(self) -> dict:
-        """Host-side scheduler snapshot, with the decode graphs' counters
-        (graphs held, captured, capture s, replays, pool bytes)."""
-        return {
+        """Host-side scheduler snapshot: occupancy, the decode graphs'
+        counters (graphs held, captured, capture s, replays, pool bytes),
+        admission control and, when on, speculation."""
+        with self._lock:
+            return self._stats_locked()
+
+    def _stats_locked(self) -> dict:
+        adm: dict = {
+            "retry_after_s": self._retry_after_locked(),
+            "shed_total": self._sheds,
+            "deadline_miss_total": self._deadline_misses,
+            "cancelled_total": self._cancelled,
+        }
+        if self._tpot_ewma is not None:
+            adm["tpot_ewma_s"] = round(self._tpot_ewma, 6)
+        if self._ttft_ewma is not None:
+            adm["ttft_ewma_s"] = round(self._ttft_ewma, 6)
+        if self._sheds:
+            adm["shed_by_priority"] = {
+                _PRIO_NAMES[p]: n for p, n in sorted(self._shed_by_prio.items())
+            }
+            adm["last_shed_age_s"] = round(time.perf_counter() - self._last_shed_at, 3)
+        out = {
             "slots": self.slots,
             "busy_slots": sum(r is not None for r in self._slot_req),
             "queued": len(self._queue),
@@ -620,7 +1292,11 @@ class ContinuousBatchingEngine:
             "decode_steps": self.decode_steps,
             "inflight_chunks": len(self._inflight),
             "graphs": self._graphs.stats(),
+            "admission": adm,
         }
+        if self.spec is not None:
+            out["spec"] = self._spec_stats()
+        return out
 
 
 class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
@@ -633,7 +1309,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     per slot). ``prefill_chunk``: tokens per prefill program.
     ``prefix_cache``: share resident prompt prefixes. ``kv_quant``:
     None or "int8" pools. ``max_queue``: pending admissions beyond which
-    ``submit`` raises an ``OverloadedError``.
+    ``submit`` sheds with an ``OverloadedError``. The other arguments
+    are the contiguous engine's (``speculative``, ``draft``: the draft's
+    cache is contiguous per slot even here, at the view's width).
     """
 
     def __init__(
@@ -693,6 +1371,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         )
         self._slot_blocks: list[list[int]] = [[] for _ in range(S)]
         self._slot_ub = [0] * S  # device write-frontier upper bound
+        # the device write index is _slot_base + tokens banked - 1 (the
+        # base: the prefill's length less the tokens banked before it)
+        self._slot_base = [0] * S
         self._slot_limit = [0] * S  # prompt + budget cap, in tokens
         self._pending: dict[int, dict] = {}  # slot -> prefill job
         self.prefix_matched_tokens = 0
@@ -720,28 +1401,53 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 f"tokens; the pool holds {self.pool.num_blocks} total"
             )
 
-    def _check_backpressure(self) -> None:
+    def _pool_pressure_locked(self) -> float:
+        # a near-full pool inflates the retry-after: freed capacity is
+        # contended by every queued request
+        util = self.pool.in_use / self.pool.num_blocks
+        return min(4.0, 1.0 / max(1.0 - util, 0.25))
+
+    def _check_backpressure(self, prio: int = int(Priority.STANDARD)) -> None:
         if self.max_queue is None or len(self._queue) < self.max_queue:
             return
         if self._free:
+            # slots are free yet admissions back up: the queue is starved
+            # on KV blocks, not on decode width
+            if self._displace_for_locked(prio):
+                return
+            ra = self._retry_after_locked()
+            self._note_shed(prio)
             raise PoolOverloadedError(
                 f"{len(self._queue)} requests pending on KV blocks "
                 f"({self.pool.in_use}/{self.pool.num_blocks} in use, "
-                f"max_queue={self.max_queue})"
+                f"max_queue={self.max_queue}); retry in {ra}s",
+                retry_after_s=ra,
             )
-        raise QueueFullError(
-            f"{len(self._queue)} requests pending (max_queue={self.max_queue})"
-        )
+        super()._check_backpressure(prio)
+
+    def _admit_or_queue(self, req: _Request) -> None:
+        # queue first, then drain in (priority, rid) order: a non-empty
+        # queue means its best head is starved on blocks, and only a
+        # strictly higher-priority arrival may pass it
+        self._queue.append(req)
+        self._admit_waiting()
 
     def _admit_waiting(self) -> None:
-        # FIFO by rid: a preempted request keeps its rid and resumes
-        # ahead of later arrivals; a head that cannot get blocks makes
-        # everyone behind it wait too
+        # (priority, FIFO within a class): when the best head cannot get
+        # blocks, preempt strictly lower-priority running work for it;
+        # with no such victim, everyone behind it waits too
         while self._free and self._queue:
-            head = min(self._queue, key=lambda r: r.rid)
-            if not self._try_admit(head):
+            head = self._next_queued_locked()
+            if self._try_admit(head):
+                self._queue.remove(head)
+                continue
+            victims = [s for s, r in enumerate(self._slot_req)
+                       if r is not None and r.priority > head.priority]
+            if not victims:
                 break
-            self._queue.remove(head)
+            # priority, then newest: the order pool pressure uses
+            self._preempt(max(victims, key=lambda s: (
+                self._slot_req[s].priority, self._slot_req[s].rid)))
 
     @torch.no_grad()
     def _try_admit(self, req: _Request) -> bool:
@@ -771,13 +1477,15 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         tail_bid = None
         try:
             for b in hits:
-                self.pool.retain(b)
+                # a hit raises the block's eviction class to its most
+                # protected consumer
+                self.pool.retain(b, priority=req.priority)
                 taken.append(b)
             if tail is not None:
                 bid, _fill = tail
                 if self.pool.refcount(bid) == 0:
                     # sole owner: revive and extend in place
-                    self.pool.retain(bid)
+                    self.pool.retain(bid, priority=req.priority)
                     taken.append(bid)
                     tail_bid = bid
                 else:
@@ -799,6 +1507,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         )
         self._slot_limit[slot] = min(t0 + max_new_eff, self.L)
         self._slot_ub[slot] = t0
+        self._slot_base[slot] = t0 - len(req.tokens)
         if cow_src is not None:
             for pool in self._pools:
                 for arr in pool.values():
@@ -825,8 +1534,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         if start is not None:
             self._cache_index[slot] = start
 
-    def _step_caches(self, index, frontier) -> list[dict]:
-        return self._caches(index, self._block_table, 1)
+    def _step_caches(self, index, frontier, T: int = 1) -> list[dict]:
+        return self._caches(index, self._block_table, T)
 
     def _frontier(self, decoding: list[int]):
         return None  # the paged read takes its bounds from the device
@@ -834,8 +1543,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     def _chunk_key(self, frontier):
         return ()  # the chunk reads no host value: one graph
 
-    def _advance_ub(self, decoding: list[int]) -> None:
+    def _advance_ub(self, adv: dict) -> None:
         pass  # ``_grow_blocks`` advanced it before the dispatch
+
+    def _spec_open_mask(self, f0):
+        return None  # unpadded rows, causality in logical coordinates
 
     def _caches(self, index, block_table, T):
         """Per-layer cache dicts over the shared pools, with the write
@@ -854,7 +1566,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         """At most ONE chunk per scheduler step, so decode interleaves."""
         if not self._pending:
             return False
-        slot = min(self._pending, key=lambda s: self._slot_req[s].rid)
+        # SLO order for the one chunk a step too: an INTERACTIVE prompt's
+        # TTFT does not wait behind a BATCH prompt's remaining chunks
+        slot = min(self._pending, key=lambda s: (self._slot_req[s].priority,
+                                                 self._slot_req[s].rid))
         job = self._pending[slot]
         ids, pos = job["ids"], job["pos"]
         C = self.prefill_chunk
@@ -869,10 +1584,27 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         # mask=None: the paged path builds causality (and the window
         # band) in logical coordinates; pad tokens past nreal write
         # blocks the decode steps overwrite before reading
+        ids_dev = self._to_device(buf)
         hidden, _ = self.engine.model(
-            self._to_device(buf), caches=self._caches(index, bt, C),
+            ids_dev, caches=self._caches(index, bt, C),
             positions=positions, mask=None, logits=False,
         )
+        if self.spec is not None and self.spec.mode == "draft":
+            # the draft prefills the same chunk into its contiguous slot
+            # row (per-row index form: writes past the row drop); paged
+            # rows are unpadded, so slot order is logical order
+            dcaches = [
+                {"attn": {"k": k[slot:slot + 1], "v": v[slot:slot + 1],
+                          "index": index}}
+                for k, v in self._draft_kv
+            ]
+            self.spec.draft.model(ids_dev, caches=dcaches, positions=positions,
+                                  mask=None, logits=False)
+        elif self.spec is not None:
+            # n-gram ids at their logical positions (the pad tail past
+            # nreal is overwritten later and never valid)
+            n = min(C, self.L - pos)
+            self._ids[slot, pos:pos + n] = ids_dev[0, :n]
         n_end = pos + nreal
         self._cache_index[slot] = n_end
         self._valid[slot] = torch.arange(self.L, device=dev) < n_end
@@ -887,9 +1619,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self._slot_ub[slot] = len(ids)
             if self.index is not None:
                 # register the PROMPT prefix as soon as its blocks are
-                # written: a concurrent request sharing it hits at once
+                # written: a concurrent request sharing it hits at once;
+                # under pressure the pool evicts BATCH-cached prefixes
+                # before STANDARD before INTERACTIVE
                 for b in self.index.register(req.ids, self._slot_blocks[slot]):
-                    self.pool.mark_cached(b)
+                    self.pool.mark_cached(b, priority=req.priority)
             req.first_token = self._stash_first(self._tok[slot])
         return True
 
@@ -905,6 +1639,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self.pool.release(b)
         self._slot_blocks[slot] = []
         self._slot_ub[slot] = 0
+        self._staged_adv.pop(slot, None)
         self._slot_limit[slot] = 0
         self._pending.pop(slot, None)
 
@@ -934,11 +1669,25 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._slot_req[slot] = None
         req.slot = None
         self._free.append(slot)
+        # (priority, rid) ordering: it resumes ahead of later arrivals of
+        # its class because it keeps its rid
         self._queue.append(req)
 
+    def _drain_for_abort(self, req: _Request) -> None:
+        """As ``_preempt``: retire the device row first (later chunks drop
+        its writes), then drain every chunk in flight; only then may
+        ``_finish`` return the slot's blocks to the pool, since a chunk
+        dispatched before the retire could still write through the old
+        table."""
+        self._retire_row(req.slot)
+        while self._inflight:
+            self._drain_one()
+
     def _alloc_with_preemption(self, n: int, protect: int):
-        """Allocate ``n`` blocks, preempting the newest other request
-        under pressure. None when ``protect`` itself had to go."""
+        """Allocate ``n`` blocks, preempting under pressure in
+        priority-then-newest order: the newest request of the least
+        protected class among the others (BATCH before STANDARD before
+        INTERACTIVE). None when ``protect`` itself had to go."""
         while True:
             try:
                 return self.pool.alloc(n)
@@ -950,23 +1699,30 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 if not victims:
                     self._preempt(protect)
                     return None
-                self._preempt(max(victims, key=lambda s: self._slot_req[s].rid))
+                self._preempt(max(victims, key=lambda s: (
+                    self._slot_req[s].priority, self._slot_req[s].rid)))
 
     def _grow_blocks(self, decoding: list[int]) -> list[int]:
         """Extend block tables ahead of the decode write frontier: the
-        next chunk advances each live row by up to ``decode_chunk``
-        positions, so the blocks must exist before it is dispatched.
-        ``_slot_ub`` moves by ``decode_chunk`` at every dispatch, so it
-        already covers the chunks still in flight, which the host has not
-        seen the tokens of. Returns the decoding set minus any preempted
-        slots."""
+        next chunk advances each live row by up to ``_chunk_advance``
+        positions (``decode_chunk``, or ``rounds * (k_eff + 1)`` under
+        speculation, with the staged effective K the dispatch will carry),
+        so the blocks must exist before it is dispatched. ``_slot_ub``
+        moves by that bound at every dispatch, so it covers the chunks
+        still in flight, whose tokens the host has not seen; a drain
+        tightens it to the known index plus the chunks still in flight
+        (rejected rounds advance less than the bound). Rejected writes
+        past the frontier land in blocks the row owns or, past its table,
+        in the scratch block. Returns the decoding set minus any
+        preempted slots."""
         bs = self.block_size
         for slot in decoding:
             req = self._slot_req[slot]
             if req is None or slot in self._pending:
                 continue  # preempted (or re-queued) by an earlier growth
             target = min(
-                self._slot_ub[slot] + self.decode_chunk, self._slot_limit[slot]
+                self._slot_ub[slot] + self._chunk_advance(slot),
+                self._slot_limit[slot],
             )
             need = -(-target // bs)
             have = len(self._slot_blocks[slot])
@@ -977,6 +1733,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 self._slot_blocks[slot].extend(got)
                 self._set_row(slot)
             self._slot_ub[slot] = target
+            self._staged_adv[slot] = self._chunk_advance(slot)
         return [
             s for s in decoding
             if self._slot_req[s] is not None and s not in self._pending
@@ -990,16 +1747,21 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             s for s, r in enumerate(self._slot_req)
             if r is not None and s not in self._pending
         ]
+        if decoding and self.spec is not None:
+            # stage the masked-K array now: block growth and the
+            # dispatch's effective K must read the same values (a drain
+            # during growth may move the controller)
+            self._k_dispatch = self._spec_k_array()
         return self._grow_blocks(decoding) if decoding else decoding
 
     def _busy(self) -> bool:
         return bool(self._queue or self._pending)
 
-    def step(self) -> bool:
-        """One scheduler iteration: admit, run at most one prefill chunk,
-        grow block tables, dispatch one decode chunk, drain. Returns False
-        when fully idle."""
-        busy = super().step()
+    def _step_locked(self) -> bool:
+        """One scheduler iteration: expire deadlines, admit, run at most
+        one prefill chunk, grow block tables, dispatch one decode chunk,
+        drain. Returns False when fully idle."""
+        busy = super()._step_locked()
         self.peak_blocks_in_use = max(self.peak_blocks_in_use, self.pool.in_use)
         return busy
 
@@ -1008,9 +1770,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             return 0.0
         return self.prefix_matched_tokens / self.prompt_tokens_total
 
-    def stats(self) -> dict:
+    def _stats_locked(self) -> dict:
         return {
-            **super().stats(),
+            **super()._stats_locked(),
             "pool": self.pool.stats(),
             "prefilling": len(self._pending),
             "peak_blocks_in_use": self.peak_blocks_in_use,

@@ -14,9 +14,10 @@ held on the CPU.
   the co-tenants; its draws over many seeds fit the filtered softmax
   (chi-square, p > 1e-3).
 - No host read in any chunk body: the contiguous (full-width and
-  blockwise) and paged serving chunks and ``generate``'s monotone and
-  ring steps run whole requests with every tensor-to-host path patched
-  to raise inside the body.
+  blockwise) and paged serving chunks, their speculative chunks (n-gram
+  and draft, sampled, adaptive K) and ``generate``'s monotone and ring
+  steps run whole requests with every tensor-to-host path patched to
+  raise inside the body.
 """
 
 import contextlib
@@ -382,6 +383,42 @@ def test_serving_chunk_body_reads_nothing_back(kind, monkeypatch):
     layers = len(eng.model.blocks.blocks())
     paged = kind.startswith("paged")
     assert set(keys) == {() if paged else ((0, 1) if big else None,) * layers}
+
+
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+@pytest.mark.parametrize("kind", ["contiguous", "blockwise", "paged"])
+def test_spec_chunk_body_reads_nothing_back(kind, mode, monkeypatch):
+    """The speculative chunk (draft or n-gram proposals, the verify pass,
+    the sampled accept/reject, rollback) under adaptive K, which moves
+    the effective K between dispatches: no host read, and one graph key."""
+    from tensorlink_tpu_torch.parallel.speculative import SpecConfig
+
+    big = kind == "blockwise"
+    if big:
+        monkeypatch.setattr(tattn, "DECODE_BLOCKWISE_MIN_WINDOWLESS", 128)
+    eng = InferenceEngine(_llama(), max_len=512 if big else 32, device="cpu",
+                          cache_dtype=torch.float32, param_dtype=torch.float32)
+    draft = None
+    if mode == "draft":
+        draft = InferenceEngine(Llama(LlamaConfig.tiny(), device="cpu", seed=2),
+                                max_len=32, device="cpu",
+                                cache_dtype=torch.float32, param_dtype=torch.float32)
+    kw = {"slots": 2, "gen": SAMPLED, "draft": draft,
+          "speculative": SpecConfig(k=3, rounds=2, adaptive=True,
+                                    entropy_exit=6.0)}
+    if kind == "paged":
+        sch = PagedContinuousBatchingEngine(eng, block_size=4, prefill_chunk=4, **kw)
+    else:
+        sch = ContinuousBatchingEngine(eng, prefill_block=4, **kw)
+    runs, keys = [], []
+    _guard(sch, "_spec_chunk_body", runs)
+    key = sch._spec_key
+    sch._spec_key = lambda frontier: keys.append(key(frontier)) or keys[-1]
+    r = np.random.default_rng(3)
+    rids = [sch.submit(r.integers(0, 128, (n,)), seed=n) for n in (5, 9, 3)]
+    outs = [sch.result(rid) for rid in rids]
+    assert len(runs) >= 3 and all(len(o) == 7 for o in outs)
+    assert len(set(keys)) == 1
 
 
 @pytest.mark.parametrize("kind", ["monotone", "blockwise", "ring"])

@@ -49,6 +49,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert len(files) > 10
     # every subpackage is scanned, runtime/ (the CUDA-graph cache) too
     assert os.path.join(PORT, "runtime", "graphs.py") in files
+    assert os.path.join(PORT, "parallel", "speculative.py") in files
     bad = [
         (os.path.relpath(p, REPO), root)
         for p in files for root in _imported_roots(p) if root in FORBIDDEN
@@ -59,6 +60,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     mods = [
         "tensorlink_tpu_torch.parallel.serving",
+        "tensorlink_tpu_torch.parallel.speculative",
         "tensorlink_tpu_torch.runtime.graphs",
         "tensorlink_tpu_torch.models.llama",
         "tensorlink_tpu_torch.models.gpt2",
