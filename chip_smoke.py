@@ -37,13 +37,42 @@ Phases, each printing its own lines; any failure exits non-zero:
    with a fully masked row), each timed beside its plain version, its
    bound and SDPA and its first design's time; B1 with its host us per
    call;
+5a. capability: ``measure_capability`` at a size that fills the card (a
+   chained 8192-square bf16 matmul, a 1 GiB HBM read), printed with the
+   card's name and power limit: the peaks MFU, MBU and the receipt
+   auditor are held against;
 6. serving: Llama-3-8B at full width and depth (random bf16 weights
    from a seed) served by ``PagedContinuousBatchingEngine`` over
    ``InferenceEngine``: 12 greedy requests, launch counts checked against
    the path (decode steps on B3's decode variant, prefill chunks on its
    prefill variant, none on the general one), and a teacher-forced check
    of every emitted token against the port's no-cache forward (which runs
-   B1 for the long prompts);
+   B1 for the long prompts); ``[timer slice]`` prints
+   ``stats()["device_time"]`` (the CUDA-event timer: per program count,
+   busy and gap s, host-gap share, device tokens/s, MFU, MBU) and
+   ``[metering slice]`` gates the meters: their busy seconds sum to the
+   timer's within 1%, each has its prompt tokens, 32 emitted tokens and
+   KV block-seconds, and each signs into a receipt that verifies and a
+   ``ReceiptAuditor`` holding the capability accepts with no anomaly;
+   the timer's decode busy a step is within 20% of the profiled
+   model-step wall (``[timer slice vs profile]``);
+6a. disagg: the same 12 requests split over a prefill leg P and a
+   decode leg D (two engines of the [slice] geometry on one model):
+   ``prefill_export``, ``pack_kv_payload(codec="none")``,
+   ``unpack_kv_payload``, ``import_prefill`` with ``D.step()`` between
+   imports, so grafts land with chunks in flight. Tokens equal the
+   [slice] run's exactly; P launches B3 only in its prefill variant, D
+   B3 decode and B4 once a layer a decode step, no prefill; every D chunk
+   but the first a replay; the legs' export/import counts; the native
+   codec built. Prints export, pack, unpack and import times and rates,
+   blob bytes a prompt token and the zlib ratio on one request; then the
+   timer and metering gates on P and D (P's meters bill prefill and emit
+   0; D's carry the blob's bytes) and the profiled decode on D;
+6b. disagg int8: 4 of those requests (prompts <= 600) int8 -> int8,
+   token-identical to an int8 colocated engine, blobs under 0.6 of the
+   float blob, B3's decode variant on int8 pools; then float -> int8 and
+   int8 -> float, teacher-forced, with the share of tokens equal to the
+   importing engine's colocated run;
 7. static: the same model through ``InferenceEngine.generate`` (the
    default path of ``examples/serve_llm.py``): 4 left-padded prompts of
    700 to 2000 tokens, 64 greedy tokens, decode on the blockwise path over
@@ -106,9 +135,10 @@ Before them, ``[sampler]`` checks the counter sampler's hash bits on the
 card against the CPU's.
 
 Each leg's launch counts are set to 0 just before it runs and read just
-after; B4's count in the kernels line sums the four serving legs and
-the captured speculative draft runs, B3's the paged leg and the
-captured speculative runs. The
+after; B4's count in the kernels line sums the four serving legs, the
+captured speculative draft runs and the disaggregated decode legs
+(float and int8), B3's the paged leg, the captured speculative runs and
+both disaggregated runs (prefill variant on P, decode on D). The
 last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Nothing of JAX or ``tensorlink_tpu``
 is imported.
@@ -128,6 +158,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from tensorlink_tpu_torch import native
 from tensorlink_tpu_torch.config import TrainConfig
 from tensorlink_tpu_torch.models.bert import BertClassifier, BertConfig
 from tensorlink_tpu_torch.models.gpt2 import GPT2, GPT2Config
@@ -161,6 +192,9 @@ from tensorlink_tpu_torch.parallel.inference import (
     counter_bits,
     sample_logits_at,
 )
+from tensorlink_tpu_torch.p2p.crypto import HAVE_CRYPTOGRAPHY, Identity
+from tensorlink_tpu_torch.p2p.serialization import packed_nbytes
+from tensorlink_tpu_torch.parallel.kvwire import pack_kv_payload, unpack_kv_payload
 from tensorlink_tpu_torch.parallel.serving import (
     ContinuousBatchingEngine,
     DeadlineExceededError,
@@ -169,6 +203,12 @@ from tensorlink_tpu_torch.parallel.serving import (
     Priority,
     SpecConfig,
 )
+from tensorlink_tpu_torch.runtime.ledger import (
+    ReceiptAuditor,
+    build_receipt,
+    verify_receipt,
+)
+from tensorlink_tpu_torch.runtime.profiling import measure_capability
 from tensorlink_tpu_torch.train.trainer import Trainer, softmax_cross_entropy
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -909,18 +949,27 @@ def _requests(vocab: int):
     return out
 
 
-def _serve_paged(model: Llama, prompts, max_new: int, cuda_graphs: bool):
+def _slice_engine(model: Llama, max_new: int, cuda_graphs: bool = True,
+                  capability: dict | None = None, **kw):
+    """A paged engine of the [slice] geometry (its own pools and graphs)
+    over a fresh ``InferenceEngine`` of ``model``."""
+    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV)
+    return PagedContinuousBatchingEngine(
+        eng, slots=8, block_size=16, prefill_chunk=128, decode_chunk=8,
+        gen=GenerationConfig(max_new_tokens=max_new), cuda_graphs=cuda_graphs,
+        capability=capability, **kw,
+    )
+
+
+def _serve_paged(model: Llama, prompts, max_new: int, cuda_graphs: bool,
+                 capability: dict | None = None):
     """The 12 requests through a fresh paged engine; launch counts set to
     0 just before and read just after, then checked against the path.
     -> (engine, request ids, outputs, wall s, counts)."""
     cfg = model.cfg
     t0 = time.perf_counter()
-    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
-                          param_dtype=torch.bfloat16, device=DEV)
-    sch = PagedContinuousBatchingEngine(
-        eng, slots=8, block_size=16, prefill_chunk=128, decode_chunk=8,
-        gen=GenerationConfig(max_new_tokens=max_new), cuda_graphs=cuda_graphs,
-    )
+    sch = _slice_engine(model, max_new, cuda_graphs, capability)
     torch.cuda.synchronize()
     mode = "captured" if cuda_graphs else "eager"
     say(f"[slice] Llama-3-8B {cfg.num_layers} layers dim {cfg.dim} "
@@ -960,11 +1009,11 @@ def _serve_paged(model: Llama, prompts, max_new: int, cuda_graphs: bool):
     return sch, rids, outs, wall, {"paged": k1, "norm": k2}
 
 
-def phase_slice(name_power: str, model: Llama) -> dict:
+def phase_slice(name_power: str, model: Llama, cap: dict) -> dict:
     cfg = model.cfg
     max_new = 32
     prompts = _requests(cfg.vocab_size)
-    sch, rids, outs, wall, k = _serve_paged(model, prompts, max_new, True)
+    sch, rids, outs, wall, k = _serve_paged(model, prompts, max_new, True, cap)
     st = sch.stats()
     _graph_line("slice", st["graphs"])
     tf = _teacher_forced("slice", model, prompts, outs)
@@ -989,7 +1038,11 @@ def phase_slice(name_power: str, model: Llama) -> dict:
         "card": name_power,
     }
     say(f"[slice] {json.dumps(res)}")
+    _timer_line("slice", sch, name_power)
+    _check_meters("slice", sch, rids, prompts, max_new, Identity.generate(), cap,
+                  name_power)
     prof = _profile_decode(sch, cfg.vocab_size, name_power)
+    _check_timer_vs_profile("slice", sch, prof, name_power)
     del sch
     gc.collect()
     torch.cuda.empty_cache()
@@ -1002,7 +1055,8 @@ def phase_slice(name_power: str, model: Llama) -> dict:
     del esch
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches_paged": k["paged"], "launches_norm": k["norm"]}
+    return {"launches_paged": k["paged"], "launches_norm": k["norm"],
+            "prompts": prompts, "outs": outs}
 
 
 PROFILE_STEPS = 4  # scheduler steps in each timed window
@@ -1095,6 +1149,361 @@ def _step_line(tag: str, cap: dict, eager: dict, wall_c: float, wall_e: float) -
     res = {"captured": {k: cap[k] for k in keys}, "eager": {k: eager[k] for k in keys},
            "run_wall_s": {"captured": wall_c, "eager": wall_e}}
     say(f"[{tag} step] {json.dumps(res)}")
+
+
+# ------------------------------------ timer, metering, disaggregation
+# [capability]: sized so the card is filled (the reference's defaults, a
+# 512 matmul and 64 MB, read an H100 far below its peak, and the receipt
+# auditor would then flag honest prefill receipts as overclaims)
+CAP_MATMUL_DIM = 8192
+CAP_HBM_MB = 1024
+CAP_REPS = 10
+TIMER_TOL = 0.2  # decode busy EWMA a step vs the profiled model-step wall
+METER_TOL = 0.01  # meters' summed busy_s vs the timer's device busy
+INT8_BLOB_MAX = 0.6  # an int8 blob against the float blob of its prompt
+DISAGG_INT8_PICK = (0, 1, 5, 9)  # [slice] requests of <= 600 tokens
+ZLIB_PICK = 3  # the [slice] request (129 tokens) the zlib ratio is read on
+
+
+def phase_capability(name_power: str) -> dict:
+    cap = measure_capability(matmul_dim=CAP_MATMUL_DIM, hbm_mb=CAP_HBM_MB,
+                             reps=CAP_REPS)
+    say(f"[capability] {json.dumps({**cap, 'card': name_power})}")
+    check(cap["peak_tflops"] > 0 and cap["hbm_gbps"] > 0,
+          "capability: no matmul or HBM rate measured")
+    return cap
+
+
+def _timer_line(tag: str, sch, name_power: str) -> dict:
+    """``stats()["device_time"]`` on one line: per program the count, busy
+    and gap seconds, host-gap share, device tokens/s, MFU and MBU."""
+    dt = sch.stats()["device_time"]
+    progs = {}
+    for name, r in dt["programs"].items():
+        both = r["gap_s"] + r["busy_s"]
+        progs[name] = {
+            "count": r["count"], "busy_s": r["busy_s"], "gap_s": r["gap_s"],
+            "host_gap_frac": r["gap_s"] / both if both else 0.0,
+            "busy_ewma_s": r["busy_ewma_s"],
+            "device_tokens_per_s": r.get("device_tokens_per_sec", 0.0),
+            "mfu": r.get("mfu", "not measured"), "mbu": r.get("mbu", "not measured"),
+        }
+    res = {"programs": progs, "device_busy_s": dt["device_busy_s"],
+           "host_gap_s": dt["host_gap_s"], "host_gap_frac": dt["host_gap_frac"],
+           "pending": dt["pending"], "card": name_power}
+    say(f"[timer {tag}] {json.dumps(res)}")
+    check(dt["pending"] == 0, f"timer {tag}: dispatches left unfinalized")
+    return dt
+
+
+def _check_meters(tag: str, sch, rids, prompts, emitted: int, identity, cap: dict,
+                  name_power: str, wire=None) -> dict:
+    """Gates 2-4 once the engine has drained: the busy seconds of every
+    meter it wrote sum to the timer's device busy (every chunk and every
+    prefill billed some request); each request's meter has its prompt
+    tokens, ``emitted`` tokens, KV block-seconds and (``wire``) the blob
+    it was imported from; each signs into a receipt that verifies and
+    that an auditor holding ``cap`` accepts without an anomaly."""
+    dt = sch.stats()["device_time"]
+    timer_busy = sum(r["busy_s"] for r in dt["programs"].values())
+    written = sch.drain_meters(limit=1 << 20)
+    billed = sum(m["busy_s"] for m in written)
+    meters = [sch.meter(rid) for rid in rids]
+    check(all(m is not None for m in meters), f"metering {tag}: a meter is missing")
+    bad = [i for i, (m, p) in enumerate(zip(meters, prompts))
+           if m["prompt_tokens"] != len(p) or m["emitted_tokens"] != emitted
+           or m["kv_block_s"] <= 0 or m["busy_s"] <= 0
+           or (wire is not None and m["wire_bytes"] != wire[i])]
+    aud = ReceiptAuditor(capability_for=lambda worker: cap)
+    verdicts = []
+    for m in written:
+        r = build_receipt(m, identity)
+        ok, why = verify_receipt(r)
+        check(ok, f"metering {tag}: receipt of rid {m['rid']} fails to verify: {why}")
+        verdicts.append(aud.ingest(r))
+    refused = [v for v in verdicts if not v["accepted"] or v["anomalies"]]
+    res = {
+        "meters": len(written), "kind": sch.meter_kind,
+        "billed_busy_s": billed, "timer_busy_s": timer_busy,
+        "billed_over_timer": billed / timer_busy if timer_busy else None,
+        "receipts_accepted": aud.accepted_total, "anomalies": dict(aud.anomaly_counts),
+        "identity": "rsa" if HAVE_CRYPTOGRAPHY else "dev (no cryptography package)",
+        "busy_s_per_request_mean": float(np.mean([m["busy_s"] for m in meters])),
+        "kv_block_s_mean": float(np.mean([m["kv_block_s"] for m in meters])),
+        "achieved_tflops_per_request_mean": float(np.mean(
+            [m["flops"] / m["busy_s"] / 1e12 for m in meters])),
+        "wire_bytes_mean": float(np.mean([m["wire_bytes"] for m in meters])),
+        "card": name_power,
+    }
+    say(f"[metering {tag}] {json.dumps(res)}")
+    check(timer_busy > 0 and abs(billed / timer_busy - 1) <= METER_TOL,
+          f"metering {tag}: meters bill {billed} s of {timer_busy} s device busy")
+    check(not bad, f"metering {tag}: meters of requests {bad} off their counts")
+    check(not refused, f"metering {tag}: receipts refused or flagged: {refused}")
+    return res
+
+
+def _check_timer_vs_profile(tag: str, sch, prof: dict, name_power: str) -> None:
+    """Gate 1: the timer's decode busy EWMA a T == 1 step against the
+    model-step wall the profiled window measured on the same engine."""
+    rec = sch.stats()["device_time"]["programs"]["decode"]
+    per_step_ms = rec["busy_ewma_s"] / sch.decode_chunk * 1e3
+    ratio = per_step_ms / prof["model_step_ms"]
+    say(f"[timer {tag} vs profile] " + json.dumps({
+        "timer_decode_busy_ewma_ms_per_step": per_step_ms,
+        "profile_model_step_ms": prof["model_step_ms"], "ratio": ratio,
+        "tolerance": TIMER_TOL, "card": name_power}))
+    check(abs(ratio - 1) <= TIMER_TOL,
+          f"timer {tag}: decode busy {per_step_ms:.3f} ms a step against a "
+          f"{prof['model_step_ms']:.3f} ms model-step wall")
+
+
+def _import_when_free(D, payload, wire_bytes: int) -> tuple[int, float, tuple, int]:
+    """``D.import_prefill``, stepping D while it answers with a typed
+    ``OverloadedError`` (no free decode slot yet). -> (rid, host seconds
+    and CUDA events of the call that succeeded, refused calls)."""
+    refused = 0
+    while True:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        try:
+            rid = D.import_prefill(payload, wire_bytes=wire_bytes)
+        except OverloadedError:
+            refused += 1
+            check(D.step(), "disagg: decode leg full and idle")
+            continue
+        b.record()
+        return rid, time.perf_counter() - t0, (a, b), refused
+
+
+def _disagg_run(P, D, prompts) -> dict:
+    """Each prompt: ``P.prefill_export``, pack (codec none), unpack,
+    ``D.import_prefill``; one ``D.step()`` after each import so the next
+    graft lands with chunks in flight. -> the decode leg's rids and
+    outputs and the per-request times and sizes."""
+    gather_s, stage_s = [], []
+
+    def timed(fn, into):
+        def wrapped(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            into.append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    # the export's gather (index_select, copy to pinned memory, its one
+    # sync) and the import's host staging (pinned copy, upload enqueued)
+    P._gather_blocks = timed(P._gather_blocks, gather_s)
+    D._stage_graft = timed(D._stage_graft, stage_s)
+    rec = {"prefill_export_s": [], "pack_s": [], "unpack_s": [], "import_host_s": [],
+           "blob_bytes": [], "payload_bytes": [], "import_events": [], "import_refused": 0}
+    rids = []
+    for p in prompts:
+        t0 = time.perf_counter()
+        payload = P.prefill_export(p)
+        rec["prefill_export_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        blob = pack_kv_payload(payload, codec="none")
+        rec["pack_s"].append(time.perf_counter() - t0)
+        del payload
+        t0 = time.perf_counter()
+        back = unpack_kv_payload(blob)
+        rec["unpack_s"].append(time.perf_counter() - t0)
+        rec["blob_bytes"].append(len(blob))
+        rec["payload_bytes"].append(packed_nbytes(blob))
+        del blob
+        rid, host_s, events, refused = _import_when_free(D, back, rec["blob_bytes"][-1])
+        rids.append(rid)
+        rec["import_host_s"].append(host_s)
+        rec["import_events"].append(events)
+        rec["import_refused"] += refused
+        del back
+        D.step()
+    D.run_until_idle()
+    P.run_until_idle()
+    torch.cuda.synchronize()
+    del P._gather_blocks, D._stage_graft
+    rec["export_gather_s"] = gather_s
+    rec["import_staging_s"] = stage_s
+    rec["import_device_s"] = [a.elapsed_time(b) / 1e3 for a, b in rec.pop("import_events")]
+    rec["outs"] = [D.result(rid) for rid in rids]
+    rec["rids"] = rids
+    return rec
+
+
+def _ms(xs) -> dict:
+    return {"mean": float(np.mean(xs)) * 1e3, "max": float(np.max(xs)) * 1e3}
+
+
+def _gbps(nbytes, secs) -> dict:
+    rates = [n / s / 1e9 for n, s in zip(nbytes, secs)]
+    return {"mean": float(np.mean(rates)), "max": float(np.max(rates))}
+
+
+def phase_disagg(name_power: str, model: Llama, prompts, slice_outs, cap: dict) -> dict:
+    """[disagg]: the [slice] requests split over a prefill leg P and a
+    decode leg D (two engines on one model, each with its own pools and
+    graphs), blocks crossing the packed wire in between; then the timer
+    and metering gates on D and P and the profiled decode on D."""
+    cfg = model.cfg
+    L = cfg.num_layers
+    check(native.have_native(),
+          "disagg: the native wire codec did not build (the Python CRC "
+          "fallback would take minutes on these payloads)")
+    P = _slice_engine(model, 32, capability=cap)
+    D = _slice_engine(model, 32, capability=cap)
+    P.meter_kind, D.meter_kind = "prefill_leg", "decode_leg"
+    torch.cuda.synchronize()
+    _zero_counts()
+    t_run = time.perf_counter()
+    rec = _disagg_run(P, D, prompts)
+    wall = time.perf_counter() - t_run
+    by_variant = dict(paged_decode_attention.launches_by_variant)
+    k_norm = fused_residual_norm.launches
+    outs = rec["outs"]
+    same = [bool(np.array_equal(a, b)) for a, b in zip(outs, slice_outs)]
+    sp, sd = P.stats(), D.stats()
+    exp_var = {"general": 0, "prefill": L * sp["prefill_chunks"],
+               "decode": L * sd["decode_steps"]}
+    say(f"[disagg] launches: paged_decode by variant {by_variant} (expected "
+        f"{exp_var}), fused_norm {k_norm} (expected {L * sd['decode_steps']}); "
+        f"P prefill chunks {sp['prefill_chunks']} decode steps {sp['decode_steps']}, "
+        f"D prefill chunks {sd['prefill_chunks']} decode steps {sd['decode_steps']}")
+    _graph_line("disagg D", sd["graphs"])
+    check(all(same), f"disagg: requests {[i for i, x in enumerate(same) if not x]} "
+          "differ from the [slice] run's tokens")
+    check(by_variant == exp_var and min(exp_var["prefill"], exp_var["decode"]) > 0,
+          "disagg: paged-decode launches off the legs' variants")
+    check(k_norm == L * sd["decode_steps"] and sp["decode_steps"] == 0
+          and sd["prefill_chunks"] == 0, "disagg: fused-norm launches off the path")
+    g = sd["graphs"]
+    check(g["captured"] == 1 and g["replays"] == sd["decode_steps"] // 8 - 1,
+          f"disagg: every D chunk but the first must be a replay: {g}")
+    n_tok = [len(p) for p in prompts]
+    for st, side in ((sp["disagg"], "export"), (sd["disagg"], "import")):
+        check(st[f"{side}s"] == len(prompts) and st[f"{side}_tokens"] == sum(n_tok)
+              and st[f"{side}_blocks"] == sum(-(-n // 16) for n in n_tok),
+              f"disagg: {side} counts off: {st}")
+    # the zlib ratio on one request (its own export, after the run)
+    pz = P.prefill_export(prompts[ZLIB_PICK])
+    raw_len = len(pack_kv_payload(pz, codec="none"))
+    t0 = time.perf_counter()
+    z_len = len(pack_kv_payload(pz, codec="zlib"))
+    z_s = time.perf_counter() - t0
+    del pz
+    res = {
+        "requests": len(prompts), "tokens_equal_slice": int(sum(same)),
+        "wall_s": wall,
+        "prefill_export_ms": _ms(rec["prefill_export_s"]),
+        "export_gather_ms": _ms(rec["export_gather_s"]),
+        "pack_gbps": _gbps(rec["payload_bytes"], rec["pack_s"]),
+        "unpack_gbps": _gbps(rec["payload_bytes"], rec["unpack_s"]),
+        "import_host_ms": _ms(rec["import_host_s"]),
+        "import_staging_host_ms": _ms(rec["import_staging_s"]),
+        "import_device_span_ms": _ms(rec["import_device_s"]),
+        "imports_refused_no_slot": rec["import_refused"],
+        # over the whole run: a short prompt ships a whole block, so a
+        # mean of per-request ratios would weigh the 1-token prompt 16x
+        "blob_bytes_per_prompt_token": sum(rec["blob_bytes"]) / sum(n_tok),
+        "blob_bytes_per_block_slot": sum(rec["blob_bytes"]) / (16 * sd["disagg"]["import_blocks"]),
+        "blob_bytes_total": int(sum(rec["blob_bytes"])),
+        "zlib_ratio": {"request": ZLIB_PICK, "tokens": n_tok[ZLIB_PICK],
+                       "none_bytes": raw_len, "zlib_bytes": z_len,
+                       "ratio": z_len / raw_len, "zlib_s": z_s},
+        "native_codec": native.have_native(),
+        "P_disagg": sp["disagg"], "D_disagg": sd["disagg"],
+        "card": name_power,
+    }
+    say(f"[disagg] {json.dumps(res)}")
+    _timer_line("disagg P", P, name_power)
+    _timer_line("disagg D", D, name_power)
+    _check_meters("disagg P", P, list(range(len(prompts))), prompts, 0,
+                  Identity.generate(), cap, name_power)
+    _check_meters("disagg D", D, rec["rids"], prompts, 32, Identity.generate(), cap,
+                  name_power, wire=rec["blob_bytes"])
+    prof = _profile_decode(D, cfg.vocab_size, name_power, tag="disagg D profile")
+    _check_timer_vs_profile("disagg D", D, prof, name_power)
+    del P, D
+    _free_cuda()
+    return {"paged": sum(by_variant.values()), "norm": k_norm,
+            "float_blob_bytes": rec["blob_bytes"]}
+
+
+def _share_equal(outs, refs) -> float:
+    same = sum(int((np.asarray(a) == np.asarray(b)).sum()) for a, b in zip(outs, refs))
+    return same / sum(len(a) for a in outs)
+
+
+def phase_disagg_int8(name_power: str, model: Llama, prompts, slice_outs,
+                      float_blob_bytes) -> dict:
+    """[disagg int8]: 4 of the [slice] requests (prompts <= 600 tokens)
+    int8 -> int8 (both legs ``kv_quant="int8"``, token-identical to an
+    int8 colocated engine, blobs under INT8_BLOB_MAX of the float blob of
+    the same prompt, B3's decode variant on int8 pools), then float ->
+    int8 and int8 -> float, each teacher-forced, with the share of
+    tokens equal to the importing engine's colocated run."""
+    L = model.cfg.num_layers
+    pick = list(DISAGG_INT8_PICK)
+    ps = [prompts[i] for i in pick]
+    check(all(len(p) <= 600 for p in ps), "disagg int8: a prompt over 600")
+    C8 = _slice_engine(model, 32, kv_quant="int8")
+    rids = [C8.submit(p) for p in ps]
+    C8.run_until_idle()
+    colo8 = [C8.result(r) for r in rids]
+    del C8
+    _free_cuda()
+    P8 = _slice_engine(model, 32, kv_quant="int8")
+    D8 = _slice_engine(model, 32, kv_quant="int8")
+    _zero_counts()
+    rec = _disagg_run(P8, D8, ps)
+    by_variant = dict(paged_decode_attention.launches_by_variant)
+    k_norm = fused_residual_norm.launches
+    sp, sd = P8.stats(), D8.stats()
+    exp_var = {"general": 0, "prefill": L * sp["prefill_chunks"],
+               "decode": L * sd["decode_steps"]}
+    ratio = [b / float_blob_bytes[i] for b, i in zip(rec["blob_bytes"], pick)]
+    same = [bool(np.array_equal(a, b)) for a, b in zip(rec["outs"], colo8)]
+    pool_dtype = str(D8._pools[0]["k"].dtype)
+    res = {"requests": len(ps), "prompt_tokens": [len(p) for p in ps],
+           "int8_int8_tokens_equal_int8_colocated": int(sum(same)),
+           "blob_over_float_blob": ratio, "decode_pool_dtype": pool_dtype,
+           "launches_by_variant": by_variant, "expected": exp_var,
+           "fused_norm": k_norm,
+           "export_gather_ms": _ms(rec["export_gather_s"]),
+           "import_device_span_ms": _ms(rec["import_device_s"]),
+           "card": name_power}
+    say(f"[disagg int8] {json.dumps(res)}")
+    check(all(same), "disagg int8: int8 -> int8 tokens differ from the int8 "
+          "colocated engine's")
+    check(max(ratio) < INT8_BLOB_MAX, f"disagg int8: blob ratios {ratio}")
+    check(pool_dtype == "torch.int8" and by_variant == exp_var
+          and exp_var["decode"] > 0, "disagg int8: B3 launches off the int8 path")
+    check(k_norm == L * sd["decode_steps"], "disagg int8: fused-norm launches off the path")
+    _check_replays("disagg int8 D", sd)
+    del D8
+    _free_cuda()
+    # float -> int8, then int8 -> float (P8 keeps its warm prefixes)
+    PF = _slice_engine(model, 32)
+    D8b = _slice_engine(model, 32, kv_quant="int8")
+    f2q = _disagg_run(PF, D8b, ps)["outs"]
+    del PF, D8b
+    _free_cuda()
+    DF = _slice_engine(model, 32)
+    q2f = _disagg_run(P8, DF, ps)["outs"]
+    del P8, DF
+    _free_cuda()
+    tf1 = _teacher_forced("disagg float->int8", model, ps, f2q)
+    tf2 = _teacher_forced("disagg int8->float", model, ps, q2f)
+    res = {"float_to_int8_share_equal_int8_colocated": _share_equal(f2q, colo8),
+           "int8_to_float_share_equal_float_colocated":
+               _share_equal(q2f, [slice_outs[i] for i in pick]),
+           "worst_gap": {"float_to_int8": tf1["worst_gap"],
+                         "int8_to_float": tf2["worst_gap"]},
+           "card": name_power}
+    say(f"[disagg int8 cross-form] {json.dumps(res)}")
+    return {"paged": sum(by_variant.values()), "norm": k_norm}
 
 
 # ------------------------------------------------------ contiguous-cache legs
@@ -2069,9 +2478,13 @@ def main() -> int:
     paged = phase_paged(flush)
     norm = phase_norm(flush, floor_ms)
     flash = phase_flash(flush)
+    cap = phase_capability(name_power)
     model = Llama(LlamaConfig.llama3_8b(), device=DEV, dtype=torch.bfloat16,
                   seed=0)
-    launches = phase_slice(name_power, model)
+    launches = phase_slice(name_power, model, cap)
+    disagg = phase_disagg(name_power, model, launches["prompts"], launches["outs"], cap)
+    disagg8 = phase_disagg_int8(name_power, model, launches["prompts"], launches["outs"],
+                                disagg["float_blob_bytes"])
     static = phase_static(name_power, model)
     spec = phase_spec_paged(name_power, model)
     phase_overload(name_power, model)
@@ -2093,9 +2506,13 @@ def main() -> int:
                   "static": static["launches_norm"],
                   "contiguous": contiguous["launches_norm"],
                   "rolling": rolling["launches_norm"],
-                  "spec paged (draft steps)": spec["norm"]}
+                  "spec paged (draft steps)": spec["norm"],
+                  "disagg decode leg": disagg["norm"],
+                  "disagg int8 decode leg": disagg8["norm"]}
     paged_paths = {"paged serving": launches["launches_paged"],
-                   "spec paged (verify passes, prefill chunks)": spec["paged"]}
+                   "spec paged (verify passes, prefill chunks)": spec["paged"],
+                   "disagg (both legs)": disagg["paged"],
+                   "disagg int8 (both legs)": disagg8["paged"]}
     say(f"[launches] fused_residual_norm by path: {json.dumps(norm_paths)}")
     say(f"[launches] paged_decode_attention by path: {json.dumps(paged_paths)}")
     kernels = [

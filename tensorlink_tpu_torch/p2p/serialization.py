@@ -1,0 +1,312 @@
+"""Array blobs on the wire (the ``pack_arrays`` / ``unpack_arrays`` /
+``packed_nbytes`` part of ``tensorlink_tpu/p2p/serialization.py``).
+
+A blob is ``MAGIC + len(head) (4 bytes, big-endian) + head + body``:
+``head`` is a msgpack map ``{"codec", "tensors": {name: {"dtype",
+"shape", "offset", "nbytes"}}, "crc32c"}`` and ``body`` the tensors'
+bytes, concatenated and checksummed in one native pass
+(``tensorlink_tpu_torch/native``), then compressed with the codec. A
+port blob is byte-identical to a JAX-package blob of the same arrays, so
+either side reads the other's.
+
+The manifest codec is written here (``packb`` / ``unpackb``) for the
+msgpack subset a manifest uses: maps, str, int, list and bin, plus nil,
+bool and float64, each in msgpack's smallest encoding, as
+``msgpack.packb(..., use_bin_type=True)`` gives it. No ``msgpack`` and no
+``ml_dtypes`` are needed: dtypes travel by numpy name, and a
+``torch.bfloat16`` tensor travels as its bits under ``"bfloat16"``.
+Codec ``"zstd"`` falls back to ``"zlib"`` where ``zstandard`` is missing,
+as in the reference.
+
+``pack_arrays`` takes CPU torch tensors (or numpy arrays);
+``unpack_arrays`` returns CPU torch tensors that share one buffer.
+"""
+
+from __future__ import annotations
+
+import struct
+import threading
+import zlib
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from tensorlink_tpu_torch.native import crc32c, gather
+
+try:
+    import zstandard as _zstd
+except ImportError:  # the reference's fallback: zstd blobs become zlib
+    _zstd = None
+
+MAGIC = b"TLT1"
+
+# zstd contexts hold streaming state and are not safe for concurrent
+# use: one per thread
+_TLS = threading.local()
+
+
+def _zc():
+    c = getattr(_TLS, "zc", None)
+    if c is None:
+        c = _TLS.zc = _zstd.ZstdCompressor(level=3)
+    return c
+
+
+def _zd():
+    d = getattr(_TLS, "zd", None)
+    if d is None:
+        d = _TLS.zd = _zstd.ZstdDecompressor()
+    return d
+
+
+# ------------------------------------------------------- manifest codec
+
+
+def _pack_into(out: bytearray, obj) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True:
+        out.append(0xC3)
+    elif obj is False:
+        out.append(0xC2)
+    elif isinstance(obj, int):
+        if obj < -(1 << 63) or obj >= (1 << 64):
+            raise OverflowError(f"int {obj} does not fit msgpack")
+        if 0 <= obj < 0x80:
+            out.append(obj)
+        elif -32 <= obj < 0:
+            out.append(obj & 0xFF)
+        elif obj >= 0:
+            for lim, tag, fmt in ((1 << 8, 0xCC, ">B"), (1 << 16, 0xCD, ">H"),
+                                  (1 << 32, 0xCE, ">I"), (1 << 64, 0xCF, ">Q")):
+                if obj < lim:
+                    out.append(tag)
+                    out += struct.pack(fmt, obj)
+                    break
+        else:
+            for lim, tag, fmt in ((1 << 7, 0xD0, ">b"), (1 << 15, 0xD1, ">h"),
+                                  (1 << 31, 0xD2, ">i"), (1 << 63, 0xD3, ">q")):
+                if obj >= -lim:
+                    out.append(tag)
+                    out += struct.pack(fmt, obj)
+                    break
+    elif isinstance(obj, float):
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _head(out, len(raw), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        raw = bytes(obj)
+        _head(out, len(raw), None, 0, (0xC4, 0xC5, 0xC6))
+        out += raw
+    elif isinstance(obj, (list, tuple)):
+        _head(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for item in obj:
+            _pack_into(out, item)
+    elif isinstance(obj, dict):
+        _head(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack_into(out, k)
+            _pack_into(out, v)
+    else:
+        raise TypeError(f"cannot serialize {type(obj).__name__} in a manifest")
+
+
+def _head(out: bytearray, n: int, fix: int | None, fix_lim: int, tags) -> None:
+    """A length header: the fix form below ``fix_lim``, else the 8-, 16-
+    or 32-bit form (``tags``; None where msgpack has no such form)."""
+    if fix is not None and n < fix_lim:
+        out.append(fix | n)
+        return
+    for lim, tag, fmt in zip((1 << 8, 1 << 16, 1 << 32), tags, (">B", ">H", ">I")):
+        if tag is not None and n < lim:
+            out.append(tag)
+            out += struct.pack(fmt, n)
+            return
+    raise OverflowError(f"length {n} does not fit msgpack")
+
+
+def packb(obj) -> bytes:
+    """``msgpack.packb(obj, use_bin_type=True)`` for the manifest subset."""
+    out = bytearray()
+    _pack_into(out, obj)
+    return bytes(out)
+
+
+_FIXED = {  # tag -> (struct format, kind)
+    0xCC: (">B", "num"), 0xCD: (">H", "num"), 0xCE: (">I", "num"),
+    0xCF: (">Q", "num"), 0xD0: (">b", "num"), 0xD1: (">h", "num"),
+    0xD2: (">i", "num"), 0xD3: (">q", "num"), 0xCA: (">f", "num"),
+    0xCB: (">d", "num"),
+    0xD9: (">B", "str"), 0xDA: (">H", "str"), 0xDB: (">I", "str"),
+    0xC4: (">B", "bin"), 0xC5: (">H", "bin"), 0xC6: (">I", "bin"),
+    0xDC: (">H", "list"), 0xDD: (">I", "list"),
+    0xDE: (">H", "map"), 0xDF: (">I", "map"),
+}
+
+
+def _unpack_at(data, i: int):
+    if i >= len(data):
+        raise ValueError("truncated msgpack manifest")
+    b = data[i]
+    i += 1
+    if b < 0x80:
+        return b, i
+    if b >= 0xE0:
+        return b - 0x100, i
+    if 0xA0 <= b <= 0xBF:
+        kind, n = "str", b & 0x1F
+    elif 0x90 <= b <= 0x9F:
+        kind, n = "list", b & 0x0F
+    elif 0x80 <= b <= 0x8F:
+        kind, n = "map", b & 0x0F
+    elif b in (0xC0, 0xC2, 0xC3):
+        return {0xC0: None, 0xC2: False, 0xC3: True}[b], i
+    elif b in _FIXED:
+        fmt, kind = _FIXED[b]
+        size = struct.calcsize(fmt)
+        if i + size > len(data):
+            raise ValueError("truncated msgpack manifest")
+        (n,) = struct.unpack_from(fmt, data, i)
+        i += size
+        if kind == "num":
+            return n, i
+    else:
+        raise ValueError(f"msgpack type 0x{b:02x} is not part of a manifest")
+    if kind in ("str", "bin"):
+        if i + n > len(data):
+            raise ValueError("truncated msgpack manifest")
+        raw = bytes(data[i:i + n])
+        return (raw.decode("utf-8") if kind == "str" else raw), i + n
+    if kind == "list":
+        items = []
+        for _ in range(n):
+            v, i = _unpack_at(data, i)
+            items.append(v)
+        return items, i
+    out = {}
+    for _ in range(n):
+        k, i = _unpack_at(data, i)
+        if not isinstance(k, (str, bytes)):
+            raise ValueError("msgpack manifest map keys must be str or bytes")
+        out[k], i = _unpack_at(data, i)
+    return out, i
+
+
+def unpackb(data) -> Any:
+    """``msgpack.unpackb(data, raw=False)`` for the manifest subset."""
+    obj, end = _unpack_at(data, 0)
+    if end != len(data):
+        raise ValueError("extra bytes after the msgpack manifest")
+    return obj
+
+
+# ---------------------------------------------------------------- arrays
+
+# numpy dtype name <-> torch dtype: the names the reference writes
+_TORCH_BY_NAME = {
+    "bool": torch.bool, "uint8": torch.uint8, "int8": torch.int8,
+    "int16": torch.int16, "int32": torch.int32, "int64": torch.int64,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "float32": torch.float32, "float64": torch.float64,
+}
+_NAME_BY_TORCH = {v: k for k, v in _TORCH_BY_NAME.items()}
+
+
+def _compress(data: bytes, codec: str) -> bytes:
+    if codec == "zstd" and _zstd is not None:
+        return _zc().compress(data)
+    if codec == "zlib":
+        return zlib.compress(data, 6)
+    return data
+
+
+def _decompress(data: bytes, codec: str) -> bytes:
+    if codec == "zstd" and _zstd is not None:
+        return _zd().decompress(data)
+    if codec == "zlib":
+        return zlib.decompress(data)
+    return data
+
+
+def _wire_form(arr):
+    """-> (dtype name, shape, buffer): a CPU tensor as is (its bits), a
+    numpy array native-endian and contiguous. A 0-d value travels with
+    shape [1], as ``np.ascontiguousarray`` makes it in the reference."""
+    if isinstance(arr, torch.Tensor):
+        if arr.dtype not in _NAME_BY_TORCH:
+            raise TypeError(f"no wire name for {arr.dtype}")
+        return _NAME_BY_TORCH[arr.dtype], list(arr.shape) or [1], arr
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.byteorder == ">":  # the wire is native-endian
+        arr = arr.astype(arr.dtype.newbyteorder("="))
+    return arr.dtype.name, list(arr.shape), arr
+
+
+def pack_arrays(arrays: Mapping[str, Any], codec: str = "zstd") -> bytes:
+    """{name: tensor or array} -> MAGIC + msgpack(manifest) + blob. The
+    tensor bytes are concatenated and checksummed in one native pass,
+    and the CRC-32C rides the manifest, checked after decompression on
+    the receiving side."""
+    if codec == "zstd" and _zstd is None:
+        codec = "zlib"
+    manifest: dict[str, Any] = {"codec": codec, "tensors": {}}
+    bufs = []
+    offset = 0
+    for name, arr in arrays.items():
+        dtype, shape, buf = _wire_form(arr)
+        nbytes = (buf.numel() * buf.element_size() if isinstance(buf, torch.Tensor)
+                  else buf.nbytes)
+        manifest["tensors"][name] = {
+            "dtype": dtype, "shape": shape, "offset": offset, "nbytes": nbytes,
+        }
+        bufs.append(buf)
+        offset += nbytes
+    raw, crc = gather(bufs, with_crc=True)
+    manifest["crc32c"] = crc
+    body = _compress(raw, codec) if codec in ("zstd", "zlib") else raw
+    head = packb(manifest)
+    return MAGIC + len(head).to_bytes(4, "big") + head + bytes(body)
+
+
+def _manifest(data) -> tuple[dict, int]:
+    if bytes(data[:4]) != MAGIC:
+        raise ValueError("bad array blob magic")
+    hlen = int.from_bytes(data[4:8], "big")
+    return unpackb(data[8:8 + hlen]), 8 + hlen
+
+
+def packed_nbytes(data: bytes) -> int:
+    """Total uncompressed tensor bytes in a packed blob, from the manifest
+    alone (admission control must use this, not ``len(blob)``)."""
+    manifest, _ = _manifest(data)
+    return sum(int(m["nbytes"]) for m in manifest["tensors"].values())
+
+
+def unpack_arrays(data: bytes) -> dict[str, torch.Tensor]:
+    """Blob -> {name: CPU tensor}. Raises ``ValueError`` on a bad magic,
+    an unknown dtype or a CRC-32C mismatch."""
+    manifest, start = _manifest(data)
+    body = bytearray(_decompress(bytes(data[start:]), manifest["codec"]))
+    want = manifest.get("crc32c")
+    if want is not None and crc32c(body) != want:
+        raise ValueError("tensor blob CRC-32C mismatch (corrupt payload)")
+    out = {}
+    for name, meta in manifest["tensors"].items():
+        dtype = _TORCH_BY_NAME.get(meta["dtype"])
+        if dtype is None:
+            raise ValueError(f"unknown wire dtype {meta['dtype']!r}")
+        off, nbytes = int(meta["offset"]), int(meta["nbytes"])
+        if off + nbytes > len(body):
+            raise ValueError(f"tensor {name!r} runs past the blob body")
+        if nbytes == 0:
+            out[name] = torch.empty(meta["shape"], dtype=dtype)
+            continue
+        flat = torch.frombuffer(body, dtype=torch.uint8, count=nbytes, offset=off)
+        if off % flat.new_empty((), dtype=dtype).element_size():
+            flat = flat.clone()  # an aligned copy of a misaligned tensor
+        out[name] = flat.view(dtype).reshape(meta["shape"])
+    return out

@@ -83,11 +83,41 @@ out the same way) until the first chunk after it drains; TTFT is stamped
 when its event is seen complete. Requests finish, and their slots and
 blocks free, at drain.
 
-Not ported yet (see ROADMAP): metering and receipts, metrics and events
-(the counts live in ``stats()``), disaggregated prefill export and
-import, autotune and the compile cache, device timing, chaos hooks,
-speculation self-healing and draft auto-pairing, ``asubmit`` /
-``aresult``.
+**Device timing** (``device_timing=True``, ``runtime/profiling.py``):
+every prefill, decode and spec dispatch goes through a
+``DispatchTimer``. On CUDA two timing events are recorded around the
+dispatch (around ``GraphCache.run``, never inside a captured body); the
+timer reads them when they have completed (``poll`` each step, exactly at
+the drain's sync), so it adds no sync. ``device_time()`` and
+``stats()["device_time"]`` give each program's count, busy and gap
+seconds, host-gap share and device tokens/s, and, with a ``capability``
+record (``measure_capability``), its MFU and MBU from the flops and
+bytes ``program_cost`` counts at each dispatch.
+
+**Metering** (``metering=True``): each request accumulates the busy
+seconds of the dispatches that served it (a prefill dispatch bills its
+request; a decode or spec chunk is split equally over the rows it was
+dispatched for), their flops and bytes, KV block-seconds (paged: at
+alloc, grow, preempt and finish) and the wire bytes of an imported
+prefill. A finished request leaves a meter (``meter(rid)``,
+``drain_meters()``) that ``runtime/ledger.py build_receipt`` signs. A
+meter is written once the last chunk in flight that served its request
+has drained, so every chunk's device time bills some request.
+
+**Disaggregated prefill/decode** (paged engine, ``parallel/kvwire.py``):
+``prefill_export`` runs a request's chunked prefill on a held slot (the
+row is off on the device and out of every decode chunk) and returns its
+filled blocks, gathered from the pools in one sync, with the first
+token and the scalars a decode leg needs. ``import_prefill`` on another
+engine grafts the blocks into its preallocated pools in place (under
+graph replay the captured graphs keep reading the same tensors), points
+the slot's block-table row at them and decodes token-identically to
+colocated serving. Draft-model speculation raises
+``NotImplementedError`` there, as in the reference.
+
+Not ported yet (see ROADMAP): metrics and events (the counts live in
+``stats()``), autotune and the compile cache, chaos hooks, speculation
+self-healing and draft auto-pairing, ``asubmit`` / ``aresult``.
 """
 
 from __future__ import annotations
@@ -102,6 +132,7 @@ import numpy as np
 import torch
 
 from tensorlink_tpu_torch.nn.attention import paged_write_slots
+from tensorlink_tpu_torch.ops.quant import quantize_kv_int8
 from tensorlink_tpu_torch.parallel.inference import (
     GenerationConfig,
     InferenceEngine,
@@ -120,6 +151,7 @@ from tensorlink_tpu_torch.parallel.speculative import (
     ngram_propose,
 )
 from tensorlink_tpu_torch.runtime.graphs import GraphCache
+from tensorlink_tpu_torch.runtime.profiling import DispatchTimer, program_cost
 
 __all__ = [
     "ContinuousBatchingEngine",
@@ -259,6 +291,11 @@ def serve_error_from_wire(resp: dict) -> BaseException:
     return cls(msg)
 
 
+def _as_tensor(x) -> torch.Tensor:
+    """A payload field as a CPU tensor (a numpy array is wrapped)."""
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+
+
 @dataclass
 class _Request:
     rid: int
@@ -285,6 +322,29 @@ class _Request:
     spec_rounds: int = 0  # verify passes this request was live for
     spec_proposed: int = 0  # drafted tokens verified for it
     spec_accepted: int = 0  # drafted tokens accepted into its stream
+    # wall-clock anchor of the meter's t_start (the other stamps are
+    # perf_counter)
+    submitted_ns: int = 0
+    n_prompt: int = 0  # prompt tokens (the prompt itself is dropped at finish)
+    # prefill-leg hold (disaggregated serving): the scheduler prefills the
+    # request but never decodes it; prefill_export ships its blocks
+    hold: bool = False
+    # metering: busy seconds, flops and bytes of the dispatches that
+    # served it, KV block-seconds, the imported blob's bytes
+    busy_s: float = 0.0
+    flops: float = 0.0
+    hbm_bytes: float = 0.0
+    kv_block_s: float = 0.0
+    kv_blocks_now: int = 0
+    kv_anchor: float | None = None
+    wire_bytes: int = 0
+    # the last prefill dispatch's timer handle, and every prefill handle
+    # not yet folded into the meter
+    disp: object | None = None
+    disp_hist: list = field(default_factory=list)
+    # finished while a chunk that served it was still in flight: its
+    # meter is written when the last such chunk drains
+    meter_deferred: bool = False
 
 
 class ContinuousBatchingEngine:
@@ -304,6 +364,12 @@ class ContinuousBatchingEngine:
     body either way. ``speculative`` (a ``SpecConfig``, or True for the
     default one) turns on speculative decoding, n-gram unless ``draft``
     (an ``InferenceEngine`` on the same device and vocabulary) is given.
+    ``device_timing``: time every dispatch (``stats()["device_time"]``);
+    ``capability``: a ``measure_capability`` record, the peaks MFU and MBU
+    are computed against. ``metering``: keep a meter a finished request
+    (``meter``, ``drain_meters``); ``meter_kind`` names what they bill
+    (``"serve"``, or a disaggregated leg's ``"prefill_leg"`` /
+    ``"decode_leg"``).
     """
 
     def __init__(
@@ -320,6 +386,9 @@ class ContinuousBatchingEngine:
         cuda_graphs: bool = True,
         draft: InferenceEngine | None = None,
         speculative: SpecConfig | bool | None = None,
+        device_timing: bool = True,
+        capability: dict | None = None,
+        metering: bool = True,
     ):
         if engine.rolling:
             raise NotImplementedError(
@@ -341,6 +410,18 @@ class ContinuousBatchingEngine:
         self.keep_results = max(int(keep_results), 1)
         self.L = L = engine.cache_len
         self._lock = threading.Lock()
+
+        # per-dispatch device timing (runtime/profiling.py): events
+        # recorded around each dispatch, read once complete; no sync added
+        self._timer = DispatchTimer() if device_timing else None
+        self.capability = capability
+        # metering (runtime/ledger.py): finished-request meters, addressable
+        # by rid and drainable once, both bounded
+        self.metering = bool(metering)
+        self.meter_kind = "serve"
+        self._meter_log: collections.OrderedDict[int, dict] = collections.OrderedDict()
+        self._meter_fresh: collections.deque = collections.deque(maxlen=512)
+        self._metered_total = 0
 
         # speculative decoding: a draft engine implies draft-model mode;
         # ``speculative`` alone (True or a SpecConfig) n-gram mode
@@ -383,7 +464,7 @@ class ContinuousBatchingEngine:
         self._graphs = GraphCache(dev, enabled=cuda_graphs)
         # dispatched, not yet drained: (host output, event or None, the
         # dispatch-time slot -> request snapshot, slot -> the most
-        # positions the chunk may advance that slot)
+        # positions the chunk may advance that slot, timer handle or None)
         self._inflight: collections.deque = collections.deque()
         pin = dev.type == "cuda"
         self._host_out = [
@@ -436,6 +517,9 @@ class ContinuousBatchingEngine:
         eng, S = self.engine, self.slots
         caches = eng.model.init_caches(S, self.L, dtype=eng.cache_dtype)
         self._kv = [(c["attn"]["k"], c["attn"]["v"]) for c in caches]
+        k0 = self._kv[0][0]
+        # k/v bytes one token holds in one layer (program_cost)
+        self._kv_token_bytes = 2 * int(np.prod(k0.shape[2:])) * k0.element_size()
         self._cache_index = torch.zeros((S,), dtype=torch.int32, device=self.device)
         # host mirror: each slot's device write index is _slot_base plus
         # the request's tokens banked so far, less one (the last sampled
@@ -468,19 +552,52 @@ class ContinuousBatchingEngine:
         else:
             self._ids = torch.zeros((S, L + K + 1), dtype=torch.int64, device=dev)
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the device without a stream sync (a blocking
-        copy would wait for every chunk in flight)."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
+    def _to_device(self, a) -> torch.Tensor:
+        """A host array or CPU tensor on the device without a stream sync
+        (a blocking copy would wait for every chunk in flight)."""
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
         if self.device.type != "cuda":
             return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        if not t.is_pinned():
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    # ------------------------------------------------------ device timing
+    def _timer_start(self):
+        """A timed dispatch's (start, end) CUDA events, the start recorded
+        now, before its first launch; None without a timer or on the
+        CPU. ``_timer_end`` records the end once its work is enqueued."""
+        if self._timer is None or self.device.type != "cuda":
+            return None
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        return start, torch.cuda.Event(enable_timing=True)
+
+    @staticmethod
+    def _timer_end(probe) -> None:
+        if probe is not None:
+            probe[1].record()
+
+    def _timer_dispatch(self, program: str, probe, cost: dict | None):
+        """Note a dispatch that just returned, with its events (CUDA) and
+        its cost, on a timer handle. None without a timer."""
+        if self._timer is None:
+            return None
+        return self._timer.dispatch(program, probe, cost=cost)
+
+    def _cost(self, program: str, *, rows: int, steps: int, frontier, k: int = 0):
+        return program_cost(
+            self.engine.model.cfg, program, rows=rows, steps=steps,
+            frontier=frontier, k=k,
+            weight_itemsize=torch.empty((), dtype=self.engine.param_dtype).element_size(),
+            kv_token_bytes=self._kv_token_bytes,
+        )
 
     # ------------------------------------------------------------ submit
     def submit(self, ids, *, max_new: int | None = None, seed: int = 0,
                priority: Priority | int | str = Priority.STANDARD,
                deadline_s: float | None = None,
-               tenant: str | None = None) -> int:
+               tenant: str | None = None, _hold: bool = False) -> int:
         """Enqueue one prompt (1-D token array); returns a request id.
 
         ``priority`` (:class:`Priority`, its value or name) orders
@@ -521,6 +638,7 @@ class ContinuousBatchingEngine:
                 deadline_s=deadline_s,
                 deadline_at=None if deadline_s is None else now + deadline_s,
                 tenant=str(tenant)[:128] if tenant else None,
+                submitted_ns=time.time_ns(), hold=_hold, n_prompt=int(ids.size),
             )
             if deadline_s is not None:
                 self._deadlined += 1
@@ -707,6 +825,7 @@ class ContinuousBatchingEngine:
         qslot = torch.arange(Tp, device=dev)[:, None]
         mask = ((qslot >= qslot.T) & real[None, :])[None, None]  # key at or before query
         model = self.engine.model
+        probe = self._timer_start()
         hidden, _ = model(ids, caches=self._slot_caches(self._kv, slot),
                           positions=pos, mask=mask, logits=False)
         if self.spec is not None and self.spec.mode == "draft":
@@ -721,9 +840,19 @@ class ContinuousBatchingEngine:
         self._slot_ub[slot] = Tp
         self._start_row(slot, model.head(hidden[0, -1]), req.seed, t0,
                         req.max_new, True)
+        self._note_prefill(req, "prefill", probe, self._cost(
+            "prefill_chunk", rows=1, steps=Tp, frontier=[Tp]))
         self.prefill_chunks += 1
         req.prefill_chunks += 1
         req.first_token = self._stash_first(self._tok[slot])
+
+    def _note_prefill(self, req: _Request, program: str, probe, cost) -> None:
+        """Time a prefill dispatch that just returned; its handle bills
+        the request."""
+        self._timer_end(probe)
+        req.disp = self._timer_dispatch(program, probe, cost)
+        if req.disp is not None and self.metering:
+            req.disp_hist.append(req.disp)
 
     def _slot_caches(self, kv, slot: int) -> list[dict]:
         """One slot's [1, L] views of cache (k, v) pairs, at index 0."""
@@ -786,9 +915,21 @@ class ContinuousBatchingEngine:
         host, event = req.first_token
         if event is not None:
             event.synchronize()
+        self._prefill_synced(req)
         self._maybe_record_ttft(req)
         req.first_token = None
         self._append_token(req, int(host))
+
+    def _prefill_synced(self, req: _Request) -> None:
+        """The first token's copy has been waited on: its prefill dispatch
+        (and every one before it) finalizes, and the request's finalized
+        prefill dispatches fold into its meter (before the token is
+        appended: a one-token request finishes there)."""
+        if req.disp is not None and self._timer is not None:
+            self._timer.drained(req.disp)
+        req.disp = None
+        if self.metering:
+            self._meter_fold_prefill(req)
 
     # ------------------------------------------------------------ decode
     def _step_caches(self, index, frontier, T: int = 1) -> list[dict]:
@@ -986,17 +1127,25 @@ class ContinuousBatchingEngine:
         copy to the host; the chunk joins the in-flight queue."""
         frontier = self._frontier(decoding)
         if self.spec is None:
+            program = "decode"
+            probe = self._timer_start()
             self._graphs.run(self._chunk_key(frontier),
-                             lambda: self._chunk_body(frontier))
+                             lambda: self._chunk_body(frontier),
+                             after=lambda: self._timer_end(probe))
+            disp = self._timer_dispatch(program, probe, None)
             self.decode_steps += self.decode_chunk
         else:
+            program = "spec_chunk"
             ks = self._k_dispatch if self._k_dispatch is not None else self._spec_k_array()
             self._k_dispatch = ks
             if self._kctl is not None:
                 self._kctl.note_dispatch(ks[s] for s in decoding)
             self._k_eff.copy_(self._to_device(np.asarray(ks, np.int32)))
+            probe = self._timer_start()
             self._graphs.run(self._spec_key(frontier),
-                             lambda: self._spec_chunk_body(frontier))
+                             lambda: self._spec_chunk_body(frontier),
+                             after=lambda: self._timer_end(probe))
+            disp = self._timer_dispatch(program, probe, None)
             cfg = self.spec.cfg
             self.verify_passes += cfg.rounds
             if self.spec.mode == "draft":
@@ -1017,8 +1166,16 @@ class ContinuousBatchingEngine:
         snap = tuple(
             r if s in live else None for s, r in enumerate(self._slot_req)
         )
-        self._inflight.append((host, event, snap, adv))
+        self._inflight.append((host, event, snap, adv, disp))
         self._advance_ub(adv)
+        if disp is not None:
+            # each decoding row's write frontier once this chunk has run
+            disp.cost = self._cost(
+                program, rows=self.slots,
+                steps=self.decode_chunk if self.spec is None else self.spec.cfg.rounds,
+                frontier=[self._slot_ub[s] for s in decoding],
+                k=0 if self.spec is None else self.spec.cfg.k,
+            )
 
     def _advance_ub(self, adv: dict) -> None:
         for s, n in adv.items():
@@ -1031,21 +1188,34 @@ class ContinuousBatchingEngine:
         tokens to the requests of its dispatch-time snapshot, and tighten
         each still-running slot's upper bound to its now known write index
         plus the chunks still in flight."""
-        host, event, snap, _ = self._inflight.popleft()
+        host, event, snap, _, disp = self._inflight.popleft()
         if event is not None:
             event.synchronize()
         for req in snap:
             if req is not None:
                 self._take_first(req)
+        if disp is not None:
+            self._timer.drained(disp)  # right after the sync: exact
+            if self.metering:
+                # before the tokens: a request they finish bills this chunk
+                self._meter_apportion(disp, [r for r in snap if r is not None])
         toks = host.numpy()
         if self.spec is None:
+            emitted = 0
             for k in range(toks.shape[0]):
                 for s, req in enumerate(snap):
                     if req is not None and not req.done:
                         self._append_token(req, int(toks[k, s]))
-                        self._drained_tokens += 1
+                        emitted += 1
+            self._drained_tokens += emitted
+            if self._timer is not None:
+                self._timer.count_tokens("decode", emitted)
         else:
             self._drain_spec(toks, snap)
+        for req in snap:
+            if req is not None and req.meter_deferred and not self._in_flight(req):
+                req.meter_deferred = False
+                self._meter_finish(req)
         for s, req in enumerate(snap):
             if req is None or req.done or self._slot_req[s] is not req:
                 continue
@@ -1084,6 +1254,8 @@ class ContinuousBatchingEngine:
                         break
                     self._append_token(req, int(out[r, k, s]))
                     self._drained_tokens += 1
+        if self._timer is not None:
+            self._timer.count_tokens("spec_chunk", emitted)
         self.spec_rounds_total += rounds
         self.spec_emitted_total += emitted
         self.spec_accepted_total += accepted
@@ -1091,10 +1263,108 @@ class ContinuousBatchingEngine:
         self.spec_fallback_total += int(out[:, K + 3].sum())
         self.spec_idle_draft_steps += int(out[:, K + 5, 0].sum())
 
+    # ---------------------------------------------------------- metering
+    def _in_flight(self, req: _Request) -> bool:
+        """A chunk still in flight was dispatched for ``req``."""
+        return any(r is req for e in self._inflight for r in e[2])
+
+    def _meter_apportion(self, disp, served) -> None:
+        """Split one drained chunk's busy seconds, flops and bytes equally
+        over the rows it was dispatched for: a row bills the lane it held
+        (the chunk's cost did not depend on how many rows emitted). Every
+        row of the dispatch-time snapshot bills, also one whose request
+        ended in an earlier chunk, so every chunk bills some request."""
+        if not served:
+            return
+        share = 1.0 / len(served)
+        cost = disp.cost or {}
+        busy = disp.busy_s * share
+        fl = cost.get("flops", 0.0) * share
+        by = cost.get("bytes", 0.0) * share
+        for req in served:
+            req.busy_s += busy
+            req.flops += fl
+            req.hbm_bytes += by
+
+    def _meter_fold_prefill(self, req: _Request) -> None:
+        """Fold the request's finalized prefill dispatches into its meter:
+        a prefill dispatch serves one request and bills it whole. A
+        handle not yet finalized stays parked."""
+        rest = []
+        for d in req.disp_hist:
+            if not d.done:
+                rest.append(d)
+                continue
+            req.busy_s += d.busy_s
+            if d.cost:
+                req.flops += d.cost.get("flops", 0.0)
+                req.hbm_bytes += d.cost.get("bytes", 0.0)
+        req.disp_hist = rest
+
+    def _meter_kv(self, req: _Request, blocks: int | None = None) -> None:
+        """Integrate KV block-seconds: fold the (blocks x elapsed)
+        rectangle since the last change in holding, then anchor at the new
+        count (paged: alloc, grow, preempt, finish)."""
+        now = time.perf_counter()
+        if req.kv_anchor is not None:
+            req.kv_block_s += req.kv_blocks_now * (now - req.kv_anchor)
+        req.kv_anchor = now
+        if blocks is not None:
+            req.kv_blocks_now = int(blocks)
+
+    def _meter_finish(self, req: _Request, kind: str | None = None) -> None:
+        """Freeze a finished request's accumulators into the meter a
+        receipt is built from (``runtime/ledger.py build_receipt``); the
+        wall-clock window runs from its submission to now."""
+        self._meter_fold_prefill(req)
+        t0 = (req.submitted_ns or time.time_ns()) / 1e9
+        meter = {
+            "rid": req.rid,
+            "tenant": req.tenant or "anonymous",
+            "kind": kind or self.meter_kind,
+            "t_start": t0,
+            "t_end": t0 + max(time.perf_counter() - req.submitted_at, 0.0),
+            "prompt_tokens": req.n_prompt,
+            "emitted_tokens": len(req.tokens),
+            "busy_s": req.busy_s,
+            "flops": req.flops,
+            "hbm_bytes": req.hbm_bytes,
+            "kv_block_s": req.kv_block_s,
+            "wire_bytes": req.wire_bytes,
+        }
+        self._meter_log[req.rid] = meter
+        while len(self._meter_log) > 4 * self.keep_results:
+            self._meter_log.popitem(last=False)
+        self._meter_fresh.append(meter)
+        self._metered_total += 1
+
+    def meter(self, rid: int) -> dict | None:
+        """The finished request's meter: None until it is written (once
+        the last chunk that served the request has drained) or after
+        bounded eviction."""
+        with self._lock:
+            return self._meter_log.get(rid)
+
+    def drain_meters(self, limit: int = 64) -> list[dict]:
+        """Up to ``limit`` written meters not drained before; each is
+        handed out once."""
+        out: list[dict] = []
+        with self._lock:
+            while self._meter_fresh and len(out) < limit:
+                out.append(self._meter_fresh.popleft())
+        return out
+
     # ---------------------------------------------------------- lifetime
     def _finish(self, req: _Request) -> None:
         req.done = True
         req.finished_at = time.perf_counter()
+        if self.metering:
+            self._meter_fold_prefill(req)
+            self._meter_kv(req, 0)
+            if self._in_flight(req):
+                req.meter_deferred = True
+            else:
+                self._meter_finish(req)
         req.ids = None
         slot = req.slot
         if slot is not None and self._slot_req[slot] is req:
@@ -1160,6 +1430,8 @@ class ContinuousBatchingEngine:
         for r in self._slot_req:
             if r is not None:
                 self._maybe_record_ttft(r)
+        if self._timer is not None:
+            self._timer.poll()  # finalize what has completed, no sync
         prefilled = self.prefill_chunks != chunks0
         busy = bool(decoding) or prefilled
         while len(self._inflight) > (self.pipeline_depth if busy else 0):
@@ -1296,7 +1568,39 @@ class ContinuousBatchingEngine:
         }
         if self.spec is not None:
             out["spec"] = self._spec_stats()
+        out["metering"] = {
+            "enabled": self.metering,
+            "metered_total": self._metered_total,
+            "undrained": len(self._meter_fresh),
+        }
+        dt = self._device_time_locked()
+        if dt is not None:
+            out["device_time"] = dt
         return out
+
+    def _device_time_locked(self) -> dict | None:
+        """The timer's snapshot, each program with its MFU and MBU where a
+        ``capability`` record gives the card's peaks (the flops and bytes
+        its finalized dispatches moved over their busy seconds)."""
+        if self._timer is None:
+            return None
+        snap = self._timer.snapshot()
+        cap = self.capability or {}
+        for rec in snap["programs"].values():
+            if rec["busy_s"] <= 0:
+                continue
+            if rec.get("flops") and cap.get("peak_tflops"):
+                rec["mfu"] = round(rec["flops"] / rec["busy_s"]
+                                   / (cap["peak_tflops"] * 1e12), 4)
+            if rec.get("bytes") and cap.get("hbm_gbps"):
+                rec["mbu"] = round(rec["bytes"] / rec["busy_s"]
+                                   / (cap["hbm_gbps"] * 1e9), 4)
+        return snap
+
+    def device_time(self) -> dict | None:
+        """Per-program device-busy and host-gap attribution (locked)."""
+        with self._lock:
+            return self._device_time_locked()
 
 
 class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
@@ -1369,6 +1673,20 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             int(np.prod(t.shape[1:])) * t.element_size()
             for p in self._pools for t in p.values()
         )
+        self._kv_token_bytes = sum(
+            int(np.prod(t.shape[2:])) * t.element_size() for t in self._pools[0].values()
+        )
+        # engine geometry import_prefill validates payloads against
+        self._n_layers = len(self._pools)
+        self._block_shape = tuple(self._pools[0]["k"].shape[1:])  # (bs, Hkv, D)
+        # disaggregated-serving counts (prefill_export / import_prefill /
+        # note_disagg_transfer): stats()["disagg"]
+        self.disagg: dict[str, int] = {
+            "exports": 0, "export_blocks": 0, "export_tokens": 0,
+            "imports": 0, "import_blocks": 0, "import_tokens": 0,
+            "fallbacks": 0,
+        }
+        self._disagg_ewma: dict[str, float] = {}
         self._slot_blocks: list[list[int]] = [[] for _ in range(S)]
         self._slot_ub = [0] * S  # device write-frontier upper bound
         # the device write index is _slot_base + tokens banked - 1 (the
@@ -1505,6 +1823,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self._slot_blocks[slot] = (
             hits + ([tail_bid] if tail is not None else []) + new_blocks
         )
+        if self.metering:
+            self._meter_kv(req, len(self._slot_blocks[slot]))
         self._slot_limit[slot] = min(t0 + max_new_eff, self.L)
         self._slot_ub[slot] = t0
         self._slot_base[slot] = t0 - len(req.tokens)
@@ -1585,6 +1905,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         # band) in logical coordinates; pad tokens past nreal write
         # blocks the decode steps overwrite before reading
         ids_dev = self._to_device(buf)
+        req = self._slot_req[slot]
+        probe = self._timer_start()
         hidden, _ = self.engine.model(
             ids_dev, caches=self._caches(index, bt, C),
             positions=positions, mask=None, logits=False,
@@ -1608,13 +1930,23 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         n_end = pos + nreal
         self._cache_index[slot] = n_end
         self._valid[slot] = torch.arange(self.L, device=dev) < n_end
+        # a held row's final chunk samples the first token but leaves the
+        # row off on the device (nothing decodes it)
         self._start_row(slot, self.engine.model.head(hidden[0, nreal - 1]),
-                        job["seed"], n_end, job["max_new"], is_final)
+                        job["seed"], n_end, job["max_new"], is_final and not req.hold)
+        self._note_prefill(req, "prefill_chunk", probe, self._cost(
+            "prefill_chunk", rows=1, steps=C, frontier=[pos + C]))
         self.prefill_chunks += 1
         job["pos"] = n_end
-        req = self._slot_req[slot]
         req.prefill_chunks += 1
         if is_final:
+            if req.hold:
+                # the held row's table goes to the sentinel: the decode
+                # chunks still write every row's k/v at its index, and
+                # this row's would land in its prompt's last block; they
+                # go to the scratch block instead (export reads the
+                # blocks by id, not through the table)
+                self._block_table[slot] = self.pool.num_blocks
             del self._pending[slot]
             self._slot_ub[slot] = len(ids)
             if self.index is not None:
@@ -1666,6 +1998,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         if req.done:
             return  # finished in flight; _finish freed everything
         self._release_slot_blocks(slot)
+        if self.metering:
+            self._meter_kv(req, 0)  # holds nothing while re-queued
         self._slot_req[slot] = None
         req.slot = None
         self._free.append(slot)
@@ -1732,6 +2066,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                     continue  # the slot itself was evicted
                 self._slot_blocks[slot].extend(got)
                 self._set_row(slot)
+                if self.metering:
+                    self._meter_kv(req, len(self._slot_blocks[slot]))
             self._slot_ub[slot] = target
             self._staged_adv[slot] = self._chunk_advance(slot)
         return [
@@ -1739,13 +2075,409 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             if self._slot_req[s] is not None and s not in self._pending
         ]
 
+    # ------------------------------------------- disaggregated serving
+    # The paged KV block is the wire unit: prefill_export runs chunked
+    # prefill into the local pools and reads back only the request's
+    # filled blocks ([n_blocks, block_size, Hkv, D] a layer, never a
+    # contiguous cache); import_prefill on the decode leg allocates local
+    # block ids, writes the payload into its pools in place, points the
+    # slot's block-table row at them and decodes as if it had prefilled
+    # locally. Sampling is keyed by (request seed, logical position), so
+    # the decode leg is token-identical to colocated serving.
+
+    # staged blocks round up to a multiple of this; the pad rows go to
+    # the scratch block (the reference's mode="drop")
+    _GRAFT_WIDTH = 8
+
+    def _disagg_guard(self) -> None:
+        if self.spec is not None and self.spec.mode == "draft":
+            raise NotImplementedError(
+                "disaggregated serving with a draft model would need "
+                "the draft's prefill cache shipped beside the target's "
+                "blocks; use n-gram speculation or a non-spec decode "
+                "leg"
+            )
+
+    def prefill_export(
+        self, ids, *, max_new: int | None = None, seed: int = 0,
+        priority: Priority | int | str = Priority.STANDARD,
+        deadline_s: float | None = None, timeout_s: float | None = None,
+        tenant: str | None = None,
+    ) -> dict:
+        """Run this request's prefill leg only and export the result.
+
+        The prompt admits through the normal queue (priority order,
+        prefix-matched against the local index, chunked prefill
+        interleaved with co-resident traffic) on a held slot: its row is
+        off on the device and out of every decode chunk. Once the final
+        chunk has run, the filled blocks are gathered (one sync) and the
+        slot torn down; the prompt prefix stays registered in the local
+        index, so a repeat export of a shared prefix re-prefills only the
+        tail.
+
+        Returns the payload ``parallel/kvwire.py`` packs: per-layer
+        ``[n_blocks, block_size, Hkv, D]`` stacks (CPU tensors; int8 pools
+        add their scales), the prompt ids, the first sampled token and the
+        seed, budget and block-size scalars a decode leg needs."""
+        self._disagg_guard()
+        rid = self.submit(
+            ids, max_new=max_new, seed=seed, priority=priority,
+            deadline_s=deadline_s, tenant=tenant, _hold=True,
+        )
+        with self._lock:
+            req = self._requests[rid]
+        deadline = None if timeout_s is None else time.perf_counter() + timeout_s
+        idle_recheck = False
+        while True:
+            export_err: BaseException | None = None
+            with self._lock:
+                if req.failed is not None:
+                    raise req.failed
+                slot = req.slot
+                if (slot is not None and self._slot_req[slot] is req
+                        and slot not in self._pending
+                        and req.first_token is not None):
+                    try:
+                        return self._export_slot_locked(req, slot)
+                    except BaseException as e:
+                        # cancelled below, outside the lock, so a failed
+                        # export does not pin the held slot and its blocks
+                        export_err = e
+            if export_err is not None:
+                self.cancel(rid)
+                raise export_err
+            if idle_recheck:
+                self.cancel(rid)
+                raise ServingError(
+                    f"prefill-export request {rid} cannot complete: "
+                    "scheduler idle (internal accounting bug)"
+                )
+            progressed = self.step()
+            if deadline is not None and time.perf_counter() > deadline:
+                self.cancel(rid)
+                raise TimeoutError(
+                    f"prefill of request {rid} not done in {timeout_s}s"
+                )
+            idle_recheck = not progressed and req.failed is None and not req.done
+
+    def _pool_layout(self, rows: int):
+        """Every pool tensor's ``rows`` rows packed into one byte buffer:
+        ``([(layer, name, pool tensor, offset)], size)``, each offset 16-byte
+        aligned (any dtype view of the buffer is then legal)."""
+        plan, total = [], 0
+        for i, pool in enumerate(self._pools):
+            for name, t in pool.items():
+                plan.append((i, name, t, total))
+                total += -(-rows * t[0].numel() * t.element_size() // 16) * 16
+        return plan, total
+
+    @staticmethod
+    def _rows_view(flat, t, off: int, rows: int) -> torch.Tensor:
+        """[rows, *t.shape[1:]] of t's dtype at byte ``off`` of ``flat``."""
+        nbytes = rows * t[0].numel() * t.element_size()
+        return flat[off:off + nbytes].view(t.dtype).view((rows, *t.shape[1:]))
+
+    def _gather_blocks(self, bids: list[int]) -> list[dict]:
+        """Every pool tensor's rows ``bids`` to host memory: one
+        ``index_select`` a tensor into one device buffer, one copy to
+        pinned host memory and one sync. -> per-layer ``{name: CPU
+        tensor}`` (views of that host buffer)."""
+        n = len(bids)
+        idx = self._to_device(np.asarray(bids, np.int64))
+        plan, total = self._pool_layout(n)
+        dev_flat = torch.empty((total,), dtype=torch.uint8, device=self.device)
+        for _, _, t, off in plan:
+            torch.index_select(t, 0, idx, out=self._rows_view(dev_flat, t, off, n))
+        if self.device.type == "cuda":
+            host_flat = torch.empty((total,), dtype=torch.uint8, pin_memory=True)
+            host_flat.copy_(dev_flat, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()  # the export's one sync
+        else:
+            host_flat = dev_flat
+        layers = [{} for _ in self._pools]
+        for i, name, t, off in plan:
+            layers[i][name] = self._rows_view(host_flat, t, off, n)
+        return layers
+
+    def _export_slot_locked(self, req: _Request, slot: int) -> dict:
+        bs = self.block_size
+        prompt_ids = np.asarray(req.ids, np.int64).reshape(-1)
+        t0 = int(prompt_ids.size)
+        bids = list(self._slot_blocks[slot])
+        need = -(-t0 // bs)
+        if len(bids) != need:  # held slots never grow past the prompt
+            raise ServingError(
+                f"export expected {need} prompt blocks, slot maps "
+                f"{len(bids)} (internal accounting bug)"
+            )
+        host, event = req.first_token
+        if event is not None:
+            event.synchronize()
+        self._prefill_synced(req)
+        self._maybe_record_ttft(req)
+        tok0 = int(host)
+        payload = {
+            "prompt_ids": torch.from_numpy(prompt_ids.astype(np.int32)),
+            "layers": self._gather_blocks(bids),
+            "n_valid": t0,
+            "tok0": tok0,
+            "seed": int(req.seed),
+            "remaining": int(req.max_new) - 1,
+            "block_size": bs,
+        }
+        if self.kv_quant is not None:
+            # int8 blocks and scales ship natively
+            payload["kv_quant"] = self.kv_quant
+        if self.index is not None:
+            payload["prefix_digest"] = self.index.chain_digest(prompt_ids)
+        self.disagg["exports"] += 1
+        self.disagg["export_blocks"] += len(bids)
+        self.disagg["export_tokens"] += t0
+        req.first_token = None
+        # teardown: _finish retires the row before the blocks return to
+        # the pool; the registered prefix keeps them reusable
+        self._finish(req)
+        return payload
+
+    def _coerce_kv_form(self, layers: list, src_quant: str | None) -> list:
+        """Imported layers from the payload's pool form into this
+        engine's: matching forms pass through (int8 blocks and scales
+        graft natively); int8 -> float dequantizes to f32; float -> int8
+        quantizes with ``ops/quant.py quantize_kv_int8``, the write-time
+        math, so a re-export equals a locally written pool."""
+        if src_quant == self.kv_quant:
+            return layers
+        out = []
+        for bl in layers:
+            ent = {}
+            for kv in ("k", "v"):
+                x = _as_tensor(bl[kv])
+                if src_quant == "int8":
+                    ent[kv] = x.float() * _as_tensor(bl[kv + "_scale"]).float()[..., None]
+                else:
+                    ent[kv], ent[kv + "_scale"] = quantize_kv_int8(x)
+            out.append(ent)
+        return out
+
+    def _stage_graft(self, layers: list, nblk: int):
+        """The payload's blocks on the device in the pools' dtypes, as
+        [n_pad, ...] views of one buffer (n_pad: nblk rounded up to
+        ``_GRAFT_WIDTH``), staged through pinned memory with one
+        non-blocking copy."""
+        W = self._GRAFT_WIDTH
+        n_pad = -(-nblk // W) * W
+        plan, total = self._pool_layout(n_pad)
+        host = torch.empty((total,), dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        for i, name, t, off in plan:
+            self._rows_view(host, t, off, n_pad)[:nblk].copy_(_as_tensor(layers[i][name]))
+        dev = self._to_device(host)
+        return [(i, name, self._rows_view(dev, t, off, n_pad)) for i, name, t, off in plan]
+
+    def import_prefill(
+        self, payload: dict, *,
+        priority: Priority | int | str = Priority.STANDARD,
+        deadline_s: float | None = None,
+        tenant: str | None = None,
+        wire_bytes: int = 0,
+    ) -> int:
+        """Graft a prefill leg's exported blocks into this engine's pools
+        and start decoding them: the decode side of disaggregated serving.
+        Validates geometry and the chained prefix digest (the ids the
+        payload claims must reproduce the digest the prefill leg
+        computed), allocates local block ids, writes the blocks into the
+        pools in place (``index_copy_``; pad rows of the staging go to the
+        scratch block), points the slot's block-table row at them, sets
+        the row as a final prefill chunk would have left it, and registers
+        the prompt prefix in the local index.
+
+        Raises ``OverloadedError`` / ``PoolOverloadedError`` (with a
+        measured ``retry_after_s``) when no slot or blocks are free (an
+        import is never queued) and ``ValueError`` on a payload this
+        engine cannot trust. ``wire_bytes``: the received blob's length,
+        billed on the request's meter. Returns the rid; drive
+        ``result(rid)`` / ``step()`` as for a local submission."""
+        self._disagg_guard()
+        prompt_ids = np.asarray(_as_tensor(payload["prompt_ids"])).reshape(-1).astype(np.int64)
+        t0 = int(prompt_ids.size)
+        n_valid = int(payload["n_valid"])
+        tok0 = int(payload["tok0"])
+        seed = int(payload["seed"])
+        remaining = int(payload["remaining"])
+        bs = int(payload["block_size"])
+        layers = payload["layers"]
+        prio = _coerce_priority(priority)
+        if bs != self.block_size:
+            raise ValueError(
+                f"payload block_size {bs} != engine block_size {self.block_size}"
+            )
+        if n_valid != t0 or t0 == 0:
+            raise ValueError(f"payload n_valid {n_valid} != prompt length {t0}")
+        if remaining < 0:
+            raise ValueError(f"negative remaining budget {remaining}")
+        nblk = -(-t0 // bs)
+        max_new = remaining + 1  # tok0 is already the first generation
+        if len(layers) != self._n_layers:
+            raise ValueError(
+                f"payload has {len(layers)} layers, engine has {self._n_layers}"
+            )
+        src_quant = payload.get("kv_quant")
+        if src_quant is None and "k_scale" in layers[0]:
+            src_quant = "int8"  # a producer shipping scales inline
+        if src_quant not in (None, "int8"):
+            raise ValueError(f"unknown payload kv_quant {src_quant!r}")
+        src_keys = ("k", "v", "k_scale", "v_scale") if src_quant == "int8" else ("k", "v")
+        for i, bl in enumerate(layers):
+            for name in src_keys:
+                if name not in bl:
+                    raise ValueError(
+                        f"layer {i} missing {name} blocks for kv_quant={src_quant!r}"
+                    )
+                want = ((nblk, *self._block_shape) if name in ("k", "v")
+                        else (nblk, *self._block_shape[:-1]))
+                shape = tuple(_as_tensor(bl[name]).shape)
+                if shape != want:
+                    raise ValueError(
+                        f"layer {i} {name} blocks have shape {shape}, expected {want}"
+                    )
+        # staging runs outside the lock: the host copy and the
+        # non-blocking upload must not stall a thread pumping step()
+        staged = self._stage_graft(self._coerce_kv_form(layers, src_quant), nblk)
+        ids_row = np.zeros((self.L,), np.int64)
+        ids_row[:t0] = prompt_ids[:self.L]
+        eos = self.gen.eos_token_id
+        done0 = remaining <= 0 or (eos is not None and tok0 == eos)
+        with self._lock:
+            digest = payload.get("prefix_digest")
+            if digest is not None and self.index is not None:
+                if self.index.chain_digest(prompt_ids) != digest:
+                    raise ValueError(
+                        "prefix digest mismatch: the payload's prompt ids do "
+                        "not correspond to its blocks"
+                    )
+            self._check_fit(t0, max_new)
+            self._expire_deadlines_locked()
+            if not self._free:
+                ra = self._retry_after_locked()
+                self._note_shed(prio)
+                raise OverloadedError(
+                    f"no free decode slot for imported prefill; retry in {ra}s",
+                    retry_after_s=ra, reason="no_decode_slot",
+                )
+            try:
+                bids = self.pool.alloc(nblk)
+            except PoolExhaustedError as e:
+                ra = self._retry_after_locked()
+                self._note_shed(prio)
+                raise PoolOverloadedError(f"{e}; retry in {ra}s",
+                                          retry_after_s=ra) from e
+            rid = self._next_rid
+            self._next_rid += 1
+            now = time.perf_counter()
+            req = _Request(
+                rid=rid, ids=prompt_ids, max_new=max_new, seed=seed,
+                submitted_at=now, priority=prio, deadline_s=deadline_s,
+                deadline_at=None if deadline_s is None else now + deadline_s,
+                tenant=str(tenant)[:128] if tenant else None,
+                submitted_ns=time.time_ns(), n_prompt=t0,
+                wire_bytes=max(int(wire_bytes), 0),
+            )
+            if deadline_s is not None:
+                self._deadlined += 1
+            self._requests[rid] = req
+            slot = self._free.pop()
+            req.slot = slot
+            self._slot_req[slot] = req
+            self._slot_blocks[slot] = list(bids)
+            if self.metering:
+                self._meter_kv(req, nblk)
+            # what a final prefill chunk leaves: the write index and its
+            # bounds at the prompt's end, nothing banked yet
+            self._slot_limit[slot] = min(t0 + max_new, self.L)
+            self._slot_ub[slot] = t0
+            self._slot_base[slot] = t0
+            try:
+                bid_pad = np.full((len(staged[0][2]),), self.pool.num_blocks, np.int64)
+                bid_pad[:nblk] = bids
+                bid_dev = self._to_device(bid_pad)
+                for i, name, blocks in staged:
+                    # in place: captured graphs keep reading these pools
+                    self._pools[i][name].index_copy_(0, bid_dev, blocks)
+                self._set_row(slot, start=t0)
+                dev = self.device
+                self._valid[slot] = torch.arange(self.L, device=dev) < t0
+                self._n_valid[slot] = t0
+                self._tok[slot] = tok0
+                self._seed[slot] = seed
+                self._remaining[slot] = remaining
+                self._live[slot] = not done0
+                if self.spec is not None:
+                    # n-gram drafting looks up the same banked ids a local
+                    # prefill would have written
+                    self._ids[slot, :self.L] = self._to_device(ids_row)
+                if self.index is not None:
+                    for b in self.index.register(prompt_ids, list(bids)):
+                        self.pool.mark_cached(b, priority=prio)
+            except BaseException:
+                # a failed device write must not leak the slot, the blocks
+                # or a request that can never finish
+                self._retire_row(slot)
+                self._slot_req[slot] = None
+                self._release_slot_blocks(slot)
+                self._free.append(slot)
+                if deadline_s is not None:
+                    self._deadlined = max(self._deadlined - 1, 0)
+                self._requests.pop(rid, None)
+                raise
+            self.disagg["imports"] += 1
+            self.disagg["import_blocks"] += nblk
+            self.disagg["import_tokens"] += t0
+            if done0:
+                # nothing to decode: complete at import
+                req.first_token_at = time.perf_counter()
+                self._append_token(req, tok0)
+            else:
+                req.first_token = (torch.tensor(tok0), None)
+        return rid
+
+    def disagg_wire_ewma_s(self) -> float:
+        """Measured wire-transfer EWMA (0.0 until a transfer was noted):
+        what a prefill leg charges against an end-to-end deadline before
+        shipping."""
+        with self._lock:
+            return float(self._disagg_ewma.get("wire_s_ewma") or 0.0)
+
+    def note_disagg_transfer(
+        self, *, prefill_s: float | None = None,
+        wire_s: float | None = None, wire_bytes: int | None = None,
+        fallback: bool = False,
+    ) -> None:
+        """Fold one completed prefill-leg transfer into the EWMAs and
+        counts of ``stats()["disagg"]`` (a wire time above the prefill
+        time means the hop, not the card, bounds the leg)."""
+        with self._lock:
+            for name, v in (("prefill_s_ewma", prefill_s), ("wire_s_ewma", wire_s)):
+                if v is None:
+                    continue
+                old = self._disagg_ewma.get(name)
+                self._disagg_ewma[name] = round(
+                    v if old is None else 0.8 * old + 0.2 * v, 6
+                )
+            if wire_bytes:
+                self.disagg["wire_bytes"] = self.disagg.get("wire_bytes", 0) + int(wire_bytes)
+            if fallback:
+                self.disagg["fallbacks"] += 1
+
     def _prefill_step(self) -> None:
         self._dispatch_prefill_chunk()
 
     def _decoding_slots(self) -> list[int]:
+        # a held (prefill-leg) row is never decoded: it waits for export
         decoding = [
             s for s, r in enumerate(self._slot_req)
-            if r is not None and s not in self._pending
+            if r is not None and s not in self._pending and not r.hold
         ]
         if decoding and self.spec is not None:
             # stage the masked-K array now: block growth and the
@@ -1782,4 +2514,6 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             "prefix_cache_hit_rate": round(self.prefix_hit_rate(), 4),
             "cow_copies": self.cow_copies,
             "preemptions": self.preemptions,
+            **({"disagg": {**self.disagg, **self._disagg_ewma}}
+               if any(self.disagg.values()) or self._disagg_ewma else {}),
         }

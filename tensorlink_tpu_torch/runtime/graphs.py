@@ -18,6 +18,12 @@ every replay: the counters keep meaning "kernels that ran".
 On the CPU (or with ``enabled=False``) the body simply runs: the CPU has
 no graphs, so this is the device's path and not a fallback. On CUDA a
 failed capture or replay raises.
+
+``run(key, body, after=)`` calls ``after`` once the call's device work
+is enqueued on the current stream: after the replay, or after a first
+call's warm-up and before its capture (which runs nothing, but holds
+the host for up to a second). A timing event recorded there brackets
+the work and not the capture.
 """
 
 from __future__ import annotations
@@ -87,22 +93,28 @@ class GraphCache:
         self.replays = 0
         self.pool_bytes = 0
 
-    def run(self, key, body) -> None:
+    def run(self, key, body, after=None) -> None:
         if not self.enabled:
             body()
+            if after is not None:
+                after()
             return
         entry = self._graphs.get(key)
         if entry is None:
-            self._graphs[key] = self._capture(body)
+            self._graphs[key] = self._capture(body, after)
             return
         graph, credit = entry
         graph.replay()
+        if after is not None:
+            after()
         credit_counters(credit)
         self.replays += 1
 
-    def _capture(self, body):
+    def _capture(self, body, after=None):
         t0 = time.perf_counter()
         self._warm_up(body)  # this call's work, run eagerly
+        if after is not None:
+            after()
         before = counter_snapshot()
         graph = self._record(body)
         credit = counter_delta(before, counter_snapshot())

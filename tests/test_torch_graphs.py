@@ -115,6 +115,21 @@ def test_capture_is_taken_out_and_every_replay_credited(counters):
     assert gc.stats()["replays"] == 4 and gc.stats()["captured"] == 1
 
 
+def test_after_follows_the_work_and_precedes_the_capture(counters):
+    """``after`` (where a timing event is recorded) runs once a call, after
+    its work is enqueued: after the warm-up and before the capture, or
+    after the replay; on the CPU after the body."""
+    log, calls = [], []
+    gc = _StubCache(log)
+    for _ in range(2):
+        gc.run("a", _body(calls), after=lambda: log.append("after"))
+    assert log == ["warm-up", "after", "capture", "replay", "after"]
+    out = []
+    graphs.GraphCache("cpu").run("a", lambda: out.append("body"),
+                                 after=lambda: out.append("after"))
+    assert out == ["body", "after"]
+
+
 def test_cache_is_keyed(counters):
     log, calls = [], []
     gc = _StubCache(log)
@@ -383,6 +398,47 @@ def test_serving_chunk_body_reads_nothing_back(kind, monkeypatch):
     layers = len(eng.model.blocks.blocks())
     paged = kind.startswith("paged")
     assert set(keys) == {() if paged else ((0, 1) if big else None,) * layers}
+
+
+@pytest.mark.parametrize("kind", ["paged", "paged-int8", "paged-ngram"])
+def test_disagg_chunk_bodies_read_nothing_back(kind):
+    """The decode leg's chunks (plain or n-gram spec) with imported rows
+    decoding and, on the prefill leg, a held row prefilled beside rows
+    that decode: no host read in any body, one graph key, and the
+    imported streams equal the colocated ones."""
+    from tensorlink_tpu_torch.parallel.kvwire import pack_kv_payload, unpack_kv_payload
+    from tensorlink_tpu_torch.parallel.speculative import SpecConfig
+
+    eng = InferenceEngine(_llama(), max_len=32, device="cpu",
+                          cache_dtype=torch.float32, param_dtype=torch.float32)
+    kw = {"slots": 3, "decode_chunk": 3, "gen": SAMPLED, "block_size": 4,
+          "prefill_chunk": 4, "kv_quant": "int8" if kind.endswith("int8") else None}
+    if kind.endswith("ngram"):
+        kw["speculative"] = SpecConfig(k=2, rounds=1, adaptive=False)
+    body = "_spec_chunk_body" if kind.endswith("ngram") else "_chunk_body"
+    P, D, colo = (PagedContinuousBatchingEngine(eng, **kw) for _ in range(3))
+    runs, keys = [], []
+    for sch in (P, D):
+        _guard(sch, body, runs)
+        name = "_spec_key" if kind.endswith("ngram") else "_chunk_key"
+        key = getattr(sch, name)
+        setattr(sch, name, lambda frontier, key=key: keys.append(key(frontier)) or keys[-1])
+    r = np.random.default_rng(5)
+    prompts = [r.integers(0, 128, (n,)) for n in (5, 9, 10)]
+    busy = P.submit(prompts[0], seed=1)
+    P.step()
+    P.step()
+    rids = []
+    for n, p in enumerate(prompts[1:]):
+        blob = pack_kv_payload(P.prefill_export(p, seed=n + 2))
+        rids.append(D.import_prefill(unpack_kv_payload(blob)))
+        D.step()
+    P.result(busy)
+    outs = [D.result(rid) for rid in rids]
+    refs = [colo.result(colo.submit(p, seed=n + 2)) for n, p in enumerate(prompts[1:])]
+    for out, ref in zip(outs, refs):
+        np.testing.assert_array_equal(out, ref)
+    assert len(runs) >= 4 and len(set(keys)) == 1
 
 
 @pytest.mark.parametrize("mode", ["ngram", "draft"])

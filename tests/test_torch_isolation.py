@@ -57,6 +57,50 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+# packages the card's host may lack: never imported by the port
+# (msgpack, ml_dtypes), or only inside a try that keeps the reference's
+# fallback (zstandard: zlib blobs; cryptography: the dev identity)
+NOT_IMPORTED = ("msgpack", "ml_dtypes")
+GUARDED = ("zstandard", "cryptography")
+
+
+def _guarded_imports(path):
+    """-> (root, inside a try with an ImportError handler) per import."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    guarded = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try) and any(
+                isinstance(h.type, ast.Name) and h.type.id == "ImportError"
+                for h in node.handlers):
+            for stmt in node.body:
+                for sub in ast.walk(stmt):
+                    guarded.add(id(sub))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [node.module.split(".")[0]]
+        else:
+            continue
+        for root in roots:
+            yield root, id(node) in guarded
+
+
+def test_wire_and_receipt_modules_need_no_optional_package():
+    files = _port_files()
+    for mod in (("native", "__init__.py"), ("p2p", "serialization.py"),
+                ("p2p", "crypto.py"), ("parallel", "kvwire.py"),
+                ("runtime", "ledger.py"), ("runtime", "profiling.py")):
+        assert os.path.join(PORT, *mod) in files
+    bad = []
+    for p in files:
+        for root, guarded in _guarded_imports(p):
+            if root in NOT_IMPORTED or (root in GUARDED and not guarded):
+                bad.append((os.path.relpath(p, REPO), root))
+    assert not bad, bad
+
+
 def test_importing_the_port_loads_no_jax():
     mods = [
         "tensorlink_tpu_torch.parallel.serving",
@@ -77,6 +121,12 @@ def test_importing_the_port_loads_no_jax():
         "tensorlink_tpu_torch.data.loader",
         "tensorlink_tpu_torch.config",
         "tensorlink_tpu_torch.utils.trees",
+        "tensorlink_tpu_torch.native",
+        "tensorlink_tpu_torch.p2p.serialization",
+        "tensorlink_tpu_torch.p2p.crypto",
+        "tensorlink_tpu_torch.parallel.kvwire",
+        "tensorlink_tpu_torch.runtime.ledger",
+        "tensorlink_tpu_torch.runtime.profiling",
     ]
     code = (
         "import sys\n"
