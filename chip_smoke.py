@@ -13,6 +13,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    together), prints ptxas's register lines and the number of HGMMA
    (wgmma) instructions in the flash forward's kernels, then times an
    empty kernel ("[floor]": the launch floor the norm rows print);
+   the builds land in a fresh ``TL_COMPILE_CACHE_DIR`` (the kernel-build
+   cache), and "[compile cache]" has a child process load the three
+   CUDA libraries and the g++-built wire codec from it with no compiler
+   run, printing cold build s against warm load s;
 3. paged-decode kernel vs its plain PyTorch version at Llama-3-8B head
    shapes (T = 1 and T = 128; mixed lengths with sentinel-tailed block
    tables, a validity mask with a retired row, a window, int8 pools, the
@@ -100,6 +104,33 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``retry_after_s`` > 0); an unmeetable deadline is refused at submit;
    ``result(deadline_s=)`` cancels a request with 2 chunks in flight and
    the pool's free count returns to what it was;
+7c. int8: the [slice] requests on Llama-3-8B's weight-only int8 sibling
+   (``default_draft_candidates``: quantized one ``Dense`` at a time into
+   a meta-built model, no float copy) behind
+   ``InferenceEngine(quantize="int8")``, captured: launches on the path,
+   every token teacher-forced against the int8 model, the mean KL of
+   int8 against bf16 logits on teacher-forced rows under 0.02 nats;
+   weight bytes, the model step, the dequantize's share of it, MBU at
+   int8 bytes; then 4 requests eagerly;
+7d. fused qkv: the [slice] requests on a ``qkv_fused`` Llama-3-8B made
+   from the same weights by ``fuse_qkv_params``, teacher-forced against
+   the unfused model, its model step against [slice]'s;
+7e. autopair: ``autopair_draft`` on the bf16 target (non-spec, the int8
+   sibling, n-gram): the verdict, tokens/s per mode, and the burst's
+   peak memory under the target plus one sibling;
+7f. autotune: an adaptive engine saves to a temporary store (with the
+   autopair verdict), a second engine warm-starts from it with the same
+   record and K prior, and ``measure_capability(store=, key=)`` loads
+   its record on the second call;
+7g. chaos: the [overload] script twice under a plan of dispatch slows
+   and a drain stall: streams equal to the unfaulted run, INTERACTIVE
+   requests complete, the two logs equal; the disarmed hooks' cost;
+7h. self-heal: a 2-layer random-weight draft with ``self_heal_accept``
+   0.3: the engine downgrades itself, its graphs are dropped and
+   re-captured, launches on the path, tokens teacher-forced before and
+   after;
+7i. async: 8 requests through ``asubmit``/``aresult`` (two at a time)
+   equal to ``submit``/``result``;
 8. contiguous: GPT-2-medium (random bf16 weights) served by the contiguous
    ``ContinuousBatchingEngine`` (the ``--continuous`` path): 16 greedy
    requests of 1 to 900 tokens, B4 in its LayerNorm + bias form on every
@@ -136,14 +167,16 @@ card against the CPU's.
 
 Each leg's launch counts are set to 0 just before it runs and read just
 after; B4's count in the kernels line sums the four serving legs, the
-captured speculative draft runs and the disaggregated decode legs
-(float and int8), B3's the paged leg, the captured speculative runs and
-both disaggregated runs (prefill variant on P, decode on D). The
+captured speculative draft runs, the disaggregated decode legs (float
+and int8) and the legs 7c-7i, B3's the paged leg, the captured
+speculative runs, both disaggregated runs (prefill variant on P, decode
+on D) and the paged legs 7c-7i. The
 last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Nothing of JAX or ``tensorlink_tpu``
 is imported.
 """
 
+import asyncio
 import concurrent.futures
 import dataclasses
 import gc
@@ -151,6 +184,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -166,6 +200,7 @@ from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
 from tensorlink_tpu_torch.nn.attention import (
     DECODE_BLOCK,
     DECODE_BLOCKWISE_MIN_WINDOWLESS,
+    fuse_qkv_params,
 )
 from tensorlink_tpu_torch.ops import _build
 from tensorlink_tpu_torch.ops.decode_glue import (
@@ -203,6 +238,10 @@ from tensorlink_tpu_torch.parallel.serving import (
     Priority,
     SpecConfig,
 )
+from tensorlink_tpu_torch.parallel.speculative import autopair_draft, default_draft_candidates
+from tensorlink_tpu_torch.runtime import chaos, compile_cache
+from tensorlink_tpu_torch.runtime.autotune import GLOBAL_MODEL, AutotuneStore, store_key
+from tensorlink_tpu_torch.runtime.chaos import ChaosPlan
 from tensorlink_tpu_torch.runtime.ledger import (
     ReceiptAuditor,
     build_receipt,
@@ -352,15 +391,17 @@ def hgmma_counts(lib_path: str) -> dict:
     return counts
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     def build_cuda(source):
         t0 = time.perf_counter()
-        path, log = _build.build(source, verbose=True)
+        path, log, _ = _build.build(source, verbose=True)
         return time.perf_counter() - t0, path, log
 
+    t_all = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES)) as ex:
         fcs = {src: ex.submit(build_cuda, src) for src in CUDA_SOURCES}
         built = {src: f.result() for src, f in fcs.items()}
+    wall = time.perf_counter() - t_all
     for src, (cuda_s, path, log) in built.items():
         say(f"[build] {src} nvcc {cuda_s:.1f} s -> {path}")
         for ln in log.splitlines():
@@ -374,6 +415,7 @@ def phase_build() -> None:
         say(f"[build] HGMMA {n} in {k}")
     check(bool(fwd) and min(fwd.values()) > 0,
           f"a flash forward kernel has no HGMMA instruction: {fwd}")
+    return {"wall_s": wall, **{src: b[0] for src, b in built.items()}}
 
 
 def phase_floor(flush) -> float:
@@ -950,11 +992,13 @@ def _requests(vocab: int):
 
 
 def _slice_engine(model: Llama, max_new: int, cuda_graphs: bool = True,
-                  capability: dict | None = None, **kw):
+                  capability: dict | None = None, eng: InferenceEngine | None = None,
+                  **kw):
     """A paged engine of the [slice] geometry (its own pools and graphs)
-    over a fresh ``InferenceEngine`` of ``model``."""
-    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
-                          param_dtype=torch.bfloat16, device=DEV)
+    over ``eng``, or a fresh ``InferenceEngine`` of ``model``."""
+    if eng is None:
+        eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16, device=DEV)
     return PagedContinuousBatchingEngine(
         eng, slots=8, block_size=16, prefill_chunk=128, decode_chunk=8,
         gen=GenerationConfig(max_new_tokens=max_new), cuda_graphs=cuda_graphs,
@@ -963,16 +1007,18 @@ def _slice_engine(model: Llama, max_new: int, cuda_graphs: bool = True,
 
 
 def _serve_paged(model: Llama, prompts, max_new: int, cuda_graphs: bool,
-                 capability: dict | None = None):
-    """The 12 requests through a fresh paged engine; launch counts set to
-    0 just before and read just after, then checked against the path.
-    -> (engine, request ids, outputs, wall s, counts)."""
+                 capability: dict | None = None, eng: InferenceEngine | None = None,
+                 tag: str = "slice"):
+    """The 12 requests through a fresh paged engine (over ``eng`` when
+    given); launch counts set to 0 just before and read just after, then
+    checked against the path. -> (engine, request ids, outputs, wall s,
+    counts)."""
     cfg = model.cfg
     t0 = time.perf_counter()
-    sch = _slice_engine(model, max_new, cuda_graphs, capability)
+    sch = _slice_engine(model, max_new, cuda_graphs, capability, eng=eng)
     torch.cuda.synchronize()
     mode = "captured" if cuda_graphs else "eager"
-    say(f"[slice] Llama-3-8B {cfg.num_layers} layers dim {cfg.dim} "
+    say(f"[{tag}] Llama-3-8B {cfg.num_layers} layers dim {cfg.dim} "
         f"vocab {cfg.vocab_size}, {mode} decode, pipeline depth "
         f"{sch.pipeline_depth}: engine ready in "
         f"{time.perf_counter() - t0:.1f} s, "
@@ -987,26 +1033,33 @@ def _serve_paged(model: Llama, prompts, max_new: int, cuda_graphs: bool,
     by_variant = dict(paged_decode_attention.launches_by_variant)
     outs = [sch.result(rid) for rid in rids]
     st = sch.stats()
-    check(all(len(o) == max_new for o in outs), "a request did not finish")
-    L = cfg.num_layers
+    check(all(len(o) == max_new for o in outs), f"{tag}: a request did not finish")
+    _check_paged_launches(f"{tag} {mode}", st, k1, k2, by_variant, cfg.num_layers)
+    check(st["prefix_matched_tokens"] > 0, f"{tag}: no prefix was shared")
+    if cuda_graphs:
+        g = st["graphs"]
+        check(g["captured"] == 1 and g["replays"] == st["decode_steps"] // 8 - 1,
+              f"{tag}: every decode chunk but the first must be a replay: {g}")
+    return sch, rids, outs, wall, {"paged": k1, "norm": k2}
+
+
+def _check_paged_launches(tag: str, st: dict, k1: int, k2: int, by_variant: dict,
+                          L: int) -> None:
+    """A non-speculative paged run: B3 once a layer a decode step (decode
+    variant) and a prefill chunk (prefill variant), none on the general
+    one; B4 once a layer a decode step."""
     exp1 = L * (st["decode_steps"] + st["prefill_chunks"])
     exp2 = L * st["decode_steps"]
     exp_var = {"general": 0, "decode": L * st["decode_steps"],
                "prefill": L * st["prefill_chunks"]}
-    say(f"[slice] {mode} launches: paged_decode {k1} (expected {exp1}; by "
+    say(f"[{tag}] launches: paged_decode {k1} (expected {exp1}; by "
         f"variant {by_variant}, expected {exp_var}), "
         f"fused_norm {k2} (expected {exp2}); decode steps "
         f"{st['decode_steps']}, prefill chunks {st['prefill_chunks']}")
-    check(k1 == exp1 and k1 > 0, "paged-decode launch count off the path")
+    check(k1 == exp1 and k1 > 0, f"{tag}: paged-decode launch count off the path")
     check(by_variant == exp_var and min(by_variant["decode"], by_variant["prefill"]) > 0,
-          "paged-decode launches off the decode/prefill variants")
-    check(k2 == exp2 and k2 > 0, "fused-norm launch count off the path")
-    check(st["prefix_matched_tokens"] > 0, "no prefix was shared")
-    if cuda_graphs:
-        g = st["graphs"]
-        check(g["captured"] == 1 and g["replays"] == st["decode_steps"] // 8 - 1,
-              f"slice: every decode chunk but the first must be a replay: {g}")
-    return sch, rids, outs, wall, {"paged": k1, "norm": k2}
+          f"{tag}: paged-decode launches off the decode/prefill variants")
+    check(k2 == exp2 and k2 > 0, f"{tag}: fused-norm launch count off the path")
 
 
 def phase_slice(name_power: str, model: Llama, cap: dict) -> dict:
@@ -1056,7 +1109,7 @@ def phase_slice(name_power: str, model: Llama, cap: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches_paged": k["paged"], "launches_norm": k["norm"],
-            "prompts": prompts, "outs": outs}
+            "prompts": prompts, "outs": outs, "prof": prof}
 
 
 PROFILE_STEPS = 4  # scheduler steps in each timed window
@@ -1124,6 +1177,10 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
     n_model = PROFILE_STEPS * _model_steps(sch)
     norm_us = sum(e.self_device_time_total for e in kernels if "norm" in e.key.lower())
+    # PyTorch's elementwise kernels: the glue, and under weight-only int8
+    # the materialised dequantize (the int8 -> bf16 cast and the scale)
+    elem_us = sum(e.self_device_time_total for e in kernels
+                  if "elementwise" in e.key.lower())
     res = {
         "decode_step_s": plain_s / PROFILE_STEPS, "model_steps": _model_steps(sch),
         "model_step_ms": plain_s / n_model * 1e3,
@@ -1132,6 +1189,8 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
         "kernel_ms_per_step": busy_us / 1e3 / PROFILE_STEPS if busy_us else "not measured",
         "device_busy_share": busy_us / 1e6 / prof_s if busy_us else "not measured",
         "norm_kernel_share": norm_us / busy_us if busy_us else "not measured",
+        "elementwise_ms_per_model_step": (elem_us / 1e3 / n_model if busy_us
+                                          else "not measured"),
         "pipeline_depth": sch.pipeline_depth,
         "top_kernels_ms": {
             e.key[:48]: [e.self_device_time_total / 1e3, e.count] for e in top[:8]
@@ -1915,24 +1974,24 @@ def _spec_requests(vocab: int):
     return out
 
 
-def _check_spec_launches(tag: str, c: dict, by_variant: dict, st: dict,
-                         layers: int, cfg, spec_cfg) -> None:
-    """B3 once a layer a verify pass (at T = K+1, on the variant
-    ``kernel_variant`` names) and a prefill chunk (prefill variant), none
-    on the general one; B4 once a draft layer a draft step (0 in n-gram
-    mode); no B1 or B2 in serving."""
-    sp = st.get("spec")
-    D = cfg.dim // cfg.num_heads
+def _check_spec_launches(tag: str, c: dict, by_variant: dict, sch, cfg, k: int,
+                         draft_layers: int) -> None:
+    """B3 once a target layer a prefill chunk (prefill variant), a verify
+    pass (at T = K+1, on the variant ``kernel_variant`` names) and a plain
+    decode step (decode variant), none on the general one; B4 once a draft
+    layer a draft step and once a target layer a plain decode step (none
+    in n-gram decode); no B1 or B2 in serving. The counts are the
+    engine's own, so a run whose mode changed midway (self-healing) is
+    held to the same rule."""
+    layers = cfg.num_layers
     exp = dict.fromkeys(VARIANTS, 0)
-    exp["prefill"] += layers * st["prefill_chunks"]
-    if sp is None:
-        exp["decode"] += layers * st["decode_steps"]
-        exp_norm = layers * st["decode_steps"]
-    else:
-        vvar = kernel_variant(torch.bfloat16, torch.bfloat16, spec_cfg.k + 1,
-                              cfg.num_heads, cfg.num_kv_heads, D, 2048, False)
-        exp[vvar] += layers * sp["verify_passes"]
-        exp_norm = layers * sp["draft_steps"]
+    exp["prefill"] += layers * sch.prefill_chunks
+    exp["decode"] += layers * sch.decode_steps
+    if sch.verify_passes:
+        vvar = kernel_variant(torch.bfloat16, torch.bfloat16, k + 1, cfg.num_heads,
+                              cfg.num_kv_heads, cfg.dim // cfg.num_heads, 2048, False)
+        exp[vvar] += layers * sch.verify_passes
+    exp_norm = draft_layers * sch.draft_steps + layers * sch.decode_steps
     say(f"[{tag}] launches: paged_decode {c['paged_decode']} by variant "
         f"{by_variant} (expected {exp}); fused_norm {c['fused_norm']} "
         f"(expected {exp_norm}); flash {c['flash_fwd']} / {c['flash_bwd']}")
@@ -1978,7 +2037,8 @@ def _serve_spec(tag: str, model, prompts, spec_cfg, self_draft: bool,
     st = sch.stats()
     outs = [sch.result(rid) for rid in rids]
     check(all(len(o) == SPEC_NEW for o in outs), f"{tag}: a request did not finish")
-    _check_spec_launches(tag, c, by_variant, st, cfg.num_layers, cfg, spec_cfg)
+    _check_spec_launches(tag, c, by_variant, sch, cfg, spec_cfg.k if spec_cfg else 0,
+                         cfg.num_layers if self_draft else 0)
     if cuda_graphs:
         _check_replays(tag, st)
     return sch, rids, outs, wall, c
@@ -2234,7 +2294,454 @@ def phase_overload(name_power: str, model: Llama) -> dict:
         _free_cuda()
     check(all(all(s) for s in same_all),
           f"overload: a preempted stream parted from the unpressured run: {same_all}")
-    return {"streams_equal": same_all}
+    return {"streams_equal": same_all, "prompts": prompts, "ref_outs": ref_outs}
+
+# --------------------- slice 9: warm start, int8, fused q/k/v, autopair,
+# autotune, chaos, self-healing, the async API
+KL_BOUND = 0.02  # nats: the reference bench's int8 quality bound
+KL_REQUESTS = 4  # [slice] requests whose teacher-forced rows the KL reads
+INT8_EAGER = 4  # requests of the short eager int8 comparison
+# what a burst holds beside its candidate: the target's and the draft's
+# contiguous caches (2 slots x 2048 slots x 32 layers, 0.54 GB each), the
+# sibling's materialised dequantize (up to its 1 GB bf16 head, held in a
+# graph pool), graph pools and activations; a float copy of the model
+# (16 GB) or a second sibling (7.5 GB) would not fit under it
+AUTOPAIR_SLACK = 3 * 2**30
+HEAL_DRAFT_LAYERS = 2
+ASYNC_NEW = 16
+
+_CACHE_CHILD = """
+import json, time
+t0 = time.perf_counter()
+from tensorlink_tpu_torch import native
+from tensorlink_tpu_torch.ops import _build
+from tensorlink_tpu_torch.runtime.compile_cache import compile_report, enable_compile_cache
+d = enable_compile_cache()
+t1 = time.perf_counter()
+for src in %r:
+    _build.load(src)
+ok = native.have_native()
+print(json.dumps({"dir": d, "nvcc_compiles": _build.nvcc_runs,
+                  "gxx_compiles": native.gxx_runs, "native": ok,
+                  "load_s": time.perf_counter() - t1,
+                  "import_s": t1 - t0, "report": compile_report()}))
+"""
+
+
+def phase_compile_cache(name_power: str, build: dict) -> dict:
+    """The kernel-build cache: ``phase_build`` compiled the three CUDA
+    sources into a fresh ``TL_COMPILE_CACHE_DIR``; the wire codec's g++
+    build lands there too. A child process on the same directory then
+    loads all four libraries with no compiler run (its key still asks
+    ``nvcc --version`` once)."""
+    d = compile_cache.active_dir()
+    check(d is not None and d == os.environ.get(compile_cache.ENV_VAR),
+          f"compile cache: not active on the fresh directory ({d})")
+    t0 = time.perf_counter()
+    ok = native.have_native()
+    gxx_s = time.perf_counter() - t0
+    check(ok and native.gxx_runs == 1 and not native.BUILD["compile_cache_hit"],
+          "compile cache: the wire codec did not build into the fresh directory")
+    entries = compile_cache.cache_entries(d)
+    check(entries == len(CUDA_SOURCES) + 1,
+          f"compile cache: {entries} libraries in {d}, expected {len(CUDA_SOURCES) + 1}")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", _CACHE_CHILD % (CUDA_SOURCES,)],
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ), cwd=os.path.dirname(os.path.abspath(__file__)))
+    child_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"compile cache: the child failed: {res.stderr[-2000:]}")
+    child = json.loads(res.stdout.strip().splitlines()[-1])
+    libs = child["report"]["libraries"]
+    hits = all(r["compile_cache_hit"] for r in libs.values())
+    out = {"cold_build_s": {"nvcc_parallel_wall": build["wall_s"],
+                            **{k: v for k, v in build.items() if k != "wall_s"},
+                            "gxx_wirecodec": gxx_s},
+           "warm_load_s": child["load_s"], "child_process_s": child_s,
+           "child_import_s": child["import_s"],
+           "nvcc_compiles": child["nvcc_compiles"], "gxx_compiles": child["gxx_compiles"],
+           "libraries_loaded": len(libs), "all_hits": hits,
+           "cache_entries": entries, "card": name_power}
+    say(f"[compile cache] {json.dumps(out)}")
+    check(child["dir"] == d and child["native"] and len(libs) == len(CUDA_SOURCES) + 1
+          and hits and child["nvcc_compiles"] == 0 and child["gxx_compiles"] == 0,
+          f"compile cache: the warm process rebuilt or missed: {child}")
+    return out
+
+
+def _state_bytes(model) -> int:
+    return sum(t.numel() * t.element_size() for t in model.state_dict().values())
+
+
+def _dense_int8_bytes(model) -> int:
+    """What an int8 sibling allocates: every quantized weight's q and s."""
+    return sum(t.numel() * t.element_size() for n, t in model.state_dict().items()
+               if n.endswith((".w.q", ".w.s")))
+
+
+def _kl_rows(model, model_q, prompts, outs) -> float:
+    """Mean KL (nats) of ``model_q``'s next-token distribution from
+    ``model``'s over the teacher-forced rows of the emitted tokens."""
+    kls = []
+    with torch.no_grad():
+        for p, o in zip(prompts, outs):
+            ids = torch.from_numpy(np.concatenate([p, o[:-1]])).to(DEV)[None]
+            rows = slice(len(p) - 1, ids.shape[1])
+            lp = torch.log_softmax(model.head(model(ids, logits=False)[0, rows]).float(), -1)
+            lq = torch.log_softmax(model_q.head(model_q(ids, logits=False)[0, rows]).float(), -1)
+            kls.append((lp.exp() * (lp - lq)).sum(-1))
+    return float(torch.cat(kls).mean())
+
+
+def _serve_short(tag: str, eng, prompts, max_new: int, cuda_graphs: bool, **kw):
+    """``prompts`` through a fresh [slice]-shaped engine over ``eng``,
+    launch counts from 0. -> (engine, outputs, counts, B3 by variant)."""
+    sch = _slice_engine(eng.model, max_new, cuda_graphs, eng=eng, **kw)
+    _zero_counts()
+    rids = [sch.submit(p) for p in prompts]
+    sch.run_until_idle()
+    torch.cuda.synchronize()
+    c = _counts()
+    by_variant = dict(paged_decode_attention.launches_by_variant)
+    outs = [sch.result(r) for r in rids]
+    check(all(len(o) == max_new for o in outs), f"{tag}: a request did not finish")
+    return sch, outs, c, by_variant
+
+
+def phase_int8(name_power: str, model: Llama, prompts, slice_outs, slice_prof: dict,
+               cap: dict) -> dict:
+    """Weight-only int8 at Llama-3-8B: the int8 sibling
+    (``default_draft_candidates``: a meta-built model into which the bf16
+    weights are quantized one ``Dense`` at a time, every other tensor
+    shared) behind ``InferenceEngine(quantize="int8")``, serving the
+    [slice] requests captured, then a short eager comparison. Gates: B3
+    and B4 launches on the path, every token teacher-forced against the
+    int8 model, and the mean KL of int8 against bf16 logits on
+    teacher-forced rows under 0.02 nats."""
+    cfg = model.cfg
+    base = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                           param_dtype=torch.bfloat16, device=DEV)
+    t0 = time.perf_counter()
+    (_, make_sibling), = default_draft_candidates(base)
+    eng8 = make_sibling()
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    model8 = eng8.model
+    sizes = {"state_bytes_int8": _state_bytes(model8), "state_bytes_bf16": _state_bytes(model),
+             "weight_pass_bytes_int8": eng8.weight_bytes,
+             "weight_pass_bytes_bf16": base.weight_bytes,
+             "int8_dense_bytes": _dense_int8_bytes(model8), "quantize_s": quant_s,
+             "card": name_power}
+    say(f"[int8] weights: {json.dumps(sizes)}")
+    check(eng8.quantize == "int8"
+          and sizes["weight_pass_bytes_int8"] < 0.6 * sizes["weight_pass_bytes_bf16"],
+          "int8: the sibling is not quantized")
+    sch, rids, outs, wall, k = _serve_paged(model8, prompts, 32, True, cap, eng=eng8,
+                                            tag="int8")
+    _graph_line("int8", sch.stats()["graphs"])
+    tf = _teacher_forced("int8", model8, prompts, outs)
+    kl = _kl_rows(model, model8, prompts[:KL_REQUESTS], slice_outs[:KL_REQUESTS])
+    same = sum(int((np.asarray(a) == np.asarray(b)).sum()) for a, b in zip(outs, slice_outs))
+    dt = _timer_line("int8", sch, name_power)
+    prof = _profile_decode(sch, cfg.vocab_size, name_power, tag="int8 profile")
+    elem8, elem = prof["elementwise_ms_per_model_step"], slice_prof["elementwise_ms_per_model_step"]
+    k8 = prof["kernel_ms_per_model_step"]
+    dequant = ((elem8 - elem) / k8 if isinstance(k8, float) and isinstance(elem, float)
+               else "not measured")
+    res = {"kl_nats_mean": kl, "kl_bound": KL_BOUND,
+           "tokens_equal_to_slice": same, "tokens": tf["tokens"],
+           "model_step_ms": prof["model_step_ms"],
+           "slice_model_step_ms": slice_prof["model_step_ms"],
+           "kernel_ms_per_model_step": k8, "device_busy_share": prof["device_busy_share"],
+           "dequantize_share_of_step_kernels": dequant,
+           "decode_mbu": dt["programs"].get("decode", {}).get("mbu", "not measured"),
+           "decode_mfu": dt["programs"].get("decode", {}).get("mfu", "not measured"),
+           "wall_s": wall, "card": name_power}
+    say(f"[int8] {json.dumps(res)}")
+    check(kl < KL_BOUND, f"int8: mean KL {kl} nats is over the {KL_BOUND} bound")
+    del sch
+    _free_cuda()
+    esch, eouts, ec, ebv = _serve_short("int8 eager", eng8, prompts[:INT8_EAGER], 32, False)
+    _check_paged_launches("int8 eager", esch.stats(), ec["paged_decode"], ec["fused_norm"],
+                          ebv, cfg.num_layers)
+    tf_e = _teacher_forced("int8 eager", model8, prompts[:INT8_EAGER], eouts)
+    _agreement("int8", outs[:INT8_EAGER], eouts, tf, tf_e)
+    del esch, eng8, model8, make_sibling, base
+    _free_cuda()
+    return {"paged": k["paged"], "norm": k["norm"],
+            "int8_dense_bytes": sizes["int8_dense_bytes"]}
+
+
+def _fused_llama(model: Llama) -> Llama:
+    """``model``'s function in the fused q/k/v layout: each layer's q, k
+    and v weights go through ``fuse_qkv_params`` into one ``qkv`` weight
+    (the only new memory), every other tensor is ``model``'s own."""
+    cfg = dataclasses.replace(model.cfg, qkv_fused=True)
+    H, G = cfg.num_heads, cfg.num_kv_heads
+    src = model.state_dict()
+    state = {n: t for n, t in src.items()
+             if not any(f".attn.{x}." in n for x in "qkv")}
+    for i in range(cfg.num_layers):
+        pre = f"blocks.{i}.attn."
+        attn = {x: {"w": src[f"{pre}{x}.w"]} for x in "qkvo"}
+        state[pre + "qkv.w"] = fuse_qkv_params(attn, H, G, cfg.dim // H)["qkv"]["w"]
+    fused = Llama(cfg, device="meta", seed=None)
+    fused.load_state_dict(state, strict=True, assign=True)
+    return fused
+
+
+def phase_fused(name_power: str, model: Llama, prompts, slice_outs, slice_prof: dict,
+                cap: dict) -> dict:
+    """The [slice] requests on a ``qkv_fused=True`` Llama-3-8B made from
+    the same weights through ``fuse_qkv_params``, captured: launch and
+    replay gates, every token teacher-forced against the unfused model
+    (bitwise equality is not expected: the GEMM's shape changes), and the
+    model step against [slice]'s."""
+    fused = _fused_llama(model)
+    eng = InferenceEngine(fused, max_len=2048, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV)
+    sch, rids, outs, wall, k = _serve_paged(fused, prompts, 32, True, cap, eng=eng,
+                                            tag="fused qkv")
+    _graph_line("fused qkv", sch.stats()["graphs"])
+    tf = _teacher_forced("fused qkv", model, prompts, outs)
+    same = sum(int((np.asarray(a) == np.asarray(b)).sum()) for a, b in zip(outs, slice_outs))
+    prof = _profile_decode(sch, model.cfg.vocab_size, name_power, tag="fused qkv profile")
+    res = {"tokens_equal_to_slice": same, "tokens": tf["tokens"],
+           "worst_gap_vs_unfused": tf["worst_gap"],
+           "model_step_ms": prof["model_step_ms"],
+           "slice_model_step_ms": slice_prof["model_step_ms"],
+           "step_ratio": prof["model_step_ms"] / slice_prof["model_step_ms"],
+           "kernel_ms_per_model_step": prof["kernel_ms_per_model_step"],
+           "device_busy_share": prof["device_busy_share"], "wall_s": wall,
+           "card": name_power}
+    say(f"[fused qkv] {json.dumps(res)}")
+    del sch, eng, fused
+    _free_cuda()
+    return {"paged": k["paged"], "norm": k["norm"]}
+
+
+def phase_autopair(name_power: str, model: Llama, sibling_bytes: int) -> dict:
+    """``autopair_draft`` on the bf16 target with the default candidate
+    (its int8 sibling): non-spec, the sibling as draft, then n-gram, each
+    a captured burst on a contiguous engine. Gate: the memory allocated
+    at the burst's peak stays under the target plus one sibling (plus
+    AUTOPAIR_SLACK for the burst engines' caches and graph pools)."""
+    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV)
+    _free_cuda()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    v = autopair_draft(eng, GenerationConfig())
+    torch.cuda.synchronize()
+    c = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    res = {"verdict": v["mode"], "name": v["name"], "tokens_per_s": v["measured"],
+           "baseline_tokens_per_s": v["baseline_tokens_per_sec"],
+           "calibration_s": v["calibration_s"], "skipped": v["skipped"],
+           "peak_above_target_bytes": peak - base, "sibling_bytes": sibling_bytes,
+           "bound_bytes": sibling_bytes + AUTOPAIR_SLACK, "launches": c,
+           "card": name_power}
+    say(f"[autopair] {json.dumps(res)}")
+    check(peak - base < sibling_bytes + AUTOPAIR_SLACK,
+          f"autopair: {peak - base} bytes above the target at peak: more than one sibling")
+    check(set(v["measured"]) >= {"nonspec", "int8-sibling"} and c["fused_norm"] > 0,
+          f"autopair: a mode was not measured or no decode ran: {v['measured']} {c}")
+    persist = v["persistable"]
+    del v, eng
+    _free_cuda()
+    return {"persistable": persist, "norm": c["fused_norm"], "paged": c["paged_decode"]}
+
+
+def phase_autotune(name_power: str, model: Llama, persistable: dict) -> dict:
+    """The autotune store in a temporary directory: an adaptive n-gram
+    engine serves four requests and saves (with the autopair verdict as
+    ``draft_pair``); a second engine on the directory warm-starts with
+    that record and K prior; ``measure_capability(store=, key=)`` measures
+    once and loads the record the second time."""
+    d = tempfile.mkdtemp(prefix="autotune-", dir=os.path.join(_build.PKG_DIR, "_build"))
+    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV)
+    spec = SpecConfig(k=4, rounds=2, adaptive=True)
+    prompts = _spec_requests(model.cfg.vocab_size)[:4]
+    sch = _slice_engine(model, 16, eng=eng, speculative=spec, autotune_dir=d)
+    check(sch.autotune_warm_start_s is None, "autotune: a fresh directory warm-started")
+    for r in [sch.submit(p) for p in prompts]:
+        sch.result(r)
+    path = sch.save_autotune(draft_pair=persistable)
+    blob = open(path, "rb").read()
+    rec = json.loads(blob)
+    del sch
+    _free_cuda()
+    sch2 = _slice_engine(model, 16, eng=eng, speculative=spec, autotune_dir=d)
+    prior2 = sch2._kctl.prior()
+    warm_s = sch2.autotune_warm_start_s
+    same_file = open(path, "rb").read() == blob
+    check(sch2.autotune_warm_start_s is not None and sch2._autotune_record == rec
+          and prior2 == rec["k_prior"] and rec["draft_pair"] == persistable and same_file,
+          f"autotune: the warm start did not read what was saved: {rec} {prior2}")
+    del sch2, eng
+    _free_cuda()
+    store = AutotuneStore.resolve(d)
+    key = store_key(GLOBAL_MODEL, ())
+    t0 = time.perf_counter()
+    c1 = measure_capability(matmul_dim=CAP_MATMUL_DIM, hbm_mb=CAP_HBM_MB, reps=CAP_REPS,
+                            store=store, key=key)
+    t1 = time.perf_counter()
+    c2 = measure_capability(matmul_dim=CAP_MATMUL_DIM, hbm_mb=CAP_HBM_MB, reps=CAP_REPS,
+                            store=store, key=key)
+    t2 = time.perf_counter()
+    res = {"autotune_warm_start_s": warm_s,
+           "k_prior": rec["k_prior"], "draft_pair": rec["draft_pair"],
+           "record_keys": sorted(rec), "capability_first_s": t1 - t0,
+           "capability_second_s": t2 - t1, "second_cached": bool(c2.get("cached")),
+           "card": name_power}
+    say(f"[autotune] {json.dumps(res)}")
+    check(not c1.get("cached") and c2.get("cached")
+          and c2["peak_tflops"] == c1["peak_tflops"] and c2["hbm_gbps"] == c1["hbm_gbps"],
+          "autotune: the second capability call measured again")
+    return res
+
+
+CHAOS_PLAN = (ChaosPlan(seed=0)
+              .fault("serving.dispatch", "slow", every=4, delay_s=0.002, jitter_s=0.002)
+              .fault("serving.drain", "slow", at=5, delay_s=0.25))
+
+
+def phase_chaos(name_power: str, model: Llama, over: dict) -> dict:
+    """The [overload] script twice under a plan that slows every 4th
+    dispatch (2-4 ms, seeded jitter) and stalls the 5th drain 250 ms.
+    Gates: every completed stream equals the unfaulted run's token for
+    token (a stall changes timing, not shapes), every INTERACTIVE request
+    completes (``_overload_run``'s own gates), and the two runs' harness
+    logs are equal. Prints what the disarmed hooks cost a chunk."""
+    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV)
+    logs, counts = [], {"paged": 0, "norm": 0}
+    for run in range(2):
+        h = chaos.arm(CHAOS_PLAN)
+        _zero_counts()
+        try:
+            sch, outs, same = _overload_run(f"chaos run {run}", eng, over["prompts"], True,
+                                            over["ref_outs"])
+        finally:
+            chaos.disarm()
+        c = _counts()
+        counts["paged"] += c["paged_decode"]
+        counts["norm"] += c["fused_norm"]
+        logs.append(list(h.log))
+        check(all(same), f"chaos run {run}: a stream parted from the unfaulted run: {same}")
+        interactive = [i for i, q in enumerate(OVER_PRIOS) if q == Priority.INTERACTIVE]
+        check(all(len(outs[i]) == OVER_NEW for i in interactive),
+              f"chaos run {run}: an INTERACTIVE request did not complete")
+        del sch
+        _free_cuda()
+    n = 1_000_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        if chaos.ACTIVE is not None:
+            pass
+    guard_ns = (time.perf_counter() - t0) / n * 1e9
+    res = {"faults_fired": len(logs[0]), "log_head": logs[0][:6],
+           "logs_equal": logs[0] == logs[1],
+           "disarmed_guard_ns": guard_ns, "disarmed_cost_ns_per_chunk": 2 * guard_ns,
+           "card": name_power}
+    say(f"[chaos] {json.dumps(res)}")
+    check(logs[0] == logs[1] and logs[0], "chaos: two runs of one plan logged differently")
+    del eng
+    _free_cuda()
+    return counts
+
+
+def phase_self_heal(name_power: str, model: Llama, prompts, slice_outs) -> dict:
+    """Llama-3-8B paged with a same-vocabulary 2-layer random-weight draft
+    and ``SpecConfig(k=3, self_heal_accept=0.3)``: four [slice] requests
+    in draft mode (near-zero acceptance), after which the engine
+    downgrades itself at the idle point; four more in the new mode.
+    Gates: the downgrade, its graph dropped and one captured for the new
+    mode, launches on the path, and every token before and after
+    teacher-forced (the verify pass runs B3 at T = K+1, whose bf16
+    rounding differs from T = 1, so tokens equal to [slice]'s are printed,
+    not gated)."""
+    cfg = model.cfg
+    dmodel = Llama(dataclasses.replace(cfg, num_layers=HEAL_DRAFT_LAYERS), device=DEV,
+                   dtype=torch.bfloat16, seed=1)
+    deng = InferenceEngine(dmodel, max_len=2048, cache_dtype=torch.bfloat16,
+                           param_dtype=torch.bfloat16, device=DEV)
+    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV)
+    sch = _slice_engine(model, 32, eng=eng, draft=deng,
+                        speculative=SpecConfig(k=3, self_heal_accept=0.3))
+    _zero_counts()
+    pre, post = prompts[:4], prompts[4:8]
+    outs1 = [sch.result(r) for r in [sch.submit(p) for p in pre]]
+    sch.run_until_idle()
+    st1 = sch.stats()
+    healed = st1.get("spec_self_healed")
+    outs2 = [sch.result(r) for r in [sch.submit(p) for p in post]]
+    sch.run_until_idle()
+    torch.cuda.synchronize()
+    c = _counts()
+    by_variant = dict(paged_decode_attention.launches_by_variant)
+    st2 = sch.stats()
+    g1, g2 = st1["graphs"], st2["graphs"]
+    res = {"healed": healed, "heals": st2.get("spec_self_heal_total", 0),
+           "mode_after": st2["spec"]["mode"] if "spec" in st2 else "nonspec",
+           "graphs_before": g1, "graphs_after": g2,
+           "verify_passes": sch.verify_passes, "draft_steps": sch.draft_steps,
+           "decode_steps": sch.decode_steps,
+           "tokens_equal_to_slice": sum(int((np.asarray(a) == np.asarray(b)).sum())
+                                        for a, b in zip(outs1 + outs2, slice_outs[:8])),
+           "tokens": sum(len(o) for o in outs1 + outs2), "card": name_power}
+    say(f"[self-heal] {json.dumps(res)}")
+    check(healed is not None and healed["from"] == "draft" and healed["acceptance"] < 0.3,
+          f"self-heal: the engine did not downgrade itself: {healed}")
+    check(g1["cleared"] == 1 and g1["graphs"] == 0 and g2["captured"] >= 2,
+          f"self-heal: graphs not dropped and re-captured: {g1} {g2}")
+    _check_spec_launches("self-heal", c, by_variant, sch, cfg, 3, HEAL_DRAFT_LAYERS)
+    _teacher_forced("self-heal before", model, pre, outs1)
+    _teacher_forced("self-heal after", model, post, outs2)
+    del sch, eng, deng, dmodel
+    _free_cuda()
+    return {"paged": c["paged_decode"], "norm": c["fused_norm"]}
+
+
+def phase_async(name_power: str, model: Llama, prompts) -> dict:
+    """Eight requests through ``asubmit``/``aresult`` from one event loop,
+    two ``aresult`` calls at a time (pump threads take turns on the
+    scheduler lock, and a graph capture never overlaps another thread's
+    launches), against ``submit``/``result`` on a twin engine."""
+    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV)
+    ps = prompts[:8]
+    ref_sch, ref, _, _ = _serve_short("async reference", eng, ps, ASYNC_NEW, True)
+    del ref_sch
+    _free_cuda()
+    sch = _slice_engine(model, ASYNC_NEW, eng=eng)
+    _zero_counts()
+
+    async def run():
+        rids = [await sch.asubmit(p) for p in ps]
+        outs = []
+        for i in range(0, len(rids), 2):
+            outs += await asyncio.gather(sch.aresult(rids[i]), sch.aresult(rids[i + 1]))
+        return outs
+
+    t0 = time.perf_counter()
+    outs = asyncio.run(run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _counts()
+    by_variant = dict(paged_decode_attention.launches_by_variant)
+    st = sch.stats()
+    equal = [bool((np.asarray(a) == np.asarray(b)).all()) for a, b in zip(outs, ref)]
+    say(f"[async] {json.dumps({'requests': len(ps), 'equal_to_sync': equal, 'wall_s': wall, 'graphs': st['graphs'], 'card': name_power})}")
+    _check_paged_launches("async", st, c["paged_decode"], c["fused_norm"], by_variant,
+                          model.cfg.num_layers)
+    check(all(equal), f"async: tokens differ from submit/result: {equal}")
+    del sch, eng
+    _free_cuda()
+    return {"paged": c["paged_decode"], "norm": c["fused_norm"]}
 
 
 def _bert_loss(module, params, batch, rng):
@@ -2471,7 +2978,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind, name_power = phase_device()
-    phase_build()
+    # the kernel-build cache: a fresh directory every run, so the builds
+    # below are cold and [compile cache] reads a warm load beside them
+    build_root = os.path.join(_build.PKG_DIR, "_build")
+    os.makedirs(build_root, exist_ok=True)
+    os.environ[compile_cache.ENV_VAR] = tempfile.mkdtemp(prefix="compile-cache-",
+                                                         dir=build_root)
+    compile_cache.enable_compile_cache()
+    build = phase_build()
+    phase_compile_cache(name_power, build)
     phase_sampler()
     flush = L2Flush()
     floor_ms = phase_floor(flush)
@@ -2487,7 +3002,16 @@ def main() -> int:
                                 disagg["float_blob_bytes"])
     static = phase_static(name_power, model)
     spec = phase_spec_paged(name_power, model)
-    phase_overload(name_power, model)
+    over = phase_overload(name_power, model)
+    int8 = phase_int8(name_power, model, launches["prompts"], launches["outs"],
+                      launches["prof"], cap)
+    fused = phase_fused(name_power, model, launches["prompts"], launches["outs"],
+                        launches["prof"], cap)
+    pair = phase_autopair(name_power, model, int8["int8_dense_bytes"])
+    phase_autotune(name_power, model, pair["persistable"])
+    chaos_k = phase_chaos(name_power, model, over)
+    heal = phase_self_heal(name_power, model, launches["prompts"], launches["outs"])
+    asyn = phase_async(name_power, model, launches["prompts"])
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2508,11 +3032,17 @@ def main() -> int:
                   "rolling": rolling["launches_norm"],
                   "spec paged (draft steps)": spec["norm"],
                   "disagg decode leg": disagg["norm"],
-                  "disagg int8 decode leg": disagg8["norm"]}
+                  "disagg int8 decode leg": disagg8["norm"],
+                  "int8 weights": int8["norm"], "fused qkv": fused["norm"],
+                  "autopair bursts": pair["norm"], "chaos (2 overload runs)": chaos_k["norm"],
+                  "self-heal": heal["norm"], "async": asyn["norm"]}
     paged_paths = {"paged serving": launches["launches_paged"],
                    "spec paged (verify passes, prefill chunks)": spec["paged"],
                    "disagg (both legs)": disagg["paged"],
-                   "disagg int8 (both legs)": disagg8["paged"]}
+                   "disagg int8 (both legs)": disagg8["paged"],
+                   "int8 weights": int8["paged"], "fused qkv": fused["paged"],
+                   "chaos (2 overload runs)": chaos_k["paged"],
+                   "self-heal": heal["paged"], "async": asyn["paged"]}
     say(f"[launches] fused_residual_norm by path: {json.dumps(norm_paths)}")
     say(f"[launches] paged_decode_attention by path: {json.dumps(paged_paths)}")
     kernels = [

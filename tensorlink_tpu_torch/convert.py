@@ -4,8 +4,11 @@ The port's parameter names are the JAX param tree's keys joined with
 ".", so ``params_from_jax`` is a flatten plus the ``InferenceEngine``
 dtype policy: >=2-D floating leaves (the matrices) go to
 ``param_dtype``, lower-rank floating leaves (norm scales, biases) stay
-f32. ``param_dtype=torch.float32`` gives the trainer's f32 masters. The
-tree's leaves are numpy arrays (``jax.device_get`` of a param tree, or
+f32. ``param_dtype=torch.float32`` gives the trainer's f32 masters. A
+weight-only int8 leaf (``ops/quant.py``: ``{"q": int8, "s": f32}``)
+flattens to ``….w.q`` / ``….w.s`` and keeps its dtypes, which is the
+state-dict layout of a quantized ``Dense``. The tree's leaves are
+numpy arrays (``jax.device_get`` of a param tree, or
 ``np.asarray`` per leaf); ``state_dict_to_jax`` goes the other way, so
 params trained in the port can be compared with the JAX package's. This
 module imports no JAX.
@@ -41,10 +44,6 @@ def params_from_jax(tree, param_dtype: torch.dtype = torch.float32
 
     def walk(prefix: str, node) -> None:
         if isinstance(node, dict):
-            if set(node) == {"q", "s"}:
-                raise NotImplementedError(
-                    f"{prefix}: int8-quantized weights are not ported yet"
-                )
             for key, sub in node.items():
                 walk(f"{prefix}.{key}" if prefix else str(key), sub)
             return
@@ -76,6 +75,11 @@ def state_dict_to_jax(state) -> dict:
 def apply_dtype_policy(model: nn.Module, param_dtype: torch.dtype,
                        device: torch.device) -> None:
     """Move ``model``'s parameters to ``device`` under the dtype policy,
-    in place."""
+    in place. Buffers (a quantized weight's int8 ``q`` and f32 ``s``)
+    move to ``device`` and keep their dtypes."""
     for p in model.parameters():
         p.data = p.data.to(device=device, dtype=policy_dtype(p.data, param_dtype))
+    for mod in model.modules():
+        for name, b in mod._buffers.items():
+            if b is not None:
+                mod._buffers[name] = b.to(device=device)

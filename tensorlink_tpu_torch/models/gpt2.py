@@ -3,8 +3,8 @@
 Pre-LN decoder blocks (LayerNorm with bias, tanh GELU, biased
 projections), learned positions, and an LM head tied to the token
 embedding (``wte.attend``). ``GPT2Config`` and its presets are the JAX
-package's, field for field; a config that sets ``qkv_fused`` is refused
-until the fused layout is ported. ``as_pipeline_parts`` waits for the
+package's, field for field; ``qkv_fused`` builds the fused q/k/v
+projection (``nn/attention.py``). ``as_pipeline_parts`` waits for the
 pipeline slice.
 """
 
@@ -53,8 +53,6 @@ class GPT2(nn.Module):
     def __init__(self, cfg: GPT2Config = GPT2Config(), *, device=None,
                  dtype: torch.dtype = torch.float32, seed: int | None = 0):
         super().__init__()
-        if cfg.qkv_fused:
-            raise NotImplementedError("the fused q/k/v layout waits for a later slice")
         dev = resolve_device(device)
         self.cfg = cfg
         kw = {"device": dev, "dtype": dtype}
@@ -75,6 +73,7 @@ class GPT2(nn.Module):
             causal=True,
             dropout=cfg.dropout,
             attn_impl=cfg.attn_impl,
+            qkv_fused=cfg.qkv_fused,
             **kw,
         )
         self.ln_f = LayerNorm(cfg.dim, eps=cfg.layer_norm_eps, **kw)
@@ -116,6 +115,10 @@ class GPT2(nn.Module):
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """Logits of final hidden states (``forward(..., logits=False)``)."""
         return self.wte.attend(h)
+
+    def tied_head_table(self) -> torch.Tensor:
+        """The embedding table the tied LM head multiplies by."""
+        return self.wte.table
 
     def init_caches(self, batch: int, max_len: int,
                     dtype: torch.dtype = torch.bfloat16,

@@ -2,8 +2,9 @@
 
 RMSNorm + RoPE + grouped-query attention + SwiGLU, no biases, untied LM
 head. ``LlamaConfig`` and its presets are the JAX package's, field for
-field; the MoE fields are carried for parity but a config that sets
-``moe_experts`` is refused until MoE is ported.
+field; ``qkv_fused`` builds the fused q/k/v projection
+(``nn/attention.py``); the MoE fields are carried for parity but a
+config that sets ``moe_experts`` is refused until MoE is ported.
 """
 
 from __future__ import annotations
@@ -93,8 +94,6 @@ class Llama(nn.Module):
         super().__init__()
         if cfg.moe_experts:
             raise NotImplementedError("MoE blocks wait for a later slice")
-        if cfg.qkv_fused:
-            raise NotImplementedError("the fused q/k/v layout waits for a later slice")
         dev = resolve_device(device)
         self.cfg = cfg
         kw = {"device": dev, "dtype": dtype}
@@ -117,6 +116,7 @@ class Llama(nn.Module):
             rope_theta=cfg.rope_theta,
             attn_window=cfg.attn_window,
             attn_impl=cfg.attn_impl,
+            qkv_fused=cfg.qkv_fused,
             **kw,
         )
         self.norm_f = RMSNorm(cfg.dim, eps=cfg.rms_eps, **kw)
@@ -151,6 +151,11 @@ class Llama(nn.Module):
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """Logits of final hidden states (``forward(..., logits=False)``)."""
         return self.lm_head(h)
+
+    def tied_head_table(self) -> None:
+        """The embedding table an LM head tied to it multiplies by: none,
+        the head is its own ``Dense``."""
+        return None
 
     def init_caches(self, batch: int, max_len: int,
                     dtype: torch.dtype = torch.bfloat16,

@@ -5,8 +5,11 @@
 ``wirecodec.cpp`` is the JAX package's source: CRC-32C (Castagnoli) and a
 single-pass gather of N buffers into one blob with the checksum computed
 during the copy. It builds at first use with ``g++`` into
-``tensorlink_tpu_torch/_build/`` (never next to the source), under a name
-that carries the hash of the source, so an edit rebuilds.
+``tensorlink_tpu_torch/_build/`` (never next to the source; or the
+directory ``runtime/compile_cache.py`` points ``BUILD_DIR`` at), under a
+name that carries the hash of the source, so an edit rebuilds. ``BUILD``
+records whether ``g++`` ran or the library was already on disk, and
+``gxx_runs`` counts the compiler runs of this process.
 
 Every entry point keeps the reference's pure-Python fallback for hosts
 without a toolchain; callers use ``crc32c()`` / ``gather()`` and never
@@ -26,6 +29,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 
 import numpy as np
 import torch
@@ -37,6 +41,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 _lib = None
 _lib_lock = threading.Lock()
 _build_failed = False
+# {"path", "compile_cache_hit", "build_s"} once the library is loaded
+BUILD: dict = {}
+gxx_runs = 0
 
 
 def library_path() -> str:
@@ -46,15 +53,17 @@ def library_path() -> str:
 
 
 def _load() -> "ctypes.CDLL | None":
-    global _lib, _build_failed
+    global _lib, _build_failed, gxx_runs
     if _lib is not None or _build_failed:
         return _lib
     with _lib_lock:
         if _lib is not None or _build_failed:
             return _lib
         try:
+            t0 = time.perf_counter()
             so = library_path()
-            if not os.path.exists(so):
+            hit = os.path.exists(so)
+            if not hit:
                 # compile to a per-process temp path and os.replace into
                 # place: concurrent processes racing a shared output path
                 # could load a half-written library
@@ -62,6 +71,7 @@ def _load() -> "ctypes.CDLL | None":
                 tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
                 base = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17",
                         "-o", tmp, _SRC]
+                gxx_runs += 1
                 try:
                     try:  # hardware CRC32C when the target supports it
                         subprocess.run(
@@ -93,6 +103,8 @@ def _load() -> "ctypes.CDLL | None":
             if lib.tl_abi_version() != 1:
                 raise OSError("wirecodec ABI mismatch")
             _lib = lib
+            BUILD.update(path=so, compile_cache_hit=hit,
+                         build_s=round(time.perf_counter() - t0, 4))
         except (OSError, subprocess.SubprocessError):
             _build_failed = True
     return _lib

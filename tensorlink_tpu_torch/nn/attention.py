@@ -41,13 +41,23 @@ returns a new cache dict whose ``index`` has advanced by T. The paged
 read goes through ``ops.paged_decode.paged_decode_attention``: the
 hand-written kernel for CUDA tensors, its plain version for CPU tensors.
 The contiguous read is plain PyTorch, as it is XLA code in the JAX
-package. The fused q/k/v layout waits for a later slice.
+package.
+
+``qkv_fused=True`` projects q, k and v with ONE ``Dense`` (``qkv``) in
+the reference's per-kv-group interleave ``[D, G, (H/G q | k | v), Dh]``
+(``fuse_qkv_params`` converts a q/k/v param tree to it). Every path —
+no cache, contiguous, blockwise, paged, the speculative verify pass and
+the draft — projects through ``_project_qkv``, the one place that knows
+either layout. The port's attention has no cross-attention source (the
+reference refuses ``qkv_fused`` there), so there is no such path to
+refuse.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -188,6 +198,38 @@ def decode_block_range(cap: int, live_len: int, start: int = 0,
     return max(int(start), 0) // block, nb
 
 
+def fuse_qkv_params(attn_params: dict, num_heads: int, num_kv_heads: int,
+                    head_dim: int) -> dict:
+    """One attention's params ``{"q", "k", "v", "o"}`` (each ``{"w"[,
+    "b"]}``, numpy arrays or tensors) -> the fused layout ``{"qkv",
+    "o"}`` that ``MultiHeadAttention(qkv_fused=True)`` expects: the
+    reference's per-kv-group interleave ``[D, G, (hq q | k | v), Dh]``
+    flattened on the output dim. Tensors in give tensors out (on their
+    device, in their dtype); extra keys are refused, as in the
+    reference."""
+    extra = set(attn_params) - {"q", "k", "v", "o"}
+    if extra:
+        raise ValueError(f"cannot fuse attention params with extras {extra}")
+    G, hq = num_kv_heads, num_heads // num_kv_heads
+
+    def cat(name):
+        parts = [attn_params[n][name] for n in ("q", "k", "v")]
+        as_np = not isinstance(parts[0], torch.Tensor)
+        if as_np:
+            parts = [torch.from_numpy(np.array(p, copy=True)) for p in parts]
+        lead = parts[0].shape[:-1]  # (D,) for w, () for b
+        qw = parts[0].reshape(*lead, G, hq, head_dim)
+        kw_ = parts[1].reshape(*lead, G, 1, head_dim)
+        vw = parts[2].reshape(*lead, G, 1, head_dim)
+        f = torch.cat([qw, kw_, vw], dim=-2).reshape(*lead, G * (hq + 2) * head_dim)
+        return f.numpy() if as_np else f
+
+    qkv = {"w": cat("w")}
+    if "b" in attn_params["q"]:
+        qkv["b"] = cat("b")
+    return {"qkv": qkv, "o": attn_params["o"]}
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
     """Rotary position embedding over the last dim, half-split layout.
@@ -318,6 +360,7 @@ class MultiHeadAttention(nn.Module):
         scale: float | None = None,
         window: int | None = None,
         attn_impl: str | Callable = "auto",
+        qkv_fused: bool = False,
         *,
         device=None,
         dtype=torch.float32,
@@ -365,10 +408,33 @@ class MultiHeadAttention(nn.Module):
         qdim = self.num_heads * self.head_dim
         kvdim = self.num_kv_heads * self.head_dim
         kw = {"device": device, "dtype": dtype}
-        self.q = Dense(dim, qdim, use_bias, **kw)
-        self.k = Dense(dim, kvdim, use_bias, **kw)
-        self.v = Dense(dim, kvdim, use_bias, **kw)
+        self.qkv_fused = bool(qkv_fused)
+        if self.qkv_fused:
+            # one product instead of three, per-kv-group interleave so a
+            # column split stays head-aligned (the reference's layout)
+            if self.num_heads % self.num_kv_heads:
+                raise ValueError("qkv_fused requires num_kv_heads | num_heads")
+            G = self.num_kv_heads
+            hq = self.num_heads // G
+            self.qkv = Dense(dim, G * (hq + 2) * self.head_dim, use_bias, **kw)
+        else:
+            self.q = Dense(dim, qdim, use_bias, **kw)
+            self.k = Dense(dim, kvdim, use_bias, **kw)
+            self.v = Dense(dim, kvdim, use_bias, **kw)
         self.o = Dense(qdim, dim, use_bias, **kw)
+
+    def _project_qkv(self, x):
+        """-> q [B, T, H, Dh], k and v [B, T, Hkv, Dh], from either
+        layout."""
+        B, T, _ = x.shape
+        H, G, Dh = self.num_heads, self.num_kv_heads, self.head_dim
+        if not self.qkv_fused:
+            return (self.q(x).reshape(B, T, H, Dh),
+                    self.k(x).reshape(B, T, G, Dh),
+                    self.v(x).reshape(B, T, G, Dh))
+        hq = H // G
+        f = self.qkv(x).reshape(B, T, G, hq + 2, Dh)
+        return f[:, :, :, :hq].reshape(B, T, H, Dh), f[:, :, :, hq], f[:, :, :, hq + 1]
 
     def forward(self, x, *, mask=None, cache=None, positions=None,
                 bias=None, fresh_keys=None):
@@ -379,9 +445,7 @@ class MultiHeadAttention(nn.Module):
             raise NotImplementedError(
                 "additive attention bias requires attn_impl='reference'"
             )
-        q = self.q(x).reshape(B, T, self.num_heads, self.head_dim)
-        k = self.k(x).reshape(B, T, self.num_kv_heads, self.head_dim)
-        v = self.v(x).reshape(B, T, self.num_kv_heads, self.head_dim)
+        q, k, v = self._project_qkv(x)
         if self.rope:
             if positions is None:
                 if cache is not None and cache["index"].dim() == 1:

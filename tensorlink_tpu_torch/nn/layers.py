@@ -19,6 +19,8 @@ import math
 import torch
 from torch import nn
 
+from tensorlink_tpu_torch.ops.quant import QuantizedWeight, dequantize_weight
+
 
 def init_parameters(module: nn.Module, device, seed: int | None) -> None:
     """Fill every parameter of ``module`` from a generator on ``device``
@@ -42,7 +44,11 @@ def _param(shape, device, dtype) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """y = x @ w + b."""
+    """y = x @ w + b. Weight-only int8 (``set_quantized``, reached through
+    ``ops.quant.quantize_params_int8``) replaces the parameter ``w`` by a
+    child ``w`` holding buffers ``q`` (int8 [in, out]) and ``s`` (f32
+    [out]), the JAX tree's ``{"q", "s"}`` leaf, and the forward becomes
+    ``x @ dequantize_weight(w, x.dtype)``."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True, *,
                  device=None, dtype=torch.float32):
@@ -56,12 +62,29 @@ class Dense(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
         """LeCun normal weight (std sqrt(1 / fan_in)), zero bias."""
+        if self.quantized:
+            raise RuntimeError("a quantized Dense has no float weight to reset")
         self.w.normal_(0.0, math.sqrt(1.0 / self.in_dim), generator=generator)
         if self.b is not None:
             self.b.zero_()
 
+    @property
+    def quantized(self) -> bool:
+        return isinstance(self.w, QuantizedWeight)
+
+    def set_quantized(self, q: torch.Tensor, s: torch.Tensor) -> None:
+        """Hold the weight as int8 ``q`` [in, out] and f32 scales ``s``
+        [out] (the float parameter, if any, is dropped)."""
+        if tuple(q.shape) != (self.in_dim, self.out_dim) or q.dtype != torch.int8:
+            raise ValueError(f"quantized weight {tuple(q.shape)} {q.dtype} does "
+                             f"not fit Dense({self.in_dim}, {self.out_dim})")
+        self._parameters.pop("w", None)
+        self._modules.pop("w", None)
+        self.w = QuantizedWeight(q, s.float())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w.to(x.dtype)
+        w = dequantize_weight(self.w, x.dtype) if self.quantized else self.w.to(x.dtype)
+        y = x @ w
         if self.b is not None:
             y = y + self.b.to(x.dtype)
         return y

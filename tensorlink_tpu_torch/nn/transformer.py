@@ -73,6 +73,7 @@ class TransformerBlock(nn.Module):
         attn_window: int | None = None,
         dropout: float = 0.0,
         attn_impl="auto",
+        qkv_fused: bool = False,
         *,
         device=None,
         dtype=torch.float32,
@@ -92,7 +93,8 @@ class TransformerBlock(nn.Module):
         self.attn = MultiHeadAttention(
             dim, num_heads, num_kv_heads=num_kv_heads, use_bias=use_bias,
             rope=rope, rope_theta=rope_theta, causal=causal,
-            window=attn_window, attn_impl=attn_impl, **kw,
+            window=attn_window, attn_impl=attn_impl, qkv_fused=qkv_fused,
+            **kw,
         )
         self.mlp = FeedForward(
             dim, hidden_dim or 4 * dim, activation=activation,

@@ -23,8 +23,12 @@ draws (``spec_verify`` here, the draft's proposals in
 ``parallel/speculative.py``) add a salt to the key, so they never share
 bits with that stream.
 
-Mesh/tensor parallelism, weight-only int8 and the sequence-sharded cache
-wait for later slices.
+``quantize="int8"`` serves weight-only int8 (``ops/quant.py``): the
+engine quantizes every ``Dense`` weight of the model it is given, in
+place, or takes a model (or a state dict) that is already quantized.
+
+Mesh/tensor parallelism and the sequence-sharded cache wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ from torch import nn
 from tensorlink_tpu_torch import resolve_device
 from tensorlink_tpu_torch.convert import apply_dtype_policy
 from tensorlink_tpu_torch.nn.attention import DECODE_BLOCK
+from tensorlink_tpu_torch.nn.layers import Dense
+from tensorlink_tpu_torch.ops.quant import is_quantized, quantize_params_int8
 from tensorlink_tpu_torch.runtime.graphs import GraphCache
 
 # generate checks whether every row has ended (a host read) once every
@@ -216,6 +222,34 @@ def spec_verify(tgt_logits, proposals, key, temperature, top_k=0, top_p=1.0,
     return n_acc + 1, emitted
 
 
+def _quantized_layout(model: nn.Module, state: dict) -> None:
+    """Give every ``Dense`` whose weight ``state`` holds quantized
+    (``….w.q`` / ``….w.s``) the quantized form, so the state dict loads
+    strictly."""
+    for name, mod in list(model.named_modules()):
+        qn = f"{name}.w.q" if name else "w.q"
+        if isinstance(mod, Dense) and qn in state:
+            mod.set_quantized(state[qn], state[qn[:-1] + "s"])
+
+
+def weight_pass_bytes(model: nn.Module) -> int:
+    """Bytes one weight pass of a decoder reads: every ``Dense`` weight
+    as stored (int8 ``q`` plus f32 scales ``s``, or the float matrix) and
+    the embedding table of an LM head tied to it
+    (``model.tied_head_table()``). Biases, norms and the embedding rows a
+    step gathers are not counted (``program_cost``'s convention)."""
+    total = 0
+    for mod in model.modules():
+        if isinstance(mod, Dense):
+            w = mod.w
+            total += (w.q.numel() * w.q.element_size() + w.s.numel() * w.s.element_size()
+                      if mod.quantized else w.numel() * w.element_size())
+    table = model.tied_head_table()
+    if table is not None:
+        total += table.numel() * table.element_size()
+    return total
+
+
 def generate_row_seeds(seed: int, batch: int, device) -> torch.Tensor:
     """``generate``'s per-row sampling key: (its seed, the row) mixed
     into one 32-bit seed a row; the step is the position."""
@@ -248,6 +282,12 @@ class InferenceEngine:
     on, so only the newest shape's cache stays allocated between calls.
     ``step_hook``, when set, is called with the step index before each
     decode step (for measurement; a replay runs no module hooks).
+
+    ``quantize="int8"``: weight-only int8. The model handed in is
+    quantized in place (its float ``Dense`` weights are replaced), unless
+    it, or ``params``, is quantized already. ``weight_bytes`` is what
+    one weight pass reads (int8 weights at one byte plus their f32
+    scales), the figure ``runtime/profiling.py`` ``program_cost`` bills.
     """
 
     def __init__(
@@ -261,16 +301,25 @@ class InferenceEngine:
         device=None,
         rolling_cache: bool = False,
         cuda_graphs: bool = True,
+        quantize: str | None = None,
     ):
+        if quantize is not None and quantize != "int8":
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         self.device = resolve_device(device)
         self.cuda_graphs = bool(cuda_graphs)
         self.step_hook = None
         self._gen_state: dict | None = None
         self.model = model
         if params is not None:
+            if is_quantized(params):
+                _quantized_layout(model, params)
             model.load_state_dict(params, strict=True, assign=True)
+        self.quantize = quantize
+        if quantize == "int8" and not is_quantized(model):
+            quantize_params_int8(model)
         apply_dtype_policy(model, param_dtype, self.device)
         model.eval()
+        self.weight_bytes = weight_pass_bytes(model)
         # the user-facing bound stays exactly max_len; only the cache
         # allocation rounds up to a DECODE_BLOCK multiple
         self.max_len = int(max_len)

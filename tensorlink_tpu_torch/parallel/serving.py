@@ -115,15 +115,45 @@ the slot's block-table row at them and decodes token-identically to
 colocated serving. Draft-model speculation raises
 ``NotImplementedError`` there, as in the reference.
 
+**Warm start** (both engines): ``compile_cache_dir=`` (or
+``$TL_COMPILE_CACHE_DIR``, ``runtime/compile_cache.py``) keeps the
+kernel libraries a restart would otherwise rebuild; ``stats()["compile"]``
+says which came from it (``compile_cache_hit``). ``autotune_dir=`` (or
+``$TL_AUTOTUNE_DIR``, ``runtime/autotune.py``) loads, before anything is
+captured, the record keyed by (torch, CUDA, chip, model fingerprint,
+bucket set): flash-block overrides installed, the adaptive controller's K
+prior staged. ``save_autotune(**extra)`` writes this engine's knobs (and
+JSON-safe extras such as ``autopair_draft``'s ``persistable`` verdict).
+``warm_buckets=True`` runs the bucket set the key names once at
+construction.
+
+**Chaos hooks** (``runtime/chaos.py``): ``serving.dispatch`` before each
+decode or spec chunk is launched and ``serving.drain`` at the top of each
+drain, on the host, outside every captured body; disarmed, each costs one
+module-global read.
+
+**Self-healing** (``SpecConfig.self_heal_accept``): an EWMA of recent
+acceptance; below the floor after ``HEAL_MIN_PROPOSED`` verified
+proposals the engine downgrades itself (draft -> n-gram -> off) at a
+device-idle point (no live slot, no chunk in flight, no pending prefill),
+drops the old mode's graphs and pool and rebuilds the speculation state;
+the next chunk captures the new mode. ``stats()["spec_self_healed"]``.
+
+**asyncio**: ``asubmit`` / ``aresult`` run ``submit`` / ``result`` in the
+loop's executor. Every device call stays under the scheduler lock, so a
+pump thread's graph capture never overlaps another thread's prefill (a
+capture fails if another thread launches work meanwhile).
+
 Not ported yet (see ROADMAP): metrics and events (the counts live in
-``stats()``), autotune and the compile cache, chaos hooks, speculation
-self-healing and draft auto-pairing, ``asubmit`` / ``aresult``.
+``stats()``).
 """
 
 from __future__ import annotations
 
+import asyncio
 import collections
 import enum
+import json
 import threading
 import time
 from dataclasses import dataclass, field
@@ -150,6 +180,14 @@ from tensorlink_tpu_torch.parallel.speculative import (
     SpeculativeDecoder,
     ngram_propose,
 )
+from tensorlink_tpu_torch.runtime import chaos
+from tensorlink_tpu_torch.runtime.autotune import (
+    AutotuneStore,
+    apply_flash_overrides,
+    model_fingerprint,
+    store_key,
+)
+from tensorlink_tpu_torch.runtime.compile_cache import compile_report, enable_compile_cache
 from tensorlink_tpu_torch.runtime.graphs import GraphCache
 from tensorlink_tpu_torch.runtime.profiling import DispatchTimer, program_cost
 
@@ -177,6 +215,14 @@ _RETRY_TPOT_FALLBACK_S = 0.02
 # rows of a speculative chunk's output per round, after its K+1 tokens:
 # n_emit, n_acc, fallback, n_prop, draft steps no row needed
 _SPEC_EXTRA = 5
+
+# verified proposals the self-healing gate waits for before it trusts
+# the acceptance EWMA (the reference's)
+HEAL_MIN_PROPOSED = 32
+
+# the most prefill buckets the contiguous engine keys its autotune record
+# on and warms (the reference's prefill-program cache bound)
+_AUTOTUNE_BUCKETS_MAX = 32
 
 
 class Priority(enum.IntEnum):
@@ -369,7 +415,8 @@ class ContinuousBatchingEngine:
     are computed against. ``metering``: keep a meter a finished request
     (``meter``, ``drain_meters``); ``meter_kind`` names what they bill
     (``"serve"``, or a disaggregated leg's ``"prefill_leg"`` /
-    ``"decode_leg"``).
+    ``"decode_leg"``). ``compile_cache_dir``, ``autotune_dir`` and
+    ``warm_buckets``: the warm start (module docstring).
     """
 
     def __init__(
@@ -389,6 +436,9 @@ class ContinuousBatchingEngine:
         device_timing: bool = True,
         capability: dict | None = None,
         metering: bool = True,
+        compile_cache_dir: str | None = None,
+        autotune_dir: str | None = None,
+        warm_buckets: bool = False,
     ):
         if engine.rolling:
             raise NotImplementedError(
@@ -429,6 +479,24 @@ class ContinuousBatchingEngine:
         if draft is not None or speculative:
             cfg = speculative if isinstance(speculative, SpecConfig) else SpecConfig()
             self.spec = SpeculativeDecoder(engine, draft, cfg)
+        # self-healing: recent-acceptance EWMA, and the downgrade if one
+        # happened
+        self._heal_acc: float | None = None
+        self._heal_proposed = 0
+        self.spec_self_healed: dict | None = None
+        self.spec_self_heal_total = 0
+
+        # warm start: the kernel-build cache, then the autotune record,
+        # loaded before anything is built or captured
+        self._cc_dir = enable_compile_cache(compile_cache_dir)
+        self.autotune_warm_start_s: float | None = None
+        self._autotune_key: str | None = None
+        self._autotune_record: dict | None = None
+        self._autotune_dropped = 0  # extras save_autotune could not serialize
+        self._autotune = AutotuneStore.resolve(autotune_dir)
+        if self._autotune is not None:
+            self._autotune_load()
+
         self._kctl: AdaptiveKController | None = None
         if self.spec is not None and self.spec.cfg.adaptive:
             # n-gram proposals are free: only the position cost pulls K
@@ -436,6 +504,7 @@ class ContinuousBatchingEngine:
             self._kctl = AdaptiveKController(
                 self.spec.cfg,
                 draft_cost=0.0 if self.spec.mode == "ngram" else None,
+                prior=(self._autotune_record or {}).get("k_prior"),
             )
         # the masked-K array staged for the next dispatch (the paged
         # engine stages it before growing blocks, so the two agree)
@@ -455,22 +524,12 @@ class ContinuousBatchingEngine:
         self._live = torch.zeros((S,), dtype=torch.bool, device=dev)
         self._seed = torch.zeros((S,), dtype=torch.int64, device=dev)
         self._rows = torch.arange(S, device=dev)
-        if self.spec is None:
-            out_shape = (self.decode_chunk, S)
-        else:
-            cfg = self.spec.cfg
-            out_shape = (cfg.rounds, cfg.k + 1 + _SPEC_EXTRA, S)
-        self._out = torch.zeros(out_shape, dtype=torch.int64, device=dev)
         self._graphs = GraphCache(dev, enabled=cuda_graphs)
         # dispatched, not yet drained: (host output, event or None, the
         # dispatch-time slot -> request snapshot, slot -> the most
         # positions the chunk may advance that slot, timer handle or None)
         self._inflight: collections.deque = collections.deque()
-        pin = dev.type == "cuda"
-        self._host_out = [
-            torch.zeros(out_shape, dtype=torch.int64, pin_memory=pin)
-            for _ in range(self.pipeline_depth + 1)
-        ]
+        self._init_out()
         self._dispatched = 0
 
         # host-side scheduler state
@@ -510,6 +569,106 @@ class ContinuousBatchingEngine:
         self.decode_only_tokens = 0
         self._init_state()
         self._init_spec_state()
+        if warm_buckets:
+            self._warm()
+
+    def _init_out(self) -> None:
+        """The chunk's device output and the pinned host buffers the
+        chunks in flight copy it to; their shape follows the mode."""
+        S = self.slots
+        if self.spec is None:
+            out_shape = (self.decode_chunk, S)
+        else:
+            cfg = self.spec.cfg
+            out_shape = (cfg.rounds, cfg.k + 1 + _SPEC_EXTRA, S)
+        self._out = torch.zeros(out_shape, dtype=torch.int64, device=self.device)
+        pin = self.device.type == "cuda"
+        self._host_out = [
+            torch.zeros(out_shape, dtype=torch.int64, pin_memory=pin)
+            for _ in range(self.pipeline_depth + 1)
+        ]
+
+    # ------------------------------------------------------- warm start
+    def _autotune_buckets(self) -> tuple[int, ...]:
+        """The prefill shapes this engine's tuning was measured against
+        (part of the store key) and that ``warm_buckets`` runs: every
+        ``prefill_block`` multiple up to the cache view, at most
+        ``_AUTOTUNE_BUCKETS_MAX`` of them."""
+        top = min(self.L, self.engine.max_len)
+        buckets = range(self.prefill_block, top + 1, self.prefill_block)
+        return tuple(buckets)[:_AUTOTUNE_BUCKETS_MAX]
+
+    def _autotune_load(self) -> None:
+        """Load and apply the record for this (torch, CUDA, chip, model,
+        buckets) key: flash-block overrides installed, the K prior staged
+        for the controller. A miss (absent, corrupt, stale) is a silent
+        cold start."""
+        t0 = time.perf_counter()
+        self._autotune_key = store_key(
+            model_fingerprint(self.engine.model), self._autotune_buckets()
+        )
+        rec = self._autotune.load(self._autotune_key)
+        if rec is None:
+            return
+        # (a record's paged-kernel rows have no counterpart here:
+        # autotune.apply_paged_overrides says why)
+        apply_flash_overrides(rec)
+        self._autotune_record = rec
+        self.autotune_warm_start_s = round(time.perf_counter() - t0, 4)
+
+    def save_autotune(self, **extra) -> str | None:
+        """Persist this engine's measured knobs — the installed flash-block
+        overrides, its bucket set, the adaptive controller's K prior —
+        plus caller extras (e.g. ``draft_pair=`` an ``autopair_draft``
+        verdict's ``persistable``). An extra that is not JSON-serializable
+        is dropped and counted (``stats()["autotune"]``), never allowed to
+        fail the save. Returns the written path, None without a store."""
+        if self._autotune is None:
+            return None
+        from tensorlink_tpu_torch.ops.flash import flash_block_overrides
+
+        with self._lock:  # a self-heal may be swapping the controller
+            rec = {
+                "flash_blocks": [list(t) for t in flash_block_overrides()],
+                "prefill_buckets": list(self._autotune_buckets()),
+            }
+            if self._kctl is not None:
+                rec["k_prior"] = self._kctl.prior()
+        for k, v in extra.items():
+            try:
+                json.dumps(v)
+            except (TypeError, ValueError):
+                self._autotune_dropped += 1
+                continue
+            rec[k] = v
+        key = self._autotune_key or store_key(
+            model_fingerprint(self.engine.model), self._autotune_buckets()
+        )
+        return str(self._autotune.save(key, rec))
+
+    @torch.no_grad()
+    def _warm(self) -> None:
+        """Run each prefill bucket of the autotune key once on slot 0's
+        region at construction (kernel libraries build, the allocator
+        warms), then reset the slot: first-request TTFT then measures
+        serving. Buckets run smallest first."""
+        dev = self.device
+        for Tp in self._autotune_buckets():
+            ids = torch.zeros((1, Tp), dtype=torch.int64, device=dev)
+            pos = torch.arange(Tp, device=dev)[None, :]
+            self.engine.model(ids, caches=self._slot_caches(self._kv, 0),
+                              positions=pos, mask=None, logits=False)
+        self._valid[0] = False
+        self._cache_index[0] = 0
+
+    def release(self) -> None:
+        """Drop this engine's captured graphs and their pool (the memory
+        returns to the allocator). The engine stays usable: the next
+        chunk captures anew."""
+        with self._lock:
+            while self._inflight:
+                self._drain_one()
+            self._graphs.clear()
 
     def _init_state(self) -> None:
         """Every layer's [S, L] cache regions and the per-slot write
@@ -589,7 +748,7 @@ class ContinuousBatchingEngine:
         return program_cost(
             self.engine.model.cfg, program, rows=rows, steps=steps,
             frontier=frontier, k=k,
-            weight_itemsize=torch.empty((), dtype=self.engine.param_dtype).element_size(),
+            weight_bytes=self.engine.weight_bytes,
             kv_token_bytes=self._kv_token_bytes,
         )
 
@@ -621,6 +780,9 @@ class ContinuousBatchingEngine:
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         with self._lock:
+            # a due downgrade applies before this prompt admits: it must
+            # not prefill into a mode already measured as a loss
+            self._maybe_self_heal()
             self._check_fit(int(ids.size), max_new)
             self._check_deadline_feasible(max_new, deadline_s)
             # expired work frees its slot and blocks before this arrival
@@ -1126,6 +1288,10 @@ class ContinuousBatchingEngine:
         """Run one chunk (a graph replay on CUDA) and start its output's
         copy to the host; the chunk joins the in-flight queue."""
         frontier = self._frontier(decoding)
+        h = chaos.ACTIVE  # fault injection: disarmed, one identity test
+        if h is not None:
+            h.apply_sync("serving.dispatch",
+                         program="decode" if self.spec is None else "spec_chunk")
         if self.spec is None:
             program = "decode"
             probe = self._timer_start()
@@ -1188,6 +1354,9 @@ class ContinuousBatchingEngine:
         tokens to the requests of its dispatch-time snapshot, and tighten
         each still-running slot's upper bound to its now known write index
         plus the chunks still in flight."""
+        h = chaos.ACTIVE  # scripted drain stall (a worker stalling mid-decode)
+        if h is not None:
+            h.apply_sync("serving.drain")
         host, event, snap, _, disp = self._inflight.popleft()
         if event is not None:
             event.synchronize()
@@ -1262,6 +1431,72 @@ class ContinuousBatchingEngine:
         self.spec_proposed_total += proposed
         self.spec_fallback_total += int(out[:, K + 3].sum())
         self.spec_idle_draft_steps += int(out[:, K + 5, 0].sum())
+        if proposed and self.spec.cfg.self_heal_accept is not None:
+            # recent acceptance for the self-healing gate: the lifetime
+            # totals would take long to show a draft that went bad
+            lam = self.spec.cfg.ewma
+            a = accepted / proposed
+            self._heal_acc = (a if self._heal_acc is None
+                              else (1.0 - lam) * self._heal_acc + lam * a)
+            self._heal_proposed += proposed
+
+    def _maybe_self_heal(self) -> None:
+        """Downgrade the speculation mode (draft -> n-gram -> off) when the
+        acceptance EWMA sits below ``SpecConfig.self_heal_accept`` after
+        at least ``HEAL_MIN_PROPOSED`` verified proposals. Only when the
+        device is idle (no live slot, no chunk in flight, no pending
+        prefill): the old mode's graphs and their pool are dropped and the
+        speculation state rebuilt, which must never happen under a
+        dispatched chunk. Queued requests admit under the new mode. The
+        KV caches stay (the target's k/v do not depend on the mode). Mode
+        counters restart; ``stats()["spec_self_healed"]`` keeps what
+        happened. Caller holds the scheduler lock."""
+        spec = self.spec
+        if spec is None or spec.cfg.self_heal_accept is None:
+            return
+        if self._heal_acc is None or self._heal_proposed < HEAL_MIN_PROPOSED:
+            return
+        if self._heal_acc >= spec.cfg.self_heal_accept:
+            return
+        if any(r is not None for r in self._slot_req) or self._inflight:
+            return
+        if self._pending_prefills():
+            return
+        to = "ngram" if spec.mode == "draft" else "nonspec"
+        self.spec_self_healed = {
+            "from": spec.mode, "to": to,
+            "acceptance": round(self._heal_acc, 4),
+            "proposed": self._heal_proposed,
+        }
+        self.spec_self_heal_total += 1
+        if to == "ngram":
+            self.spec = SpeculativeDecoder(self.engine, None, spec.cfg)
+            if self._kctl is not None:
+                # proposals are free now, and the bad draft's acceptance
+                # says nothing about n-gram
+                self._kctl = AdaptiveKController(spec.cfg, draft_cost=0.0)
+        else:
+            self.spec = None
+            self._kctl = None
+        self.spec_rounds_total = 0
+        self.spec_emitted_total = 0
+        self.spec_accepted_total = 0
+        self.spec_proposed_total = 0
+        self.spec_fallback_total = 0
+        self.spec_idle_draft_steps = 0
+        self._heal_acc = None
+        self._heal_proposed = 0
+        self._k_dispatch = None
+        # the old mode's graphs (and the draft cache they read) go before
+        # the new mode allocates and captures
+        self._graphs.clear()
+        for name in ("_draft_kv", "_draft_fn", "_dlg", "_ids", "_k_eff"):
+            self.__dict__.pop(name, None)
+        self._init_out()
+        self._init_spec_state()
+
+    def _pending_prefills(self) -> int:
+        return 0  # the paged engine: its chunked-prefill queue
 
     # ---------------------------------------------------------- metering
     def _in_flight(self, req: _Request) -> bool:
@@ -1418,6 +1653,7 @@ class ContinuousBatchingEngine:
     def _step_locked(self) -> bool:
         t_start = time.perf_counter()
         chunks0, drained0 = self.prefill_chunks, self._drained_tokens
+        self._maybe_self_heal()
         self._expire_deadlines_locked()
         self._admit_waiting()
         self._prefill_step()
@@ -1436,6 +1672,8 @@ class ContinuousBatchingEngine:
         busy = bool(decoding) or prefilled
         while len(self._inflight) > (self.pipeline_depth if busy else 0):
             self._drain_one()
+        if not busy:
+            self._maybe_self_heal()  # just drained fully idle
         if decoding and not prefilled:
             self.decode_only_s += time.perf_counter() - t_start
             self.decode_only_tokens += self._drained_tokens - drained0
@@ -1479,6 +1717,28 @@ class ContinuousBatchingEngine:
         if req.failed is not None:
             raise req.failed
         return np.asarray(req.tokens, np.int64)
+
+    async def asubmit(self, ids, *, max_new: int | None = None, seed: int = 0,
+                      priority: Priority | int | str = Priority.STANDARD,
+                      deadline_s: float | None = None,
+                      tenant: str | None = None) -> int:
+        """``submit`` in the running loop's executor: admission runs a
+        prefill and may wait on a pump thread holding the scheduler lock,
+        neither of which belongs on an event loop."""
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(None, lambda: self.submit(
+            ids, max_new=max_new, seed=seed, priority=priority,
+            deadline_s=deadline_s, tenant=tenant))
+
+    async def aresult(self, rid: int, *, timeout_s: float | None = None,
+                      deadline_s: float | None = None) -> np.ndarray:
+        """``result`` in the running loop's executor: the scheduler is
+        pumped from a worker thread, so an event loop keeps serving while
+        a request generates. Concurrent calls serialize on the scheduler
+        lock."""
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(None, lambda: self.result(
+            rid, timeout_s=timeout_s, deadline_s=deadline_s))
 
     def run_until_idle(self) -> None:
         while self.step():
@@ -1568,6 +1828,16 @@ class ContinuousBatchingEngine:
         }
         if self.spec is not None:
             out["spec"] = self._spec_stats()
+        if self.spec_self_healed is not None:
+            out["spec_self_healed"] = self.spec_self_healed
+            out["spec_self_heal_total"] = self.spec_self_heal_total
+        out["compile"] = compile_report()
+        if self._autotune is not None:
+            out["autotune"] = {"key": self._autotune_key,
+                               "extras_dropped": self._autotune_dropped,
+                               **self._autotune.counts}
+        if self.autotune_warm_start_s is not None:
+            out["autotune_warm_start_s"] = self.autotune_warm_start_s
         out["metering"] = {
             "enabled": self.metering,
             "metered_total": self._metered_total,
@@ -1700,6 +1970,25 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self.peak_blocks_in_use = 0
         self.cow_copies = 0
         self.preemptions = 0
+
+    def _autotune_buckets(self) -> tuple[int, ...]:
+        # one chunk width serves every prompt: it is the bucket set
+        return (self.prefill_chunk,)
+
+    @torch.no_grad()
+    def _warm(self) -> None:
+        """One prefill chunk at construction, through slot 0's row while
+        it points at the scratch block (its writes land there): the
+        libraries build and the allocator warms."""
+        C, dev = self.prefill_chunk, self.device
+        index = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self.engine.model(torch.zeros((1, C), dtype=torch.int64, device=dev),
+                          caches=self._caches(index, self._block_table[:1], C),
+                          positions=torch.arange(C, device=dev)[None, :],
+                          mask=None, logits=False)
+
+    def _pending_prefills(self) -> int:
+        return len(self._pending)
 
     def _check_fit(self, t0: int, max_new: int) -> None:
         if t0 + max_new > self.engine.max_len:

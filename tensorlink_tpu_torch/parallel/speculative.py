@@ -33,18 +33,25 @@ come from the counter hash keyed by (request seed, logical position,
 salt) with the reference's salts, so they never share bits with the
 sampling stream.
 
-Not ported yet: ``default_draft_candidates`` and ``autopair_draft``
-(their one candidate is the target's weight-only int8 sibling, which
-waits for the int8 weights), and self-healing (``self_heal_accept``).
+**Measured draft pairing** (``autopair_draft``): a short calibration
+burst decides how an engine should speculate, from tokens per second on
+this card: non-speculative, each candidate draft (by default the
+target's weight-only int8 sibling, ``default_draft_candidates``), then
+n-gram. The engines' self-healing (``SpecConfig.self_heal_accept``,
+``parallel/serving.py``) downgrades a mode that measures as a loss.
 """
 
 from __future__ import annotations
 
+import gc
+import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from tensorlink_tpu_torch.parallel.inference import sample_logits_at
+from tensorlink_tpu_torch.ops.quant import quantize_params_int8
+from tensorlink_tpu_torch.parallel.inference import InferenceEngine, sample_logits_at
 
 __all__ = [
     "AdaptiveKController",
@@ -53,8 +60,13 @@ __all__ = [
     "SALT_VERIFY",
     "SpecConfig",
     "SpeculativeDecoder",
+    "autopair_draft",
+    "default_draft_candidates",
     "ngram_propose",
 ]
+
+# the clock autopair_draft measures with (tests pin it)
+_clock = time.perf_counter
 
 # counter-hash stream salts: the draft's proposals and the verifier's
 # accept/reject draws must not share bits with the engine's per-position
@@ -84,8 +96,9 @@ class SpecConfig:
     stops proposing at the first step whose draft entropy (nats) exceeds
     it (None = off). ``ewma``: smoothing of the acceptance estimate.
     ``draft_cost``: one draft step's cost relative to a target weight
-    pass. ``self_heal_accept`` waits for ROADMAP item 12 (self-healing)
-    and raises when set."""
+    pass. ``self_heal_accept``: acceptance floor below which the ENGINE
+    downgrades its speculation mode (draft -> n-gram -> off) at its next
+    idle point (None = never)."""
 
     k: int = 4
     rounds: int = 2
@@ -113,15 +126,12 @@ class SpecConfig:
             raise ValueError(
                 f"entropy_exit must be > 0 nats, got {self.entropy_exit}"
             )
-        if self.self_heal_accept is not None:
-            if not 0.0 < self.self_heal_accept < 1.0:
-                raise ValueError(
-                    f"self_heal_accept must be in (0, 1), "
-                    f"got {self.self_heal_accept}"
-                )
-            raise NotImplementedError(
-                "self_heal_accept needs speculation self-healing, "
-                "ROADMAP queue A item 12 (not ported yet)"
+        if self.self_heal_accept is not None and not (
+            0.0 < self.self_heal_accept < 1.0
+        ):
+            raise ValueError(
+                f"self_heal_accept must be in (0, 1), "
+                f"got {self.self_heal_accept}"
             )
         if not 0.0 < self.ewma <= 1.0:
             raise ValueError(f"ewma must be in (0, 1], got {self.ewma}")
@@ -130,11 +140,11 @@ class SpecConfig:
 
     @classmethod
     def auto(cls, k: int = 4, **kw) -> "SpecConfig":
-        """The self-tuning preset: adaptive K and draft early exit at 2.5
-        nats. (The reference's preset also sets ``self_heal_accept`` 0.3;
-        here that waits for ROADMAP item 12.)"""
+        """The self-tuning preset: adaptive K, draft early exit at 2.5
+        nats and self-healing below 0.3 acceptance, as in the reference."""
         kw.setdefault("adaptive", True)
         kw.setdefault("entropy_exit", 2.5)
+        kw.setdefault("self_heal_accept", 0.3)
         return cls(k=k, **kw)
 
 
@@ -148,14 +158,22 @@ class AdaptiveKController:
     drafted position). The controller picks the ``k`` in ``[k_min,
     k_max]`` that maximizes tokens per cost, per request, from an EWMA of
     that request's acceptance (new requests start from the cross-request
-    prior; the reference's warm start of that prior from its autotune
-    store waits for ROADMAP item 11)."""
+    prior, which ``prior=`` — a record's ``k_prior``, from the autotune
+    store — warm-starts across restarts)."""
 
-    def __init__(self, cfg: SpecConfig, *, draft_cost: float | None = None):
+    def __init__(self, cfg: SpecConfig, *, draft_cost: float | None = None,
+                 prior: dict | None = None):
         self.cfg = cfg
         self.draft_cost = float(draft_cost) if draft_cost is not None else cfg.draft_cost
         self._acc: dict[int, float] = {}  # rid -> acceptance EWMA
         self.prior_acceptance = 0.6
+        if prior:
+            a = prior.get("acceptance")
+            if isinstance(a, (int, float)) and 0.0 <= a <= 1.0:
+                self.prior_acceptance = float(a)
+            c = prior.get("draft_cost")
+            if draft_cost is None and isinstance(c, (int, float)) and c >= 0:
+                self.draft_cost = float(c)
         self._k_cache: dict[int, int] = {}  # milli-acceptance -> k
         self.k_dispatched = 0  # sum of k over dispatched (row, chunk)s
         self.rounds_dispatched = 0
@@ -275,9 +293,8 @@ class SpeculativeDecoder:
         if draft is not None:
             if draft.rolling or getattr(draft, "kv_seq_shard", False):
                 raise NotImplementedError(
-                    "a draft engine with rolling_cache or kv_seq_shard needs "
-                    "ROADMAP queue A item 13 (not ported yet); use the plain "
-                    "monotone cache"
+                    "draft engines must use the plain monotone cache "
+                    "(no rolling_cache / kv_seq_shard)"
                 )
             tv, dv = _vocab_of(engine), _vocab_of(draft)
             if tv is not None and dv is not None and tv != dv:
@@ -361,3 +378,145 @@ class SpeculativeDecoder:
             return torch.stack(props, dim=1), k_live, idle
 
         return run
+
+
+# --------------------------------------------------------- draft pairing
+def default_draft_candidates(engine) -> list[tuple[str, object]]:
+    """The free draft for any target: its own weight-only int8 sibling
+    (half the weight bytes a draft step on a memory-bound decode, and
+    int8 nearly always keeps the argmax). A thunk, not an engine: a
+    candidate that is never measured never allocates.
+
+    The sibling is a model of the target's class built on the meta
+    device (no memory), into which ``quantize_params_int8`` quantizes
+    the target's ``Dense`` weights one at a time and shares every other
+    tensor with it (the embedding table, norms, biases). So no float
+    copy of the model ever exists beside the target, and the target's
+    own module is left as it was."""
+
+    def int8_sibling():
+        model = engine.model
+        sib = type(model)(model.cfg, device="meta", seed=None)
+        quantize_params_int8(sib, source=model)
+        return InferenceEngine(
+            sib, max_len=engine.max_len, cache_dtype=engine.cache_dtype,
+            param_dtype=engine.param_dtype, device=engine.device,
+            cuda_graphs=engine.cuda_graphs, quantize="int8",
+        )
+
+    return [("int8-sibling", int8_sibling)]
+
+
+def _release(device) -> None:
+    """Return what the dropped burst engines and candidates held."""
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def autopair_draft(
+    engine,
+    gen,
+    *,
+    candidates: list[tuple[str, object]] | None = None,
+    cfg: SpecConfig | None = None,
+    prompts=None,
+    max_new: int = 16,
+    slots: int = 2,
+) -> dict:
+    """Measured draft pairing: a short calibration burst decides how this
+    engine should speculate, from wall-clock tokens per second.
+
+    The burst prompts run through (a) a non-speculative scheduler (the
+    baseline), (b) each vocabulary-compatible candidate draft in the
+    order given (largest first: the first whose tokens/s beats the
+    baseline wins) and (c) n-gram speculation. Verdict order: paying
+    draft > paying n-gram > non-spec. Each burst first serves one request
+    (which builds and captures its graphs), then times the prompts.
+
+    Candidates are built lazily, one at a time, and each loser — its
+    burst scheduler with the graphs and graph pool it captured, and its
+    weights — is released (``gc`` and ``torch.cuda.empty_cache``) before
+    the next is built, so at most one candidate is ever alive beside the
+    target.
+
+    Returns ``{"mode": "draft"|"ngram"|"nonspec", "name", "draft":
+    engine or None, "spec": SpecConfig or None, "measured": {name:
+    tokens/s}, "baseline_tokens_per_sec", "calibration_s",
+    "persistable"}``; ``persistable`` is the JSON-safe summary to hand
+    ``save_autotune(draft_pair=...)``. ``skipped`` lists (name, reason)
+    of candidates that were refused (the reference records them as
+    events)."""
+    from tensorlink_tpu_torch.parallel.serving import ContinuousBatchingEngine
+
+    t_start = _clock()
+    cfg = cfg or SpecConfig()
+    if prompts is None:
+        vocab = _vocab_of(engine) or 256
+        r = np.random.default_rng(0)
+        prompts = [r.integers(0, vocab, (n,)) for n in (8, 13, 6, 10)]
+    if candidates is None:
+        candidates = default_draft_candidates(engine)
+
+    def burst(draft_eng, spec_cfg) -> float:
+        sch = ContinuousBatchingEngine(
+            engine, slots=slots, gen=gen, decode_chunk=max(cfg.k, 4),
+            prefill_block=16, draft=draft_eng, speculative=spec_cfg,
+            cuda_graphs=engine.cuda_graphs,
+        )
+        try:
+            sch.result(sch.submit(prompts[0], max_new=max_new))  # build + capture
+            t0 = _clock()
+            rids = [sch.submit(p, max_new=max_new) for p in prompts]
+            sch.run_until_idle()
+            dt = _clock() - t0
+            ntok = sum(len(sch.result(rid)) for rid in rids)
+        finally:
+            sch.release()
+            del sch
+            _release(engine.device)
+        return ntok / dt if dt > 0 else 0.0
+
+    measured: dict[str, float] = {}
+    skipped: list[tuple[str, str]] = []
+    base_tps = burst(None, None)
+    measured["nonspec"] = round(base_tps, 1)
+    tvocab = _vocab_of(engine)
+    choice = {"mode": "nonspec", "name": "nonspec", "draft": None, "spec": None}
+    for name, cand in candidates:
+        d = cand() if callable(cand) else cand
+        dvocab = _vocab_of(d)
+        if tvocab is not None and dvocab is not None and dvocab != tvocab:
+            skipped.append((name, f"vocab {dvocab} != target {tvocab}"))
+            del d
+            _release(engine.device)
+            continue
+        try:
+            tps = burst(d, cfg)
+        except (ValueError, NotImplementedError) as e:
+            skipped.append((name, str(e)[:200]))
+            del d
+            _release(engine.device)
+            continue
+        measured[name] = round(tps, 1)
+        if tps > base_tps:
+            choice = {"mode": "draft", "name": name, "draft": d, "spec": cfg}
+            break
+        del d
+        _release(engine.device)
+    if choice["mode"] == "nonspec":
+        ng_tps = burst(None, cfg)
+        measured["ngram"] = round(ng_tps, 1)
+        if ng_tps > base_tps:
+            choice = {"mode": "ngram", "name": "ngram", "draft": None, "spec": cfg}
+    choice["measured"] = measured
+    choice["skipped"] = skipped
+    choice["baseline_tokens_per_sec"] = round(base_tps, 1)
+    choice["calibration_s"] = round(_clock() - t_start, 3)
+    choice["persistable"] = {
+        "mode": choice["mode"], "name": choice["name"],
+        "measured": measured,
+        "baseline_tokens_per_sec": choice["baseline_tokens_per_sec"],
+        "calibration_s": choice["calibration_s"],
+    }
+    return choice

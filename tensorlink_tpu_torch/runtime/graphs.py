@@ -92,6 +92,7 @@ class GraphCache:
         self.capture_s = 0.0
         self.replays = 0
         self.pool_bytes = 0
+        self.cleared = 0  # graphs dropped by clear()
 
     def run(self, key, body, after=None) -> None:
         if not self.enabled:
@@ -146,9 +147,24 @@ class GraphCache:
         self.pool_bytes += max(torch.cuda.memory_reserved(self.device) - reserved, 0)
         return graph
 
+    def clear(self) -> None:
+        """Drop every captured graph and the pool they share (a serving
+        engine's mode change, or an engine being released): the memory
+        goes back to the caching allocator, and the next call of each key
+        warms up and captures anew. The device is synchronized first, so
+        no replay still runs on a graph being destroyed."""
+        if self.device.type == "cuda" and self._graphs:
+            torch.cuda.synchronize(self.device)
+        self.cleared += len(self._graphs)
+        self._graphs.clear()
+        self._pool = None
+        self.pool_bytes = 0
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     def stats(self) -> dict:
         return {
             "graphs": len(self._graphs), "captured": self.captured,
             "capture_s": self.capture_s, "replays": self.replays,
-            "pool_bytes": self.pool_bytes,
+            "pool_bytes": self.pool_bytes, "cleared": self.cleared,
         }

@@ -240,17 +240,23 @@ def measure_capability(
     so the card is filled (the defaults, the reference's, read an H100
     far below its peak).
 
-    ``store``/``key`` (the reference's autotune store) wait for the
-    port's autotune module and raise ``NotImplementedError``."""
-    if store is not None or key is not None:
-        raise NotImplementedError(
-            "measure_capability(store=, key=) caches in the autotune "
-            "store, which is not ported yet (ROADMAP queue A item 11)"
-        )
+    With ``store``/``key`` (a ``runtime/autotune.py`` ``AutotuneStore``
+    and its chip-global key, ``store_key(GLOBAL_MODEL, ())``), a record
+    an earlier process measured on the same card at the same sizes is
+    returned without running anything (``cached: True``); otherwise the
+    fresh measurement is merged into the store's record, so a restart
+    skips it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda":
         raise RuntimeError("measure_capability times the CUDA card; got "
                            f"device {dev}")
+    if store is not None and key:
+        cap = (store.load(key) or {}).get("capability")
+        if (isinstance(cap, dict) and cap.get("schema") == CAPABILITY_SCHEMA
+                and cap.get("chip") == torch.cuda.get_device_name(dev)
+                and cap.get("matmul_dim") == int(matmul_dim)
+                and cap.get("hbm_mb") == int(hbm_mb)):
+            return {**cap, "cached": True}
     t_all = time.perf_counter()
     n = int(matmul_dim)
     # entries 1/n keep the chained product at ones (exact in bf16)
@@ -279,7 +285,7 @@ def measure_capability(
     dt = start.elapsed_time(end) / 1e3
     hbm_gbps = (4.0 * m * reps) / dt / 1e9 if dt > 0 else 0.0
     del x, y, buf, s
-    return {
+    cap = {
         "schema": CAPABILITY_SCHEMA,
         "chip": torch.cuda.get_device_name(dev),
         "peak_tflops": round(peak_tflops, 4),
@@ -289,6 +295,9 @@ def measure_capability(
         "measure_s": round(time.perf_counter() - t_all, 4),
         "measured_at": time.time(),
     }
+    if store is not None and key:
+        store.update(key, {"capability": cap})
+    return cap
 
 
 # ------------------------------------------------------------ cost model
@@ -321,7 +330,7 @@ def program_cost(
     steps: int,
     frontier: Sequence[int],
     k: int = 0,
-    weight_itemsize: int = 2,
+    weight_bytes: float,
     kv_token_bytes: int,
 ) -> dict:
     """Flops and HBM bytes of one dispatch, from the config and the
@@ -334,7 +343,10 @@ def program_cost(
     decoding row's write frontier after the chunk) or ``"spec_chunk"``
     (``steps`` verify rounds of K + 1 = ``k + 1`` queries a row; the
     draft model's passes are not counted). ``kv_token_bytes``: k/v bytes
-    one token holds in one layer (scales included).
+    one token holds in one layer (scales included). ``weight_bytes``: the
+    bytes one weight pass reads as the engine stores them
+    (``InferenceEngine.weight_bytes``: int8 weights at one byte plus
+    their f32 scales).
 
     Counted: every weight is read once a weight pass (one a prefill
     chunk, one a decode step or verify round), the LM head over the rows
@@ -346,7 +358,7 @@ def program_cost(
     L, H, D = d["layers"], d["H"], d["D"]
     per_tok = 2.0 * layer_matmul_params(cfg) * L
     head_flops = 2.0 * d["dim"] * d["vocab"]
-    w_bytes = float(layer_matmul_params(cfg) * L + d["dim"] * d["vocab"]) * weight_itemsize
+    w_bytes = float(weight_bytes)
     attn_pair = 4.0 * H * D * L
     kv_tok = float(kv_token_bytes) * L
     if program == "prefill_chunk":

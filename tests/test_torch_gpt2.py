@@ -111,6 +111,10 @@ def test_per_row_cache_logits_match_jax(pair):
 
 
 def test_unported_config_features_are_refused():
-    with pytest.raises(NotImplementedError):
-        GPT2(dataclasses.replace(GPT2Config.tiny(), qkv_fused=True),
-             device="cpu")
+    """The fused q/k/v layout, refused before, builds: one biased
+    projection of 3 x dim outputs a layer."""
+    cfg = dataclasses.replace(GPT2Config.tiny(), qkv_fused=True)
+    m = GPT2(cfg, device="cpu")
+    attn = m.blocks.blocks()[0].attn
+    assert attn.qkv.w.shape == (cfg.dim, 3 * cfg.dim)
+    assert attn.qkv.b.shape == (3 * cfg.dim,)

@@ -138,7 +138,7 @@ def test_cache_is_keyed(counters):
     # a, b, c captured (warm-up + capture each), then a and b replayed
     assert log.count("capture") == 3 and log.count("replay") == 2
     assert gc.stats() == {"graphs": 3, "captured": 3, "capture_s": gc.capture_s,
-                          "replays": 2, "pool_bytes": 0}
+                          "replays": 2, "pool_bytes": 0, "cleared": 0}
     assert fused_residual_norm.launches == 2 * 5
 
 

@@ -50,6 +50,8 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     # every subpackage is scanned, runtime/ (the CUDA-graph cache) too
     assert os.path.join(PORT, "runtime", "graphs.py") in files
     assert os.path.join(PORT, "parallel", "speculative.py") in files
+    for mod in ("compile_cache.py", "autotune.py", "chaos.py"):
+        assert os.path.join(PORT, "runtime", mod) in files
     bad = [
         (os.path.relpath(p, REPO), root)
         for p in files for root in _imported_roots(p) if root in FORBIDDEN
@@ -127,6 +129,11 @@ def test_importing_the_port_loads_no_jax():
         "tensorlink_tpu_torch.parallel.kvwire",
         "tensorlink_tpu_torch.runtime.ledger",
         "tensorlink_tpu_torch.runtime.profiling",
+        "tensorlink_tpu_torch.runtime.compile_cache",
+        "tensorlink_tpu_torch.runtime.autotune",
+        "tensorlink_tpu_torch.runtime.chaos",
+        "tensorlink_tpu_torch.ops.quant",
+        "tensorlink_tpu_torch.nn.layers",
     ]
     code = (
         "import sys\n"

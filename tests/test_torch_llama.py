@@ -61,8 +61,13 @@ def test_params_from_jax_applies_dtype_policy():
 
 
 def test_unported_config_features_are_refused():
+    """MoE is still refused; the fused q/k/v layout builds, with the
+    reference's per-kv-group width and no separate q/k/v."""
     with pytest.raises(NotImplementedError):
         Llama(LlamaConfig.moe_tiny(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Llama(dataclasses.replace(LlamaConfig.tiny(), qkv_fused=True),
-              device="cpu")
+    cfg = dataclasses.replace(LlamaConfig.tiny(), qkv_fused=True)
+    m = Llama(cfg, device="cpu")
+    attn = m.blocks.blocks()[0].attn
+    D = cfg.dim // cfg.num_heads
+    assert attn.qkv.w.shape == (cfg.dim, (cfg.num_heads + 2 * cfg.num_kv_heads) * D)
+    assert not any(".attn.q." in n or ".attn.k." in n for n in m.state_dict())

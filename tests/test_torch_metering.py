@@ -416,27 +416,36 @@ def test_program_cost_equals_hand_arithmetic():
     D = d // H
     P = d * H * D + 2 * d * Hkv * D + H * D * d + 3 * d * F  # one layer's matmuls
     kvb = 2 * Hkv * D * 2  # bf16 k and v, one token, one layer
+    wb = (P * L + d * V) * 2  # one weight pass of bf16 weights and the head
     # a decode chunk: 4 rows, 3 steps, two rows decoding to frontiers 10, 6
     got = profiling.program_cost(cfg, "decode", rows=4, steps=3, frontier=[10, 6],
-                                 kv_token_bytes=kvb)
+                                 weight_bytes=wb, kv_token_bytes=kvb)
     ctx = [8, 9, 10] + [4, 5, 6]  # keys each step's query attends to
     flops = 3 * 4 * (2 * P * L + 2 * d * V) + sum(4 * H * D * L * c for c in ctx)
     nbytes = 3 * (P * L + d * V) * 2 + sum(kvb * L * c for c in ctx)
     assert got == {"flops": float(flops), "bytes": float(nbytes)}
     # a prefill chunk: 4 tokens at positions 8..11
     got = profiling.program_cost(cfg, "prefill_chunk", rows=1, steps=4, frontier=[12],
-                                 kv_token_bytes=kvb)
+                                 weight_bytes=wb, kv_token_bytes=kvb)
     pairs = 9 + 10 + 11 + 12
     flops = 4 * 2 * P * L + 2 * d * V + 4 * H * D * L * pairs
     nbytes = (P * L + d * V) * 2 + kvb * L * 12
     assert got == {"flops": float(flops), "bytes": float(nbytes)}
     with pytest.raises(ValueError, match="unknown program"):
         profiling.program_cost(cfg, "train", rows=1, steps=1, frontier=[1],
-                               kv_token_bytes=kvb)
+                               weight_bytes=wb, kv_token_bytes=kvb)
 
 
-def test_measure_capability_needs_the_card_and_refuses_the_store():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        profiling.measure_capability(store=object(), key="k")
+def test_measure_capability_needs_the_card_and_refuses_the_store(tmp_path):
+    """The autotune store is accepted (the card-global record caches the
+    measurement); the CPU is still refused, store or not, and nothing is
+    written for it."""
+    from tensorlink_tpu_torch.runtime.autotune import GLOBAL_MODEL, AutotuneStore, store_key
+
+    store = AutotuneStore.resolve(str(tmp_path / "tune"))
+    key = store_key(GLOBAL_MODEL, ())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiling.measure_capability(store=store, key=key, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         profiling.measure_capability(device="cpu")
+    assert store.load(key) is None and store.counts["saved"] == 0

@@ -222,10 +222,11 @@ def test_spec_config_validation_equals_jax(kw):
 def test_spec_config_defaults_and_what_waits():
     assert SpecConfig() .__dict__ == jspec.SpecConfig().__dict__
     auto = SpecConfig.auto(k=6)
-    assert auto.adaptive and auto.entropy_exit == jspec.SpecConfig.auto(k=6).entropy_exit
-    assert auto.self_heal_accept is None
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SpecConfig(self_heal_accept=0.3)
+    assert auto.__dict__ == jspec.SpecConfig.auto(k=6).__dict__
+    assert auto.adaptive and auto.self_heal_accept == 0.3
+    # self-healing is accepted, with the reference's range check
+    heal = SpecConfig(self_heal_accept=0.3)
+    assert heal.__dict__ == jspec.SpecConfig(self_heal_accept=0.3).__dict__
 
 
 def _tiny_engine(params=None, cfg=None, max_len=32, rolling=False):
@@ -244,8 +245,11 @@ def test_draft_vocab_and_cache_checks():
     with pytest.raises(ValueError, match="vocab"):
         tspec.SpeculativeDecoder(eng, wide, SpecConfig())
     ring = _tiny_engine(cfg=LlamaConfig.mistral_tiny(), rolling=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # the reference refuses such a draft for good, not as pending work
+    with pytest.raises(NotImplementedError) as err:
         tspec.SpeculativeDecoder(eng, ring, SpecConfig())
+    assert str(err.value) == ("draft engines must use the plain monotone "
+                              "cache (no rolling_cache / kv_seq_shard)")
 
 
 # ----------------------------------------------------------------- engines
@@ -447,3 +451,45 @@ def test_paged_spec_under_pool_pressure_at_depth_2(engines, mode):
         np.testing.assert_array_equal(sch.result(rid), ref)
     sch.run_until_idle()
     assert sch.preemptions >= 1 and sch.pool.in_use == 0
+
+
+# ---------------------------------------------------------- self-healing
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "paged"])
+def test_low_accept_self_heals_like_jax(engines, kind):
+    """The reference's script (``tests/test_speculative.py``): under a
+    draft of other weights the engine downgrades itself at an idle point
+    — the same verdict as the JAX engine on the same script — every
+    stream keeps the non-spec greedy tokens, and post-heal traffic (the
+    rebuilt speculation state and prefill path) does too."""
+    jeng, jdraft, teng, tdraft, prompts, refs = engines
+    kw = ENGINE_KW[kind]
+    tcls, jcls = ((ContinuousBatchingEngine, JContiguous) if kind == "contiguous"
+                  else (PagedContinuousBatchingEngine, JPaged))
+    sch = tcls(teng, gen=GenerationConfig(max_new_tokens=8), draft=tdraft,
+               speculative=SpecConfig(k=3, rounds=2, self_heal_accept=0.3), **kw)
+    jsch = jcls(jeng, gen=JGen(max_new_tokens=8), draft=jdraft,
+                speculative=jspec.SpecConfig(k=3, rounds=2, self_heal_accept=0.3), **kw)
+    r = np.random.default_rng(23)
+    work = list(prompts) + [r.integers(0, 128, (n,)) for n in (6, 5, 7, 4)]
+    rids = [sch.submit(pr) for pr in work]
+    jrids = [jsch.submit(pr) for pr in work]
+    sch.run_until_idle()
+    jsch.run_until_idle()
+    for rid, jrid in zip(rids, jrids):
+        np.testing.assert_array_equal(sch.result(rid), np.asarray(jsch.result(jrid)))
+    for rid, ref in zip(rids[: len(refs)], refs):
+        np.testing.assert_array_equal(sch.result(rid), ref)
+    st = sch.stats()
+    healed = st["spec_self_healed"]
+    assert healed["from"] == "draft" and healed["to"] in ("ngram", "nonspec")
+    assert healed["acceptance"] < 0.3 and st["spec_self_heal_total"] == 1
+    assert healed == jsch.stats()["spec_self_healed"]
+    assert sch.spec is None or sch.spec.mode == "ngram"
+    assert not hasattr(sch, "_draft_kv")  # the draft's cache went with it
+    pr2 = r.integers(0, 128, (5,))
+    ref2 = np.asarray(jeng.generate(jnp.asarray(pr2[None]), JGen(max_new_tokens=8)))[0]
+    np.testing.assert_array_equal(sch.result(sch.submit(pr2)), ref2)
+    if kind == "paged":
+        assert sch.pool.in_use == 0
