@@ -131,6 +131,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    after;
 7i. async: 8 requests through ``asubmit``/``aresult`` (two at a time)
    equal to ``submit``/``result``;
+7j. mixtral paged, once the Llama-3-8B model is freed: Mixtral-8x7B at
+   full width and 16 of its 32 layers (random bf16 weights, 46.7 GB a
+   weight pass; the reference quantizes no expert, and the full depth's
+   90.2 GB of experts would not fit) through the paged engine in the
+   [slice] geometry, captured then eager: B3 and B4 16 times a decode
+   step, B3's prefill variant 16 times a chunk, replays, the weight-pass
+   bytes from the config; every token against two same-T replays (the
+   engine's 128-token chunks, then one token a step): one row on a
+   paged cache through B3 (its recorded routing: a decode drop
+   fraction of exactly 0), and the contiguous cache with the plain
+   attention and that routing pinned (a free-routing plain replay is
+   printed, not gated); then ``generate`` on 8 left-padded prompts of
+   100-700 tokens, replayed row by row at T0;
 8. contiguous: GPT-2-medium (random bf16 weights) served by the contiguous
    ``ContinuousBatchingEngine`` (the ``--continuous`` path): 16 greedy
    requests of 1 to 900 tokens, B4 in its LayerNorm + bias form on every
@@ -151,7 +164,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    profiled step, and the batch 32 x seq 128 headline shape under "auto"
    and "flash".
 
-Legs 6-9, 7a, 7b and 8a run their decode as CUDA-graph replays (the engines' default)
+Legs 6-9, 7a, 7b, 7j and 8a run their decode as CUDA-graph replays (the engines' default)
 with ``pipeline_depth`` 2 chunks in flight on the serving engines; the
 launch gates hold through the graphs' replay credit, and each leg checks
 that every decode chunk (or step) but each graph's first was a replay
@@ -168,9 +181,9 @@ card against the CPU's.
 Each leg's launch counts are set to 0 just before it runs and read just
 after; B4's count in the kernels line sums the four serving legs, the
 captured speculative draft runs, the disaggregated decode legs (float
-and int8) and the legs 7c-7i, B3's the paged leg, the captured
+and int8) and the legs 7c-7j, B3's the paged leg, the captured
 speculative runs, both disaggregated runs (prefill variant on P, decode
-on D) and the paged legs 7c-7i. The
+on D) and the paged legs 7c-7j. The
 last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Nothing of JAX or ``tensorlink_tpu``
 is imported.
@@ -1008,7 +1021,7 @@ def _slice_engine(model: Llama, max_new: int, cuda_graphs: bool = True,
 
 def _serve_paged(model: Llama, prompts, max_new: int, cuda_graphs: bool,
                  capability: dict | None = None, eng: InferenceEngine | None = None,
-                 tag: str = "slice"):
+                 tag: str = "slice", name: str = "Llama-3-8B"):
     """The 12 requests through a fresh paged engine (over ``eng`` when
     given); launch counts set to 0 just before and read just after, then
     checked against the path. -> (engine, request ids, outputs, wall s,
@@ -1018,7 +1031,7 @@ def _serve_paged(model: Llama, prompts, max_new: int, cuda_graphs: bool,
     sch = _slice_engine(model, max_new, cuda_graphs, capability, eng=eng)
     torch.cuda.synchronize()
     mode = "captured" if cuda_graphs else "eager"
-    say(f"[{tag}] Llama-3-8B {cfg.num_layers} layers dim {cfg.dim} "
+    say(f"[{tag}] {name} {cfg.num_layers} layers dim {cfg.dim} "
         f"vocab {cfg.vocab_size}, {mode} decode, pipeline depth "
         f"{sch.pipeline_depth}: engine ready in "
         f"{time.perf_counter() - t0:.1f} s, "
@@ -2744,6 +2757,412 @@ def phase_async(name_power: str, model: Llama, prompts) -> dict:
     return {"paged": c["paged_decode"], "norm": c["fused_norm"]}
 
 
+# ------------------------------------------------ Mixtral (MoE) serving
+# [mixtral paged]: Mixtral-8x7B at full width, depth cut to 16 of 32
+# layers (its bf16 experts alone are 90.2 GB at full depth, and the
+# reference quantizes no expert), random bf16 weights from seed 0.
+MIX_LAYERS = 16
+MIX_NEW = 32
+MIX_GEN_LENS = (100, 700, 310, 520, 180, 640, 260, 450)
+MIX_GEN_NEW = 16
+MIX_GEN_PROFILE_STEP = 8  # decode steps 4..7 plain, 8..11 profiled
+
+
+def _mixtral_weight_bytes(cfg) -> int:
+    """bf16 bytes one weight pass reads, from the config: per layer q, k,
+    v, o, the router and all E experts' up, gate and down; the untied
+    head."""
+    d, H, G, F_, E = cfg.dim, cfg.num_heads, cfg.num_kv_heads, cfg.hidden_dim, \
+        cfg.moe_experts
+    Dh = d // H
+    attn = d * H * Dh + 2 * d * G * Dh + H * Dh * d
+    return 2 * (cfg.num_layers * (attn + 3 * E * d * F_ + d * E) + d * cfg.vocab_size)
+
+
+class _RouteTape:
+    """The routing decisions of every MoE call while recording (each
+    call's ``dispatch``, in call order) and their replay: a pinned call
+    takes the next recorded dispatch, and its combine weights from its
+    own router probabilities normalised over the recorded experts, as
+    ``MoEFeedForward._route`` normalises them. Wraps each block's
+    ``mlp._route`` on the instance; used around eager replays only, never
+    inside a captured body. Kept and offered (token, choice) routes are
+    summed on the device by T == 1 (decode) and T > 1 (prefill) calls."""
+
+    KEYS = ("decode", "prefill")
+
+    def __init__(self, model):
+        self._mlps = [blk.mlp for blk in model.blocks.blocks()]
+        self.tape = []
+        self.kept = torch.zeros(2, dtype=torch.float64, device=DEV)
+        self.offered = [0, 0]
+
+    def record(self) -> None:
+        for mlp in self._mlps:
+            mlp._route = self._recorder(mlp._route, mlp.top_k)
+
+    def _recorder(self, inner, top_k):
+        def route(logits, *args, **kw):
+            d, c, aux = inner(logits, *args, **kw)
+            self.tape.append(d.bool())
+            i = 0 if d.shape[1] == 1 else 1
+            self.kept[i] += d.sum().double()
+            self.offered[i] += d.shape[0] * d.shape[1] * top_k
+            return d, c, aux
+        return route
+
+    def pin(self) -> None:
+        self.tape.reverse()  # pop() then takes the calls in their order
+        for mlp in self._mlps:
+            mlp._route = self._pinned
+
+    def _pinned(self, logits, *args, **kw):
+        d = self.tape.pop().float()
+        check(d.shape[:3] == logits.shape, "route tape out of step with the replay")
+        c = d * torch.softmax(logits.float(), dim=-1)[..., None]
+        c = c / c.sum(dim=(2, 3), keepdim=True).clamp_min(1e-9)
+        return d, c, torch.zeros((), device=logits.device)
+
+    def release(self) -> None:
+        for mlp in self._mlps:
+            del mlp._route  # the class's method again
+
+    def drops(self) -> dict:
+        kept = self.kept.tolist()
+        return {k: {"drop_fraction": 1.0 - kept[i] / self.offered[i] if self.offered[i]
+                    else None, "routes": self.offered[i]}
+                for i, k in enumerate(self.KEYS)}
+
+
+def _set_index(caches, at: int) -> None:
+    idx = torch.tensor(at, dtype=torch.int32, device=DEV)
+    for c in caches:
+        c["attn"]["index"] = idx
+
+
+def _replay_chunked(model, p, o, chunk: int, block: int = 16) -> torch.Tensor:
+    """A paged request's same-T replay through the contiguous cache and
+    the plain attention: the prompt in the engine's ``chunk``-token
+    prefill calls (the last padded with zeros at its tail, as the engine
+    pads it), then one fed token a step. -> f32 logits [len(o), V], row i
+    the distribution token i was sampled from.
+
+    The tail pads are routed, and their first choices take capacity
+    before the real tokens' second choices, so they must see what they
+    see in the engine: the prompt's ``ceil(n / block)`` blocks are
+    mapped at prefill, and B3 never reads a key whose block-table entry
+    is the sentinel, so every key past the last mapped block is masked
+    here."""
+    n, new = len(p), len(o)
+    cap = -(-(n + new + chunk) // block) * block
+    caches = model.init_caches(1, cap, dtype=torch.bfloat16)
+    mapped = torch.arange(cap, device=DEV) < -(-n // block) * block
+    mask = mapped[None, None, None, :]
+    rows = []
+    for pos in range(0, n, chunk):
+        nreal = min(chunk, n - pos)
+        buf = np.zeros((1, chunk), np.int64)
+        buf[0, :nreal] = p[pos:pos + nreal]
+        _set_index(caches, pos)
+        h, _ = model(torch.from_numpy(buf).to(DEV), caches=caches,
+                     positions=(pos + torch.arange(chunk, device=DEV))[None],
+                     mask=mask, logits=False)
+    rows.append(model.head(h[0, nreal - 1]))
+    for i, t in enumerate(o[:-1]):
+        _set_index(caches, n + i)
+        h, _ = model(torch.tensor([[int(t)]], device=DEV), caches=caches,
+                     positions=torch.tensor([[n + i]], device=DEV), logits=False)
+        rows.append(model.head(h[0, -1]))
+    return torch.stack(rows).float()
+
+
+def _replay_padded(model, ids_row, pad_row, o) -> torch.Tensor:
+    """One row of a left-padded ``generate``, replayed alone at the same
+    T: the T0 prompt (pads included, first in the row's capacity count)
+    in one call with ``generate``'s mask and positions, then one fed
+    token a step over the contiguous cache. -> f32 logits [len(o), V]."""
+    T0, new = len(ids_row), len(o)
+    cap = -(-(T0 + new) // 16) * 16
+    caches = model.init_caches(1, cap, dtype=torch.bfloat16)
+    pad = torch.from_numpy(np.asarray(pad_row)).to(DEV).bool()
+    pos = (pad.long().cumsum(0) - 1).clamp_min(0)[None]
+    q = torch.arange(T0, device=DEV)
+    mask = ((q[None, :] <= q[:, None]) & pad[None, :])[None, None]
+    _set_index(caches, 0)
+    h, _ = model(torch.from_numpy(np.asarray(ids_row)).to(DEV)[None], caches=caches,
+                 positions=pos, mask=mask, logits=False)
+    rows = [model.head(h[0, -1])]
+    valid = torch.ones(cap, dtype=torch.bool, device=DEV)
+    valid[:T0] = pad
+    n_real = int(np.asarray(pad_row).sum())
+    for i, t in enumerate(o[:-1]):
+        _set_index(caches, T0 + i)
+        h, _ = model(torch.tensor([[int(t)]], device=DEV), caches=caches,
+                     positions=torch.tensor([[n_real + i]], device=DEV),
+                     mask=valid[None, None, None, :], logits=False)
+        rows.append(model.head(h[0, -1]))
+    return torch.stack(rows).float()
+
+
+def _gap_check(tag: str, logits_rows, outs, first: int = 8, gate: bool = True) -> dict:
+    """Every emitted token within LOGIT_GAP_TOL of its replay row's
+    maximum (``gate``; else printed only); prints the worst gap (and over
+    tokens 1 .. ``first``), how many are the exact argmax and how many
+    sit past the tolerance."""
+    gaps, head, exact, over = [], [], 0, 0
+    for lg, o in zip(logits_rows, outs):
+        check(bool(torch.isfinite(lg).all()), f"{tag}: non-finite replay logits")
+        tok = torch.from_numpy(np.asarray(o)).to(DEV)
+        gap = lg.max(dim=-1).values - lg.gather(1, tok[:, None])[:, 0]
+        gaps.append(float(gap.max()))
+        head.append(float(gap[1:1 + first].max()) if len(o) > 1 else 0.0)
+        exact += int((gap == 0).sum())
+        over += int((gap > LOGIT_GAP_TOL).sum())
+    n_tok = sum(len(o) for o in outs)
+    say(f"[{tag}] same-T replay: worst logit gap {max(gaps):.4f} (tolerance "
+        f"{LOGIT_GAP_TOL}{'' if gate else ', not gated'}; first decode chunk "
+        f"{max(head):.4f}); {exact}/{n_tok} tokens are the exact argmax, {over} past "
+        "the tolerance")
+    if gate:
+        check(max(gaps) <= LOGIT_GAP_TOL, f"{tag}: same-T replay check failed")
+    return {"worst_gap": max(gaps), "first_chunk_gap": max(head), "exact": exact,
+            "tokens": n_tok, "past_tolerance": over}
+
+
+def _replay_paged_row(model, p, o, chunk: int = 128, block: int = 16,
+                      L: int = 2048) -> torch.Tensor:
+    """A paged request's same-T replay alone on a one-row paged cache of
+    the engine's geometry (B3 for attention, as in the engine): the
+    prompt's ``ceil(n / block)`` blocks mapped for its ``chunk``-token
+    prefill calls, every block for the one-token steps. -> f32 logits
+    [len(o), V]."""
+    MB = L // block
+    pools = [blk.attn.init_paged_cache(MB, block, 1, MB, dtype=torch.bfloat16,
+                                       device=DEV) for blk in model.blocks.blocks()]
+    bt = pools[0]["block_table"]
+    n = len(p)
+    bt[0, :-(-n // block)] = torch.arange(-(-n // block), dtype=torch.int32, device=DEV)
+
+    def caches(at: int):
+        idx = torch.tensor([at], dtype=torch.int32, device=DEV)
+        return [{"attn": {"k": c["k"], "v": c["v"], "index": idx, "block_table": bt}}
+                for c in pools]
+
+    rows = []
+    for pos in range(0, n, chunk):
+        nreal = min(chunk, n - pos)
+        buf = np.zeros((1, chunk), np.int64)
+        buf[0, :nreal] = p[pos:pos + nreal]
+        h, _ = model(torch.from_numpy(buf).to(DEV), caches=caches(pos),
+                     positions=(pos + torch.arange(chunk, device=DEV))[None],
+                     mask=None, logits=False)
+    rows.append(model.head(h[0, nreal - 1]))
+    bt[0] = torch.arange(MB, dtype=torch.int32, device=DEV)
+    view = torch.arange(L, device=DEV)
+    for i, t in enumerate(o[:-1]):
+        h, _ = model(torch.tensor([[int(t)]], device=DEV), caches=caches(n + i),
+                     positions=torch.tensor([[n + i]], device=DEV),
+                     mask=(view < n + i + 1)[None, None, None, :], logits=False)
+        rows.append(model.head(h[0, -1]))
+    return torch.stack(rows).float()
+
+
+def _replay_paged(model, prompts, outs, memo: dict, tape: "_RouteTape") -> dict:
+    """Three same-T replays of each request (a (prompt, tokens) pair
+    already replayed is reused from ``memo``): ``"paged"`` alone on a
+    one-row paged cache through B3 (the engine's numerics; ``tape``
+    records its routing); ``"plain"`` through the contiguous cache and
+    the plain attention with that routing pinned; ``"free"`` the plain
+    replay routing for itself, whose bf16 attention rounding flips
+    router near-ties (printed, not gated: a flipped choice swaps a whole
+    expert's output, and at the prefill chunks' drop rate moves other
+    tokens across the capacity line). -> per kind, the logits rows."""
+    out = {"paged": [], "plain": [], "free": []}
+    with torch.no_grad():
+        for p, o in zip(prompts, outs):
+            key = (p.tobytes(), np.asarray(o).tobytes())
+            if key not in memo:
+                tape.record()
+                try:
+                    paged = _replay_paged_row(model, p, o)
+                finally:
+                    tape.release()
+                tape.pin()
+                try:
+                    plain = _replay_chunked(model, p, o, 128)
+                finally:
+                    tape.release()
+                check(not tape.tape, "route tape: recorded calls left unreplayed")
+                memo[key] = {"paged": paged, "plain": plain,
+                             "free": _replay_chunked(model, p, o, 128)}
+            for kind in out:
+                out[kind].append(memo[key][kind])
+    return out
+
+
+def _check_chunk_starts(tag: str, sch, rids, prompts, shared: int = 256,
+                        chunk: int = 128) -> None:
+    """The replay chunks every prompt from 0, which is the engine's own
+    chunking only if each request's prefix hit is a multiple of the
+    chunk: from each request's prefill-chunk count, its hit is 0 or the
+    ``shared`` prefix, and those hits sum to the engine's matched tokens."""
+    hits = 0
+    for rid, p in zip(rids, prompts):
+        n, k = len(p), sch._requests[rid].prefill_chunks
+        m = 0 if k == -(-n // chunk) else shared
+        check(k == -(-(n - m) // chunk),
+              f"{tag}: request {rid} ran {k} prefill chunks for {n} tokens")
+        hits += m
+    matched = sch.stats()["prefix_matched_tokens"]
+    check(hits == matched and shared % chunk == 0,
+          f"{tag}: prefix hits {hits} against {matched} matched tokens")
+
+
+def phase_mixtral(name_power: str, cap: dict) -> dict:
+    """Mixtral-8x7B (``LlamaConfig.mixtral_8x7b()`` at full width, 16 of
+    32 layers, random bf16 weights from seed 0, built in bf16 on the
+    card) through ``PagedContinuousBatchingEngine`` in the [slice]
+    geometry, captured then eager: the [slice] requests, B3's decode
+    variant and B4 16 times a decode step, B3's prefill variant 16 times
+    a chunk, no general launch, replays after each graph's first chunk;
+    the weight-pass bytes equal the config's. Every token within
+    LOGIT_GAP_TOL of two same-T replays (each prompt in the engine's
+    128-token chunks, the last padded as the engine pads it, then one
+    token a step): alone on a one-row paged cache through B3, whose
+    routing (recorded outside any captured body) must show a decode drop
+    fraction of exactly 0, and through the contiguous cache and the plain
+    attention with that routing pinned; the plain replay routing for
+    itself is printed beside them. Then ``InferenceEngine.generate`` on 8
+    left-padded prompts of 100-700 tokens, 16 new tokens, under a
+    row-by-row replay at T0 (plain attention on both sides)."""
+    cfg = dataclasses.replace(LlamaConfig.mixtral_8x7b(), num_layers=MIX_LAYERS)
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Llama(cfg, device=DEV, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV)
+    want = _mixtral_weight_bytes(cfg)
+    say(f"[mixtral paged] Mixtral-8x7B width (dim {cfg.dim}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads, hidden {cfg.hidden_dim}, {cfg.moe_experts} "
+        f"experts, top-{cfg.moe_top_k}), {L} of 32 layers, built in {build_s:.1f} s; "
+        f"weight-pass bytes {eng.weight_bytes} (config: {want}); "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; {name_power}")
+    check(eng.weight_bytes == want,
+          f"mixtral paged: weight_bytes {eng.weight_bytes} != {want} from the config")
+    prompts = _requests(cfg.vocab_size)
+    runs = {}
+    for mode in ("captured", "eager"):
+        captured = mode == "captured"
+        tag = "mixtral paged" if captured else "mixtral paged eager"
+        sch, rids, outs, wall, k = _serve_paged(
+            model, prompts, MIX_NEW, captured, cap if captured else None, eng=eng,
+            tag="mixtral paged", name="Mixtral-8x7B")
+        st = sch.stats()
+        if captured:
+            _graph_line("mixtral paged", st["graphs"])
+            dt = _timer_line("mixtral paged", sch, name_power)
+        _check_chunk_starts(tag, sch, rids, prompts)
+        ttft = [sch.timings(rid)["ttft_s"] for rid in rids]
+        runs[mode] = {
+            "outs": outs, "wall": wall, "launches": k,
+            "ttft_s_mean": float(np.mean(ttft)), "ttft_s_max": float(np.max(ttft)),
+            "decode_tokens_per_s": (sch.decode_only_tokens / sch.decode_only_s
+                                    if sch.decode_only_s else None),
+            "decode_steps": st["decode_steps"], "prefill_chunks": st["prefill_chunks"],
+            "prof": _profile_decode(sch, cfg.vocab_size, name_power,
+                                    tag=f"mixtral paged profile{'' if captured else ' eager'}"),
+        }
+        del sch
+        _free_cuda()
+    cap_run, eag_run = runs["captured"], runs["eager"]
+    tape = _RouteTape(model)
+    memo = {}
+    checks = {}
+    for mode, run in runs.items():
+        rows = _replay_paged(model, prompts, run["outs"], memo, tape)
+        sfx = "" if mode == "captured" else " eager"
+        checks[mode] = {
+            "paged": _gap_check(f"mixtral paged{sfx} vs one-row paged replay", rows["paged"],
+                                run["outs"]),
+            "plain": _gap_check(f"mixtral paged{sfx} vs plain replay, routing pinned",
+                                rows["plain"], run["outs"]),
+            "free": _gap_check(f"mixtral paged{sfx} vs plain replay, free routing",
+                               rows["free"], run["outs"], gate=False),
+        }
+    del memo
+    routing = tape.drops()
+    tf, tf_e = checks["captured"]["plain"], checks["eager"]["plain"]
+    _agreement("mixtral paged", cap_run["outs"], eag_run["outs"], tf, tf_e)
+    _step_line("mixtral paged", cap_run["prof"], eag_run["prof"], cap_run["wall"],
+               eag_run["wall"])
+    say(f"[mixtral paged routing] {json.dumps(routing)}")
+    check(routing["decode"]["routes"] > 0 and routing["decode"]["drop_fraction"] == 0.0,
+          f"mixtral paged: decode steps dropped routes: {routing['decode']}")
+
+    # the static path: left-padded generate, the pads first in each row's
+    # capacity count
+    gprompts, ids, pad = _left_padded(MIX_GEN_LENS, cfg.vocab_size, seed=7)
+    B, T0 = ids.shape
+    _zero_counts()
+    gen = _generate_traced("mixtral static", eng, ids, pad, MIX_GEN_NEW,
+                           MIX_GEN_PROFILE_STEP, name_power, active=4)
+    c = _counts()
+    _check_decode_launches("mixtral static", c, L * (MIX_GEN_NEW - 1), "rms")
+    check(gen["out"].shape == (B, MIX_GEN_NEW),
+          f"mixtral static: tokens of shape {gen['out'].shape}")
+    eng._gen_state = None
+    _free_cuda()
+    tape = _RouteTape(model)
+    tape.record()
+    try:
+        with torch.no_grad():
+            rows = [_replay_padded(model, ids[b], pad[b], gen["out"][b]) for b in range(B)]
+        gtf = _gap_check("mixtral static", rows, list(gen["out"]))
+    finally:
+        tape.release()
+    groute = tape.drops()
+    del rows, tape
+    check(groute["decode"]["drop_fraction"] == 0.0,
+          f"mixtral static: decode steps dropped routes: {groute['decode']}")
+    res = {
+        "model": "Mixtral-8x7B", "layers": L, "experts": cfg.moe_experts,
+        "top_k": cfg.moe_top_k, "weight_pass_bytes": eng.weight_bytes,
+        "build_s": build_s, "requests": len(prompts), "tokens": tf["tokens"],
+        "wall_s": cap_run["wall"], "eager_wall_s": eag_run["wall"],
+        "ttft_s_mean": cap_run["ttft_s_mean"], "ttft_s_max": cap_run["ttft_s_max"],
+        "decode_tokens_per_s": cap_run["decode_tokens_per_s"],
+        "eager_decode_tokens_per_s": eag_run["decode_tokens_per_s"],
+        "model_step_ms": cap_run["prof"]["model_step_ms"],
+        "kernel_ms_per_model_step": cap_run["prof"]["kernel_ms_per_model_step"],
+        "device_busy_share": cap_run["prof"]["device_busy_share"],
+        "eager_model_step_ms": eag_run["prof"]["model_step_ms"],
+        "decode_mbu": dt["programs"]["decode"].get("mbu", "not measured"),
+        "prefill_mfu": dt["programs"]["prefill_chunk"].get("mfu", "not measured"),
+        "prefill_mbu": dt["programs"]["prefill_chunk"].get("mbu", "not measured"),
+        "prefill_chunk_drop_fraction": routing["prefill"]["drop_fraction"],
+        "decode_drop_fraction": routing["decode"]["drop_fraction"],
+        "worst_gap_one_row_paged": max(c["paged"]["worst_gap"] for c in checks.values()),
+        "worst_gap_plain_pinned": max(tf["worst_gap"], tf_e["worst_gap"]),
+        "free_routing": {m: {k: c["free"][k] for k in ("worst_gap", "exact", "tokens")}
+                         for m, c in checks.items()},
+        "static": {"batch": B, "T0": T0, "new_tokens": MIX_GEN_NEW,
+                   "prefill_s": gen["prefill_s"], "generate_s": gen["total_s"],
+                   "decode_ms_per_step": gen["decode_ms"],
+                   "prefill_drop_fraction": groute["prefill"]["drop_fraction"],
+                   "worst_gap": gtf["worst_gap"]},
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "card": name_power,
+    }
+    say(f"[mixtral paged] {json.dumps(res)}")
+    del eng, model
+    _free_cuda()
+    return {"paged": cap_run["launches"]["paged"], "norm": cap_run["launches"]["norm"],
+            "static_norm": c["fused_norm"]}
+
+
 def _bert_loss(module, params, batch, rng):
     logits = functional_call(
         module, params, (batch["input_ids"],),
@@ -3015,6 +3434,7 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    mixtral = phase_mixtral(name_power, cap)
     contiguous = phase_contiguous(name_power)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3035,14 +3455,16 @@ def main() -> int:
                   "disagg int8 decode leg": disagg8["norm"],
                   "int8 weights": int8["norm"], "fused qkv": fused["norm"],
                   "autopair bursts": pair["norm"], "chaos (2 overload runs)": chaos_k["norm"],
-                  "self-heal": heal["norm"], "async": asyn["norm"]}
+                  "self-heal": heal["norm"], "async": asyn["norm"],
+                  "mixtral paged": mixtral["norm"], "mixtral static": mixtral["static_norm"]}
     paged_paths = {"paged serving": launches["launches_paged"],
                    "spec paged (verify passes, prefill chunks)": spec["paged"],
                    "disagg (both legs)": disagg["paged"],
                    "disagg int8 (both legs)": disagg8["paged"],
                    "int8 weights": int8["paged"], "fused qkv": fused["paged"],
                    "chaos (2 overload runs)": chaos_k["paged"],
-                   "self-heal": heal["paged"], "async": asyn["paged"]}
+                   "self-heal": heal["paged"], "async": asyn["paged"],
+                   "mixtral paged": mixtral["paged"]}
     say(f"[launches] fused_residual_norm by path: {json.dumps(norm_paths)}")
     say(f"[launches] paged_decode_attention by path: {json.dumps(paged_paths)}")
     kernels = [

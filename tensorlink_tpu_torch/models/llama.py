@@ -3,8 +3,10 @@
 RMSNorm + RoPE + grouped-query attention + SwiGLU, no biases, untied LM
 head. ``LlamaConfig`` and its presets are the JAX package's, field for
 field; ``qkv_fused`` builds the fused q/k/v projection
-(``nn/attention.py``); the MoE fields are carried for parity but a
-config that sets ``moe_experts`` is refused until MoE is ported.
+(``nn/attention.py``); ``moe_experts`` > 0 gives every block the
+Mixture-of-Experts FFN (``nn/moe.py``, Mixtral-style), and
+``forward_with_aux`` returns the logits with the blocks' summed router
+load-balancing loss.
 """
 
 from __future__ import annotations
@@ -92,8 +94,6 @@ class Llama(nn.Module):
     def __init__(self, cfg: LlamaConfig = LlamaConfig(), *, device=None,
                  dtype: torch.dtype = torch.float32, seed: int | None = 0):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError("MoE blocks wait for a later slice")
         dev = resolve_device(device)
         self.cfg = cfg
         kw = {"device": dev, "dtype": dtype}
@@ -117,6 +117,9 @@ class Llama(nn.Module):
             attn_window=cfg.attn_window,
             attn_impl=cfg.attn_impl,
             qkv_fused=cfg.qkv_fused,
+            moe_experts=cfg.moe_experts,
+            moe_top_k=cfg.moe_top_k,
+            moe_capacity_factor=cfg.moe_capacity_factor,
             **kw,
         )
         self.norm_f = RMSNorm(cfg.dim, eps=cfg.rms_eps, **kw)
@@ -147,6 +150,16 @@ class Llama(nn.Module):
         if caches is not None:
             return out, new_caches
         return out
+
+    def forward_with_aux(self, input_ids, *, positions=None, mask=None,
+                         rng=None, train: bool = False):
+        """-> (logits, aux): the MoE router load-balancing loss summed
+        over the blocks (0.0 for a dense config). Mixtral-style training
+        adds ``aux_weight * aux`` to the task loss."""
+        x = self.tok_emb(input_ids)
+        x, aux = self.blocks.forward_with_aux(x, mask=mask, positions=positions,
+                                              rng=rng, train=train)
+        return self.lm_head(self.norm_f(x)), aux
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """Logits of final hidden states (``forward(..., logits=False)``)."""

@@ -5,8 +5,12 @@
 ``torch.Generator`` as ``rng``) applies dropout where the reference does:
 the attention output, inside ``FeedForward`` after the activation, and
 the MLP output. The stack hands the one generator to every block in turn
-(the reference folds a per-block key; the draws differ either way). MoE
-waits for a later slice.
+(the reference folds a per-block key; the draws differ either way).
+``moe_experts`` > 0 puts ``nn.moe.MoEFeedForward`` in the MLP's place
+(no biases, no dropout, as in the reference); ``forward_with_aux`` then
+returns the router's load-balancing loss beside the output, summed over
+the stack, and ``router_input`` / ``routing_stats`` probe what a block's
+router sees. The T == 1 decode fast path stands in front of either MLP.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from torch import nn
 
 from tensorlink_tpu_torch.nn.attention import MultiHeadAttention
 from tensorlink_tpu_torch.nn.layers import Dense, Dropout, LayerNorm, RMSNorm
+from tensorlink_tpu_torch.nn.moe import MoEFeedForward
 from tensorlink_tpu_torch.ops.decode_glue import fused_residual_norm
 
 ACTIVATIONS = {
@@ -74,6 +79,9 @@ class TransformerBlock(nn.Module):
         dropout: float = 0.0,
         attn_impl="auto",
         qkv_fused: bool = False,
+        moe_experts: int = 0,
+        moe_top_k: int = 2,
+        moe_capacity_factor: float = 1.25,
         *,
         device=None,
         dtype=torch.float32,
@@ -96,14 +104,48 @@ class TransformerBlock(nn.Module):
             window=attn_window, attn_impl=attn_impl, qkv_fused=qkv_fused,
             **kw,
         )
-        self.mlp = FeedForward(
-            dim, hidden_dim or 4 * dim, activation=activation,
-            use_bias=use_bias, gated=gated_mlp, dropout=dropout, **kw,
-        )
+        hidden_dim = hidden_dim or 4 * dim
+        if moe_experts:
+            # the MoE FFN has neither biases nor internal dropout: refuse
+            # rather than diverge from the dense FFN it replaces
+            if use_bias:
+                raise ValueError("moe_experts requires use_bias=False")
+            if dropout:
+                raise ValueError("moe_experts requires dropout=0")
+            self.mlp = MoEFeedForward(
+                dim, hidden_dim, num_experts=moe_experts, top_k=moe_top_k,
+                capacity_factor=moe_capacity_factor, gated=gated_mlp,
+                activation=activation, **kw,
+            )
+        else:
+            self.mlp = FeedForward(
+                dim, hidden_dim, activation=activation, use_bias=use_bias,
+                gated=gated_mlp, dropout=dropout, **kw,
+            )
         self.drop = Dropout(dropout)
+
+    def _mlp(self, h, rng, train):
+        """-> (out, aux). The dense FFN has no auxiliary loss."""
+        if isinstance(self.mlp, MoEFeedForward):
+            return self.mlp.forward_with_aux(h, rng=rng, train=train)
+        return self.mlp(h, rng=rng, train=train), 0.0
 
     def forward(self, x, *, mask=None, cache=None, positions=None, rng=None,
                 train: bool = False):
+        x, new_cache, _ = self._run(x, mask, cache, positions, rng, train)
+        if cache is not None:
+            return x, new_cache
+        return x
+
+    def forward_with_aux(self, x, *, mask=None, positions=None, rng=None,
+                         train: bool = False):
+        """-> (out, aux_loss): the MoE router's load-balancing loss (0.0
+        for a dense block). Trainers add ``aux_weight * aux``."""
+        x, _, aux = self._run(x, mask, None, positions, rng, train)
+        return x, aux
+
+    def _run(self, x, mask, cache, positions, rng, train):
+        """-> (out, new cache or None, aux)."""
         if self.norm_style == "post":
             return self._post_ln(x, mask, cache, positions, rng, train)
         h = self.norm1(x)
@@ -122,11 +164,8 @@ class TransformerBlock(nn.Module):
         else:
             x = x + self.drop(a, rng=rng, train=train)
             h = self.norm2(x)
-        x = x + self.drop(self.mlp(h, rng=rng, train=train), rng=rng,
-                          train=train)
-        if cache is not None:
-            return x, new_cache
-        return x
+        m, aux = self._mlp(h, rng, train)
+        return x + self.drop(m, rng=rng, train=train), new_cache, aux
 
     def _post_ln(self, x, mask, cache, positions, rng, train):
         """BERT's wiring: norm after each residual add."""
@@ -135,11 +174,24 @@ class TransformerBlock(nn.Module):
         if cache is not None:
             a, new_cache = a
         x = self.norm1(x + self.drop(a, rng=rng, train=train))
-        m = self.mlp(x, rng=rng, train=train)
-        x = self.norm2(x + self.drop(m, rng=rng, train=train))
-        if cache is not None:
-            return x, new_cache
-        return x
+        m, aux = self._mlp(x, rng, train)
+        return self.norm2(x + self.drop(m, rng=rng, train=train)), new_cache, aux
+
+    def router_input(self, x, *, mask=None, positions=None):
+        """The tensor this block's MLP (its router) sees, by the block's
+        own norm wiring, through the no-cache attention."""
+        if self.norm_style == "pre":
+            a = self.attn(self.norm1(x), mask=mask, positions=positions)
+            return self.norm2(x + a)
+        return self.norm1(x + self.attn(x, mask=mask, positions=positions))
+
+    def routing_stats(self, x, *, mask=None, positions=None) -> dict:
+        """MoE router telemetry on the input this block's router sees
+        (``MoEFeedForward.routing_stats``). Raises for a dense block."""
+        if not isinstance(self.mlp, MoEFeedForward):
+            raise ValueError("routing_stats: this block's MLP is dense")
+        return self.mlp.routing_stats(
+            self.router_input(x, mask=mask, positions=positions))
 
 
 class TransformerStack(nn.Module):
@@ -168,3 +220,13 @@ class TransformerStack(nn.Module):
         if caches is not None:
             return x, new_caches
         return x
+
+    def forward_with_aux(self, x, *, mask=None, positions=None, rng=None,
+                         train: bool = False):
+        """-> (out, the summed aux losses of the MoE blocks)."""
+        aux = 0.0
+        for blk in self.blocks():
+            x, a = blk.forward_with_aux(x, mask=mask, positions=positions,
+                                        rng=rng, train=train)
+            aux = aux + a
+        return x, aux

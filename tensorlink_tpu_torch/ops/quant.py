@@ -10,7 +10,8 @@ reference's math, ``x @ dequantize_weight(w, x.dtype)``. XLA fuses that
 dequantize into the matmul; here it is materialised (one int8 read and
 one write of the activation-dtype copy, which the matmul reads again: 5
 bytes a weight against bf16's 2), a plain product outside any kernel of
-the port, as it is outside any Pallas kernel in the reference. Embeddings, norms, biases and a tied LM head
+the port, as it is outside any Pallas kernel in the reference. Embeddings, norms, biases, a tied LM head,
+and a MoE block's router and expert stacks (raw tensors, not ``Dense``)
 stay in their dtypes. Quantize at serving time (``InferenceEngine(
 quantize="int8")``), never in a training loop.
 
@@ -168,10 +169,13 @@ def quantized_random_init(module: nn.Module, seed: int, device,
     per-channel scale that gives it the LeCun std 1/sqrt(fan_in)
     (uniform[-127, 127] has std ~73.3), ``Dense`` biases zeros, norm
     gains (``scale``) ones, every other tensor (embeddings, other biases)
-    N(0, 0.02) in ``dtype``. For capacity and serving runs at real shapes
-    (a Mixtral's int8 weights fit one card where its bf16 ones do not);
-    real checkpoints go through ``quantize_params_int8``. Returns
-    ``module``."""
+    N(0, 0.02) in ``dtype``. Only ``Dense`` weights quantize, as in the
+    reference: a MoE block's router and expert stacks are not ``Dense``
+    and are drawn N(0, 0.02) in ``dtype`` too, so a Mixtral-8x7B under
+    int8 still holds ~90 GB of bf16 experts (8 x 3 x 4096 x 14336 x 32
+    layers) and does not fit one 80 GB card. For capacity and serving
+    runs at real shapes; real checkpoints go through
+    ``quantize_params_int8``. Returns ``module``."""
     Dense = _dense_cls()
     dev = torch.device(device)
     gen = torch.Generator(device=dev)

@@ -26,6 +26,12 @@ bits with that stream.
 ``quantize="int8"`` serves weight-only int8 (``ops/quant.py``): the
 engine quantizes every ``Dense`` weight of the model it is given, in
 place, or takes a model (or a state dict) that is already quantized.
+A MoE model's router and experts stay float, as in the reference.
+
+A MoE model (``nn/moe.py``) routes each model call over its own T: the
+prefill over the T0 left-padded prompt tokens (pads first in each
+row's capacity count), each decode step at T == 1; the engines in
+``parallel/serving.py`` call it at the reference's T the same way.
 
 Mesh/tensor parallelism and the sequence-sharded cache wait for later
 slices.
@@ -43,6 +49,7 @@ from tensorlink_tpu_torch import resolve_device
 from tensorlink_tpu_torch.convert import apply_dtype_policy
 from tensorlink_tpu_torch.nn.attention import DECODE_BLOCK
 from tensorlink_tpu_torch.nn.layers import Dense
+from tensorlink_tpu_torch.nn.moe import MoEFeedForward
 from tensorlink_tpu_torch.ops.quant import is_quantized, quantize_params_int8
 from tensorlink_tpu_torch.runtime.graphs import GraphCache
 
@@ -234,16 +241,20 @@ def _quantized_layout(model: nn.Module, state: dict) -> None:
 
 def weight_pass_bytes(model: nn.Module) -> int:
     """Bytes one weight pass of a decoder reads: every ``Dense`` weight
-    as stored (int8 ``q`` plus f32 scales ``s``, or the float matrix) and
-    the embedding table of an LM head tied to it
-    (``model.tied_head_table()``). Biases, norms and the embedding rows a
-    step gathers are not counted (``program_cost``'s convention)."""
+    as stored (int8 ``q`` plus f32 scales ``s``, or the float matrix),
+    every MoE block's router and all E expert stacks (the dense dispatch
+    multiplies through every expert in every pass) and the embedding
+    table of an LM head tied to it (``model.tied_head_table()``). Biases,
+    norms and the embedding rows a step gathers are not counted
+    (``program_cost``'s convention)."""
     total = 0
     for mod in model.modules():
         if isinstance(mod, Dense):
             w = mod.w
             total += (w.q.numel() * w.q.element_size() + w.s.numel() * w.s.element_size()
                       if mod.quantized else w.numel() * w.element_size())
+        elif isinstance(mod, MoEFeedForward):
+            total += sum(t.numel() * t.element_size() for t in mod.weights())
     table = model.tied_head_table()
     if table is not None:
         total += table.numel() * table.element_size()

@@ -32,6 +32,8 @@ from typing import Any, Sequence
 
 import torch
 
+from tensorlink_tpu_torch.nn.moe import expert_capacity
+
 
 class _Dispatch:
     """One in-flight program dispatch: host enqueue time, a readiness
@@ -302,7 +304,8 @@ def measure_capability(
 
 # ------------------------------------------------------------ cost model
 def _dims(cfg) -> dict:
-    """Per-layer widths of a Llama- or GPT-2-style config."""
+    """Per-layer widths of a Llama- or GPT-2-style config (``experts`` 0
+    for a dense MLP)."""
     H = cfg.num_heads
     D = cfg.dim // H
     gated = hasattr(cfg, "hidden_dim")  # Llama: SwiGLU; GPT-2: GELU MLP
@@ -311,15 +314,33 @@ def _dims(cfg) -> dict:
         "Hkv": getattr(cfg, "num_kv_heads", H), "vocab": cfg.vocab_size,
         "mlp_mats": 3 if gated else 2,
         "hidden": cfg.hidden_dim if gated else 4 * cfg.dim,
+        "experts": getattr(cfg, "moe_experts", 0),
     }
 
 
 def layer_matmul_params(cfg) -> int:
     """Weights one token multiplies through per layer: q, k, v, o and the
-    MLP's matrices."""
+    dense MLP's matrices (a MoE FFN's work depends on the call's T:
+    ``moe_row_flops``)."""
     d = _dims(cfg)
     attn = d["dim"] * (d["H"] + 2 * d["Hkv"]) * d["D"] + d["H"] * d["D"] * d["dim"]
-    return attn + d["mlp_mats"] * d["dim"] * d["hidden"]
+    return attn + (0 if d["experts"] else d["mlp_mats"] * d["dim"] * d["hidden"])
+
+
+def moe_row_flops(cfg, T: int) -> float:
+    """Flops of one layer's MoE FFN over one row of T tokens, as the
+    dense one-hot dispatch computes them: the router (2 D E a token),
+    the dispatch and combine einsums (2 T E C D each) and every expert's
+    products over its C slots (2 D H E C a matrix), whether a slot holds
+    a token or not. 0 for a dense config."""
+    d = _dims(cfg)
+    E = d["experts"]
+    if not E:
+        return 0.0
+    C = expert_capacity(T, E, cfg.moe_top_k, cfg.moe_capacity_factor)
+    D, Hd = d["dim"], d["hidden"]
+    return float(2 * T * D * E + 2 * 2 * T * E * C * D
+                 + 2 * d["mlp_mats"] * D * Hd * E * C)
 
 
 def program_cost(
@@ -353,7 +374,10 @@ def program_cost(
     whose logits are taken (the last real token of a prefill chunk, every
     row of a decode step), and each query's keys up to its position:
     2 x 2 x H x D flops a (query, key) pair and a layer, and each row's
-    KV bytes up to its frontier read once a weight pass."""
+    KV bytes up to its frontier read once a weight pass. A MoE config
+    adds ``moe_row_flops`` a layer for each row at the pass's T (the
+    chunk's width, 1 a decode step, K + 1 a verify round), and its
+    ``weight_bytes`` holds every expert."""
     d = _dims(cfg)
     L, H, D = d["layers"], d["H"], d["D"]
     per_tok = 2.0 * layer_matmul_params(cfg) * L
@@ -366,7 +390,7 @@ def program_cost(
         end = int(frontier[0])
         pos = end - T
         pairs = T * pos + T * (T + 1) / 2
-        flops = per_tok * T + head_flops + attn_pair * pairs
+        flops = per_tok * T + L * moe_row_flops(cfg, T) + head_flops + attn_pair * pairs
         nbytes = w_bytes + kv_tok * end
     elif program in ("decode", "spec_chunk"):
         K = int(steps)
@@ -381,7 +405,8 @@ def program_cost(
                 base = first + step * q
                 pairs += q * base + q * (q + 1) / 2
                 kv_read += base + q
-        flops = (per_tok + head_flops) * rows * q * passes + attn_pair * pairs
+        flops = ((per_tok + head_flops) * rows * q * passes
+                 + L * moe_row_flops(cfg, q) * rows * passes + attn_pair * pairs)
         nbytes = w_bytes * passes + kv_tok * kv_read
     else:
         raise ValueError(f"unknown program {program!r}")

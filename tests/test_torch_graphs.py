@@ -363,21 +363,25 @@ def test_the_patch_catches_host_reads():
                 read()
 
 
-def _llama(window=None):
+def _llama(window=None, moe=False):
     cfg = LlamaConfig.tiny() if window is None else LlamaConfig.mistral_tiny()
+    if moe:  # the MoE FFN in the chunk body (nn/moe.py)
+        cfg = LlamaConfig.moe_tiny()
     return Llama(cfg, device="cpu", seed=1)
 
 
 SAMPLED = GenerationConfig(max_new_tokens=7, temperature=0.8, top_k=20, top_p=0.9)
 
 
-@pytest.mark.parametrize("kind", ["contiguous", "blockwise", "paged", "paged-int8"])
+@pytest.mark.parametrize("kind", ["contiguous", "blockwise", "paged", "paged-int8",
+                                  "paged-moe", "contiguous-moe"])
 def test_serving_chunk_body_reads_nothing_back(kind, monkeypatch):
     big = kind == "blockwise"
     if big:  # 512 cache slots, blockwise read from 128 up
         monkeypatch.setattr(tattn, "DECODE_BLOCKWISE_MIN_WINDOWLESS", 128)
-    eng = InferenceEngine(_llama(), max_len=512 if big else 32, device="cpu",
-                          cache_dtype=torch.float32, param_dtype=torch.float32)
+    eng = InferenceEngine(_llama(moe=kind.endswith("moe")), max_len=512 if big else 32,
+                          device="cpu", cache_dtype=torch.float32,
+                          param_dtype=torch.float32)
     kw = {"slots": 2, "decode_chunk": 3, "gen": SAMPLED}
     if kind.startswith("paged"):
         sch = PagedContinuousBatchingEngine(
@@ -442,7 +446,7 @@ def test_disagg_chunk_bodies_read_nothing_back(kind):
 
 
 @pytest.mark.parametrize("mode", ["ngram", "draft"])
-@pytest.mark.parametrize("kind", ["contiguous", "blockwise", "paged"])
+@pytest.mark.parametrize("kind", ["contiguous", "blockwise", "paged", "paged-moe"])
 def test_spec_chunk_body_reads_nothing_back(kind, mode, monkeypatch):
     """The speculative chunk (draft or n-gram proposals, the verify pass,
     the sampled accept/reject, rollback) under adaptive K, which moves
@@ -452,8 +456,9 @@ def test_spec_chunk_body_reads_nothing_back(kind, mode, monkeypatch):
     big = kind == "blockwise"
     if big:
         monkeypatch.setattr(tattn, "DECODE_BLOCKWISE_MIN_WINDOWLESS", 128)
-    eng = InferenceEngine(_llama(), max_len=512 if big else 32, device="cpu",
-                          cache_dtype=torch.float32, param_dtype=torch.float32)
+    eng = InferenceEngine(_llama(moe=kind.endswith("moe")), max_len=512 if big else 32,
+                          device="cpu", cache_dtype=torch.float32,
+                          param_dtype=torch.float32)
     draft = None
     if mode == "draft":
         draft = InferenceEngine(Llama(LlamaConfig.tiny(), device="cpu", seed=2),
@@ -462,7 +467,7 @@ def test_spec_chunk_body_reads_nothing_back(kind, mode, monkeypatch):
     kw = {"slots": 2, "gen": SAMPLED, "draft": draft,
           "speculative": SpecConfig(k=3, rounds=2, adaptive=True,
                                     entropy_exit=6.0)}
-    if kind == "paged":
+    if kind.startswith("paged"):
         sch = PagedContinuousBatchingEngine(eng, block_size=4, prefill_chunk=4, **kw)
     else:
         sch = ContinuousBatchingEngine(eng, prefill_block=4, **kw)
@@ -477,12 +482,12 @@ def test_spec_chunk_body_reads_nothing_back(kind, mode, monkeypatch):
     assert len(set(keys)) == 1
 
 
-@pytest.mark.parametrize("kind", ["monotone", "blockwise", "ring"])
+@pytest.mark.parametrize("kind", ["monotone", "blockwise", "ring", "moe"])
 def test_generate_step_reads_nothing_back(kind, monkeypatch):
     if kind == "blockwise":
         monkeypatch.setattr(tattn, "DECODE_BLOCKWISE_MIN_WINDOWLESS", 128)
     ring = kind == "ring"
-    eng = InferenceEngine(_llama(window=8 if ring else None),
+    eng = InferenceEngine(_llama(window=8 if ring else None, moe=kind == "moe"),
                           max_len=512 if kind == "blockwise" else 32,
                           rolling_cache=ring, device="cpu",
                           cache_dtype=torch.float32, param_dtype=torch.float32)

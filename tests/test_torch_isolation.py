@@ -52,6 +52,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert os.path.join(PORT, "parallel", "speculative.py") in files
     for mod in ("compile_cache.py", "autotune.py", "chaos.py"):
         assert os.path.join(PORT, "runtime", mod) in files
+    assert os.path.join(PORT, "nn", "moe.py") in files
     bad = [
         (os.path.relpath(p, REPO), root)
         for p in files for root in _imported_roots(p) if root in FORBIDDEN
@@ -134,6 +135,7 @@ def test_importing_the_port_loads_no_jax():
         "tensorlink_tpu_torch.runtime.chaos",
         "tensorlink_tpu_torch.ops.quant",
         "tensorlink_tpu_torch.nn.layers",
+        "tensorlink_tpu_torch.nn.moe",
     ]
     code = (
         "import sys\n"
@@ -157,6 +159,8 @@ def test_entry_points_need_a_device_where_cuda_is_absent():
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         Llama(LlamaConfig.tiny())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Llama(LlamaConfig.moe_tiny())
     model = Llama(LlamaConfig.tiny(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(model, max_len=32)

@@ -61,10 +61,18 @@ def test_params_from_jax_applies_dtype_policy():
 
 
 def test_unported_config_features_are_refused():
-    """MoE is still refused; the fused q/k/v layout builds, with the
-    reference's per-kv-group width and no separate q/k/v."""
-    with pytest.raises(NotImplementedError):
-        Llama(LlamaConfig.moe_tiny(), device="cpu")
+    """No config feature is refused any more: MoE builds with the
+    reference's parameter names and shapes, and the fused q/k/v layout
+    builds, with the reference's per-kv-group width and no separate
+    q/k/v."""
+    moe = Llama(LlamaConfig.moe_tiny(), device="cpu")
+    jm = JLlama(JLlamaConfig.moe_tiny())
+    ref = params_from_jax(jax.device_get(jm.init(jax.random.key(0))))
+    got = moe.state_dict()
+    assert {n: tuple(t.shape) for n, t in got.items()} == \
+        {n: tuple(t.shape) for n, t in ref.items()}
+    assert tuple(got["blocks.0.mlp.up"].shape) == (4, 32, 64)
+    assert tuple(got["blocks.0.mlp.router.w"].shape) == (32, 4)
     cfg = dataclasses.replace(LlamaConfig.tiny(), qkv_fused=True)
     m = Llama(cfg, device="cpu")
     attn = m.blocks.blocks()[0].attn
