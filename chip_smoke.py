@@ -162,7 +162,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``Trainer``: 30 steps with a falling loss, B1/B2 launch counts, one
    step's gradients against the plain attention path, step time, MFU, a
    profiled step, and the batch 32 x seq 128 headline shape under "auto"
-   and "flash".
+   and "flash";
+10a. lora: the same model and batch with rank-8 adapters (``lora_init``,
+   alpha 16, on q, k, v, o, up and down) through
+   ``Trainer(train_only="lora")``, 30 steps at lr 1e-3: trainable and
+   total counts, step ms, samples/s and MFU at the adapter step's own
+   flops, peak memory, a profiled step; B1 = B2 = 12 x 30 launches, every frozen leaf
+   bit-identical, every ``lora_a`` moved, a falling loss, the first
+   step's adapter gradients against the plain attention's, and the eval
+   logits after ``lora_merge`` against the unmerged model's (f32 and
+   bf16 tolerances at the top of the file);
+10b. checkpoint: the [lora] model with every leaf trainable, 4 steps
+   against 2 + an async ``CheckpointManager`` save + restore into a
+   fresh ``init_state()`` on the card + 2 steps, dropout generators
+   seeded from the step: params, moments and step bit-identical; bytes
+   written, save and restore s and GB/s (a temporary directory under
+   ``_build/``, removed).
 
 Legs 6-9, 7a, 7b, 7j and 8a run their decode as CUDA-graph replays (the engines' default)
 with ``pipeline_depth`` 2 chunks in flight on the serving engines; the
@@ -183,7 +198,8 @@ after; B4's count in the kernels line sums the four serving legs, the
 captured speculative draft runs, the disaggregated decode legs (float
 and int8) and the legs 7c-7j, B3's the paged leg, the captured
 speculative runs, both disaggregated runs (prefill variant on P, decode
-on D) and the paged legs 7c-7j. The
+on D) and the paged legs 7c-7j; B1's and B2's sum legs 10, 10a and 10b
+(``[launches] flash_attention``). The
 last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Nothing of JAX or ``tensorlink_tpu``
 is imported.
@@ -210,6 +226,8 @@ from tensorlink_tpu_torch.config import TrainConfig
 from tensorlink_tpu_torch.models.bert import BertClassifier, BertConfig
 from tensorlink_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
+from tensorlink_tpu_torch.nn.layers import Embedding
+from tensorlink_tpu_torch.nn.lora import lora_init, lora_merge, trainable_leaf_count
 from tensorlink_tpu_torch.nn.attention import (
     DECODE_BLOCK,
     DECODE_BLOCKWISE_MIN_WINDOWLESS,
@@ -254,6 +272,7 @@ from tensorlink_tpu_torch.parallel.serving import (
 from tensorlink_tpu_torch.parallel.speculative import autopair_draft, default_draft_candidates
 from tensorlink_tpu_torch.runtime import chaos, compile_cache
 from tensorlink_tpu_torch.runtime.autotune import GLOBAL_MODEL, AutotuneStore, store_key
+from tensorlink_tpu_torch.runtime.checkpoint import CheckpointManager
 from tensorlink_tpu_torch.runtime.chaos import ChaosPlan
 from tensorlink_tpu_torch.runtime.ledger import (
     ReceiptAuditor,
@@ -293,6 +312,19 @@ TRAIN_SIGNAL_COSINE = 0.999
 TRAIN_NOISE_RATIO = 2.0
 TRAIN_LOSS_TOL = 1e-2
 CLASSES = 3  # the reference bench's classifier width
+# LoRA fine-tuning: rank 8, alpha 16 on the default targets (q, k, v, o,
+# up, down), adapters trained at lr 1e-3. After lora_merge the eval
+# logits must equal the unmerged model's: in f32 within LORA_MERGE_F32
+# absolute (the merged weight's own f32 rounding, ~1e-7 a weight, through
+# 12 layers); in bf16 (w + ab*s rounded to bf16 once, against bf16 w plus
+# a bf16 side product) within a relative Frobenius error of the larger of
+# LORA_MERGE_REL and LORA_NOISE_RATIO times the unmerged model's own bf16
+# error against its f32 logits
+LORA_RANK, LORA_ALPHA, LORA_LR = 8, 16.0, 1e-3
+LORA_MERGE_F32 = 1e-3
+LORA_MERGE_REL = 3e-2
+LORA_NOISE_RATIO = 2.0
+CKPT_SAVE_AT, CKPT_STEPS = 2, 4  # [checkpoint]: save after 2 of 4 steps
 DEV = "cuda"
 
 
@@ -3393,6 +3425,217 @@ def phase_train(name_power: str) -> dict:
     return {"launches_fwd": k1, "launches_bwd": k2}
 
 
+def _lora_bert(cfg, seed: int | None = 0) -> BertClassifier:
+    """BERT-base classifier with rank-8 adapters on the default targets
+    (f32 masters; ``seed`` None leaves the weights for functional_call)."""
+    model = BertClassifier(cfg, CLASSES, device=DEV, seed=seed)
+    return lora_init(model, torch.Generator(device=DEV).manual_seed(1),
+                     rank=LORA_RANK, alpha=LORA_ALPHA)
+
+
+def _eval_logits(model, batch, dtype, drop_b: bool = False) -> torch.Tensor:
+    """Eval logits of ``model``'s own weights cast to ``dtype`` (with
+    ``drop_b``, every ``lora_b`` zeroed: the base model)."""
+    params = {k: (torch.zeros_like(p) if drop_b and k.endswith("lora_b") else p).to(dtype)
+              for k, p in model.named_parameters()}
+    with torch.no_grad():
+        return functional_call(
+            model, params, (batch["input_ids"],),
+            {"attention_mask": batch["attention_mask"]}).float()
+
+
+def phase_lora(name_power: str) -> dict:
+    """BERT-base LoRA fine-tuning through ``Trainer(train_only="lora")``
+    at [train]'s geometry: only the adapters train, every frozen leaf
+    stays bit-identical, B1/B2 run in every layer (q, k and v adapters
+    need dq, dk and dv), the kernels' adapter gradients agree with the
+    plain attention's, and ``lora_merge`` leaves the eval logits as they
+    were."""
+    cfg = BertConfig.base()
+    B, T, steps = 8, 512, 30
+    L = cfg.num_layers
+    model = _lora_bert(cfg)
+    tcfg = TrainConfig(batch_size=B, micro_batches=1, optimizer="adam",
+                       learning_rate=LORA_LR, dtype="bfloat16", grad_clip_norm=1.0,
+                       train_only="lora")
+    trainer = Trainer(model, _bert_loss, tcfg, device=DEV)
+    state0 = trainer.init_state()
+    n_lora, n_total = trainable_leaf_count(state0.params)
+    frozen0 = {k: p.clone() for k, p in state0.params.items() if not trainer.trainable(k)}
+    batch = _bert_batch(B, T, cfg.vocab_size, lens=[512, 480, 300, 129])
+    gen = torch.Generator(device=DEV).manual_seed(0)
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_fwd_lse.launches = 0
+    flash_attention_bwd.launches = 0
+    state, losses, secs = _timed_steps(trainer, state0, batch, gen, steps)
+    k1, k2 = flash_attention_fwd_lse.launches, flash_attention_bwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    step_s = float(np.median(secs))
+    # forward and the activation gradients of every product, the adapters'
+    # own included (4 N a token, the embedding tables left out: their
+    # forward is a gather), the adapters' weight gradients (2 N_lora),
+    # attention as [train] counts it; the frozen weights' dW products are
+    # not computed
+    n_embed = sum(p.numel() for m in model.modules() if isinstance(m, Embedding)
+                  for p in m.parameters())
+    flops = ((4.0 * (n_total - n_embed) + 2.0 * n_lora) * B * T
+             + 12.0 * L * B * T * T * cfg.dim)
+    changed = [k for k, p in frozen0.items() if not torch.equal(state.params[k], p)]
+    unmoved = [k for k in state0.params if k.endswith("lora_a")
+               and torch.equal(state.params[k], state0.params[k])]
+    res = {
+        "model": "BERT-base classifier, LoRA r8 a16 on q,k,v,o,up,down",
+        "trainable": n_lora, "total": n_total, "embedding": n_embed,
+        "batch": B, "seq": T,
+        "steps": steps, "lr": LORA_LR, "loss_first5_mean": first,
+        "loss_last5_mean": last, "losses": losses,
+        "launches_fwd": k1, "launches_bwd": k2, "expected_launches": L * steps,
+        "step_ms_median": step_s * 1e3, "step_ms_min": min(secs) * 1e3,
+        "step_ms_max": max(secs) * 1e3, "samples_per_s": B / step_s,
+        "flops_per_step": flops, "mfu": flops / step_s / BF16_FLOPS,
+        "peak_allocated_gib": peak / 2**30, "frozen_leaves": len(frozen0),
+        "frozen_changed": changed, "lora_a_unmoved": unmoved, "card": name_power,
+    }
+    say(f"[lora] {json.dumps(res)}")
+    check(all(np.isfinite(losses)), "non-finite LoRA loss")
+    check(last < first, f"LoRA loss did not fall: {first} -> {last}")
+    check(k1 == L * steps and k2 == L * steps,
+          f"LoRA flash launches {k1}/{k2}, expected {L * steps} each")
+    check(not changed, f"frozen leaves moved: {changed[:5]}")
+    check(not unmoved, f"adapters did not move: {unmoved[:5]}")
+    del frozen0
+    prof = _profile_step(trainer, state, batch, gen)
+    prof["card"] = name_power
+    say(f"[lora] profile: {json.dumps(prof)}")
+
+    # adapter gradients through B1/B2 against the plain attention's, and
+    # both against the plain path in f32: at the first step (every lora_b
+    # is 0, so every lora_a gradient is exactly 0 and the 6 L lora_b
+    # leaves carry it) and at the trained state (b != 0: all 12 L leaves)
+    trainers = {"kernel": trainer}
+    for tag, impl, dtype in (("plain", "reference", None),
+                             ("f32", "reference", "float32")):
+        trainers[tag] = Trainer(
+            _lora_bert(dataclasses.replace(cfg, attn_impl=impl), seed=None), _bert_loss,
+            tcfg if dtype is None else dataclasses.replace(tcfg, dtype=dtype), device=DEV)
+    for when, st, need in (("first-step", state0, 6 * L), ("trained", state, 12 * L)):
+        gres = _grad_agreement(*(trainers[t].loss_and_grads(st.params, batch)
+                                 for t in ("kernel", "plain", "f32")))
+        say(f"[lora] {when} adapter gradients vs plain attention: {json.dumps(gres)}")
+        check(gres["leaves"] >= need,
+              f"{when}: only {gres['leaves']} adapter leaves had gradients, expected {need}")
+        check(not gres["failed"], f"{when} LoRA gradient disagreement: {gres['failed']}")
+        check(abs(gres["loss_kernel"] - gres["loss_plain"]) <= TRAIN_LOSS_TOL,
+              f"{when} LoRA loss differs")
+    del trainers
+
+    # merge for serving: the trained adapters folded into w; bf16 eval
+    # through B1 ("auto" at seq 512), f32 eval on a plain-attention twin
+    # (the kernels take bf16 only)
+    model.load_state_dict(state.params)
+    twin = _lora_bert(dataclasses.replace(cfg, attn_impl="reference"), seed=None)
+    twin.load_state_dict(state.params)
+    ev = _bert_batch(B, T, cfg.vocab_size, lens=[512, 400, 256, 64], seed=3)
+    un16 = _eval_logits(model, ev, torch.bfloat16)
+    un32 = _eval_logits(twin, ev, torch.float32)
+    effect = float((_eval_logits(twin, ev, torch.float32, drop_b=True) - un32).abs().max())
+    lora_merge(model)
+    lora_merge(twin)
+    left = [k for k, _ in model.named_parameters() if "lora_" in k]
+    f32_err = float((_eval_logits(twin, ev, torch.float32) - un32).abs().max())
+    bf16_rel = _rel(_eval_logits(model, ev, torch.bfloat16), un16)
+    bf16_noise = _rel(un16, un32)
+    bf16_tol = max(LORA_MERGE_REL, LORA_NOISE_RATIO * bf16_noise)
+    mres = {"f32_max_abs_err": f32_err, "f32_tol": LORA_MERGE_F32,
+            "bf16_rel_err": bf16_rel, "bf16_unmerged_vs_f32_rel": bf16_noise,
+            "bf16_tol": bf16_tol,
+            "adapter_effect_f32_max_abs": effect,
+            "logits_f32_max_abs": float(un32.abs().max()),
+            "adapter_leaves_left": len(left), "card": name_power}
+    say(f"[lora] merge: {json.dumps(mres)}")
+    check(not left, "lora_merge left adapter leaves")
+    check(f32_err <= LORA_MERGE_F32, f"merged f32 logits differ by {f32_err}")
+    check(bf16_rel <= bf16_tol, f"merged bf16 logits differ: rel {bf16_rel}")
+    check(effect > 10 * max(f32_err, 1e-6),
+          f"the adapters barely move the logits ({effect}): the merge check sees nothing")
+    del model, twin, trainer, state, state0
+    _free_cuda()
+    return {"launches_fwd": k1, "launches_bwd": k2}
+
+
+def phase_checkpoint(name_power: str) -> dict:
+    """Save and resume on the card: the [lora] model with every leaf
+    trainable (``train_only=None``, Adam), 4 steps uninterrupted against
+    2 steps, an async ``CheckpointManager`` save, a restore into a fresh
+    ``init_state()`` on the card, and 2 more steps; each step's dropout
+    generator is seeded from the step, so the resumed run draws the same
+    masks. Params, moments and step must be bit-identical."""
+    cfg = BertConfig.base()
+    B, T = 8, 512
+    L = cfg.num_layers
+    model = _lora_bert(cfg)
+    tcfg = TrainConfig(batch_size=B, micro_batches=1, optimizer="adam",
+                       learning_rate=1e-4, dtype="bfloat16", grad_clip_norm=1.0)
+    trainer = Trainer(model, _bert_loss, tcfg, device=DEV)
+    batch = _bert_batch(B, T, cfg.vocab_size, lens=[512, 480, 300, 129])
+
+    def run(state, steps):
+        for step in steps:
+            gen = torch.Generator(device=DEV).manual_seed(1000 + step)
+            state, _ = trainer.train_step(state, batch, gen)
+        return state
+
+    flash_attention_fwd_lse.launches = 0
+    flash_attention_bwd.launches = 0
+    full = run(trainer.init_state(), range(CKPT_STEPS))
+    part = run(trainer.init_state(), range(CKPT_SAVE_AT))
+    torch.cuda.synchronize()
+    build_root = os.path.join(_build.PKG_DIR, "_build")
+    with tempfile.TemporaryDirectory(prefix="checkpoint-", dir=build_root) as d:
+        with CheckpointManager(d, async_save=True) as mgr:
+            t0 = time.perf_counter()
+            check(mgr.save(CKPT_SAVE_AT, part), "the checkpoint save did not start")
+            call_s = time.perf_counter() - t0
+            mgr.wait_until_finished()
+            save_s = time.perf_counter() - t0
+            step_dir = os.path.join(d, str(CKPT_SAVE_AT))
+            nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+            target = trainer.init_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resumed = mgr.restore(target=target)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        del target
+    resumed = run(resumed, range(CKPT_SAVE_AT, CKPT_STEPS))
+    k1, k2 = flash_attention_fwd_lse.launches, flash_attention_bwd.launches
+    diff = [k for k in full.params if not torch.equal(full.params[k], resumed.params[k])]
+    diff += [f"{m}:{k}" for m in ("m", "v") for k in full.opt_state[m]
+             if not torch.equal(full.opt_state[m][k], resumed.opt_state[m][k])]
+    same_step = int(full.step) == int(resumed.step) == CKPT_STEPS
+    on_card = all(t.device.type == "cuda" for t in resumed.params.values())
+    res = {
+        "trainer": "the [lora] model, every leaf trainable, Adam lr 1e-4",
+        "steps": CKPT_STEPS, "saved_at": CKPT_SAVE_AT, "leaves": len(full.params),
+        "bytes_written": nbytes, "save_call_s": call_s, "save_s": save_s,
+        "restore_s": restore_s, "save_gb_s": nbytes / save_s / 1e9,
+        "restore_gb_s": nbytes / restore_s / 1e9, "launches_fwd": k1,
+        "launches_bwd": k2, "expected_launches": L * (2 * CKPT_STEPS),
+        "differing": diff[:10], "n_differing": len(diff), "step_equal": same_step,
+        "restored_on_card": on_card, "card": name_power,
+    }
+    say(f"[checkpoint] {json.dumps(res)}")
+    check(not diff and same_step, f"resume differs from the uninterrupted run: {diff[:5]}")
+    check(on_card, "restored tensors are not on the card")
+    check(k1 == k2 == L * 2 * CKPT_STEPS, f"checkpoint flash launches {k1}/{k2}")
+    del model, trainer, full, part, resumed
+    _free_cuda()
+    return {"launches_fwd": k1, "launches_bwd": k2}
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3446,6 +3689,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train = phase_train(name_power)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora = phase_lora(name_power)
+    ckpt = phase_checkpoint(name_power)
     norm_paths = {"paged serving": launches["launches_norm"],
                   "static": static["launches_norm"],
                   "contiguous": contiguous["launches_norm"],
@@ -3467,6 +3714,10 @@ def main() -> int:
                    "mixtral paged": mixtral["paged"]}
     say(f"[launches] fused_residual_norm by path: {json.dumps(norm_paths)}")
     say(f"[launches] paged_decode_attention by path: {json.dumps(paged_paths)}")
+    flash_paths = {"train": (train["launches_fwd"], train["launches_bwd"]),
+                   "lora": (lora["launches_fwd"], lora["launches_bwd"]),
+                   "checkpoint": (ckpt["launches_fwd"], ckpt["launches_bwd"])}
+    say(f"[launches] flash_attention fwd, bwd by path: {json.dumps(flash_paths)}")
     kernels = [
         {
             "name": "paged_decode_attention", "route": "cuda",
@@ -3488,7 +3739,7 @@ def main() -> int:
             "name": "flash_attention_fwd_lse", "route": "cuda",
             "source": "tensorlink_tpu_torch/csrc/flash_attention.cu",
             "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:247",
-            "launches": train["launches_fwd"],
+            "launches": sum(f for f, _ in flash_paths.values()),
             **{k: flash["fwd"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by", "library_ms")},
         },
@@ -3496,7 +3747,7 @@ def main() -> int:
             "name": "flash_attention_bwd", "route": "cuda",
             "source": "tensorlink_tpu_torch/csrc/flash_attention.cu",
             "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:470",
-            "launches": train["launches_bwd"],
+            "launches": sum(b for _, b in flash_paths.values()),
             **{k: flash["bwd"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by", "library_ms")},
         },

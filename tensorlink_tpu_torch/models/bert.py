@@ -15,7 +15,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-from torch import nn
 
 from tensorlink_tpu_torch import resolve_device
 from tensorlink_tpu_torch.nn.layers import (
@@ -25,6 +24,7 @@ from tensorlink_tpu_torch.nn.layers import (
     LayerNorm,
     init_parameters,
 )
+from tensorlink_tpu_torch.nn.module import Module
 from tensorlink_tpu_torch.nn.transformer import TransformerBlock, TransformerStack
 
 
@@ -51,7 +51,7 @@ class BertConfig:
                    hidden_dim=64, max_len=64)
 
 
-class Bert(nn.Module):
+class Bert(Module):
     """``Bert(cfg, device=None, dtype=torch.float32, seed=0)``: parameters
     on ``device`` (CUDA unless told otherwise), filled from ``seed``
     (``nn.layers.init_parameters``)."""
@@ -104,7 +104,7 @@ class Bert(nn.Module):
         return {"last_hidden_state": h, "pooled": pooled}
 
 
-class BertClassifier(nn.Module):
+class BertClassifier(Module):
     """BertForSequenceClassification equivalent: [CLS] pooled output,
     dropout, dense head -> logits [B, num_classes]."""
 

@@ -13,10 +13,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-from torch import nn
 
 from tensorlink_tpu_torch import resolve_device
 from tensorlink_tpu_torch.nn.layers import Dropout, Embedding, LayerNorm, init_parameters
+from tensorlink_tpu_torch.nn.module import Module
 from tensorlink_tpu_torch.nn.transformer import TransformerBlock, TransformerStack
 
 
@@ -45,7 +45,7 @@ class GPT2Config:
         return cls(vocab_size=128, dim=32, num_layers=2, num_heads=2, max_len=64)
 
 
-class GPT2(nn.Module):
+class GPT2(Module):
     """``GPT2(cfg, device=None, dtype=torch.float32, seed=0)``: builds the
     parameters on ``device`` (CUDA unless told otherwise) and fills them
     from ``seed`` (``nn.layers.init_parameters``)."""

@@ -14,10 +14,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-from torch import nn
 
 from tensorlink_tpu_torch import resolve_device
 from tensorlink_tpu_torch.nn.layers import Dense, Embedding, RMSNorm, init_parameters
+from tensorlink_tpu_torch.nn.module import Module
 from tensorlink_tpu_torch.nn.transformer import TransformerBlock, TransformerStack
 
 
@@ -86,7 +86,7 @@ class LlamaConfig:
                    rope_theta=10000.0)
 
 
-class Llama(nn.Module):
+class Llama(Module):
     """``Llama(cfg, device=None, dtype=torch.float32, seed=0)``: builds
     the parameters on ``device`` (CUDA unless told otherwise) and fills
     them from ``seed`` (``nn.layers.init_parameters``)."""

@@ -59,11 +59,11 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch import nn
 
 from tensorlink_tpu_torch.nn.layers import Dense
+from tensorlink_tpu_torch.nn.module import Module
 from tensorlink_tpu_torch.ops.paged_decode import paged_decode_attention
-from tensorlink_tpu_torch.ops.quant import quantize_kv_int8
+from tensorlink_tpu_torch.ops.quant import dequantize_kv, quantize_kv_int8
 
 NEG_INF = -1e30
 
@@ -346,7 +346,7 @@ def write_rows(caches, news, index: torch.Tensor) -> None:
         cache[dst] = torch.where(kept.view(B, T, *bcast), new, last[:, None])
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Module):
     def __init__(
         self,
         dim: int,
@@ -405,6 +405,10 @@ class MultiHeadAttention(nn.Module):
                 "implementation"
             )
         self.scale = scale
+        if isinstance(attn_impl, str):
+            # only a string impl is recorded for config(): a callable
+            # cannot cross the wire, and a rebuilt module takes "auto"
+            self.attn_impl = attn_impl
         qdim = self.num_heads * self.head_dim
         kvdim = self.num_kv_heads * self.head_dim
         kw = {"device": device, "dtype": dtype}
@@ -416,12 +420,12 @@ class MultiHeadAttention(nn.Module):
                 raise ValueError("qkv_fused requires num_kv_heads | num_heads")
             G = self.num_kv_heads
             hq = self.num_heads // G
-            self.qkv = Dense(dim, G * (hq + 2) * self.head_dim, use_bias, **kw)
+            self.qkv = Dense(dim, G * (hq + 2) * self.head_dim, use_bias, "col", **kw)
         else:
-            self.q = Dense(dim, qdim, use_bias, **kw)
-            self.k = Dense(dim, kvdim, use_bias, **kw)
-            self.v = Dense(dim, kvdim, use_bias, **kw)
-        self.o = Dense(qdim, dim, use_bias, **kw)
+            self.q = Dense(dim, qdim, use_bias, "col", **kw)
+            self.k = Dense(dim, kvdim, use_bias, "col", **kw)
+            self.v = Dense(dim, kvdim, use_bias, "col", **kw)
+        self.o = Dense(qdim, dim, use_bias, "row", **kw)
 
     def _project_qkv(self, x):
         """-> q [B, T, H, Dh], k and v [B, T, Hkv, Dh], from either
@@ -437,7 +441,7 @@ class MultiHeadAttention(nn.Module):
         return f[:, :, :, :hq].reshape(B, T, H, Dh), f[:, :, :, hq], f[:, :, :, hq + 1]
 
     def forward(self, x, *, mask=None, cache=None, positions=None,
-                bias=None, fresh_keys=None):
+                bias=None, fresh_keys=None, **_):
         B, T, _ = x.shape
         if bias is not None and self._attn is not dot_product_attention:
             # the flash routing swallows unknown kwargs: an additive bias
@@ -657,11 +661,10 @@ class MultiHeadAttention(nn.Module):
         the shared pools (in place), then attend the row's logical view
         — causality and the window band in logical coordinates, the
         caller's view-width mask further restricting. int8 pools quantize
-        at write and dequantize at read (inside the kernel on CUDA)."""
-        if self.scale is not None:
-            raise NotImplementedError(
-                "a custom attention scale has no paged path"
-            )
+        at write and dequantize at read (inside the kernel on CUDA). A
+        custom ``scale`` skips the kernel, as the reference does: the
+        logical view is gathered and the plain attention takes the
+        scale (``_paged_scaled``)."""
         B, T = q.shape[0], q.shape[1]
         bt, idx = cache["block_table"], cache["index"]
         if idx.dim() != 1:
@@ -686,9 +689,11 @@ class MultiHeadAttention(nn.Module):
                     f"dim {Lv}), got {tuple(mask.shape)}"
                 )
             mask = mask.expand(B, 1, mask.shape[2], Lv).contiguous()
+        ks, vs = cache.get("k_scale"), cache.get("v_scale")
+        if self.scale is not None:
+            return self._paged_scaled(q, idx, bt, ck, cv, ks, vs, mask, NB), new_cache
         # the real blocks only (leading-dim views, still contiguous): the
         # kernel's sentinel test is against their count
-        ks, vs = cache.get("k_scale"), cache.get("v_scale")
         out = paged_decode_attention(
             q.contiguous(), ck[:NB], cv[:NB], bt, new_cache["index"].int(),
             k_scale=None if ks is None else ks[:NB],
@@ -696,6 +701,35 @@ class MultiHeadAttention(nn.Module):
             mask=mask, window=self.window,
         )
         return out, new_cache
+
+    def _paged_scaled(self, q, idx, bt, ck, cv, ks, vs, mask, NB):
+        """The reference's XLA gather route for a custom scale: each row's
+        logical view [B, Lv] gathered through its table (a sentinel entry
+        reads block NB - 1, as JAX's clamped gather does; the positional
+        keep never reaches it for a mapped row), int8 pools dequantized,
+        ``keep`` from causality, the window band and the caller's mask,
+        then the plain attention with ``scale=``. Device tensors only, so
+        a captured chunk can run it."""
+        B, T = q.shape[0], q.shape[1]
+        Lv = bt.shape[1] * ck.shape[1]
+        rows = bt.clamp(max=NB - 1).long()
+        kk = ck[rows].reshape(B, Lv, *ck.shape[2:])
+        vv = cv[rows].reshape(B, Lv, *cv.shape[2:])
+        if ks is not None:
+            kk = dequantize_kv(kk, ks[rows].reshape(B, Lv, -1), q.dtype)
+            vv = dequantize_kv(vv, vs[rows].reshape(B, Lv, -1), q.dtype)
+        tpos = idx.long()[:, None] + torch.arange(T, device=q.device)[None, :]
+        kpos = torch.arange(Lv, device=q.device)[None, None, None, :]
+        qpos = tpos[:, None, :, None]  # [B, 1, T, 1]
+        keep = kpos <= qpos  # causal in logical coordinates
+        if self.window is not None:
+            keep = keep & (kpos > qpos - self.window)
+        if mask is not None:
+            keep = keep & mask
+        return self._attn(
+            q, kk.to(q.dtype), vv.to(q.dtype), causal=False, mask=keep,
+            q_offset=0, scale=self.scale, window=None,
+        )
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    rolling: bool = False, *, device=None) -> dict:

@@ -9,7 +9,9 @@ activation dtype at use, as in the JAX modules. Every forward is plain
 differentiable PyTorch: the trainer takes gradients with respect to
 parameters it substitutes (``torch.func.functional_call``), so the
 modules' own parameters are created without ``requires_grad``.
-``Dropout`` holds no parameters.
+``Dropout`` holds no parameters. Every class derives from
+``nn.module.Module`` (``config()`` for spec shipping), and every forward
+accepts the keywords a container passes on (``rng``, ``train``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import math
 import torch
 from torch import nn
 
+from tensorlink_tpu_torch.nn.module import Module
 from tensorlink_tpu_torch.ops.quant import QuantizedWeight, dequantize_weight
 
 
@@ -43,28 +46,42 @@ def _param(shape, device, dtype) -> nn.Parameter:
     )
 
 
-class Dense(nn.Module):
+class Dense(Module):
     """y = x @ w + b. Weight-only int8 (``set_quantized``, reached through
     ``ops.quant.quantize_params_int8``) replaces the parameter ``w`` by a
     child ``w`` holding buffers ``q`` (int8 [in, out]) and ``s`` (f32
     [out]), the JAX tree's ``{"q", "s"}`` leaf, and the forward becomes
-    ``x @ dequantize_weight(w, x.dtype)``."""
+    ``x @ dequantize_weight(w, x.dtype)``.
 
-    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True, *,
+    LoRA (``nn.lora.lora_init``) adds parameters ``lora_a`` [in, r],
+    ``lora_b`` [r, out] and the 0-d ``lora_s`` (alpha / r); the forward
+    then adds ``((x @ a) @ b) * s`` in the activation dtype, after the
+    (dequantized) product and before the bias, as the reference does.
+    ``shard`` ("col", "row" or None) is the tensor-parallel role, kept
+    for the sharded trainer; ``init_scheme`` is "lecun" or "normal"
+    (N(0, 0.02))."""
+
+    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
+                 shard: str | None = None, init_scheme: str = "lecun", *,
                  device=None, dtype=torch.float32):
         super().__init__()
         self.in_dim = in_dim
         self.out_dim = out_dim
         self.use_bias = use_bias
+        self.shard = shard
+        self.init_scheme = init_scheme
         self.w = _param((in_dim, out_dim), device, dtype)
-        self.b = _param((out_dim,), device, dtype) if use_bias else None
+        self.register_parameter(
+            "b", _param((out_dim,), device, dtype) if use_bias else None)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
-        """LeCun normal weight (std sqrt(1 / fan_in)), zero bias."""
+        """LeCun normal weight (std sqrt(1 / fan_in)), or N(0, 0.02) under
+        ``init_scheme="normal"``; zero bias. Adapters are left alone."""
         if self.quantized:
             raise RuntimeError("a quantized Dense has no float weight to reset")
-        self.w.normal_(0.0, math.sqrt(1.0 / self.in_dim), generator=generator)
+        std = 0.02 if self.init_scheme == "normal" else math.sqrt(1.0 / self.in_dim)
+        self.w.normal_(0.0, std, generator=generator)
         if self.b is not None:
             self.b.zero_()
 
@@ -82,36 +99,45 @@ class Dense(nn.Module):
         self._modules.pop("w", None)
         self.w = QuantizedWeight(q, s.float())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def has_lora(self) -> bool:
+        return "lora_a" in self._parameters
+
+    def forward(self, x: torch.Tensor, **_) -> torch.Tensor:
         w = dequantize_weight(self.w, x.dtype) if self.quantized else self.w.to(x.dtype)
         y = x @ w
+        if self.has_lora:
+            y = y + ((x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)) \
+                * self.lora_s.to(x.dtype)
         if self.b is not None:
             y = y + self.b.to(x.dtype)
         return y
 
 
-class Embedding(nn.Module):
-    """Token embedding; ``attend`` reuses the table as the LM head."""
+class Embedding(Module):
+    """Token embedding; ``attend`` reuses the table as the LM head.
+    ``shard`` (vocab sharding) is kept for the sharded trainer."""
 
-    def __init__(self, vocab_size: int, dim: int, *, device=None,
-                 dtype=torch.float32):
+    def __init__(self, vocab_size: int, dim: int, shard: str | None = None, *,
+                 device=None, dtype=torch.float32):
         super().__init__()
         self.vocab_size = vocab_size
         self.dim = dim
+        self.shard = shard
         self.table = _param((vocab_size, dim), device, dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
         self.table.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, **_) -> torch.Tensor:
         return self.table[ids]
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.table.to(x.dtype).T
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Module):
     def __init__(self, dim: int, eps: float = 1e-6, use_bias: bool = True, *,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -119,7 +145,8 @@ class LayerNorm(nn.Module):
         self.eps = eps
         self.use_bias = use_bias
         self.scale = _param((dim,), device, dtype)
-        self.bias = _param((dim,), device, dtype) if use_bias else None
+        self.register_parameter(
+            "bias", _param((dim,), device, dtype) if use_bias else None)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -127,7 +154,7 @@ class LayerNorm(nn.Module):
         if self.bias is not None:
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, **_) -> torch.Tensor:
         xf = x.float()
         mu = xf.mean(dim=-1, keepdim=True)
         var = (xf - mu).square().mean(dim=-1, keepdim=True)
@@ -137,7 +164,7 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
-class Dropout(nn.Module):
+class Dropout(Module):
     """Explicit-generator dropout: a no-op unless ``train=True`` and a
     ``torch.Generator`` is given (on the input's device). Keeps each
     element with probability ``1 - rate`` and scales survivors by
@@ -150,7 +177,7 @@ class Dropout(nn.Module):
         self.rate = rate
 
     def forward(self, x: torch.Tensor, *, rng: torch.Generator | None = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, **_) -> torch.Tensor:
         if not train or self.rate == 0.0 or rng is None:
             return x
         keep = 1.0 - self.rate
@@ -158,7 +185,7 @@ class Dropout(nn.Module):
         return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Module):
     def __init__(self, dim: int, eps: float = 1e-6, *, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -170,7 +197,7 @@ class RMSNorm(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None):
         self.scale.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, **_) -> torch.Tensor:
         xf = x.float()
         ms = xf.square().mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(ms + self.eps) * self.scale.float()

@@ -44,6 +44,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensorlink_tpu_torch.nn.module import Module, register_module_type
+
 
 def _param(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(
@@ -71,7 +73,8 @@ class Router(nn.Module):
         self.w.normal_(0.0, 0.02, generator=generator)
 
 
-class MoEFeedForward(nn.Module):
+@register_module_type
+class MoEFeedForward(Module):
     """``forward`` returns the output; ``forward_with_aux`` returns
     ``(output, aux_loss)`` for load-balanced training."""
 
@@ -93,7 +96,8 @@ class MoEFeedForward(nn.Module):
         E, D, H = num_experts, dim, hidden_dim
         self.router = Router(D, E, device=device, dtype=dtype)
         self.up = _param((E, D, H), device, dtype)
-        self.gate = _param((E, D, H), device, dtype) if gated else None
+        self.register_parameter(
+            "gate", _param((E, D, H), device, dtype) if gated else None)
         self.down = _param((E, H, D), device, dtype)
 
     @torch.no_grad()
@@ -180,7 +184,7 @@ class MoEFeedForward(nn.Module):
         expert_out = torch.einsum("ebch,ehd->ebcd", h, self.down.to(x.dtype))
         return torch.einsum("btec,ebcd->btd", combine, expert_out), aux
 
-    def forward(self, x: torch.Tensor, *, rng=None, train: bool = False
+    def forward(self, x: torch.Tensor, *, rng=None, train: bool = False, **_
                 ) -> torch.Tensor:
         return self.forward_with_aux(x, rng=rng, train=train)[0]
 

@@ -17,10 +17,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from tensorlink_tpu_torch.nn.attention import MultiHeadAttention
 from tensorlink_tpu_torch.nn.layers import Dense, Dropout, LayerNorm, RMSNorm
+from tensorlink_tpu_torch.nn.module import Module
 from tensorlink_tpu_torch.nn.moe import MoEFeedForward
 from tensorlink_tpu_torch.ops.decode_glue import fused_residual_norm
 
@@ -32,22 +32,27 @@ ACTIVATIONS = {
 }
 
 
-class FeedForward(nn.Module):
+class FeedForward(Module):
     """MLP block; ``gated=True`` gives the SwiGLU variant (Llama)."""
 
     def __init__(self, dim: int, hidden_dim: int, activation: str = "gelu",
                  use_bias: bool = True, gated: bool = False,
                  dropout: float = 0.0, *, device=None, dtype=torch.float32):
         super().__init__()
+        self.dim = dim
+        self.hidden_dim = hidden_dim
         self.activation = activation
         self.gated = gated
+        self.use_bias = use_bias
+        self.dropout = dropout
         kw = {"device": device, "dtype": dtype}
-        self.up = Dense(dim, hidden_dim, use_bias, **kw)
-        self.gate = Dense(dim, hidden_dim, use_bias, **kw) if gated else None
-        self.down = Dense(hidden_dim, dim, use_bias, **kw)
+        self.up = Dense(dim, hidden_dim, use_bias, "col", **kw)
+        self.register_module(
+            "gate", Dense(dim, hidden_dim, use_bias, "col", **kw) if gated else None)
+        self.down = Dense(hidden_dim, dim, use_bias, "row", **kw)
         self.drop = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor, *, rng=None, train: bool = False
+    def forward(self, x: torch.Tensor, *, rng=None, train: bool = False, **_
                 ) -> torch.Tensor:
         act = ACTIVATIONS[self.activation]
         h = self.up(x)
@@ -56,7 +61,7 @@ class FeedForward(nn.Module):
         return self.down(h)
 
 
-class TransformerBlock(nn.Module):
+class TransformerBlock(Module):
     """One attention + MLP block. ``norm_style``: "pre" (GPT-2/Llama) or
     "post" (BERT); ``norm``: "layer" or "rms"."""
 
@@ -91,9 +96,29 @@ class TransformerBlock(nn.Module):
             raise ValueError(f"unknown norm_style {norm_style!r}")
         if norm not in ("layer", "rms"):
             raise ValueError(f"unknown norm {norm!r}")
+        hidden_dim = hidden_dim or 4 * dim
+        # constructor arguments, kept for config() / spec shipping
+        self.dim = dim
         self.norm_style = norm_style
+        self.num_heads = num_heads
+        self.hidden_dim = hidden_dim
+        self.num_kv_heads = num_kv_heads
         self.norm = norm
         self.norm_eps = norm_eps
+        self.activation = activation
+        self.use_bias = use_bias
+        self.gated_mlp = gated_mlp
+        self.causal = causal
+        self.rope = rope
+        self.rope_theta = rope_theta
+        self.dropout = dropout
+        if isinstance(attn_impl, str):
+            self.attn_impl = attn_impl
+        self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+        self.moe_capacity_factor = moe_capacity_factor
+        self.attn_window = attn_window
+        self.qkv_fused = qkv_fused
         kw = {"device": device, "dtype": dtype}
         norm_cls = RMSNorm if norm == "rms" else LayerNorm
         self.norm1 = norm_cls(dim, eps=norm_eps, **kw)
@@ -104,7 +129,6 @@ class TransformerBlock(nn.Module):
             window=attn_window, attn_impl=attn_impl, qkv_fused=qkv_fused,
             **kw,
         )
-        hidden_dim = hidden_dim or 4 * dim
         if moe_experts:
             # the MoE FFN has neither biases nor internal dropout: refuse
             # rather than diverge from the dense FFN it replaces
@@ -131,7 +155,7 @@ class TransformerBlock(nn.Module):
         return self.mlp(h, rng=rng, train=train), 0.0
 
     def forward(self, x, *, mask=None, cache=None, positions=None, rng=None,
-                train: bool = False):
+                train: bool = False, **_):
         x, new_cache, _ = self._run(x, mask, cache, positions, rng, train)
         if cache is not None:
             return x, new_cache
@@ -194,7 +218,7 @@ class TransformerBlock(nn.Module):
             self.router_input(x, mask=mask, positions=positions))
 
 
-class TransformerStack(nn.Module):
+class TransformerStack(Module):
     """N homogeneous blocks, named "0".."N-1" as in the JAX params."""
 
     def __init__(self, num_layers: int, make_block, **block_kw):

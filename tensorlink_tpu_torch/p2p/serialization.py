@@ -1,5 +1,6 @@
 """Array blobs on the wire (the ``pack_arrays`` / ``unpack_arrays`` /
-``packed_nbytes`` part of ``tensorlink_tpu/p2p/serialization.py``).
+``packed_nbytes`` and ``tree_flatten_arrays`` / ``tree_unflatten_arrays``
+part of ``tensorlink_tpu/p2p/serialization.py``).
 
 A blob is ``MAGIC + len(head) (4 bytes, big-endian) + head + body``:
 ``head`` is a msgpack map ``{"codec", "tensors": {name: {"dtype",
@@ -310,3 +311,50 @@ def unpack_arrays(data: bytes) -> dict[str, torch.Tensor]:
             flat = flat.clone()  # an aligned copy of a misaligned tensor
         out[name] = flat.view(dtype).reshape(meta["shape"])
     return out
+
+
+# ---------------------------------------------------------------- pytrees
+
+
+def tree_flatten_arrays(tree: Any, prefix: str = "") -> dict[str, Any]:
+    """Nested dict of arrays -> flat ``{dotted.path: leaf}``, keys sorted
+    at each level and an empty dict kept as ``path + "//empty"`` (a
+    0-length uint8 array), as the reference writes them. A torch tensor
+    stays a tensor (bf16 has no numpy dtype); any other leaf becomes a
+    numpy array. A flat state dict (``"a.b.c"`` keys) flattens to the
+    same names as the nested tree it stands for."""
+    flat: dict[str, Any] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            if not node:
+                flat[path + "//empty"] = np.zeros((0,), np.uint8)
+                return
+            for k in sorted(node):
+                walk(node[k], f"{path}.{k}" if path else str(k))
+        else:
+            flat[path] = node if isinstance(node, torch.Tensor) else np.asarray(node)
+
+    walk(tree, prefix)
+    return flat
+
+
+def tree_unflatten_arrays(flat: Mapping[str, Any]) -> Any:
+    """Inverse of ``tree_flatten_arrays``: dotted names -> nested dicts,
+    ``//empty`` markers -> ``{}``."""
+    tree: dict[str, Any] = {}
+    saw_empty_root = False
+    for name, arr in flat.items():
+        empty = name.endswith("//empty")
+        path = name[: -len("//empty")] if empty else name
+        if empty and not path:
+            saw_empty_root = True
+            continue
+        parts = path.split(".")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = {} if empty else arr
+    if saw_empty_root and not tree:
+        return {}
+    return tree

@@ -8,6 +8,15 @@ gradients land in f32 on the masters. Gradient accumulation runs over
 ``cfg.micro_batches`` slices of the batch. The non-finite sentinel is
 computed on the device before clipping, and no step reads the device
 from the host: ``train_step`` returns its stats as device tensors.
+
+``train_only="lora"`` trains the adapter leaves alone (``nn/lora.py``):
+autograd is asked for their gradients only, so the frozen weights' dW
+products are never computed, and the other leaves take exact zeros,
+which is what the reference's ``mask_to_lora`` leaves before its
+non-finite sentinel and clipping. The optimizer still keeps moments for
+every leaf (a checkpoint has the reference's keys); a frozen leaf's
+update is zero, as the reference masks it, so it keeps its tensor and
+AdamW's decoupled decay never moves it.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import torch
 
 from tensorlink_tpu_torch import resolve_device
 from tensorlink_tpu_torch.config import TrainConfig
+from tensorlink_tpu_torch.nn.lora import is_lora_name
 from tensorlink_tpu_torch.train.optim import (
     Optimizer,
     apply_updates,
@@ -81,8 +91,10 @@ class Trainer:
     silent CPU fallback). ``donate``, ``tracer``, ``metrics`` and
     ``flight`` are accepted for the reference's signature and ignored
     until the observability slice: no span, metric or flight event is
-    emitted. ``train_only="lora"`` and ``fsdp`` raise: LoRA and FSDP wait
-    for their slices.
+    emitted. ``train_only="lora"`` trains only the adapters of a module
+    that went through ``nn.lora.lora_init`` (module docstring).
+    ``fsdp=True`` raises the reference's ``ValueError``: a single-device
+    trainer cannot shard params and moments.
     """
 
     def __init__(
@@ -100,9 +112,16 @@ class Trainer:
     ):
         self.device = resolve_device(device)
         if cfg.fsdp:
-            raise NotImplementedError("FSDP waits for the data-parallel slice")
-        if cfg.train_only == "lora":
-            raise NotImplementedError("LoRA training waits for the LoRA slice")
+            # a mode this class cannot honor fails loudly, not silently
+            # replicated (the reference's message, word for word)
+            raise ValueError(
+                "TrainConfig(fsdp=True) has no effect on the single-host "
+                "Trainer: wrap its ._step with "
+                "parallel.dp.fsdp_train_step(step, mesh, state) (which "
+                "shards params+moments over the data axis), or use "
+                "ShardedTrainer on a mesh with a data axis"
+            )
+        self.lora_only = cfg.train_only == "lora"
         self.module = module
         self.loss_fn = loss_fn
         self.cfg = cfg
@@ -136,16 +155,27 @@ class Trainer:
     def _batch(self, batch):
         return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
 
+    def trainable(self, name: str) -> bool:
+        """Whether the leaf ``name`` trains (every leaf, or under
+        ``train_only="lora"`` the adapters alone)."""
+        return not self.lora_only or is_lora_name(name)
+
     def loss_and_grads(self, params, batch, rng=None):
         """(loss, {name: f32 grad}) of ``loss_fn`` at ``params`` (the f32
-        masters), through the compute-dtype copy."""
-        leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+        masters), through the compute-dtype copy. A frozen leaf's grad is
+        an exact zero, never computed."""
+        leaves = {k: p.detach().requires_grad_(self.trainable(k))
+                  for k, p in params.items()}
+        wrt = [k for k in leaves if self.trainable(k)]
+        if not wrt:
+            raise ValueError("train_only='lora' but the params hold no "
+                             "adapter (nn.lora.lora_init first)")
         loss = self.loss_fn(self.module, self._cast(leaves), batch, rng)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
+        grads = dict(zip(wrt, torch.autograd.grad(
+            loss, [leaves[k] for k in wrt], allow_unused=True)))
         out = {
-            k: torch.zeros_like(p) if g is None else g
-            for (k, p), g in zip(leaves.items(), grads)
+            k: torch.zeros_like(p) if grads.get(k) is None else grads[k]
+            for k, p in leaves.items()
         }
         return loss.detach(), out
 
@@ -187,7 +217,10 @@ class Trainer:
         updates, opt_state = self.optimizer.update(
             grads, state.opt_state, state.params, state.step
         )
-        params = apply_updates(state.params, updates)
+        # a frozen leaf's update is zero: it keeps its tensor
+        live = [k for k in updates if self.trainable(k)]
+        params = {**state.params, **apply_updates(
+            {k: state.params[k] for k in live}, {k: updates[k] for k in live})}
         new_state = TrainState(params=params, opt_state=opt_state,
                                step=state.step + 1)
         if self.cfg.skip_nonfinite_updates:

@@ -8,7 +8,10 @@ package's module on the same params and inputs (f32, atol 1e-5; rtol 1e-6 on the
   ``_apply_paged`` on its XLA gather path (the path JAX takes on the
   CPU), in f32 and int8 pools; outputs and the pools' real blocks after
   the writes (the port's scratch block, which takes dropped writes, is
-  not part of JAX's pools).
+  not part of JAX's pools);
+- the paged path with a custom ``scale`` (the gather route that skips
+  B3, as the reference's does) against JAX's XLA paged path at T 1 and
+  T 3, bf16 and int8 pools, a window and a view-width mask.
 """
 
 import jax
@@ -30,9 +33,9 @@ DIM, H, HKV = 32, 4, 2
 NB, BS, MB = 10, 4, 4
 
 
-def _pair(window=None, use_bias=True):
+def _pair(window=None, use_bias=True, scale=None):
     jm = JMHA(DIM, H, num_kv_heads=HKV, use_bias=use_bias, rope=True,
-              causal=True, window=window, attn_impl="reference")
+              causal=True, window=window, attn_impl="reference", scale=scale)
     p = jm.init(jax.random.key(3))
     if use_bias:
         r = np.random.default_rng(9)
@@ -40,7 +43,8 @@ def _pair(window=None, use_bias=True):
                                        jnp.float32)}
              for k, v in p.items()}
     tm = MultiHeadAttention(DIM, H, num_kv_heads=HKV, use_bias=use_bias,
-                            rope=True, causal=True, window=window)
+                            rope=True, causal=True, window=window, scale=scale,
+                            attn_impl="reference" if scale is not None else "auto")
     tm.load_state_dict(params_from_jax(jax.device_get(p)), assign=True)
     return jm, p, tm
 
@@ -83,7 +87,12 @@ def _real(name, t):
 
 
 def _to_jax_cache(c):
-    return {k: jnp.asarray(_real(k, v).numpy()) for k, v in c.items()}
+    def arr(t):
+        if t.dtype == torch.bfloat16:  # exact through f32
+            return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+        return jnp.asarray(t.numpy())
+
+    return {k: arr(_real(k, v)) for k, v in c.items()}
 
 
 @pytest.mark.parametrize("quant", [None, "int8"], ids=["f32", "int8"])
@@ -153,3 +162,72 @@ def test_paged_write_drops_through_sentinel():
     for b in range(NB):
         untouched = bool((tc["k"][b] == 7.0).all())
         assert untouched == (b not in touched), b
+
+
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_paged_custom_scale_matches_jax_xla_path(pool, T, monkeypatch):
+    """A custom scale takes the reference's gather route: the paged write,
+    then the logical view (int8 dequantized) through the plain attention
+    with ``scale=``, a window band and a view-width mask; B3's wrapper is
+    never called on it, and still serves ``scale=None``."""
+    from tensorlink_tpu_torch.nn import attention as tattn
+
+    calls = []
+    real = tattn.paged_decode_attention
+    launches = real.launches
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tattn, "paged_decode_attention", counting)
+    r = np.random.default_rng(5)
+    outs = {}
+    for scale in (0.3, None):
+        jm, p, tm = _pair(window=3, scale=scale)
+        quant = "int8" if pool == "int8" else None
+        tc = tm.init_paged_cache(NB, BS, 2, MB, dtype=torch.bfloat16, quant=quant)
+        for name in ("k", "v"):
+            if quant:
+                tc[name].copy_(torch.from_numpy(
+                    r.integers(-127, 128, tc[name].shape).astype(np.int8)))
+                # scales of the size a write gives (absmax / 127): keys
+                # read through a sentinel stay O(1), so the logits stay in
+                # the range where f32 summation order is below 1e-5
+                tc[name + "_scale"].copy_(torch.from_numpy(
+                    r.uniform(0.005, 0.02, tc[name + "_scale"].shape).astype(np.float32)))
+            else:
+                tc[name].copy_(torch.from_numpy(
+                    r.normal(size=tc[name].shape).astype(np.float32)))
+        tc["block_table"].copy_(torch.from_numpy(_tables()))
+        jc = _to_jax_cache(tc)
+        calls.clear()
+        # a 5-token prefill, then T tokens under a view-width mask that
+        # also hides position 1 of row 0
+        for t0, t in ((0, 5), (5, T)):
+            x = r.normal(size=(2, t, DIM)).astype(np.float32)
+            pos = np.tile(np.arange(t0, t0 + t), (2, 1))
+            mask = None
+            if t0:
+                m = np.arange(MB * BS)[None, :] < np.array([[t0 + t], [t0 + t]])
+                m[0, 1] = False
+                mask = m[:, None, None, :]
+            jout, jc = jm.apply(p, jnp.asarray(x), cache=jc, positions=jnp.asarray(pos),
+                                mask=None if mask is None else jnp.asarray(mask))
+            with torch.no_grad():
+                tout, tc = tm(torch.from_numpy(x), cache=tc,
+                              positions=torch.from_numpy(pos),
+                              mask=None if mask is None else torch.from_numpy(mask))
+            np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=ATOL,
+                                       rtol=RTOL)
+            for name in tc:
+                np.testing.assert_allclose(
+                    _real(name, tc[name]).float().numpy(),
+                    np.asarray(jc[name]).astype(np.float32), atol=ATOL, rtol=0,
+                    err_msg=name)
+        outs[scale] = (len(calls), tout)
+    assert outs[0.3][0] == 0  # the scaled route never reaches B3
+    assert outs[None][0] == 2  # B3 still serves scale=None
+    assert not torch.allclose(outs[0.3][1], outs[None][1], atol=1e-3)
+    assert real.launches == launches  # plain versions on the CPU: no launch

@@ -17,6 +17,8 @@ from tensorlink_tpu_torch.data.loader import prefetch_to_device
 from tensorlink_tpu_torch.models.bert import Bert, BertClassifier, BertConfig
 from tensorlink_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
+from tensorlink_tpu_torch.models.mlp import MLP, MLPConfig
+from tensorlink_tpu_torch.nn.module import module_from_config
 from tensorlink_tpu_torch.parallel.inference import InferenceEngine
 from tensorlink_tpu_torch.train.trainer import Trainer
 
@@ -53,6 +55,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     for mod in ("compile_cache.py", "autotune.py", "chaos.py"):
         assert os.path.join(PORT, "runtime", mod) in files
     assert os.path.join(PORT, "nn", "moe.py") in files
+    for mod in (("nn", "lora.py"), ("nn", "module.py"), ("models", "mlp.py"),
+                ("runtime", "checkpoint.py"), ("runtime", "metrics.py")):
+        assert os.path.join(PORT, *mod) in files
     bad = [
         (os.path.relpath(p, REPO), root)
         for p in files for root in _imported_roots(p) if root in FORBIDDEN
@@ -136,6 +141,12 @@ def test_importing_the_port_loads_no_jax():
         "tensorlink_tpu_torch.ops.quant",
         "tensorlink_tpu_torch.nn.layers",
         "tensorlink_tpu_torch.nn.moe",
+        "tensorlink_tpu_torch.nn",
+        "tensorlink_tpu_torch.nn.lora",
+        "tensorlink_tpu_torch.nn.module",
+        "tensorlink_tpu_torch.models.mlp",
+        "tensorlink_tpu_torch.runtime.checkpoint",
+        "tensorlink_tpu_torch.runtime.metrics",
     ]
     code = (
         "import sys\n"
@@ -187,3 +198,11 @@ def test_training_entry_points_need_a_device_where_cuda_is_absent():
     assert Trainer(model, lambda *a: None, TrainConfig(), device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         next(prefetch_to_device(iter([{"x": [1]}])))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MLP(MLPConfig())
+    assert MLP(MLPConfig(), device="cpu").seq[0].w.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module_from_config({"__type__": "Dense", "in_dim": 2, "out_dim": 3})
+    dense = module_from_config({"__type__": "Dense", "in_dim": 2, "out_dim": 3},
+                               device="cpu")
+    assert dense.w.device.type == "cpu"

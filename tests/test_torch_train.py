@@ -204,6 +204,18 @@ def test_trainer_five_steps_match_jax(jax_run):
     assert np.quantile(diffs, 0.99) < 1e-5
 
 
+def test_fsdp_refusal_matches_jax():
+    """The single-device Trainer refuses FSDP as the reference does: the
+    same exception type, the same message."""
+    jm = JBertClassifier(dataclasses.replace(JBertConfig.tiny(), dropout=0.0), CLASSES)
+    with pytest.raises(ValueError) as ref:
+        JTrainer(jm, lambda *a: None, jconfig.TrainConfig(**TCFG, fsdp=True))
+    with pytest.raises(ValueError) as ours:
+        _port_trainer(fsdp=True)
+    assert str(ours.value) == str(ref.value)
+    assert "fsdp_train_step" in str(ours.value)
+
+
 def test_micro_batches_accumulate_like_one_batch(jax_run):
     jp = jax_run[0]
     b = _batches(1)[0]
