@@ -177,7 +177,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    fresh ``init_state()`` on the card + 2 steps, dropout generators
    seeded from the step: params, moments and step bit-identical; bytes
    written, save and restore s and GB/s (a temporary directory under
-   ``_build/``, removed).
+   ``_build/``, removed);
+10c. sharded bert: the [train] model and batch through
+   ``bert_pipeline_parts`` and ``ShardedTrainer`` (GPipe, 4 micros) on a
+   one-rank NCCL mesh (``make_mesh(MeshConfig())``): at dropout 0 the
+   first step's loss and every gradient leaf against the single-host
+   ``Trainer`` at 4 micros (the [train] thresholds), ``remat=True`` with
+   the same loss and twice the B1 launches, then 20 steps at dropout
+   0.1 with a falling loss, B1 = B2 = 12 x 4 a step, step ms, samples/s,
+   MFU, peak memory and a profiled step beside [train]'s step;
+10d. sharded gpt2: GPT-2-medium at full width through
+   ``GPT2.as_pipeline_parts`` under 1F1B (batch 8 x 1024, 4 micros,
+   AdamW, bf16) on the same mesh: at dropout 0 the first step's loss
+   and every gradient leaf (the tied ``wte`` included) against GPipe,
+   each held against the f32 plain-attention gradient where they part,
+   then 15 steps at dropout 0.1 with a falling loss, B1 = B2 = 24 x 4 a
+   step, tokens/s, MFU, a profiled step, peak memory and
+   ``measure_bubble``'s fit beside the closed form; the process group
+   is destroyed after the two legs, failed or not.
 
 Legs 6-9, 7a, 7b, 7j and 8a run their decode as CUDA-graph replays (the engines' default)
 with ``pipeline_depth`` 2 chunks in flight on the serving engines; the
@@ -198,8 +215,8 @@ after; B4's count in the kernels line sums the four serving legs, the
 captured speculative draft runs, the disaggregated decode legs (float
 and int8) and the legs 7c-7j, B3's the paged leg, the captured
 speculative runs, both disaggregated runs (prefill variant on P, decode
-on D) and the paged legs 7c-7j; B1's and B2's sum legs 10, 10a and 10b
-(``[launches] flash_attention``). The
+on D) and the paged legs 7c-7j; B1's and B2's sum legs 10, 10a, 10b, 10c
+and 10d (``[launches] flash_attention``). The
 last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Nothing of JAX or ``tensorlink_tpu``
 is imported.
@@ -222,8 +239,8 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from tensorlink_tpu_torch import native
-from tensorlink_tpu_torch.config import TrainConfig
-from tensorlink_tpu_torch.models.bert import BertClassifier, BertConfig
+from tensorlink_tpu_torch.config import MeshConfig, TrainConfig
+from tensorlink_tpu_torch.models.bert import BertClassifier, BertConfig, bert_pipeline_parts
 from tensorlink_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
 from tensorlink_tpu_torch.nn.layers import Embedding
@@ -269,11 +286,13 @@ from tensorlink_tpu_torch.parallel.serving import (
     Priority,
     SpecConfig,
 )
+from tensorlink_tpu_torch.parallel.engine import ShardedTrainer
 from tensorlink_tpu_torch.parallel.speculative import autopair_draft, default_draft_candidates
 from tensorlink_tpu_torch.runtime import chaos, compile_cache
 from tensorlink_tpu_torch.runtime.autotune import GLOBAL_MODEL, AutotuneStore, store_key
 from tensorlink_tpu_torch.runtime.checkpoint import CheckpointManager
 from tensorlink_tpu_torch.runtime.chaos import ChaosPlan
+from tensorlink_tpu_torch.runtime.mesh import make_mesh, shutdown_distributed
 from tensorlink_tpu_torch.runtime.ledger import (
     ReceiptAuditor,
     build_receipt,
@@ -325,6 +344,9 @@ LORA_MERGE_F32 = 1e-3
 LORA_MERGE_REL = 3e-2
 LORA_NOISE_RATIO = 2.0
 CKPT_SAVE_AT, CKPT_STEPS = 2, 4  # [checkpoint]: save after 2 of 4 steps
+SHARD_MICRO = 4  # micro-batches of the sharded legs
+SHARD_BERT_STEPS = 20
+SHARD_GPT2_STEPS = 15
 DEV = "cuda"
 
 
@@ -776,6 +798,8 @@ FLASH_CASES = {
     "window": (1, 32, 8, 1024, 128, True, 256, None),
     # a length no tile divides, with a fully masked row
     "ragged": (2, 12, 12, 300, 64, False, None, "ragged"),
+    # GPT-2-medium's training micro-batch in [sharded gpt2] (causal, D 64)
+    "gpt2": (2, 16, 16, 1024, 64, True, None, None),
 }
 
 
@@ -3422,7 +3446,8 @@ def phase_train(name_power: str) -> dict:
           "flash at seq 128 skipped the kernel")
     check(head["auto"]["loss_finite"] and head["flash"]["loss_finite"],
           "non-finite loss at the headline shape")
-    return {"launches_fwd": k1, "launches_bwd": k2}
+    return {"launches_fwd": k1, "launches_bwd": k2, "step_ms_median": step_s * 1e3,
+            "samples_per_s": B / step_s, "mfu": flops / step_s / BF16_FLOPS}
 
 
 def _lora_bert(cfg, seed: int | None = 0) -> BertClassifier:
@@ -3636,6 +3661,252 @@ def phase_checkpoint(name_power: str) -> dict:
     return {"launches_fwd": k1, "launches_bwd": k2}
 
 
+def _bert_trainer_name(name: str) -> str:
+    """A ShardedTrainer leaf name (one stage) -> the BertClassifier's."""
+    if name.startswith("embed."):
+        return "bert." + name[6:]
+    if name.startswith("stages."):
+        return "bert.encoder." + name[7:]
+    if name.startswith("head.pooler."):
+        return "bert." + name[5:]
+    return "head." + name[len("head.cls."):]
+
+
+def _sharded_steps(tr, state, batch, n, warm=3):
+    """n ShardedTrainer steps (each ended by a read of its loss) ->
+    (state, losses, per-step seconds after ``warm`` steps, launches of
+    B1 and B2 over the n steps)."""
+    flash_attention_fwd_lse.launches = 0
+    flash_attention_bwd.launches = 0
+    losses, secs = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        state, st = tr.train_step(state, batch)
+        losses.append(float(st["loss"]))
+        if i >= warm:
+            secs.append(time.perf_counter() - t0)
+    return state, losses, secs, (flash_attention_fwd_lse.launches,
+                                 flash_attention_bwd.launches)
+
+
+def _flash_counts_of(fn):
+    flash_attention_fwd_lse.launches = 0
+    flash_attention_bwd.launches = 0
+    out = fn()
+    return out, (flash_attention_fwd_lse.launches, flash_attention_bwd.launches)
+
+
+def phase_sharded_bert(name_power: str, mesh, train_res: dict) -> dict:
+    """BERT-base through ``bert_pipeline_parts`` and ``ShardedTrainer``
+    (GPipe, 4 micros) on the one-rank mesh, against the single-host
+    ``Trainer`` at 4 micros on the same params and batch."""
+    cfg = BertConfig.base()
+    B, T, L, M = 8, 512, cfg.num_layers, SHARD_MICRO
+    tcfg = TrainConfig(batch_size=B, micro_batches=M, optimizer="adam",
+                       learning_rate=1e-4, dtype="bfloat16", grad_clip_norm=1.0)
+    batch = _bert_batch(B, T, cfg.vocab_size, lens=[512, 480, 300, 129])
+    loss = lambda logits, b: softmax_cross_entropy(logits, b["labels"])  # noqa: E731
+
+    # parity at dropout 0: one step's loss and gradients, sharded vs the
+    # single-host Trainer (both through B1/B2), the f32 plain path beside
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    model0 = BertClassifier(cfg0, CLASSES, device=DEV, seed=0)
+    params = dict(model0.named_parameters())
+    tr0 = ShardedTrainer(mesh, tcfg, bert_pipeline_parts(model0.bert, params, CLASSES),
+                         loss)
+    st0 = tr0.init_state()
+    (ls, gs), k_sh = _flash_counts_of(lambda: tr0.loss_and_grads(st0, batch))
+    gs = {_bert_trainer_name(k): v for k, v in gs.items()}
+    single = Trainer(model0, _bert_loss, tcfg, device=DEV)
+    state_single = single.init_state()
+    (lt, gt), k_single = _flash_counts_of(lambda: _micro_grads(single, state_single, batch, M))
+    twin = BertClassifier(dataclasses.replace(cfg0, attn_impl="reference"), CLASSES,
+                          device=DEV, seed=None)
+    f32 = Trainer(twin, _bert_loss, dataclasses.replace(tcfg, dtype="float32"), device=DEV)
+    lf, gf = _micro_grads(f32, state_single, batch, M)
+    gres = _grad_agreement((ls, gs), (lt, gt), (lf, gf))
+    rel = abs(float(ls) - float(lt)) / abs(float(lt))
+    gres.update(loss_rel_diff=rel, launches_sharded=k_sh, launches_single=k_single)
+    say(f"[sharded bert] first-step loss and gradients vs the single-host Trainer "
+        f"at {M} micros: {json.dumps(gres)}")
+    check(rel <= 1e-2, f"sharded loss {float(ls)} vs single-host {float(lt)}")
+    check(not gres["failed"], f"sharded gradient disagreement: {gres['failed']}")
+    check(k_sh == (L * M, L * M), f"sharded flash launches {k_sh}, expected {L * M} each")
+    del gs, gt, gf, single, f32, twin
+
+    # remat: the same loss, B1 twice a micro
+    trr = ShardedTrainer(mesh, dataclasses.replace(tcfg, remat=True),
+                         bert_pipeline_parts(model0.bert, params, CLASSES), loss)
+    (lr_, _), k_remat = _flash_counts_of(lambda: trr.loss_and_grads(st0, batch))
+    rres = {"loss": float(lr_), "loss_no_remat": float(ls), "launches": k_remat,
+            "expected": (2 * L * M, L * M)}
+    say(f"[sharded bert] remat: {json.dumps(rres)}")
+    check(abs(float(lr_) - float(ls)) <= 1e-6 * abs(float(ls)) + 1e-6,
+          f"remat loss {float(lr_)} vs {float(ls)}")
+    check(k_remat == (2 * L * M, L * M), f"remat flash launches {k_remat}")
+    del trr, tr0, st0, model0, params
+    _free_cuda()
+
+    # training at dropout 0.1
+    model = BertClassifier(cfg, CLASSES, device=DEV, seed=0)
+    tr = ShardedTrainer(mesh, tcfg, bert_pipeline_parts(
+        model.bert, dict(model.named_parameters()), CLASSES), loss)
+    torch.cuda.reset_peak_memory_stats()
+    state = tr.init_state()
+    steps = SHARD_BERT_STEPS
+    state, losses, secs, (k1, k2) = _sharded_steps(tr, state, batch, steps)
+    peak = torch.cuda.max_memory_allocated()
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    step_s = float(np.median(secs))
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = 6.0 * n_params * B * T + 12.0 * L * B * T * T * cfg.dim
+    res = {
+        "model": "BERT-base classifier", "mesh": tr.describe(), "batch": B, "seq": T,
+        "steps": steps, "losses": losses, "loss_first5_mean": first,
+        "loss_last5_mean": last, "launches_fwd": k1, "launches_bwd": k2,
+        "launches_per_step": (k1 / steps, k2 / steps), "expected_per_step": L * M,
+        "step_ms_median": step_s * 1e3, "step_ms_min": min(secs) * 1e3,
+        "step_ms_max": max(secs) * 1e3, "samples_per_s": B / step_s,
+        "flops_per_step": flops, "mfu": flops / step_s / BF16_FLOPS,
+        "train_step_ms_median": train_res["step_ms_median"],
+        "train_samples_per_s": train_res["samples_per_s"],
+        "peak_allocated_gib": peak / 2**30, "card": name_power,
+    }
+    say(f"[sharded bert] {json.dumps(res)}")
+    check(all(np.isfinite(losses)), "non-finite sharded BERT loss")
+    check(last < first, f"sharded BERT loss did not fall: {first} -> {last}")
+    check(k1 == k2 == L * M * steps, f"sharded BERT flash launches {k1}/{k2}")
+    prof = _profile_step(tr, state, batch, None)
+    prof["card"] = name_power
+    say(f"[sharded bert] profile: {json.dumps(prof)}")
+    del model, tr, state
+    _free_cuda()
+    return {"launches_fwd": k1, "launches_bwd": k2}
+
+
+def _micro_grads(trainer, state, batch, micro):
+    """The single-host Trainer's (loss, grads) of one step at ``micro``
+    micro-batches, accumulated as ``Trainer._step`` does."""
+    n = batch["input_ids"].shape[0]
+    grads, losses = None, []
+    for i in range(micro):
+        mb = {k: v.reshape(micro, n // micro, *v.shape[1:])[i] for k, v in batch.items()}
+        l_i, g = trainer.loss_and_grads(state.params, mb)
+        g = {k: x.float() / micro for k, x in g.items()}
+        grads = g if grads is None else {k: grads[k] + g[k] for k in grads}
+        losses.append(l_i)
+    return torch.stack(losses).mean(), grads
+
+
+def phase_sharded_gpt2(name_power: str, mesh) -> dict:
+    """GPT-2-medium at full width through ``as_pipeline_parts`` and
+    ``ShardedTrainer`` under 1F1B on the one-rank mesh."""
+    cfg = GPT2Config.medium()
+    B, T, L, M = 8, 1024, cfg.num_layers, SHARD_MICRO
+    tcfg = TrainConfig(batch_size=B, micro_batches=M, optimizer="adamw",
+                       learning_rate=3e-4, dtype="bfloat16", pp_schedule="1f1b")
+    r = np.random.default_rng(0)
+    ids = torch.from_numpy(r.integers(0, cfg.vocab_size, (B, T + 1))).to(DEV)
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    loss = lambda logits, b: softmax_cross_entropy(logits, b["labels"])  # noqa: E731
+
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    model0 = GPT2(cfg0, device=DEV, seed=0)
+    params = dict(model0.named_parameters())
+    runs = {}
+    for tag, sched, dtype, impl in (("1f1b", "1f1b", "bfloat16", None),
+                                    ("gpipe", "gpipe", "bfloat16", None),
+                                    ("plain", "1f1b", "bfloat16", "reference"),
+                                    ("f32", "1f1b", "float32", "reference")):
+        m = model0 if impl is None else GPT2(dataclasses.replace(cfg0, attn_impl=impl),
+                                             device=DEV, seed=None)
+        tr0 = ShardedTrainer(mesh, dataclasses.replace(tcfg, pp_schedule=sched, dtype=dtype),
+                             m.as_pipeline_parts(params), loss)
+        st0 = tr0.init_state()
+        runs[tag], counts = _flash_counts_of(lambda: tr0.loss_and_grads(st0, batch))
+        runs[tag + "_launches"] = counts
+        del tr0, st0, m
+        _free_cuda()
+    # B1/B2 under 1F1B against the plain attention on the same schedule,
+    # every leaf at [train]'s thresholds (the f32 plain path decides the
+    # leaves at bf16's noise floor)
+    kres = _grad_agreement(runs["1f1b"], runs["plain"], runs["f32"])
+    kres.update(launches_plain=runs["plain_launches"])
+    say(f"[sharded gpt2] first-step 1F1B gradients vs plain attention: {json.dumps(kres)}")
+    check(not kres["failed"], f"kernel gradient disagreement: {kres['failed']}")
+    check(abs(kres["loss_kernel"] - kres["loss_plain"]) <= TRAIN_LOSS_TOL,
+          "loss through the kernels differs from the plain attention's")
+    check(runs["plain_launches"] == (0, 0), "the plain run launched B1/B2")
+    gres = _grad_agreement(runs["1f1b"], runs["gpipe"], runs["f32"])
+    rel = abs(float(runs["1f1b"][0]) - float(runs["gpipe"][0])) / abs(float(runs["gpipe"][0]))
+    gres.update(loss_rel_diff=rel, launches_1f1b=runs["1f1b_launches"],
+                launches_gpipe=runs["gpipe_launches"],
+                wte_cosine=float(torch.nn.functional.cosine_similarity(
+                    runs["1f1b"][1]["embed.wte.table"].flatten().double(),
+                    runs["gpipe"][1]["embed.wte.table"].flatten().double(), dim=0)))
+    say(f"[sharded gpt2] first-step 1F1B vs GPipe loss and gradients: {json.dumps(gres)}")
+    check(rel <= 1e-2, "1F1B and GPipe losses differ")
+    check(not gres["failed"], f"1F1B gradient disagreement: {gres['failed']}")
+    check(runs["1f1b_launches"] == (L * M, L * M) and runs["gpipe_launches"] == (L * M, L * M),
+          f"flash launches 1F1B {runs['1f1b_launches']} GPipe {runs['gpipe_launches']}")
+    del runs, model0, params
+    _free_cuda()
+
+    model = GPT2(cfg, device=DEV, seed=0)
+    tr = ShardedTrainer(mesh, tcfg, model.as_pipeline_parts(), loss)
+    torch.cuda.reset_peak_memory_stats()
+    state = tr.init_state()
+    steps = SHARD_GPT2_STEPS
+    state, losses, secs, (k1, k2) = _sharded_steps(tr, state, batch, steps)
+    peak = torch.cuda.max_memory_allocated()
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    step_s = float(np.median(secs))
+    n_params = sum(p.numel() for p in model.parameters())
+    # 6 N a token for the weight products (wte counted once: its lookup is
+    # free, its tied head product is a full one), causal attention's
+    # score and value products 6 L T^2 d a sequence (half of 12)
+    flops = 6.0 * n_params * B * T + 6.0 * L * B * T * T * cfg.dim
+    res = {
+        "model": "GPT-2-medium", "mesh": tr.describe(), "batch": B, "seq": T,
+        "steps": steps, "losses": losses, "loss_first5_mean": first,
+        "loss_last5_mean": last, "launches_fwd": k1, "launches_bwd": k2,
+        "launches_per_step": (k1 / steps, k2 / steps), "expected_per_step": L * M,
+        "step_ms_median": step_s * 1e3, "step_ms_min": min(secs) * 1e3,
+        "step_ms_max": max(secs) * 1e3, "tokens_per_s": B * T / step_s,
+        "flops_per_step": flops, "mfu_formula": "(6 N B T + 6 L B T^2 d) / step_s / 989e12",
+        "mfu": flops / step_s / BF16_FLOPS, "peak_allocated_gib": peak / 2**30,
+        "card": name_power,
+    }
+    say(f"[sharded gpt2] {json.dumps(res)}")
+    check(all(np.isfinite(losses)), "non-finite sharded GPT-2 loss")
+    check(last < first, f"sharded GPT-2 loss did not fall: {first} -> {last}")
+    check(k1 == k2 == L * M * steps, f"sharded GPT-2 flash launches {k1}/{k2}")
+    prof = _profile_step(tr, state, batch, None)
+    prof["card"] = name_power
+    say(f"[sharded gpt2] profile: {json.dumps(prof)}")
+    bub = tr.measure_bubble(state, batch, repeats=2)
+    bub["card"] = name_power
+    say(f"[sharded gpt2] measured bubble: {json.dumps(bub)}")
+    check(bub["closed_form_bubble_fraction"] == 0.0, "closed-form bubble at S 1 is not 0")
+    del model, tr, state
+    _free_cuda()
+    return {"launches_fwd": k1, "launches_bwd": k2}
+
+
+def phase_sharded(name_power: str, train_res: dict) -> tuple[dict, dict]:
+    """The two sharded legs on one NCCL rank; the group is destroyed
+    when they end, failed or not."""
+    mesh = make_mesh(MeshConfig())
+    say(f"[sharded] mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} backend "
+        f"{torch.distributed.get_backend()}")
+    try:
+        bert = phase_sharded_bert(name_power, mesh, train_res)
+        gpt2 = phase_sharded_gpt2(name_power, mesh)
+    finally:
+        shutdown_distributed()
+    return bert, gpt2
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3693,6 +3964,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lora = phase_lora(name_power)
     ckpt = phase_checkpoint(name_power)
+    sh_bert, sh_gpt2 = phase_sharded(name_power, train)
     norm_paths = {"paged serving": launches["launches_norm"],
                   "static": static["launches_norm"],
                   "contiguous": contiguous["launches_norm"],
@@ -3716,7 +3988,9 @@ def main() -> int:
     say(f"[launches] paged_decode_attention by path: {json.dumps(paged_paths)}")
     flash_paths = {"train": (train["launches_fwd"], train["launches_bwd"]),
                    "lora": (lora["launches_fwd"], lora["launches_bwd"]),
-                   "checkpoint": (ckpt["launches_fwd"], ckpt["launches_bwd"])}
+                   "checkpoint": (ckpt["launches_fwd"], ckpt["launches_bwd"]),
+                   "sharded bert": (sh_bert["launches_fwd"], sh_bert["launches_bwd"]),
+                   "sharded gpt2": (sh_gpt2["launches_fwd"], sh_gpt2["launches_bwd"])}
     say(f"[launches] flash_attention fwd, bwd by path: {json.dumps(flash_paths)}")
     kernels = [
         {

@@ -10,8 +10,14 @@ flattens to ``….w.q`` / ``….w.s`` and keeps its dtypes, which is the
 state-dict layout of a quantized ``Dense``. The tree's leaves are
 numpy arrays (``jax.device_get`` of a param tree, or
 ``np.asarray`` per leaf); ``state_dict_to_jax`` goes the other way, so
-params trained in the port can be compared with the JAX package's. This
-module imports no JAX.
+params trained in the port can be compared with the JAX package's.
+
+``sharded_state_from_jax`` / ``sharded_state_to_jax`` carry a JAX
+``ShardedTrainer`` state (its params, optimizer state and step, numpy
+leaves: ``jax.device_get``) to the port's GLOBAL sharded state and back:
+the same ``{"embed", "stages": [S, L/S, ...], "head"}`` tree of CPU
+tensors that ``parallel.engine.ShardedTrainer.gather_state`` returns and
+``adopt_state`` places on any mesh shape. This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -83,3 +89,41 @@ def apply_dtype_policy(model: nn.Module, param_dtype: torch.dtype,
         for name, b in mod._buffers.items():
             if b is not None:
                 mod._buffers[name] = b.to(device=device)
+
+
+def _tree_to_torch(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v) for k, v in tree.items()
+                if not (isinstance(v, dict) and not v)}
+    return _to_tensor(tree)
+
+
+def _tree_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def sharded_state_from_jax(params, opt_state, step):
+    """A JAX ``ShardedTrainer`` state (numpy leaves) -> the port's global
+    ``TrainState`` (CPU tensors; empty subtrees, the JAX ``Dropout``'s,
+    dropped) for ``ShardedTrainer.adopt_state``."""
+    from tensorlink_tpu_torch.train.trainer import TrainState
+
+    return TrainState(
+        params=_tree_to_torch(params),
+        opt_state={k: _tree_to_torch(v) for k, v in opt_state.items()},
+        step=torch.as_tensor(np.asarray(step), dtype=torch.int32).reshape(()),
+    )
+
+
+def sharded_state_to_jax(state) -> tuple[dict, dict, np.ndarray]:
+    """The port's global state (``gather_state``) -> (params, opt_state,
+    step) with numpy leaves, the JAX ``ShardedTrainer``'s layout (put
+    them back with ``jax.device_put`` and ``adopt_state``)."""
+    return (_tree_to_numpy(state.params),
+            {k: _tree_to_numpy(v) for k, v in state.opt_state.items()},
+            np.asarray(int(state.step), np.int32))

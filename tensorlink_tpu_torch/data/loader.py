@@ -5,9 +5,13 @@
   numpy's PCG64, exactly as the reference derives it, so the same dataset
   and seed give the same order in both packages and across restarts.
 - Process-local rows: with ``process_count`` P each process takes its
-  B/P rows of the global batch, as in the reference; the multi-process
-  assembly of a global device batch waits for the data-parallel slice,
-  and ``prefetch_to_device`` serves one process.
+  B/P rows of the global batch, as in the reference. On a mesh
+  (``mesh=``) P is the ``data`` axis and the index this rank's ``data``
+  coordinate, not its global rank: every ``pipe`` and ``model`` rank of
+  one data replica reads the same rows, which is what
+  ``ShardedTrainer.train_step(batch, local=True)`` expects; no process
+  ever assembles another's rows. ``prefetch_to_device`` serves one
+  process.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ class ShardedLoader:
     ``data`` maps column names to equal-length arrays. One iteration is
     one epoch of this process's shard; use ``epochs(n)`` or re-iterate for
     more. Batches are the process-local slice of the global batch
-    (global_batch // process_count rows)."""
+    (global_batch // process_count rows); ``mesh`` (a ``DeviceMesh``)
+    takes P and the index from its ``data`` axis."""
 
     def __init__(
         self,
@@ -38,9 +43,10 @@ class ShardedLoader:
         shuffle: bool = True,
         seed: int = 0,
         drop_remainder: bool = True,
-        process_index: int = 0,
-        process_count: int = 1,
+        process_index: int | None = None,
+        process_count: int | None = None,
         transform: Callable[[dict], dict] | None = None,
+        mesh=None,
     ):
         if not data:
             raise ValueError("empty dataset")
@@ -54,8 +60,13 @@ class ShardedLoader:
         self.seed = int(seed)
         self.drop_remainder = drop_remainder
         self.transform = transform
-        self.pid = int(process_index)
-        self.pcount = int(process_count)
+        if mesh is not None:
+            if process_index is not None or process_count is not None:
+                raise ValueError("pass a mesh or process_index/process_count")
+            process_index = mesh.get_local_rank("data")
+            process_count = mesh.size(list(mesh.mesh_dim_names).index("data"))
+        self.pid = 0 if process_index is None else int(process_index)
+        self.pcount = 1 if process_count is None else int(process_count)
         if self.global_batch % self.pcount:
             raise ValueError(
                 f"global_batch {self.global_batch} not divisible by "

@@ -7,7 +7,9 @@ JAX param tree, so ``convert.params_from_jax`` of a JAX ``BertClassifier``
 tree loads directly (``bert.tok_emb.table``, ``bert.encoder.0.attn.q.w``,
 ``head.w``, ...). Attention goes through ``cfg.attn_impl``: under "auto"
 a padded batch at seq 512 runs the flash kernels B1/B2 in both
-directions. ``bert_pipeline_parts`` waits for the pipeline slice.
+directions. ``bert_pipeline_parts`` splits the encoder (and a classifier
+head) for ``parallel.engine.ShardedTrainer``, the padding mask riding to
+every stage as ``extras``.
 """
 
 from __future__ import annotations
@@ -124,3 +126,77 @@ class BertClassifier(Module):
                         train=train, **kw)
         pooled = self.drop(out["pooled"], rng=rng, train=train)
         return self.head(pooled)
+
+
+def bert_pipeline_parts(model: Bert, params: dict | None = None,
+                        num_classes_head: int | None = None):
+    """Split a ``Bert`` into pipeline parts. ``params``: a flat state dict
+    of the ``Bert`` (default: its own), or with ``num_classes_head`` of a
+    ``BertClassifier`` (``bert.*`` and ``head.*``), whose head then gives
+    the classification logits from [CLS] (pooler, dropout, dense)."""
+    from tensorlink_tpu_torch.parallel.engine import (
+        PipelineParts,
+        apply_with,
+        sub_params,
+    )
+
+    bert = model
+    params = dict(bert.named_parameters()) if params is None else params
+    bp = params if num_classes_head is None else sub_params(params, "bert")
+    block = bert.encoder.blocks()[0]
+
+    def embed_fn(p, batch, rng=None):
+        ids = batch["input_ids"]
+        pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+        tt = batch.get("token_type_ids")
+        tt = torch.zeros_like(ids) if tt is None else tt
+        x = (apply_with(bert.tok_emb, sub_params(p, "tok_emb"), ids)
+             + apply_with(bert.pos_emb, sub_params(p, "pos_emb"), pos)
+             + apply_with(bert.type_emb, sub_params(p, "type_emb"), tt))
+        x = apply_with(bert.emb_norm, sub_params(p, "emb_norm"), x)
+        return bert.emb_drop(x, rng=rng, train=rng is not None)
+
+    if num_classes_head is not None:
+        cls_drop = Dropout(bert.cfg.dropout)
+
+        def head_fn(all_params, x, batch, rng=None):
+            hp = all_params["head"]
+            pooled = torch.tanh(apply_with(bert.pooler, sub_params(hp, "pooler"),
+                                           x[:, 0]))
+            pooled = cls_drop(pooled, rng=rng, train=rng is not None)
+            return pooled @ hp["cls.w"].to(pooled.dtype) + hp["cls.b"].to(pooled.dtype)
+
+        head_params = {**{f"pooler.{k}": v for k, v in sub_params(bp, "pooler").items()},
+                       **{f"cls.{k}": v for k, v in sub_params(params, "head").items()}}
+    else:
+        def head_fn(all_params, x, batch, rng=None):
+            return x  # last_hidden_state
+
+        # no pooler in the optimized tree: head_fn never reads it, and
+        # decoupled weight decay would shrink an unused param
+        head_params = {}
+
+    def extras_fn(batch):
+        am = batch.get("attention_mask")
+        if am is None:
+            return None
+        return {"mask": am[:, None, None, :].bool()}
+
+    def block_fn(lp, x, rng=None, extras=None):
+        return apply_with(block, lp, x, mask=None if extras is None else extras["mask"],
+                          rng=rng, train=rng is not None)
+
+    return PipelineParts(
+        embed_fn=embed_fn,
+        block=block,
+        block_params={str(i): sub_params(bp, f"encoder.{i}")
+                      for i in range(bert.cfg.num_layers)},
+        block_fn=block_fn,
+        extras_fn=extras_fn,
+        # CLS pooling selects token 0: not a uniform per-token reduction
+        head_per_token=False if num_classes_head is not None else None,
+        head_fn=head_fn,
+        embed_params={k: v for k, v in bp.items()
+                      if k.startswith(("tok_emb.", "pos_emb.", "type_emb.", "emb_norm."))},
+        head_params=head_params,
+    )

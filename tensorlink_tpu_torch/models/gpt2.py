@@ -4,8 +4,9 @@ Pre-LN decoder blocks (LayerNorm with bias, tanh GELU, biased
 projections), learned positions, and an LM head tied to the token
 embedding (``wte.attend``). ``GPT2Config`` and its presets are the JAX
 package's, field for field; ``qkv_fused`` builds the fused q/k/v
-projection (``nn/attention.py``). ``as_pipeline_parts`` waits for the
-pipeline slice.
+projection (``nn/attention.py``). ``as_pipeline_parts`` splits the model
+for ``parallel.engine.ShardedTrainer`` (embed, blocks, the LM head tied
+to ``wte``).
 """
 
 from __future__ import annotations
@@ -115,6 +116,47 @@ class GPT2(Module):
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """Logits of final hidden states (``forward(..., logits=False)``)."""
         return self.wte.attend(h)
+
+    def as_pipeline_parts(self, params: dict | None = None):
+        """Split into (embed, blocks, head) for the ``ShardedTrainer``;
+        ``params``: a flat state dict (default: the model's own). The LM
+        head stays tied to ``wte`` (``head_fn`` reads the embed params)."""
+        from tensorlink_tpu_torch.parallel.engine import (
+            PipelineParts,
+            apply_with,
+            sub_params,
+        )
+
+        params = dict(self.named_parameters()) if params is None else params
+        block = self.blocks.blocks()[0]
+        wte, wpe, ln_f, drop = self.wte, self.wpe, self.ln_f, self.drop
+
+        def embed_fn(p, batch, rng=None):
+            ids = batch["input_ids"]
+            pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+            tok = apply_with(wte, sub_params(p, "wte"), ids)
+            x = tok + apply_with(wpe, sub_params(p, "wpe"), pos).to(tok.dtype)
+            return drop(x, rng=rng, train=rng is not None)
+
+        def head_fn(all_params, x, batch, rng=None):
+            h = apply_with(ln_f, sub_params(all_params["head"], "ln_f"), x)
+            return apply_with(wte, sub_params(all_params["embed"], "wte"), h,
+                              method="attend")
+
+        return PipelineParts(
+            embed_fn=embed_fn,
+            block=block,
+            block_params={str(i): sub_params(params, f"blocks.{i}")
+                          for i in range(self.cfg.num_layers)},
+            block_fn=lambda lp, x, rng=None: apply_with(
+                block, lp, x, rng=rng, train=rng is not None),
+            head_fn=head_fn,
+            embed_params={k: v for k, v in params.items()
+                          if k.startswith(("wte.", "wpe."))},
+            head_params={k: v for k, v in params.items() if k.startswith("ln_f.")},
+            # ln_f + tied-logits CE is a uniform per-token reduction
+            head_per_token=True,
+        )
 
     def tied_head_table(self) -> torch.Tensor:
         """The embedding table the tied LM head multiplies by."""

@@ -6,7 +6,8 @@ field; ``qkv_fused`` builds the fused q/k/v projection
 (``nn/attention.py``); ``moe_experts`` > 0 gives every block the
 Mixture-of-Experts FFN (``nn/moe.py``, Mixtral-style), and
 ``forward_with_aux`` returns the logits with the blocks' summed router
-load-balancing loss.
+load-balancing loss. ``as_pipeline_parts`` splits the model for
+``parallel.engine.ShardedTrainer`` (with ``block_fn_aux`` for MoE).
 """
 
 from __future__ import annotations
@@ -123,7 +124,7 @@ class Llama(Module):
             **kw,
         )
         self.norm_f = RMSNorm(cfg.dim, eps=cfg.rms_eps, **kw)
-        self.lm_head = Dense(cfg.dim, cfg.vocab_size, use_bias=False, **kw)
+        self.lm_head = Dense(cfg.dim, cfg.vocab_size, use_bias=False, shard="col", **kw)
         init_parameters(self, dev, seed)
 
     @property
@@ -164,6 +165,48 @@ class Llama(Module):
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """Logits of final hidden states (``forward(..., logits=False)``)."""
         return self.lm_head(h)
+
+    def as_pipeline_parts(self, params: dict | None = None):
+        """Split into (embed, blocks, head) for the ``ShardedTrainer``;
+        ``params``: a flat state dict (default: the model's own). MoE
+        configs carry ``block_fn_aux``, so ``moe_aux_weight`` trains the
+        router's load balancing in both schedules."""
+        from tensorlink_tpu_torch.parallel.engine import (
+            PipelineParts,
+            apply_with,
+            sub_params,
+        )
+
+        params = dict(self.named_parameters()) if params is None else params
+        block = self.blocks.blocks()[0]
+        tok_emb, norm_f, lm_head = self.tok_emb, self.norm_f, self.lm_head
+
+        def embed_fn(p, batch, rng=None):
+            return apply_with(tok_emb, sub_params(p, "tok_emb"), batch["input_ids"])
+
+        def head_fn(all_params, x, batch, rng=None):
+            hp = all_params["head"]
+            h = apply_with(norm_f, sub_params(hp, "norm_f"), x)
+            return apply_with(lm_head, sub_params(hp, "lm_head"), h)
+
+        def block_fn_aux(lp, x, rng=None):
+            return apply_with(block, lp, x, method="forward_with_aux", rng=rng,
+                              train=rng is not None)
+
+        return PipelineParts(
+            embed_fn=embed_fn,
+            block=block,
+            block_params={str(i): sub_params(params, f"blocks.{i}")
+                          for i in range(self.cfg.num_layers)},
+            block_fn=lambda lp, x, rng=None: apply_with(
+                block, lp, x, rng=rng, train=rng is not None),
+            head_fn=head_fn,
+            embed_params={k: v for k, v in params.items() if k.startswith("tok_emb.")},
+            head_params={k: v for k, v in params.items()
+                         if k.startswith(("norm_f.", "lm_head."))},
+            block_fn_aux=block_fn_aux if self.cfg.moe_experts else None,
+            head_per_token=True,
+        )
 
     def tied_head_table(self) -> None:
         """The embedding table an LM head tied to it multiplies by: none,

@@ -429,16 +429,18 @@ class MultiHeadAttention(Module):
 
     def _project_qkv(self, x):
         """-> q [B, T, H, Dh], k and v [B, T, Hkv, Dh], from either
-        layout."""
+        layout. The head counts are read from the projected widths, so a
+        tensor-parallel block of the projections (``parallel/tp.py``)
+        gives this rank's H / model query and Hkv / model kv heads."""
         B, T, _ = x.shape
-        H, G, Dh = self.num_heads, self.num_kv_heads, self.head_dim
+        Dh = self.head_dim
         if not self.qkv_fused:
-            return (self.q(x).reshape(B, T, H, Dh),
-                    self.k(x).reshape(B, T, G, Dh),
-                    self.v(x).reshape(B, T, G, Dh))
-        hq = H // G
-        f = self.qkv(x).reshape(B, T, G, hq + 2, Dh)
-        return f[:, :, :, :hq].reshape(B, T, H, Dh), f[:, :, :, hq], f[:, :, :, hq + 1]
+            return (self.q(x).reshape(B, T, -1, Dh),
+                    self.k(x).reshape(B, T, -1, Dh),
+                    self.v(x).reshape(B, T, -1, Dh))
+        hq = self.num_heads // self.num_kv_heads
+        f = self.qkv(x).reshape(B, T, -1, hq + 2, Dh)
+        return f[:, :, :, :hq].reshape(B, T, -1, Dh), f[:, :, :, hq], f[:, :, :, hq + 1]
 
     def forward(self, x, *, mask=None, cache=None, positions=None,
                 bias=None, fresh_keys=None, **_):

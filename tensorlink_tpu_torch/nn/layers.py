@@ -21,7 +21,7 @@ import math
 import torch
 from torch import nn
 
-from tensorlink_tpu_torch.nn.module import Module
+from tensorlink_tpu_torch.nn.module import Module, P
 from tensorlink_tpu_torch.ops.quant import QuantizedWeight, dequantize_weight
 
 
@@ -57,9 +57,17 @@ class Dense(Module):
     ``lora_b`` [r, out] and the 0-d ``lora_s`` (alpha / r); the forward
     then adds ``((x @ a) @ b) * s`` in the activation dtype, after the
     (dequantized) product and before the bias, as the reference does.
-    ``shard`` ("col", "row" or None) is the tensor-parallel role, kept
-    for the sharded trainer; ``init_scheme`` is "lecun" or "normal"
-    (N(0, 0.02))."""
+    ``shard`` ("col", "row" or None) is the tensor-parallel role
+    (``param_spec``): handed a block of ``w`` (``functional_call`` with a
+    ``parallel.tp`` shard), a "col" Dense multiplies ``copy_to_model(x)``
+    into its output slice, a "row" Dense sums its partial product over the
+    model group before the bias (``parallel/tp.py``). Adapters follow the
+    base weight's split (``nn.lora.lora_spec_tree``): under "col" the
+    replicated ``(x @ a) * s`` enters ``copy_to_model`` before its ``b``
+    slice, under "row" ``x @ a`` is summed before the replicated ``b``, so
+    every replicated leaf (``a``, ``s``) gets its whole gradient on every
+    rank.
+    ``init_scheme`` is "lecun" or "normal" (N(0, 0.02))."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
                  shard: str | None = None, init_scheme: str = "lecun", *,
@@ -103,8 +111,19 @@ class Dense(Module):
     def has_lora(self) -> bool:
         return "lora_a" in self._parameters
 
+    def param_spec(self, model_axis: str = "model"):
+        w = {"col": P(None, model_axis), "row": P(model_axis, None)}.get(
+            self.shard, P())
+        spec = {"w": w}
+        if self.use_bias:
+            spec["b"] = P(model_axis) if self.shard == "col" else P()
+        return spec
+
     def forward(self, x: torch.Tensor, **_) -> torch.Tensor:
         w = dequantize_weight(self.w, x.dtype) if self.quantized else self.w.to(x.dtype)
+        if not self.quantized and self.shard in ("col", "row") and \
+                tuple(w.shape) != (self.in_dim, self.out_dim):
+            return self._forward_tp(x, w)
         y = x @ w
         if self.has_lora:
             y = y + ((x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)) \
@@ -113,10 +132,34 @@ class Dense(Module):
             y = y + self.b.to(x.dtype)
         return y
 
+    def _forward_tp(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The Megatron form on a block of ``w`` (class docstring)."""
+        from tensorlink_tpu_torch.parallel import tp
+
+        lora = self.has_lora
+        if lora:
+            a, b = self.lora_a.to(x.dtype), self.lora_b.to(x.dtype)
+            s = self.lora_s.to(x.dtype)
+        if self.shard == "col":
+            y = tp.copy_to_model(x) @ w
+            if lora:  # s on the replicated side: its gradient is whole
+                y = y + tp.copy_to_model((x @ a) * s) @ b
+        else:
+            y = tp.reduce_from_model(x @ w)
+            if lora:
+                y = y + (tp.reduce_from_model(x @ a) @ b) * s
+        if self.b is not None:
+            y = y + self.b.to(x.dtype)
+        return y
+
 
 class Embedding(Module):
     """Token embedding; ``attend`` reuses the table as the LM head.
-    ``shard`` (vocab sharding) is kept for the sharded trainer."""
+    ``shard`` splits the vocab over the model axis (``param_spec``):
+    handed a block of the table, the lookup takes the ids that fall in
+    it (the rest give zero rows) and sums over the model group, and
+    ``attend`` returns the logits of the whole vocab, gathered over the
+    group (``parallel/tp.py``)."""
 
     def __init__(self, vocab_size: int, dim: int, shard: str | None = None, *,
                  device=None, dtype=torch.float32):
@@ -130,11 +173,29 @@ class Embedding(Module):
     def reset_parameters(self, generator: torch.Generator | None = None):
         self.table.normal_(0.0, 0.02, generator=generator)
 
+    def param_spec(self, model_axis: str = "model"):
+        return {"table": P(model_axis, None) if self.shard else P()}
+
+    def _vocab_block(self) -> bool:
+        return self.table.shape[0] != self.vocab_size
+
     def forward(self, ids: torch.Tensor, **_) -> torch.Tensor:
-        return self.table[ids]
+        if not self._vocab_block():
+            return self.table[ids]
+        from tensorlink_tpu_torch.parallel import tp
+
+        n = self.table.shape[0]
+        local = ids - tp.model_rank() * n
+        hit = (local >= 0) & (local < n)
+        rows = self.table[local.clamp(0, n - 1)] * hit[..., None].to(self.table.dtype)
+        return tp.reduce_from_model(rows)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.table.to(x.dtype).T
+        if not self._vocab_block():
+            return x @ self.table.to(x.dtype).T
+        from tensorlink_tpu_torch.parallel import tp
+
+        return tp.gather_from_model(tp.copy_to_model(x) @ self.table.to(x.dtype).T)
 
 
 class LayerNorm(Module):
@@ -153,6 +214,9 @@ class LayerNorm(Module):
         self.scale.fill_(1.0)
         if self.bias is not None:
             self.bias.zero_()
+
+    def param_spec(self, model_axis: str = "model"):
+        return {"scale": P(), "bias": P()} if self.use_bias else {"scale": P()}
 
     def forward(self, x: torch.Tensor, **_) -> torch.Tensor:
         xf = x.float()
@@ -196,6 +260,9 @@ class RMSNorm(Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
         self.scale.fill_(1.0)
+
+    def param_spec(self, model_axis: str = "model"):
+        return {"scale": P()}
 
     def forward(self, x: torch.Tensor, **_) -> torch.Tensor:
         xf = x.float()

@@ -16,8 +16,8 @@ updates after the optimizer; the port's eager step asks autograd for the
 adapters' gradients alone (so the frozen weights' dW products are never
 computed) and uses exact zeros for the rest, which gives the same state.
 ``lora_merge`` folds the adapters into ``w`` for serving at base-model
-cost (and composes with int8 quantization). ``lora_spec_tree`` comes
-with the sharded trainer, which has the spec trees it patches.
+cost (and composes with int8 quantization). ``lora_spec_tree`` patches
+a ``param_spec`` tree for adapted params, as the reference's does.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from tensorlink_tpu_torch.nn.layers import Dense
+from tensorlink_tpu_torch.utils.trees import nest
 
 LORA_KEYS = ("lora_a", "lora_b")  # trainable adapter leaves
 LORA_ALL = LORA_KEYS + ("lora_s",)
@@ -105,6 +106,30 @@ def _walk(tree, path: tuple, fn):
         return {k: _walk(v, path + tuple(str(k).split(".")), fn)
                 for k, v in tree.items()}
     return fn(path, tree)
+
+
+def lora_spec_tree(spec_tree, params):
+    """Patch a ``param_spec`` tree for adapted params (nested, or a flat
+    state dict): where a subtree carries ``lora_a`` beside ``w``, ``a``
+    splits its in-dim like w's rows, ``b`` its out-dim like w's columns,
+    and the scale is replicated. Any nesting."""
+    from tensorlink_tpu_torch.nn.module import P
+
+    def walk(spec, leaf):
+        if isinstance(leaf, Mapping) and "lora_a" in leaf and "w" in leaf:
+            wspec = spec["w"]
+            row = wspec[0] if len(wspec) > 0 else None
+            col = wspec[1] if len(wspec) > 1 else None
+            return {**spec, "lora_a": P(row, None), "lora_b": P(None, col),
+                    "lora_s": P()}
+        if isinstance(leaf, Mapping) and isinstance(spec, Mapping):
+            return {k: (walk(spec[k], leaf[k]) if k in spec else spec.get(k))
+                    for k in leaf}
+        return spec
+
+    if not any(isinstance(v, Mapping) for v in params.values()):
+        params = nest(params)
+    return walk(spec_tree, params)
 
 
 def mask_to_lora(tree):

@@ -17,9 +17,15 @@ wrappers ``AppendTail``, ``TailMap`` and ``CombineTail``. Every forward
 takes the keywords its container passes on (``rng``, ``train``, ...);
 the dropout ``rng`` is one ``torch.Generator`` handed to each child in
 turn (the reference folds a per-layer key; the draws differ either way).
-The per-parameter ``PartitionSpec`` half of the reference
-(``param_spec``, ``spec_tree_to_shardings``) belongs with the sharded
-trainer and is not here.
+Sharding specs: ``Module.param_spec(model_axis)`` returns a nested dict
+mirroring the module's parameter tree (the reference's key layout, with
+``{}`` for parameterless children such as ``Dropout``) whose leaves are
+:class:`PartitionSpec` tuples, the port's own copy of
+``jax.sharding.PartitionSpec``: entry i names the mesh axis (or tuple of
+axes) that dim i is split over, None for a whole dim.
+``spec_tree_to_shardings`` turns such a tree into :class:`NamedSharding`
+placements on a ``torch.distributed`` ``DeviceMesh``: which dims this
+rank slices, over which axes, and the slice itself.
 """
 
 from __future__ import annotations
@@ -35,8 +41,41 @@ from tensorlink_tpu_torch import resolve_device
 _CONFIG_TYPES = (int, float, str, bool, tuple, type(None))
 
 
+class PartitionSpec(tuple):
+    """``PartitionSpec("pipe", None, "model")``: per dim, the mesh axis
+    (or tuple of axes) it is split over, or None. Trailing dims not
+    named are whole, as in ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+    def axes(self, dim: int) -> tuple[str, ...]:
+        """The mesh axes dim ``dim`` is split over (empty: whole)."""
+        e = self[dim] if dim < len(self) else None
+        if e is None:
+            return ()
+        return tuple(e) if isinstance(e, tuple) else (e,)
+
+
+P = PartitionSpec
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, PartitionSpec)
+
+
 class Module(nn.Module):
-    """``nn.Module`` plus the reference's ``config()``."""
+    """``nn.Module`` plus the reference's ``config()`` and
+    ``param_spec()``."""
+
+    def param_spec(self, model_axis: str = "model") -> dict[str, Any]:
+        """PartitionSpec tree mirroring the parameter tree. Default:
+        children recurse; leaf modules override."""
+        return {name: m.param_spec(model_axis) for name, m in self._modules.items()
+                if isinstance(m, Module)}
 
     def config(self) -> dict[str, Any]:
         """Serializable hyperparameter description (for spec shipping)."""
@@ -222,6 +261,78 @@ def module_from_config(cfg: Mapping[str, Any], *, device=None,
     kwargs = {k: cfg[k] for k in params if k != "self" and k in cfg}
     kwargs.update({k: v for k, v in kw.items() if k in params})
     return cls(**kwargs)
+
+
+class NamedSharding:
+    """A ``PartitionSpec`` placed on a mesh (anything with the
+    ``DeviceMesh`` methods ``size(dim)`` and ``get_local_rank(name)`` and
+    ``mesh_dim_names``): dim i of a global tensor is cut into as many
+    equal blocks as the product of its axes' sizes, and this rank holds
+    the block at its coordinate (axes row-major, the first slowest)."""
+
+    def __init__(self, mesh, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, PartitionSpec) else P(*spec)
+
+    def _size(self, axis: str) -> int:
+        return self.mesh.size(list(self.mesh.mesh_dim_names).index(axis))
+
+    def dims(self) -> dict[int, tuple[str, ...]]:
+        """{dim: axes} for every dim split over an axis of size > 1."""
+        out = {}
+        for d in range(len(self.spec)):
+            axes = tuple(a for a in self.spec.axes(d) if self._size(a) > 1)
+            if axes:
+                out[d] = axes
+        return out
+
+    def block(self, dim: int) -> tuple[int, int]:
+        """(this rank's block index, block count) along ``dim``."""
+        idx, n = 0, 1
+        for a in self.spec.axes(dim):
+            k = self._size(a)
+            idx = idx * k + self.mesh.get_local_rank(a)
+            n *= k
+        return idx, n
+
+    def shard_shape(self, shape) -> tuple[int, ...]:
+        out = list(shape)
+        for d in self.dims():
+            _, n = self.block(d)
+            if out[d] % n:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                                 f"into {n} blocks ({self.spec})")
+            out[d] //= n
+        return tuple(out)
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the global tensor ``t`` (a view)."""
+        self.shard_shape(t.shape)
+        for d in self.dims():
+            i, n = self.block(d)
+            t = t.chunk(n, dim=d)[i]
+        return t
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.spec!r})"
+
+
+def flat_specs(spec_tree, prefix: str = "") -> dict[str, PartitionSpec]:
+    """Nested spec tree -> {dotted leaf name: spec} (the state-dict
+    names of the parameters it mirrors)."""
+    if is_spec(spec_tree):
+        return {prefix: spec_tree}
+    out = {}
+    for k, v in spec_tree.items():
+        out.update(flat_specs(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def spec_tree_to_shardings(spec_tree, mesh):
+    """PartitionSpec tree -> ``NamedSharding`` tree on ``mesh``."""
+    if is_spec(spec_tree):
+        return NamedSharding(mesh, spec_tree)
+    return {k: spec_tree_to_shardings(v, mesh) for k, v in spec_tree.items()}
 
 
 @torch.no_grad()

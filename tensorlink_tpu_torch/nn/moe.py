@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tensorlink_tpu_torch.nn.module import Module, register_module_type
+from tensorlink_tpu_torch.nn.module import Module, P, register_module_type
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -117,6 +117,15 @@ class MoEFeedForward(Module):
         return [t for t in (self.router.w, self.up, self.gate, self.down)
                 if t is not None]
 
+    def param_spec(self, model_axis: str = "model"):
+        """The reference's expert-parallel layout: the expert axis of
+        ``up``/``gate``/``down`` over ``model``, the router replicated."""
+        spec = {"router": {"w": P()}, "up": P(model_axis, None, None),
+                "down": P(model_axis, None, None)}
+        if self.gated:
+            spec["gate"] = P(model_axis, None, None)
+        return spec
+
     def capacity(self, tokens_per_group: int) -> int:
         return expert_capacity(tokens_per_group, self.num_experts, self.top_k,
                                self.capacity_factor)
@@ -169,6 +178,10 @@ class MoEFeedForward(Module):
 
     def forward_with_aux(self, x: torch.Tensor, *, rng=None,
                          train: bool = False):
+        if self.up.shape[0] != self.num_experts:
+            raise NotImplementedError(
+                "expert-parallel MoE (experts split over the model axis) "
+                "waits for the expert-parallel dispatch")
         dispatch, combine, aux = self._route(self._router_logits(x), rng, train)
         dispatch = dispatch.to(x.dtype)
         combine = combine.to(x.dtype)

@@ -1,0 +1,159 @@
+"""Tensor parallelism, Megatron style (port of ``tensorlink_tpu/parallel/tp.py``).
+
+Each module declares its weights' ``PartitionSpec``s (``Module.param_spec``);
+``shard_params`` cuts a parameter dict to this rank's blocks by them. The
+reference lets XLA's partitioner insert the collectives; here the layers
+insert them where it does, through two ``torch.autograd.Function``s over
+the active ``model`` group (``model_parallel``):
+
+- ``copy_to_model``: identity forward, all-reduce (sum) backward — in
+  front of a column-parallel product, whose input is replicated and whose
+  input gradient is a partial sum on each rank;
+- ``reduce_from_model``: all-reduce (sum) forward, identity backward —
+  after a row-parallel product, whose output is a partial sum;
+- ``gather_from_model``: all-gather on the last dim forward, this rank's
+  slice backward — vocab-sharded logits before the loss.
+
+A layer takes the tensor-parallel form when the weight it is handed is a
+block of its declared shape (``Dense.w`` narrower than ``out_dim`` under
+"col", shorter than ``in_dim`` under "row"; an ``Embedding`` table shorter
+than ``vocab_size``); a whole weight runs the plain product, so a
+replicated head beside sharded blocks needs no flag. Attention reads its
+local head count from the projected width. A group of size 1 makes every
+collective an identity, and so does a meta tensor (the sharded trainer's
+shape probe).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable
+
+import torch
+import torch.distributed as dist
+
+_GROUP: list = [None]  # the active model-axis process group
+
+
+@contextlib.contextmanager
+def model_parallel(group):
+    """Run the enclosed forward (and its backward, which autograd runs
+    with the group captured) with ``group`` as the ``model`` axis."""
+    prev = _GROUP[0]
+    _GROUP[0] = group
+    try:
+        yield
+    finally:
+        _GROUP[0] = prev
+
+
+def model_group():
+    """The active model group; raises when a sharded weight is used
+    outside ``model_parallel`` (its partial sums would be returned)."""
+    g = _GROUP[0]
+    if g is None:
+        raise RuntimeError(
+            "a tensor-parallel weight block was used outside "
+            "parallel.tp.model_parallel(group)")
+    return g
+
+
+def _size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    if _size(group) == 1 or x.is_meta:  # a meta tensor carries a shape only
+        return x
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        n = _size(group)
+        ctx.group, ctx.n = group, n
+        if n == 1:
+            return x.view_as(x)
+        if x.is_meta:
+            return x.new_empty(x.shape[:-1] + (n * x.shape[-1],))
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.n == 1:
+            return g, None
+        r = dist.get_rank(ctx.group)
+        return g.chunk(ctx.n, dim=-1)[r].contiguous(), None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    return _CopyToModel.apply(x, model_group())
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, model_group())
+
+
+def gather_from_model(x: torch.Tensor) -> torch.Tensor:
+    return _GatherFromModel.apply(x, model_group())
+
+
+def model_rank() -> int:
+    return dist.get_rank(model_group())
+
+
+def shard_params(params: dict, module, mesh, model_axis: str = "model") -> dict:
+    """This rank's blocks of a flat parameter dict (``module``'s dotted
+    names), cut by ``module.param_spec(model_axis)`` (adapters by
+    ``lora_spec_tree``) on ``mesh``."""
+    from tensorlink_tpu_torch.nn.lora import lora_spec_tree
+    from tensorlink_tpu_torch.nn.module import NamedSharding, flat_specs
+
+    specs = flat_specs(lora_spec_tree(module.param_spec(model_axis), params))
+    return {k: NamedSharding(mesh, specs[k]).local(v).contiguous()
+            for k, v in params.items()}
+
+
+def tp_jit(fn: Callable, module, mesh, model_axis: str = "model",
+           batch_spec=None, out_spec=None) -> Callable:
+    """A callable running ``fn(params, x)`` with ``params`` cut to this
+    rank's blocks by the module's specs and the model group of ``mesh``
+    active. Nothing is compiled (the name is the reference's, whose
+    version jits): each call runs eagerly, and the layers insert the
+    collectives. ``batch_spec``/``out_spec`` are accepted for the
+    reference's signature: the input and output are whole on every rank
+    of the model group."""
+    group = mesh.get_group(model_axis)
+
+    def run(params, x, *args, **kwargs):
+        local = shard_params(params, module, mesh, model_axis)
+        with model_parallel(group):
+            return fn(local, x, *args, **kwargs)
+
+    return run

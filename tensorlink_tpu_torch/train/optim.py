@@ -148,10 +148,13 @@ def _stochastic_round_bf16(x: torch.Tensor, step, salt: int) -> torch.Tensor:
     return torch.where(torch.isfinite(f), sr, f.to(torch.bfloat16))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """-> (grads scaled by min(1, max_norm / (norm + 1e-9)), norm)."""
+def clip_by_global_norm(grads, max_norm: float, norm: torch.Tensor | None = None):
+    """-> (grads scaled by min(1, max_norm / (norm + 1e-9)), norm).
+    ``norm``: the caller's, where the gradient is larger than ``grads``
+    (split over ranks); default the norm of ``grads``."""
     g, rebuild = _flat(grads)
-    norm = global_norm(g)
+    if norm is None:
+        norm = global_norm(g)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return rebuild(torch._foreach_mul(g, scale)), norm
 

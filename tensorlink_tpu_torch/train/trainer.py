@@ -17,6 +17,12 @@ non-finite sentinel and clipping. The optimizer still keeps moments for
 every leaf (a checkpoint has the reference's keys); a frozen leaf's
 update is zero, as the reference masks it, so it keeps its tensor and
 AdamW's decoupled decay never moves it.
+
+``GradSync`` is where a step's gradients meet those of other ranks:
+``_step`` runs with the identity on one device, and ``parallel.dp``'s
+data-parallel and FSDP wrappers hand it their own, so the micro-batch
+loop, the LoRA masking, the sentinel, the clip and the skip are this
+one step's under every wrapper.
 """
 
 from __future__ import annotations
@@ -64,6 +70,30 @@ class TrainState:
             opt_state=optimizer.init(params),
             step=torch.zeros((), dtype=torch.int32, device=device),
         )
+
+
+class GradSync:
+    """How one step's gradients meet those of the other ranks of its
+    group. The identity (one device); ``parallel.dp`` supplies the
+    data-parallel and FSDP forms."""
+
+    def gather(self, params: dict) -> dict:
+        """The whole params the forward runs with, from this rank's."""
+        return params
+
+    def reduce(self, loss, grads: dict):
+        """The group's (loss, grads), from this rank's; the grads take
+        the layout of this rank's params."""
+        return loss, grads
+
+    def any(self, flag: torch.Tensor) -> torch.Tensor:
+        """``flag`` true on any rank of the group."""
+        return flag
+
+    def global_norm(self, grads: dict) -> torch.Tensor | None:
+        """The norm of the group's whole gradient (None: the norm of
+        ``grads``)."""
+        return None
 
 
 def _where(cond: torch.Tensor, old, new):
@@ -180,10 +210,14 @@ class Trainer:
         return loss.detach(), out
 
     # -- the step -------------------------------------------------------
-    def _step(self, state: TrainState, batch, rng):
+    def _step(self, state: TrainState, batch, rng, sync: GradSync | None = None):
+        """One optimizer step on ``batch`` (already on the device); ``sync``
+        joins the gradients to the other ranks' (default: one device)."""
+        sync = sync or GradSync()
         micro = self.cfg.micro_batches
+        whole = sync.gather(state.params)
         if micro <= 1:
-            loss, grads = self.loss_and_grads(state.params, batch, rng)
+            loss, grads = self.loss_and_grads(whole, batch, rng)
         else:
             n = next(iter(batch.values())).shape[0]
             if n % micro:
@@ -194,13 +228,14 @@ class Trainer:
             for i in range(micro):
                 mb = {k: v.reshape(micro, n // micro, *v.shape[1:])[i]
                       for k, v in batch.items()}
-                loss_i, g = self.loss_and_grads(state.params, mb, rng)
+                loss_i, g = self.loss_and_grads(whole, mb, rng)
                 g = {k: x.float() / micro for k, x in g.items()}
                 grads = g if grads is None else {
                     k: grads[k] + g[k] for k in grads
                 }
                 losses.append(loss_i)
             loss = torch.stack(losses).mean()
+        loss, grads = sync.reduce(loss, grads)
 
         # non-finite sentinel, on the device and BEFORE clipping (clipping
         # a tree with an inf leaf turns the norm nan and poisons every
@@ -209,9 +244,10 @@ class Trainer:
         grads_finite = torch.isfinite(
             torch.stack(torch._foreach_norm(torch._foreach_mul(gl, 0.0))).sum()
         )
-        nonfinite = ~(torch.isfinite(loss) & grads_finite)
+        nonfinite = sync.any(~(torch.isfinite(loss) & grads_finite))
         if self.cfg.grad_clip_norm:
-            grads, gnorm = clip_by_global_norm(grads, self.cfg.grad_clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, self.cfg.grad_clip_norm,
+                                               norm=sync.global_norm(grads))
         else:
             gnorm = torch.zeros((), device=self.device)
         updates, opt_state = self.optimizer.update(

@@ -1,6 +1,7 @@
 """Helpers over parameter collections (port of
 ``tensorlink_tpu/utils/trees.py``): a "tree" is a tensor, a list or tuple
-of trees, or a dict (a state dict) of trees."""
+of trees, or a dict (a state dict) of trees; ``nest``/``flatten`` turn
+dotted state-dict names into the JAX package's nested layout and back."""
 
 from __future__ import annotations
 
@@ -35,3 +36,27 @@ def global_norm(tree) -> torch.Tensor:
     if not ts:
         return torch.zeros(())
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(ts)))
+
+
+def nest(flat: dict) -> dict:
+    """{"a.b.c": x} -> {"a": {"b": {"c": x}}} (a state dict's names as the
+    JAX package's param tree)."""
+    out: dict = {}
+    for name, t in flat.items():
+        node = out
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+    return out
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """Inverse of ``nest``: nested dicts -> {dotted name: leaf} (empty
+    subtrees vanish)."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(flatten(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out

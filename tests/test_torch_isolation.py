@@ -56,7 +56,10 @@ def test_no_port_file_imports_jax_or_the_jax_package():
         assert os.path.join(PORT, "runtime", mod) in files
     assert os.path.join(PORT, "nn", "moe.py") in files
     for mod in (("nn", "lora.py"), ("nn", "module.py"), ("models", "mlp.py"),
-                ("runtime", "checkpoint.py"), ("runtime", "metrics.py")):
+                ("runtime", "checkpoint.py"), ("runtime", "metrics.py"),
+                ("runtime", "mesh.py"), ("parallel", "dp.py"), ("parallel", "tp.py"),
+                ("parallel", "pp.py"), ("parallel", "pp1f1b.py"),
+                ("parallel", "engine.py")):
         assert os.path.join(PORT, *mod) in files
     bad = [
         (os.path.relpath(p, REPO), root)
@@ -147,6 +150,12 @@ def test_importing_the_port_loads_no_jax():
         "tensorlink_tpu_torch.models.mlp",
         "tensorlink_tpu_torch.runtime.checkpoint",
         "tensorlink_tpu_torch.runtime.metrics",
+        "tensorlink_tpu_torch.runtime.mesh",
+        "tensorlink_tpu_torch.parallel.dp",
+        "tensorlink_tpu_torch.parallel.tp",
+        "tensorlink_tpu_torch.parallel.pp",
+        "tensorlink_tpu_torch.parallel.pp1f1b",
+        "tensorlink_tpu_torch.parallel.engine",
     ]
     code = (
         "import sys\n"
@@ -206,3 +215,26 @@ def test_training_entry_points_need_a_device_where_cuda_is_absent():
     dense = module_from_config({"__type__": "Dense", "in_dim": 2, "out_dim": 3},
                                device="cpu")
     assert dense.w.device.type == "cpu"
+
+
+def test_mesh_and_sharded_trainer_need_a_device_where_cuda_is_absent():
+    from tensorlink_tpu_torch.config import MeshConfig
+    from tensorlink_tpu_torch.parallel.engine import ShardedTrainer
+    from tensorlink_tpu_torch.runtime.mesh import make_mesh, shutdown_distributed
+
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(MeshConfig())
+    gpt2 = GPT2(GPT2Config.tiny(), device="cpu")
+    try:
+        mesh = make_mesh(MeshConfig(), device="cpu")
+        assert mesh.device_type == "cpu"
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ShardedTrainer(mesh, TrainConfig(), gpt2.as_pipeline_parts(),
+                           lambda o, b: 0.0)
+        tr = ShardedTrainer(mesh, TrainConfig(), gpt2.as_pipeline_parts(),
+                            lambda o, b: 0.0, device="cpu")
+        assert tr.device.type == "cpu"
+    finally:
+        shutdown_distributed()
