@@ -23,9 +23,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    one-row form of a prefill chunk, decode over rows of whole pages, and
    the one-row chunk at lengths 128, 1024 and 2048; then f32 tensors on
    the general variant, D 64 with a mask per query, T = 4 decode rows
-   with a mask per query, and the speculative verify pass at T = 4 and 5,
+   with a mask per query, the speculative verify pass at T = 4 and 5,
    B 8, no mask, lengths to 2000, on the variant ``kernel_variant``
-   names), each held to the variant it must launch, with its relative
+   names, and the masked decode step at one tensor-parallel rank's heads,
+   model 2 (H 16 / Hkv 4) and model 8 (H 4 / Hkv 1)), each held to the
+   variant it must launch, with its relative
    error, the fraction of its bound it reached and SDPA on the gathered
    view;
 4. fused-norm kernel vs its plain version (rms and layer with bias at
@@ -60,6 +62,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``ReceiptAuditor`` holding the capability accepts with no anomaly;
    the timer's decode busy a step is within 20% of the profiled
    model-step wall (``[timer slice vs profile]``);
+6c. mesh paged: [slice]'s first 4 requests (16 tokens each) through the
+   paged engine over ``InferenceEngine(model, mesh=make_mesh(
+   MeshConfig()))`` (one NCCL rank, captured): tokens identical to a
+   no-mesh engine's, one graph, B3 and B4 on the path, no collective
+   (a size-1 group skips them);
 6a. disagg: the same 12 requests split over a prefill leg P and a
    decode leg D (two engines of the [slice] geometry on one model):
    ``prefill_export``, ``pack_kv_payload(codec="none")``,
@@ -87,7 +94,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    decoding: 8 greedy requests of 32 tokens (half the prompts repeat a
    64-token phrase), first without speculation, then n-gram
    (``SpecConfig(k=4, rounds=2)``), the target as its own draft (k 3)
-   and adaptive K (``SpecConfig.auto(k=4)``, the same draft); B3 once a
+   and adaptive K (``SpecConfig.auto(k=4)``, the same draft), captured,
+   and n-gram again eagerly; B3 once a
    layer a verify pass (on the variant ``kernel_variant`` names for
    T = K+1) and a prefill chunk, none on the general variant; B4 once a
    layer a draft step and never in n-gram mode; one graph, every spec
@@ -131,18 +139,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    after;
 7i. async: 8 requests through ``asubmit``/``aresult`` (two at a time)
    equal to ``submit``/``result``;
+7k. tp2, once the Llama-3-8B model is freed: two spawned ranks over
+   gloo, both on cuda:0 (NCCL takes one rank a device; gloo carries the
+   CUDA tensors through host copies: a correctness check of tensor
+   parallelism, not a deployment), each holding half of every ``Dense``
+   of Llama-3-8B at full width and depth, eager: [slice]'s first 4
+   requests through the paged (``[tp2 paged]``) and the contiguous
+   engine (``[tp2 contiguous]``) and 2 left-padded prompts through
+   ``generate`` (``[tp2 static]``, profiled), 16 tokens each; each rank
+   gates its collectives (2 x 32 + 1 a model call) and launches (B3 32 a
+   paged decode step and prefill chunk, B4 32 a decode step), and the
+   parent, on the model rebuilt from the same
+   seed, every token against the world-1 teacher-forced row max;
 7j. mixtral paged, once the Llama-3-8B model is freed: Mixtral-8x7B at
-   full width and 16 of its 32 layers (random bf16 weights, 46.7 GB a
-   weight pass; the reference quantizes no expert, and the full depth's
-   90.2 GB of experts would not fit) through the paged engine in the
-   [slice] geometry, captured then eager: B3 and B4 16 times a decode
-   step, B3's prefill variant 16 times a chunk, replays, the weight-pass
+   full width and 8 of its 32 layers (random bf16 weights, 23.5 GB a
+   weight pass; the reference quantizes no expert, the full depth's
+   90.2 GB of experts would not fit, and 8 layers keep the run's time
+   in budget) through the paged engine in the
+   [slice] geometry, captured then eager: B3 and B4 8 times a decode
+   step, B3's prefill variant 8 times a chunk, replays, the weight-pass
    bytes from the config; every token against two same-T replays (the
    engine's 128-token chunks, then one token a step): one row on a
    paged cache through B3 (its recorded routing: a decode drop
    fraction of exactly 0), and the contiguous cache with the plain
-   attention and that routing pinned (a free-routing plain replay is
-   printed, not gated); then ``generate`` on 8 left-padded prompts of
+   attention and that routing pinned; then ``generate`` on 8 left-padded prompts of
    100-700 tokens, replayed row by row at T0;
 8. contiguous: GPT-2-medium (random bf16 weights) served by the contiguous
    ``ContinuousBatchingEngine`` (the ``--continuous`` path): 16 greedy
@@ -217,7 +237,8 @@ and int8) and the legs 7c-7j, B3's the paged leg, the captured
 speculative runs, both disaggregated runs (prefill variant on P, decode
 on D) and the paged legs 7c-7j; B1's and B2's sum legs 10, 10a, 10b, 10c
 and 10d (``[launches] flash_attention``). The
-last two lines are a JSON summary of the kernels and
+last lines are ``[phase seconds]`` (each phase's wall), the card's name
+and power limit, a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Nothing of JAX or ``tensorlink_tpu``
 is imported.
 """
@@ -228,6 +249,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -239,7 +261,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from tensorlink_tpu_torch import native
-from tensorlink_tpu_torch.config import MeshConfig, TrainConfig
+from tensorlink_tpu_torch.config import DistributedConfig, MeshConfig, TrainConfig
 from tensorlink_tpu_torch.models.bert import BertClassifier, BertConfig, bert_pipeline_parts
 from tensorlink_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
@@ -274,6 +296,7 @@ from tensorlink_tpu_torch.parallel.inference import (
     InferenceEngine,
     counter_bits,
     sample_logits_at,
+    weight_pass_bytes,
 )
 from tensorlink_tpu_torch.p2p.crypto import HAVE_CRYPTOGRAPHY, Identity
 from tensorlink_tpu_torch.p2p.serialization import packed_nbytes
@@ -286,13 +309,18 @@ from tensorlink_tpu_torch.parallel.serving import (
     Priority,
     SpecConfig,
 )
+from tensorlink_tpu_torch.parallel import tp
 from tensorlink_tpu_torch.parallel.engine import ShardedTrainer
 from tensorlink_tpu_torch.parallel.speculative import autopair_draft, default_draft_candidates
 from tensorlink_tpu_torch.runtime import chaos, compile_cache
 from tensorlink_tpu_torch.runtime.autotune import GLOBAL_MODEL, AutotuneStore, store_key
 from tensorlink_tpu_torch.runtime.checkpoint import CheckpointManager
 from tensorlink_tpu_torch.runtime.chaos import ChaosPlan
-from tensorlink_tpu_torch.runtime.mesh import make_mesh, shutdown_distributed
+from tensorlink_tpu_torch.runtime.mesh import (
+    initialize_distributed,
+    make_mesh,
+    shutdown_distributed,
+)
 from tensorlink_tpu_torch.runtime.ledger import (
     ReceiptAuditor,
     build_receipt,
@@ -517,8 +545,14 @@ def phase_sampler() -> None:
 
 def _paged_inputs(g, T, case):
     """Llama-3-8B head shapes: H 32, Hkv 8, D 128, bs 16, MB 128, B 8;
-    D 64 for "d64_qmask", f32 q and pools for "f32"."""
+    D 64 for "d64_qmask", f32 q and pools for "f32"; one rank's heads
+    under tensor parallelism for "tp2_mask" (model 2: H 16, Hkv 4) and
+    "tp8_mask" (model 8: H 4, Hkv 1), with the decode steps' mask, and
+    for "tp2_chunk", a prefill chunk (one row) at model 2's heads."""
     B, H, Hkv, bs, MB = 8, 32, 8, 16, 128
+    if case.startswith("tp"):
+        model = int(case[2])
+        H, Hkv = H // model, Hkv // model
     D = 64 if case == "d64_qmask" else 128
     dt = torch.float32 if case == "f32" else torch.bfloat16
     NB = B * MB + 64
@@ -556,7 +590,7 @@ def _paged_inputs(g, T, case):
     else:
         k = torch.randn((NB, bs, Hkv, D), generator=g).to(dev, dt)
         v = torch.randn((NB, bs, Hkv, D), generator=g).to(dev, dt)
-    if case == "mask":
+    if case in ("mask", "tp2_mask", "tp8_mask"):
         # validity mask over the view (the decode steps' form), with
         # holes, and row 0 retired: sentinel table, nothing valid
         kpos = torch.arange(MB * bs)
@@ -577,7 +611,7 @@ def _paged_inputs(g, T, case):
         mask = valid[:, None].to(dev)
     if case == "window":
         window = 100
-    if case == "one_row" or case.startswith("chunk_"):
+    if case in ("one_row", "tp2_chunk") or case.startswith("chunk_"):
         # the engine's prefill-chunk form: one row (here 1503 tokens, or
         # the chunk's own length)
         q, bt, lengths = q[5:6].contiguous(), bt[5:6], lengths[5:6]
@@ -647,14 +681,19 @@ def _paged_library_fn(args, kwargs):
 # per query (decode: T x group = 16 rows); last the speculative verify
 # pass at K = 3 and K = 4 (T 4 and 5, no mask), whose variant
 # ``kernel_variant`` names (None here): Llama-3-8B's group of 4 gives 16
-# and 20 query rows, so decode at T 4 and prefill at T 5
+# and 20 query rows, so decode at T 4 and prefill at T 5; then the decode
+# step at one rank's heads under tensor parallelism, model 2 (H 16 /
+# Hkv 4, the [tp2 *] legs' shape) and model 8 (H 4 / Hkv 1), and the
+# [tp2 paged] leg's prefill chunk (one row, T 128) at model 2's heads
 PAGED_CASES = (
     [(T, case, "decode" if T == 1 else "prefill") for T in (1, 128)
      for case in ("mixed", "mask", "window", "int8", "one_row")]
     + [(1, "full_pages", "decode"), (128, "chunk_128", "prefill"),
        (128, "chunk_1024", "prefill"), (128, "chunk_2048", "prefill"),
        (1, "f32", "general"), (128, "d64_qmask", "prefill"),
-       (4, "qmask", "decode"), (4, "verify", None), (5, "verify", None)]
+       (4, "qmask", "decode"), (4, "verify", None), (5, "verify", None),
+       (1, "tp2_mask", "decode"), (1, "tp8_mask", "decode"),
+       (128, "tp2_chunk", "prefill")]
 )
 
 
@@ -662,7 +701,7 @@ def phase_paged(flush) -> dict:
     g = torch.Generator().manual_seed(1)
     worst = worst_rel = 0.0
     main = None
-    verify = {}
+    verify, local = {}, {}
     for T, case, want in PAGED_CASES:
         args, kwargs = _paged_inputs(g, T, case)
         if want is None:
@@ -707,7 +746,9 @@ def phase_paged(flush) -> dict:
             main = row  # the decode steps' form
         if case == "verify":
             verify[T] = row
-    main = dict(main, max_abs_err=worst, verify=verify)
+        if case.startswith("tp"):
+            local[case] = row
+    main = dict(main, max_abs_err=worst, verify=verify, local_heads=local)
     say(f"[paged] all cases within atol {PAGED_ATOL} + rtol {PAGED_RTOL} and "
         f"relative Frobenius error {PAGED_REL}; worst max abs err {worst}, "
         f"worst relative {worst_rel}")
@@ -1172,7 +1213,8 @@ def phase_slice(name_power: str, model: Llama, cap: dict) -> dict:
     esch, _, eouts, ewall, _ = _serve_paged(model, prompts, max_new, False)
     tf_e = _teacher_forced("slice eager", model, prompts, eouts)
     _agreement("slice", outs, eouts, tf, tf_e)
-    eprof = _profile_decode(esch, cfg.vocab_size, name_power, tag="profile eager")
+    eprof = _profile_decode(esch, cfg.vocab_size, name_power, tag="profile eager",
+                            cancel_after=True)
     _step_line("slice", prof, eprof, wall, ewall)
     del esch
     gc.collect()
@@ -1204,12 +1246,16 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
     next under ``torch.profiler`` (CUPTI sees the kernels of graph
     replays, not the per-op CPU rows). The wall a model step is the plain
     window over its model steps (``_model_steps``); the busy share is the
-    device's kernel time over the profiled window's wall. A profiler that
-    records no device time is reported, not fatal: the line is
-    diagnosis, not a check. ``cancel_after`` cancels the profiling
-    requests after the windows instead of decoding them to the end."""
+    device's kernel time over the profiled window's wall. The profiler
+    records device activity only (the kernels; no host op rows, whose
+    recording slows an eager window and whose processing took most of
+    the call). A profiler that records no device time is reported, not
+    fatal: the line is diagnosis, not a check. ``cancel_after`` cancels
+    the profiling requests after the windows instead of decoding them to
+    the end. ``host_s``: the call's own seconds, by part."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_start = time.perf_counter()
     r = np.random.default_rng(4)
     rids = [sch.submit(r.integers(0, vocab, (64,)), max_new=max_new)
             for _ in range(8)]
@@ -1218,16 +1264,19 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
     sch.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    prefill_s = t0 - t_start
     for _ in range(PROFILE_STEPS):
         sch.step()
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
             sch.step()
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
+    t_tail = time.perf_counter()
     if cancel_after:
         for rid in rids:
             sch.cancel(rid)
@@ -1235,13 +1284,15 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
     if not cancel_after:
         for rid in rids:
             sch.result(rid)
-
-    # kernels only: a CPU op's device time repeats its kernels' time
+    t_ka = time.perf_counter()
     kernels = [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
         and e.self_device_time_total > 0
     ]
+    host_s = {"prefill": prefill_s, "plain_window": plain_s,
+              "profiled_window": t_tail - t_prof, "tail": t_ka - t_tail,
+              "key_averages": time.perf_counter() - t_ka}
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
     n_model = PROFILE_STEPS * _model_steps(sch)
@@ -1264,6 +1315,7 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
         "top_kernels_ms": {
             e.key[:48]: [e.self_device_time_total / 1e3, e.count] for e in top[:8]
         },
+        "host_s": host_s,
         "card": name_power,
     }
     say(f"[{tag}] {json.dumps(res)}")
@@ -1648,13 +1700,13 @@ STATIC_PROFILE_STEP = 40  # decode steps 40..47 run under the profiler
 CONT_LENS = (1, 37, 900, 128, 512, 255, 700, 64, 3, 800, 333, 129, 31, 600, 450, 96)
 CONT_NEW = 64
 CONT_MAX_LEN = 1024
-# [rolling]: the --window path at Mistral-7B's width, depth cut to 4 layers:
+# [rolling]: the --window path at Mistral-7B's width, depth cut to 2 layers:
 # the ring (T0 + window = 4352 slots) wraps only after more than 4096 decode
-# steps, which 32 layers would take ~8x the chip time to reach
+# steps, which 32 layers would take ~16x the chip time to reach
 ROLL_LENS = (256, 200)
 ROLL_NEW = 4200
 ROLL_MAX_LEN = 4608
-ROLL_LAYERS = 4
+ROLL_LAYERS = 2
 # after the ring's first wrap (step 4097), and both windows (steps 4104..4119)
 # inside one block range of the full cache's blockwise read (4096..4351)
 ROLL_PROFILE_STEP = 4112
@@ -1668,6 +1720,7 @@ def _zero_counts() -> None:
     fused_residual_norm.launches_by_form = dict.fromkeys(FORMS, 0)
     flash_attention_fwd_lse.launches = 0
     flash_attention_bwd.launches = 0
+    tp.reset_collectives()
 
 
 def _counts() -> dict:
@@ -1677,6 +1730,7 @@ def _counts() -> dict:
         "fused_norm_by_form": dict(fused_residual_norm.launches_by_form),
         "flash_fwd": flash_attention_fwd_lse.launches,
         "flash_bwd": flash_attention_bwd.launches,
+        "collectives": sum(tp.collective_counts().values()),
     }
 
 
@@ -1698,13 +1752,18 @@ def _left_padded(lens, vocab: int, seed: int):
     left-padded to the longest."""
     r = np.random.default_rng(seed)
     prompts = [r.integers(0, vocab, (n,)) for n in lens]
-    T0 = max(lens)
-    ids = np.zeros((len(lens), T0), np.int64)
+    return (prompts, *_pad_left(prompts))
+
+
+def _pad_left(prompts):
+    """(ids [B, T0], pad mask) of ``prompts`` left-padded to the longest."""
+    T0 = max(len(p) for p in prompts)
+    ids = np.zeros((len(prompts), T0), np.int64)
     pad = np.zeros_like(ids)
     for b, p in enumerate(prompts):
         ids[b, T0 - len(p):] = p
         pad[b, T0 - len(p):] = 1
-    return prompts, ids, pad
+    return ids, pad
 
 
 def _cache_bytes(eng, B: int, slots: int) -> int:
@@ -1726,7 +1785,7 @@ def _generate_traced(tag: str, eng, ids, pad, max_new: int, first: int,
     and ms a decode step."""
     from torch.profiler import ProfilerActivity, profile
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])  # the kernels only
     stamps = {}
 
     def hook(i):
@@ -1919,13 +1978,13 @@ def phase_contiguous(name_power: str) -> dict:
     tf_e = _teacher_forced("contiguous eager", model, prompts, eouts)
     _agreement("contiguous", outs, eouts, tf, tf_e)
     eprof = _profile_decode(esch, gcfg.vocab_size, name_power,
-                            tag="contiguous profile eager")
+                            tag="contiguous profile eager", cancel_after=True)
     _step_line("contiguous", prof, eprof, wall, ewall)
     return {"launches_norm": c["fused_norm"], "worst_gap": tf["worst_gap"]}
 
 
 def phase_rolling(name_power: str) -> dict:
-    """Mistral-7B's width at 4 layers (random bf16 weights from seed 0)
+    """Mistral-7B's width at 2 layers (random bf16 weights from seed 0)
     through ``InferenceEngine(rolling_cache=True).generate``: 2
     left-padded prompts, greedy, long enough that the ring wraps, decode
     steps as graph replays, then the same call on an eager engine; B4 on
@@ -2151,9 +2210,10 @@ def phase_spec_paged(name_power: str, model: Llama) -> dict:
     """Speculative decoding on the paged engine at Llama-3-8B: the
     non-spec run of the requests, then n-gram (k 4), the target as its
     own draft (k 3) and adaptive K (``SpecConfig.auto(k=4)``, the same
-    draft), each captured and then eager, under the launch, replay and
-    teacher-forced gates; the self-draft must emit more than one token a
-    weight pass, and adaptive K must keep one graph."""
+    draft), each captured, under the launch, replay and teacher-forced
+    gates, and n-gram again eagerly under the same gates (the spec chunk
+    body captured against eager); the self-draft must emit more than one
+    token a weight pass, and adaptive K must keep one graph."""
     cfg = model.cfg
     prompts = _spec_requests(cfg.vocab_size)
     sch, _, plain_outs, _, _ = _serve_spec(
@@ -2177,15 +2237,15 @@ def phase_spec_paged(name_power: str, model: Llama) -> dict:
                   f"{tag}: the self-draft emitted no more than one token a pass")
         del sch
         _free_cuda()
+        if self_draft:
+            # the captured run holds the draft modes' gates; one eager
+            # run (n-gram) holds the spec chunk body captured vs eager
+            continue
         esch, erids, eouts, ewall, _ = _serve_spec(f"{tag} eager", model, prompts,
                                                    spec_cfg, self_draft, False)
         tf_e = _teacher_forced(f"{tag} eager", model, prompts, eouts)
         _agreement(tag, outs, eouts, tf, tf_e)
-        eres = _spec_line(f"{tag} eager", esch, erids, eouts, plain_outs, ewall,
-                          None, name_power)
-        if self_draft and not spec_cfg.adaptive:
-            check(eres["tokens_per_weight_pass"] > 1.0,
-                  f"{tag} eager: the self-draft emitted no more than one token a pass")
+        _spec_line(f"{tag} eager", esch, erids, eouts, plain_outs, ewall, None, name_power)
         del esch
         _free_cuda()
     return launches
@@ -2814,10 +2874,253 @@ def phase_async(name_power: str, model: Llama, prompts) -> dict:
 
 
 # ------------------------------------------------ Mixtral (MoE) serving
-# [mixtral paged]: Mixtral-8x7B at full width, depth cut to 16 of 32
+# [mixtral paged]: Mixtral-8x7B at full width, depth cut to 8 of 32
 # layers (its bf16 experts alone are 90.2 GB at full depth, and the
-# reference quantizes no expert), random bf16 weights from seed 0.
-MIX_LAYERS = 16
+# reference quantizes no expert; 8 layers keep the run in its time),
+# random bf16 weights from seed 0.
+# ------------------------------------------------------ serving on a mesh
+MESH_REQUESTS = 4  # [slice]'s first requests: the mesh legs' prompts
+MESH_NEW = 16
+TP2_WORLD = 2
+TP2_STATIC_ROWS = 2  # [tp2 static]: the first two prompts, left-padded
+TP2_PROFILE_STEP = 8  # [tp2 static]: decode steps 4..7 plain, 8..11 profiled
+
+
+def _serve_all(sch, prompts) -> list:
+    rids = [sch.submit(p) for p in prompts]
+    sch.run_until_idle()
+    torch.cuda.synchronize()
+    return [np.asarray(sch.result(rid)) for rid in rids]
+
+
+def phase_mesh_paged(name_power: str, model: Llama, prompts) -> dict:
+    """[mesh paged]: the paged engine of the [slice] geometry over
+    ``InferenceEngine(model, mesh=make_mesh(MeshConfig()))`` (one NCCL
+    rank, full depth, captured) on [slice]'s first 4 requests, 16 tokens
+    each: tokens identical to a no-mesh engine's in this call, one graph
+    with every chunk but its first a replay, B3 and B4 launches as
+    ``_check_paged_launches`` implies, and no collective (a size-1 group
+    skips them); then its profiled model step (``_profile_decode``). The
+    process group is destroyed after, failed or not.
+    -> the no-mesh tokens (the world-1 run the [tp2 *] legs print
+    their agreement with) and the launches."""
+    prompts = prompts[:MESH_REQUESTS]
+    plain = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                            param_dtype=torch.bfloat16, device=DEV)
+    ref = _serve_short("mesh paged, no mesh", plain, prompts, MESH_NEW, True)[1]
+    del plain
+    _free_cuda()
+    mesh = make_mesh(MeshConfig())
+    try:
+        eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16, device=DEV, mesh=mesh)
+        t0 = time.perf_counter()
+        sch, outs, c, by_variant = _serve_short("mesh paged", eng, prompts, MESH_NEW, True)
+        wall = time.perf_counter() - t0
+        st = sch.stats()
+        _check_paged_launches("mesh paged", st, c["paged_decode"], c["fused_norm"],
+                              by_variant, model.cfg.num_layers)
+        g = st["graphs"]
+        _graph_line("mesh paged", g)
+        check(g["graphs"] == 1 and g["captured"] == 1
+              and g["replays"] == st["decode_steps"] // 8 - 1,
+              f"mesh paged: every chunk but the first must be a replay of one graph: {g}")
+        equal = all(np.array_equal(a, b) for a, b in zip(outs, ref))
+        res = {"requests": len(prompts), "tokens": sum(len(o) for o in outs),
+               "tokens_identical_to_no_mesh": equal, "collectives": c["collectives"],
+               "groups": {a: eng.mesh_sizes()[a] for a in ("data", "model")},
+               "backend": str(torch.distributed.get_backend(eng.model_group)),
+               "wall_s": wall, "decode_steps": st["decode_steps"],
+               "prefill_chunks": st["prefill_chunks"], "card": name_power}
+        say(f"[mesh paged] {json.dumps(res)}")
+        check(equal, "mesh paged: tokens differ from the no-mesh engine's")
+        check(c["collectives"] == 0, "mesh paged: a size-1 group issued a collective")
+        # the model step beside [slice]'s (same geometry, no mesh)
+        _profile_decode(sch, model.cfg.vocab_size, name_power, tag="mesh paged profile",
+                        cancel_after=True)
+        del sch, eng
+    finally:
+        shutdown_distributed()
+    _free_cuda()
+    return {"ref": ref, "paged": c["paged_decode"], "norm": c["fused_norm"]}
+
+
+def _tp2_leg(tag: str, rank: int, fn, calls) -> tuple:
+    """Run one [tp2 *] leg on this rank with its counts set to 0 just
+    before and read just after; ``calls()`` -> the model calls it made.
+    Each takes logits (the paged engine takes a prefill chunk's at every
+    chunk), so each issues 2 x layers all-reduces and the head's
+    gather."""
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _counts()
+    L = LlamaConfig.llama3_8b().num_layers
+    n = calls()
+    want = (2 * L + 1) * n
+    if rank == 0:
+        say(f"[{tag}] rank 0 launches {json.dumps(c)}; collectives expected {want} "
+            f"({n} model calls, 2 x {L} + 1 each); wall {wall:.2f} s")
+    check(c["collectives"] == want, f"{tag}: rank {rank} issued {c['collectives']} "
+          f"collectives, the model implies {want}")
+    check(c["flash_fwd"] == c["flash_bwd"] == 0, f"{tag}: flash ran in serving")
+    return out, c, wall
+
+
+def _tp2_rank(rank: int, world: int, store: str, prompts, s_ids, s_pad,
+              out_dir: str, name_power: str) -> None:
+    """One rank of the [tp2 *] job: a gloo group of two ranks on cuda:0,
+    Llama-3-8B at full width and depth cut to this rank's blocks by
+    ``InferenceEngine(mesh=)`` (the whole model is built one rank at a
+    time, then freed), served eagerly through the paged and contiguous
+    engines and ``generate``; every gate raises in the rank that fails.
+    Rank 0 prints; the other ranks' output goes nowhere (errors still
+    reach stderr)."""
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    torch.cuda.set_device(0)
+    initialize_distributed(DistributedConfig(coordinator=f"file://{store}",
+                                             num_processes=world, process_id=rank),
+                           device="cpu")
+    try:
+        mesh = make_mesh(MeshConfig(model=world), device="cpu")
+        cfg = LlamaConfig.llama3_8b()
+        L = cfg.num_layers
+        for r in range(world):
+            if r == rank:
+                model = Llama(cfg, device=DEV, dtype=torch.bfloat16, seed=0)
+                whole = weight_pass_bytes(model)
+                eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                                      param_dtype=torch.bfloat16, device=DEV,
+                                      mesh=mesh, cuda_graphs=False)
+                _free_cuda()
+            torch.distributed.barrier()
+        if rank == 0:
+            say(f"[tp2] Llama-3-8B over a gloo group of {world} ranks on cuda:0: "
+                f"rank 0 holds {eng.weight_bytes} weight bytes a pass (whole model "
+                f"{whole}, half of it {whole // world}); q block "
+                f"{tuple(model.blocks.blocks()[0].attn.q.w.shape)}, "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated by rank 0")
+        res = {"weight_bytes": eng.weight_bytes, "whole_bytes": whole}
+        gen = GenerationConfig(max_new_tokens=MESH_NEW)
+
+        sch = PagedContinuousBatchingEngine(
+            eng, slots=8, block_size=16, prefill_chunk=128, decode_chunk=8, gen=gen,
+            cuda_graphs=False)
+        outs, c, wall = _tp2_leg(
+            "tp2 paged", rank, lambda: _serve_all(sch, prompts),
+            lambda: sch.prefill_chunks + sch.decode_steps)
+        by_variant = dict(paged_decode_attention.launches_by_variant)
+        st = sch.stats()
+        _check_paged_launches("tp2 paged", st, c["paged_decode"], c["fused_norm"],
+                              by_variant, L)
+        pool = tuple(sch._pools[0]["k"].shape)
+        check(pool[2] == cfg.num_kv_heads // world, f"tp2 paged: pools of {pool}")
+        res["paged"] = {"outs": outs, "wall": wall, "launches": c, "pool": pool,
+                        "decode_steps": st["decode_steps"],
+                        "prefill_chunks": st["prefill_chunks"]}
+        del sch
+        _free_cuda()
+
+        sch = ContinuousBatchingEngine(eng, slots=MESH_REQUESTS, decode_chunk=8,
+                                       gen=gen, cuda_graphs=False)
+        outs, c, wall = _tp2_leg(
+            "tp2 contiguous", rank, lambda: _serve_all(sch, prompts),
+            lambda: len(prompts) + sch.decode_steps)
+        _check_decode_launches("tp2 contiguous", c, L * sch.decode_steps, "rms")
+        res["contiguous"] = {"outs": outs, "wall": wall, "launches": c,
+                             "cache": tuple(sch._kv[0][0].shape),
+                             "decode_steps": sch.decode_steps,
+                             "prefill_chunks": sch.prefill_chunks}
+        del sch
+        _free_cuda()
+
+        def static():
+            if rank == 0:  # the profiler on one rank only
+                return _generate_traced("tp2 static", eng, s_ids, s_pad, MESH_NEW,
+                                        TP2_PROFILE_STEP, name_power, active=4)
+            return {"out": eng.generate(s_ids, gen, pad_mask=s_pad), "prefill_s": None,
+                    "decode_ms": None, "profile": None}
+
+        out, c, wall = _tp2_leg("tp2 static", rank, static, lambda: MESH_NEW)
+        _check_decode_launches("tp2 static", c, L * (MESH_NEW - 1), "rms")
+        res["static"] = {"outs": list(out["out"]), "wall": wall, "launches": c,
+                         "prefill_s": out["prefill_s"], "decode_ms": out["decode_ms"],
+                         "profile": out["profile"]}
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        shutdown_distributed()
+
+
+def phase_tp2(name_power: str, prompts, ref_outs) -> dict:
+    """[tp2 paged], [tp2 contiguous], [tp2 static]: one job of two spawned
+    ranks over gloo, both on cuda:0 (NCCL takes one rank a device; gloo
+    carries the CUDA tensors of the collectives through host copies, so
+    this is a correctness check of tensor parallelism at full width, not
+    a deployment), Llama-3-8B at full width and depth, eager. Each rank
+    holds its blocks (half of every ``Dense``) and serves [slice]'s first
+    4 requests through the paged and the contiguous engine and 2
+    left-padded prompts through ``generate``, 16 tokens each; each rank
+    gates its own collectives (2 x 32 + 1 a model call) and launches (B3
+    32 times a paged decode step and prefill chunk, B4 32 times a decode
+    step), and both ranks must emit the same tokens. Here, on the whole
+    model rebuilt
+    from the same seed after the job: every emitted token within
+    LOGIT_GAP_TOL of the teacher-forced row max; printed, the greedy
+    agreement with the world-1 run ([mesh paged]'s no-mesh tokens) and
+    each rank's weight bytes against half of the whole model's."""
+    prompts = prompts[:MESH_REQUESTS]
+    s_ids, s_pad = _pad_left(prompts[:TP2_STATIC_ROWS])
+    d = tempfile.mkdtemp(prefix="tp2-", dir=os.path.join(_build.PKG_DIR, "_build"))
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        _tp2_rank, args=(TP2_WORLD, os.path.join(d, "store"), prompts, s_ids, s_pad, d,
+                         name_power),
+        nprocs=TP2_WORLD, start_method="spawn", join=True)
+    job_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+             for r in range(TP2_WORLD)]
+    model = Llama(LlamaConfig.llama3_8b(), device=DEV, dtype=torch.bfloat16, seed=0)
+    out = {"job_s": job_s, "card": name_power}
+    s_prompts = prompts[:TP2_STATIC_ROWS]
+    for leg, legp, ref in (("paged", prompts, ref_outs),
+                           ("contiguous", prompts, ref_outs),
+                           ("static", s_prompts, ref_outs[:TP2_STATIC_ROWS])):
+        r0 = ranks[0][leg]
+        for r in ranks[1:]:
+            check(all(np.array_equal(a, b) for a, b in zip(r[leg]["outs"], r0["outs"])),
+                  f"tp2 {leg}: the ranks emitted different tokens")
+        tf = _teacher_forced(f"tp2 {leg}", model, legp, r0["outs"])
+        same = sum(int((np.asarray(a) == np.asarray(b)).sum()) for a, b in zip(r0["outs"], ref))
+        total = sum(len(a) for a in r0["outs"])
+        out[leg] = {"worst_gap": tf["worst_gap"], "exact": tf["exact"],
+                    "tokens": tf["tokens"], "equal_to_world1": same,
+                    "share_equal_to_world1": same / total, "wall_s": r0["wall"],
+                    "launches_rank0": r0["launches"]}
+        if "decode_steps" in r0:
+            out[leg]["model_calls"] = r0.get("prefill_chunks", 0) + r0["decode_steps"]
+    st = ranks[0]["static"]
+    out["static"].update(prefill_s=st["prefill_s"], model_step_ms=st["decode_ms"],
+                         profile=st["profile"])
+    out["weight_bytes"] = [r["weight_bytes"] for r in ranks]
+    out["half_of_whole"] = ranks[0]["whole_bytes"] / TP2_WORLD
+    out["max_memory_allocated"] = [r["max_memory_allocated"] for r in ranks]
+    out["pool_shape"] = ranks[0]["paged"]["pool"]
+    out["contiguous_cache_shape"] = ranks[0]["contiguous"]["cache"]
+    say(f"[tp2] {json.dumps(out)}")
+    del model
+    _free_cuda()
+    shutil.rmtree(d, ignore_errors=True)
+    return {"paged": sum(r["paged"]["launches"]["paged_decode"] for r in ranks),
+            "norm": sum(r[leg]["launches"]["fused_norm"] for r in ranks
+                        for leg in ("paged", "contiguous", "static"))}
+
+
+MIX_LAYERS = 8
 MIX_NEW = 32
 MIX_GEN_LENS = (100, 700, 310, 520, 180, 640, 260, 450)
 MIX_GEN_NEW = 16
@@ -2960,11 +3263,10 @@ def _replay_padded(model, ids_row, pad_row, o) -> torch.Tensor:
     return torch.stack(rows).float()
 
 
-def _gap_check(tag: str, logits_rows, outs, first: int = 8, gate: bool = True) -> dict:
+def _gap_check(tag: str, logits_rows, outs, first: int = 8) -> dict:
     """Every emitted token within LOGIT_GAP_TOL of its replay row's
-    maximum (``gate``; else printed only); prints the worst gap (and over
-    tokens 1 .. ``first``), how many are the exact argmax and how many
-    sit past the tolerance."""
+    maximum; prints the worst gap (and over tokens 1 .. ``first``), how
+    many are the exact argmax and how many sit past the tolerance."""
     gaps, head, exact, over = [], [], 0, 0
     for lg, o in zip(logits_rows, outs):
         check(bool(torch.isfinite(lg).all()), f"{tag}: non-finite replay logits")
@@ -2976,11 +3278,10 @@ def _gap_check(tag: str, logits_rows, outs, first: int = 8, gate: bool = True) -
         over += int((gap > LOGIT_GAP_TOL).sum())
     n_tok = sum(len(o) for o in outs)
     say(f"[{tag}] same-T replay: worst logit gap {max(gaps):.4f} (tolerance "
-        f"{LOGIT_GAP_TOL}{'' if gate else ', not gated'}; first decode chunk "
+        f"{LOGIT_GAP_TOL}; first decode chunk "
         f"{max(head):.4f}); {exact}/{n_tok} tokens are the exact argmax, {over} past "
         "the tolerance")
-    if gate:
-        check(max(gaps) <= LOGIT_GAP_TOL, f"{tag}: same-T replay check failed")
+    check(max(gaps) <= LOGIT_GAP_TOL, f"{tag}: same-T replay check failed")
     return {"worst_gap": max(gaps), "first_chunk_gap": max(head), "exact": exact,
             "tokens": n_tok, "past_tolerance": over}
 
@@ -3024,16 +3325,13 @@ def _replay_paged_row(model, p, o, chunk: int = 128, block: int = 16,
 
 
 def _replay_paged(model, prompts, outs, memo: dict, tape: "_RouteTape") -> dict:
-    """Three same-T replays of each request (a (prompt, tokens) pair
+    """Two same-T replays of each request (a (prompt, tokens) pair
     already replayed is reused from ``memo``): ``"paged"`` alone on a
     one-row paged cache through B3 (the engine's numerics; ``tape``
     records its routing); ``"plain"`` through the contiguous cache and
-    the plain attention with that routing pinned; ``"free"`` the plain
-    replay routing for itself, whose bf16 attention rounding flips
-    router near-ties (printed, not gated: a flipped choice swaps a whole
-    expert's output, and at the prefill chunks' drop rate moves other
-    tokens across the capacity line). -> per kind, the logits rows."""
-    out = {"paged": [], "plain": [], "free": []}
+    the plain attention with that routing pinned. -> per kind, the
+    logits rows."""
+    out = {"paged": [], "plain": []}
     with torch.no_grad():
         for p, o in zip(prompts, outs):
             key = (p.tobytes(), np.asarray(o).tobytes())
@@ -3049,8 +3347,7 @@ def _replay_paged(model, prompts, outs, memo: dict, tape: "_RouteTape") -> dict:
                 finally:
                     tape.release()
                 check(not tape.tape, "route tape: recorded calls left unreplayed")
-                memo[key] = {"paged": paged, "plain": plain,
-                             "free": _replay_chunked(model, p, o, 128)}
+                memo[key] = {"paged": paged, "plain": plain}
             for kind in out:
                 out[kind].append(memo[key][kind])
     return out
@@ -3075,11 +3372,11 @@ def _check_chunk_starts(tag: str, sch, rids, prompts, shared: int = 256,
 
 
 def phase_mixtral(name_power: str, cap: dict) -> dict:
-    """Mixtral-8x7B (``LlamaConfig.mixtral_8x7b()`` at full width, 16 of
+    """Mixtral-8x7B (``LlamaConfig.mixtral_8x7b()`` at full width, 8 of
     32 layers, random bf16 weights from seed 0, built in bf16 on the
     card) through ``PagedContinuousBatchingEngine`` in the [slice]
     geometry, captured then eager: the [slice] requests, B3's decode
-    variant and B4 16 times a decode step, B3's prefill variant 16 times
+    variant and B4 8 times a decode step, B3's prefill variant 8 times
     a chunk, no general launch, replays after each graph's first chunk;
     the weight-pass bytes equal the config's. Every token within
     LOGIT_GAP_TOL of two same-T replays (each prompt in the engine's
@@ -3087,8 +3384,7 @@ def phase_mixtral(name_power: str, cap: dict) -> dict:
     token a step): alone on a one-row paged cache through B3, whose
     routing (recorded outside any captured body) must show a decode drop
     fraction of exactly 0, and through the contiguous cache and the plain
-    attention with that routing pinned; the plain replay routing for
-    itself is printed beside them. Then ``InferenceEngine.generate`` on 8
+    attention with that routing pinned. Then ``InferenceEngine.generate`` on 8
     left-padded prompts of 100-700 tokens, 16 new tokens, under a
     row-by-row replay at T0 (plain attention on both sides)."""
     cfg = dataclasses.replace(LlamaConfig.mixtral_8x7b(), num_layers=MIX_LAYERS)
@@ -3129,7 +3425,8 @@ def phase_mixtral(name_power: str, cap: dict) -> dict:
                                     if sch.decode_only_s else None),
             "decode_steps": st["decode_steps"], "prefill_chunks": st["prefill_chunks"],
             "prof": _profile_decode(sch, cfg.vocab_size, name_power,
-                                    tag=f"mixtral paged profile{'' if captured else ' eager'}"),
+                                    tag=f"mixtral paged profile{'' if captured else ' eager'}",
+                                    cancel_after=not captured),
         }
         del sch
         _free_cuda()
@@ -3145,8 +3442,6 @@ def phase_mixtral(name_power: str, cap: dict) -> dict:
                                 run["outs"]),
             "plain": _gap_check(f"mixtral paged{sfx} vs plain replay, routing pinned",
                                 rows["plain"], run["outs"]),
-            "free": _gap_check(f"mixtral paged{sfx} vs plain replay, free routing",
-                               rows["free"], run["outs"], gate=False),
         }
     del memo
     routing = tape.drops()
@@ -3202,8 +3497,6 @@ def phase_mixtral(name_power: str, cap: dict) -> dict:
         "decode_drop_fraction": routing["decode"]["drop_fraction"],
         "worst_gap_one_row_paged": max(c["paged"]["worst_gap"] for c in checks.values()),
         "worst_gap_plain_pinned": max(tf["worst_gap"], tf_e["worst_gap"]),
-        "free_routing": {m: {k: c["free"][k] for k in ("worst_gap", "exact", "tokens")}
-                         for m, c in checks.items()},
         "static": {"batch": B, "T0": T0, "new_tokens": MIX_GEN_NEW,
                    "prefill_s": gen["prefill_s"], "generate_s": gen["total_s"],
                    "decode_ms_per_step": gen["decode_ms"],
@@ -3907,10 +4200,34 @@ def phase_sharded(name_power: str, train_res: dict) -> tuple[dict, dict]:
     return bert, gpt2
 
 
+PHASE_S: dict[str, float] = {}  # seconds each phase took, in run order
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds kept under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_S[name] = round(time.perf_counter() - t0, 1)
+
+
+def _phase_line() -> None:
+    say(f"[phase seconds] {json.dumps(PHASE_S)}")
+
+
 def main() -> int:
+    try:
+        return _main()
+    except BaseException:
+        _phase_line()  # where the time went up to the failure
+        raise
+
+
+def _main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kind, name_power = phase_device()
+    kind, name_power = timed("device", phase_device)
     # the kernel-build cache: a fresh directory every run, so the builds
     # below are cold and [compile cache] reads a warm load beside them
     build_root = os.path.join(_build.PKG_DIR, "_build")
@@ -3918,54 +4235,58 @@ def main() -> int:
     os.environ[compile_cache.ENV_VAR] = tempfile.mkdtemp(prefix="compile-cache-",
                                                          dir=build_root)
     compile_cache.enable_compile_cache()
-    build = phase_build()
-    phase_compile_cache(name_power, build)
-    phase_sampler()
+    build = timed("build", phase_build)
+    timed("compile cache", phase_compile_cache, name_power, build)
+    timed("sampler", phase_sampler)
     flush = L2Flush()
-    floor_ms = phase_floor(flush)
-    paged = phase_paged(flush)
-    norm = phase_norm(flush, floor_ms)
-    flash = phase_flash(flush)
-    cap = phase_capability(name_power)
+    floor_ms = timed("floor", phase_floor, flush)
+    paged = timed("paged", phase_paged, flush)
+    norm = timed("norm", phase_norm, flush, floor_ms)
+    flash = timed("flash", phase_flash, flush)
+    cap = timed("capability", phase_capability, name_power)
     model = Llama(LlamaConfig.llama3_8b(), device=DEV, dtype=torch.bfloat16,
                   seed=0)
-    launches = phase_slice(name_power, model, cap)
-    disagg = phase_disagg(name_power, model, launches["prompts"], launches["outs"], cap)
-    disagg8 = phase_disagg_int8(name_power, model, launches["prompts"], launches["outs"],
-                                disagg["float_blob_bytes"])
-    static = phase_static(name_power, model)
-    spec = phase_spec_paged(name_power, model)
-    over = phase_overload(name_power, model)
-    int8 = phase_int8(name_power, model, launches["prompts"], launches["outs"],
-                      launches["prof"], cap)
-    fused = phase_fused(name_power, model, launches["prompts"], launches["outs"],
-                        launches["prof"], cap)
-    pair = phase_autopair(name_power, model, int8["int8_dense_bytes"])
-    phase_autotune(name_power, model, pair["persistable"])
-    chaos_k = phase_chaos(name_power, model, over)
-    heal = phase_self_heal(name_power, model, launches["prompts"], launches["outs"])
-    asyn = phase_async(name_power, model, launches["prompts"])
+    launches = timed("slice", phase_slice, name_power, model, cap)
+    prompts, slice_outs = launches["prompts"], launches["outs"]
+    mesh = timed("mesh paged", phase_mesh_paged, name_power, model, prompts)
+    disagg = timed("disagg", phase_disagg, name_power, model, prompts, slice_outs, cap)
+    disagg8 = timed("disagg int8", phase_disagg_int8, name_power, model, prompts,
+                    slice_outs, disagg["float_blob_bytes"])
+    static = timed("static", phase_static, name_power, model)
+    spec = timed("spec paged", phase_spec_paged, name_power, model)
+    over = timed("overload", phase_overload, name_power, model)
+    int8 = timed("int8", phase_int8, name_power, model, prompts, slice_outs,
+                 launches["prof"], cap)
+    fused = timed("fused qkv", phase_fused, name_power, model, prompts, slice_outs,
+                  launches["prof"], cap)
+    pair = timed("autopair", phase_autopair, name_power, model, int8["int8_dense_bytes"])
+    timed("autotune", phase_autotune, name_power, model, pair["persistable"])
+    chaos_k = timed("chaos", phase_chaos, name_power, model, over)
+    heal = timed("self-heal", phase_self_heal, name_power, model, prompts, slice_outs)
+    asyn = timed("async", phase_async, name_power, model, prompts)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    mixtral = phase_mixtral(name_power, cap)
-    contiguous = phase_contiguous(name_power)
+    tp2 = timed("tp2", phase_tp2, name_power, prompts, mesh["ref"])
+    mixtral = timed("mixtral", phase_mixtral, name_power, cap)
+    contiguous = timed("contiguous", phase_contiguous, name_power)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_spec_contiguous(name_power)
+    timed("spec contiguous", phase_spec_contiguous, name_power)
     gc.collect()
     torch.cuda.empty_cache()
-    rolling = phase_rolling(name_power)
+    rolling = timed("rolling", phase_rolling, name_power)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    train = phase_train(name_power)
+    train = timed("train", phase_train, name_power)
     gc.collect()
     torch.cuda.empty_cache()
-    lora = phase_lora(name_power)
-    ckpt = phase_checkpoint(name_power)
-    sh_bert, sh_gpt2 = phase_sharded(name_power, train)
+    lora = timed("lora", phase_lora, name_power)
+    ckpt = timed("checkpoint", phase_checkpoint, name_power)
+    sh_bert, sh_gpt2 = timed("sharded", phase_sharded, name_power, train)
     norm_paths = {"paged serving": launches["launches_norm"],
+                  "mesh paged": mesh["norm"], "tp2 (both ranks, 3 legs)": tp2["norm"],
                   "static": static["launches_norm"],
                   "contiguous": contiguous["launches_norm"],
                   "rolling": rolling["launches_norm"],
@@ -3977,6 +4298,7 @@ def main() -> int:
                   "self-heal": heal["norm"], "async": asyn["norm"],
                   "mixtral paged": mixtral["norm"], "mixtral static": mixtral["static_norm"]}
     paged_paths = {"paged serving": launches["launches_paged"],
+                   "mesh paged": mesh["paged"], "tp2 paged (both ranks)": tp2["paged"],
                    "spec paged (verify passes, prefill chunks)": spec["paged"],
                    "disagg (both legs)": disagg["paged"],
                    "disagg int8 (both legs)": disagg8["paged"],
@@ -4026,6 +4348,7 @@ def main() -> int:
                                             "bound_ms", "bound_by", "library_ms")},
         },
     ]
+    _phase_line()
     say(smi())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

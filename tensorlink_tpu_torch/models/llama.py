@@ -147,7 +147,7 @@ class Llama(Module):
             new_caches = None
             x = self.blocks(x, mask=mask, positions=positions)
         x = self.norm_f(x)
-        out = self.lm_head(x) if logits else x
+        out = self.head(x) if logits else x
         if caches is not None:
             return out, new_caches
         return out
@@ -160,11 +160,19 @@ class Llama(Module):
         x = self.tok_emb(input_ids)
         x, aux = self.blocks.forward_with_aux(x, mask=mask, positions=positions,
                                               rng=rng, train=train)
-        return self.lm_head(self.norm_f(x)), aux
+        return self.head(self.norm_f(x)), aux
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
-        """Logits of final hidden states (``forward(..., logits=False)``)."""
-        return self.lm_head(h)
+        """Logits of final hidden states (``forward(..., logits=False)``).
+        A column block of ``lm_head`` (tensor parallel) gives this rank's
+        vocab slice, gathered over the model group into the whole
+        vocab."""
+        y = self.lm_head(h)
+        if self.lm_head.width() != self.cfg.vocab_size:
+            from tensorlink_tpu_torch.parallel import tp
+
+            y = tp.gather_from_model(y)
+        return y
 
     def as_pipeline_parts(self, params: dict | None = None):
         """Split into (embed, blocks, head) for the ``ShardedTrainer``;

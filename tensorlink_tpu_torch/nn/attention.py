@@ -733,13 +733,24 @@ class MultiHeadAttention(Module):
             q_offset=0, scale=self.scale, window=None,
         )
 
+    def local_kv_heads(self) -> int:
+        """KV heads of the projection this module holds: ``num_kv_heads``,
+        or a tensor-parallel block's share of them (``parallel/tp.py``),
+        read from the held weight's width as the forward reads it from
+        the projected one."""
+        if self.qkv_fused:
+            hq = self.num_heads // self.num_kv_heads
+            return self.qkv.width() // ((hq + 2) * self.head_dim)
+        return self.k.width() // self.head_dim
+
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    rolling: bool = False, *, device=None) -> dict:
-        """Contiguous cache form (see the module docstring) at index 0.
-        ``rolling=True`` marks a ring: ``max_len`` is then its capacity
-        (typically prompt + window), writes wrap modulo it, and the caller
-        owns slot-position masking (``parallel/inference.py``)."""
-        shape = (batch, max_len, self.num_kv_heads, self.head_dim)
+        """Contiguous cache form (see the module docstring) at index 0,
+        of this rank's KV heads (``local_kv_heads``). ``rolling=True``
+        marks a ring: ``max_len`` is then its capacity (typically prompt
+        + window), writes wrap modulo it, and the caller owns
+        slot-position masking (``parallel/inference.py``)."""
+        shape = (batch, max_len, self.local_kv_heads(), self.head_dim)
         cache = {
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -754,13 +765,14 @@ class MultiHeadAttention(Module):
         dtype=torch.bfloat16, quant: str | None = None, *, device=None,
     ) -> dict:
         """Paged cache form (see the module docstring): pools of
-        ``num_blocks`` blocks plus the scratch block, per-row write index
-        0, block table at the sentinel. ``quant="int8"``: int8 pools with
-        f32 scales initialized to 1.0 (unwritten blocks dequantize to
-        exact zeros); ``dtype`` is then ignored for k/v."""
+        ``num_blocks`` blocks plus the scratch block, of this rank's KV
+        heads, per-row write index 0, block table at the sentinel.
+        ``quant="int8"``: int8 pools with f32 scales initialized to 1.0
+        (unwritten blocks dequantize to exact zeros); ``dtype`` is then
+        ignored for k/v."""
         if quant not in (None, "int8"):
             raise ValueError(f"unknown paged cache quant {quant!r}")
-        shape = (num_blocks + 1, block_size, self.num_kv_heads, self.head_dim)
+        shape = (num_blocks + 1, block_size, self.local_kv_heads(), self.head_dim)
         cache = {
             "index": torch.zeros((batch,), dtype=torch.int32, device=device),
             "block_table": torch.full(

@@ -66,7 +66,9 @@ class Dense(Module):
     replicated ``(x @ a) * s`` enters ``copy_to_model`` before its ``b``
     slice, under "row" ``x @ a`` is summed before the replicated ``b``, so
     every replicated leaf (``a``, ``s``) gets its whole gradient on every
-    rank.
+    rank. An int8 block (``ops.quant.quantized_spec_tree``: a "col"
+    block's scales are its columns', a "row" block's are whole) is
+    dequantized first and takes the same form.
     ``init_scheme`` is "lecun" or "normal" (N(0, 0.02))."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
@@ -97,10 +99,23 @@ class Dense(Module):
     def quantized(self) -> bool:
         return isinstance(self.w, QuantizedWeight)
 
+    def width(self) -> int:
+        """Output columns of the weight this Dense holds: ``out_dim``, or
+        a "col" block's share of it."""
+        return (self.w.q if self.quantized else self.w).shape[1]
+
     def set_quantized(self, q: torch.Tensor, s: torch.Tensor) -> None:
         """Hold the weight as int8 ``q`` [in, out] and f32 scales ``s``
-        [out] (the float parameter, if any, is dropped)."""
-        if tuple(q.shape) != (self.in_dim, self.out_dim) or q.dtype != torch.int8:
+        [out] (the float parameter, if any, is dropped); or a
+        tensor-parallel block of them (fewer columns under "col", fewer
+        rows under "row")."""
+        rows, cols = (tuple(q.shape) + (0, 0))[:2]
+        fits = (q.dim() == 2 and (rows, cols) == (self.in_dim, self.out_dim)
+                or self.shard == "col" and rows == self.in_dim
+                and cols and self.out_dim % cols == 0
+                or self.shard == "row" and cols == self.out_dim
+                and rows and self.in_dim % rows == 0)
+        if not fits or q.dtype != torch.int8:
             raise ValueError(f"quantized weight {tuple(q.shape)} {q.dtype} does "
                              f"not fit Dense({self.in_dim}, {self.out_dim})")
         self._parameters.pop("w", None)
@@ -121,8 +136,7 @@ class Dense(Module):
 
     def forward(self, x: torch.Tensor, **_) -> torch.Tensor:
         w = dequantize_weight(self.w, x.dtype) if self.quantized else self.w.to(x.dtype)
-        if not self.quantized and self.shard in ("col", "row") and \
-                tuple(w.shape) != (self.in_dim, self.out_dim):
+        if self.shard in ("col", "row") and tuple(w.shape) != (self.in_dim, self.out_dim):
             return self._forward_tp(x, w)
         y = x @ w
         if self.has_lora:

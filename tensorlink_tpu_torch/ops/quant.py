@@ -32,15 +32,21 @@ from torch import nn
 _QUANT_COLS = 4096
 
 
-def quantize_weight_int8(w: torch.Tensor) -> dict:
+def quantize_weight_int8(w: torch.Tensor, group=None) -> dict:
     """[in, out] float -> {"q": int8 [in, out], "s": f32 [out]}, a
     symmetric per-output-channel absmax scale (the reference's math,
-    column block by column block)."""
+    column block by column block). ``group``: ``w`` is a row block of a
+    weight split over that process group (tensor parallel "row"): the
+    absmax is taken over every rank's rows, so the block quantizes as
+    its rows of the whole weight do."""
     q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
     s = torch.empty((w.shape[1],), dtype=torch.float32, device=w.device)
     for c0 in range(0, w.shape[1], _QUANT_COLS):
         wf = w[:, c0:c0 + _QUANT_COLS].float()
         absmax = wf.abs().amax(dim=0)
+        if group is not None:
+            torch.distributed.all_reduce(absmax, op=torch.distributed.ReduceOp.MAX,
+                                         group=group)
         sc = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
         q[:, c0:c0 + _QUANT_COLS] = torch.clamp(torch.round(wf / sc), -127, 127).to(torch.int8)
         s[c0:c0 + _QUANT_COLS] = sc
@@ -91,7 +97,8 @@ def _dense_cls():
 
 
 @torch.no_grad()
-def quantize_params_int8(module: nn.Module, source: nn.Module | None = None) -> nn.Module:
+def quantize_params_int8(module: nn.Module, source: nn.Module | None = None,
+                         group=None) -> nn.Module:
     """Quantize the weight of every ``Dense`` of ``module``, in place,
     walking the module tree: only ``Dense`` understands the quantized
     form, so a look-alike 2-D ``w`` elsewhere is never touched. Returns
@@ -102,7 +109,12 @@ def quantize_params_int8(module: nn.Module, source: nn.Module | None = None) -> 
     weights instead: each ``Dense`` weight quantized from ``source``'s
     one at a time, every other parameter and buffer shared with
     ``source`` (the same tensors, no copy). That is how the int8 sibling
-    of a served model is built without a second float copy."""
+    of a served model is built without a second float copy.
+
+    ``group``: the process group of the model axis that a module of
+    tensor-parallel blocks is split over. Each block quantizes as its
+    part of the whole weight: a "row" block's scales are taken over
+    ``group``, and a row block without a group raises."""
     Dense = _dense_cls()
     src_mods = dict(source.named_modules()) if source is not None else None
     for name, mod in list(module.named_modules()):
@@ -120,9 +132,39 @@ def quantize_params_int8(module: nn.Module, source: nn.Module | None = None) -> 
             if src is not mod:
                 mod.set_quantized(w.q, w.s)
         elif w.dim() == 2 and w.is_floating_point():
-            qw = quantize_weight_int8(w)
+            row_block = mod.shard == "row" and w.shape[0] != mod.in_dim
+            if row_block and group is None:
+                raise ValueError(
+                    f"{name}: a row block of {w.shape[0]} of {mod.in_dim} "
+                    "input rows quantizes over its model group: pass group="
+                )
+            qw = quantize_weight_int8(w, group if row_block else None)
             mod.set_quantized(qw["q"], qw["s"])
     return module
+
+
+def quantized_spec_tree(spec_tree, params):
+    """The ``param_spec`` tree of a quantized model (the reference's
+    ``quantized_spec_tree``): where ``params`` (nested, or a flat state
+    dict) holds a weight as ``{"q", "s"}``, ``q`` keeps the float
+    weight's spec and the per-output-channel scale ``s`` takes the spec
+    of the weight's last axis, so a "col" weight shards its scales with
+    its columns and a "row" or replicated weight keeps them whole."""
+    from tensorlink_tpu_torch.nn.module import P, is_spec
+    from tensorlink_tpu_torch.utils.trees import nest
+
+    def walk(spec, leaf):
+        if isinstance(leaf, dict) and set(leaf) == {"q", "s"}:
+            last = spec[-1] if is_spec(spec) and len(spec) else None
+            return {"q": spec, "s": P(last)}
+        if isinstance(leaf, dict) and not is_spec(spec):
+            return {k: walk(spec[k], leaf[k]) if k in spec else spec.get(k)
+                    for k in leaf}
+        return spec
+
+    if not any(isinstance(v, dict) for v in params.values()):
+        params = nest(params)
+    return walk(spec_tree, params)
 
 
 def is_quantized(module_or_state) -> bool:

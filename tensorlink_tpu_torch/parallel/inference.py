@@ -1,7 +1,7 @@
-"""Single-device inference engine (port of
-``tensorlink_tpu/parallel/inference.py``): ``GenerationConfig``, the
-sampling math, and ``InferenceEngine``, which holds a model on one
-device under the serving dtype policy, sizes its KV cache, and runs the
+"""Inference engine (port of ``tensorlink_tpu/parallel/inference.py``):
+``GenerationConfig``, the sampling math, and ``InferenceEngine``, which
+holds a model on one device (or, on a mesh, this rank's blocks of it)
+under the serving dtype policy, sizes its KV cache, and runs the
 static-batch ``generate``: one prefill of the left-padded prompts into a
 contiguous cache (or a ring, ``rolling_cache=True``), then T == 1 decode
 steps. Each decode step reads its index from a device counter and
@@ -33,12 +33,27 @@ prefill over the T0 left-padded prompt tokens (pads first in each
 row's capacity count), each decode step at T == 1; the engines in
 ``parallel/serving.py`` call it at the reference's T the same way.
 
-Mesh/tensor parallelism and the sequence-sharded cache wait for later
-slices.
+**Serving on a mesh** (``mesh=``, a ``runtime.mesh.make_mesh`` mesh).
+The engine applies the dtype policy, then cuts every parameter to this
+rank's block by ``model.param_spec`` (``ops.quant.quantized_spec_tree``
+for int8) with ``parallel.tp.shard_params`` and holds the blocks in the
+model's own parameters, so each layer takes its tensor-parallel form
+(``parallel/tp.py``) and every cache holds this rank's KV heads. Every
+model call runs inside ``engine.parallel()``, the model group's
+``tp.model_parallel``: two all-reduces a block and one gather of a
+vocab-sharded head. ``generate`` splits its batch over ``data`` (each
+data coordinate runs its rows; the output is all-gathered over
+``data``). A model axis must divide ``num_kv_heads``, and a MoE model
+is served at model 1 only. ``kv_seq_shard`` keeps the reference's checks,
+then waits for the sequence-sharded cache (ROADMAP queue A item 16).
+``cuda_graphs=True`` needs NCCL groups where a group has more than one
+rank (``runtime.graphs.check_capture_backend``). Unlike the reference,
+``mesh`` is a keyword (the port's engines are built without one).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,7 +66,8 @@ from tensorlink_tpu_torch.nn.attention import DECODE_BLOCK
 from tensorlink_tpu_torch.nn.layers import Dense
 from tensorlink_tpu_torch.nn.moe import MoEFeedForward
 from tensorlink_tpu_torch.ops.quant import is_quantized, quantize_params_int8
-from tensorlink_tpu_torch.runtime.graphs import GraphCache
+from tensorlink_tpu_torch.parallel import tp
+from tensorlink_tpu_torch.runtime.graphs import GraphCache, check_capture_backend
 
 # generate checks whether every row has ended (a host read) once every
 # this many decode steps
@@ -239,6 +255,35 @@ def _quantized_layout(model: nn.Module, state: dict) -> None:
             mod.set_quantized(state[qn], state[qn[:-1] + "s"])
 
 
+def _holds_blocks(model: nn.Module) -> bool:
+    """True when ``model`` already holds tensor-parallel blocks (a
+    ``Dense`` weight narrower or shorter than declared): an engine then
+    keeps them as this rank's, as the int8 sibling of a mesh engine
+    does."""
+    for mod in model.modules():
+        if isinstance(mod, Dense):
+            w = mod.w.q if mod.quantized else mod.w
+            if tuple(w.shape) != (mod.in_dim, mod.out_dim):
+                return True
+    return False
+
+
+def _hold_blocks(model: nn.Module, local: dict) -> None:
+    """Make ``model`` hold the tensors of ``local`` (its state-dict names;
+    blocks narrower than the declared shapes) as its parameters and
+    buffers, in place of the whole ones."""
+    mods = dict(model.named_modules())
+    for name, t in local.items():
+        if t.untyped_storage().nbytes() != t.numel() * t.element_size():
+            t = t.clone()  # a view (a row block) would keep the whole alive
+        owner, _, leaf = name.rpartition(".")
+        mod = mods[owner]
+        if leaf in mod._parameters:
+            mod._parameters[leaf] = nn.Parameter(t, requires_grad=False)
+        else:
+            mod._buffers[leaf] = t
+
+
 def weight_pass_bytes(model: nn.Module) -> int:
     """Bytes one weight pass of a decoder reads: every ``Dense`` weight
     as stored (int8 ``q`` plus f32 scales ``s``, or the float matrix),
@@ -269,7 +314,8 @@ def generate_row_seeds(seed: int, batch: int, device) -> torch.Tensor:
 
 
 class InferenceEngine:
-    """A decoder model and its params on one device, ready to serve.
+    """A decoder model and its params on one device (or this rank's
+    blocks of them on a mesh), ready to serve.
 
     ``model`` follows the decoder contract of ``models/llama.py`` and
     ``models/gpt2.py``: ``model(ids, caches=..., positions=..., mask=...,
@@ -298,7 +344,13 @@ class InferenceEngine:
     quantized in place (its float ``Dense`` weights are replaced), unless
     it, or ``params``, is quantized already. ``weight_bytes`` is what
     one weight pass reads (int8 weights at one byte plus their f32
-    scales), the figure ``runtime/profiling.py`` ``program_cost`` bills.
+    scales), the figure ``runtime/profiling.py`` ``program_cost`` bills;
+    on a mesh, this rank's blocks.
+
+    ``mesh`` (with ``data_axis``, ``model_axis``, ``kv_seq_shard``,
+    ``seq_axis``): serving on a mesh (module docstring). A model handed in
+    with whole weights is cut to this rank's blocks (in place); one that
+    already holds blocks keeps them.
     """
 
     def __init__(
@@ -313,30 +365,24 @@ class InferenceEngine:
         rolling_cache: bool = False,
         cuda_graphs: bool = True,
         quantize: str | None = None,
+        mesh=None,
+        data_axis: str = "data",
+        model_axis: str = "model",
+        kv_seq_shard: bool = False,
+        seq_axis: str = "seq",
     ):
         if quantize is not None and quantize != "int8":
             raise ValueError(f"unknown quantize mode {quantize!r}")
+        if device is None and mesh is not None:
+            from tensorlink_tpu_torch.runtime.mesh import mesh_device
+
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
         self.cuda_graphs = bool(cuda_graphs)
         self.step_hook = None
         self._gen_state: dict | None = None
         self.model = model
-        if params is not None:
-            if is_quantized(params):
-                _quantized_layout(model, params)
-            model.load_state_dict(params, strict=True, assign=True)
-        self.quantize = quantize
-        if quantize == "int8" and not is_quantized(model):
-            quantize_params_int8(model)
-        apply_dtype_policy(model, param_dtype, self.device)
-        model.eval()
-        self.weight_bytes = weight_pass_bytes(model)
-        # the user-facing bound stays exactly max_len; only the cache
-        # allocation rounds up to a DECODE_BLOCK multiple
-        self.max_len = int(max_len)
-        self.cache_len = -(-self.max_len // DECODE_BLOCK) * DECODE_BLOCK
-        self.cache_dtype = cache_dtype
-        self.param_dtype = param_dtype
+        self.mesh = mesh
         # a windowless model needs every past token: a ring would silently
         # drop context, so the model must declare a window
         self.rolling = bool(rolling_cache)
@@ -352,6 +398,113 @@ class InferenceEngine:
                     "(e.g. LlamaConfig(attn_window=...)); this model "
                     "declares no attention window"
                 )
+        # sequence-sharded serving: the reference's checks, then the
+        # queue item that holds the sharded slot dimension
+        self.kv_seq_shard = bool(kv_seq_shard)
+        self.seq_axis = seq_axis
+        if self.kv_seq_shard:
+            sizes = self.mesh_sizes()
+            if sizes.get(seq_axis, 1) < 2:
+                raise ValueError(
+                    f"kv_seq_shard=True needs mesh axis {seq_axis!r} of "
+                    f"size >= 2 (got mesh {sizes})"
+                )
+            if self.rolling:
+                raise NotImplementedError(
+                    "kv_seq_shard with rolling_cache is not supported: "
+                    "ring-buffer slot wrapping and slot-dim sharding "
+                    "would need owner-aware wrapped writes"
+                )
+            raise NotImplementedError(
+                "kv_seq_shard=True (the KV cache's slot dimension sharded "
+                "over the seq axis) is not ported yet: ROADMAP queue A "
+                "item 16"
+            )
+        if params is not None:
+            if is_quantized(params):
+                _quantized_layout(model, params)
+            model.load_state_dict(params, strict=True, assign=True)
+        self.quantize = quantize
+        if quantize == "int8" and not is_quantized(model):
+            quantize_params_int8(model)
+        apply_dtype_policy(model, param_dtype, self.device)
+        model.eval()
+        self._init_mesh(mesh, data_axis, model_axis)
+        self.weight_bytes = weight_pass_bytes(model)
+        # the user-facing bound stays exactly max_len; only the cache
+        # allocation rounds up to a DECODE_BLOCK multiple
+        self.max_len = int(max_len)
+        self.cache_len = -(-self.max_len // DECODE_BLOCK) * DECODE_BLOCK
+        self.cache_dtype = cache_dtype
+        self.param_dtype = param_dtype
+
+    def _init_mesh(self, mesh, data_axis: str, model_axis: str) -> None:
+        """Cut the model to this rank's blocks and keep the groups
+        (module docstring); no mesh: one device, no groups."""
+        self.data_axis, self.model_axis = data_axis, model_axis
+        self.model_group = self.data_group = None
+        self.model_size = self.data_size = 1
+        self.data_rank = 0
+        self._groups: list[tuple[str, int]] = []  # (backend, size) of each group
+        if mesh is None:
+            return
+        from tensorlink_tpu_torch.runtime.mesh import (
+            axis_backend,
+            axis_group,
+            axis_rank,
+            mesh_sizes,
+        )
+
+        sizes = mesh_sizes(mesh)
+        self.model_size = sizes.get(model_axis, 1)
+        self.data_size = sizes.get(data_axis, 1)
+        self.model_group = axis_group(mesh, model_axis)
+        self.data_group = axis_group(mesh, data_axis)
+        self.data_rank = axis_rank(mesh, data_axis)
+        self._groups = [(axis_backend(mesh, axis), n) for axis, n in
+                        ((model_axis, self.model_size), (data_axis, self.data_size))]
+        self.check_capture(self.cuda_graphs)
+        if self.model_size == 1:
+            return
+        model = self.model
+        if getattr(getattr(model, "cfg", None), "moe_experts", 0):
+            raise NotImplementedError(
+                "a MoE model on a model axis > 1 is not served yet (expert "
+                "parallelism: ROADMAP queue A item 16)"
+            )
+        for blk in model.blocks.blocks():
+            hkv = blk.attn.num_kv_heads
+            if hkv % self.model_size:
+                raise ValueError(
+                    f"model axis {self.model_size} does not divide "
+                    f"num_kv_heads {hkv}: each rank must hold whole KV "
+                    "heads (and, fused, whole q/k/v groups)"
+                )
+        if not _holds_blocks(model):
+            local = tp.shard_params(dict(model.state_dict()), model, mesh, model_axis)
+            _hold_blocks(model, local)
+
+    def check_capture(self, cuda_graphs: bool) -> None:
+        """Refuse ``cuda_graphs=True`` (here or in a serving engine over
+        this one) where a group's collectives cannot be captured
+        (``runtime.graphs.check_capture_backend``)."""
+        for backend, n in self._groups:
+            check_capture_backend(self.device.type, backend, n, cuda_graphs)
+
+    def mesh_sizes(self) -> dict[str, int]:
+        """{axis: size} of the engine's mesh ({} without one)."""
+        if self.mesh is None:
+            return {}
+        from tensorlink_tpu_torch.runtime.mesh import mesh_sizes
+
+        return mesh_sizes(self.mesh)
+
+    def parallel(self):
+        """The context every model call runs in: the model group's
+        ``tp.model_parallel`` on a mesh, nothing without one."""
+        if self.model_group is None:
+            return contextlib.nullcontext()
+        return tp.model_parallel(self.model_group)
 
     def cache_plan(self, T0: int, max_new: int) -> tuple[int, bool]:
         """-> (cache slots, ring?) of a ``generate`` call with prompts of
@@ -388,8 +541,21 @@ class InferenceEngine:
             pad = torch.ones_like(ids)
         else:
             pad = torch.as_tensor(np.asarray(pad_mask), device=self.device).long()
-        with torch.no_grad():
-            return self._run(ids, pad, gen, seed)
+        seeds = generate_row_seeds(seed, B, self.device)
+        n = self.data_size
+        if n > 1:
+            # the batch rides the data axis: this coordinate's rows
+            if B % n:
+                raise ValueError(f"batch {B} does not split over data axis {n}")
+            rows = slice(self.data_rank * (B // n), (self.data_rank + 1) * (B // n))
+            ids, pad, seeds = ids[rows], pad[rows], seeds[rows]
+        with torch.no_grad(), self.parallel():
+            out = self._run(ids, pad, gen, seeds)
+            if n > 1:
+                full = out.new_empty((B, out.shape[1]))
+                torch.distributed.all_gather_into_tensor(full, out, group=self.data_group)
+                out = full
+        return out
 
     def generate(self, ids, gen: GenerationConfig | None = None, *,
                  pad_mask=None, seed: int = 0) -> np.ndarray:
@@ -436,7 +602,7 @@ class InferenceEngine:
         }
         return st
 
-    def _run(self, ids, pad, gen: GenerationConfig, seed: int) -> torch.Tensor:
+    def _run(self, ids, pad, gen: GenerationConfig, seeds) -> torch.Tensor:
         model, dev = self.model, self.device
         B, T0 = ids.shape
         max_new, eos, W = gen.max_new_tokens, gen.eos_token_id, self.window
@@ -459,7 +625,7 @@ class InferenceEngine:
         hidden, _ = model(ids, caches=caches, positions=pos, mask=mask,
                           logits=False)
         st["index"].fill_(T0)
-        st["seed"].copy_(generate_row_seeds(seed, B, dev))
+        st["seed"].copy_(seeds)
         tok = sample_logits_at(model.head(hidden[:, -1]), st["seed"],
                                torch.zeros_like(st["seed"]), gen.temperature,
                                gen.top_k, gen.top_p)

@@ -73,6 +73,18 @@ buffers. The chunk body reads no host value but its graph key (the
 blocks of a blockwise read on the contiguous cache above 2048 slots) and
 makes no host read.
 
+**On a mesh** (an ``InferenceEngine(mesh=)``): the caches and pools
+hold this rank's KV heads and every model call runs in the model
+group's ``tp.model_parallel`` (``submit`` and ``step`` enter it). The
+contiguous engine splits its slots over ``data`` when they divide
+(``local_slots`` rows of device state from slot ``_slot0`` on): every
+rank runs the same host scheduler on the same submissions, a prefill
+runs on the coordinate that holds its slot and broadcasts its first
+token, and the chunk body all-gathers its tokens over ``data`` before
+the host copy; otherwise every rank holds every slot, as in the
+reference. The paged engine refuses ``data`` > 1 and disaggregation
+refuses ``model`` > 1, as the reference's messages say.
+
 Chunks in flight: as in the reference, ``pipeline_depth`` (default 2)
 decode chunks stay in flight. Each dispatch copies the chunk's tokens
 into one of ``pipeline_depth + 1`` pinned host buffers and records an
@@ -445,6 +457,7 @@ class ContinuousBatchingEngine:
                 "continuous batching over a rolling (ring) cache would "
                 "need per-row wrap bookkeeping; use the monotone cache"
             )
+        engine.check_capture(cuda_graphs)
         self.engine = engine
         self.device = engine.device
         self.gen = gen or GenerationConfig()
@@ -453,6 +466,14 @@ class ContinuousBatchingEngine:
                 f"top_p must be in (0, 1] (1.0 = off), got {self.gen.top_p}"
             )
         self.slots = S = int(slots)
+        # slots ride the data axis when they split over it (the
+        # reference's rule): this data coordinate holds local_slots rows
+        # of the device state from slot _slot0 on; otherwise every
+        # coordinate holds every slot
+        D = engine.data_size
+        self._dp = D > 1 and S % D == 0
+        self.local_slots = Sl = S // D if self._dp else S
+        self._slot0 = engine.data_rank * Sl if self._dp else 0
         self.decode_chunk = int(decode_chunk)
         self.pipeline_depth = max(int(pipeline_depth), 0)
         self.prefill_block = int(prefill_block)
@@ -517,13 +538,13 @@ class ContinuousBatchingEngine:
         self.spec_idle_draft_steps = 0  # draft steps no row needed
 
         dev = self.device
-        self._valid = torch.zeros((S, L), dtype=torch.bool, device=dev)
-        self._n_valid = torch.zeros((S,), dtype=torch.int32, device=dev)
-        self._tok = torch.zeros((S,), dtype=torch.int64, device=dev)
-        self._remaining = torch.zeros((S,), dtype=torch.int32, device=dev)
-        self._live = torch.zeros((S,), dtype=torch.bool, device=dev)
-        self._seed = torch.zeros((S,), dtype=torch.int64, device=dev)
-        self._rows = torch.arange(S, device=dev)
+        self._valid = torch.zeros((Sl, L), dtype=torch.bool, device=dev)
+        self._n_valid = torch.zeros((Sl,), dtype=torch.int32, device=dev)
+        self._tok = torch.zeros((Sl,), dtype=torch.int64, device=dev)
+        self._remaining = torch.zeros((Sl,), dtype=torch.int32, device=dev)
+        self._live = torch.zeros((Sl,), dtype=torch.bool, device=dev)
+        self._seed = torch.zeros((Sl,), dtype=torch.int64, device=dev)
+        self._rows = torch.arange(Sl, device=dev)
         self._graphs = GraphCache(dev, enabled=cuda_graphs)
         # dispatched, not yet drained: (host output, event or None, the
         # dispatch-time slot -> request snapshot, slot -> the most
@@ -574,19 +595,56 @@ class ContinuousBatchingEngine:
 
     def _init_out(self) -> None:
         """The chunk's device output and the pinned host buffers the
-        chunks in flight copy it to; their shape follows the mode."""
-        S = self.slots
+        chunks in flight copy it to; their shape follows the mode. Slots
+        split over ``data``: the chunk writes its local slots' columns,
+        then all-gathers every slot's (``_gather_out``)."""
         if self.spec is None:
-            out_shape = (self.decode_chunk, S)
+            shape = (self.decode_chunk,)
         else:
             cfg = self.spec.cfg
-            out_shape = (cfg.rounds, cfg.k + 1 + _SPEC_EXTRA, S)
-        self._out = torch.zeros(out_shape, dtype=torch.int64, device=self.device)
-        pin = self.device.type == "cuda"
+            shape = (cfg.rounds, cfg.k + 1 + _SPEC_EXTRA)
+        dev, S = self.device, self.slots
+        self._out = torch.zeros(shape + (self.local_slots,), dtype=torch.int64, device=dev)
+        self._out_all = self._out
+        if self._dp:
+            self._out_all = torch.zeros(shape + (S,), dtype=torch.int64, device=dev)
+            self._out_rows = torch.zeros((S,) + shape, dtype=torch.int64, device=dev)
+        pin = dev.type == "cuda"
         self._host_out = [
-            torch.zeros(out_shape, dtype=torch.int64, pin_memory=pin)
+            torch.zeros(shape + (S,), dtype=torch.int64, pin_memory=pin)
             for _ in range(self.pipeline_depth + 1)
         ]
+
+    def _gather_out(self) -> None:
+        """Every slot's chunk output into ``_out_all``: an all-gather of
+        the local columns over ``data`` when the slots split over it (in
+        the chunk body, before the host reads it)."""
+        if not self._dp:
+            return
+        torch.distributed.all_gather_into_tensor(
+            self._out_rows, self._out.movedim(-1, 0).contiguous(),
+            group=self.engine.data_group)
+        self._out_all.copy_(self._out_rows.movedim(0, -1))
+
+    def _local(self, slot: int) -> int | None:
+        """This rank's row of a slot's device state; None where another
+        data coordinate holds the slot."""
+        i = slot - self._slot0
+        return i if 0 <= i < self.local_slots else None
+
+    def _first_token(self, loc: int | None, slot: int) -> torch.Tensor:
+        """A prefill's first token on every rank: the slot's own row, or,
+        when the slots split over ``data``, broadcast from the coordinate
+        that holds the slot (every coordinate admits the same requests in
+        the same order, so each joins the broadcast)."""
+        if not self._dp:
+            return self._tok[slot]
+        tok = (self._tok[loc].clone() if loc is not None
+               else torch.zeros((), dtype=torch.int64, device=self.device))
+        group = self.engine.data_group
+        src = torch.distributed.get_global_rank(group, slot // self.local_slots)
+        torch.distributed.broadcast(tok, src=src, group=group)
+        return tok
 
     # ------------------------------------------------------- warm start
     def _autotune_buckets(self) -> tuple[int, ...]:
@@ -656,8 +714,9 @@ class ContinuousBatchingEngine:
         for Tp in self._autotune_buckets():
             ids = torch.zeros((1, Tp), dtype=torch.int64, device=dev)
             pos = torch.arange(Tp, device=dev)[None, :]
-            self.engine.model(ids, caches=self._slot_caches(self._kv, 0),
-                              positions=pos, mask=None, logits=False)
+            with self.engine.parallel():
+                self.engine.model(ids, caches=self._slot_caches(self._kv, 0),
+                                  positions=pos, mask=None, logits=False)
         self._valid[0] = False
         self._cache_index[0] = 0
 
@@ -671,9 +730,9 @@ class ContinuousBatchingEngine:
             self._graphs.clear()
 
     def _init_state(self) -> None:
-        """Every layer's [S, L] cache regions and the per-slot write
-        index they share."""
-        eng, S = self.engine, self.slots
+        """Every layer's [S, L] cache regions (this rank's slots and KV
+        heads) and the per-slot write index they share."""
+        eng, S = self.engine, self.local_slots
         caches = eng.model.init_caches(S, self.L, dtype=eng.cache_dtype)
         self._kv = [(c["attn"]["k"], c["attn"]["v"]) for c in caches]
         k0 = self._kv[0][0]
@@ -683,7 +742,7 @@ class ContinuousBatchingEngine:
         # host mirror: each slot's device write index is _slot_base plus
         # the request's tokens banked so far, less one (the last sampled
         # token is not yet fed)
-        self._slot_base = [0] * S
+        self._slot_base = [0] * self.slots
         self.kv_bytes = sum(t.numel() * t.element_size() for kv in self._kv for t in kv)
 
     def _init_spec_state(self) -> None:
@@ -696,7 +755,7 @@ class ContinuousBatchingEngine:
         per-row effective K, filled before each dispatch."""
         if self.spec is None:
             return
-        S, L, K = self.slots, self.L, self.spec.cfg.k
+        S, L, K = self.local_slots, self.L, self.spec.cfg.k
         dev = self.device
         self._k_eff = torch.full((S,), K, dtype=torch.int32, device=dev)
         self._dlg = None
@@ -749,7 +808,7 @@ class ContinuousBatchingEngine:
             self.engine.model.cfg, program, rows=rows, steps=steps,
             frontier=frontier, k=k,
             weight_bytes=self.engine.weight_bytes,
-            kv_token_bytes=self._kv_token_bytes,
+            kv_token_bytes=self._kv_token_bytes, shards=self.engine.model_size,
         )
 
     # ------------------------------------------------------------ submit
@@ -779,7 +838,7 @@ class ContinuousBatchingEngine:
         prio = _coerce_priority(priority)
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
-        with self._lock:
+        with self._lock, self.engine.parallel():
             # a due downgrade applies before this prompt admits: it must
             # not prefill into a mode already measured as a loss
             self._maybe_self_heal()
@@ -904,7 +963,9 @@ class ContinuousBatchingEngine:
         (a slot's contiguous region is private and the next admission's
         prefill resets the row, so nothing needs draining). The paged
         engine retires the row and drains the chunks in flight first."""
-        self._live[req.slot] = False
+        loc = self._local(req.slot)
+        if loc is not None:
+            self._live[loc] = False
 
     def cancel(self, rid: int, *, error: BaseException | None = None) -> bool:
         """Cancel a queued or running request: its slot (and paged blocks)
@@ -987,26 +1048,29 @@ class ContinuousBatchingEngine:
         qslot = torch.arange(Tp, device=dev)[:, None]
         mask = ((qslot >= qslot.T) & real[None, :])[None, None]  # key at or before query
         model = self.engine.model
-        probe = self._timer_start()
-        hidden, _ = model(ids, caches=self._slot_caches(self._kv, slot),
-                          positions=pos, mask=mask, logits=False)
-        if self.spec is not None and self.spec.mode == "draft":
-            self.spec.draft.model(ids, caches=self._slot_caches(self._draft_kv, slot),
-                                  positions=pos, mask=mask, logits=False)
-        elif self.spec is not None:
-            self._ids[slot, :Tp] = ids[0]
-        self._valid[slot] = False
-        self._valid[slot, :Tp] = real
-        self._cache_index[slot] = Tp
+        loc = self._local(slot)  # None: another data coordinate's slot
+        if loc is not None:
+            probe = self._timer_start()
+            hidden, _ = model(ids, caches=self._slot_caches(self._kv, loc),
+                              positions=pos, mask=mask, logits=False)
+            if self.spec is not None and self.spec.mode == "draft":
+                self.spec.draft.model(ids, caches=self._slot_caches(self._draft_kv, loc),
+                                      positions=pos, mask=mask, logits=False)
+            elif self.spec is not None:
+                self._ids[loc, :Tp] = ids[0]
+            self._valid[loc] = False
+            self._valid[loc, :Tp] = real
+            self._cache_index[loc] = Tp
+            self._start_row(loc, model.head(hidden[0, -1]), req.seed, t0,
+                            req.max_new, True)
+            # only the coordinate that ran the prefill bills it
+            self._note_prefill(req, "prefill", probe, self._cost(
+                "prefill_chunk", rows=1, steps=Tp, frontier=[Tp]))
         self._slot_base[slot] = Tp
         self._slot_ub[slot] = Tp
-        self._start_row(slot, model.head(hidden[0, -1]), req.seed, t0,
-                        req.max_new, True)
-        self._note_prefill(req, "prefill", probe, self._cost(
-            "prefill_chunk", rows=1, steps=Tp, frontier=[Tp]))
         self.prefill_chunks += 1
         req.prefill_chunks += 1
-        req.first_token = self._stash_first(self._tok[slot])
+        req.first_token = self._stash_first(self._first_token(loc, slot))
 
     def _note_prefill(self, req: _Request, program: str, probe, cost) -> None:
         """Time a prefill dispatch that just returned; its handle bills
@@ -1180,6 +1244,7 @@ class ContinuousBatchingEngine:
                 ended = ended | (nxt == gen.eos_token_id)
             self._tok.copy_(torch.where(live, nxt, self._tok))
             live.logical_and_(~ended)
+        self._gather_out()
 
     def _spec_open_mask(self, f0):
         """History validity for the verify and draft passes, open at and
@@ -1271,7 +1336,8 @@ class ContinuousBatchingEngine:
             out[K + 2].copy_(n_acc)
             out[K + 3].copy_(fb.long())
             out[K + 4].copy_(n_prop)
-            out[K + 5].copy_(idle.expand(self.slots))
+            out[K + 5].copy_(idle.expand(self.local_slots))
+        self._gather_out()
 
     def _spec_k_array(self) -> list[int]:
         """Per-slot effective K for the next spec chunk: the controller's
@@ -1306,7 +1372,9 @@ class ContinuousBatchingEngine:
             self._k_dispatch = ks
             if self._kctl is not None:
                 self._kctl.note_dispatch(ks[s] for s in decoding)
-            self._k_eff.copy_(self._to_device(np.asarray(ks, np.int32)))
+            s0 = self._slot0
+            self._k_eff.copy_(self._to_device(
+                np.asarray(ks[s0:s0 + self.local_slots], np.int32)))
             probe = self._timer_start()
             self._graphs.run(self._spec_key(frontier),
                              lambda: self._spec_chunk_body(frontier),
@@ -1323,11 +1391,11 @@ class ContinuousBatchingEngine:
         self._dispatched += 1
         event = None
         if self.device.type == "cuda":
-            host.copy_(self._out, non_blocking=True)
+            host.copy_(self._out_all, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
         else:
-            host.copy_(self._out)
+            host.copy_(self._out_all)
         live = set(decoding)
         snap = tuple(
             r if s in live else None for s, r in enumerate(self._slot_req)
@@ -1335,11 +1403,13 @@ class ContinuousBatchingEngine:
         self._inflight.append((host, event, snap, adv, disp))
         self._advance_ub(adv)
         if disp is not None:
-            # each decoding row's write frontier once this chunk has run
+            # this coordinate's rows, and each of its decoding rows' write
+            # frontier once this chunk has run
             disp.cost = self._cost(
-                program, rows=self.slots,
+                program, rows=self.local_slots,
                 steps=self.decode_chunk if self.spec is None else self.spec.cfg.rounds,
-                frontier=[self._slot_ub[s] for s in decoding],
+                frontier=[self._slot_ub[s] for s in decoding
+                          if self._local(s) is not None],
                 k=0 if self.spec is None else self.spec.cfg.k,
             )
 
@@ -1367,7 +1437,7 @@ class ContinuousBatchingEngine:
             self._timer.drained(disp)  # right after the sync: exact
             if self.metering:
                 # before the tokens: a request they finish bills this chunk
-                self._meter_apportion(disp, [r for r in snap if r is not None])
+                self._meter_apportion(disp, self._billed(snap))
         toks = host.numpy()
         if self.spec is None:
             emitted = 0
@@ -1502,6 +1572,16 @@ class ContinuousBatchingEngine:
     def _in_flight(self, req: _Request) -> bool:
         """A chunk still in flight was dispatched for ``req``."""
         return any(r is req for e in self._inflight for r in e[2])
+
+    def _billed(self, snap) -> list[_Request]:
+        """The requests a drained chunk bills: the occupied rows of its
+        dispatch-time snapshot that this data coordinate holds. Where the
+        slots split over ``data`` and it held none, the chunk still ran
+        (every coordinate runs every chunk): every occupied row bills
+        it, so a request's receipts over the ranks sum to its cost."""
+        occupied = [(s, r) for s, r in enumerate(snap) if r is not None]
+        local = [r for s, r in occupied if self._local(s) is not None]
+        return local or [r for _, r in occupied]
 
     def _meter_apportion(self, disp, served) -> None:
         """Split one drained chunk's busy seconds, flops and bytes equally
@@ -1647,7 +1727,7 @@ class ContinuousBatchingEngine:
         then drain the oldest chunks until ``pipeline_depth`` stay in
         flight (all of them when nothing was dispatched). Returns False
         when fully idle."""
-        with self._lock:
+        with self._lock, self.engine.parallel():
             return self._step_locked()
 
     def _step_locked(self) -> bool:
@@ -1917,6 +1997,12 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         if L % bs:
             raise ValueError(
                 f"block_size {bs} must divide the cache view width {L}"
+            )
+        if eng.data_size > 1:
+            raise NotImplementedError(
+                "paged serving does not shard over the data axis yet: "
+                "the block pools have no slot-batch dimension to split "
+                "(all slots scatter into the same pool)"
             )
         self.max_blocks = MB = L // bs
         nb = self._num_blocks_arg
@@ -2379,6 +2465,12 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     _GRAFT_WIDTH = 8
 
     def _disagg_guard(self) -> None:
+        if self.engine.model_size > 1:
+            raise NotImplementedError(
+                "disaggregated serving on a model axis > 1 would ship "
+                "head-sharded KV blocks (one share a model rank) on the "
+                "wire; not ported yet: ROADMAP queue A item 15c"
+            )
         if self.spec is not None and self.spec.mode == "draft":
             raise NotImplementedError(
                 "disaggregated serving with a draft model would need "

@@ -296,6 +296,12 @@ class SpeculativeDecoder:
                     "draft engines must use the plain monotone cache "
                     "(no rolling_cache / kv_seq_shard)"
                 )
+            if draft.model_size not in (1, engine.model_size):
+                raise ValueError(
+                    f"draft engine on model axis {draft.model_size} beside "
+                    f"a target on {engine.model_size}: build the draft on "
+                    "the target's mesh and axes (or whole, on model 1)"
+                )
             tv, dv = _vocab_of(engine), _vocab_of(draft)
             if tv is not None and dv is not None and tv != dv:
                 raise ValueError(
@@ -392,16 +398,20 @@ def default_draft_candidates(engine) -> list[tuple[str, object]]:
     the target's ``Dense`` weights one at a time and shares every other
     tensor with it (the embedding table, norms, biases). So no float
     copy of the model ever exists beside the target, and the target's
-    own module is left as it was."""
+    own module is left as it was. On a mesh the sibling is built on the
+    target's mesh and axes from the target's blocks (the reference's
+    ``InferenceEngine(engine.mesh, ...)``)."""
 
     def int8_sibling():
         model = engine.model
         sib = type(model)(model.cfg, device="meta", seed=None)
-        quantize_params_int8(sib, source=model)
+        quantize_params_int8(sib, source=model, group=engine.model_group)
         return InferenceEngine(
             sib, max_len=engine.max_len, cache_dtype=engine.cache_dtype,
             param_dtype=engine.param_dtype, device=engine.device,
             cuda_graphs=engine.cuda_graphs, quantize="int8",
+            mesh=engine.mesh, data_axis=engine.data_axis,
+            model_axis=engine.model_axis,
         )
 
     return [("int8-sibling", int8_sibling)]

@@ -22,6 +22,15 @@ replicated head beside sharded blocks needs no flag. Attention reads its
 local head count from the projected width. A group of size 1 makes every
 collective an identity, and so does a meta tensor (the sharded trainer's
 shape probe).
+
+Each helper counts the collectives it issues in a plain integer, as the
+kernel wrappers count their launches: ``copy_to_model.collectives``
+(backward all-reduces), ``reduce_from_model.collectives`` and
+``gather_from_model.collectives``; ``collective_counts()`` reads them
+and ``reset_collectives()`` zeroes them. An identity (size 1, meta)
+counts nothing. A serving model call on a model axis of size > 1 issues
+two all-reduces a block (attention ``o``, the MLP's ``down``) and one
+gather of a vocab-sharded head.
 """
 
 from __future__ import annotations
@@ -62,11 +71,12 @@ def _size(group) -> int:
     return dist.get_world_size(group)
 
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, helper) -> torch.Tensor:
     if _size(group) == 1 or x.is_meta:  # a meta tensor carries a shape only
         return x
     x = x.contiguous().clone()
     dist.all_reduce(x, group=group)
+    helper.collectives += 1
     return x
 
 
@@ -78,13 +88,13 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
+        return _all_reduce(g, ctx.group, copy_to_model), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return _all_reduce(x, group)
+        return _all_reduce(x, group, reduce_from_model)
 
     @staticmethod
     def backward(ctx, g):
@@ -102,6 +112,7 @@ class _GatherFromModel(torch.autograd.Function):
             return x.new_empty(x.shape[:-1] + (n * x.shape[-1],))
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x.contiguous(), group=group)
+        gather_from_model.collectives += 1
         return torch.cat(parts, dim=-1)
 
     @staticmethod
@@ -124,6 +135,22 @@ def gather_from_model(x: torch.Tensor) -> torch.Tensor:
     return _GatherFromModel.apply(x, model_group())
 
 
+copy_to_model.collectives = 0
+reduce_from_model.collectives = 0
+gather_from_model.collectives = 0
+_COUNTED = (copy_to_model, reduce_from_model, gather_from_model)
+
+
+def collective_counts() -> dict[str, int]:
+    """{helper name: collectives issued} since the last reset."""
+    return {f.__name__: f.collectives for f in _COUNTED}
+
+
+def reset_collectives() -> None:
+    for f in _COUNTED:
+        f.collectives = 0
+
+
 def model_rank() -> int:
     return dist.get_rank(model_group())
 
@@ -131,11 +158,14 @@ def model_rank() -> int:
 def shard_params(params: dict, module, mesh, model_axis: str = "model") -> dict:
     """This rank's blocks of a flat parameter dict (``module``'s dotted
     names), cut by ``module.param_spec(model_axis)`` (adapters by
-    ``lora_spec_tree``) on ``mesh``."""
+    ``lora_spec_tree``, int8 weights ``….w.q`` / ``….w.s`` by
+    ``ops.quant.quantized_spec_tree``) on ``mesh``."""
     from tensorlink_tpu_torch.nn.lora import lora_spec_tree
     from tensorlink_tpu_torch.nn.module import NamedSharding, flat_specs
+    from tensorlink_tpu_torch.ops.quant import quantized_spec_tree
 
-    specs = flat_specs(lora_spec_tree(module.param_spec(model_axis), params))
+    specs = lora_spec_tree(module.param_spec(model_axis), params)
+    specs = flat_specs(quantized_spec_tree(specs, params))
     return {k: NamedSharding(mesh, specs[k]).local(v).contiguous()
             for k, v in params.items()}
 

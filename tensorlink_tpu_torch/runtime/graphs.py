@@ -19,6 +19,14 @@ On the CPU (or with ``enabled=False``) the body simply runs: the CPU has
 no graphs, so this is the device's path and not a fallback. On CUDA a
 failed capture or replay raises.
 
+Under a mesh (``InferenceEngine(mesh=)``) a body runs the model's
+tensor-parallel collectives. A group of size 1 skips them, so at world 1
+the captured body is the one-device body, and capture never touches the
+NCCL communicator the mesh formed. Capture of NCCL collectives at world
+> 1 is allowed but unmeasured (one card); a gloo group of size > 1
+refuses capture (``check_capture_backend``). Replays credit the
+``parallel.tp`` helpers' collective counts as they credit launches.
+
 ``run(key, body, after=)`` calls ``after`` once the call's device work
 is enqueued on the current stream: after the replay, or after a first
 call's warm-up and before its capture (which runs nothing, but holds
@@ -38,12 +46,16 @@ from tensorlink_tpu_torch.ops.flash_attention import (
     flash_attention_fwd_lse,
 )
 from tensorlink_tpu_torch.ops.paged_decode import paged_decode_attention
+from tensorlink_tpu_torch.parallel import tp
 
 # the kernel wrappers and the launch counters each keeps (an int, or a
-# dict of ints by variant / form)
+# dict of ints by variant / form), and the tensor-parallel helpers'
+# collective counts
 COUNTED = (paged_decode_attention, fused_residual_norm,
-           flash_attention_fwd_lse, flash_attention_bwd)
-COUNTER_ATTRS = ("launches", "launches_by_variant", "launches_by_form")
+           flash_attention_fwd_lse, flash_attention_bwd,
+           tp.copy_to_model, tp.reduce_from_model, tp.gather_from_model)
+COUNTER_ATTRS = ("launches", "launches_by_variant", "launches_by_form",
+                 "collectives")
 
 
 def counter_snapshot(fns=COUNTED) -> dict:
@@ -74,6 +86,22 @@ def credit_counters(delta: dict, times: int = 1) -> None:
         else:
             d = getattr(fn, attr)
             d[k] = d.get(k, 0) + times * n
+
+
+def check_capture_backend(device_type: str, backend: str | None, size: int,
+                          cuda_graphs: bool) -> None:
+    """Refuse capture of a body whose collectives cannot be captured: on
+    CUDA with ``cuda_graphs=True``, a process group of size > 1 must be
+    NCCL's (a gloo collective is a host call, which a graph cannot hold).
+    A size-1 group issues no collective (``parallel.tp``), so its body is
+    the one-device body and captures. The engine raises rather than run
+    eager quietly."""
+    if (cuda_graphs and device_type == "cuda" and size > 1
+            and backend != "nccl"):
+        raise ValueError(
+            f"cuda_graphs=True cannot capture collectives of a {backend} "
+            f"group of {size} ranks; pass cuda_graphs=False to run the "
+            "decode steps eagerly, or form the mesh over NCCL")
 
 
 class GraphCache:

@@ -122,6 +122,22 @@ def mesh_sizes(mesh) -> dict[str, int]:
     return {n: mesh.size(i) for i, n in enumerate(names)}
 
 
+def axis_group(mesh, axis: str):
+    """The process group of ``axis`` of a ``DeviceMesh``: the ranks that
+    share this rank's coordinates on every other axis."""
+    return mesh.get_group(axis)
+
+
+def axis_rank(mesh, axis: str) -> int:
+    """This rank's coordinate on ``axis``."""
+    return mesh.get_local_rank(axis)
+
+
+def axis_backend(mesh, axis: str) -> str:
+    """The backend ("nccl", "gloo") of ``axis``'s process group."""
+    return str(dist.get_backend(axis_group(mesh, axis)))
+
+
 def mesh_device(mesh) -> torch.device:
     """The device this rank computes on."""
     if mesh.device_type == "cuda":

@@ -353,6 +353,7 @@ def program_cost(
     k: int = 0,
     weight_bytes: float,
     kv_token_bytes: int,
+    shards: int = 1,
 ) -> dict:
     """Flops and HBM bytes of one dispatch, from the config and the
     dispatch's host-known shape.
@@ -367,7 +368,10 @@ def program_cost(
     one token holds in one layer (scales included). ``weight_bytes``: the
     bytes one weight pass reads as the engine stores them
     (``InferenceEngine.weight_bytes``: int8 weights at one byte plus
-    their f32 scales).
+    their f32 scales). ``shards``: the model axis the dispatch runs on;
+    each rank does 1 / ``shards`` of the flops, and ``weight_bytes`` and
+    ``kv_token_bytes`` are already its own (its blocks, its KV heads), so
+    the cost, MFU and MBU are one rank's.
 
     Counted: every weight is read once a weight pass (one a prefill
     chunk, one a decode step or verify round), the LM head over the rows
@@ -410,4 +414,4 @@ def program_cost(
         nbytes = w_bytes * passes + kv_tok * kv_read
     else:
         raise ValueError(f"unknown program {program!r}")
-    return {"flops": float(flops), "bytes": float(nbytes)}
+    return {"flops": float(flops) / shards, "bytes": float(nbytes)}

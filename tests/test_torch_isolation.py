@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no file of ``tensorlink_tpu_torch/``
-(nor ``chip_smoke.py`` or ``tools/kernel_ab.py``) imports JAX or the JAX package, importing the
-port leaves JAX unloaded, and the entry points never fall back to the
-CPU on their own."""
+(nor ``chip_smoke.py``, the ``tools/`` scripts for the card or the test
+modules spawned ranks import) imports JAX or the JAX package, importing
+the port leaves JAX unloaded, and the entry points never fall back to
+the CPU on their own."""
 
 import ast
 import os
@@ -29,7 +30,8 @@ FORBIDDEN = ("jax", "jaxlib", "tensorlink_tpu")
 
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py"),
-           os.path.join(REPO, "tools", "kernel_ab.py")]
+           os.path.join(REPO, "tools", "kernel_ab.py"),
+           os.path.join(REPO, "tools", "gloo_cuda_check.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -160,6 +162,30 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in mods)
+        + "bad = [m for m in sys.modules if m.split('.')[0] in "
+        + repr(FORBIDDEN) + "]\n"
+        + "assert not bad, bad\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+
+
+# test modules whose functions spawned ranks import: they stand on the port
+RANK_MODULES = ("torch_ranks", "torch_tp_serving_ranks")
+
+
+def test_rank_body_modules_import_no_jax():
+    for name in RANK_MODULES:
+        path = os.path.join(REPO, "tests", f"{name}.py")
+        bad = set(_imported_roots(path)) & set(FORBIDDEN)
+        assert not bad, (name, bad)
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+        + "".join(f"import {m}\n" for m in RANK_MODULES)
         + "bad = [m for m in sys.modules if m.split('.')[0] in "
         + repr(FORBIDDEN) + "]\n"
         + "assert not bad, bad\n"
