@@ -43,6 +43,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    with a fully masked row), each timed beside its plain version, its
    bound and SDPA and its first design's time; B1 with its host us per
    call;
+5b. sp kernel: B2's delta form (``flash_attention_bwd(delta=)``, the
+   ring's backward) at [sp attention]'s block shapes (one rank's queries
+   against a block of keys behind them) against its plain version, timed
+   beside the own-delta form, its bound and flash SDPA's forward and
+   backward at the whole sequence;
 5a. capability: ``measure_capability`` at a size that fills the card (a
    chained 8192-square bf16 matmul, a 1 GiB HBM read), printed with the
    card's name and power limit: the peaks MFU, MBU and the receipt
@@ -100,9 +105,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    T = K+1) and a prefill chunk, none on the general variant; B4 once a
    layer a draft step and never in n-gram mode; one graph, every spec
    chunk but its first a replay; the self-draft above one token a weight
-   pass; acceptance, tokens a weight pass, the spec chunk's wall, kernel
-   ms and busy share, TTFT, decode tokens/s and the share of tokens equal
-   to the run without speculation;
+   pass; acceptance, tokens a weight pass, TTFT, decode tokens/s and the
+   share of tokens equal to the run without speculation (no profiled
+   window: no gate reads one);
 7b. overload: the paged Llama-3-8B engine with a pool of 88 blocks for 4
    requests needing 96, max_queue 2, priorities BATCH, STANDARD,
    INTERACTIVE, BATCH: preemption takes the least protected class first
@@ -150,7 +155,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    gates its collectives (2 x 32 + 1 a model call) and launches (B3 32 a
    paged decode step and prefill chunk, B4 32 a decode step), and the
    parent, on the model rebuilt from the same
-   seed, every token against the world-1 teacher-forced row max;
+   seed, every token against the world-1 teacher-forced row max. In the
+   same job: ``[tp2 disagg]``, two of those requests exported by the TP-2
+   paged engine (payloads at the global KV heads, equal on both ranks)
+   and imported into a TP-2 engine (tokens equal to [tp2 paged]'s, B3 on
+   the decode variant at H 16 / Hkv 4, no prefill chunk) and, in the
+   parent, into a one-rank engine (every token teacher-forced; the
+   payload against a one-rank export's); and first, while each rank
+   still holds the whole model, ``[sp2 static]``: ``generate`` with
+   ``kv_seq_shard=True`` on a seq-2 mesh serves [tp2 static]'s prompts
+   with half of the world-1 cache a rank, B4 32 a decode step, every
+   token teacher-forced in the parent;
 7j. mixtral paged, once the Llama-3-8B model is freed: Mixtral-8x7B at
    full width and 8 of its 32 layers (random bf16 weights, 23.5 GB a
    weight pass; the reference quantizes no expert, the full depth's
@@ -214,7 +229,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    then 15 steps at dropout 0.1 with a falling loss, B1 = B2 = 24 x 4 a
    step, tokens/s, MFU, a profiled step, peak memory and
    ``measure_bubble``'s fit beside the closed form; the process group
-   is destroyed after the two legs, failed or not.
+   is destroyed after the two legs, failed or not;
+10e. sp: two spawned ranks over gloo on cuda:0 (the ring's hops through
+   pinned host buffers, as ``parallel/sp.py`` stages them on gloo): ``[sp
+   attention]`` runs the ring (B1 per block not ahead, B2 given the
+   ring's delta) and Ulysses (B1/B2 at H/2 heads) forward and backward at
+   Llama-3-8B's attention (1 x 8192 as 2 x 4096, H 32 / Hkv 8, D 128,
+   causal) and BERT-base's (8 x 512 as 2 x 256, H 12, D 64, a padding
+   mask), each rank's o, dq, dk, dv against B1/B2 on the whole sequence
+   ([flash]'s tolerances) and its launches per rank (causal ring: B1 and
+   B2's delta form r + 1 times on rank r); then ``[sp2 gpt2]``:
+   GPT-2-medium at full width and depth with ``attn_impl="ring"``
+   through ``ShardedTrainer`` on a seq-2 mesh under 1F1B, [sharded
+   gpt2]'s batch: the first step's loss and every gradient leaf against
+   [sharded gpt2]'s step at seq 1 (its thresholds), B1 and B2's delta
+   form 24 x 4 x (r + 1) a step on rank r, 3 steps' ms and a profiled
+   step's busy share (gloo through host copies: a correctness check,
+   not a speed).
 
 Legs 6-9, 7a, 7b, 7j and 8a run their decode as CUDA-graph replays (the engines' default)
 with ``pipeline_depth`` 2 chunks in flight on the serving engines; the
@@ -235,8 +266,9 @@ after; B4's count in the kernels line sums the four serving legs, the
 captured speculative draft runs, the disaggregated decode legs (float
 and int8) and the legs 7c-7j, B3's the paged leg, the captured
 speculative runs, both disaggregated runs (prefill variant on P, decode
-on D) and the paged legs 7c-7j; B1's and B2's sum legs 10, 10a, 10b, 10c
-and 10d (``[launches] flash_attention``). The
+on D) and the paged legs 7c-7j; B1's and B2's sum legs 10, 10a, 10b, 10c,
+10d and 10e (``[launches] flash_attention``); B2's delta form, leg 10e's
+ring runs. The
 last lines are ``[phase seconds]`` (each phase's wall), the card's name
 and power limit, a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Nothing of JAX or ``tensorlink_tpu``
@@ -375,6 +407,14 @@ CKPT_SAVE_AT, CKPT_STEPS = 2, 4  # [checkpoint]: save after 2 of 4 steps
 SHARD_MICRO = 4  # micro-batches of the sharded legs
 SHARD_BERT_STEPS = 20
 SHARD_GPT2_STEPS = 15
+# [sp *]: two gloo ranks on cuda:0; name -> (B, H, Hkv, whole T, D,
+# causal, mask) of [sp attention]'s cases
+SP_WORLD = 2
+SP_CASES = {
+    "llama": (1, 32, 8, 8192, 128, True, None),
+    "bert": (8, 12, 12, 512, 64, False, "bert"),
+}
+SP2_STEPS = 3
 DEV = "cuda"
 
 
@@ -1024,6 +1064,61 @@ def phase_flash(flush) -> dict:
     }
 
 
+def phase_sp_kernel(flush) -> dict:
+    """B2's delta form at [sp attention]'s block shapes: one rank's T/2
+    queries against a block of T/2 keys behind them (no band), the
+    ``delta`` the ring passes, against the plain version given the same
+    delta ([flash]'s gradient tolerance), timed beside the own-delta
+    form on the same inputs, its bound (reads q, k, v, do, lse and delta
+    once, writes dq, dk, dv once; 10 D operations an attended pair) and
+    the library's yardstick: flash SDPA's forward and backward at the
+    whole sequence (the work the ring's blocks add up to). Returns the
+    Llama row's numbers, with the worst error over both cases."""
+    g = torch.Generator().manual_seed(11)
+    rows, worst = {}, 0.0
+    for name, (B, H, Hkv, T, D, causal, mask) in SP_CASES.items():
+        Tl = T // SP_WORLD
+        q, k, v, do, kv = _flash_inputs(g, B, H, Hkv, Tl, D, mask)
+        o, lse = flash_attention_fwd_lse_reference(q, k, v, kv)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        got = flash_attention_bwd(q, k, v, o, lse, do, kv, delta=delta)
+        ref = flash_attention_bwd_reference(q, k, v, o, lse, do, kv, delta=delta)
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+        rel = {n: _rel(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
+        keep = _flash_keep(B, Tl, kv, False, None)
+        pairs = int(keep.sum()) * H
+        el = q.element_size()
+        qo, kv_b = B * Tl * H * D * el, B * Tl * Hkv * D * el
+        nbytes = 3 * qo + 4 * kv_b + (0 if kv is None else B * Tl) + 2 * B * H * Tl * 4
+        bound, by = _bound(nbytes, 10 * D * pairs)
+        qw, kw_, vw, dow, kvw = _flash_inputs(g, B, H, Hkv, T, D, mask)
+        lib, be = _sdpa_fn(qw, kw_, vw, dow, _flash_keep(B, T, kvw, causal, None),
+                           causal and kvw is None, grad=True)
+        row = {
+            "case": name, "block": [B, H, Hkv, Tl, D], "whole_T": T,
+            "max_abs_err": err, "rel_frobenius": rel,
+            **_timed("", lambda: flash_attention_bwd(q, k, v, o, lse, do, kv,
+                                                     delta=delta), flush),
+            **_timed("own_delta_", lambda: flash_attention_bwd(q, k, v, o, lse, do, kv),
+                     flush),
+            "plain_ms": time_ms(lambda: flash_attention_bwd_reference(
+                q, k, v, o, lse, do, kv, delta=delta), flush, iters=5),
+            **_timed("library_", lib, flush, iters=10),
+            "library": f"{be} forward+backward at the whole sequence",
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": 10 * D * pairs,
+        }
+        say(f"[sp kernel] {json.dumps(row)}")
+        check(max(rel.values()) <= FLASH_GRAD_REL,
+              f"sp kernel {name}: B2's delta form against its plain version {rel}")
+        worst = max(worst, err)
+        rows[name] = row
+        del q, k, v, do, o, got, ref, qw, kw_, vw, dow, lib
+    _free_cuda()
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return dict({k: rows["llama"][k] for k in keys}, max_abs_err=worst)
+
+
 def _teacher_forced(tag: str, model, prompts, outs, first: int = 8) -> dict:
     """Teacher-forced check of every emitted token: the port's no-cache
     forward over prompt plus output must rank each emitted token within
@@ -1223,7 +1318,8 @@ def phase_slice(name_power: str, model: Llama, cap: dict) -> dict:
             "prompts": prompts, "outs": outs, "prof": prof}
 
 
-PROFILE_STEPS = 4  # scheduler steps in each timed window
+PROFILE_STEPS = 4  # scheduler steps in the plain timed window
+PROFILE_PROF_STEPS = 2  # ... and in the profiled one (fewer events to sum)
 PROFILE_NEW = 160  # tokens a profiling request: 20 chunks of 8, so all 8
 # rows still decode through both windows after the paged chunked prefills
 
@@ -1242,9 +1338,10 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
                     max_new: int = PROFILE_NEW, cancel_after: bool = False) -> dict:
     """Where a decode step's time goes: 8 fresh requests are prefilled,
     one pure-decode scheduler step warms the pipeline, then a window of
-    PROFILE_STEPS steps runs between two device syncs plainly and the
-    next under ``torch.profiler`` (CUPTI sees the kernels of graph
-    replays, not the per-op CPU rows). The wall a model step is the plain
+    PROFILE_STEPS steps runs between two device syncs plainly and then
+    PROFILE_PROF_STEPS under ``torch.profiler`` (CUPTI sees the kernels
+    of graph replays, not the per-op CPU rows; ``_device_kernel_times``
+    sums them). The wall a model step is the plain
     window over its model steps (``_model_steps``); the busy share is the
     device's kernel time over the profiled window's wall. The profiler
     records device activity only (the kernels; no host op rows, whose
@@ -1272,7 +1369,7 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
     t_prof = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(PROFILE_PROF_STEPS):
             sch.step()
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
@@ -1285,41 +1382,51 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
         for rid in rids:
             sch.result(rid)
     t_ka = time.perf_counter()
-    kernels = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.self_device_time_total > 0
-    ]
+    kernels = _device_kernel_times(prof)
     host_s = {"prefill": prefill_s, "plain_window": plain_s,
               "profiled_window": t_tail - t_prof, "tail": t_ka - t_tail,
-              "key_averages": time.perf_counter() - t_ka}
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)
+              "kernel_sums": time.perf_counter() - t_ka}
+    busy_us = sum(us for us, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)
     n_model = PROFILE_STEPS * _model_steps(sch)
-    norm_us = sum(e.self_device_time_total for e in kernels if "norm" in e.key.lower())
+    n_prof = PROFILE_PROF_STEPS * _model_steps(sch)
+    norm_us = sum(us for name, (us, _) in kernels.items() if "norm" in name.lower())
     # PyTorch's elementwise kernels: the glue, and under weight-only int8
     # the materialised dequantize (the int8 -> bf16 cast and the scale)
-    elem_us = sum(e.self_device_time_total for e in kernels
-                  if "elementwise" in e.key.lower())
+    elem_us = sum(us for name, (us, _) in kernels.items()
+                  if "elementwise" in name.lower())
     res = {
         "decode_step_s": plain_s / PROFILE_STEPS, "model_steps": _model_steps(sch),
         "model_step_ms": plain_s / n_model * 1e3,
-        "profiled_step_s": prof_s / PROFILE_STEPS,
-        "kernel_ms_per_model_step": busy_us / 1e3 / n_model if busy_us else "not measured",
-        "kernel_ms_per_step": busy_us / 1e3 / PROFILE_STEPS if busy_us else "not measured",
+        "profiled_step_s": prof_s / PROFILE_PROF_STEPS,
+        "kernel_ms_per_model_step": busy_us / 1e3 / n_prof if busy_us else "not measured",
+        "kernel_ms_per_step": (busy_us / 1e3 / PROFILE_PROF_STEPS if busy_us
+                               else "not measured"),
         "device_busy_share": busy_us / 1e6 / prof_s if busy_us else "not measured",
         "norm_kernel_share": norm_us / busy_us if busy_us else "not measured",
-        "elementwise_ms_per_model_step": (elem_us / 1e3 / n_model if busy_us
+        "elementwise_ms_per_model_step": (elem_us / 1e3 / n_prof if busy_us
                                           else "not measured"),
         "pipeline_depth": sch.pipeline_depth,
-        "top_kernels_ms": {
-            e.key[:48]: [e.self_device_time_total / 1e3, e.count] for e in top[:8]
-        },
+        "top_kernels_ms": {name[:48]: [us / 1e3, n] for name, (us, n) in top[:8]},
         "host_s": host_s,
         "card": name_power,
     }
     say(f"[{tag}] {json.dumps(res)}")
     return res
+
+
+def _device_kernel_times(prof) -> dict:
+    """{name: [device us, count]} of a profile's device activity (kernels,
+    copies, memsets), summed straight from its Kineto events:
+    ``key_averages`` first builds a FunctionEvent for every one of them,
+    which took 2-7 s a decode window."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
+            t = out.setdefault(e.name(), [0.0, 0])
+            t[0] += e.duration_ns() / 1e3
+            t[1] += 1
+    return out
 
 
 def _step_line(tag: str, cap: dict, eager: dict, wall_c: float, wall_e: float) -> None:
@@ -1720,6 +1827,7 @@ def _zero_counts() -> None:
     fused_residual_norm.launches_by_form = dict.fromkeys(FORMS, 0)
     flash_attention_fwd_lse.launches = 0
     flash_attention_bwd.launches = 0
+    flash_attention_bwd.launches_by_form = {"own": 0, "delta": 0}
     tp.reset_collectives()
 
 
@@ -1730,6 +1838,7 @@ def _counts() -> dict:
         "fused_norm_by_form": dict(fused_residual_norm.launches_by_form),
         "flash_fwd": flash_attention_fwd_lse.launches,
         "flash_bwd": flash_attention_bwd.launches,
+        "flash_bwd_by_form": dict(flash_attention_bwd.launches_by_form),
         "collectives": sum(tp.collective_counts().values()),
     }
 
@@ -1809,12 +1918,7 @@ def _generate_traced(tag: str, eng, ids, pad, max_new: int, first: int,
     check(first + active in stamps, f"{tag}: the profiled window did not close")
     decode_ms = (stamps[first] - stamps[first - active]) / active * 1e3
     window_s = stamps[first + active] - stamps[first]
-    kernels = {
-        e.key: e.self_device_time_total / active / 1e3
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.self_device_time_total > 0
-    }
+    kernels = {name: us / active / 1e3 for name, (us, _) in _device_kernel_times(prof).items()}
     busy = sum(kernels.values())
     norm = sum(v for k, v in kernels.items() if "norm" in k.lower())
     top = sorted(kernels.items(), key=lambda kv: kv[1], reverse=True)[:8]
@@ -2071,9 +2175,6 @@ def phase_rolling(name_power: str) -> dict:
 SPEC_LENS = (300, 700, 200, 560, 260, 900, 160, 640)
 SPEC_NEW = 32
 SPEC_PHRASE = 64
-SPEC_PROFILE_NEW = 128  # a profiling request: rows still decode through
-# both windows at up to rounds * (k + 1) = 10 tokens a step; they are
-# cancelled after the windows
 SPEC_RUNS = (  # (tag, SpecConfig, the target as its own draft)
     ("ngram", SpecConfig(k=4, rounds=2), False),
     ("draft", SpecConfig(k=3, rounds=2), True),
@@ -2228,10 +2329,7 @@ def phase_spec_paged(name_power: str, model: Llama) -> dict:
         launches["paged"] += c["paged_decode"]
         launches["norm"] += c["fused_norm"]
         tf = _teacher_forced(tag, model, prompts, outs)
-        prof = _profile_decode(sch, cfg.vocab_size, name_power,
-                               tag=f"{tag} profile", max_new=SPEC_PROFILE_NEW,
-                               cancel_after=True)
-        res = _spec_line(tag, sch, rids, outs, plain_outs, wall, prof, name_power)
+        res = _spec_line(tag, sch, rids, outs, plain_outs, wall, None, name_power)
         if self_draft and not spec_cfg.adaptive:
             check(res["tokens_per_weight_pass"] > 1.0,
                   f"{tag}: the self-draft emitted no more than one token a pass")
@@ -2292,11 +2390,7 @@ def phase_spec_contiguous(name_power: str) -> dict:
         if graphs:
             _check_replays(tag, st)
         tf = _teacher_forced(tag, model, prompts, outs)
-        prof = (_profile_decode(sch, gcfg.vocab_size, name_power,
-                                tag=f"{tag} profile", max_new=SPEC_PROFILE_NEW,
-                                cancel_after=True)
-                if graphs else None)
-        _spec_line(tag, sch, rids, outs, None, wall, prof, name_power)
+        _spec_line(tag, sch, rids, outs, None, wall, None, name_power)
         runs[graphs] = (outs, tf)
         del sch, eng
         _free_cuda()
@@ -2619,13 +2713,11 @@ def _fused_llama(model: Llama) -> Llama:
     return fused
 
 
-def phase_fused(name_power: str, model: Llama, prompts, slice_outs, slice_prof: dict,
-                cap: dict) -> dict:
+def phase_fused(name_power: str, model: Llama, prompts, slice_outs, cap: dict) -> dict:
     """The [slice] requests on a ``qkv_fused=True`` Llama-3-8B made from
     the same weights through ``fuse_qkv_params``, captured: launch and
     replay gates, every token teacher-forced against the unfused model
-    (bitwise equality is not expected: the GEMM's shape changes), and the
-    model step against [slice]'s."""
+    (bitwise equality is not expected: the GEMM's shape changes)."""
     fused = _fused_llama(model)
     eng = InferenceEngine(fused, max_len=2048, cache_dtype=torch.bfloat16,
                           param_dtype=torch.bfloat16, device=DEV)
@@ -2634,15 +2726,8 @@ def phase_fused(name_power: str, model: Llama, prompts, slice_outs, slice_prof: 
     _graph_line("fused qkv", sch.stats()["graphs"])
     tf = _teacher_forced("fused qkv", model, prompts, outs)
     same = sum(int((np.asarray(a) == np.asarray(b)).sum()) for a, b in zip(outs, slice_outs))
-    prof = _profile_decode(sch, model.cfg.vocab_size, name_power, tag="fused qkv profile")
     res = {"tokens_equal_to_slice": same, "tokens": tf["tokens"],
-           "worst_gap_vs_unfused": tf["worst_gap"],
-           "model_step_ms": prof["model_step_ms"],
-           "slice_model_step_ms": slice_prof["model_step_ms"],
-           "step_ratio": prof["model_step_ms"] / slice_prof["model_step_ms"],
-           "kernel_ms_per_model_step": prof["kernel_ms_per_model_step"],
-           "device_busy_share": prof["device_busy_share"], "wall_s": wall,
-           "card": name_power}
+           "worst_gap_vs_unfused": tf["worst_gap"], "wall_s": wall, "card": name_power}
     say(f"[fused qkv] {json.dumps(res)}")
     del sch, eng, fused
     _free_cuda()
@@ -2900,8 +2985,7 @@ def phase_mesh_paged(name_power: str, model: Llama, prompts) -> dict:
     each: tokens identical to a no-mesh engine's in this call, one graph
     with every chunk but its first a replay, B3 and B4 launches as
     ``_check_paged_launches`` implies, and no collective (a size-1 group
-    skips them); then its profiled model step (``_profile_decode``). The
-    process group is destroyed after, failed or not.
+    skips them). The process group is destroyed after, failed or not.
     -> the no-mesh tokens (the world-1 run the [tp2 *] legs print
     their agreement with) and the launches."""
     prompts = prompts[:MESH_REQUESTS]
@@ -2935,9 +3019,6 @@ def phase_mesh_paged(name_power: str, model: Llama, prompts) -> dict:
         say(f"[mesh paged] {json.dumps(res)}")
         check(equal, "mesh paged: tokens differ from the no-mesh engine's")
         check(c["collectives"] == 0, "mesh paged: a size-1 group issued a collective")
-        # the model step beside [slice]'s (same geometry, no mesh)
-        _profile_decode(sch, model.cfg.vocab_size, name_power, tag="mesh paged profile",
-                        cancel_after=True)
         del sch, eng
     finally:
         shutdown_distributed()
@@ -2973,12 +3054,13 @@ def _tp2_leg(tag: str, rank: int, fn, calls) -> tuple:
 def _tp2_rank(rank: int, world: int, store: str, prompts, s_ids, s_pad,
               out_dir: str, name_power: str) -> None:
     """One rank of the [tp2 *] job: a gloo group of two ranks on cuda:0,
-    Llama-3-8B at full width and depth cut to this rank's blocks by
-    ``InferenceEngine(mesh=)`` (the whole model is built one rank at a
-    time, then freed), served eagerly through the paged and contiguous
-    engines and ``generate``; every gate raises in the rank that fails.
-    Rank 0 prints; the other ranks' output goes nowhere (errors still
-    reach stderr)."""
+    Llama-3-8B at full width and depth, first whole on every rank for
+    [sp2 static], then cut to this rank's blocks by
+    ``InferenceEngine(mesh=)``, served eagerly through the paged and
+    contiguous engines ([tp2 disagg] after the paged leg) and
+    ``generate``; every gate raises in the rank that fails. Rank 0
+    prints; the other ranks' output goes nowhere (errors still reach
+    stderr)."""
     if rank:
         sys.stdout = open(os.devnull, "w")
     torch.cuda.set_device(0)
@@ -2989,23 +3071,21 @@ def _tp2_rank(rank: int, world: int, store: str, prompts, s_ids, s_pad,
         mesh = make_mesh(MeshConfig(model=world), device="cpu")
         cfg = LlamaConfig.llama3_8b()
         L = cfg.num_layers
-        for r in range(world):
-            if r == rank:
-                model = Llama(cfg, device=DEV, dtype=torch.bfloat16, seed=0)
-                whole = weight_pass_bytes(model)
-                eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
-                                      param_dtype=torch.bfloat16, device=DEV,
-                                      mesh=mesh, cuda_graphs=False)
-                _free_cuda()
-            torch.distributed.barrier()
+        gen = GenerationConfig(max_new_tokens=MESH_NEW)
+        model = Llama(cfg, device=DEV, dtype=torch.bfloat16, seed=0)
+        sp2 = _sp2_static(rank, world, model, s_ids, s_pad, gen)
+        whole = weight_pass_bytes(model)
+        eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16, device=DEV,
+                              mesh=mesh, cuda_graphs=False)
+        _free_cuda()
         if rank == 0:
             say(f"[tp2] Llama-3-8B over a gloo group of {world} ranks on cuda:0: "
                 f"rank 0 holds {eng.weight_bytes} weight bytes a pass (whole model "
                 f"{whole}, half of it {whole // world}); q block "
                 f"{tuple(model.blocks.blocks()[0].attn.q.w.shape)}, "
                 f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated by rank 0")
-        res = {"weight_bytes": eng.weight_bytes, "whole_bytes": whole}
-        gen = GenerationConfig(max_new_tokens=MESH_NEW)
+        res = {"weight_bytes": eng.weight_bytes, "whole_bytes": whole, "sp2_static": sp2}
 
         sch = PagedContinuousBatchingEngine(
             eng, slots=8, block_size=16, prefill_chunk=128, decode_chunk=8, gen=gen,
@@ -3024,6 +3104,7 @@ def _tp2_rank(rank: int, world: int, store: str, prompts, s_ids, s_pad,
                         "prefill_chunks": st["prefill_chunks"]}
         del sch
         _free_cuda()
+        res["disagg"] = _tp2_disagg(rank, world, eng, prompts, gen, outs, out_dir)
 
         sch = ContinuousBatchingEngine(eng, slots=MESH_REQUESTS, decode_chunk=8,
                                        gen=gen, cuda_graphs=False)
@@ -3054,6 +3135,108 @@ def _tp2_rank(rank: int, world: int, store: str, prompts, s_ids, s_pad,
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         shutdown_distributed()
+
+
+TP2_DISAGG_REQUESTS = 2  # [tp2 disagg]: [slice]'s first two requests
+
+
+def _tp2_disagg(rank: int, world: int, eng, prompts, gen, colocated, out_dir: str) -> dict:
+    """[tp2 disagg] on this rank: [slice]'s first TP2_DISAGG_REQUESTS
+    requests' prefill exported by a TP-2 paged engine (the blocks
+    all-gathered to the global KV heads: the same payload on every rank)
+    and imported into another TP-2 paged engine, eager: its tokens must
+    equal [tp2 paged]'s (``colocated``), and its decode leg must launch
+    B3 on the decode variant only (H 16 / Hkv 4 a rank), 32 a decode
+    step, and B4 32 a decode step. Rank 0 saves the payloads for the
+    parent's one-rank engine."""
+    cfg = eng.model.cfg
+    L = cfg.num_layers
+    kw = dict(slots=8, block_size=16, prefill_chunk=128, decode_chunk=8, gen=gen,
+              cuda_graphs=False)
+    P = PagedContinuousBatchingEngine(eng, **kw)
+    t0 = time.perf_counter()
+    payloads = [P.prefill_export(p) for p in prompts[:TP2_DISAGG_REQUESTS]]
+    export_s = time.perf_counter() - t0
+    del P
+    _free_cuda()
+    D = PagedContinuousBatchingEngine(eng, **kw)
+    _zero_counts()
+    t0 = time.perf_counter()
+    rids = [D.import_prefill(pl) for pl in payloads]
+    D.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _counts()
+    by_variant = dict(paged_decode_attention.launches_by_variant)
+    outs = [np.asarray(D.result(rid)) for rid in rids]
+    steps = D.stats()["decode_steps"]
+    heads = tuple(payloads[0]["layers"][0]["k"].shape)
+    attn = eng.model.blocks.blocks()[0].attn
+    q_heads = attn.q.w.shape[1] // attn.head_dim
+    pool = tuple(D._pools[0]["k"].shape)
+    res = {"export_s": export_s, "import_decode_wall_s": wall, "payload_k_block": heads,
+           "pool": pool, "decode_steps": steps, "launches": c, "by_variant": by_variant}
+    if rank == 0:
+        say(f"[tp2 disagg] rank 0: {json.dumps(res)}")
+        torch.save(payloads, os.path.join(out_dir, "disagg.pt"))
+    check(heads[2] == cfg.num_kv_heads and pool[2] == cfg.num_kv_heads // world
+          and q_heads == cfg.num_heads // world,
+          f"tp2 disagg: payload blocks {heads} (want every KV head), pools {pool}, "
+          f"{q_heads} query heads a rank")
+    check(all(np.array_equal(a, b) for a, b in zip(outs, colocated)),
+          "tp2 disagg: the imported requests' tokens differ from [tp2 paged]'s")
+    check(c["paged_decode"] == by_variant["decode"] == L * steps > 0
+          and by_variant["prefill"] == by_variant["general"] == 0,
+          f"tp2 disagg: B3 launches {by_variant}, expected {L} x {steps} on the decode "
+          "variant and no prefill chunk")
+    check(c["fused_norm"] == L * steps, f"tp2 disagg: B4 launches {c['fused_norm']}")
+    del D, payloads
+    _free_cuda()
+    return {"outs": outs, "q_heads": q_heads, **res}
+
+
+def _sp2_static(rank: int, world: int, model, s_ids, s_pad, gen) -> dict:
+    """[sp2 static] on this rank: the whole Llama-3-8B through
+    ``InferenceEngine(kv_seq_shard=True)`` on a seq mesh of the same gloo
+    group, eager: [tp2 static]'s prompts, B4 32 a decode step and no
+    other kernel, this rank's cache at 1 / world of the world-1 cache of
+    the same plan. The model is left whole."""
+    seq_mesh = make_mesh(MeshConfig(seq=world), device="cpu")
+    L = model.cfg.num_layers
+    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV, mesh=seq_mesh,
+                          kv_seq_shard=True, cuda_graphs=False)
+    stamps = {}
+
+    def hook(i):  # before decode step i: steps 4 .. MESH_NEW - 2 are timed
+        torch.cuda.synchronize()
+        stamps[i] = time.perf_counter()
+
+    eng.step_hook = hook
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(s_ids, gen, pad_mask=s_pad)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _counts()
+    _check_decode_launches("sp2 static", c, L * (MESH_NEW - 1), "rms")
+    decode_ms = (stamps[MESH_NEW - 1] - stamps[4]) / (MESH_NEW - 5) * 1e3
+    st = eng._gen_state
+    B, slots = st["valid"].shape
+    cache = sum(t.numel() * t.element_size() for c_ in st["caches"]
+                for t in (c_["attn"]["k"], c_["attn"]["v"]))
+    whole = _cache_bytes(eng, B, slots)
+    res = {"wall_s": wall, "decode_ms": decode_ms, "cache_bytes": cache,
+           "world1_cache_bytes": whole, "slots": slots, "launches": c,
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if rank == 0:
+        say(f"[sp2 static] rank 0: {json.dumps(res)}")
+    check(cache * world == whole, f"sp2 static: rank {rank} holds {cache} cache bytes, "
+          f"the world-1 cache {whole}")
+    del eng
+    _free_cuda()
+    return {"outs": list(out), **res}
 
 
 def phase_tp2(name_power: str, prompts, ref_outs) -> dict:
@@ -3106,6 +3289,20 @@ def phase_tp2(name_power: str, prompts, ref_outs) -> dict:
     st = ranks[0]["static"]
     out["static"].update(prefill_s=st["prefill_s"], model_step_ms=st["decode_ms"],
                          profile=st["profile"])
+    out["disagg"] = _tp2_disagg_world1(model, prompts[:TP2_DISAGG_REQUESTS], d, ranks,
+                                       ref_outs, name_power)
+    sp2 = [r["sp2_static"] for r in ranks]
+    check(all(np.array_equal(a, b) for r in sp2[1:] for a, b in zip(r["outs"], sp2[0]["outs"])),
+          "sp2 static: the ranks emitted different tokens")
+    tf = _teacher_forced("sp2 static", model, s_prompts, sp2[0]["outs"])
+    same = sum(int((np.asarray(a) == np.asarray(b)).sum())
+               for a, b in zip(sp2[0]["outs"], ref_outs[:TP2_STATIC_ROWS]))
+    out["sp2_static"] = {"worst_gap": tf["worst_gap"], "exact": tf["exact"],
+                         "tokens": tf["tokens"], "equal_to_world1": same,
+                         "share_equal_to_world1": same / tf["tokens"],
+                         **{k: sp2[0][k] for k in ("wall_s", "decode_ms", "cache_bytes",
+                                                  "world1_cache_bytes", "slots")},
+                         "cache_bytes_by_rank": [r["cache_bytes"] for r in sp2]}
     out["weight_bytes"] = [r["weight_bytes"] for r in ranks]
     out["half_of_whole"] = ranks[0]["whole_bytes"] / TP2_WORLD
     out["max_memory_allocated"] = [r["max_memory_allocated"] for r in ranks]
@@ -3115,9 +3312,51 @@ def phase_tp2(name_power: str, prompts, ref_outs) -> dict:
     del model
     _free_cuda()
     shutil.rmtree(d, ignore_errors=True)
-    return {"paged": sum(r["paged"]["launches"]["paged_decode"] for r in ranks),
+    return {"paged": sum(r[leg]["launches"]["paged_decode"] for r in ranks
+                         for leg in ("paged", "disagg")),
             "norm": sum(r[leg]["launches"]["fused_norm"] for r in ranks
-                        for leg in ("paged", "contiguous", "static"))}
+                        for leg in ("paged", "disagg", "contiguous", "static", "sp2_static"))}
+
+
+def _tp2_disagg_world1(model, prompts, d: str, ranks, ref_outs, name_power: str) -> dict:
+    """[tp2 disagg]'s one-rank decode leg: the TP-2 payloads (rank 0's
+    file) imported into a one-rank paged engine on the whole model,
+    eager. Its KV blocks carry TP-2's rounding, so its tokens are held
+    by the teacher-forced gate (not equal to either colocated run); the
+    printed line gives their agreement with the world-1 and the TP-2
+    colocated tokens and the payload's distance from a one-rank export
+    of the same prompts."""
+    payloads = torch.load(os.path.join(d, "disagg.pt"), weights_only=False)
+    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV, cuda_graphs=False)
+    kw = dict(slots=8, block_size=16, prefill_chunk=128, decode_chunk=8,
+              gen=GenerationConfig(max_new_tokens=MESH_NEW), cuda_graphs=False)
+    D = PagedContinuousBatchingEngine(eng, **kw)
+    _zero_counts()
+    rids = [D.import_prefill(pl) for pl in payloads]
+    D.run_until_idle()
+    c = _counts()
+    outs = [np.asarray(D.result(rid)) for rid in rids]
+    tf = _teacher_forced("tp2 disagg one-rank decode", model, prompts, outs)
+    del D
+    P = PagedContinuousBatchingEngine(eng, **kw)
+    mine = [P.prefill_export(p) for p in prompts]
+    diff = max(float((a[n].float() - b[n].float()).abs().max())
+               for pa, pb in zip(payloads, mine)
+               for a, b in zip(pa["layers"], pb["layers"]) for n in a)
+    share = {name: sum(int((np.asarray(a) == np.asarray(b)).sum()) for a, b in zip(outs, ref))
+             / sum(len(a) for a in outs)
+             for name, ref in (("world1", ref_outs), ("tp2", ranks[0]["disagg"]["outs"]))}
+    res = {"worst_gap": tf["worst_gap"], "exact": tf["exact"], "tokens": tf["tokens"],
+           "share_equal": share, "payload_max_abs_diff_vs_one_rank_export": diff,
+           "launches": c, "card": name_power,
+           "tp2_leg": {k: ranks[0]["disagg"][k] for k in (
+               "export_s", "import_decode_wall_s", "payload_k_block", "pool",
+               "decode_steps")}}
+    say(f"[tp2 disagg] {json.dumps(res)}")
+    del P, eng, payloads, mine
+    _free_cuda()
+    return res
 
 
 MIX_LAYERS = 8
@@ -3566,7 +3805,7 @@ def _profile_step(trainer, state, batch, gen) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, st = trainer.train_step(state, batch, gen)
-        float(st["loss"])
+        loss = float(st["loss"])
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     kernels = [
@@ -3583,7 +3822,7 @@ def _profile_step(trainer, state, batch, gen) -> dict:
                      "other")
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
     return {
-        "profiled_step_s": wall,
+        "loss": loss, "profiled_step_s": wall,
         "device_busy_s": busy_us / 1e6 if busy_us else "not measured",
         "device_busy_share": busy_us / 1e6 / wall if busy_us else "not measured",
         "kernel_ms_by_group": groups,
@@ -4142,6 +4381,9 @@ def phase_sharded_gpt2(name_power: str, mesh) -> dict:
     check(not gres["failed"], f"1F1B gradient disagreement: {gres['failed']}")
     check(runs["1f1b_launches"] == (L * M, L * M) and runs["gpipe_launches"] == (L * M, L * M),
           f"flash launches 1F1B {runs['1f1b_launches']} GPipe {runs['gpipe_launches']}")
+    # the seq-1 step [sp2 gpt2] is held against, in host memory
+    seq1 = {t: (float(runs[t][0]), {k: v.float().cpu() for k, v in runs[t][1].items()})
+            for t in ("1f1b", "f32")}
     del runs, model0, params
     _free_cuda()
 
@@ -4183,7 +4425,7 @@ def phase_sharded_gpt2(name_power: str, mesh) -> dict:
     check(bub["closed_form_bubble_fraction"] == 0.0, "closed-form bubble at S 1 is not 0")
     del model, tr, state
     _free_cuda()
-    return {"launches_fwd": k1, "launches_bwd": k2}
+    return {"launches_fwd": k1, "launches_bwd": k2, "seq1": seq1}
 
 
 def phase_sharded(name_power: str, train_res: dict) -> tuple[dict, dict]:
@@ -4198,6 +4440,203 @@ def phase_sharded(name_power: str, train_res: dict) -> tuple[dict, dict]:
     finally:
         shutdown_distributed()
     return bert, gpt2
+
+
+def _sp_attention(rank: int, world: int, group) -> dict:
+    """[sp attention] on this rank: each SP_CASES case's whole q, k, v,
+    do (from a seed, the same on every rank) through the whole-sequence
+    B1/B2 (``ops.flash.flash_attention``, the reference), then this
+    rank's token shard through the ring (``sp.ring_flash_attention``) and
+    Ulysses (``sp.ulysses_attention_local``), forward and backward, each
+    with its launches counted from 0 and held to [flash]'s tolerances
+    against the reference's slice."""
+    from tensorlink_tpu_torch.ops.flash import flash_attention
+    from tensorlink_tpu_torch.parallel import sp
+
+    g = torch.Generator().manual_seed(13)
+    out = {}
+    for name, (B, H, Hkv, T, D, causal, mask) in SP_CASES.items():
+        q, k, v, do, kv = (None if x is None else
+                           x.transpose(1, 2) if x.dim() == 4 else x
+                           for x in _flash_inputs(g, B, H, Hkv, T, D, mask))
+        # [B, T, heads, D]: the attention module's layout
+        whole = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        ro = flash_attention(*whole, kv, causal)
+        ro.backward(do)
+        ref = [ro.detach()] + [x.grad for x in whole]
+        Tl = T // world
+        sl = slice(rank * Tl, (rank + 1) * Tl)
+        for impl in ("ring", "ulysses"):
+            loc = [x[:, sl].detach().clone().requires_grad_() for x in (q, k, v)]
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            with sp.seq_parallel(group):
+                if impl == "ring":
+                    o = sp.ring_flash_attention(*loc, kv, causal)
+                else:
+                    o = sp.ulysses_attention_local(
+                        *loc, causal=causal,
+                        mask=None if kv is None else kv[:, None, None, :])
+                o.backward(do[:, sl])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = _counts()
+            got = [o.detach()] + [x.grad for x in loc]
+            rels = {n: _rel(a, b[:, sl]) for n, a, b in zip(("o", "dq", "dk", "dv"),
+                                                           got, ref)}
+            errs = {n: float((a.float() - b[:, sl].float()).abs().max())
+                    for n, a, b in zip(("o", "dq", "dk", "dv"), got, ref)}
+            o_ok = bool((((got[0].float() - ref[0][:, sl].float()).abs())
+                         <= FLASH_O_ATOL + FLASH_O_RTOL * ref[0][:, sl].float().abs()).all())
+            tag = f"sp attention {impl} {name}"
+            # a causal ring launches on the blocks not ahead: r + 1 on rank r
+            n_ring = rank + 1 if causal else world
+            want = ((n_ring, {"own": 0, "delta": n_ring}) if impl == "ring"
+                    else (1, {"own": 1, "delta": 0}))
+            res = {"rank": rank, "wall_s": wall, "max_abs_err": errs, "rel_frobenius": rels,
+                   "launches": {"flash_fwd": c["flash_fwd"],
+                                "flash_bwd_by_form": c["flash_bwd_by_form"]},
+                   "expected": {"flash_fwd": want[0], "flash_bwd_by_form": want[1]}}
+            say(f"[{tag}] {json.dumps(res)}")
+            check(o_ok and rels["o"] <= FLASH_O_REL,
+                  f"{tag}: rank {rank}'s o against the whole sequence's: {errs}, {rels}")
+            check(max(rels[n] for n in ("dq", "dk", "dv")) <= FLASH_GRAD_REL,
+                  f"{tag}: rank {rank}'s gradients against the whole sequence's: {rels}")
+            check(c["flash_fwd"] == want[0] and c["flash_bwd_by_form"] == want[1],
+                  f"{tag}: rank {rank} launched {c}, expected {want}")
+            out[(impl, name)] = res
+        del q, k, v, do, whole, ro, ref, loc, o, got
+        _free_cuda()
+    return out
+
+
+def _sp2_gpt2(rank: int, world: int, mesh, out_dir: str) -> dict:
+    """[sp2 gpt2] on this rank: GPT-2-medium with ``attn_impl="ring"``
+    (dropout 0, seed 0: [sharded gpt2]'s params) through ``ShardedTrainer``
+    under 1F1B on the seq mesh; the first step's loss and gradients (rank
+    0 saves them for the parent), then SP2_STEPS steps, the last under
+    the profiler, B1 and B2's delta form counted per rank a step."""
+    cfg = dataclasses.replace(GPT2Config.medium(), dropout=0.0, attn_impl="ring")
+    B, T, L, M = 8, 1024, cfg.num_layers, SHARD_MICRO
+    tcfg = TrainConfig(batch_size=B, micro_batches=M, optimizer="adamw",
+                       learning_rate=3e-4, dtype="bfloat16", pp_schedule="1f1b")
+    r = np.random.default_rng(0)
+    ids = torch.from_numpy(r.integers(0, cfg.vocab_size, (B, T + 1))).to(DEV)
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    loss = lambda logits, b: softmax_cross_entropy(logits, b["labels"])  # noqa: E731
+    model = GPT2(cfg, device=DEV, seed=0)
+    tr = ShardedTrainer(mesh, tcfg, model.as_pipeline_parts(), loss, device=DEV)
+    state = tr.init_state()
+    per_step = L * M * (rank + 1)  # the causal ring's blocks not ahead
+    _zero_counts()
+    lg, grads = tr.loss_and_grads(state, batch)
+    c = _counts()
+    check(c["flash_fwd"] == per_step and c["flash_bwd_by_form"] == {"own": 0, "delta": per_step},
+          f"sp2 gpt2: rank {rank}'s first step launched {c}, expected B1 and B2's "
+          f"delta form {per_step} each")
+    if rank == 0:
+        torch.save({"loss": float(lg), "grads": {k: v.float().cpu() for k, v in grads.items()}},
+                   os.path.join(out_dir, "sp2_grads.pt"))
+    del grads
+    _free_cuda()
+    _zero_counts()
+    # SP2_STEPS steps, the last under the profiler
+    state, losses, secs, _ = _sharded_steps(tr, state, batch, SP2_STEPS - 1, warm=0)
+    prof = _profile_step(tr, state, batch, None)
+    losses.append(prof["loss"])
+    k1, k2 = flash_attention_fwd_lse.launches, flash_attention_bwd.launches
+    by_form = dict(flash_attention_bwd.launches_by_form)
+    check(k1 == k2 == by_form["delta"] == per_step * SP2_STEPS,
+          f"sp2 gpt2: rank {rank} launched B1 {k1}, B2 {k2} ({by_form}) in "
+          f"{SP2_STEPS} steps, expected {per_step} a step")
+    check(all(np.isfinite(losses)), "sp2 gpt2: non-finite loss")
+    res = {"rank": rank, "mesh": tr.describe(), "first_loss": float(lg), "losses": losses,
+           "step_ms": [x * 1e3 for x in secs], "launches_per_step": per_step,
+           "launches": {"flash_fwd": k1, "flash_bwd": k2, "flash_bwd_by_form": by_form},
+           "profile": {k: prof[k] for k in ("profiled_step_s", "device_busy_s",
+                                            "device_busy_share", "kernel_ms_by_group")},
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del model, tr, state
+    _free_cuda()
+    return res
+
+
+def _sp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of the [sp *] job: a gloo group of two ranks on cuda:0,
+    a seq mesh of CUDA tensors over it; [sp attention], then [sp2 gpt2].
+    Rank 0 prints; every gate raises in the rank that fails."""
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(DistributedConfig(coordinator=f"file://{store}",
+                                             num_processes=world, process_id=rank),
+                           device="cpu")
+    try:
+        mesh = make_mesh(MeshConfig(seq=world), device="cuda")
+        group = mesh.get_group("seq")
+        if rank == 0:
+            say(f"[sp] seq group of {world} over {torch.distributed.get_backend(group)} "
+                "on cuda:0: ring hops through pinned host buffers, all-to-alls direct")
+        res = {"attention": _sp_attention(rank, world, group),
+               "gpt2": _sp2_gpt2(rank, world, mesh, out_dir)}
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        shutdown_distributed()
+
+
+def phase_sp(name_power: str, seq1: dict) -> dict:
+    """[sp attention] and [sp2 gpt2]: one job of SP_WORLD spawned ranks
+    over gloo on cuda:0 (``_sp_rank``); here, [sp2 gpt2]'s first-step
+    loss and every gradient leaf against ``seq1``, [sharded gpt2]'s 1F1B
+    step at seq 1 (its f32 plain-attention step deciding the leaves at
+    bf16's noise floor, as there). -> the job's launches of B1 and B2 by
+    form, summed over ranks."""
+    d = tempfile.mkdtemp(prefix="sp-", dir=os.path.join(_build.PKG_DIR, "_build"))
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        _sp_rank, args=(SP_WORLD, os.path.join(d, "store"), d), nprocs=SP_WORLD,
+        start_method="spawn", join=True)
+    job_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+             for r in range(SP_WORLD)]
+    sp2 = torch.load(os.path.join(d, "sp2_grads.pt"), weights_only=False)
+    shutil.rmtree(d, ignore_errors=True)
+    def dev(run):  # the per-leaf cosines on the card
+        return run[0], {k: v.to(DEV) for k, v in run[1].items()}
+
+    gres = _grad_agreement(dev((sp2["loss"], sp2["grads"])), dev(seq1["1f1b"]),
+                           dev(seq1["f32"]))
+    rel = abs(sp2["loss"] - float(seq1["1f1b"][0])) / abs(float(seq1["1f1b"][0]))
+    gres.update(loss_rel_diff=rel)
+    say(f"[sp2 gpt2] first step at seq 2 (ring) vs seq 1 ([sharded gpt2], 1F1B): "
+        f"{json.dumps(gres)}")
+    check(rel <= TRAIN_LOSS_TOL, f"sp2 gpt2: loss {sp2['loss']} vs seq 1's")
+    check(not gres["failed"], f"sp2 gpt2: gradient disagreement {gres['failed']}")
+    g = [r["gpt2"] for r in ranks]
+    check(all(np.allclose(x["losses"], g[0]["losses"], rtol=0, atol=0) for x in g),
+          "sp2 gpt2: the ranks report different losses")
+    res = {"job_s": job_s, "first_loss": g[0]["first_loss"], "losses": g[0]["losses"],
+           "step_ms_rank0": g[0]["step_ms"],
+           "step_ms_median_rank0": float(np.median(g[0]["step_ms"])),
+           "launches_per_step": [x["launches_per_step"] for x in g],
+           "profile_rank0": g[0]["profile"],
+           "peak_allocated_gib": [x["peak_allocated_gib"] for x in g],
+           "transport": "gloo on one card, ring hops through pinned host buffers",
+           "card": name_power}
+    say(f"[sp2 gpt2] {json.dumps(res)}")
+    del sp2
+    fwd = sum(r["gpt2"]["launches"]["flash_fwd"] + r["gpt2"]["launches_per_step"]
+              + sum(a["launches"]["flash_fwd"] for a in r["attention"].values())
+              for r in ranks)
+    own = sum(a["launches"]["flash_bwd_by_form"]["own"]
+              for r in ranks for a in r["attention"].values())
+    delta = sum(r["gpt2"]["launches"]["flash_bwd_by_form"]["delta"]
+                + r["gpt2"]["launches_per_step"]
+                + sum(a["launches"]["flash_bwd_by_form"]["delta"]
+                      for a in r["attention"].values()) for r in ranks)
+    return {"launches_fwd": fwd, "launches_bwd": own + delta, "launches_delta": delta}
 
 
 PHASE_S: dict[str, float] = {}  # seconds each phase took, in run order
@@ -4243,6 +4682,7 @@ def _main() -> int:
     paged = timed("paged", phase_paged, flush)
     norm = timed("norm", phase_norm, flush, floor_ms)
     flash = timed("flash", phase_flash, flush)
+    sp_kernel = timed("sp kernel", phase_sp_kernel, flush)
     cap = timed("capability", phase_capability, name_power)
     model = Llama(LlamaConfig.llama3_8b(), device=DEV, dtype=torch.bfloat16,
                   seed=0)
@@ -4257,8 +4697,7 @@ def _main() -> int:
     over = timed("overload", phase_overload, name_power, model)
     int8 = timed("int8", phase_int8, name_power, model, prompts, slice_outs,
                  launches["prof"], cap)
-    fused = timed("fused qkv", phase_fused, name_power, model, prompts, slice_outs,
-                  launches["prof"], cap)
+    fused = timed("fused qkv", phase_fused, name_power, model, prompts, slice_outs, cap)
     pair = timed("autopair", phase_autopair, name_power, model, int8["int8_dense_bytes"])
     timed("autotune", phase_autotune, name_power, model, pair["persistable"])
     chaos_k = timed("chaos", phase_chaos, name_power, model, over)
@@ -4285,8 +4724,11 @@ def _main() -> int:
     lora = timed("lora", phase_lora, name_power)
     ckpt = timed("checkpoint", phase_checkpoint, name_power)
     sh_bert, sh_gpt2 = timed("sharded", phase_sharded, name_power, train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp_job = timed("sp", phase_sp, name_power, sh_gpt2.pop("seq1"))
     norm_paths = {"paged serving": launches["launches_norm"],
-                  "mesh paged": mesh["norm"], "tp2 (both ranks, 3 legs)": tp2["norm"],
+                  "mesh paged": mesh["norm"], "tp2 (both ranks, 5 legs)": tp2["norm"],
                   "static": static["launches_norm"],
                   "contiguous": contiguous["launches_norm"],
                   "rolling": rolling["launches_norm"],
@@ -4298,7 +4740,7 @@ def _main() -> int:
                   "self-heal": heal["norm"], "async": asyn["norm"],
                   "mixtral paged": mixtral["norm"], "mixtral static": mixtral["static_norm"]}
     paged_paths = {"paged serving": launches["launches_paged"],
-                   "mesh paged": mesh["paged"], "tp2 paged (both ranks)": tp2["paged"],
+                   "mesh paged": mesh["paged"], "tp2 paged and disagg (both ranks)": tp2["paged"],
                    "spec paged (verify passes, prefill chunks)": spec["paged"],
                    "disagg (both legs)": disagg["paged"],
                    "disagg int8 (both legs)": disagg8["paged"],
@@ -4312,7 +4754,9 @@ def _main() -> int:
                    "lora": (lora["launches_fwd"], lora["launches_bwd"]),
                    "checkpoint": (ckpt["launches_fwd"], ckpt["launches_bwd"]),
                    "sharded bert": (sh_bert["launches_fwd"], sh_bert["launches_bwd"]),
-                   "sharded gpt2": (sh_gpt2["launches_fwd"], sh_gpt2["launches_bwd"])}
+                   "sharded gpt2": (sh_gpt2["launches_fwd"], sh_gpt2["launches_bwd"]),
+                   "sp attention + sp2 gpt2 (both ranks)": (sp_job["launches_fwd"],
+                                                            sp_job["launches_bwd"])}
     say(f"[launches] flash_attention fwd, bwd by path: {json.dumps(flash_paths)}")
     kernels = [
         {
@@ -4346,6 +4790,17 @@ def _main() -> int:
             "launches": sum(b for _, b in flash_paths.values()),
             **{k: flash["bwd"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by", "library_ms")},
+        },
+        {
+            # the ring's backward: B2 given the whole row's delta, at one
+            # rank's block of Llama-3-8B's attention; library: flash SDPA's
+            # forward and backward at the whole sequence
+            "name": "flash_attention_bwd (delta form)", "route": "cuda",
+            "source": "tensorlink_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:470",
+            "launches": sp_job["launches_delta"],
+            **{k: sp_kernel[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "library_ms")},
         },
     ]
     _phase_line()

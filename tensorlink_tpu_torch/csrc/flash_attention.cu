@@ -41,7 +41,10 @@
 //   must come from the kernel's own p and dp: the TPU kernels' rowsum(dO o
 //   O) from the bf16-rounded O is off by ~2^-9 |dO||O|, which swamps ds
 //   where attention is near uniform and wrecked BERT's upper-layer q/k
-//   gradients. The dq kernel publishes delta for the dkv kernel.
+//   gradients. The dq kernel publishes delta for the dkv kernel. A caller
+//   that sees only part of a row's keys (a ring's block) passes the row's
+//   delta instead (delta_in): then it is d~ and the final delta, and
+//   nothing is published.
 // - Backward, dkv kernel (one block per (key tile of 64, kv head, batch
 //   row)): walks the (query head of its GQA group, query tile of 64) units
 //   its band reaches: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO,
@@ -97,6 +100,7 @@ struct OutView {
 
 struct Shape {
   int B, H, Hkv, Tq, Tk, causal, window;  // window <= 0: none
+  int delta_in;  // backward: delta [B, H, Tq] given by the caller
   float scale;
   const uint8_t* kv_mask;  // [B, Tk], nonzero = attend; null = all keys
 };
@@ -495,6 +499,10 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   float dt[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    if (s.delta_in) {  // the caller's delta is exact: it is the centre
+      dt[r] = qr[r] < s.Tq ? delta[rowbase + qr[r]] : 0.f;
+      continue;
+    }
     float acc = 0.f;
     if (qr[r] < s.Tq) {
       const long long off = qr[r];
@@ -618,7 +626,10 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   for (int r = 0; r < 2; ++r) {
     dl[r] = quad_sum(dl[r]);
     if (qr[r] >= s.Tq) continue;
-    if (tig == 0) delta[rowbase + qr[r]] = dl[r];
+    if (s.delta_in)
+      dl[r] = dt[r];  // the whole row's delta, whatever keys this call saw
+    else if (tig == 0)
+      delta[rowbase + qr[r]] = dl[r];
     bf16* row = out + static_cast<long long>(qr[r]) * dq.st;
 #pragma unroll
     for (int i = 0; i < DT; ++i)
@@ -986,7 +997,7 @@ bool shape_ok(const int* dims) {
 
 Shape make_shape(const int* dims, float scale, const void* kv_mask) {
   return Shape{dims[0], dims[1], dims[2], dims[3], dims[4],
-               dims[6], dims[7], scale,
+               dims[6], dims[7], dims[8], scale,
                static_cast<const uint8_t*>(kv_mask)};
 }
 
@@ -996,7 +1007,8 @@ extern "C" {
 
 // Forward. ptrs = {q, k, v, kv_mask (or null), o, lse}; strides = (b, h, t)
 // element strides of the [B, heads, T, D] views q, k, v, o (12 values);
-// dims = {B, H, Hkv, Tq, Tk, D, causal, window (<= 0: none)}. bf16 q/k/v/o, f32 lse
+// dims = {B, H, Hkv, Tq, Tk, D, causal, window (<= 0: none), delta_in (0
+// here)}. bf16 q/k/v/o, f32 lse
 // [B, H, Tq] contiguous, uint8 kv_mask [B, Tk] contiguous. q, k and v are
 // read by TMA: 16-byte aligned base pointers and strides. Returns a
 // cudaError_t (0 = launched).
@@ -1027,9 +1039,12 @@ int tl_flash_fwd(const void* const* ptrs, const long long* strides,
 }
 
 // Backward. ptrs = {q, k, v, do, lse, kv_mask (or null), delta (f32
-// [B, H, Tq] workspace), dq, dk, dv, o (the forward's output)}; strides of
+// [B, H, Tq] contiguous), dq, dk, dv, o (the forward's output)}; strides of
 // the views q, k, v, do, dq, dk, dv, o (24 values); dims as for the
-// forward.
+// forward. delta_in 0: delta is a workspace the dq kernel fills with its
+// own rowsum(p dp); 1: delta holds the caller's rowsum(dO o O) of the
+// whole row (a ring's merged output, whose keys this call sees only in
+// part), which both kernels read and neither writes.
 int tl_flash_bwd(const void* const* ptrs, const long long* strides,
                  const int* dims, float scale, void* stream) {
   if (!shape_ok(dims) || !strides_ok(strides, 8)) return cudaErrorInvalidValue;

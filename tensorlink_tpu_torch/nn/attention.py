@@ -261,10 +261,12 @@ def resolve_attn_impl(impl) -> Callable:
       plain reference otherwise;
     - "flash": the same with ``min_kernel_seq=0`` (the kernel at every
       eligible shape);
-    - a callable: itself.
-
-    The sequence-parallel impls ("ring", "ulysses") wait for the SP
-    slice."""
+    - "ring": ``parallel.sp.ring_attention_impl``, sequence-parallel
+      ring attention; valid only inside ``parallel.sp.seq_parallel``
+      (the sharded trainer binds it at any seq size);
+    - "ulysses": ``parallel.sp.ulysses_attention_impl``, the all-to-all
+      head/sequence swap, under the same requirement;
+    - a callable: itself."""
     if callable(impl):
         return impl
     if impl == "reference":
@@ -278,10 +280,14 @@ def resolve_attn_impl(impl) -> Callable:
 
             return functools.partial(flash_attention_impl, min_kernel_seq=0)
         return flash_attention_impl
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl {impl!r} (sequence parallel) waits for the SP slice"
-        )
+    if impl == "ring":
+        from tensorlink_tpu_torch.parallel.sp import ring_attention_impl
+
+        return ring_attention_impl
+    if impl == "ulysses":
+        from tensorlink_tpu_torch.parallel.sp import ulysses_attention_impl
+
+        return ulysses_attention_impl
     raise ValueError(f"unknown attn_impl {impl!r}")
 
 
@@ -393,8 +399,10 @@ class MultiHeadAttention(Module):
                     and not declares:
                 raise ValueError(
                     "sliding-window attention requires attn_impl "
-                    "'reference', 'flash', or 'auto', or a callable marked "
-                    "`supports_window = True` that honors the window kwarg"
+                    "'reference', 'flash', or 'auto' (the ring/ulysses "
+                    "kernels do not implement window masking), or a "
+                    "callable marked `supports_window = True` that "
+                    "honors the window kwarg"
                 )
         self.window = window
         if scale is not None and self._attn is not dot_product_attention:
@@ -460,6 +468,13 @@ class MultiHeadAttention(Module):
                         "positions (rows sit at different logical positions)"
                     )
                 base = 0 if cache is None else cache["index"]
+                if cache is None and getattr(self, "attn_impl", None) in (
+                        "ring", "ulysses"):
+                    # under sequence sharding T is the local shard's
+                    # length: RoPE needs global token positions
+                    from tensorlink_tpu_torch.parallel.sp import seq_rank
+
+                    base = seq_rank() * T
                 positions = base + torch.arange(T, device=x.device)[None, :]
             q = apply_rope(q, positions, self.rope_theta)
             k = apply_rope(k, positions, self.rope_theta)
@@ -562,6 +577,8 @@ class MultiHeadAttention(Module):
         """Scalar index: every row writes its T tokens at ``index`` (wrapped
         modulo the capacity on a ring), then attends either the T fresh
         keys (the prefill contract below) or the cache."""
+        if "seq" in cache:
+            return self._apply_seq_sharded(q, k, v, cache, mask, bias, fresh_keys)
         B, T = q.shape[0], q.shape[1]
         ck, cv, idx = cache["k"], cache["v"], cache["index"]
         cap = ck.shape[1]
@@ -657,6 +674,80 @@ class MultiHeadAttention(Module):
             # poisoned on the device instead
             out = torch.where(idx == 0, out, float("nan"))
         return out, new_cache
+
+    def _apply_seq_sharded(self, q, k, v, cache, mask, bias, fresh_keys):
+        """The contiguous cache with its slot dim sharded over a seq group
+        (``InferenceEngine(kv_seq_shard=True)``): ``cache["seq"] = (group,
+        slot0)``, and this rank's k/v hold global slots [slot0, slot0 +
+        Ls). Every rank runs the whole call. The T tokens' writes land
+        only on the rank that owns their slots, without a host read: each
+        local slot a write clamps onto takes the token that owns it, or
+        keeps its value, so duplicate indices carry equal values. A
+        fresh-keys prefill attends the just-projected keys, as on one
+        rank; a cache read attends the local slots and merges the
+        online-softmax partials over the group
+        (``parallel.sp.merge_partials``: one all-reduce max, one sum)."""
+        from tensorlink_tpu_torch.parallel.sp import NEG_INF, merge_partials
+
+        if "rolling" in cache or bias is not None:
+            raise NotImplementedError(
+                "a seq-sharded cache takes neither a ring nor an additive bias")
+        group, slot0 = cache["seq"]
+        B, T, H, D = q.shape
+        ck, cv, idx = cache["k"], cache["v"], cache["index"]
+        Ls = ck.shape[1]
+        cap = Ls * torch.distributed.get_world_size(group)
+        if T > cap:
+            raise ValueError(f"write of {T} tokens into a cache of {cap}")
+        start = idx.long().clamp(0, cap - T)  # the reference's clamp
+        ar = torch.arange(T, device=q.device)
+        lslot = (start + ar - slot0).clamp(0, Ls - 1)
+        t_own = lslot + slot0 - start  # the token each target slot owns
+        own = ((t_own >= 0) & (t_own < T)).view(1, T, 1, 1)
+        tsel = t_own.clamp(0, T - 1)
+        for c, new in ((ck, k), (cv, v)):
+            c.index_copy_(1, lslot, torch.where(own, new[:, tsel].to(c.dtype),
+                                                c[:, lslot]))
+        new_cache = {"k": ck, "v": cv, "index": idx + T, "seq": cache["seq"]}
+        fresh = (
+            fresh_keys if fresh_keys is not None
+            else mask is not None and mask.shape[-1] == T and (T > 1 or cap > T)
+        )
+        if fresh:
+            if mask is None or mask.shape[-1] != T:
+                raise ValueError("fresh_keys=True needs a T-wide mask over the "
+                                 "just-projected keys")
+            out = self._attn(
+                q, k, v, causal=self.causal, mask=mask, q_offset=idx,
+                scale=self.scale, window=self.window,
+            )
+            return torch.where(idx == 0, out, float("nan")), new_cache
+        if mask is not None and mask.shape[-1] != cap:
+            raise ValueError(
+                f"cache attention needs a cache-width mask (last dim {cap}), "
+                f"got {tuple(mask.shape)}")
+        kpos = slot0 + torch.arange(Ls, device=q.device)[None, :]
+        qpos = (idx + ar)[:, None]
+        keep = kpos < idx + T
+        if self.causal:
+            keep = keep & (kpos <= qpos)
+        if self.window is not None:
+            keep = keep & (kpos > qpos - self.window)
+        keep = keep[None, None]  # [1, 1, T, Ls]
+        if mask is not None:
+            keep = keep & mask[..., slot0:slot0 + Ls].bool()
+        kk, vv = ck.to(q.dtype).float(), cv.to(q.dtype).float()
+        if kk.shape[2] != H:  # GQA
+            kk = kk.repeat_interleave(H // kk.shape[2], dim=2)
+            vv = vv.repeat_interleave(H // vv.shape[2], dim=2)
+        scale = D ** -0.5 if self.scale is None else self.scale
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * scale
+        sc = torch.where(keep, sc, NEG_INF)
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.where(keep, torch.exp(sc - m), 0.0)
+        acc = torch.einsum("bhqk,bkhd->bhqd", p, vv)
+        out = merge_partials(m, p.sum(dim=-1, keepdim=True), acc, group)
+        return out.transpose(1, 2).to(q.dtype), new_cache
 
     def _apply_paged(self, q, k, v, cache, mask):
         """Scatter the T fresh tokens through each row's block table into

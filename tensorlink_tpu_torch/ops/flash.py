@@ -23,8 +23,9 @@ from __future__ import annotations
 import torch
 
 from tensorlink_tpu_torch.nn.attention import band_keep, dot_product_attention
-from tensorlink_tpu_torch.ops.flash_attention import (
+from tensorlink_tpu_torch.ops.flash_attention import (  # noqa: F401 (sp.py)
     KERNEL_BLOCK,
+    LSE_MASKED,
     flash_attention_bwd,
     flash_attention_fwd_lse,
 )

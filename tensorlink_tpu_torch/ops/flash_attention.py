@@ -104,7 +104,7 @@ def flash_attention_fwd_lse_reference(q, k, v, kv_mask=None, *,
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, kv_mask=None, *,
                                   causal: bool = False,
-                                  window: int | None = None):
+                                  window: int | None = None, delta=None):
     """The plain home of B2's math: p = exp(s - lse) with the forward's
     masks, dp = do v^T, delta = rowsum(p * dp), ds = p (dp - delta) scale;
     dk and dv summed over each GQA group. -> (dq, dk, dv) in the inputs'
@@ -115,7 +115,12 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, kv_mask=None, *,
     |do||o|, which swamps ds wherever attention is near uniform. The
     kernel reads ``o`` only to centre its one-pass dq sums (the result
     is exact for any o); this version keeps it for the signature and
-    shape checks."""
+    shape checks.
+
+    ``delta`` (f32 [B, H, Tq]) replaces that row sum: a caller whose k
+    and v are one block of the row's keys (the ring, ``parallel/sp.py``)
+    passes rowsum(do * o) of the whole row's output, since the sum over
+    this block's p and dp would be a partial one."""
     B, H, Hkv, Tq, Tk, D = _check_shapes(q, k, v, kv_mask)
     scale = D ** -0.5
     qf, dof = q.float(), do.float()
@@ -126,7 +131,8 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, kv_mask=None, *,
     if keep is not None:
         p = torch.where(keep, p, 0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
-    delta = (p * dp).sum(dim=-1, keepdim=True)
+    delta = ((p * dp).sum(dim=-1, keepdim=True) if delta is None
+             else delta.float()[..., None])
     ds = p * (dp - delta) * scale
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
@@ -162,11 +168,14 @@ flash_attention_fwd_lse.launches = 0
 def flash_attention_bwd(q, k, v, o, lse, do, kv_mask=None, *,
                         causal: bool = False, window: int | None = None,
                         block_q: int = KERNEL_BLOCK,
-                        block_k: int = KERNEL_BLOCK):
+                        block_k: int = KERNEL_BLOCK, delta=None):
     """Blockwise dq [B, H, Tq, D], dk/dv [B, Hkv, Tk, D] from the forward's
     lse and the cotangent ``do`` of its output o (whose delta term is
-    recomputed from p and dp, see ``flash_attention_bwd_reference``). f32
-    accumulation, outputs in the inputs' dtypes; GQA groups summed."""
+    recomputed from p and dp, see ``flash_attention_bwd_reference``, or
+    is ``delta``, f32 [B, H, Tq], when the caller gives it). f32
+    accumulation, outputs in the inputs' dtypes; GQA groups summed.
+    ``launches_by_form`` counts the kernel's launches by where delta
+    came from ("own", "delta")."""
     _check_shapes(q, k, v, kv_mask)
     _check_window(window)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
@@ -174,17 +183,25 @@ def flash_attention_bwd(q, k, v, o, lse, do, kv_mask=None, *,
             f"o {tuple(o.shape)} / do {tuple(do.shape)} / lse "
             f"{tuple(lse.shape)} do not match q {tuple(q.shape)}"
         )
+    if delta is not None and (tuple(delta.shape) != tuple(q.shape[:3])
+                              or delta.dtype != torch.float32
+                              or delta.device != q.device):
+        raise ValueError(
+            f"delta must be float32 {tuple(q.shape[:3])} on {q.device}, got "
+            f"{delta.dtype} {tuple(delta.shape)} on {delta.device}")
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
-            q, k, v, o, lse, do, kv_mask, causal=causal, window=window
+            q, k, v, o, lse, do, kv_mask, causal=causal, window=window,
+            delta=delta,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention path for device {q.device}")
     _check_blocks(block_q, block_k)
-    return _launch_bwd(q, k, v, o, lse, do, kv_mask, causal, window)
+    return _launch_bwd(q, k, v, o, lse, do, kv_mask, causal, window, delta)
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_form = {"own": 0, "delta": 0}
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -248,10 +265,10 @@ def _call(fn, q, ptrs, strides, dims):
         )
 
 
-def _dims(q, k, causal, window):
+def _dims(q, k, causal, window, delta_in: bool = False):
     B, H, Tq, D = q.shape
     return (B, H, k.shape[1], Tq, k.shape[2], D, int(bool(causal)),
-            0 if window is None else int(window))
+            0 if window is None else int(window), int(delta_in))
 
 
 def _launch_fwd(q, k, v, kv_mask, causal, window):
@@ -269,14 +286,15 @@ def _launch_fwd(q, k, v, kv_mask, causal, window):
     return o, lse
 
 
-def _launch_bwd(q, k, v, o, lse, do, kv_mask, causal, window):
+def _launch_bwd(q, k, v, o, lse, do, kv_mask, causal, window, given=None):
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     _check_views(q, {"q": q, "k": k, "v": v, "do": do, "o": o})
     _check(lse.device == q.device and lse.dtype == torch.float32
            and lse.is_contiguous(), "lse must be contiguous float32 [B, H, Tq]")
     mask = _mask_u8(kv_mask, q)
-    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    delta = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+             if given is None else given.contiguous())
     dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     dk = torch.empty((B, Tk, Hkv, D), dtype=k.dtype, device=q.device).transpose(1, 2)
     dv = torch.empty((B, Tk, Hkv, D), dtype=v.dtype, device=q.device).transpose(1, 2)
@@ -287,8 +305,10 @@ def _launch_bwd(q, k, v, o, lse, do, kv_mask, causal, window):
     strides = tuple(
         s for x in (q, k, v, do, dq, dk, dv, o) for s in _strides(x)
     )
-    _call("tl_flash_bwd", q, ptrs, strides, _dims(q, k, causal, window))
+    _call("tl_flash_bwd", q, ptrs, strides,
+          _dims(q, k, causal, window, given is not None))
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_form["own" if given is None else "delta"] += 1
     return dq, dk, dv
 
 

@@ -18,6 +18,14 @@ here every rank runs its part of the step eagerly and issues them itself:
 - embed and head gradients are summed over ``pipe`` (GPT-2's tied
   ``wte`` takes its embed-side gradient on stage 0 and its head-side one
   on the last stage), so every replica takes the same update;
+- ``seq`` splits the token dim inside the pipeline (``Pipeline`` /
+  ``Pipeline1F1B`` ``seq_axis``; the blocks run the ring or Ulysses
+  attention of ``parallel/sp.py``): every rank embeds the whole micro and
+  cuts its token shard; GPipe's head runs on the outputs re-assembled
+  over ``seq`` (its seed 1 / S on each rank, the shards' output
+  gradients S times the slice), 1F1B's on each shard; every gradient is
+  summed over the ``seq`` group, beside the ``data`` reduction, and the
+  global mask reaches every shard whole through the extras channel;
 - the loss, the global gradient norm (each split leaf's squares summed
   over its groups, each replicated leaf counted once) and the non-finite
   flag travel in one all-reduce over the world, so every rank clips by
@@ -122,7 +130,7 @@ class PipelineParts:
     # micro and handed to every stage whole
     extras_fn: Callable | None = None
     # whether head_fn + loss reduce uniformly over token positions
-    # (causal-LM mean CE): the seq-sharded 1F1B of the SP slice needs it
+    # (causal-LM mean CE): the seq-sharded 1F1B needs it
     head_per_token: bool | None = None
 
 
@@ -228,7 +236,7 @@ class ShardedTrainer:
                         "the router trains unregularized")
         self.seq = self.sizes.get("seq", 1)
         seq_impl = getattr(parts.block, "attn_impl", None)
-        ring = seq_impl in ("ring", "ulysses")
+        ring = seq_impl in ("ring", "ulysses")  # both need the seq group bound
         if self.seq > 1:
             if not ring:
                 raise ValueError(
@@ -236,20 +244,35 @@ class ShardedTrainer:
                     "build the model with attn_impl='ring' or 'ulysses' "
                     "so attention spans the full sequence over the seq axis"
                 )
-            raise NotImplementedError(
-                "the seq axis waits for the sequence-parallel slice")
+            if cfg.pp_schedule == "1f1b" and parts.head_per_token is not True:
+                # under seq sharding 1F1B runs head_loss per token shard:
+                # a position-selective head (CLS pooling) would pool the
+                # wrong token on shards > 0
+                raise NotImplementedError(
+                    "pp_schedule='1f1b' with mesh seq>1 requires "
+                    "PipelineParts.head_per_token=True (a head+loss that "
+                    "reduces uniformly over token positions, e.g. "
+                    "causal-LM mean CE); this model's parts declare "
+                    f"head_per_token={parts.head_per_token!r}. Use "
+                    "pp_schedule='gpipe', whose head runs on the "
+                    "re-assembled full sequence."
+                )
+        # ring models bind the seq group even at seq=1, as the reference
+        # binds the axis
+        self._seq_axis = "seq" if ring else None
         if self.sizes["data"] > 1 and loss_reduction == "batch_normalized":
             raise NotImplementedError(
                 "loss_reduction='batch_normalized' over a data axis > 1: each "
                 "rank holds only its rows of the batch")
         self.data_size = self.sizes["data"]
         self.model_size = self.sizes["model"]
-        self.groups = {a: mesh.get_group(a) for a in ("data", "pipe", "model")}
+        self.groups = {a: mesh.get_group(a) for a in ("data", "pipe", "model", "seq")}
         self.pipeline = Pipeline(
             mesh, parts.block_fn, self.num_stages, self.layers_per_stage,
-            block_fn_aux=parts.block_fn_aux,
+            block_fn_aux=parts.block_fn_aux, seq_axis=self._seq_axis,
             remat=cfg.remat and cfg.pp_schedule == "gpipe")
         self.comm = self.pipeline.comm
+        self.seq_shard = self.pipeline.seq
         self.stage = self.comm.stage
         sched = make_schedule(
             cfg.schedule, cfg.learning_rate, cfg.warmup_steps, cfg.total_steps
@@ -324,9 +347,9 @@ class ShardedTrainer:
         """How many ranks hold the same block of ``name``."""
         r = 1
         used = {a for d in range(len(self._specs[name])) for a in self._axes(name, d)}
-        for a in ("data", "model"):
+        for a in ("data", "model", "seq"):
             if a not in used:
-                r *= self.sizes[a]
+                r *= self.sizes.get(a, 1)
         if not name.startswith("stages."):
             r *= self.num_stages
         return r
@@ -544,11 +567,18 @@ class ShardedTrainer:
         if live:  # frozen embeddings: nothing to do
             torch.autograd.backward([x for x, _ in live], [g for _, g in live])
 
+    def _cut(self, x_list: list) -> list:
+        """Each embedded micro's token shard (views that keep the embed's
+        graph), or the micros themselves without a seq group."""
+        sq = self.seq_shard
+        return x_list if sq is None else [sq.cut(x) for x in x_list]
+
     def _loss(self, cast, batch, seed, grad: bool):
         """GPipe forward (and backward with ``grad``) of this stage ->
         the loss terms this rank contributes (the last stage's loss_fn,
         every stage's aux share)."""
-        comm, m = self.comm, self.cfg.micro_batches
+        comm, m, sq = self.comm, self.cfg.micro_batches, self.seq_shard
+        S = 1 if sq is None else sq.size
         embed, stages, head = self._split(cast)
         r_embed, r_pipe, r_head = (None, None, None) if seed is None else (
             fold_in(seed, 0), fold_in(seed, 1), fold_in(seed, 2))
@@ -568,6 +598,8 @@ class ShardedTrainer:
         dys = None
         if comm.last:
             y = torch.stack(run.outputs).detach()
+            if sq is not None:  # the head sees the whole sequence
+                y = sq.gather(y, dim=2)
             y = y.reshape(y.shape[0] * y.shape[1], *y.shape[2:])
             if grad:
                 y.requires_grad_(True)
@@ -576,13 +608,17 @@ class ShardedTrainer:
                                          rng=generator(r_head, self.device))
                 loss = self.loss_fn(out, batch).float()
             if grad:
-                loss.backward()
-                dys = list(y.grad.reshape(m, -1, *y.shape[1:]))
+                # every seq rank runs the same head: each takes 1/S of its
+                # gradients (summed over seq later), while each shard's
+                # output gradient is the whole loss's
+                (loss / S).backward()
+                dy = y.grad.reshape(m, -1, *y.shape[1:])
+                dys = list(dy if sq is None else sq.cut(dy, 2) * S)
             total = total + loss.detach()
         if grad:
-            dxs = self.pipeline.backward(run, dys, aux_cot=self.aux_weight / m)
+            dxs = self.pipeline.backward(run, dys, aux_cot=self.aux_weight / (m * S))
             if comm.first:
-                self._embed_backward(x_list, dxs)
+                self._embed_backward(self._cut(x_list), dxs)
         return total
 
     def _loss_and_grads_1f1b(self, cast, batch, seed):
@@ -604,24 +640,30 @@ class ShardedTrainer:
         pipe = Pipeline1F1B(
             self.mesh, self.parts.block_fn, self.num_stages, self.layers_per_stage,
             head_loss, block_fn_aux=self.parts.block_fn_aux,
-            aux_weight=self.aux_weight, remat=self.cfg.remat)
+            aux_weight=self.aux_weight, seq_axis=self._seq_axis,
+            remat=self.cfg.remat)
         loss, dxs = pipe.train_grads(stages, {"embed": embed, "head": head}, xs,
                                      micro, r_pipe, self._micro_extras(batch, m),
                                      device=self.device)
         if comm.first:
-            self._embed_backward(x_list, dxs)
+            self._embed_backward(self._cut(x_list), dxs)
         # every pipe rank holds the whole loss: contribute 1/S of it
         return loss.detach() / self.num_stages
 
     def _reduce_grads(self, leaves: dict, params: dict) -> dict:
         """Per-rank gradients of the global loss: embed/head summed over
-        ``pipe``, everything averaged over ``data`` (reduce-scattered to
-        the blocks of FSDP leaves)."""
+        ``pipe``, everything summed over ``seq`` (each token shard's
+        contribution) and averaged over ``data`` (reduce-scattered to the
+        blocks of FSDP leaves)."""
         grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
                  for k, v in leaves.items()}
         shared = [k for k in grads if not k.startswith("stages.")]
         grads.update(zip(shared, all_reduce_flat(
             [grads[k] for k in shared], self.groups["pipe"], mean=False)))
+        if self.seq > 1:
+            names = list(grads)
+            grads.update(zip(names, all_reduce_flat(
+                [grads[k] for k in names], self.groups["seq"], mean=False)))
         rep = [k for k in grads if self._fsdp_dim(k) is None]
         grads.update(zip(rep, all_reduce_flat([grads[k] for k in rep],
                                               self.groups["data"])))
@@ -652,9 +694,9 @@ class ShardedTrainer:
                             device=self.device)
         sq = (torch.stack(torch._foreach_norm(gl)).float().square() * reps).sum()
         bad = ~torch.isfinite(torch.stack(torch._foreach_norm(torch._foreach_mul(gl, 0.0))).sum())
-        # loss terms are counted once per data replica and model rank
+        # loss terms are counted once per data replica, model and seq rank
         stats = torch.stack([
-            loss_part / (self.data_size * self.model_size), sq,
+            loss_part / (self.data_size * self.model_size * self.seq), sq,
             (bad | ~torch.isfinite(loss_part)).float()])
         dist.all_reduce(stats)
         return stats[0], stats[1].sqrt(), stats[2] > 0, grads
@@ -719,7 +761,7 @@ class ShardedTrainer:
                     self._full_leaves(state.params, grad=False).items()}
             with tp.model_parallel(self.groups["model"]):
                 part = self._loss(cast, batch, None, grad=False)
-            loss = (part / (self.data_size * self.model_size)).reshape(1)
+            loss = (part / (self.data_size * self.model_size * self.seq)).reshape(1)
             dist.all_reduce(loss)
         return loss[0]
 

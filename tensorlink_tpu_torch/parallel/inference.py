@@ -44,10 +44,16 @@ model call runs inside ``engine.parallel()``, the model group's
 vocab-sharded head. ``generate`` splits its batch over ``data`` (each
 data coordinate runs its rows; the output is all-gathered over
 ``data``). A model axis must divide ``num_kv_heads``, and a MoE model
-is served at model 1 only. ``kv_seq_shard`` keeps the reference's checks,
-then waits for the sequence-sharded cache (ROADMAP queue A item 16).
-``cuda_graphs=True`` needs NCCL groups where a group has more than one
-rank (``runtime.graphs.check_capture_backend``). Unlike the reference,
+is served at model 1 only. ``kv_seq_shard=True`` shards ``generate``'s
+contiguous caches' slot dim over ``seq`` (the batch stays over
+``data``): each rank holds L / S slots (``cache["seq"]`` names its
+group and first slot), every rank runs the whole model call, the
+prefill writes each slot on the rank that owns it, and a decode step
+attends the local slots and merges the online-softmax partials over the
+group (``nn.attention``'s seq-sharded path). The serving engines refuse
+it, as the reference's do. ``cuda_graphs=True`` needs NCCL groups where
+a group has more than one rank
+(``runtime.graphs.check_capture_backend``). Unlike the reference,
 ``mesh`` is a keyword (the port's engines are built without one).
 """
 
@@ -398,8 +404,7 @@ class InferenceEngine:
                     "(e.g. LlamaConfig(attn_window=...)); this model "
                     "declares no attention window"
                 )
-        # sequence-sharded serving: the reference's checks, then the
-        # queue item that holds the sharded slot dimension
+        # sequence-sharded serving: the caches' slot dim over seq_axis
         self.kv_seq_shard = bool(kv_seq_shard)
         self.seq_axis = seq_axis
         if self.kv_seq_shard:
@@ -415,11 +420,10 @@ class InferenceEngine:
                     "ring-buffer slot wrapping and slot-dim sharding "
                     "would need owner-aware wrapped writes"
                 )
-            raise NotImplementedError(
-                "kv_seq_shard=True (the KV cache's slot dimension sharded "
-                "over the seq axis) is not ported yet: ROADMAP queue A "
-                "item 16"
-            )
+            if DECODE_BLOCK % sizes[seq_axis]:
+                raise ValueError(
+                    f"seq axis {sizes[seq_axis]} does not divide the cache's "
+                    f"slot granule {DECODE_BLOCK}")
         if params is not None:
             if is_quantized(params):
                 _quantized_layout(model, params)
@@ -445,6 +449,7 @@ class InferenceEngine:
         self.model_group = self.data_group = None
         self.model_size = self.data_size = 1
         self.data_rank = 0
+        self.seq_group, self.seq_size, self.seq_rank = None, 1, 0
         self._groups: list[tuple[str, int]] = []  # (backend, size) of each group
         if mesh is None:
             return
@@ -461,8 +466,13 @@ class InferenceEngine:
         self.model_group = axis_group(mesh, model_axis)
         self.data_group = axis_group(mesh, data_axis)
         self.data_rank = axis_rank(mesh, data_axis)
-        self._groups = [(axis_backend(mesh, axis), n) for axis, n in
-                        ((model_axis, self.model_size), (data_axis, self.data_size))]
+        axes = [(model_axis, self.model_size), (data_axis, self.data_size)]
+        if self.kv_seq_shard:
+            self.seq_size = sizes[self.seq_axis]
+            self.seq_group = axis_group(mesh, self.seq_axis)
+            self.seq_rank = axis_rank(mesh, self.seq_axis)
+            axes.append((self.seq_axis, self.seq_size))
+        self._groups = [(axis_backend(mesh, axis), n) for axis, n in axes]
         self.check_capture(self.cuda_graphs)
         if self.model_size == 1:
             return
@@ -470,7 +480,7 @@ class InferenceEngine:
         if getattr(getattr(model, "cfg", None), "moe_experts", 0):
             raise NotImplementedError(
                 "a MoE model on a model axis > 1 is not served yet (expert "
-                "parallelism: ROADMAP queue A item 16)"
+                "parallelism: ROADMAP queue A item 16b)"
             )
         for blk in model.blocks.blocks():
             hkv = blk.attn.num_kv_heads
@@ -583,10 +593,15 @@ class InferenceEngine:
         self._gen_state = None  # drop the old shape's cache and graphs
         dev = self.device
         index = torch.zeros((), dtype=torch.int32, device=dev)
-        caches = self.model.init_caches(B, L, dtype=self.cache_dtype,
+        # kv_seq_shard: this rank's L / S slots, from global slot
+        # seq_rank * L / S on
+        Ls = L // self.seq_size
+        caches = self.model.init_caches(B, Ls, dtype=self.cache_dtype,
                                         rolling=rolling)
         for c in caches:
             c["attn"]["index"] = index
+            if self.kv_seq_shard:
+                c["attn"]["seq"] = (self.seq_group, self.seq_rank * Ls)
         max_new = key[-1].max_new_tokens
         st = self._gen_state = {
             "key": key, "caches": caches, "index": index,
@@ -653,8 +668,9 @@ class InferenceEngine:
             # T0 + i - 1 (mod L on a ring); the step's host bounds matter
             # only through the blocks they select, the graph's key
             frontier = (T0 + i - 1, T0 + i - 1)
-            key = tuple(a.decode_blocks(L, frontier, rolling=rolling)
-                        for a in attns)
+            # a seq-sharded cache reads its local slots whole: one graph
+            key = None if self.kv_seq_shard else tuple(
+                a.decode_blocks(L, frontier, rolling=rolling) for a in attns)
             st["graphs"].run(key, lambda: self._decode_step(st, gen, frontier))
             if (eos is not None and i % EOS_CHECK_STEPS == 0
                     and i + 1 < max_new and bool(st["done"].all())):

@@ -25,10 +25,19 @@ from a ``torch.Generator`` seeded with ``fold_in(seed, global layer)``,
 so a (micro, layer) pair gets the same mask at any pipe depth and under
 either schedule (``stage_apply`` is shared with ``pp1f1b``), and a
 recompute under ``remat`` redraws it exactly.
+
+``seq_axis``: the token dim of the activations is sharded over the
+mesh's seq group (``SeqShard``). Each rank cuts the micros to its token
+shard (xs dim 2 of [M, mb, T, ...]), runs its stage inside
+``parallel.sp.seq_parallel`` (the ring or Ulysses attention spans the
+whole sequence over the group) and ``__call__`` re-assembles the outputs
+over the group. The dropout stream folds in the seq rank, so the shards
+draw different masks, and MoE aux is averaged over the group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
@@ -146,6 +155,51 @@ def pipeline_sharding(mesh, axis: str = "pipe") -> NamedSharding:
     return NamedSharding(mesh, P(axis))
 
 
+class SeqShard:
+    """This rank's token shard on the mesh's seq group: cuts [mb, T, ...]
+    activations to [mb, T/S, ...] and re-assembles them."""
+
+    def __init__(self, mesh, axis: str):
+        self.group = mesh.get_group(axis)
+        self.size = dist.get_world_size(self.group)
+        self.rank = dist.get_rank(self.group)
+
+    def local_shape(self, shape) -> tuple:
+        """A per-micro [mb, T, ...] shape at this rank's token count."""
+        T = shape[1]
+        if T % self.size:
+            raise ValueError(f"sequence {T} not divisible by seq={self.size}")
+        return (shape[0], T // self.size, *shape[2:])
+
+    def cut(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's token shard of ``x`` along ``dim`` (a view)."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * n, n)
+
+    def gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The whole token dim from every rank's shard (no autograd)."""
+        if self.size == 1:
+            return x
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        if self.size > 1:
+            dist.all_reduce(t, group=self.group)
+            t = t / self.size
+        return t
+
+    def context(self):
+        from tensorlink_tpu_torch.parallel.sp import seq_parallel
+
+        return seq_parallel(self.group)
+
+
+def seq_shard(mesh, seq_axis: str | None) -> SeqShard | None:
+    return None if seq_axis is None else SeqShard(mesh, seq_axis)
+
+
 class PipeComm:
     """This rank's place on the mesh's ``pipe`` axis and its exchanges
     with the neighbouring stages (global ranks from the pipe group)."""
@@ -206,14 +260,13 @@ class Pipeline:
     # blocks with an auxiliary loss (MoE): block_fn_aux(lp, x[, rng]) ->
     # (x, aux). Enables apply_with_aux; plain __call__ ignores it.
     block_fn_aux: Callable | None = None
-    # the token-sharded seq axis waits for the sequence-parallel slice
+    # the token-sharded seq axis (module docstring): the blocks must run
+    # the ring or Ulysses attention (attn_impl "ring" / "ulysses")
     seq_axis: str | None = None
     remat: bool = False
 
     def __post_init__(self):
-        if self.seq_axis is not None:
-            raise NotImplementedError(
-                "a seq-sharded pipeline waits for the sequence-parallel slice")
+        self.seq = seq_shard(self.mesh, self.seq_axis)
         self.comm = PipeComm(self.mesh, self.axis)
         if self.comm.size != self.num_stages:
             raise ValueError(f"pipe group of {self.comm.size} ranks for "
@@ -240,27 +293,35 @@ class Pipeline:
         ``fold_in(rng, m)``). ``extras``: a list of M per-micro inputs,
         or None. With ``grad`` every stage input is a leaf that requires
         grad and each micro's graph is kept for ``backward``."""
-        S, s, comm = self.num_stages, self.comm.stage, self.comm
+        S, s, comm, sq = self.num_stages, self.comm.stage, self.comm, self.seq
         M = xs.shape[0]
         dev = device if device is not None else xs.device
         run = _Run([None] * M, [None] * M, [None] * M, with_aux)
+        shape = tuple(xs.shape[1:]) if sq is None else sq.local_shape(xs.shape[1:])
+        if rng is not None and sq is not None:
+            # each shard holds other token positions: fold its rank in, or
+            # every shard would draw the same dropout masks
+            rng = fold_in(rng, sq.rank)
         recv = None
         for t in range(M + S - 1):
             m = t - s
             y = None
             if 0 <= m < M:
-                x = xs[m].detach() if comm.first else recv
+                if comm.first:
+                    x = (xs[m] if sq is None else sq.cut(xs[m])).detach()
+                else:
+                    x = recv
                 x.requires_grad_(grad)
                 seed = None if rng is None else fold_in(rng, m)
                 ex = None if extras is None else extras[m]
-                with torch.set_grad_enabled(grad):
+                with torch.set_grad_enabled(grad), self._context():
                     y, a = self._stage(stage_params, x, seed, ex, with_aux)
                 run.inputs[m], run.outputs[m], run.aux[m] = x, y, a
             sends, recvs, recv = [], [], None
             if y is not None and not comm.last:
                 sends.append((y.detach(), comm.next))
             if not comm.first and 0 <= t + 1 - s < M:
-                recv = torch.empty(xs.shape[1:], dtype=xs.dtype, device=dev)
+                recv = torch.empty(shape, dtype=xs.dtype, device=dev)
                 recvs.append((recv, comm.prev))
             comm.exchange(sends, recvs)
         return run
@@ -285,7 +346,8 @@ class Pipeline:
                 if run.with_aux and aux_cot and torch.is_tensor(a) and a.requires_grad:
                     outs.append(a)
                     cots.append(torch.full_like(a, aux_cot))
-                torch.autograd.backward(outs, cots)
+                with self._context():  # a remat recompute runs the blocks
+                    torch.autograd.backward(outs, cots)
                 dx = run.inputs[m].grad
                 run.inputs[m] = run.outputs[m] = run.aux[m] = None
                 if comm.first:
@@ -299,26 +361,33 @@ class Pipeline:
             comm.exchange(sends, recvs)
         return dxs if comm.first else None
 
+    def _context(self):
+        """The seq group bound around the blocks (nothing without one)."""
+        return contextlib.nullcontext() if self.seq is None else self.seq.context()
+
     @staticmethod
     def _grad_buffer(run: _Run, m: int) -> torch.Tensor:
         y = run.outputs[m]
         return torch.empty(y.shape, dtype=y.dtype, device=y.device)
 
     def _broadcast_outputs(self, run: _Run, xs) -> torch.Tensor:
-        """[M, mb, ...] outputs of the last stage, on every pipe rank."""
+        """[M, mb, ...] outputs of the last stage, on every pipe rank
+        (the whole token dim, re-assembled over a seq group)."""
         comm = self.comm
         if comm.last:
             out = torch.stack(run.outputs)
         else:
             like = run.outputs[0] if run.outputs[0] is not None else None
-            shape = (xs.shape[0],) + (tuple(like.shape) if like is not None
-                                      else tuple(xs.shape[1:]))
+            shape = (xs.shape[0],) + (
+                tuple(like.shape) if like is not None
+                else self.seq.local_shape(xs.shape[1:]) if self.seq is not None
+                else tuple(xs.shape[1:]))
             out = torch.empty(shape, dtype=xs.dtype,
                               device=like.device if like is not None else xs.device)
         if comm.size > 1:
             src = dist.get_global_rank(comm.group, comm.size - 1)
             dist.broadcast(out, src, group=comm.group)
-        return out
+        return out if self.seq is None else self.seq.gather(out, dim=2)
 
     def __call__(self, stage_params, xs, rng=None, extras=None) -> torch.Tensor:
         """xs [M, mb, ...] -> outputs [M, mb, ...] (no autograd), on every
@@ -342,4 +411,6 @@ class Pipeline:
                       for a in run.aux if a is not None)
             aux = self.comm.sum(torch.as_tensor(aux, dtype=torch.float32,
                                                 device=out.device).clone())
+            if self.seq is not None:  # each shard routed its own tokens
+                aux = self.seq.mean(aux)
             return out, aux / xs.shape[0]

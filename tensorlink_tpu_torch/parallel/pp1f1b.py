@@ -27,10 +27,18 @@ Loss restriction (the reference's): the total is the unweighted mean of
 the per-micro losses, which equals the full-batch loss only for a loss
 that is a per-example mean over equal micros (``ShardedTrainer`` rejects
 ``loss_reduction="batch_normalized"`` under 1F1B).
+
+``seq_axis`` (``pp.SeqShard``): xs and every micro-batch leaf of rank
+>= 3 ([M, mb, T, ...]) are cut to this rank's token shard, and the head
+and loss run on the shard, so ``head_loss`` must be a uniform per-token
+mean (the reference's ``head_per_token`` contract). Each rank's seed is
+1 / (M S): the gradients summed over the seq group (the caller's job) are
+those of the mean over shards, and the loss is averaged over the group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
@@ -41,6 +49,7 @@ from tensorlink_tpu_torch.parallel.pp import (
     PipeComm,
     fold_in,
     generator,
+    seq_shard,
     stage_apply,
     stage_apply_aux,
 )
@@ -144,14 +153,12 @@ class Pipeline1F1B:
     # per-micro backward (cotangent aux_weight / M)
     block_fn_aux: Callable | None = None
     aux_weight: float = 0.0
-    # the token-sharded seq axis waits for the sequence-parallel slice
+    # the token-sharded seq axis (module docstring)
     seq_axis: str | None = None
     remat: bool = False
 
     def __post_init__(self):
-        if self.seq_axis is not None:
-            raise NotImplementedError(
-                "a seq-sharded pipeline waits for the sequence-parallel slice")
+        self.seq = seq_shard(self.mesh, self.seq_axis)
         self.comm = PipeComm(self.mesh, self.axis)
         if self.comm.size != self.num_stages:
             raise ValueError(f"pipe group of {self.comm.size} ranks for "
@@ -182,7 +189,7 @@ class Pipeline1F1B:
         Parameter gradients of the mean loss over micros accumulate in
         the leaves' ``.grad``. Returns (mean loss, the same on every pipe
         rank; stage 0's input gradients [M, mb, ...], None elsewhere)."""
-        S, s, comm = self.num_stages, self.comm.stage, self.comm
+        S, s, comm, sq = self.num_stages, self.comm.stage, self.comm, self.seq
         M = xs.shape[0]
         dev = device if device is not None else xs.device
         act, mic = simulate_1f1b(S, M)
@@ -190,6 +197,18 @@ class Pipeline1F1B:
         dxs = [None] * M
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         aw = float(self.aux_weight) if self._use_aux else 0.0
+        shape = tuple(xs.shape[1:])
+        inv = 1.0 / M
+        if sq is not None:
+            shape = sq.local_shape(shape)
+            inv /= sq.size
+            # token-dim leaves follow the activations; per-example ones
+            # ([M, mb]) stay whole
+            micro_batches = {k: sq.cut(v, 2) if v.dim() >= 3 else v
+                             for k, v in micro_batches.items()}
+            if rng is not None:
+                rng = fold_in(rng, sq.rank)
+        ctx = (lambda: sq.context()) if sq is not None else contextlib.nullcontext
 
         def seed(m):
             return None if rng is None else fold_in(rng, m)
@@ -201,20 +220,24 @@ class Pipeline1F1B:
             a, m = int(act[t, s]), int(mic[t, s])
             send_f = send_b = None
             if a == FWD:
-                x = (xs[m].detach() if comm.first else inq.pop(m)).requires_grad_()
+                x = (xs[m] if sq is None else sq.cut(xs[m])).detach() \
+                    if comm.first else inq.pop(m)
+                x.requires_grad_()
                 if self.remat:
-                    with torch.no_grad():
+                    with torch.no_grad(), ctx():
                         y, _ = self._stage(stage_params, x, seed(m), ex(m))
                     stash[m] = (x, None, None)
                 else:
-                    y, av = self._stage(stage_params, x, seed(m), ex(m))
+                    with ctx():
+                        y, av = self._stage(stage_params, x, seed(m), ex(m))
                     stash[m] = (x, y, av)
                 if not comm.last:
                     send_f = y.detach()
             elif a == BWD:
                 x, y, av = stash.pop(m)
                 if y is None:  # remat: recompute with a graph
-                    y, av = self._stage(stage_params, x, seed(m), ex(m))
+                    with ctx():
+                        y, av = self._stage(stage_params, x, seed(m), ex(m))
                 outs, cots = [], []
                 if comm.last:
                     mb = {k: v[m] for k, v in micro_batches.items()}
@@ -222,15 +245,16 @@ class Pipeline1F1B:
                                         generator(head_seed(rng, m), dev)).float()
                     if aw:
                         lm = lm + aw * av.float()
-                    outs, cots = [lm], [torch.full_like(lm, 1.0 / M)]
+                    outs, cots = [lm], [torch.full_like(lm, inv)]
                     loss = loss + lm.detach()
                 else:
                     outs, cots = [y], [cotq.pop(m)]
                     if aw:
                         outs.append(av.float())
-                        cots.append(torch.full_like(outs[-1], aw / M))
+                        cots.append(torch.full_like(outs[-1], aw * inv))
                         loss = loss + aw * av.detach().float()
-                torch.autograd.backward(outs, cots)
+                with ctx():
+                    torch.autograd.backward(outs, cots)
                 if comm.first:
                     dxs[m] = x.grad
                 else:
@@ -241,15 +265,17 @@ class Pipeline1F1B:
             if send_b is not None:
                 sends.append((send_b, comm.prev))
             if not comm.first and act[t, s - 1] == FWD:
-                buf = torch.empty(xs.shape[1:], dtype=xs.dtype, device=dev)
+                buf = torch.empty(shape, dtype=xs.dtype, device=dev)
                 inq[int(mic[t, s - 1])] = buf
                 recvs.append((buf, comm.prev))
             if not comm.last and act[t, s + 1] == BWD:
-                buf = torch.empty(xs.shape[1:], dtype=xs.dtype, device=dev)
+                buf = torch.empty(shape, dtype=xs.dtype, device=dev)
                 cotq[int(mic[t, s + 1])] = buf
                 recvs.append((buf, comm.next))
             comm.exchange(sends, recvs)
         loss = comm.sum(loss) / M
+        if sq is not None:
+            loss = sq.mean(loss)
         return loss, (torch.stack(dxs) if comm.first else None)
 
     @property

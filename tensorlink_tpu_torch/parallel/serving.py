@@ -457,6 +457,11 @@ class ContinuousBatchingEngine:
                 "continuous batching over a rolling (ring) cache would "
                 "need per-row wrap bookkeeping; use the monotone cache"
             )
+        if engine.kv_seq_shard:
+            raise NotImplementedError(
+                "continuous batching with kv_seq_shard is not wired yet "
+                "(the per-slot scatter writes need owner-aware sharding)"
+            )
         engine.check_capture(cuda_graphs)
         self.engine = engine
         self.device = engine.device
@@ -2465,12 +2470,6 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     _GRAFT_WIDTH = 8
 
     def _disagg_guard(self) -> None:
-        if self.engine.model_size > 1:
-            raise NotImplementedError(
-                "disaggregated serving on a model axis > 1 would ship "
-                "head-sharded KV blocks (one share a model rank) on the "
-                "wire; not ported yet: ROADMAP queue A item 15c"
-            )
         if self.spec is not None and self.spec.mode == "draft":
             raise NotImplementedError(
                 "disaggregated serving with a draft model would need "
@@ -2541,34 +2540,60 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 )
             idle_recheck = not progressed and req.failed is None and not req.done
 
-    def _pool_layout(self, rows: int):
+    def _pool_layout(self, rows: int, heads: int = 1):
         """Every pool tensor's ``rows`` rows packed into one byte buffer:
         ``([(layer, name, pool tensor, offset)], size)``, each offset 16-byte
-        aligned (any dtype view of the buffer is then legal)."""
+        aligned (any dtype view of the buffer is then legal). ``heads``:
+        the layout at that many times the pools' KV heads (the global
+        heads of a model axis)."""
         plan, total = [], 0
         for i, pool in enumerate(self._pools):
             for name, t in pool.items():
                 plan.append((i, name, t, total))
-                total += -(-rows * t[0].numel() * t.element_size() // 16) * 16
+                total += -(-rows * heads * t[0].numel() * t.element_size() // 16) * 16
         return plan, total
 
     @staticmethod
-    def _rows_view(flat, t, off: int, rows: int) -> torch.Tensor:
-        """[rows, *t.shape[1:]] of t's dtype at byte ``off`` of ``flat``."""
-        nbytes = rows * t[0].numel() * t.element_size()
-        return flat[off:off + nbytes].view(t.dtype).view((rows, *t.shape[1:]))
+    def _rows_view(flat, t, off: int, rows: int, heads: int = 1) -> torch.Tensor:
+        """[rows, *t.shape[1:]] of t's dtype at byte ``off`` of ``flat``
+        (dim 2, the KV heads, ``heads`` times t's)."""
+        shape = (rows, t.shape[1], heads * t.shape[2], *t.shape[3:])
+        nbytes = rows * heads * t[0].numel() * t.element_size()
+        return flat[off:off + nbytes].view(t.dtype).view(shape)
+
+    def _model_share(self) -> tuple[int, int]:
+        """(model axis size, this rank's coordinate on it)."""
+        eng = self.engine
+        if eng.model_size == 1:
+            return 1, 0
+        return eng.model_size, torch.distributed.get_rank(eng.model_group)
 
     def _gather_blocks(self, bids: list[int]) -> list[dict]:
         """Every pool tensor's rows ``bids`` to host memory: one
         ``index_select`` a tensor into one device buffer, one copy to
         pinned host memory and one sync. -> per-layer ``{name: CPU
-        tensor}`` (views of that host buffer)."""
+        tensor}`` (views of that host buffer). On a model axis > 1 the
+        buffer is all-gathered over the model group and each tensor's
+        rank shares concatenated on the head dim: every rank returns the
+        blocks at the GLOBAL KV heads (and int8 scales), as a world-1
+        engine's."""
         n = len(bids)
         idx = self._to_device(np.asarray(bids, np.int64))
         plan, total = self._pool_layout(n)
         dev_flat = torch.empty((total,), dtype=torch.uint8, device=self.device)
         for _, _, t, off in plan:
             torch.index_select(t, 0, idx, out=self._rows_view(dev_flat, t, off, n))
+        M, _ = self._model_share()
+        if M > 1:
+            shares = [torch.empty_like(dev_flat) for _ in range(M)]
+            torch.distributed.all_gather(shares, dev_flat,
+                                         group=self.engine.model_group)
+            gplan, total = self._pool_layout(n, M)
+            dev_flat = torch.empty((total,), dtype=torch.uint8, device=self.device)
+            for (_, _, t, off), (_, _, _, goff) in zip(plan, gplan):
+                torch.cat([self._rows_view(sh, t, off, n) for sh in shares], dim=2,
+                          out=self._rows_view(dev_flat, t, goff, n, M))
+            plan = gplan
         if self.device.type == "cuda":
             host_flat = torch.empty((total,), dtype=torch.uint8, pin_memory=True)
             host_flat.copy_(dev_flat, non_blocking=True)
@@ -2579,7 +2604,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             host_flat = dev_flat
         layers = [{} for _ in self._pools]
         for i, name, t, off in plan:
-            layers[i][name] = self._rows_view(host_flat, t, off, n)
+            layers[i][name] = self._rows_view(host_flat, t, off, n, M)
         return layers
 
     def _export_slot_locked(self, req: _Request, slot: int) -> dict:
@@ -2624,10 +2649,18 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
 
     def _coerce_kv_form(self, layers: list, src_quant: str | None) -> list:
         """Imported layers from the payload's pool form into this
-        engine's: matching forms pass through (int8 blocks and scales
-        graft natively); int8 -> float dequantizes to f32; float -> int8
-        quantizes with ``ops/quant.py quantize_kv_int8``, the write-time
-        math, so a re-export equals a locally written pool."""
+        engine's: first this rank's KV heads ``[r Hkv_local, (r + 1)
+        Hkv_local)`` of the payload's global ones (every head on one
+        rank); then matching forms pass through (int8 blocks and scales,
+        both per head, graft natively); int8 -> float dequantizes to f32;
+        float -> int8 quantizes with ``ops/quant.py quantize_kv_int8``,
+        the write-time math, so a re-export equals a locally written
+        pool."""
+        M, r = self._model_share()
+        if M > 1:
+            h = self._block_shape[1]
+            layers = [{name: _as_tensor(x)[:, :, r * h:(r + 1) * h]
+                       for name, x in bl.items()} for bl in layers]
         if src_quant == self.kv_quant:
             return layers
         out = []
@@ -2710,14 +2743,16 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         if src_quant not in (None, "int8"):
             raise ValueError(f"unknown payload kv_quant {src_quant!r}")
         src_keys = ("k", "v", "k_scale", "v_scale") if src_quant == "int8" else ("k", "v")
+        # the payload holds the GLOBAL KV heads, whatever model axis made it
+        bs_, hkv, dh = self._block_shape
+        glob = (bs_, hkv * self._model_share()[0], dh)
         for i, bl in enumerate(layers):
             for name in src_keys:
                 if name not in bl:
                     raise ValueError(
                         f"layer {i} missing {name} blocks for kv_quant={src_quant!r}"
                     )
-                want = ((nblk, *self._block_shape) if name in ("k", "v")
-                        else (nblk, *self._block_shape[:-1]))
+                want = ((nblk, *glob) if name in ("k", "v") else (nblk, *glob[:-1]))
                 shape = tuple(_as_tensor(bl[name]).shape)
                 if shape != want:
                     raise ValueError(

@@ -61,7 +61,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 ("runtime", "checkpoint.py"), ("runtime", "metrics.py"),
                 ("runtime", "mesh.py"), ("parallel", "dp.py"), ("parallel", "tp.py"),
                 ("parallel", "pp.py"), ("parallel", "pp1f1b.py"),
-                ("parallel", "engine.py")):
+                ("parallel", "engine.py"), ("parallel", "sp.py")):
         assert os.path.join(PORT, *mod) in files
     bad = [
         (os.path.relpath(p, REPO), root)
@@ -174,7 +174,7 @@ def test_importing_the_port_loads_no_jax():
 
 
 # test modules whose functions spawned ranks import: they stand on the port
-RANK_MODULES = ("torch_ranks", "torch_tp_serving_ranks")
+RANK_MODULES = ("torch_ranks", "torch_tp_serving_ranks", "torch_sp_ranks")
 
 
 def test_rank_body_modules_import_no_jax():

@@ -20,7 +20,10 @@ params (``convert.params_from_jax`` of a JAX init), f32 throughout:
   engines), the ring, n-gram, self-draft and int8-sibling speculation in
   both engines, and GPT-2 through the contiguous engine, each
   token-equal to the JAX engines on a model-2 mesh and to the port at
-  world 1, the speculation with both's counts.
+  world 1, the speculation with both's counts; disaggregated serving
+  2 -> 2, 1 -> 2 and 2 -> 1 (payloads at the global KV heads, the same
+  on both ranks and equal to a world-1 export), token-equal to the JAX
+  paged engine on the model-2 mesh.
 
 Every job checks the collectives a model call issues (two a block and
 one for Llama's vocab-sharded head), each rank's weight bytes and that
@@ -244,6 +247,8 @@ def _jax_model2(models: dict, cases: dict, ids, pad, prompts) -> dict:
     out["gpt2"] = {"contiguous": _jax_serve(_jax_engine(jm, p, mesh), prompts,
                                             JContiguous, **CONT)[0],
                    "logits": np.asarray(jm.apply(p, jnp.asarray(ids)))}
+    # the disaggregation cases' colocated tokens (the int8 case's params)
+    out["paged"] = _jax_serve(target, prompts, JPaged, **R.PAGED_KW)[0]
     return out
 
 
@@ -265,10 +270,14 @@ def test_model2_cases_match_world1(tmp_path, devices):
         "moe": {"cfg": dataclasses.asdict(LlamaConfig.moe_tiny())},
     }
     ids, pad, prompts = _inputs()
+    # a world-1 prefill leg's payloads, for the model-2 decode leg (1 -> 2)
+    one = R.engine("llama", TINY, state["int8"])
+    cases["disagg"] = {"payloads": R.disagg(one, prompts, [], MAX_NEW)["payloads"]}
     job = _Job(R.job_model2, 2, tmp_path, cases, ids, pad, prompts, MAX_NEW)
     jref = _jax_model2(models, cases, ids, pad, prompts)
     ref = R.model2_cases(None, cases, ids, pad, prompts, MAX_NEW)
-    for res in job.results():
+    results = job.results()
+    for res in results:
         for want in (jref, ref):
             for name in ("int8", "fused", "ring"):
                 np.testing.assert_array_equal(res[name]["generate"], want[name]["generate"])
@@ -299,13 +308,26 @@ def test_model2_cases_match_world1(tmp_path, devices):
         assert 2 * (res["gpt2"]["weight_bytes"] - wte) == ref["gpt2"]["weight_bytes"] - wte
         ref_msgs = res["refusals"]
         assert ref_msgs["moe"][0] == "NotImplementedError" and "item 16" in ref_msgs["moe"][1]
-        for leg in ("export", "import"):
-            kind, msg = ref_msgs[leg]
-            assert kind == "NotImplementedError" and "item 15c" in msg
         assert ref_msgs["seq_ring"][0] == "NotImplementedError"
         assert "rolling_cache" in ref_msgs["seq_ring"][1]
-        assert ref_msgs["seq_valid"][0] == "NotImplementedError"
-        assert "item 16" in ref_msgs["seq_valid"][1]
+        for name in ("seq_contiguous", "seq_paged"):
+            kind, msg = ref_msgs[name]
+            assert kind == "NotImplementedError" and "kv_seq_shard" in msg
+    # disaggregation: the payloads hold every KV head, the same on both
+    # ranks and equal to the world-1 leg's; 2 -> 2, 1 -> 2 and 2 -> 1
+    # decode the JAX colocated tokens
+    d = [res["disagg"] for res in results]
+    world1 = cases["disagg"]["payloads"]
+    for pl0, pl1, pw in zip(d[0]["payloads"], d[1]["payloads"], world1):
+        for a, b, w in zip(pl0["layers"], pl1["layers"], pw["layers"]):
+            for name in w:
+                assert a[name].shape == w[name].shape
+                assert torch.equal(a[name], b[name])
+                np.testing.assert_allclose(a[name].numpy(), w[name].numpy(), atol=1e-5)
+    two_to_one = R.disagg(one, [], d[0]["payloads"], MAX_NEW)["imported"]
+    for got in (d[0]["here"], d[1]["here"], d[0]["imported"], d[1]["imported"],
+                two_to_one):
+        _equal(got, jref["paged"])
 
 
 def test_world1_mesh_engine_is_the_one_device_engine():

@@ -195,24 +195,39 @@ def model2_cases(mesh, cases: dict, ids, pad, prompts, max_new) -> dict:
     return res
 
 
+def disagg(eng, prompts, payloads, max_new: int) -> dict:
+    """Disaggregated serving on ``eng``'s paged engines: each prompt's
+    prefill exported by one and imported by another (here -> here), and
+    ``payloads`` exported elsewhere imported here: -> the payloads this
+    engine exported and the tokens of both imports."""
+    gen = GenerationConfig(max_new_tokens=max_new)
+    leg = PagedContinuousBatchingEngine(eng, gen=gen, **PAGED_KW)
+    mine = [leg.prefill_export(p) for p in prompts]
+    dec = PagedContinuousBatchingEngine(eng, gen=gen, **PAGED_KW)
+    return {"payloads": mine,
+            "here": [np.asarray(dec.result(dec.import_prefill(pl))) for pl in mine],
+            "imported": [np.asarray(dec.result(dec.import_prefill(pl)))
+                         for pl in payloads]}
+
+
 def job_model2(rank, world, out_dir, cases, ids, pad, prompts, max_new):
     """model 2: int8, the fused q/k/v layout, the ring, n-gram and
     self-draft speculation in both engines, GPT-2 through the contiguous
-    engine."""
+    engine; disaggregation 2 -> 2 and 1 -> 2 (the world-1 payloads of
+    ``cases["disagg"]``)."""
     mesh = make_mesh(MeshConfig(model=2), device="cpu")
     res = model2_cases(mesh, cases, ids, pad, prompts, max_new)
     c = cases["spec"]
-    paged = PagedContinuousBatchingEngine(engine("llama", c["cfg"], c["state"], mesh),
-                                          **PAGED_KW)
+    res["disagg"] = disagg(engine("llama", c["cfg"], c["state"], mesh), prompts,
+                           cases["disagg"]["payloads"], max_new)
     seq = make_mesh(MeshConfig(seq=2), device="cpu")
     ring = cases["ring"]["cfg"]
+    sharded = engine("llama", c["cfg"], None, seq, kv_seq_shard=True)
     res["refusals"] = {
         "moe": refused(lambda: engine("llama", cases["moe"]["cfg"], None, mesh)),
-        "export": refused(lambda: paged.prefill_export(prompts[0])),
-        "import": refused(lambda: paged.import_prefill({})),
         "seq_ring": refused(lambda: engine("llama", ring, None, seq, rolling_cache=True,
                                            kv_seq_shard=True)),
-        "seq_valid": refused(lambda: engine("llama", c["cfg"], None, seq,
-                                            kv_seq_shard=True)),
+        "seq_contiguous": refused(lambda: ContinuousBatchingEngine(sharded)),
+        "seq_paged": refused(lambda: PagedContinuousBatchingEngine(sharded)),
     }
     _save(out_dir, rank, res)
