@@ -66,7 +66,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    KV block-seconds, and each signs into a receipt that verifies and a
    ``ReceiptAuditor`` holding the capability accepts with no anomaly;
    the timer's decode busy a step is within 20% of the profiled
-   model-step wall (``[timer slice vs profile]``);
+   model-step wall (``[timer slice vs profile]``); ``[telemetry]``:
+   ``runtime.profiling.timed_capture(200)`` on a thread while the
+   captured engine decodes 8 more requests (the ``GET /profile`` path),
+   its breakdown naming B3 and B4;
 6c. mesh paged: [slice]'s first 4 requests (16 tokens each) through the
    paged engine over ``InferenceEngine(model, mesh=make_mesh(
    MeshConfig()))`` (one NCCL rank, captured): tokens identical to a
@@ -96,7 +99,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    teacher-forced; prefill seconds, decode ms a step and its kernel time,
    and a second call of the same shape;
 7a. spec paged: the same Llama-3-8B on the paged engine with speculative
-   decoding: 8 greedy requests of 32 tokens (half the prompts repeat a
+   decoding: 8 greedy requests of 8 tokens (half the prompts repeat a
    64-token phrase), first without speculation, then n-gram
    (``SpecConfig(k=4, rounds=2)``), the target as its own draft (k 3)
    and adaptive K (``SpecConfig.auto(k=4)``, the same draft), captured,
@@ -148,14 +151,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    gloo, both on cuda:0 (NCCL takes one rank a device; gloo carries the
    CUDA tensors through host copies: a correctness check of tensor
    parallelism, not a deployment), each holding half of every ``Dense``
-   of Llama-3-8B at full width and depth, eager: [slice]'s first 4
+   of Llama-3-8B at full width and 16 of its 32 layers (cut in PR 15),
+   eager: [slice]'s first 4
    requests through the paged (``[tp2 paged]``) and the contiguous
    engine (``[tp2 contiguous]``) and 2 left-padded prompts through
    ``generate`` (``[tp2 static]``, profiled), 16 tokens each; each rank
-   gates its collectives (2 x 32 + 1 a model call) and launches (B3 32 a
-   paged decode step and prefill chunk, B4 32 a decode step), and the
+   gates its collectives (2 x 16 + 1 a model call) and launches (B3 16 a
+   paged decode step and prefill chunk, B4 16 a decode step), and the
    parent, on the model rebuilt from the same
-   seed, every token against the world-1 teacher-forced row max. In the
+   seed, every token against the world-1 teacher-forced row max (and,
+   printed, its share equal to that model's world-1 paged run). In the
    same job: ``[tp2 disagg]``, two of those requests exported by the TP-2
    paged engine (payloads at the global KV heads, equal on both ranks)
    and imported into a TP-2 engine (tokens equal to [tp2 paged]'s, B3 on
@@ -165,7 +170,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    still holds the whole model, ``[sp2 static]``: ``generate`` with
    ``kv_seq_shard=True`` on a seq-2 mesh serves [tp2 static]'s prompts
    with half of the world-1 cache a rank, B4 32 a decode step, every
-   token teacher-forced in the parent;
+   token teacher-forced in the parent. Then, Llama freed, expert
+   parallelism at model 2 (each rank builds the whole model in turn, a
+   barrier between, and keeps its blocks): ``[ep2 mixtral paged]``,
+   [mixtral paged]'s model (Mixtral-8x7B at full width, 8 layers) with 4
+   of the 8 experts and Hq 16 / Hkv 4 a rank, [slice]'s first 4 requests
+   through the paged engine for 16 tokens, eager: the MoE layers in
+   their fallback form (17 collectives a model call, no all_to_all), B3
+   and B4 on the path, a rank's expert bytes half of the whole's, every
+   token against the rank's own one-row paged replay (its routing
+   recorded for [mixtral paged]); ``[ep2 mixtral train]``,
+   ``ShardedTrainer`` at model 2 on a CUDA mesh over the gloo group,
+   Mixtral-8x7B's width at 2 layers, SGD, 4 x 512 in 2 micros, 3 steps,
+   the MoE layers in their all_to_all form: B1 = B2 = 4 and 16
+   all_to_all swaps a step a rank, and in the parent the first loss
+   within 1e-3 (relative) of the same step at world 1 (run on one NCCL
+   rank before the job) and every gradient leaf of each rank's blocks
+   at cosine >= 0.99 of world 1's or at bf16's noise floor (an f32
+   world-1 step decides);
 7j. mixtral paged, once the Llama-3-8B model is freed: Mixtral-8x7B at
    full width and 8 of its 32 layers (random bf16 weights, 23.5 GB a
    weight pass; the reference quantizes no expert, the full depth's
@@ -178,7 +200,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    paged cache through B3 (its recorded routing: a decode drop
    fraction of exactly 0), and the contiguous cache with the plain
    attention and that routing pinned; then ``generate`` on 8 left-padded prompts of
-   100-700 tokens, replayed row by row at T0;
+   100-700 tokens, replayed row by row at T0; then [ep2 mixtral paged]'s
+   tokens against this world-1 model's one-row paged replay with rank
+   0's routing pinned (the model-2 sums round otherwise and would flip
+   router near-ties), and their agreement with this run's tokens;
 8. contiguous: GPT-2-medium (random bf16 weights) served by the contiguous
    ``ContinuousBatchingEngine`` (the ``--continuous`` path): 16 greedy
    requests of 1 to 900 tokens, B4 in its LayerNorm + bias form on every
@@ -191,13 +216,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    path): 2 prompts, 4200 greedy tokens, so the ring of prompt + window
    slots wraps; B4 on every decode step, every token teacher-forced
    against the windowed no-cache forward (B1 with its window), and the
-   full cache's engine beside it for its tokens and bytes;
+   full cache's plan beside it for its bytes;
 10. training: BERT-base fine-tuning at batch 8 x seq 512 (f32 master
    params from a seed, bf16 compute, Adam, dropout 0.1) through
    ``Trainer``: 30 steps with a falling loss, B1/B2 launch counts, one
    step's gradients against the plain attention path, step time, MFU, a
-   profiled step, and the batch 32 x seq 128 headline shape under "auto"
-   and "flash";
+   profiled step, ``[telemetry]``'s ``runtime.profiling.op_breakdown`` of
+   one step (naming B1 and B2), and the batch 32 x seq 128 headline shape
+   under "auto" and "flash";
 10a. lora: the same model and batch with rank-8 adapters (``lora_init``,
    alpha 16, on q, k, v, o, up and down) through
    ``Trainer(train_only="lora")``, 30 steps at lr 1e-3: trainable and
@@ -218,7 +244,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    one-rank NCCL mesh (``make_mesh(MeshConfig())``): at dropout 0 the
    first step's loss and every gradient leaf against the single-host
    ``Trainer`` at 4 micros (the [train] thresholds), ``remat=True`` with
-   the same loss and twice the B1 launches, then 20 steps at dropout
+   the same loss and twice the B1 launches, then 10 steps at dropout
    0.1 with a falling loss, B1 = B2 = 12 x 4 a step, step ms, samples/s,
    MFU, peak memory and a profiled step beside [train]'s step;
 10d. sharded gpt2: GPT-2-medium at full width through
@@ -226,7 +252,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    AdamW, bf16) on the same mesh: at dropout 0 the first step's loss
    and every gradient leaf (the tied ``wte`` included) against GPipe,
    each held against the f32 plain-attention gradient where they part,
-   then 15 steps at dropout 0.1 with a falling loss, B1 = B2 = 24 x 4 a
+   then 10 steps at dropout 0.1 with a falling loss, B1 = B2 = 24 x 4 a
    step, tokens/s, MFU, a profiled step, peak memory and
    ``measure_bubble``'s fit beside the closed form; the process group
    is destroyed after the two legs, failed or not;
@@ -243,7 +269,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    through ``ShardedTrainer`` on a seq-2 mesh under 1F1B, [sharded
    gpt2]'s batch: the first step's loss and every gradient leaf against
    [sharded gpt2]'s step at seq 1 (its thresholds), B1 and B2's delta
-   form 24 x 4 x (r + 1) a step on rank r, 3 steps' ms and a profiled
+   form 24 x 4 x (r + 1) a step on rank r, a profiled
    step's busy share (gloo through host copies: a correctness check,
    not a speed).
 
@@ -256,19 +282,20 @@ replays, pool bytes). Each leg then runs the same requests on an eager
 engine of the same class (``cuda_graphs=False``) under the same gates
 and prints ``[... eager vs captured]`` (the share of equal tokens and
 each run's worst teacher-forced gap over the first decode chunk) and
-``[... step]`` (each run's model-step wall, kernel ms and busy share
-from a profiled window of steady-state steps, and its whole wall).
+``[... step]`` (each run's whole wall; the model-step wall, kernel ms
+and busy share from a profiled window of steady-state steps, of the
+captured run on the serving engines and of both runs of ``generate``).
 Before them, ``[sampler]`` checks the counter sampler's hash bits on the
 card against the CPU's.
 
 Each leg's launch counts are set to 0 just before it runs and read just
 after; B4's count in the kernels line sums the four serving legs, the
 captured speculative draft runs, the disaggregated decode legs (float
-and int8) and the legs 7c-7j, B3's the paged leg, the captured
-speculative runs, both disaggregated runs (prefill variant on P, decode
-on D) and the paged legs 7c-7j; B1's and B2's sum legs 10, 10a, 10b, 10c,
-10d and 10e (``[launches] flash_attention``); B2's delta form, leg 10e's
-ring runs. The
+and int8) and the legs 7c-7j (the [ep2 mixtral paged] ranks' among them), B3's
+the paged leg, the captured speculative runs, both disaggregated runs
+(prefill variant on P, decode on D) and the paged legs 7c-7j; B1's and
+B2's sum legs 10, 10a, 10b, 10c, 10d and 10e and [ep2 mixtral train]
+(``[launches] flash_attention``); B2's delta form, leg 10e's ring runs. The
 last lines are ``[phase seconds]`` (each phase's wall), the card's name
 and power limit, a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Nothing of JAX or ``tensorlink_tpu``
@@ -285,6 +312,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -299,6 +327,7 @@ from tensorlink_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
 from tensorlink_tpu_torch.nn.layers import Embedding
 from tensorlink_tpu_torch.nn.lora import lora_init, lora_merge, trainable_leaf_count
+from tensorlink_tpu_torch.nn.module import NamedSharding
 from tensorlink_tpu_torch.nn.attention import (
     DECODE_BLOCK,
     DECODE_BLOCKWISE_MIN_WINDOWLESS,
@@ -358,6 +387,7 @@ from tensorlink_tpu_torch.runtime.ledger import (
     build_receipt,
     verify_receipt,
 )
+from tensorlink_tpu_torch.runtime import profiling
 from tensorlink_tpu_torch.runtime.profiling import measure_capability
 from tensorlink_tpu_torch.train.trainer import Trainer, softmax_cross_entropy
 
@@ -405,8 +435,8 @@ LORA_MERGE_REL = 3e-2
 LORA_NOISE_RATIO = 2.0
 CKPT_SAVE_AT, CKPT_STEPS = 2, 4  # [checkpoint]: save after 2 of 4 steps
 SHARD_MICRO = 4  # micro-batches of the sharded legs
-SHARD_BERT_STEPS = 20
-SHARD_GPT2_STEPS = 15
+SHARD_BERT_STEPS = 10
+SHARD_GPT2_STEPS = 10
 # [sp *]: two gloo ranks on cuda:0; name -> (B, H, Hkv, whole T, D,
 # causal, mask) of [sp attention]'s cases
 SP_WORLD = 2
@@ -414,7 +444,7 @@ SP_CASES = {
     "llama": (1, 32, 8, 8192, 128, True, None),
     "bert": (8, 12, 12, 512, 64, False, "bert"),
 }
-SP2_STEPS = 3
+SP2_STEPS = 1
 DEV = "cuda"
 
 
@@ -1301,6 +1331,7 @@ def phase_slice(name_power: str, model: Llama, cap: dict) -> dict:
                   name_power)
     prof = _profile_decode(sch, cfg.vocab_size, name_power)
     _check_timer_vs_profile("slice", sch, prof, name_power)
+    _telemetry_capture(sch, cfg.vocab_size, name_power)
     del sch
     gc.collect()
     torch.cuda.empty_cache()
@@ -1308,14 +1339,65 @@ def phase_slice(name_power: str, model: Llama, cap: dict) -> dict:
     esch, _, eouts, ewall, _ = _serve_paged(model, prompts, max_new, False)
     tf_e = _teacher_forced("slice eager", model, prompts, eouts)
     _agreement("slice", outs, eouts, tf, tf_e)
-    eprof = _profile_decode(esch, cfg.vocab_size, name_power, tag="profile eager",
-                            cancel_after=True)
-    _step_line("slice", prof, eprof, wall, ewall)
+    _step_line("slice", prof, None, wall, ewall)
     del esch
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches_paged": k["paged"], "launches_norm": k["norm"],
             "prompts": prompts, "outs": outs, "prof": prof}
+
+
+TELEMETRY_MS = 200  # [telemetry]: the on-demand capture's length
+TELEMETRY_WAIT_S = 120  # ... and the most its start or its end may take
+
+
+def _telemetry_check(tag: str, bundle: dict, want: tuple, name_power: str) -> None:
+    """A ``runtime.profiling`` breakdown must name the kernels ``want``
+    (``KERNEL_FAMILIES``) among its device time."""
+    cats = bundle["categories"]
+    res = {"total_ms": bundle["total_s"] * 1e3,
+           "families_ms": {k: v["s"] * 1e3 for k, v in cats.items()},
+           "ops": {k: v["ops"] for k, v in cats.items()}, "card": name_power}
+    say(f"[telemetry] {tag}: {json.dumps(res)}")
+    check(all(cats.get(f, {}).get("ops", 0) > 0 for f in want),
+          f"telemetry: {tag} does not name {want}: {sorted(cats)}")
+
+
+def _telemetry_capture(sch, vocab: int, name_power: str) -> None:
+    """[telemetry] ``profiling.timed_capture(TELEMETRY_MS)`` on a thread
+    while this thread decodes 8 requests on the captured [slice] engine
+    (as ``GET /profile`` captures a serving node): its breakdown names B3
+    and B4. This thread dispatches chunks only inside the first half of
+    the capture's window (``profiling.CAPTURE_LIVE``), never while the
+    profiler starts or stops; a capture that does not start or end within
+    TELEMETRY_WAIT_S fails the run. The requests are cancelled after."""
+    r = np.random.default_rng(6)
+    rids = [sch.submit(r.integers(0, vocab, (64,)), max_new=PROFILE_NEW)
+            for _ in range(8)]
+    while getattr(sch, "_pending", None):
+        sch.step()
+    sch.step()
+    torch.cuda.synchronize()
+    out = []  # a daemon thread: one that cannot finish does not hold the exit
+    worker = threading.Thread(
+        target=lambda: out.append(profiling.timed_capture(TELEMETRY_MS)), daemon=True)
+    worker.start()
+    check(profiling.CAPTURE_LIVE.wait(TELEMETRY_WAIT_S), "telemetry: the capture did not start")
+    t0, steps = time.perf_counter(), 0
+    while profiling.CAPTURE_LIVE.is_set() and time.perf_counter() - t0 < TELEMETRY_MS / 2e3:
+        sch.step()
+        steps += 1
+    worker.join(TELEMETRY_WAIT_S)
+    check(bool(out), "telemetry: the capture did not end")
+    bundle = out[0]
+    for rid in rids:
+        sch.cancel(rid)
+    sch.run_until_idle()
+    check(bundle["duration_ms"] == TELEMETRY_MS and steps > 0,
+          f"telemetry: capture of {bundle['duration_ms']} ms over {steps} steps")
+    _telemetry_check(f"timed_capture({TELEMETRY_MS}) while [slice] decodes "
+                     f"({steps} scheduler steps)", bundle["op_breakdown"],
+                     ("paged_decode (B3)", "fused_residual_norm (B4)"), name_power)
 
 
 PROFILE_STEPS = 4  # scheduler steps in the plain timed window
@@ -1335,7 +1417,7 @@ def _model_steps(sch) -> int:
 
 
 def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
-                    max_new: int = PROFILE_NEW, cancel_after: bool = False) -> dict:
+                    max_new: int = PROFILE_NEW) -> dict:
     """Where a decode step's time goes: 8 fresh requests are prefilled,
     one pure-decode scheduler step warms the pipeline, then a window of
     PROFILE_STEPS steps runs between two device syncs plainly and then
@@ -1347,9 +1429,8 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
     records device activity only (the kernels; no host op rows, whose
     recording slows an eager window and whose processing took most of
     the call). A profiler that records no device time is reported, not
-    fatal: the line is diagnosis, not a check. ``cancel_after`` cancels
-    the profiling requests after the windows instead of decoding them to
-    the end. ``host_s``: the call's own seconds, by part."""
+    fatal: the line is diagnosis, not a check. ``host_s``: the call's own
+    seconds, by part."""
     from torch.profiler import ProfilerActivity, profile
 
     t_start = time.perf_counter()
@@ -1374,13 +1455,9 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
     t_tail = time.perf_counter()
-    if cancel_after:
-        for rid in rids:
-            sch.cancel(rid)
     sch.run_until_idle()
-    if not cancel_after:
-        for rid in rids:
-            sch.result(rid)
+    for rid in rids:
+        sch.result(rid)
     t_ka = time.perf_counter()
     kernels = _device_kernel_times(prof)
     host_s = {"prefill": prefill_s, "plain_window": plain_s,
@@ -1429,11 +1506,16 @@ def _device_kernel_times(prof) -> dict:
     return out
 
 
-def _step_line(tag: str, cap: dict, eager: dict, wall_c: float, wall_e: float) -> None:
+def _step_line(tag: str, cap: dict, eager: dict | None, wall_c: float,
+               wall_e: float) -> None:
     """Captured against eager: the decode step's wall and busy share, and
-    each whole run's wall, on one line."""
+    each whole run's wall, on one line. The serving legs profile their
+    captured run only (``eager`` None: an eager window is ungated
+    diagnosis, cut for the run's time); ``generate``'s legs profile
+    both."""
     keys = ("model_step_ms", "kernel_ms_per_model_step", "device_busy_share")
-    res = {"captured": {k: cap[k] for k in keys}, "eager": {k: eager[k] for k in keys},
+    res = {"captured": {k: cap[k] for k in keys},
+           "eager": {k: eager[k] for k in keys} if eager else "not profiled",
            "run_wall_s": {"captured": wall_c, "eager": wall_e}}
     say(f"[{tag} step] {json.dumps(res)}")
 
@@ -1805,7 +1887,7 @@ STATIC_PROFILE_STEP = 40  # decode steps 40..47 run under the profiler
 # submitted after the first scheduler step); GPT-2's position table ends at
 # 1024, so max_len does too
 CONT_LENS = (1, 37, 900, 128, 512, 255, 700, 64, 3, 800, 333, 129, 31, 600, 450, 96)
-CONT_NEW = 64
+CONT_NEW = 32
 CONT_MAX_LEN = 1024
 # [rolling]: the --window path at Mistral-7B's width, depth cut to 2 layers:
 # the ring (T0 + window = 4352 slots) wraps only after more than 4096 decode
@@ -1840,6 +1922,7 @@ def _counts() -> dict:
         "flash_bwd": flash_attention_bwd.launches,
         "flash_bwd_by_form": dict(flash_attention_bwd.launches_by_form),
         "collectives": sum(tp.collective_counts().values()),
+        "all_to_all": tp.all_to_all_model.collectives,
     }
 
 
@@ -2081,9 +2164,7 @@ def phase_contiguous(name_power: str) -> dict:
     esch, _, eouts, ewall, _ = _serve_contiguous(model, prompts, False)
     tf_e = _teacher_forced("contiguous eager", model, prompts, eouts)
     _agreement("contiguous", outs, eouts, tf, tf_e)
-    eprof = _profile_decode(esch, gcfg.vocab_size, name_power,
-                            tag="contiguous profile eager", cancel_after=True)
-    _step_line("contiguous", prof, eprof, wall, ewall)
+    _step_line("contiguous", prof, None, wall, ewall)
     return {"launches_norm": c["fused_norm"], "worst_gap": tf["worst_gap"]}
 
 
@@ -2093,8 +2174,8 @@ def phase_rolling(name_power: str) -> dict:
     left-padded prompts, greedy, long enough that the ring wraps, decode
     steps as graph replays, then the same call on an eager engine; B4 on
     every decode step; every token of both runs within LOGIT_GAP_TOL of
-    the no-cache windowed forward's row maximum; the full cache's engine
-    (captured too) run beside it for its tokens and bytes."""
+    the no-cache windowed forward's row maximum; the full cache's plan
+    beside it for its bytes."""
     mcfg = dataclasses.replace(LlamaConfig.mistral_7b(), num_layers=ROLL_LAYERS)
     model = Llama(mcfg, device=DEV, dtype=torch.bfloat16, seed=0)
     kw = {"max_len": ROLL_MAX_LEN, "cache_dtype": torch.bfloat16,
@@ -2132,10 +2213,6 @@ def phase_rolling(name_power: str) -> dict:
     check("rolling" in cache and cache["k"].shape[1] == slots < writes,
           f"rolling: the ring of {cache['k'].shape[1]} slots took {writes} writes")
     out = run["out"]
-    run_full = _generate_traced("rolling full-cache", full, ids, pad,
-                                ROLL_NEW, ROLL_PROFILE_STEP, name_power)
-    _graph_line("rolling full-cache", full.graph_stats())
-    full._gen_state = None
     tf = _teacher_forced("rolling", model, prompts, list(out))
     eager = InferenceEngine(model, rolling_cache=True, cuda_graphs=False, **kw)
     _zero_counts()
@@ -2157,10 +2234,6 @@ def phase_rolling(name_power: str) -> dict:
         "prefill_s": run["prefill_s"], "ring_generate_s": run["total_s"],
         "ring_decode_ms_per_step": run["decode_ms"],
         "ring_eager_decode_ms_per_step": run_e["decode_ms"],
-        "full_prefill_s": run_full["prefill_s"],
-        "full_generate_s": run_full["total_s"],
-        "full_decode_ms_per_step": run_full["decode_ms"],
-        "tokens_equal_to_full_cache": int((out == run_full["out"]).sum()),
         "tokens": int(out.size), "card": name_power,
     }
     say(f"[rolling] {json.dumps(res)}")
@@ -2173,7 +2246,7 @@ def phase_rolling(name_power: str) -> dict:
 # as on code and documents); three of the prompts are long enough for B1
 # in the teacher-forced check
 SPEC_LENS = (300, 700, 200, 560, 260, 900, 160, 640)
-SPEC_NEW = 32
+SPEC_NEW = 8
 SPEC_PHRASE = 64
 SPEC_RUNS = (  # (tag, SpecConfig, the target as its own draft)
     ("ngram", SpecConfig(k=4, rounds=2), False),
@@ -2523,7 +2596,8 @@ def phase_overload(name_power: str, model: Llama) -> dict:
 # autotune, chaos, self-healing, the async API
 KL_BOUND = 0.02  # nats: the reference bench's int8 quality bound
 KL_REQUESTS = 4  # [slice] requests whose teacher-forced rows the KL reads
-INT8_EAGER = 4  # requests of the short eager int8 comparison
+INT8_EAGER = 4  # requests of the short eager int8 comparison ...
+INT8_EAGER_NEW = 16  # ... and their tokens
 # what a burst holds beside its candidate: the target's and the draft's
 # contiguous caches (2 slots x 2048 slots x 32 layers, 0.54 GB each), the
 # sibling's materialised dequantize (up to its 1 GB bf16 head, held in a
@@ -2684,11 +2758,12 @@ def phase_int8(name_power: str, model: Llama, prompts, slice_outs, slice_prof: d
     check(kl < KL_BOUND, f"int8: mean KL {kl} nats is over the {KL_BOUND} bound")
     del sch
     _free_cuda()
-    esch, eouts, ec, ebv = _serve_short("int8 eager", eng8, prompts[:INT8_EAGER], 32, False)
+    esch, eouts, ec, ebv = _serve_short("int8 eager", eng8, prompts[:INT8_EAGER],
+                                        INT8_EAGER_NEW, False)
     _check_paged_launches("int8 eager", esch.stats(), ec["paged_decode"], ec["fused_norm"],
                           ebv, cfg.num_layers)
     tf_e = _teacher_forced("int8 eager", model8, prompts[:INT8_EAGER], eouts)
-    _agreement("int8", outs[:INT8_EAGER], eouts, tf, tf_e)
+    _agreement("int8", [o[:INT8_EAGER_NEW] for o in outs[:INT8_EAGER]], eouts, tf, tf_e)
     del esch, eng8, model8, make_sibling, base
     _free_cuda()
     return {"paged": k["paged"], "norm": k["norm"],
@@ -2967,8 +3042,11 @@ def phase_async(name_power: str, model: Llama, prompts) -> dict:
 MESH_REQUESTS = 4  # [slice]'s first requests: the mesh legs' prompts
 MESH_NEW = 16
 TP2_WORLD = 2
+# the [tp2 *] legs' model: Llama-3-8B's width at half its depth (cut in
+# PR 15 to pay for the [ep2 *] legs in the same job)
+TP2_LAYERS = 16
 TP2_STATIC_ROWS = 2  # [tp2 static]: the first two prompts, left-padded
-TP2_PROFILE_STEP = 8  # [tp2 static]: decode steps 4..7 plain, 8..11 profiled
+TP2_PROFILE_STEP = 8  # [tp2 static]: decode steps 6..7 plain, 8..9 profiled
 
 
 def _serve_all(sch, prompts) -> list:
@@ -2986,8 +3064,7 @@ def phase_mesh_paged(name_power: str, model: Llama, prompts) -> dict:
     with every chunk but its first a replay, B3 and B4 launches as
     ``_check_paged_launches`` implies, and no collective (a size-1 group
     skips them). The process group is destroyed after, failed or not.
-    -> the no-mesh tokens (the world-1 run the [tp2 *] legs print
-    their agreement with) and the launches."""
+    -> the launches."""
     prompts = prompts[:MESH_REQUESTS]
     plain = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
                             param_dtype=torch.bfloat16, device=DEV)
@@ -3023,15 +3100,16 @@ def phase_mesh_paged(name_power: str, model: Llama, prompts) -> dict:
     finally:
         shutdown_distributed()
     _free_cuda()
-    return {"ref": ref, "paged": c["paged_decode"], "norm": c["fused_norm"]}
+    return {"paged": c["paged_decode"], "norm": c["fused_norm"]}
 
 
-def _tp2_leg(tag: str, rank: int, fn, calls) -> tuple:
+def _tp2_leg(tag: str, rank: int, fn, calls, L: int) -> tuple:
     """Run one [tp2 *] leg on this rank with its counts set to 0 just
     before and read just after; ``calls()`` -> the model calls it made.
     Each takes logits (the paged engine takes a prefill chunk's at every
-    chunk), so each issues 2 x layers all-reduces and the head's
-    gather."""
+    chunk), so each issues 2 x ``L`` all-reduces (attention's ``o`` and
+    the MLP's ``down``, or a MoE layer's summed partial combines) and
+    the head's gather."""
     _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3039,7 +3117,6 @@ def _tp2_leg(tag: str, rank: int, fn, calls) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     c = _counts()
-    L = LlamaConfig.llama3_8b().num_layers
     n = calls()
     want = (2 * L + 1) * n
     if rank == 0:
@@ -3069,7 +3146,7 @@ def _tp2_rank(rank: int, world: int, store: str, prompts, s_ids, s_pad,
                            device="cpu")
     try:
         mesh = make_mesh(MeshConfig(model=world), device="cpu")
-        cfg = LlamaConfig.llama3_8b()
+        cfg = _tp2_config()
         L = cfg.num_layers
         gen = GenerationConfig(max_new_tokens=MESH_NEW)
         model = Llama(cfg, device=DEV, dtype=torch.bfloat16, seed=0)
@@ -3092,7 +3169,7 @@ def _tp2_rank(rank: int, world: int, store: str, prompts, s_ids, s_pad,
             cuda_graphs=False)
         outs, c, wall = _tp2_leg(
             "tp2 paged", rank, lambda: _serve_all(sch, prompts),
-            lambda: sch.prefill_chunks + sch.decode_steps)
+            lambda: sch.prefill_chunks + sch.decode_steps, L)
         by_variant = dict(paged_decode_attention.launches_by_variant)
         st = sch.stats()
         _check_paged_launches("tp2 paged", st, c["paged_decode"], c["fused_norm"],
@@ -3110,7 +3187,7 @@ def _tp2_rank(rank: int, world: int, store: str, prompts, s_ids, s_pad,
                                        gen=gen, cuda_graphs=False)
         outs, c, wall = _tp2_leg(
             "tp2 contiguous", rank, lambda: _serve_all(sch, prompts),
-            lambda: len(prompts) + sch.decode_steps)
+            lambda: len(prompts) + sch.decode_steps, L)
         _check_decode_launches("tp2 contiguous", c, L * sch.decode_steps, "rms")
         res["contiguous"] = {"outs": outs, "wall": wall, "launches": c,
                              "cache": tuple(sch._kv[0][0].shape),
@@ -3122,16 +3199,20 @@ def _tp2_rank(rank: int, world: int, store: str, prompts, s_ids, s_pad,
         def static():
             if rank == 0:  # the profiler on one rank only
                 return _generate_traced("tp2 static", eng, s_ids, s_pad, MESH_NEW,
-                                        TP2_PROFILE_STEP, name_power, active=4)
+                                        TP2_PROFILE_STEP, name_power, active=2)
             return {"out": eng.generate(s_ids, gen, pad_mask=s_pad), "prefill_s": None,
                     "decode_ms": None, "profile": None}
 
-        out, c, wall = _tp2_leg("tp2 static", rank, static, lambda: MESH_NEW)
+        out, c, wall = _tp2_leg("tp2 static", rank, static, lambda: MESH_NEW, L)
         _check_decode_launches("tp2 static", c, L * (MESH_NEW - 1), "rms")
         res["static"] = {"outs": list(out["out"]), "wall": wall, "launches": c,
                          "prefill_s": out["prefill_s"], "decode_ms": out["decode_ms"],
                          "profile": out["profile"]}
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        del eng, model
+        _free_cuda()
+        res["ep2_paged"] = _ep2_paged(rank, world, mesh, gen)
+        res["ep2_train"] = _ep2_train(rank, world, out_dir)
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         shutdown_distributed()
@@ -3239,25 +3320,309 @@ def _sp2_static(rank: int, world: int, model, s_ids, s_pad, gen) -> dict:
     return {"outs": list(out), **res}
 
 
-def phase_tp2(name_power: str, prompts, ref_outs) -> dict:
+# [ep2 mixtral train]: Mixtral-8x7B's width at 2 layers, SGD (f32
+# masters and gradients of two ranks' halves fit one card beside the
+# parent's world-1 run), batch 4 x 512 in 2 micros, 3 steps
+EP_TRAIN_LAYERS = 2
+EP_TRAIN_BATCH = (4, 512)
+EP_TRAIN_MICRO = 2
+EP_TRAIN_STEPS = 3
+EP_TRAIN_LR = 1e-2
+EP_TRAIN_AUX = 0.01
+EP_LOSS_REL = 1e-3  # the first loss against world 1's, relative
+
+
+def _one_at_a_time(rank: int, world: int, build):
+    """``build()`` on each rank in turn, a barrier between: only one
+    whole model is on the card while a rank cuts its blocks from it."""
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = build()
+            _free_cuda()
+        torch.distributed.barrier()
+    return out
+
+
+def _expert_bytes(model) -> int:
+    return sum(t.numel() * t.element_size() for blk in model.blocks.blocks()
+               for t in (blk.mlp.up, blk.mlp.gate, blk.mlp.down))
+
+
+def _ep2_paged(rank: int, world: int, mesh, gen) -> dict:
+    """[ep2 mixtral paged] on this rank: [mixtral paged]'s model
+    (Mixtral-8x7B at full width, MIX_LAYERS layers, seed 0) cut by
+    ``InferenceEngine(mesh=)`` to 4 of the 8 experts and half of the
+    heads a rank, [mixtral paged]'s first 4 requests through the paged
+    engine,
+    eager: the MoE layers in their fallback form (every rank routes
+    every token, one all-reduce of the partial combines a layer, no
+    all_to_all), 2 x layers + 1 collectives a model call, B3 and B4 on
+    the path, this rank's expert bytes half of the whole model's. Then
+    each request's same-T replay alone on a one-row paged cache through
+    this rank's blocks, its routing recorded: every token within
+    LOGIT_GAP_TOL of it. The parent replays the world-1 model with that
+    routing pinned, in [mixtral paged]."""
+    cfg = dataclasses.replace(LlamaConfig.mixtral_8x7b(), num_layers=MIX_LAYERS)
+    L = cfg.num_layers
+    prompts = _requests(cfg.vocab_size)[:MESH_REQUESTS]
+
+    def build():
+        model = Llama(cfg, device=DEV, dtype=torch.bfloat16, seed=0)
+        whole = _expert_bytes(model)
+        return InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                               param_dtype=torch.bfloat16, device=DEV, mesh=mesh,
+                               cuda_graphs=False), whole
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, whole = _one_at_a_time(rank, world, build)
+    build_s = time.perf_counter() - t0
+    sch = PagedContinuousBatchingEngine(
+        eng, slots=8, block_size=16, prefill_chunk=128, decode_chunk=8, gen=gen,
+        cuda_graphs=False)
+    rids = []
+
+    def serve():
+        rids.extend(sch.submit(p) for p in prompts)
+        sch.run_until_idle()
+        torch.cuda.synchronize()
+        return [np.asarray(sch.result(rid)) for rid in rids]
+
+    outs, c, wall = _tp2_leg("ep2 mixtral paged", rank, serve,
+                             lambda: sch.prefill_chunks + sch.decode_steps, L)
+    by_variant = dict(paged_decode_attention.launches_by_variant)
+    st = sch.stats()
+    _check_paged_launches("ep2 mixtral paged", st, c["paged_decode"], c["fused_norm"],
+                          by_variant, L)
+    _check_chunk_starts("ep2 mixtral paged", sch, rids, prompts)
+    mine = _expert_bytes(eng.model)
+    mlp = eng.model.blocks.blocks()[0].mlp
+    pool = tuple(sch._pools[0]["k"].shape)
+    res = {"build_s": build_s, "wall_s": wall, "launches": c,
+           "decode_steps": st["decode_steps"], "prefill_chunks": st["prefill_chunks"],
+           "expert_bytes": mine, "whole_expert_bytes": whole,
+           "weight_bytes": eng.weight_bytes, "expert_block": tuple(mlp.up.shape),
+           "router": tuple(mlp.router.w.shape), "pool": pool,
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if rank == 0:
+        say(f"[ep2 mixtral paged] rank 0: {json.dumps(res)}")
+    check(mine * world == whole,
+          f"ep2 mixtral paged: rank {rank} holds {mine} expert bytes of {whole}")
+    check(res["expert_block"][0] == cfg.moe_experts // world
+          and res["router"] == (cfg.dim, cfg.moe_experts)
+          and pool[2] == cfg.num_kv_heads // world,
+          f"ep2 mixtral paged: expert block {res['expert_block']}, router "
+          f"{res['router']}, pools {pool}")
+    check(c["all_to_all"] == 0, "ep2 mixtral paged: serving took the all_to_all form")
+    del sch
+    _free_cuda()
+    tape = _RouteTape(eng.model)
+    rows = []
+    with torch.no_grad(), eng.parallel():
+        for p, o in zip(prompts, outs):
+            tape.record()
+            try:
+                rows.append(_replay_paged_row(eng.model, p, o))
+            finally:
+                tape.release()
+    res["own_replay"] = _gap_check(f"ep2 mixtral paged rank {rank} vs its one-row "
+                                   "paged replay", rows, outs)
+    routes = [t.cpu() for t in tape.tape]
+    del eng, rows, tape
+    _free_cuda()
+    return {"outs": outs, "routes": routes, **res}
+
+
+def _ep_train_setup():
+    """[ep2 mixtral train]'s model config, TrainConfig and batch."""
+    cfg = dataclasses.replace(LlamaConfig.mixtral_8x7b(), num_layers=EP_TRAIN_LAYERS)
+    B, T = EP_TRAIN_BATCH
+    r = np.random.default_rng(5)
+    ids = torch.from_numpy(r.integers(0, cfg.vocab_size, (B, T + 1))).to(DEV)
+    tcfg = TrainConfig(batch_size=B, micro_batches=EP_TRAIN_MICRO, optimizer="sgd",
+                       learning_rate=EP_TRAIN_LR, dtype="bfloat16",
+                       moe_aux_weight=EP_TRAIN_AUX)
+    return cfg, tcfg, {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+
+
+def _lm_loss(logits, batch):
+    return softmax_cross_entropy(logits, batch["labels"])
+
+
+def _ep_train_world1() -> dict:
+    """[ep2 mixtral train]'s first step at world 1 (one NCCL rank, the
+    process group destroyed after): the bf16 step through B1/B2 and the
+    f32 step through the plain attention that decides the leaves at
+    bf16's noise floor, -> per tag (loss, gradients on the host)."""
+    cfg, tcfg, batch = _ep_train_setup()
+    out = {}
+    mesh = make_mesh(MeshConfig())
+    try:
+        model = Llama(cfg, device=DEV, dtype=torch.bfloat16, seed=0)
+        params = dict(model.named_parameters())
+        for tag, dtype, impl in (("bf16", "bfloat16", None), ("f32", "float32", "reference")):
+            m = model if impl is None else Llama(dataclasses.replace(cfg, attn_impl=impl),
+                                                 device="meta", dtype=torch.bfloat16,
+                                                 seed=None)
+            tr = ShardedTrainer(mesh, dataclasses.replace(tcfg, dtype=dtype),
+                                m.as_pipeline_parts(params), _lm_loss)
+            loss, grads = tr.loss_and_grads(tr.init_state(), batch)
+            # bf16 on the host: its rounding is far below the bf16 step's own
+            out[tag] = (float(loss), {k: v.to(torch.bfloat16).cpu()
+                                      for k, v in grads.items()})
+            del tr, grads, m
+            _free_cuda()
+        del model, params
+    finally:
+        shutdown_distributed()
+    _free_cuda()
+    return out
+
+
+def _ep2_train(rank: int, world: int, out_dir: str) -> dict:
+    """[ep2 mixtral train] on this rank: ``ShardedTrainer`` at model 2,
+    pipe 1, on a CUDA mesh over the gloo group, the MoE layers in their
+    all_to_all form (``ep.ep_parallel``: each rank routes its batch row
+    of a micro, the dispatched tokens swapped to the experts' ranks and
+    back), 4 of the 8 experts and half of the heads a rank. The first
+    step's loss and gradients (bf16, with the block each leaf is of the
+    whole, saved for the parent), then EP_TRAIN_STEPS steps; each gates
+    B1 and B2 once a layer and micro and four all_to_all swaps a layer
+    and micro (two forward, two backward)."""
+    cfg, tcfg, batch = _ep_train_setup()
+    L, M = cfg.num_layers, tcfg.micro_batches
+    mesh = make_mesh(MeshConfig(model=world), device="cuda")
+
+    def build():
+        # the whole weights generated on the card from the seed, kept on
+        # the host for the trainer to cut; the modules are a meta-device
+        # structure (every call replaces their parameters)
+        model = Llama(cfg, device=DEV, dtype=torch.bfloat16, seed=0)
+        params = {k: v.cpu() for k, v in model.named_parameters()}
+        del model
+        _free_cuda()
+        structure = Llama(cfg, device="meta", dtype=torch.bfloat16, seed=None)
+        tr = ShardedTrainer(mesh, tcfg, structure.as_pipeline_parts(params), _lm_loss,
+                            device=DEV)
+        state = tr.init_state()
+        # the blocks are cut: the trainer reads the whole weights no more
+        tr.parts.embed_params = tr.parts.block_params = tr.parts.head_params = {}
+        return tr, state
+
+    torch.cuda.reset_peak_memory_stats()
+    tr, state = build()
+    per_step, swaps = L * M, 4 * L * M
+    _zero_counts()
+    loss0, grads = tr.loss_and_grads(state, batch)
+    c = _counts()
+    check(c["flash_fwd"] == c["flash_bwd"] == per_step and c["all_to_all"] == swaps,
+          f"ep2 mixtral train: rank {rank}'s first step launched {c}, expected B1 and "
+          f"B2 {per_step} each and {swaps} all_to_all swaps")
+    cuts = {k: [(d, *NamedSharding(mesh, tr._specs[k]).block(d))
+                for d in NamedSharding(mesh, tr._specs[k]).dims()] for k in grads}
+    # rank 0 saves every leaf, the others only their blocks of split ones
+    keep = [k for k in grads if rank == 0 or cuts[k]]
+    torch.save({"loss": float(loss0), "cuts": {k: cuts[k] for k in keep},
+                "grads": {k: grads[k].to(torch.bfloat16).cpu() for k in keep}},
+               os.path.join(out_dir, f"ep2_grads{rank}.pt"))
+    del grads
+    _free_cuda()
+    _zero_counts()
+    state, losses, secs, (k1, k2) = _sharded_steps(tr, state, batch, EP_TRAIN_STEPS,
+                                                   warm=1)
+    n = tp.all_to_all_model.collectives
+    check(k1 == k2 == per_step * EP_TRAIN_STEPS and n == swaps * EP_TRAIN_STEPS,
+          f"ep2 mixtral train: rank {rank} launched B1 {k1}, B2 {k2}, {n} swaps in "
+          f"{EP_TRAIN_STEPS} steps, expected {per_step}, {per_step} and {swaps} a step")
+    check(all(np.isfinite(losses)), "ep2 mixtral train: non-finite loss")
+    res = {"rank": rank, "mesh": tr.describe(), "first_loss": float(loss0),
+           "losses": losses, "step_ms": [x * 1e3 for x in secs],
+           "launches_per_step": per_step, "all_to_all_per_step": swaps,
+           "collectives_per_step": {k: v / EP_TRAIN_STEPS
+                                    for k, v in tp.collective_counts().items()},
+           "expert_block": tuple(state.params["stages.0.mlp.up"].shape),
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if rank == 0:
+        say(f"[ep2 mixtral train] rank 0: {json.dumps(res)}")
+    del tr, state
+    _free_cuda()
+    return {**res, "launches": (k1 + per_step, k2 + per_step)}
+
+
+def _ep2_train_check(d: str, ranks, world1: dict, name_power: str) -> dict:
+    """[ep2 mixtral train] in the parent: each rank's first-step
+    gradients against its blocks of the world-1 step's (the f32 plain
+    step deciding the leaves at bf16's noise floor, as in [sharded
+    gpt2]), the first loss against world 1's within EP_LOSS_REL (relative), and
+    the ranks' losses equal."""
+    ep = [r["ep2_train"] for r in ranks]
+    agree = {}
+    for rank in range(len(ranks)):
+        g = torch.load(os.path.join(d, f"ep2_grads{rank}.pt"), weights_only=False,
+                       mmap=True)
+
+        def block(run, k):
+            t = run[1][k]
+            for dim, i, n in g["cuts"][k]:
+                t = t.chunk(n, dim=dim)[i]
+            return t.to(DEV).float()
+
+        trip = [(g["loss"], {k: v.to(DEV).float() for k, v in g["grads"].items()})]
+        trip += [(world1[t][0], {k: block(world1[t], k) for k in g["grads"]})
+                 for t in ("bf16", "f32")]
+        agree[rank] = _grad_agreement(*trip)
+        del g, trip
+        _free_cuda()
+    loss_diff = abs(ep[0]["first_loss"] - world1["bf16"][0])
+    rel = loss_diff / abs(world1["bf16"][0])
+    res = {"first_loss": ep[0]["first_loss"], "world1_loss": world1["bf16"][0],
+           "world1_f32_loss": world1["f32"][0], "loss_abs_diff": loss_diff,
+           "loss_rel_diff": rel,
+           "losses": ep[0]["losses"], "step_ms_rank0": ep[0]["step_ms"],
+           "gradients_by_rank": agree, "expert_block": ep[0]["expert_block"],
+           "all_to_all_per_step": ep[0]["all_to_all_per_step"],
+           "collectives_per_step_rank0": ep[0]["collectives_per_step"],
+           "peak_allocated_gib": [x["peak_allocated_gib"] for x in ep],
+           "transport": "gloo on one card (all_to_all_single of CUDA tensors)",
+           "card": name_power}
+    say(f"[ep2 mixtral train] {json.dumps(res)}")
+    check(rel <= EP_LOSS_REL, f"ep2 mixtral train: first loss "
+          f"{ep[0]['first_loss']} vs world 1's {world1['bf16'][0]}")
+    check(all(not a["failed"] for a in agree.values()),
+          f"ep2 mixtral train: gradient disagreement "
+          f"{ {r: a['failed'] for r, a in agree.items()} }")
+    check(all(x["losses"] == ep[0]["losses"] for x in ep),
+          "ep2 mixtral train: the ranks report different losses")
+    return res
+
+
+def _tp2_config() -> LlamaConfig:
+    return dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=TP2_LAYERS)
+
+
+def phase_tp2(name_power: str, prompts) -> dict:
     """[tp2 paged], [tp2 contiguous], [tp2 static]: one job of two spawned
     ranks over gloo, both on cuda:0 (NCCL takes one rank a device; gloo
     carries the CUDA tensors of the collectives through host copies, so
     this is a correctness check of tensor parallelism at full width, not
-    a deployment), Llama-3-8B at full width and depth, eager. Each rank
-    holds its blocks (half of every ``Dense``) and serves [slice]'s first
-    4 requests through the paged and the contiguous engine and 2
-    left-padded prompts through ``generate``, 16 tokens each; each rank
-    gates its own collectives (2 x 32 + 1 a model call) and launches (B3
-    32 times a paged decode step and prefill chunk, B4 32 times a decode
-    step), and both ranks must emit the same tokens. Here, on the whole
-    model rebuilt
-    from the same seed after the job: every emitted token within
-    LOGIT_GAP_TOL of the teacher-forced row max; printed, the greedy
-    agreement with the world-1 run ([mesh paged]'s no-mesh tokens) and
-    each rank's weight bytes against half of the whole model's."""
+    a deployment), Llama-3-8B at full width and TP2_LAYERS of its 32
+    layers, eager. Each rank holds its blocks (half of every ``Dense``)
+    and serves [slice]'s first 4 requests through the paged and the
+    contiguous engine and 2 left-padded prompts through ``generate``, 16
+    tokens each; each rank gates its own collectives (2 x 16 + 1 a model
+    call) and launches (B3 16 times a paged decode step and prefill
+    chunk, B4 16 times a decode step), and both ranks must emit the same
+    tokens. Here, on the whole model rebuilt from the same seed after the
+    job: every emitted token within LOGIT_GAP_TOL of the teacher-forced
+    row max; printed, the greedy agreement with that model's world-1
+    paged run of the same requests and each rank's weight bytes against
+    half of the whole model's. The [ep2 *] legs run in the same job."""
     prompts = prompts[:MESH_REQUESTS]
     s_ids, s_pad = _pad_left(prompts[:TP2_STATIC_ROWS])
+    t0 = time.perf_counter()
+    ep_world1 = _ep_train_world1()
+    world1_s = time.perf_counter() - t0
     d = tempfile.mkdtemp(prefix="tp2-", dir=os.path.join(_build.PKG_DIR, "_build"))
     t0 = time.perf_counter()
     torch.multiprocessing.start_processes(
@@ -3267,7 +3632,12 @@ def phase_tp2(name_power: str, prompts, ref_outs) -> dict:
     job_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
              for r in range(TP2_WORLD)]
-    model = Llama(LlamaConfig.llama3_8b(), device=DEV, dtype=torch.bfloat16, seed=0)
+    model = Llama(_tp2_config(), device=DEV, dtype=torch.bfloat16, seed=0)
+    world1 = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                             param_dtype=torch.bfloat16, device=DEV)
+    ref_outs = _serve_short("tp2 world 1", world1, prompts, MESH_NEW, True)[1]
+    del world1
+    _free_cuda()
     out = {"job_s": job_s, "card": name_power}
     s_prompts = prompts[:TP2_STATIC_ROWS]
     for leg, legp, ref in (("paged", prompts, ref_outs),
@@ -3311,11 +3681,24 @@ def phase_tp2(name_power: str, prompts, ref_outs) -> dict:
     say(f"[tp2] {json.dumps(out)}")
     del model
     _free_cuda()
+    ep_train = _ep2_train_check(d, ranks, ep_world1, name_power)
+    ep_train["world1_s"] = world1_s
+    del ep_world1
     shutil.rmtree(d, ignore_errors=True)
+    ep = [r["ep2_paged"] for r in ranks]
+    check(all(np.array_equal(a, b) for r in ep[1:] for a, b in zip(r["outs"], ep[0]["outs"])),
+          "ep2 mixtral paged: the ranks emitted different tokens")
     return {"paged": sum(r[leg]["launches"]["paged_decode"] for r in ranks
                          for leg in ("paged", "disagg")),
             "norm": sum(r[leg]["launches"]["fused_norm"] for r in ranks
-                        for leg in ("paged", "disagg", "contiguous", "static", "sp2_static"))}
+                        for leg in ("paged", "disagg", "contiguous", "static", "sp2_static")),
+            "ep2_paged": {"outs": ep[0]["outs"], "routes": ep[0]["routes"], "ranks": [
+                {k: v for k, v in r.items() if k not in ("outs", "routes")} for r in ep]},
+            "ep2_launches": {
+                "paged": sum(r["launches"]["paged_decode"] for r in ep),
+                "norm": sum(r["launches"]["fused_norm"] for r in ep),
+                "flash": tuple(sum(r["ep2_train"]["launches"][i] for r in ranks)
+                               for i in (0, 1))}}
 
 
 def _tp2_disagg_world1(model, prompts, d: str, ranks, ref_outs, name_power: str) -> dict:
@@ -3360,7 +3743,7 @@ def _tp2_disagg_world1(model, prompts, d: str, ranks, ref_outs, name_power: str)
 
 
 MIX_LAYERS = 8
-MIX_NEW = 32
+MIX_NEW = 16
 MIX_GEN_LENS = (100, 700, 310, 520, 180, 640, 260, 450)
 MIX_GEN_NEW = 16
 MIX_GEN_PROFILE_STEP = 8  # decode steps 4..7 plain, 8..11 profiled
@@ -3610,7 +3993,43 @@ def _check_chunk_starts(tag: str, sch, rids, prompts, shared: int = 256,
           f"{tag}: prefix hits {hits} against {matched} matched tokens")
 
 
-def phase_mixtral(name_power: str, cap: dict) -> dict:
+def _ep2_tokens(name_power: str, model, prompts, ep2: dict, world1_outs) -> None:
+    """[ep2 mixtral paged]'s tokens against the world-1 Mixtral: every
+    token within LOGIT_GAP_TOL of the row max of this model's same-T
+    replay (one row on a paged cache through B3, as [mixtral paged]'s
+    own tokens are held) with the routing pinned to rank 0's replay at
+    model 2: routing is discontinuous, and the model-2 sums round
+    otherwise, so a free replay would flip router near-ties."""
+    outs = ep2["outs"]
+    tape = _RouteTape(model)
+    tape.tape = [t.to(DEV) for t in ep2["routes"]]
+    tape.pin()
+    try:
+        with torch.no_grad():
+            rows = [_replay_paged_row(model, p, o) for p, o in zip(prompts, outs)]
+    finally:
+        tape.release()
+    check(not tape.tape, "ep2 mixtral paged: route tape left unreplayed")
+    gap = _gap_check("ep2 mixtral paged vs world-1 paged replay, model-2 routing pinned",
+                     rows, outs)
+    same = sum(int((np.asarray(a) == np.asarray(b)[:len(a)]).sum())
+               for a, b in zip(outs, world1_outs))
+    r0 = ep2["ranks"][0]
+    res = {"worst_gap_world1_pinned": gap["worst_gap"], "tokens": gap["tokens"],
+           "exact_argmax": gap["exact"],
+           "worst_gap_own_replay": [r["own_replay"]["worst_gap"] for r in ep2["ranks"]],
+           "equal_to_world1": same,
+           "share_equal_to_world1": same / gap["tokens"],
+           **{k: r0[k] for k in ("wall_s", "build_s", "decode_steps", "prefill_chunks",
+                                 "expert_bytes", "whole_expert_bytes", "weight_bytes",
+                                 "expert_block", "pool")},
+           "collectives_rank0": r0["launches"]["collectives"],
+           "peak_allocated_gib": [r["peak_allocated_gib"] for r in ep2["ranks"]],
+           "transport": "gloo on one card", "card": name_power}
+    say(f"[ep2 mixtral paged] {json.dumps(res)}")
+
+
+def phase_mixtral(name_power: str, cap: dict, ep2: dict) -> dict:
     """Mixtral-8x7B (``LlamaConfig.mixtral_8x7b()`` at full width, 8 of
     32 layers, random bf16 weights from seed 0, built in bf16 on the
     card) through ``PagedContinuousBatchingEngine`` in the [slice]
@@ -3625,7 +4044,11 @@ def phase_mixtral(name_power: str, cap: dict) -> dict:
     fraction of exactly 0, and through the contiguous cache and the plain
     attention with that routing pinned. Then ``InferenceEngine.generate`` on 8
     left-padded prompts of 100-700 tokens, 16 new tokens, under a
-    row-by-row replay at T0 (plain attention on both sides)."""
+    row-by-row replay at T0 (plain attention on both sides). Then
+    ``ep2``, [ep2 mixtral paged]'s tokens from the [tp2] job (the same
+    model at model 2, [slice]'s first 4 requests), under the same two
+    same-T replays of this world-1 model; printed, their agreement with
+    this run's first 16 tokens of those requests."""
     cfg = dataclasses.replace(LlamaConfig.mixtral_8x7b(), num_layers=MIX_LAYERS)
     L = cfg.num_layers
     torch.cuda.reset_peak_memory_stats()
@@ -3664,8 +4087,7 @@ def phase_mixtral(name_power: str, cap: dict) -> dict:
                                     if sch.decode_only_s else None),
             "decode_steps": st["decode_steps"], "prefill_chunks": st["prefill_chunks"],
             "prof": _profile_decode(sch, cfg.vocab_size, name_power,
-                                    tag=f"mixtral paged profile{'' if captured else ' eager'}",
-                                    cancel_after=not captured),
+                                    tag="mixtral paged profile") if captured else None,
         }
         del sch
         _free_cuda()
@@ -3686,11 +4108,12 @@ def phase_mixtral(name_power: str, cap: dict) -> dict:
     routing = tape.drops()
     tf, tf_e = checks["captured"]["plain"], checks["eager"]["plain"]
     _agreement("mixtral paged", cap_run["outs"], eag_run["outs"], tf, tf_e)
-    _step_line("mixtral paged", cap_run["prof"], eag_run["prof"], cap_run["wall"],
-               eag_run["wall"])
+    _step_line("mixtral paged", cap_run["prof"], None, cap_run["wall"], eag_run["wall"])
     say(f"[mixtral paged routing] {json.dumps(routing)}")
     check(routing["decode"]["routes"] > 0 and routing["decode"]["drop_fraction"] == 0.0,
           f"mixtral paged: decode steps dropped routes: {routing['decode']}")
+    _ep2_tokens(name_power, model, prompts[:MESH_REQUESTS], ep2,
+                cap_run["outs"][:MESH_REQUESTS])
 
     # the static path: left-padded generate, the pads first in each row's
     # capacity count
@@ -3728,7 +4151,6 @@ def phase_mixtral(name_power: str, cap: dict) -> dict:
         "model_step_ms": cap_run["prof"]["model_step_ms"],
         "kernel_ms_per_model_step": cap_run["prof"]["kernel_ms_per_model_step"],
         "device_busy_share": cap_run["prof"]["device_busy_share"],
-        "eager_model_step_ms": eag_run["prof"]["model_step_ms"],
         "decode_mbu": dt["programs"]["decode"].get("mbu", "not measured"),
         "prefill_mfu": dt["programs"]["prefill_chunk"].get("mfu", "not measured"),
         "prefill_mbu": dt["programs"]["prefill_chunk"].get("mbu", "not measured"),
@@ -3785,18 +4207,6 @@ def _timed_steps(trainer, state, batch, gen, n, warm=3):
     return state, losses, secs
 
 
-# kernel-name groups of a training step's profile (first match wins)
-KERNEL_GROUPS = (
-    ("flash_fwd (B1)", ("flash_fwd_kernel",)),
-    ("flash_bwd (B2)", ("flash_bwd_",)),
-    ("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
-    ("optimizer (foreach)", ("multi_tensor_apply",)),
-    ("embedding backward", ("indexing_backward", "embedding_backward")),
-    ("reductions", ("reduce_kernel",)),
-    ("elementwise", ("elementwise", "vectorized", "unrolled")),
-)
-
-
 def _profile_step(trainer, state, batch, gen) -> dict:
     """One training step under torch.profiler: kernel time over the
     step's wall time is the device's busy share."""
@@ -3818,8 +4228,7 @@ def _profile_step(trainer, state, batch, gen) -> dict:
     host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     groups: dict[str, float] = {}
     for e in kernels:
-        group = next((g for g, keys in KERNEL_GROUPS if any(k in e.key for k in keys)),
-                     "other")
+        group = profiling.kernel_family(e.key)
         groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
     return {
         "loss": loss, "profiled_step_s": wall,
@@ -3948,6 +4357,9 @@ def phase_train(name_power: str) -> dict:
     prof = _profile_step(trainer, state, batch, gen)
     prof["card"] = name_power
     say(f"[train] profile: {json.dumps(prof)}")
+    _telemetry_check("op_breakdown of one [train] step", profiling.op_breakdown(
+        lambda: trainer.train_step(state, batch, gen)),
+        ("flash_fwd (B1)", "flash_bwd (B2)"), name_power)
 
     # the headline shape, batch 32 x seq 128: "auto" takes the plain
     # attention path below MIN_KERNEL_SEQ_AUTO, "flash" forces the kernels
@@ -4419,7 +4831,7 @@ def phase_sharded_gpt2(name_power: str, mesh) -> dict:
     prof = _profile_step(tr, state, batch, None)
     prof["card"] = name_power
     say(f"[sharded gpt2] profile: {json.dumps(prof)}")
-    bub = tr.measure_bubble(state, batch, repeats=2)
+    bub = tr.measure_bubble(state, batch, repeats=1)
     bub["card"] = name_power
     say(f"[sharded gpt2] measured bubble: {json.dumps(bub)}")
     check(bub["closed_form_bubble_fraction"] == 0.0, "closed-form bubble at S 1 is not 0")
@@ -4619,7 +5031,8 @@ def phase_sp(name_power: str, seq1: dict) -> dict:
           "sp2 gpt2: the ranks report different losses")
     res = {"job_s": job_s, "first_loss": g[0]["first_loss"], "losses": g[0]["losses"],
            "step_ms_rank0": g[0]["step_ms"],
-           "step_ms_median_rank0": float(np.median(g[0]["step_ms"])),
+           "step_ms_median_rank0": (float(np.median(g[0]["step_ms"])) if g[0]["step_ms"]
+                                    else g[0]["profile"]["profiled_step_s"] * 1e3),
            "launches_per_step": [x["launches_per_step"] for x in g],
            "profile_rank0": g[0]["profile"],
            "peak_allocated_gib": [x["peak_allocated_gib"] for x in g],
@@ -4706,8 +5119,8 @@ def _main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    tp2 = timed("tp2", phase_tp2, name_power, prompts, mesh["ref"])
-    mixtral = timed("mixtral", phase_mixtral, name_power, cap)
+    tp2 = timed("tp2", phase_tp2, name_power, prompts)
+    mixtral = timed("mixtral", phase_mixtral, name_power, cap, tp2["ep2_paged"])
     contiguous = timed("contiguous", phase_contiguous, name_power)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4738,7 +5151,8 @@ def _main() -> int:
                   "int8 weights": int8["norm"], "fused qkv": fused["norm"],
                   "autopair bursts": pair["norm"], "chaos (2 overload runs)": chaos_k["norm"],
                   "self-heal": heal["norm"], "async": asyn["norm"],
-                  "mixtral paged": mixtral["norm"], "mixtral static": mixtral["static_norm"]}
+                  "mixtral paged": mixtral["norm"], "mixtral static": mixtral["static_norm"],
+                  "ep2 mixtral paged (both ranks)": tp2["ep2_launches"]["norm"]}
     paged_paths = {"paged serving": launches["launches_paged"],
                    "mesh paged": mesh["paged"], "tp2 paged and disagg (both ranks)": tp2["paged"],
                    "spec paged (verify passes, prefill chunks)": spec["paged"],
@@ -4747,7 +5161,8 @@ def _main() -> int:
                    "int8 weights": int8["paged"], "fused qkv": fused["paged"],
                    "chaos (2 overload runs)": chaos_k["paged"],
                    "self-heal": heal["paged"], "async": asyn["paged"],
-                   "mixtral paged": mixtral["paged"]}
+                   "mixtral paged": mixtral["paged"],
+                   "ep2 mixtral paged (both ranks)": tp2["ep2_launches"]["paged"]}
     say(f"[launches] fused_residual_norm by path: {json.dumps(norm_paths)}")
     say(f"[launches] paged_decode_attention by path: {json.dumps(paged_paths)}")
     flash_paths = {"train": (train["launches_fwd"], train["launches_bwd"]),
@@ -4756,7 +5171,8 @@ def _main() -> int:
                    "sharded bert": (sh_bert["launches_fwd"], sh_bert["launches_bwd"]),
                    "sharded gpt2": (sh_gpt2["launches_fwd"], sh_gpt2["launches_bwd"]),
                    "sp attention + sp2 gpt2 (both ranks)": (sp_job["launches_fwd"],
-                                                            sp_job["launches_bwd"])}
+                                                            sp_job["launches_bwd"]),
+                   "ep2 mixtral train (both ranks)": tp2["ep2_launches"]["flash"]}
     say(f"[launches] flash_attention fwd, bwd by path: {json.dumps(flash_paths)}")
     kernels = [
         {

@@ -178,7 +178,9 @@ class Llama(Module):
         """Split into (embed, blocks, head) for the ``ShardedTrainer``;
         ``params``: a flat state dict (default: the model's own). MoE
         configs carry ``block_fn_aux``, so ``moe_aux_weight`` trains the
-        router's load balancing in both schedules."""
+        router's load balancing in both schedules; at model > 1 a
+        block's experts are this rank's E/m and its aux the model
+        group's average (``nn/moe.py``)."""
         from tensorlink_tpu_torch.parallel.engine import (
             PipelineParts,
             apply_with,

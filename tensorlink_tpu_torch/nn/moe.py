@@ -29,11 +29,41 @@ reads nothing back to the host (one-hot by comparison with
 runs inside a captured decode chunk; ``routing_stats`` is the one
 telemetry call that reads a value back, once, at its end.
 
+Expert parallelism: on a model group of m ranks a rank holds ``E/m``
+experts, the contiguous slice ``[r E/m, (r+1) E/m)`` of ``up``/``gate``/
+``down`` that ``param_spec`` cuts; the router stays whole. A layer
+handed such blocks runs one of the reference's two lowerings, chosen as
+the reference chooses them (``parallel/ep.py``):
+
+- the fallback, under ``tp.model_parallel`` alone: every rank routes
+  every token, slices ``dispatch``/``combine`` to its experts, runs them
+  and combines a partial [B, T, D]; ``tp.reduce_from_model`` sums the
+  partials (one all-reduce a layer) and ``tp.copy_to_model`` sits on
+  the input;
+- the all_to_all form, under ``ep.ep_parallel`` too: the rank takes its
+  ``B/m`` batch rows (``tp.scatter_rows_to_model``), routes them
+  (capacity is per row, so the drops are the world-1 drops), swaps
+  ``expert_in`` [E, B/m, C, D] to [E/m, B, C, D] with one
+  ``all_to_all_single`` (``tp.all_to_all_model``), runs its experts,
+  swaps back, combines its rows and all-gathers them
+  (``tp.gather_rows_to_model``). A batch that ``m`` does not divide
+  takes the fallback.
+
+Both forms return the world-1 output and aux and leave the world-1
+router gradient on every rank: the router weight goes through
+``tp.copy_to_model``, whose backward sums the ranks' partial gradients
+(their rows, or their experts' combine weights), and the aux term is
+counted once (the all_to_all form averages the ranks' aux with one
+all-reduce, whose backward hands each rank 1/m of the cotangent; the
+fallback's aux, computed whole on every rank, passes 1/m of its
+gradient). The expert blocks' gradients stay local. Router noise is
+drawn over the whole batch and sliced, so a token draws the same bits at
+any m. ``E % m != 0`` raises ``ValueError`` (``check_expert_split``).
+
 Deliberate differences: ``router_noise`` (training only, default 0)
 draws from an explicit ``torch.Generator``, so its bits differ from
-JAX's normal draw; ``ep_axis`` is kept for config parity and does
-nothing on one card (the reference's output with no ambient mesh is
-bit-identical to the single-device path).
+JAX's normal draw; ``ep_axis`` (falsy: never the all_to_all form) names
+no mesh axis here, since the experts are cut over the model group.
 """
 
 from __future__ import annotations
@@ -51,6 +81,28 @@ def _param(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(
         torch.empty(shape, device=device, dtype=dtype), requires_grad=False
     )
+
+
+def check_expert_split(num_experts: int, model: int) -> None:
+    """Refuse a model axis that does not divide the experts (the
+    reference's ``P(model, ...)`` cannot shard them either)."""
+    if num_experts % model:
+        raise ValueError(
+            f"{num_experts} experts do not split over a model axis of "
+            f"{model}: expert parallelism needs num_experts % model == 0")
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the backward scales the gradient by ``s``."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
 
 
 def expert_capacity(tokens_per_group: int, num_experts: int, top_k: int,
@@ -130,15 +182,23 @@ class MoEFeedForward(Module):
         return expert_capacity(tokens_per_group, self.num_experts, self.top_k,
                                self.capacity_factor)
 
+    def _noise(self, shape, device, rng, train: bool):
+        """Router noise of f32 logits of ``shape`` ([B, T, E]), or None
+        (eval, no noise or no generator)."""
+        if not (train and self.router_noise > 0 and rng is not None):
+            return None
+        return self.router_noise * torch.randn(
+            shape, generator=rng, device=device, dtype=torch.float32)
+
     def _route(self, logits: torch.Tensor, rng=None, train: bool = False):
         """logits [B, T, E] -> (dispatch [B, T, E, C], combine [B, T, E, C],
         aux_loss), all f32. Top-k with per-expert capacity."""
         B, T, E = logits.shape
         C = self.capacity(T)
         dev = logits.device
-        if train and self.router_noise > 0 and rng is not None:
-            logits = logits + self.router_noise * torch.randn(
-                logits.shape, generator=rng, device=dev, dtype=logits.dtype)
+        noise = self._noise(logits.shape, dev, rng, train)
+        if noise is not None:
+            logits = logits + noise
         probs = torch.softmax(logits.float(), dim=-1)
         experts = torch.arange(E, device=dev)
         slots = torch.arange(C, device=dev)
@@ -173,29 +233,76 @@ class MoEFeedForward(Module):
         aux = E * (frac * probs.mean(dim=1)).sum(dim=-1).mean()
         return dispatch, combine, aux
 
-    def _router_logits(self, x: torch.Tensor) -> torch.Tensor:
-        return x.float() @ self.router.w.float()
+    def _router_logits(self, x: torch.Tensor, w=None) -> torch.Tensor:
+        return x.float() @ (self.router.w if w is None else w).float()
 
-    def forward_with_aux(self, x: torch.Tensor, *, rng=None,
-                         train: bool = False):
-        if self.up.shape[0] != self.num_experts:
-            raise NotImplementedError(
-                "expert-parallel MoE (experts split over the model axis) "
-                "waits for the expert-parallel dispatch")
-        dispatch, combine, aux = self._route(self._router_logits(x), rng, train)
-        dispatch = dispatch.to(x.dtype)
-        combine = combine.to(x.dtype)
-        expert_in = torch.einsum("btec,btd->ebcd", dispatch, x)
-        up = torch.einsum("ebcd,edh->ebch", expert_in, self.up.to(x.dtype))
+    def _experts(self, expert_in: torch.Tensor) -> torch.Tensor:
+        """[e, b, C, D] -> [e, b, C, D] through the experts held here."""
+        dt = expert_in.dtype
+        up = torch.einsum("ebcd,edh->ebch", expert_in, self.up.to(dt))
         if self.gated:
-            g = torch.einsum("ebcd,edh->ebch", expert_in, self.gate.to(x.dtype))
+            g = torch.einsum("ebcd,edh->ebch", expert_in, self.gate.to(dt))
             h = F.silu(g) * up
         else:
             from tensorlink_tpu_torch.nn.transformer import ACTIVATIONS
 
             h = ACTIVATIONS[self.activation](up)
-        expert_out = torch.einsum("ebch,ehd->ebcd", h, self.down.to(x.dtype))
+        return torch.einsum("ebch,ehd->ebcd", h, self.down.to(dt))
+
+    def forward_with_aux(self, x: torch.Tensor, *, rng=None,
+                         train: bool = False):
+        held = self.up.shape[0]
+        if held != self.num_experts:
+            return self._forward_parallel(x, rng, train, held)
+        dispatch, combine, aux = self._route(self._router_logits(x), rng, train)
+        dispatch = dispatch.to(x.dtype)
+        combine = combine.to(x.dtype)
+        expert_out = self._experts(torch.einsum("btec,btd->ebcd", dispatch, x))
         return torch.einsum("btec,ebcd->btd", combine, expert_out), aux
+
+    def _forward_parallel(self, x, rng, train: bool, held: int):
+        """An expert block over the active model group: the all_to_all
+        form under ``ep.ep_parallel``, else the fallback (module
+        docstring)."""
+        import torch.distributed as dist
+
+        from tensorlink_tpu_torch.parallel import ep, tp
+
+        group = tp.model_group()
+        m, r = dist.get_world_size(group), dist.get_rank(group)
+        check_expert_split(self.num_experts, m)
+        if held * m != self.num_experts:
+            raise ValueError(
+                f"this rank holds {held} of {self.num_experts} experts on a "
+                f"model group of {m}")
+        w = tp.copy_to_model(self.router.w)
+        B, T, _ = x.shape
+        # drawn over the whole batch, so a token's bits do not depend on m
+        noise = self._noise((B, T, self.num_experts), x.device, rng, train)
+        if self.ep_axis and ep.ep_group() is not None and B % m == 0:
+            xr = tp.scatter_rows_to_model(x)
+            rows = slice(r * (B // m), (r + 1) * (B // m))
+            logits = self._router_logits(xr, w)
+            if noise is not None:
+                logits = logits + noise[rows]
+            dispatch, combine, aux = self._route(logits)
+            aux = tp.reduce_from_model(aux) / m
+            expert_in = torch.einsum("btec,btd->ebcd", dispatch.to(x.dtype), xr)
+            expert_in = tp.all_to_all_model(expert_in, 0, 1)  # [E/m, B, C, D]
+            expert_out = tp.all_to_all_model(self._experts(expert_in), 1, 0)
+            out = torch.einsum("btec,ebcd->btd", combine.to(x.dtype), expert_out)
+            return tp.gather_rows_to_model(out), aux
+        xc = tp.copy_to_model(x)
+        logits = self._router_logits(xc, w)
+        if noise is not None:
+            logits = logits + noise
+        dispatch, combine, aux = self._route(logits)
+        mine = slice(r * held, (r + 1) * held)
+        dispatch = dispatch[:, :, mine].to(x.dtype)
+        combine = combine[:, :, mine].to(x.dtype)
+        expert_out = self._experts(torch.einsum("btec,btd->ebcd", dispatch, xc))
+        out = torch.einsum("btec,ebcd->btd", combine, expert_out)
+        return tp.reduce_from_model(out), _ScaleGrad.apply(aux, 1.0 / m)
 
     def forward(self, x: torch.Tensor, *, rng=None, train: bool = False, **_
                 ) -> torch.Tensor:
@@ -204,9 +311,11 @@ class MoEFeedForward(Module):
     def routing_stats(self, x: torch.Tensor) -> dict:
         """Router telemetry on ``x`` [B, T, D]: the fraction of (token,
         choice) routes the capacity drops (the residual path carries
-        them), the aux loss and the capacity per expert. ``dispatch``
-        sums to the kept routes; everything is computed on the device
-        and read back once, here."""
+        them), the aux loss and the capacity per expert, over the whole
+        batch (an expert block routes with its whole router, so a rank
+        reports the batch's drops at any model size). ``dispatch`` sums
+        to the kept routes; everything is computed on the device and
+        read back once, here."""
         B, T, _ = x.shape
         dispatch, _, aux = self._route(self._router_logits(x))
         kept, aux = torch.stack([dispatch.sum(), aux]).tolist()

@@ -15,6 +15,10 @@ here every rank runs its part of the step eagerly and issues them itself:
   ``cfg.fsdp`` a reduce-scatter of each split leaf);
 - ``model`` splits the block weights by their ``param_spec`` (Megatron
   TP): the layers insert the ``model`` collectives (``parallel/tp.py``);
+  MoE blocks hold ``E/m`` experts a rank and run their all_to_all form
+  (``parallel/ep.py``, ``nn/moe.py``): the expert blocks' gradients stay
+  local, and the router's, summed over ``model`` inside the layer,
+  reaches every rank whole like any replicated leaf's;
 - embed and head gradients are summed over ``pipe`` (GPT-2's tied
   ``wte`` takes its embed-side gradient on stage 0 and its head-side one
   on the last stage), so every replica takes the same update;
@@ -51,6 +55,7 @@ signature and ignored until the observability slice;
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -65,7 +70,8 @@ from tensorlink_tpu_torch import resolve_device
 from tensorlink_tpu_torch.config import TrainConfig
 from tensorlink_tpu_torch.nn.lora import is_lora_name, lora_spec_tree
 from tensorlink_tpu_torch.nn.module import NamedSharding, P, flat_specs, is_spec
-from tensorlink_tpu_torch.parallel import tp
+from tensorlink_tpu_torch.nn.moe import check_expert_split
+from tensorlink_tpu_torch.parallel import ep, tp
 from tensorlink_tpu_torch.parallel.dp import (
     all_reduce_flat,
     fsdp_dim,
@@ -266,6 +272,9 @@ class ShardedTrainer:
                 "rank holds only its rows of the batch")
         self.data_size = self.sizes["data"]
         self.model_size = self.sizes["model"]
+        experts = getattr(getattr(parts.block, "mlp", None), "num_experts", None)
+        if experts:
+            check_expert_split(experts, self.model_size)
         self.groups = {a: mesh.get_group(a) for a in ("data", "pipe", "model", "seq")}
         self.pipeline = Pipeline(
             mesh, parts.block_fn, self.num_stages, self.layers_per_stage,
@@ -322,13 +331,17 @@ class ShardedTrainer:
             self._specs.update({f"stages.{l}.{k}": s for k, s in block_flat.items()})
         self._specs.update({f"head.{k}": s for k, s in head_specs.items()})
         self._block_names = list(block_flat)
-        moe = getattr(getattr(parts.block, "mlp", None), "num_experts", None)
-        if moe and self.model_size > 1:
-            raise NotImplementedError(
-                "MoE blocks over a model axis > 1 (expert parallelism) wait "
-                "for the expert-parallel dispatch")
         self._host_steps: dict[int, tuple] = {}  # id(step) -> (step, int)
         self._act_meta: dict = {}
+
+    def _parallel(self):
+        """The model group bound for the blocks: ``tp.model_parallel``
+        and, for MoE blocks, ``ep.ep_parallel`` (their all_to_all form,
+        as the reference's step runs under ``jax.set_mesh``)."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(tp.model_parallel(self.groups["model"]))
+        stack.enter_context(ep.ep_parallel(self.groups["model"]))
+        return stack
 
     # -- placement -------------------------------------------------------
     def _axes(self, name: str, dim: int) -> tuple[str, ...]:
@@ -681,7 +694,7 @@ class ShardedTrainer:
             raise ValueError("train_only='lora' but the params hold no "
                              "adapter (nn.lora.lora_init first)")
         cast = {k: self._cast(v) for k, v in leaves.items()}
-        with tp.model_parallel(self.groups["model"]):
+        with self._parallel():
             if self.cfg.pp_schedule == "1f1b":
                 loss_part = self._loss_and_grads_1f1b(cast, batch, seed)
             else:
@@ -759,7 +772,7 @@ class ShardedTrainer:
         with torch.no_grad():
             cast = {k: self._cast(v) for k, v in
                     self._full_leaves(state.params, grad=False).items()}
-            with tp.model_parallel(self.groups["model"]):
+            with self._parallel():
                 part = self._loss(cast, batch, None, grad=False)
             loss = (part / (self.data_size * self.model_size * self.seq)).reshape(1)
             dist.all_reduce(loss)
@@ -798,7 +811,7 @@ class ShardedTrainer:
                     dist.barrier(group=comm.group)
 
             def timed(xs):
-                with tp.model_parallel(self.groups["model"]):
+                with self._parallel():
                     self.pipeline.forward(stages, xs, device=self.device)
                     sync()
                     best = float("inf")

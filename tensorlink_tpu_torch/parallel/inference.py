@@ -43,9 +43,13 @@ model call runs inside ``engine.parallel()``, the model group's
 ``tp.model_parallel``: two all-reduces a block and one gather of a
 vocab-sharded head. ``generate`` splits its batch over ``data`` (each
 data coordinate runs its rows; the output is all-gathered over
-``data``). A model axis must divide ``num_kv_heads``, and a MoE model
-is served at model 1 only. ``kv_seq_shard=True`` shards ``generate``'s
-contiguous caches' slot dim over ``seq`` (the batch stays over
+``data``). A model axis must divide ``num_kv_heads``. A MoE model's
+experts are cut over ``model`` too (``E/m`` a rank, the router whole;
+the axis must divide ``E``): its layers run ``nn/moe.py``'s fallback
+form, every rank routing every token and one all-reduce of the partial
+combines a layer in the down projection's place, so a model call issues
+the same collectives as a dense one. ``kv_seq_shard=True`` shards
+``generate``'s contiguous caches' slot dim over ``seq`` (the batch stays over
 ``data``): each rank holds L / S slots (``cache["seq"]`` names its
 group and first slot), every rank runs the whole model call, the
 prefill writes each slot on the rank that owns it, and a decode step
@@ -70,7 +74,7 @@ from tensorlink_tpu_torch import resolve_device
 from tensorlink_tpu_torch.convert import apply_dtype_policy
 from tensorlink_tpu_torch.nn.attention import DECODE_BLOCK
 from tensorlink_tpu_torch.nn.layers import Dense
-from tensorlink_tpu_torch.nn.moe import MoEFeedForward
+from tensorlink_tpu_torch.nn.moe import MoEFeedForward, check_expert_split
 from tensorlink_tpu_torch.ops.quant import is_quantized, quantize_params_int8
 from tensorlink_tpu_torch.parallel import tp
 from tensorlink_tpu_torch.runtime.graphs import GraphCache, check_capture_backend
@@ -293,8 +297,9 @@ def _hold_blocks(model: nn.Module, local: dict) -> None:
 def weight_pass_bytes(model: nn.Module) -> int:
     """Bytes one weight pass of a decoder reads: every ``Dense`` weight
     as stored (int8 ``q`` plus f32 scales ``s``, or the float matrix),
-    every MoE block's router and all E expert stacks (the dense dispatch
-    multiplies through every expert in every pass) and the embedding
+    every MoE block's router and the expert stacks it holds (all E at
+    world 1, this rank's E/m on a mesh: the dense dispatch multiplies
+    through every expert held in every pass) and the embedding
     table of an LM head tied to it (``model.tied_head_table()``). Biases,
     norms and the embedding rows a step gathers are not counted
     (``program_cost``'s convention)."""
@@ -477,11 +482,9 @@ class InferenceEngine:
         if self.model_size == 1:
             return
         model = self.model
-        if getattr(getattr(model, "cfg", None), "moe_experts", 0):
-            raise NotImplementedError(
-                "a MoE model on a model axis > 1 is not served yet (expert "
-                "parallelism: ROADMAP queue A item 16b)"
-            )
+        experts = getattr(getattr(model, "cfg", None), "moe_experts", 0)
+        if experts:
+            check_expert_split(experts, self.model_size)
         for blk in model.blocks.blocks():
             hkv = blk.attn.num_kv_heads
             if hkv % self.model_size:

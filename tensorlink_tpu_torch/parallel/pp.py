@@ -33,6 +33,11 @@ shard (xs dim 2 of [M, mb, T, ...]), runs its stage inside
 whole sequence over the group) and ``__call__`` re-assembles the outputs
 over the group. The dropout stream folds in the seq rank, so the shards
 draw different masks, and MoE aux is averaged over the group.
+
+A MoE block's aux at model > 1 arrives averaged over the model group
+already (``nn/moe.py``'s all_to_all form: one all-reduce of the ranks'
+row shares; the fallback routes every row), so a stage sums its layers'
+aux as at world 1 and the model ranks hold the same value.
 """
 
 from __future__ import annotations

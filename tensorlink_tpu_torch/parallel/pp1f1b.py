@@ -150,7 +150,8 @@ class Pipeline1F1B:
     head_loss: Callable
     axis: str = "pipe"
     # MoE router aux loss: each stage's aux term is local to its
-    # per-micro backward (cotangent aux_weight / M)
+    # per-micro backward (cotangent aux_weight / M); at model > 1 the
+    # block returns it averaged over the model group (nn/moe.py)
     block_fn_aux: Callable | None = None
     aux_weight: float = 0.0
     # the token-sharded seq axis (module docstring)

@@ -54,6 +54,7 @@ from tensorlink_tpu_torch.ops.flash import (
     flash_attention_impl,
     flash_block_for,
 )
+from tensorlink_tpu_torch.parallel.tp import _all_to_all
 
 NEG_INF = -1e30
 
@@ -143,16 +144,6 @@ def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int):
     received are concatenated along ``concat_dim`` in rank order.
     Differentiable: the backward is the reverse swap."""
     return _AllToAll.apply(x, group, split_dim, concat_dim)
-
-
-def _all_to_all(x, group, split_dim: int, concat_dim: int):
-    S = dist.get_world_size(group)
-    if S == 1:
-        return x
-    send = torch.stack(x.chunk(S, dim=split_dim)).contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    return torch.cat(recv.unbind(0), dim=concat_dim)
 
 
 class _AllToAll(torch.autograd.Function):

@@ -14,6 +14,17 @@ the active ``model`` group (``model_parallel``):
 - ``gather_from_model``: all-gather on the last dim forward, this rank's
   slice backward — vocab-sharded logits before the loss.
 
+Expert parallelism's all_to_all form (``nn/moe.py`` under
+``parallel.ep.ep_parallel``) adds three, each its reverse collective as
+its backward:
+
+- ``scatter_rows_to_model``: this rank's block of the batch rows
+  forward, an all-gather of the row gradients backward;
+- ``all_to_all_model``: the tiled ``all_to_all_single`` swap of the
+  dispatched tokens (the reverse swap backward);
+- ``gather_rows_to_model``: an all-gather of the rows forward, this
+  rank's rows of the gradient backward.
+
 A layer takes the tensor-parallel form when the weight it is handed is a
 block of its declared shape (``Dense.w`` narrower than ``out_dim`` under
 "col", shorter than ``in_dim`` under "row"; an ``Embedding`` table shorter
@@ -26,11 +37,15 @@ shape probe).
 Each helper counts the collectives it issues in a plain integer, as the
 kernel wrappers count their launches: ``copy_to_model.collectives``
 (backward all-reduces), ``reduce_from_model.collectives`` and
-``gather_from_model.collectives``; ``collective_counts()`` reads them
-and ``reset_collectives()`` zeroes them. An identity (size 1, meta)
-counts nothing. A serving model call on a model axis of size > 1 issues
-two all-reduces a block (attention ``o``, the MLP's ``down``) and one
-gather of a vocab-sharded head.
+``gather_from_model.collectives`` and the three above (each swap,
+forward or backward, counts one in ``all_to_all_model.collectives``);
+``collective_counts()`` reads them and ``reset_collectives()`` zeroes
+them. An identity (size 1, meta) counts nothing; the expert-parallel
+three never see a meta tensor (only an embedding runs in the trainer's
+shape probe). A serving model call on a model axis of size > 1 issues
+two all-reduces a block (attention ``o``, the MLP's ``down``, or a MoE
+layer's summed partial combines) and one gather of a vocab-sharded
+head.
 """
 
 from __future__ import annotations
@@ -135,10 +150,104 @@ def gather_from_model(x: torch.Tensor) -> torch.Tensor:
     return _GatherFromModel.apply(x, model_group())
 
 
+def _all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int):
+    """Tiled all-to-all (``lax.all_to_all(tiled=True)``): ``x`` is cut into
+    n chunks along ``split_dim``, chunk j goes to rank j, and the n chunks
+    received are concatenated along ``concat_dim`` in rank order. gloo
+    carries CUDA tensors here (``parallel/sp.py``)."""
+    n = _size(group)
+    if n == 1:
+        return x
+    send = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+def _swap(x, group, split_dim: int, concat_dim: int):
+    if _size(group) == 1:
+        return x
+    all_to_all_model.collectives += 1
+    return _all_to_all(x, group, split_dim, concat_dim)
+
+
+class _AllToAllModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, concat_dim, split_dim)
+        return _swap(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _swap(g, *ctx.args), None, None, None
+
+
+def _rows(x, group):
+    n, r = _size(group), dist.get_rank(group)
+    return x.chunk(n, dim=0)[r].contiguous()
+
+
+def _gather_rows(x, group, helper):
+    n = _size(group)
+    if n == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    helper.collectives += 1
+    return torch.cat(parts, dim=0)
+
+
+class _ScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _rows(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_rows(g, ctx.group, scatter_rows_to_model), None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_rows(x, group, gather_rows_to_model)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows(g, ctx.group), None
+
+
+def all_to_all_model(x: torch.Tensor, split_dim: int, concat_dim: int
+                     ) -> torch.Tensor:
+    """The tiled swap over the model group, differentiable (the reverse
+    swap backward); every swap counts one."""
+    return _AllToAllModel.apply(x, model_group(), split_dim, concat_dim)
+
+
+def scatter_rows_to_model(x: torch.Tensor) -> torch.Tensor:
+    """This rank's block of dim 0 of a tensor whole on every rank; the
+    backward all-gathers the blocks' gradients, so the whole input's
+    gradient is whole on every rank."""
+    return _ScatterRows.apply(x, model_group())
+
+
+def gather_rows_to_model(x: torch.Tensor) -> torch.Tensor:
+    """The model group's row blocks -> the whole dim 0 on every rank;
+    the backward keeps this rank's rows (every rank holds the same whole
+    gradient)."""
+    return _GatherRows.apply(x, model_group())
+
+
 copy_to_model.collectives = 0
 reduce_from_model.collectives = 0
 gather_from_model.collectives = 0
-_COUNTED = (copy_to_model, reduce_from_model, gather_from_model)
+all_to_all_model.collectives = 0
+scatter_rows_to_model.collectives = 0
+gather_rows_to_model.collectives = 0
+_COUNTED = (copy_to_model, reduce_from_model, gather_from_model,
+            all_to_all_model, scatter_rows_to_model, gather_rows_to_model)
 
 
 def collective_counts() -> dict[str, int]:

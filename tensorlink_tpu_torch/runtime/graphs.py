@@ -52,8 +52,7 @@ from tensorlink_tpu_torch.parallel import tp
 # dict of ints by variant / form), and the tensor-parallel helpers'
 # collective counts
 COUNTED = (paged_decode_attention, fused_residual_norm,
-           flash_attention_fwd_lse, flash_attention_bwd,
-           tp.copy_to_model, tp.reduce_from_model, tp.gather_from_model)
+           flash_attention_fwd_lse, flash_attention_bwd) + tp._COUNTED
 COUNTER_ATTRS = ("launches", "launches_by_variant", "launches_by_form",
                  "collectives")
 

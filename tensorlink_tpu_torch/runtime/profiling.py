@@ -1,6 +1,25 @@
-"""Device timing (the ``DispatchTimer`` and ``measure_capability`` parts of
-``tensorlink_tpu/runtime/profiling.py``) and a per-dispatch cost model.
+"""Profiling on ``torch.profiler`` (the capture half of
+``tensorlink_tpu/runtime/profiling.py``), device timing (its
+``DispatchTimer`` and ``measure_capability`` parts) and a per-dispatch
+cost model.
 
+- offline: :func:`trace` captures the enclosed region (CPU ops and, on
+  CUDA, the kernels CUPTI sees) into a Chrome trace under ``log_dir``,
+  :func:`step_trace` names a sub-span (``record_function``), and
+  :func:`op_breakdown` runs a function under a capture and returns
+  :func:`parse_op_breakdown`: device time by kernel-name family
+  (``KERNEL_FAMILIES``: the four hand kernels B1-B4 by their CUDA
+  function names, cuBLAS GEMMs, the foreach optimizer, reductions,
+  elementwise, copies; first match wins, the rest "other"). A CPU
+  capture holds no device events, so its breakdown is empty, as the
+  reference's is off the TPU;
+- on-demand: :func:`timed_capture` records ``ms`` milliseconds of
+  whatever the process is doing (CUPTI sees every thread's kernels) and
+  serves ``GET /profile?ms=N`` (``runtime/http_status.py``); one capture
+  at a time, a second is refused with :class:`ProfileBusyError`;
+- :func:`roofline` is the two-wall arithmetic on the peaks the caller
+  gives (the port states no card's peaks here); :class:`Stopwatch` stops
+  after a host read of a result.
 - :class:`DispatchTimer` attributes each dispatched program's time into
   device-busy and host-gap with no added synchronization, with the
   reference's API and arithmetic (FIFO finalization, ``busy``/``gap``,
@@ -20,19 +39,321 @@
   dispatch handle.
 
 The reference's metrics hooks (histograms per program) wait for the
-port's observability module.
+port's observability wiring.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import gzip
+import json
+import os
+import shutil
+import tempfile
 import threading
 import time
-from typing import Any, Sequence
+from typing import Any, Iterator, Sequence
 
 import torch
 
 from tensorlink_tpu_torch.nn.moe import expert_capacity
+from tensorlink_tpu_torch.utils.trees import tree_leaves
+
+
+def _activities() -> list:
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
+def _export(prof, log_dir: str) -> str:
+    """Write ``prof``'s Chrome trace to a new timestamped directory under
+    ``log_dir`` (as each reference capture writes one) -> its path."""
+    d = tempfile.mkdtemp(prefix=time.strftime("%Y_%m_%d_%H_%M_%S_"), dir=log_dir)
+    path = os.path.join(d, "trace.json.gz")
+    prof.export_chrome_trace(path)
+    return path
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None) -> Iterator[str]:
+    """Capture the enclosed region with ``torch.profiler`` into a Chrome
+    trace under ``log_dir`` (default: ``tensorlink_tpu_torch_trace`` in
+    the temporary directory); open it in Perfetto or chrome://tracing."""
+    from torch.profiler import profile
+
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(),
+                                      "tensorlink_tpu_torch_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=_activities()) as prof:
+        yield log_dir
+    _export(prof, log_dir)
+
+
+@contextlib.contextmanager
+def step_trace(name: str) -> Iterator[None]:
+    """Named sub-span inside an active trace (shows up on the timeline)."""
+    with torch.profiler.record_function(name):
+        yield
+
+
+def roofline(
+    *,
+    flops_per_step: float,
+    hbm_bytes_per_step: float,
+    peak_tflops: float,
+    hbm_gbps: float,
+    measured_step_s: float | None = None,
+) -> dict:
+    """Two-line roofline: which wall does this program lean on?
+
+    ``hbm_bytes_per_step`` is the program's main-memory traffic (an
+    analytic params + activations + optimizer estimate, or
+    ``program_cost``'s bytes); the peaks are the caller's (the card's
+    datasheet, or ``measure_capability``). Returns the compute-bound and
+    bandwidth-bound time floors, the arithmetic intensity against the
+    machine's ridge point, and, when a measured step time is given, the
+    fraction of the BINDING floor achieved."""
+    t_compute = flops_per_step / (peak_tflops * 1e12)
+    t_memory = hbm_bytes_per_step / (hbm_gbps * 1e9)
+    intensity = flops_per_step / max(hbm_bytes_per_step, 1.0)
+    ridge = peak_tflops * 1e12 / (hbm_gbps * 1e9)  # FLOP/byte at the knee
+    floor = max(t_compute, t_memory)
+    out = {
+        "t_compute_floor_s": t_compute,
+        "t_memory_floor_s": t_memory,
+        "arithmetic_intensity_flop_per_byte": intensity,
+        "ridge_flop_per_byte": ridge,
+        "bound": "compute" if t_compute >= t_memory else "memory",
+        # the MFU ceiling the floors imply — independent of any
+        # measurement, useful for pre-run planning
+        "attainable_mfu_at_floor": flops_per_step / floor / (peak_tflops * 1e12),
+    }
+    if measured_step_s is not None:
+        out["measured_step_s"] = measured_step_s
+        out["fraction_of_binding_floor"] = floor / measured_step_s
+    return out
+
+
+def _host_read(tree) -> None:
+    """Read one element of the first tensor of ``tree`` on the host: the
+    device queue up to it has drained."""
+    t = next((x for x in tree_leaves(tree) if torch.is_tensor(x)), None)
+    if t is not None:
+        t.reshape(-1)[0].item()
+
+
+class Stopwatch:
+    """Synchronized device timing: a host read of ``sync_array`` (any
+    tree; its first tensor) before the clock stops."""
+
+    def __init__(self):
+        self.t0 = None
+        self.elapsed_s = 0.0
+
+    def start(self) -> "Stopwatch":
+        self.t0 = time.perf_counter()
+        return self
+
+    def stop(self, sync_array=None) -> float:
+        if sync_array is not None:
+            _host_read(sync_array)
+        self.elapsed_s = time.perf_counter() - self.t0
+        return self.elapsed_s
+
+
+# kernel-name families of a device breakdown (first match wins): the
+# hand kernels by their CUDA function names (csrc/), then the library
+KERNEL_FAMILIES = (
+    ("flash_fwd (B1)", ("flash_fwd_kernel",)),
+    ("flash_bwd (B2)", ("flash_bwd_",)),
+    ("paged_decode (B3)", ("paged_mma_kernel", "paged_general_kernel",
+                           "paged_merge_kernel")),
+    ("fused_residual_norm (B4)", ("fused_norm_kernel",)),
+    ("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+    ("embedding backward", ("indexing_backward", "embedding_backward")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+# Kineto's device categories: kernels, copies and memsets
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def kernel_family(name: str, category: str = "kernel") -> str:
+    """The ``KERNEL_FAMILIES`` group of a device event's name; copies and
+    memsets by their category."""
+    if category != "kernel":
+        return category
+    return next((fam for fam, keys in KERNEL_FAMILIES
+                 if any(k in name for k in keys)), "other")
+
+
+def parse_op_breakdown(trace_events: list) -> dict:
+    """Aggregate a Chrome-trace event list (the ``traceEvents`` of a
+    ``torch.profiler`` export) into device time by kernel-name family
+    (``kernel_family``), from Kineto's device events (complete events of
+    a ``DEVICE_CATEGORIES`` category). A capture without device events
+    (the CPU) gives an empty breakdown (``total_s == 0``).
+    ``control_flow_wrapper_s`` is kept for the reference's shape: a
+    kernel breakdown has no enclosing events."""
+    cat = collections.Counter()
+    nops = collections.Counter()
+    for e in trace_events:
+        c = e.get("cat")
+        if e.get("ph") != "X" or "dur" not in e or c not in DEVICE_CATEGORIES:
+            continue
+        fam = kernel_family(e.get("name", ""), c)
+        cat[fam] += e["dur"]
+        nops[fam] += 1
+    total_us = sum(cat.values())
+    return {
+        "total_s": total_us / 1e6,
+        "control_flow_wrapper_s": {},
+        "categories": {
+            c: {
+                "s": d / 1e6,
+                "fraction": (d / total_us) if total_us else 0.0,
+                "ops": nops[c],
+            }
+            for c, d in cat.most_common()
+        },
+    }
+
+
+def _newest_trace_events(d: str) -> list | None:
+    """Event list of the NEWEST capture under ``d`` (by mtime: each
+    capture writes a new timestamped subdirectory, and a reused
+    ``log_dir`` holds older runs), or None when no trace file was
+    produced."""
+    traces = []
+    for root, _, files in os.walk(d):
+        for name in files:
+            if name.endswith(("trace.json.gz", "trace.json")):
+                p = os.path.join(root, name)
+                traces.append((os.path.getmtime(p), p))
+    if not traces:
+        return None
+    tj = max(traces)[1]
+    opener = gzip.open if tj.endswith(".gz") else open
+    with opener(tj, "rt") as f:
+        return json.load(f)["traceEvents"]
+
+
+def _no_trace(error: str) -> dict:
+    return {"total_s": 0.0, "control_flow_wrapper_s": {}, "categories": {},
+            "error": error}
+
+
+def _sync() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def op_breakdown(fn, *args, log_dir: str | None = None) -> dict:
+    """Run ``fn(*args)`` once under a fresh capture and return its
+    ``parse_op_breakdown``. ``fn`` should be warm (a first call would
+    profile the kernels' build). The device is synchronized inside the
+    capture, so it spans the real device work."""
+    from torch.profiler import profile
+
+    own_dir = log_dir is None
+    d = log_dir or tempfile.mkdtemp(prefix="tlt_profile_")
+    try:
+        os.makedirs(d, exist_ok=True)
+        with profile(activities=_activities()) as prof:
+            fn(*args)
+            _sync()
+        _export(prof, d)
+        events = _newest_trace_events(d)
+        if events is None:
+            return _no_trace("no trace file produced")
+        result = parse_op_breakdown(events)
+        if not own_dir:
+            result["trace_dir"] = d  # caller keeps the capture
+        return result
+    finally:
+        if own_dir:
+            shutil.rmtree(d, ignore_errors=True)
+
+
+# --------------------------------------------------- on-demand capture
+# One profiler at a time a process: captures serialize on this lock and a
+# second requester is REFUSED (the StatusServer turns it into a 409),
+# never queued — an operator asking "what is the card doing right now"
+# must not silently measure a minute later.
+_capture_lock = threading.Lock()
+# set while a timed capture records (from its start to the end of its
+# window, before it synchronizes and stops): what another thread polls
+# to run work inside the window
+CAPTURE_LIVE = threading.Event()
+
+# hard bound on one capture: /profile is an unauthenticated loopback
+# endpoint, and an unbounded capture both pins the profiler and grows
+# an arbitrarily large trace file
+MAX_PROFILE_MS = 10_000
+MIN_PROFILE_MS = 10
+
+
+class ProfileBusyError(RuntimeError):
+    """A profiler capture is already running in this process."""
+
+
+def _clamp_ms(ms) -> int:
+    return max(MIN_PROFILE_MS, min(int(ms), MAX_PROFILE_MS))
+
+
+def timed_capture(ms: int = 200, log_dir: str | None = None) -> dict:
+    """Capture ``ms`` milliseconds of whatever this process is doing
+    under ``torch.profiler`` and return the parsed ``op_breakdown``
+    bundle (the ``GET /profile?ms=N`` payload). Blocking for the
+    duration — callers on an event loop must ``asyncio.to_thread`` it.
+    With ``log_dir`` the raw capture is retained there (``trace_dir`` in
+    the result); otherwise it is parsed and deleted. Raises
+    :class:`ProfileBusyError` when a capture is already live."""
+    from torch.profiler import profile
+
+    ms = _clamp_ms(ms)
+    if not _capture_lock.acquire(blocking=False):
+        raise ProfileBusyError(
+            "a profiler capture is already running in this process"
+        )
+    try:
+        own_dir = log_dir is None
+        d = log_dir or tempfile.mkdtemp(prefix="tlt_profile_")
+        try:
+            os.makedirs(d, exist_ok=True)
+            prof = profile(activities=_activities())
+            prof.start()
+            try:
+                CAPTURE_LIVE.set()
+                time.sleep(ms / 1000.0)
+                CAPTURE_LIVE.clear()
+                _sync()
+            finally:
+                CAPTURE_LIVE.clear()
+                prof.stop()
+            _export(prof, d)
+            events = _newest_trace_events(d)
+            out = {
+                "duration_ms": ms,
+                "op_breakdown": (
+                    parse_op_breakdown(events) if events is not None
+                    else _no_trace("no trace produced")
+                ),
+            }
+            if not own_dir:
+                out["trace_dir"] = d
+            return out
+        finally:
+            if own_dir:
+                shutil.rmtree(d, ignore_errors=True)
+    finally:
+        _capture_lock.release()
 
 
 class _Dispatch:
@@ -327,20 +648,22 @@ def layer_matmul_params(cfg) -> int:
     return attn + (0 if d["experts"] else d["mlp_mats"] * d["dim"] * d["hidden"])
 
 
-def moe_row_flops(cfg, T: int) -> float:
+def moe_row_flops(cfg, T: int, shards: int = 1) -> float:
     """Flops of one layer's MoE FFN over one row of T tokens, as the
     dense one-hot dispatch computes them: the router (2 D E a token),
     the dispatch and combine einsums (2 T E C D each) and every expert's
     products over its C slots (2 D H E C a matrix), whether a slot holds
-    a token or not. 0 for a dense config."""
+    a token or not. ``shards``: the model axis the experts are cut over;
+    one rank routes every token with the whole router and runs the
+    einsums for its E / ``shards`` experts. 0 for a dense config."""
     d = _dims(cfg)
     E = d["experts"]
     if not E:
         return 0.0
     C = expert_capacity(T, E, cfg.moe_top_k, cfg.moe_capacity_factor)
     D, Hd = d["dim"], d["hidden"]
-    return float(2 * T * D * E + 2 * 2 * T * E * C * D
-                 + 2 * d["mlp_mats"] * D * Hd * E * C)
+    experts = 2 * 2 * T * E * C * D + 2 * d["mlp_mats"] * D * Hd * E * C
+    return float(2 * T * D * E + experts / shards)
 
 
 def program_cost(
@@ -369,9 +692,11 @@ def program_cost(
     bytes one weight pass reads as the engine stores them
     (``InferenceEngine.weight_bytes``: int8 weights at one byte plus
     their f32 scales). ``shards``: the model axis the dispatch runs on;
-    each rank does 1 / ``shards`` of the flops, and ``weight_bytes`` and
-    ``kv_token_bytes`` are already its own (its blocks, its KV heads), so
-    the cost, MFU and MBU are one rank's.
+    each rank does 1 / ``shards`` of the flops (a MoE layer's router
+    whole: ``moe_row_flops``), and ``weight_bytes`` and
+    ``kv_token_bytes`` are already its own (its blocks, its KV heads,
+    its E / ``shards`` experts beside the whole router), so the cost,
+    MFU and MBU are one rank's.
 
     Counted: every weight is read once a weight pass (one a prefill
     chunk, one a decode step or verify round), the LM head over the rows
@@ -381,7 +706,7 @@ def program_cost(
     KV bytes up to its frontier read once a weight pass. A MoE config
     adds ``moe_row_flops`` a layer for each row at the pass's T (the
     chunk's width, 1 a decode step, K + 1 a verify round), and its
-    ``weight_bytes`` holds every expert."""
+    ``weight_bytes`` holds every expert the rank holds."""
     d = _dims(cfg)
     L, H, D = d["layers"], d["H"], d["D"]
     per_tok = 2.0 * layer_matmul_params(cfg) * L
@@ -394,7 +719,8 @@ def program_cost(
         end = int(frontier[0])
         pos = end - T
         pairs = T * pos + T * (T + 1) / 2
-        flops = per_tok * T + L * moe_row_flops(cfg, T) + head_flops + attn_pair * pairs
+        flops = ((per_tok * T + head_flops + attn_pair * pairs) / shards
+                 + L * moe_row_flops(cfg, T, shards))
         nbytes = w_bytes + kv_tok * end
     elif program in ("decode", "spec_chunk"):
         K = int(steps)
@@ -409,9 +735,9 @@ def program_cost(
                 base = first + step * q
                 pairs += q * base + q * (q + 1) / 2
                 kv_read += base + q
-        flops = ((per_tok + head_flops) * rows * q * passes
-                 + L * moe_row_flops(cfg, q) * rows * passes + attn_pair * pairs)
+        flops = (((per_tok + head_flops) * rows * q * passes + attn_pair * pairs)
+                 / shards + L * moe_row_flops(cfg, q, shards) * rows * passes)
         nbytes = w_bytes * passes + kv_tok * kv_read
     else:
         raise ValueError(f"unknown program {program!r}")
-    return {"flops": float(flops) / shards, "bytes": float(nbytes)}
+    return {"flops": float(flops), "bytes": float(nbytes)}

@@ -19,6 +19,19 @@ def leaves(tree) -> list[torch.Tensor]:
     raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
 
 
+def tree_leaves(tree) -> list:
+    """Every leaf of a nested container of any objects (tensors, arrays,
+    numbers), in ``jax.tree.leaves``'s order: dict keys sorted, lists and
+    tuples in order, None an empty subtree."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for sub in tree for x in tree_leaves(sub)]
+    return [tree]
+
+
 def tree_size(tree) -> int:
     """Total number of tensor elements."""
     return sum(t.numel() for t in leaves(tree))

@@ -6,6 +6,7 @@ the CPU on their own."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -61,12 +62,36 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 ("runtime", "checkpoint.py"), ("runtime", "metrics.py"),
                 ("runtime", "mesh.py"), ("parallel", "dp.py"), ("parallel", "tp.py"),
                 ("parallel", "pp.py"), ("parallel", "pp1f1b.py"),
-                ("parallel", "engine.py"), ("parallel", "sp.py")):
+                ("parallel", "engine.py"), ("parallel", "sp.py"),
+                ("parallel", "ep.py"), ("utils", "logging.py"),
+                ("runtime", "tracing.py"), ("runtime", "timeseries.py"),
+                ("runtime", "alerts.py"), ("runtime", "flight.py"),
+                ("runtime", "http_status.py")):
         assert os.path.join(PORT, *mod) in files
     bad = [
         (os.path.relpath(p, REPO), root)
         for p in files for root in _imported_roots(p) if root in FORBIDDEN
     ]
+    assert not bad, bad
+
+
+def _reference_names(path):
+    """String constants outside docstrings that name the JAX package's
+    modules or loggers (``"tensorlink_tpu.runtime.tracing"``,
+    ``f"tensorlink_tpu.{name}"``): a ``sys.modules`` lookup or a logger
+    under such a name would read the reference, not the copy."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    docs = {id(n.value) for n in ast.walk(tree) if isinstance(n, ast.Expr)}
+    pat = re.compile(r"tensorlink_tpu(\.|$)")
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs and pat.match(n.value)]
+
+
+def test_no_port_file_names_the_jax_packages_modules():
+    bad = [(os.path.relpath(p, REPO), s) for p in _port_files()
+           for s in _reference_names(p)]
     assert not bad, bad
 
 
@@ -158,6 +183,13 @@ def test_importing_the_port_loads_no_jax():
         "tensorlink_tpu_torch.parallel.pp",
         "tensorlink_tpu_torch.parallel.pp1f1b",
         "tensorlink_tpu_torch.parallel.engine",
+        "tensorlink_tpu_torch.parallel.ep",
+        "tensorlink_tpu_torch.utils.logging",
+        "tensorlink_tpu_torch.runtime.tracing",
+        "tensorlink_tpu_torch.runtime.timeseries",
+        "tensorlink_tpu_torch.runtime.alerts",
+        "tensorlink_tpu_torch.runtime.flight",
+        "tensorlink_tpu_torch.runtime.http_status",
     ]
     code = (
         "import sys\n"
@@ -174,7 +206,8 @@ def test_importing_the_port_loads_no_jax():
 
 
 # test modules whose functions spawned ranks import: they stand on the port
-RANK_MODULES = ("torch_ranks", "torch_tp_serving_ranks", "torch_sp_ranks")
+RANK_MODULES = ("torch_ranks", "torch_tp_serving_ranks", "torch_sp_ranks",
+                "torch_ep_ranks")
 
 
 def test_rank_body_modules_import_no_jax():

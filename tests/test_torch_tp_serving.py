@@ -267,7 +267,8 @@ def test_model2_cases_match_world1(tmp_path, devices):
         # port's int8 sibling does
         "spec": {"cfg": TINY, "state": state["int8"]},
         "gpt2": {"cfg": gpt2, "state": state["gpt2"]},
-        "moe": {"cfg": dataclasses.asdict(LlamaConfig.moe_tiny())},
+        # three experts cannot split over model 2
+        "moe": {"cfg": {**dataclasses.asdict(LlamaConfig.moe_tiny()), "moe_experts": 3}},
     }
     ids, pad, prompts = _inputs()
     # a world-1 prefill leg's payloads, for the model-2 decode leg (1 -> 2)
@@ -307,7 +308,8 @@ def test_model2_cases_match_world1(tmp_path, devices):
         wte = 128 * gpt2["dim"] * 4
         assert 2 * (res["gpt2"]["weight_bytes"] - wte) == ref["gpt2"]["weight_bytes"] - wte
         ref_msgs = res["refusals"]
-        assert ref_msgs["moe"][0] == "NotImplementedError" and "item 16" in ref_msgs["moe"][1]
+        assert ref_msgs["moe"][0] == "ValueError"
+        assert "3 experts" in ref_msgs["moe"][1] and "model axis of 2" in ref_msgs["moe"][1]
         assert ref_msgs["seq_ring"][0] == "NotImplementedError"
         assert "rolling_cache" in ref_msgs["seq_ring"][1]
         for name in ("seq_contiguous", "seq_paged"):
