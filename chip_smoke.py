@@ -51,10 +51,13 @@ Phases, each printing its own lines; any failure exits non-zero:
 5a. capability: ``measure_capability`` at a size that fills the card (a
    chained 8192-square bf16 matmul, a 1 GiB HBM read), printed with the
    card's name and power limit: the peaks MFU, MBU and the receipt
-   auditor are held against;
+   auditor are held against, and its ``capability.measured`` flight
+   event;
 6. serving: Llama-3-8B at full width and depth (random bf16 weights
    from a seed) served by ``PagedContinuousBatchingEngine`` over
-   ``InferenceEngine``: 12 greedy requests, launch counts checked against
+   ``InferenceEngine``, built by ``Node._build_serving`` of a started port
+   ``Node`` on 127.0.0.1 (its metrics, flight recorder, tracer and the
+   capability attached): 12 greedy requests, launch counts checked against
    the path (decode steps on B3's decode variant, prefill chunks on its
    prefill variant, none on the general one), and a teacher-forced check
    of every emitted token against the port's no-cache forward (which runs
@@ -69,7 +72,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    model-step wall (``[timer slice vs profile]``); ``[telemetry]``:
    ``runtime.profiling.timed_capture(200)`` on a thread while the
    captured engine decodes 8 more requests (the ``GET /profile`` path),
-   its breakdown naming B3 and B4;
+   its breakdown naming B3 and B4; ``[node slice]`` gates the node's
+   telemetry (``serving_requests_total`` = 12, ``serving_tokens_total``
+   = the emitted tokens, one ``serving.request`` span a request with its
+   prefill and decode children, one ``serving.admit`` event an
+   admission), a second port node's PING with ``ts_since`` (its PONG's
+   ``capability.programs`` and ``host_gap_frac`` are the engine's
+   ``device_time()``, its ``kv`` is ``kv_stats_summary()``) and ``GET
+   /kv`` and ``GET /metrics`` from the node's status server; ``[node
+   slice kv race]``, on a batch of its own after the timed run, gates
+   block conservation in every ``kv_stats`` snapshot a reader thread
+   takes while another thread steps the engine (one at every step
+   boundary, some with chunks in flight, the rest racing the steps);
+   ``[node slice step]`` prints the model step with the telemetry sinks
+   attached, detached and attached again on the same engine;
 6c. mesh paged: [slice]'s first 4 requests (16 tokens each) through the
    paged engine over ``InferenceEngine(model, mesh=make_mesh(
    MeshConfig()))`` (one NCCL rank, captured): tokens identical to a
@@ -219,7 +235,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    full cache's plan beside it for its bytes;
 10. training: BERT-base fine-tuning at batch 8 x seq 512 (f32 master
    params from a seed, bf16 compute, Adam, dropout 0.1) through
-   ``Trainer``: 30 steps with a falling loss, B1/B2 launch counts, one
+   ``Trainer`` with a tracer, metrics and a flight recorder: 30 steps
+   with a falling loss, B1/B2 launch counts, ``[train telemetry]`` (one
+   ``trainer.step`` span a step after the first's ``compile_step``, the
+   ``step_s`` series, ``device_time()`` over every step but the first,
+   no non-finite event), one
    step's gradients against the plain attention path, step time, MFU, a
    profiled step, ``[telemetry]``'s ``runtime.profiling.op_breakdown`` of
    one step (naming B1 and B2), and the batch 32 x seq 128 headline shape
@@ -245,8 +265,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    first step's loss and every gradient leaf against the single-host
    ``Trainer`` at 4 micros (the [train] thresholds), ``remat=True`` with
    the same loss and twice the B1 launches, then 10 steps at dropout
-   0.1 with a falling loss, B1 = B2 = 12 x 4 a step, step ms, samples/s,
-   MFU, peak memory and a profiled step beside [train]'s step;
+   0.1 with a falling loss, B1 = B2 = 12 x 4 a step, ``[sharded bert
+   telemetry]`` (the ``engine`` spans with ``{"stages", "micros"}``, as
+   [train]'s), step ms, samples/s, MFU, peak memory and a profiled step
+   beside [train]'s step;
 10d. sharded gpt2: GPT-2-medium at full width through
    ``GPT2.as_pipeline_parts`` under 1F1B (batch 8 x 1024, 4 micros,
    AdamW, bf16) on the same mesh: at dropout 0 the first step's loss
@@ -303,6 +325,7 @@ is imported.
 """
 
 import asyncio
+import collections
 import concurrent.futures
 import dataclasses
 import gc
@@ -314,6 +337,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -321,7 +345,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from tensorlink_tpu_torch import native
-from tensorlink_tpu_torch.config import DistributedConfig, MeshConfig, TrainConfig
+from tensorlink_tpu_torch.config import DistributedConfig, MeshConfig, NodeConfig, TrainConfig
 from tensorlink_tpu_torch.models.bert import BertClassifier, BertConfig, bert_pipeline_parts
 from tensorlink_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
@@ -360,6 +384,7 @@ from tensorlink_tpu_torch.parallel.inference import (
     weight_pass_bytes,
 )
 from tensorlink_tpu_torch.p2p.crypto import HAVE_CRYPTOGRAPHY, Identity
+from tensorlink_tpu_torch.p2p.node import Node
 from tensorlink_tpu_torch.p2p.serialization import packed_nbytes
 from tensorlink_tpu_torch.parallel.kvwire import pack_kv_payload, unpack_kv_payload
 from tensorlink_tpu_torch.parallel.serving import (
@@ -388,7 +413,10 @@ from tensorlink_tpu_torch.runtime.ledger import (
     verify_receipt,
 )
 from tensorlink_tpu_torch.runtime import profiling
+from tensorlink_tpu_torch.runtime.flight import FlightRecorder
+from tensorlink_tpu_torch.runtime.metrics import Metrics
 from tensorlink_tpu_torch.runtime.profiling import measure_capability
+from tensorlink_tpu_torch.runtime.tracing import Tracer
 from tensorlink_tpu_torch.train.trainer import Trainer, softmax_cross_entropy
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -1228,29 +1256,33 @@ def _requests(vocab: int):
 
 def _slice_engine(model: Llama, max_new: int, cuda_graphs: bool = True,
                   capability: dict | None = None, eng: InferenceEngine | None = None,
-                  **kw):
+                  node: Node | None = None, **kw):
     """A paged engine of the [slice] geometry (its own pools and graphs)
-    over ``eng``, or a fresh ``InferenceEngine`` of ``model``."""
+    over ``eng``, or a fresh ``InferenceEngine`` of ``model``; built by
+    ``node._build_serving`` (the node's metrics, flight recorder and
+    tracer attached) when a node is given."""
     if eng is None:
         eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
                               param_dtype=torch.bfloat16, device=DEV)
-    return PagedContinuousBatchingEngine(
-        eng, slots=8, block_size=16, prefill_chunk=128, decode_chunk=8,
-        gen=GenerationConfig(max_new_tokens=max_new), cuda_graphs=cuda_graphs,
-        capability=capability, **kw,
-    )
+    kw = dict(slots=8, block_size=16, prefill_chunk=128, decode_chunk=8,
+              gen=GenerationConfig(max_new_tokens=max_new), cuda_graphs=cuda_graphs,
+              capability=capability, **kw)
+    if node is not None:
+        return node._build_serving(eng, paged=True, **kw)
+    return PagedContinuousBatchingEngine(eng, **kw)
 
 
 def _serve_paged(model: Llama, prompts, max_new: int, cuda_graphs: bool,
                  capability: dict | None = None, eng: InferenceEngine | None = None,
-                 tag: str = "slice", name: str = "Llama-3-8B"):
+                 tag: str = "slice", name: str = "Llama-3-8B",
+                 node: Node | None = None):
     """The 12 requests through a fresh paged engine (over ``eng`` when
-    given); launch counts set to 0 just before and read just after, then
-    checked against the path. -> (engine, request ids, outputs, wall s,
-    counts)."""
+    given; built by ``node`` when given); launch counts set to 0 just
+    before and read just after, then checked against the path. ->
+    (engine, request ids, outputs, wall s, counts)."""
     cfg = model.cfg
     t0 = time.perf_counter()
-    sch = _slice_engine(model, max_new, cuda_graphs, capability, eng=eng)
+    sch = _slice_engine(model, max_new, cuda_graphs, capability, eng=eng, node=node)
     torch.cuda.synchronize()
     mode = "captured" if cuda_graphs else "eager"
     say(f"[{tag}] {name} {cfg.num_layers} layers dim {cfg.dim} "
@@ -1297,11 +1329,216 @@ def _check_paged_launches(tag: str, st: dict, k1: int, k2: int, by_variant: dict
     check(k2 == exp2 and k2 > 0, f"{tag}: fused-norm launch count off the path")
 
 
+class _NodeLoop:
+    """An asyncio loop on a thread of its own for the port's nodes: the
+    engine runs on this thread while the nodes serve the wire there."""
+
+    def __init__(self):
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout: float = 60.0):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def close(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=10)
+        self.loop.close()
+
+
+class _KvReader:
+    """A thread taking ``kv_stats`` snapshots while another thread steps
+    the engine: block conservation (in use + free + reusable = all) must
+    hold in every one. Between its turns it races the steps (a snapshot
+    waits for the scheduler lock, which a step holds through its drain);
+    ``after_step`` gives it a turn at every step boundary, where the
+    stepping thread waits, so the chunks in flight it records are the
+    ones its snapshot saw."""
+
+    def __init__(self, sch):
+        self.sch = sch
+        self.racing = self.at_boundary = self.inflight = 0
+        self.failures: list = []
+        self._stop = threading.Event()
+        self._turn = threading.Event()
+        self._taken = threading.Event()
+        self._chunks = 0
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _snap(self) -> None:
+        pool = self.sch.kv_stats(limit=256)["pool"]
+        if pool["blocks_in_use"] + pool["blocks_free"] + pool["blocks_reusable"] \
+                != pool["num_blocks"]:
+            self.failures.append(pool)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            if self._turn.wait(0.001):
+                self._turn.clear()
+                self._snap()
+                self.at_boundary += 1
+                self.inflight += self._chunks > 0
+                self._taken.set()
+            else:
+                self._snap()
+                self.racing += 1
+
+    def after_step(self) -> None:
+        """The stepping thread's hook: wait while the reader snapshots."""
+        self._chunks = len(self.sch._inflight)
+        self._taken.clear()
+        self._turn.set()
+        check(self._taken.wait(30), "kv_stats reader: no snapshot at a step boundary")
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+KV_RACE_REQUESTS = 16  # [node slice kv race]: prompts of 1..300 tokens
+KV_RACE_NEW = 24  # ... tokens each, so slots free and refill mid-batch
+
+
+def _kv_race(sch, prompts, name_power: str) -> None:
+    """[node slice kv race]: a short batch of its own, after the [slice]
+    run whose numbers are reported, so the reader's lock traffic is in no
+    timed window: KV_RACE_REQUESTS prompts (the [slice] prompts cut to at
+    most 300 tokens, sharing their prefix) on 8 slots, with admissions,
+    prefix hits and evictions while the reader snapshots. Every snapshot
+    conserves blocks, one is taken at every step boundary, and some of
+    those with chunks in flight."""
+    batch = [p[:300] for p in (prompts + prompts)[:KV_RACE_REQUESTS]]
+    t0 = time.perf_counter()
+    steps = 0
+    with _KvReader(sch) as reader:
+        rids = [sch.submit(p, max_new=KV_RACE_NEW) for p in batch]
+        while sch.step():
+            steps += 1
+            reader.after_step()
+    outs = [sch.result(rid) for rid in rids]
+    res = {"requests": len(rids), "steps": steps,
+           "snapshots_at_boundary": reader.at_boundary,
+           "snapshots_at_boundary_in_flight": reader.inflight,
+           "snapshots_racing": reader.racing,
+           "conservation_failures": len(reader.failures),
+           "host_s": time.perf_counter() - t0, "card": name_power}
+    say(f"[node slice kv race] {json.dumps(res)}")
+    check(all(len(o) == KV_RACE_NEW for o in outs), "kv race: a request did not finish")
+    check(not reader.failures, f"kv_stats broke block conservation: {reader.failures[:2]}")
+    check(reader.at_boundary == steps, "kv race: a step boundary without a snapshot")
+    check(reader.inflight > 0, "kv race: no snapshot was taken with chunks in flight")
+
+
+def _http_json(port: int, path: str):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return json.loads(r.read())
+
+
+# the [slice] model step PERF.md §6 records from before the telemetry
+# was attached (captured paged decode, another host: printed for reference)
+SLICE_STEP_RECORDED_MS = 9.17
+
+
+def _plain_step_ms(sch, vocab: int) -> float:
+    """``_profile_decode``'s plain window alone: the wall a model step."""
+    rids, _, dt = _decode_window(sch, vocab)
+    sch.run_until_idle()
+    for rid in rids:
+        sch.result(rid)
+    return dt / (PROFILE_STEPS * _model_steps(sch)) * 1e3
+
+
+def _untraced_step(sch, vocab: int) -> dict:
+    """The model step of the node-built engine with its telemetry sinks
+    (metrics, flight recorder, tracer, the timer's metrics) detached,
+    between two with them attached, on the same graphs and pools."""
+    sinks = (sch.metrics, sch.recorder, sch.tracer, sch._timer.metrics)
+    traced = [_plain_step_ms(sch, vocab)]
+    sch.metrics = sch.recorder = sch.tracer = sch._timer.metrics = None
+    try:
+        untraced = _plain_step_ms(sch, vocab)
+    finally:
+        sch.metrics, sch.recorder, sch.tracer, sch._timer.metrics = sinks
+    traced.append(_plain_step_ms(sch, vocab))
+    return {"traced_ms": traced, "untraced_ms": untraced}
+
+
+def _node_checks(loop: _NodeLoop, node: Node, sch, outs, name_power: str) -> None:
+    """[node slice]: the node's metrics, spans and events of the served
+    requests, a second node's PING with
+    ``ts_since`` (its PONG carries the engine's device-time programs and
+    KV summary) and the status server's /kv and /metrics."""
+    st = sch.stats()
+    n = len(outs)
+    counters = node.metrics.counters
+    spans = node.tracer.spans()
+    roots = {s.span_id for s in spans if s.name == "serving.request"}
+    kids = collections.Counter((s.parent_id, s.name) for s in spans
+                               if s.name in ("serving.prefill", "serving.decode"))
+    res = {"requests_total": counters["serving_requests_total"],
+           "tokens_total": counters["serving_tokens_total"],
+           "emitted": sum(len(o) for o in outs), "request_spans": len(roots),
+           "admit_events": node.flight.counts.get("serving.admit", 0),
+           "preemptions": st["preemptions"]}
+    check(res["requests_total"] == n, f"serving_requests_total {res['requests_total']} != {n}")
+    check(res["tokens_total"] == res["emitted"],
+          f"serving_tokens_total {res['tokens_total']} != {res['emitted']} emitted")
+    check(len(roots) == n and all(kids[(r, "serving.prefill")] == 1
+                                  and kids[(r, "serving.decode")] == 1 for r in roots),
+          "one serving.request span a request, each with its prefill and decode")
+    check(res["admit_events"] == n + st["preemptions"], "one serving.admit event an admission")
+
+    peer_node = Node(NodeConfig(role="validator", host="127.0.0.1", port=0))
+    loop.run(peer_node.start())
+    try:
+        peer = loop.run(peer_node.connect("127.0.0.1", node.port))
+        pong = loop.run(peer_node.request(peer, {"type": "PING", "ts_since": 0}))
+        dt = sch.device_time()
+        res["pong_programs"] = sorted(pong["capability"]["programs"])
+        res["pong_host_gap_frac"] = pong["capability"]["host_gap_frac"]
+        check(pong["capability"]["programs"] == json.loads(json.dumps(dt["programs"]))
+              and pong["capability"]["host_gap_frac"] == dt["host_gap_frac"],
+              "the PONG's capability is not the engine's device_time()")
+        check(pong["kv"] == sch.kv_stats_summary(), "the PONG's kv is not kv_stats_summary()")
+        check("timeseries_delta" in pong, "no timeseries delta in the PONG")
+    finally:
+        loop.run(peer_node.stop())
+    port = node._http.bound_port
+    kv = _http_json(port, "/kv?limit=8")
+    met = _http_json(port, "/metrics")
+    res.update(http_kv_chains=kv["total_chains"],
+               http_metrics_requests=met["counters"]["serving_requests_total"],
+               card=name_power)
+    check(kv["pool"] == sch.kv_stats(limit=8)["pool"], "GET /kv differs from kv_stats")
+    check(met["counters"]["serving_requests_total"] == n, "GET /metrics off the counters")
+    say(f"[node slice] {json.dumps(res)}")
+
+
 def phase_slice(name_power: str, model: Llama, cap: dict) -> dict:
+    """The [slice] requests through a paged engine that a started port
+    ``Node`` on 127.0.0.1 builds (``_build_serving``), with the node's
+    telemetry attached; then a reader thread races ``kv_stats`` on a batch
+    of its own (``_kv_race``), and the model step is timed with the
+    sinks detached (``_untraced_step``)."""
     cfg = model.cfg
     max_new = 32
     prompts = _requests(cfg.vocab_size)
-    sch, rids, outs, wall, k = _serve_paged(model, prompts, max_new, True, cap)
+    loop = _NodeLoop()
+    node = Node(NodeConfig(role="worker", host="127.0.0.1", port=0, http_status_port=0))
+    node.capability = cap
+    try:
+        loop.run(node.start())
+        sch, rids, outs, wall, k = _serve_paged(model, prompts, max_new, True, cap,
+                                                node=node)
+        _node_checks(loop, node, sch, outs, name_power)
+    finally:
+        loop.run(node.stop())
+        loop.close()
     st = sch.stats()
     _graph_line("slice", st["graphs"])
     tf = _teacher_forced("slice", model, prompts, outs)
@@ -1332,6 +1569,8 @@ def phase_slice(name_power: str, model: Llama, cap: dict) -> dict:
     prof = _profile_decode(sch, cfg.vocab_size, name_power)
     _check_timer_vs_profile("slice", sch, prof, name_power)
     _telemetry_capture(sch, cfg.vocab_size, name_power)
+    _kv_race(sch, prompts, name_power)
+    untraced = _untraced_step(sch, cfg.vocab_size)
     del sch
     gc.collect()
     torch.cuda.empty_cache()
@@ -1340,6 +1579,9 @@ def phase_slice(name_power: str, model: Llama, cap: dict) -> dict:
     tf_e = _teacher_forced("slice eager", model, prompts, eouts)
     _agreement("slice", outs, eouts, tf, tf_e)
     _step_line("slice", prof, None, wall, ewall)
+    step = {"traced_profiled_ms": prof["model_step_ms"], **untraced,
+            "recorded_ms": SLICE_STEP_RECORDED_MS, "card": name_power}
+    say(f"[node slice step] {json.dumps(step)}")
     del esch
     gc.collect()
     torch.cuda.empty_cache()
@@ -1416,6 +1658,25 @@ def _model_steps(sch) -> int:
     return cfg.rounds * (1 + (cfg.k + 1 if sch.spec.mode == "draft" else 0))
 
 
+def _decode_window(sch, vocab: int, max_new: int = PROFILE_NEW):
+    """8 fresh requests are prefilled and one pure-decode scheduler step
+    warms the pipeline; then PROFILE_STEPS steps run between two device
+    syncs. -> (request ids, prefill s, window s); the requests decode on."""
+    t_start = time.perf_counter()
+    r = np.random.default_rng(4)
+    rids = [sch.submit(r.integers(0, vocab, (64,)), max_new=max_new)
+            for _ in range(8)]
+    while getattr(sch, "_pending", None):  # the paged engine's chunked prefill
+        sch.step()
+    sch.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_STEPS):
+        sch.step()
+    torch.cuda.synchronize()
+    return rids, t0 - t_start, time.perf_counter() - t0
+
+
 def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
                     max_new: int = PROFILE_NEW) -> dict:
     """Where a decode step's time goes: 8 fresh requests are prefilled,
@@ -1433,20 +1694,7 @@ def _profile_decode(sch, vocab: int, name_power: str, tag: str = "profile",
     seconds, by part."""
     from torch.profiler import ProfilerActivity, profile
 
-    t_start = time.perf_counter()
-    r = np.random.default_rng(4)
-    rids = [sch.submit(r.integers(0, vocab, (64,)), max_new=max_new)
-            for _ in range(8)]
-    while getattr(sch, "_pending", None):  # the paged engine's chunked prefill
-        sch.step()
-    sch.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    prefill_s = t0 - t_start
-    for _ in range(PROFILE_STEPS):
-        sch.step()
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    rids, prefill_s, plain_s = _decode_window(sch, vocab, max_new)
     t_prof = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1535,11 +1783,13 @@ ZLIB_PICK = 3  # the [slice] request (129 tokens) the zlib ratio is read on
 
 
 def phase_capability(name_power: str) -> dict:
+    rec = FlightRecorder()
     cap = measure_capability(matmul_dim=CAP_MATMUL_DIM, hbm_mb=CAP_HBM_MB,
-                             reps=CAP_REPS)
+                             reps=CAP_REPS, recorder=rec)
     say(f"[capability] {json.dumps({**cap, 'card': name_power})}")
     check(cap["peak_tflops"] > 0 and cap["hbm_gbps"] > 0,
           "capability: no matmul or HBM rate measured")
+    check(rec.counts.get("capability.measured") == 1, "no capability.measured event")
     return cap
 
 
@@ -4296,7 +4546,8 @@ def phase_train(name_power: str) -> dict:
     model = BertClassifier(cfg, CLASSES, device=DEV, seed=0)  # f32 params
     tcfg = TrainConfig(batch_size=B, micro_batches=1, optimizer="adam",
                        learning_rate=1e-4, dtype="bfloat16", grad_clip_norm=1.0)
-    trainer = Trainer(model, _bert_loss, tcfg, device=DEV)
+    trainer = Trainer(model, _bert_loss, tcfg, tracer=Tracer(), metrics=Metrics(),
+                      flight=FlightRecorder(), device=DEV)
     state0 = trainer.init_state()
     n_params = sum(p.numel() for p in state0.params.values())
     batch = _bert_batch(B, T, cfg.vocab_size, lens=[512, 480, 300, 129])
@@ -4307,6 +4558,7 @@ def phase_train(name_power: str) -> dict:
     flash_attention_bwd.launches = 0
     state, losses, secs = _timed_steps(trainer, state0, batch, gen, steps)
     k1, k2 = flash_attention_fwd_lse.launches, flash_attention_bwd.launches
+    _train_telemetry("train", trainer, "trainer", steps, name_power)
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     step_s = float(np.median(secs))
     flops = 6.0 * n_params * B * T + 12.0 * L * B * T * T * cfg.dim
@@ -4694,11 +4946,14 @@ def phase_sharded_bert(name_power: str, mesh, train_res: dict) -> dict:
     # training at dropout 0.1
     model = BertClassifier(cfg, CLASSES, device=DEV, seed=0)
     tr = ShardedTrainer(mesh, tcfg, bert_pipeline_parts(
-        model.bert, dict(model.named_parameters()), CLASSES), loss)
+        model.bert, dict(model.named_parameters()), CLASSES), loss,
+        tracer=Tracer(), metrics=Metrics(), flight=FlightRecorder())
     torch.cuda.reset_peak_memory_stats()
     state = tr.init_state()
     steps = SHARD_BERT_STEPS
     state, losses, secs, (k1, k2) = _sharded_steps(tr, state, batch, steps)
+    _train_telemetry("sharded bert", tr, "engine", steps, name_power,
+                     attrs={"stages": 1, "micros": M})
     peak = torch.cuda.max_memory_allocated()
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     step_s = float(np.median(secs))
@@ -4726,6 +4981,37 @@ def phase_sharded_bert(name_power: str, mesh, train_res: dict) -> dict:
     del model, tr, state
     _free_cuda()
     return {"launches_fwd": k1, "launches_bwd": k2}
+
+
+def _train_telemetry(tag: str, tr, prefix: str, steps: int, name_power: str,
+                     attrs: dict | None = None) -> None:
+    """A trainer's telemetry after ``steps`` steps of one batch shape: one
+    ``{prefix}.compile_step`` span (the first call of the shape) and a
+    ``{prefix}.step`` span each later step, the ``step_s`` series counted,
+    no non-finite event; the single-host ``Trainer``'s ``device_time()``
+    timed every step but the first."""
+    spans = collections.Counter(s.name for s in tr.tracer.spans())
+    snap = tr.metrics.snapshot()
+    res = {"spans": dict(spans), "step_s_n": snap.get("step_s", {}).get("n", 0),
+           "train_steps": snap["counters"].get("train_steps", 0),
+           "nonfinite_events": tr.flight.counts.get("train_nonfinite", 0)}
+    want = min(steps - 1, tr.metrics.window)
+    check(spans[f"{prefix}.compile_step"] == 1 and spans[f"{prefix}.step"] == steps - 1,
+          f"{tag}: {spans} spans for {steps} steps")
+    check(res["step_s_n"] == want and res["train_steps"] == steps,
+          f"{tag}: step_s counted {res['step_s_n']}, train_steps {res['train_steps']}")
+    check(res["nonfinite_events"] == 0, f"{tag}: a non-finite step")
+    if attrs is not None:
+        res["span_attrs"] = tr.tracer.spans()[-1].attrs
+        check(res["span_attrs"] == attrs, f"{tag}: span attrs {res['span_attrs']}")
+    if hasattr(tr, "device_time"):
+        dt = tr.device_time()
+        check(dt is not None and dt["programs"]["train_step"]["count"] == steps - 1,
+              f"{tag}: device_time() {dt}")
+        res["device_time"] = {"busy_s": dt["device_busy_s"], "gap_s": dt["host_gap_s"],
+                              "host_gap_frac": dt["host_gap_frac"]}
+    res["card"] = name_power
+    say(f"[{tag} telemetry] {json.dumps(res)}")
 
 
 def _micro_grads(trainer, state, batch, micro):

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Any, Mapping
 
@@ -188,3 +189,15 @@ class FrameworkConfig:
 
     def replace(self, **kw: Any) -> "FrameworkConfig":
         return dataclasses.replace(self, **kw)
+
+
+def config_from_env(env: Mapping[str, str] | None = None) -> FrameworkConfig:
+    """Optional env-var overrides (explicit, never at import time)."""
+    env = dict(os.environ if env is None else env)
+    mesh = MeshConfig(
+        data=int(env.get("TLTPU_MESH_DATA", 1)),
+        pipe=int(env.get("TLTPU_MESH_PIPE", 1)),
+        model=int(env.get("TLTPU_MESH_MODEL", 1)),
+        seq=int(env.get("TLTPU_MESH_SEQ", 1)),
+    )
+    return FrameworkConfig(mesh=mesh)

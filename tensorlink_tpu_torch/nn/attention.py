@@ -48,9 +48,15 @@ the reference's per-kv-group interleave ``[D, G, (H/G q | k | v), Dh]``
 (``fuse_qkv_params`` converts a q/k/v param tree to it). Every path —
 no cache, contiguous, blockwise, paged, the speculative verify pass and
 the draft — projects through ``_project_qkv``, the one place that knows
-either layout. The port's attention has no cross-attention source (the
-reference refuses ``qkv_fused`` there), so there is no such path to
-refuse.
+either layout.
+
+Cross-attention, as in the reference: ``kv=`` (keys and values projected
+from another source) or ``precomputed_kv=`` (``project_kv``'s (k, v),
+projected once for a decode loop), without a cache. The no-cache path
+then attends the source exactly as self-attention attends its own keys
+(the same flash routing). Refused with the reference's exception types:
+``qkv_fused`` with either, rope with ``precomputed_kv``, a cache with
+either.
 """
 
 from __future__ import annotations
@@ -450,8 +456,23 @@ class MultiHeadAttention(Module):
         f = self.qkv(x).reshape(B, T, -1, hq + 2, Dh)
         return f[:, :, :, :hq].reshape(B, T, -1, Dh), f[:, :, :, hq], f[:, :, :, hq + 1]
 
-    def forward(self, x, *, mask=None, cache=None, positions=None,
-                bias=None, fresh_keys=None, **_):
+    def project_kv(self, src):
+        """Project a cross-attention source once: (k, v) [B, Tk, Hkv, Dh],
+        reused across a decode loop through ``precomputed_kv=``."""
+        if self.qkv_fused:
+            raise NotImplementedError(
+                "qkv_fused has no standalone k/v projection (build "
+                "cross-attention modules with qkv_fused=False)"
+            )
+        B, Ts, _ = src.shape
+        Dh = self.head_dim
+        return self.k(src).reshape(B, Ts, -1, Dh), self.v(src).reshape(B, Ts, -1, Dh)
+
+    def forward(self, x, *, mask=None, cache=None, positions=None, kv=None,
+                precomputed_kv=None, bias=None, fresh_keys=None, **_):
+        # ``**_`` takes only what containers hand every layer and attention
+        # does not read (``rng``, ``train``); every argument that changes
+        # the result is named above
         B, T, _ = x.shape
         if bias is not None and self._attn is not dot_product_attention:
             # the flash routing swallows unknown kwargs: an additive bias
@@ -459,7 +480,30 @@ class MultiHeadAttention(Module):
             raise NotImplementedError(
                 "additive attention bias requires attn_impl='reference'"
             )
-        q, k, v = self._project_qkv(x)
+        cross = kv is not None or precomputed_kv is not None
+        if not cross:
+            q, k, v = self._project_qkv(x)
+        elif self.qkv_fused:
+            raise NotImplementedError(
+                "qkv_fused projects q/k/v from ONE source — "
+                "cross-attention needs the separate q/k/v layout"
+            )
+        else:
+            q = self.q(x).reshape(B, T, -1, self.head_dim)
+            # precomputed: projected once by project_kv (rope, if any,
+            # must have been applied there)
+            k, v = precomputed_kv if precomputed_kv is not None else self.project_kv(kv)
+        if self.rope and precomputed_kv is not None:
+            raise NotImplementedError(
+                "precomputed_kv with rope would re-rotate the keys; apply "
+                "rope in project_kv first"
+            )
+        if cache is not None and cross:
+            raise NotImplementedError(
+                "cross-attention KV caching is not supported; precompute "
+                "the encoder k/v once (project_kv) and pass them per step "
+                "WITHOUT a cache"
+            )
         if self.rope:
             if positions is None:
                 if cache is not None and cache["index"].dim() == 1:

@@ -1,0 +1,132 @@
+"""Framed asyncio transport.
+
+Replaces the reference's thread-per-peer socket loop with EOT-terminator
+framing, base64+zlib compression, and a disk round-trip for every message
+(src/p2p/connection.py:39-151, survey §2.4) with: 4-byte length-prefixed
+frames, in-memory dispatch, optional zstd compression only above a size
+threshold, and CRC-32C frame integrity via the native wire codec
+(tensorlink_tpu_torch/native/wirecodec.cpp) — the reference had no integrity
+checking at all. Flags ride the frame header byte; bit 0x80 marks a
+trailing checksum.
+
+The port's copy of ``tensorlink_tpu/p2p/connection.py``, which uses no
+framework: the port keeps its own so that it never imports the JAX
+package. Keep the two in step. Where ``zstandard`` is missing, a zstd
+stream sends zlib frames (flagged as zlib) and refuses a received zstd
+frame.
+"""
+
+from __future__ import annotations
+
+import asyncio
+
+from tensorlink_tpu_torch.native import crc32c
+from tensorlink_tpu_torch.p2p import serialization as _ser
+from tensorlink_tpu_torch.p2p.serialization import _compress, _decompress
+
+MAX_FRAME = 1 << 31  # 2 GiB hard cap
+FLAG_NONE = 0
+FLAG_ZSTD = 1
+FLAG_ZLIB = 2
+FLAG_CRC = 0x80  # 4-byte CRC-32C of the payload follows the flag byte
+
+_CODEC_BY_FLAG = {FLAG_NONE: "none", FLAG_ZSTD: "zstd", FLAG_ZLIB: "zlib"}
+_FLAG_BY_CODEC = {v: k for k, v in _CODEC_BY_FLAG.items()}
+
+
+class FrameCorruptionError(ConnectionError):
+    """Frame payload failed its CRC-32C check."""
+
+
+class FramedStream:
+    """Length-prefixed frames over an asyncio stream.
+
+    Frame: 4-byte big-endian payload length, 1 flag byte (compression),
+    payload. Concurrent writers are serialized with a lock.
+    """
+
+    def __init__(
+        self,
+        reader: asyncio.StreamReader,
+        writer: asyncio.StreamWriter,
+        compression: str = "zstd",
+        compression_min_bytes: int = 4096,
+        integrity: bool = False,
+    ):
+        # integrity starts OFF and is switched on after the handshake
+        # negotiates the "crc" capability — an un-negotiated 0x80 flag
+        # would be an unknown-flag error to a peer without this code;
+        # recv always understands checksummed frames
+        self.reader = reader
+        self.writer = writer
+        self.compression = compression
+        self.compression_min_bytes = compression_min_bytes
+        self.integrity = integrity
+        self._wlock = asyncio.Lock()
+        self.bytes_in = 0
+        self.bytes_out = 0
+
+    async def send(self, payload: bytes) -> None:
+        if self.writer.is_closing():
+            # asyncio silently discards writes to a closing transport —
+            # a request() sent here would ride out its full timeout even
+            # though delivery is already impossible. Fail it now.
+            raise ConnectionError("stream is closed")
+        codec = "none"
+        if (
+            self.compression != "none"
+            and len(payload) >= self.compression_min_bytes
+        ):
+            codec = self.compression
+            if codec == "zstd" and _ser._zstd is None:
+                # no zstandard on this host: the reference's own
+                # fallback, and the flag says so (a zstd flag on an
+                # uncompressed payload would be garbage to the peer)
+                codec = "zlib"
+            payload = _compress(payload, codec)
+        if len(payload) > MAX_FRAME:
+            raise ValueError(f"frame too large: {len(payload)}")
+        flag = _FLAG_BY_CODEC[codec]
+        tail = b""
+        if self.integrity:
+            flag |= FLAG_CRC
+            tail = crc32c(payload).to_bytes(4, "big")
+        header = len(payload).to_bytes(4, "big") + bytes([flag]) + tail
+        async with self._wlock:
+            self.writer.write(header + payload)
+            await self.writer.drain()
+        self.bytes_out += len(payload) + len(header)
+
+    async def recv(self) -> bytes:
+        header = await self.reader.readexactly(5)
+        length = int.from_bytes(header[:4], "big")
+        flag = header[4]
+        if length > MAX_FRAME:
+            raise ValueError(f"frame too large: {length}")
+        want_crc = None
+        if flag & FLAG_CRC:
+            want_crc = int.from_bytes(await self.reader.readexactly(4), "big")
+            self.bytes_in += 4
+        payload = await self.reader.readexactly(length)
+        self.bytes_in += length + 5
+        codec = _CODEC_BY_FLAG.get(flag & ~FLAG_CRC)
+        if codec is None:
+            raise ValueError(f"unknown compression flag {flag}")
+        if want_crc is not None and crc32c(payload) != want_crc:
+            raise FrameCorruptionError(
+                f"frame CRC mismatch ({length} bytes)"
+            )
+        return _decompress(payload, codec)
+
+    def close(self) -> None:
+        try:
+            self.writer.close()
+        except Exception:
+            pass
+
+    @property
+    def peername(self):
+        try:
+            return self.writer.get_extra_info("peername")
+        except Exception:
+            return None

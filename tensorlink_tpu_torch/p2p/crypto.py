@@ -1,6 +1,6 @@
-"""Node identity: an RSA keypair that signs and verifies (the ``Identity``
-class of ``tensorlink_tpu/p2p/crypto.py``, copied; the port needs it to
-sign work receipts, ``runtime/ledger.py``).
+"""Node identity: an RSA keypair that signs and verifies (``Identity``
+and ``new_nonce`` of ``tensorlink_tpu/p2p/crypto.py``, copied: receipts,
+``runtime/ledger.py``, and the node handshake, ``p2p/node.py``, use it).
 
 Signatures are RSA-PSS over SHA-256. node_id = sha256(DER(pubkey)) hex.
 
@@ -154,3 +154,7 @@ class Identity:
     def node_id_for(public_der: bytes) -> str:
         return hashlib.sha256(public_der).hexdigest()
 
+
+
+def new_nonce() -> bytes:
+    return os.urandom(32)

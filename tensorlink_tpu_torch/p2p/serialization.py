@@ -1,6 +1,9 @@
-"""Array blobs on the wire (the ``pack_arrays`` / ``unpack_arrays`` /
-``packed_nbytes`` and ``tree_flatten_arrays`` / ``tree_unflatten_arrays``
-part of ``tensorlink_tpu/p2p/serialization.py``).
+"""Typed control messages and array blobs on the wire (the port's
+``tensorlink_tpu/p2p/serialization.py``): ``encode_message`` /
+``decode_message``, ``pack_arrays`` / ``unpack_arrays`` /
+``packed_nbytes``, the chunked streams (``stream_manifest``,
+``iter_array_chunks``, ``StreamAssembler``) and ``tree_flatten_arrays``
+/ ``tree_unflatten_arrays``.
 
 A blob is ``MAGIC + len(head) (4 bytes, big-endian) + head + body``:
 ``head`` is a msgpack map ``{"codec", "tensors": {name: {"dtype",
@@ -10,10 +13,12 @@ bytes, concatenated and checksummed in one native pass
 port blob is byte-identical to a JAX-package blob of the same arrays, so
 either side reads the other's.
 
-The manifest codec is written here (``packb`` / ``unpackb``) for the
-msgpack subset a manifest uses: maps, str, int, list and bin, plus nil,
-bool and float64, each in msgpack's smallest encoding, as
-``msgpack.packb(..., use_bin_type=True)`` gives it. No ``msgpack`` and no
+The msgpack codec is written here (``packb`` / ``unpackb``) for the
+subset control messages and manifests use: nested maps and lists, str,
+bin, nil, bool, float64 and ints from -2**63 to 2**64 - 1, each in
+msgpack's smallest encoding, so the bytes equal
+``msgpack.packb(..., use_bin_type=True)``'s; a message's map keys may be
+ints too, as ``strict_map_key=False`` accepts. No ``msgpack`` and no
 ``ml_dtypes`` are needed: dtypes travel by numpy name, and a
 ``torch.bfloat16`` tensor travels as its bits under ``"bfloat16"``.
 Codec ``"zstd"`` falls back to ``"zlib"`` where ``zstandard`` is missing,
@@ -113,7 +118,7 @@ def _pack_into(out: bytearray, obj) -> None:
             _pack_into(out, k)
             _pack_into(out, v)
     else:
-        raise TypeError(f"cannot serialize {type(obj).__name__} in a manifest")
+        raise TypeError(f"can not serialize {type(obj).__name__!r} object")
 
 
 def _head(out: bytearray, n: int, fix: int | None, fix_lim: int, tags) -> None:
@@ -131,7 +136,7 @@ def _head(out: bytearray, n: int, fix: int | None, fix_lim: int, tags) -> None:
 
 
 def packb(obj) -> bytes:
-    """``msgpack.packb(obj, use_bin_type=True)`` for the manifest subset."""
+    """``msgpack.packb(obj, use_bin_type=True)`` for the subset."""
     out = bytearray()
     _pack_into(out, obj)
     return bytes(out)
@@ -149,9 +154,16 @@ _FIXED = {  # tag -> (struct format, kind)
 }
 
 
-def _unpack_at(data, i: int):
+# nesting bound of a decoded tree (msgpack's own unpacker refuses deeper
+# input with a ValueError too): a hostile frame cannot exhaust the stack
+_MAX_DEPTH = 512
+
+
+def _unpack_at(data, i: int, strict: bool = True, depth: int = 0):
     if i >= len(data):
-        raise ValueError("truncated msgpack manifest")
+        raise ValueError("truncated msgpack data")
+    if depth > _MAX_DEPTH:
+        raise ValueError("msgpack data nested too deeply")
     b = data[i]
     i += 1
     if b < 0x80:
@@ -170,39 +182,60 @@ def _unpack_at(data, i: int):
         fmt, kind = _FIXED[b]
         size = struct.calcsize(fmt)
         if i + size > len(data):
-            raise ValueError("truncated msgpack manifest")
+            raise ValueError("truncated msgpack data")
         (n,) = struct.unpack_from(fmt, data, i)
         i += size
         if kind == "num":
             return n, i
     else:
-        raise ValueError(f"msgpack type 0x{b:02x} is not part of a manifest")
+        raise ValueError(f"msgpack type 0x{b:02x} is not part of the subset")
     if kind in ("str", "bin"):
         if i + n > len(data):
-            raise ValueError("truncated msgpack manifest")
+            raise ValueError("truncated msgpack data")
         raw = bytes(data[i:i + n])
         return (raw.decode("utf-8") if kind == "str" else raw), i + n
     if kind == "list":
         items = []
         for _ in range(n):
-            v, i = _unpack_at(data, i)
+            v, i = _unpack_at(data, i, strict, depth + 1)
             items.append(v)
         return items, i
     out = {}
     for _ in range(n):
-        k, i = _unpack_at(data, i)
-        if not isinstance(k, (str, bytes)):
-            raise ValueError("msgpack manifest map keys must be str or bytes")
-        out[k], i = _unpack_at(data, i)
+        k, i = _unpack_at(data, i, strict, depth + 1)
+        if strict and not isinstance(k, (str, bytes)):
+            raise ValueError(f"{type(k).__name__} is not allowed for map key")
+        if isinstance(k, (list, dict)):
+            raise ValueError("unhashable msgpack map key")
+        out[k], i = _unpack_at(data, i, strict, depth + 1)
     return out, i
 
 
-def unpackb(data) -> Any:
-    """``msgpack.unpackb(data, raw=False)`` for the manifest subset."""
-    obj, end = _unpack_at(data, 0)
+def unpackb(data, *, strict_map_key: bool = True) -> Any:
+    """``msgpack.unpackb(data, raw=False, strict_map_key=...)`` for the
+    subset: map keys are str or bytes unless ``strict_map_key`` is
+    False. Raises ``ValueError`` on malformed or truncated input."""
+    obj, end = _unpack_at(data, 0, strict_map_key)
     if end != len(data):
-        raise ValueError("extra bytes after the msgpack manifest")
+        raise ValueError("extra bytes after the msgpack data")
     return obj
+
+
+# ---------------------------------------------------------------- messages
+
+
+def encode_message(msg: Mapping[str, Any]) -> bytes:
+    """Typed message -> bytes. Must contain a string 'type'."""
+    if "type" not in msg or not isinstance(msg["type"], str):
+        raise ValueError("message must carry a string 'type'")
+    return packb(dict(msg))
+
+
+def decode_message(data: bytes) -> dict[str, Any]:
+    msg = unpackb(data, strict_map_key=False)
+    if not isinstance(msg, dict) or not isinstance(msg.get("type"), str):
+        raise ValueError("malformed message (no string 'type')")
+    return msg
 
 
 # ---------------------------------------------------------------- arrays
@@ -226,7 +259,9 @@ def _compress(data: bytes, codec: str) -> bytes:
 
 
 def _decompress(data: bytes, codec: str) -> bytes:
-    if codec == "zstd" and _zstd is not None:
+    if codec == "zstd":
+        if _zstd is None:
+            raise ValueError("zstd payload, but zstandard is not installed")
         return _zd().decompress(data)
     if codec == "zlib":
         return zlib.decompress(data)
@@ -311,6 +346,108 @@ def unpack_arrays(data: bytes) -> dict[str, torch.Tensor]:
             flat = flat.clone()  # an aligned copy of a misaligned tensor
         out[name] = flat.view(dtype).reshape(meta["shape"])
     return out
+
+
+# ---------------------------------------------------------------- streams
+# Chunked array transfer: arrays are cut into per-tensor byte ranges, each
+# chunk rides its own frame (the transport's compression and CRC-32C
+# apply per chunk), and the receiver's assembler hands each tensor to a
+# sink the moment its last byte lands, so host memory is bounded by the
+# largest single tensor.
+
+STREAM_CHUNK_BYTES = 8 << 20
+
+
+def _flat_bytes(buf) -> np.ndarray:
+    """A wire-form buffer's bytes as a flat uint8 array (no copy where
+    the buffer is contiguous)."""
+    if isinstance(buf, torch.Tensor):
+        t = buf.detach().contiguous().reshape(-1)
+        return t.view(torch.uint8).numpy() if t.numel() else np.zeros((0,), np.uint8)
+    return buf.reshape(-1).view(np.uint8)
+
+
+def stream_manifest(arrays: Mapping[str, Any]) -> dict[str, Any]:
+    """Light manifest (no data): receiver admission control + assembly."""
+    tensors = {}
+    total = 0
+    for name, arr in arrays.items():
+        dtype, _, buf = _wire_form(arr)
+        nbytes = _flat_bytes(buf).nbytes
+        # a 0-d array keeps its shape here, as in the reference
+        shape = list(arr.shape) if hasattr(arr, "shape") else list(np.shape(arr))
+        tensors[name] = {"dtype": dtype, "shape": shape, "nbytes": nbytes}
+        total += nbytes
+    return {"tensors": tensors, "total": total}
+
+
+def iter_array_chunks(arrays: Mapping[str, Any], chunk_bytes: int = STREAM_CHUNK_BYTES):
+    """Yield (name, offset, data) byte-range chunks, tensor by tensor."""
+    for name, arr in arrays.items():
+        raw = _flat_bytes(_wire_form(arr)[2])
+        if raw.nbytes == 0:
+            yield name, 0, b""
+            continue
+        for off in range(0, raw.nbytes, chunk_bytes):
+            yield name, off, raw[off:off + chunk_bytes].tobytes()
+
+
+class StreamAssembler:
+    """Order-independent chunk assembly against a ``stream_manifest``.
+
+    ``sink(name, tensor)`` fires once per tensor (a CPU torch tensor) the
+    moment its last byte lands; the staging buffer is then the tensor's."""
+
+    def __init__(self, manifest: Mapping[str, Any], sink):
+        self.manifest = manifest
+        self.sink = sink
+        self._buf: dict[str, bytearray] = {}
+        self._got: dict[str, int] = {}
+        self.received = 0
+        self.completed = 0
+        # chunk messages dispatch concurrently (worker threads): feed's
+        # bookkeeping is serialized, or two chunks of one tensor race the
+        # buffer allocation and the stream completes with holes
+        self._lock = threading.Lock()
+
+    @property
+    def done(self) -> bool:
+        with self._lock:
+            return self.completed == len(self.manifest["tensors"])
+
+    def feed(self, name: str, off: int, data: bytes) -> None:
+        meta = self.manifest["tensors"].get(name)
+        if meta is None:
+            raise ValueError(f"chunk for unknown tensor {name!r}")
+        nbytes = int(meta["nbytes"])
+        if off < 0 or off + len(data) > nbytes:
+            raise ValueError(f"chunk out of range for {name!r}")
+        with self._lock:
+            if name not in self._buf:
+                if name in self._got:
+                    raise ValueError(f"duplicate tensor {name!r} after completion")
+                self._buf[name] = bytearray(nbytes)
+                self._got[name] = 0
+            buf = self._buf[name]
+            buf[off:off + len(data)] = data
+            self._got[name] += len(data)
+            self.received += len(data)
+            complete = self._got[name] >= nbytes
+            if complete:
+                del self._buf[name]
+        if complete:
+            dtype = _TORCH_BY_NAME.get(meta["dtype"])
+            if dtype is None:
+                raise ValueError(f"unknown wire dtype {meta['dtype']!r}")
+            if nbytes:
+                t = torch.frombuffer(buf, dtype=torch.uint8).view(dtype)
+            else:
+                t = torch.empty((0,), dtype=dtype)
+            self.sink(name, t.reshape(meta["shape"]))
+            # completion counts only after the sink returns: ``done`` gates
+            # STREAM_END's finish, which must see every sink effect
+            with self._lock:
+                self.completed += 1
 
 
 # ---------------------------------------------------------------- pytrees

@@ -48,9 +48,13 @@ data coordinate)`` split into embed, pipe and head streams as the
 reference splits its key; a block's mask comes from (micro, global
 layer), so it is the same at any pipe depth and under either schedule.
 
-``tracer``, ``metrics`` and ``flight`` are accepted for the reference's
-signature and ignored until the observability slice;
-``audit_programs`` (an HLO audit) has no counterpart.
+``tracer``/``metrics`` turn on the reference's step telemetry: an
+``engine.step`` span (``engine.compile_step`` for the first call of a
+batch signature) with ``{"stages", "micros"}``, the ``step_s`` /
+``compile_s`` series, and the non-finite accounting
+(``train_nonfinite_total``, a ``train_nonfinite`` event to ``flight``, by
+default the process's recorder), which reads one flag from the device a
+step; ``audit_programs`` (an HLO audit) has no counterpart.
 """
 
 from __future__ import annotations
@@ -82,13 +86,15 @@ from tensorlink_tpu_torch.parallel.dp import (
 from tensorlink_tpu_torch.parallel.pp import Pipeline, fold_in, generator
 from tensorlink_tpu_torch.parallel.pp1f1b import Pipeline1F1B
 from tensorlink_tpu_torch.runtime.mesh import mesh_device, mesh_sizes
+from tensorlink_tpu_torch.runtime.flight import default_recorder
 from tensorlink_tpu_torch.runtime.metrics import pipeline_bubble_fraction
+from tensorlink_tpu_torch.runtime.tracing import StepTelemetry
 from tensorlink_tpu_torch.train.optim import (
     apply_updates,
     make_optimizer,
     make_schedule,
 )
-from tensorlink_tpu_torch.train.trainer import TrainState, _where
+from tensorlink_tpu_torch.train.trainer import TrainState, _where, note_nonfinite
 from tensorlink_tpu_torch.utils.trees import flatten, nest
 
 log = logging.getLogger("tensorlink_tpu_torch.engine")
@@ -207,7 +213,16 @@ class ShardedTrainer:
         self.cfg = cfg
         self.parts = parts
         self.loss_fn = loss_fn
-        self.tracer, self.metrics, self.flight = tracer, metrics, flight
+        self.tracer, self.metrics = tracer, metrics
+        self._telemetry = None
+        if tracer is not None or metrics is not None:
+            self._telemetry = StepTelemetry(
+                tracer, metrics, "engine",
+                {"stages": mesh_sizes(mesh)["pipe"], "micros": cfg.micro_batches},
+            )
+            if flight is None:
+                flight = default_recorder()
+        self.flight = flight
         if loss_reduction not in ("uniform_mean", "batch_normalized"):
             raise ValueError(
                 f"unknown loss_reduction {loss_reduction!r}; declare "
@@ -757,7 +772,13 @@ class ShardedTrainer:
         ``cfg.seed`` and the step), an int seed or a Generator."""
         batch = self._batch(batch, local)
         seed = self._seed(state, rng)
-        new_state, stats = self._step(state, batch, seed)
+        cm = (self._telemetry.step(batch, rng) if self._telemetry is not None
+              else contextlib.nullcontext())
+        with cm:
+            new_state, stats = self._step(state, batch, seed)
+        # the telemetry path's one host read (the reference's)
+        if self._telemetry is not None and bool(stats["nonfinite"]):
+            note_nonfinite(self, new_state, stats)
         if not self.cfg.skip_nonfinite_updates:
             known = self._host_steps.get(id(state.step))
             if known and known[0] is state.step:

@@ -156,8 +156,20 @@ loop's executor. Every device call stays under the scheduler lock, so a
 pump thread's graph capture never overlaps another thread's prefill (a
 capture fails if another thread launches work meanwhile).
 
-Not ported yet (see ROADMAP): metrics and events (the counts live in
-``stats()``).
+**Telemetry** (``metrics=`` a ``runtime/metrics.py`` registry,
+``recorder=`` a ``runtime/flight.py`` recorder, ``tracer=`` a
+``runtime/tracing.py`` tracer): the reference's metric names, flight
+event kinds and per-request spans. Every call stays on the host, at
+submission, admission, drain or finish, outside every chunk body and
+captured graph, and reads nothing from the device: a span's times are
+host clock stamps taken where the engine already is (a request's
+``serving.request`` span, with its ``serving.queue_wait``,
+``serving.prefill`` and ``serving.decode`` children, is written when it
+finishes). A telemetry sink that raises never fails a request. The
+``stats()`` counts stay beside them. ``serving.compile`` and
+``serving_prefill_compile_s`` keep the reference's names, but the port
+compiles no program: they time a prefill shape's first dispatch on the
+host (``_record_compile``).
 """
 
 from __future__ import annotations
@@ -185,6 +197,8 @@ from tensorlink_tpu_torch.parallel.kvpool import (
     BlockPool,
     PoolExhaustedError,
     PrefixIndex,
+    kv_residency,
+    kv_summary,
 )
 from tensorlink_tpu_torch.parallel.speculative import (
     AdaptiveKController,
@@ -199,8 +213,13 @@ from tensorlink_tpu_torch.runtime.autotune import (
     model_fingerprint,
     store_key,
 )
-from tensorlink_tpu_torch.runtime.compile_cache import compile_report, enable_compile_cache
+from tensorlink_tpu_torch.runtime.compile_cache import (
+    cache_entries,
+    compile_report,
+    enable_compile_cache,
+)
 from tensorlink_tpu_torch.runtime.graphs import GraphCache
+from tensorlink_tpu_torch.runtime.metrics import DEFAULT_BUCKETS
 from tensorlink_tpu_torch.runtime.profiling import DispatchTimer, program_cost
 
 __all__ = [
@@ -232,9 +251,15 @@ _SPEC_EXTRA = 5
 # the acceptance EWMA (the reference's)
 HEAL_MIN_PROPOSED = 32
 
-# the most prefill buckets the contiguous engine keys its autotune record
-# on and warms (the reference's prefill-program cache bound)
+# the reference's prefill-program cache bound: the most prefill buckets
+# the contiguous engine keys its autotune record on and warms, and the
+# most prefill shapes it remembers as already run (``_first_run``)
 _AUTOTUNE_BUCKETS_MAX = 32
+
+# the reference's histogram buckets for the per-class TTFT series and the
+# per-request speculative acceptance
+_TTFT_CLASS_BUCKETS = (*DEFAULT_BUCKETS, 30.0, 60.0, 120.0)
+_ACCEPTANCE_BUCKETS = tuple(i / 10 for i in range(1, 11))
 
 
 class Priority(enum.IntEnum):
@@ -370,6 +395,10 @@ class _Request:
     slot: int | None = None
     tokens: list[int] = field(default_factory=list)
     done: bool = False
+    # host stamps of the request's timeline (perf_counter): a slot given,
+    # its first prefill dispatched, its first token on the host
+    admitted_at: float | None = None
+    prefill_started_at: float | None = None
     first_token_at: float | None = None
     finished_at: float | None = None
     prefill_chunks: int = 0
@@ -429,6 +458,8 @@ class ContinuousBatchingEngine:
     (``"serve"``, or a disaggregated leg's ``"prefill_leg"`` /
     ``"decode_leg"``). ``compile_cache_dir``, ``autotune_dir`` and
     ``warm_buckets``: the warm start (module docstring).
+    ``metrics``, ``recorder``, ``tracer``: the telemetry sinks (module
+    docstring).
     """
 
     def __init__(
@@ -451,6 +482,9 @@ class ContinuousBatchingEngine:
         compile_cache_dir: str | None = None,
         autotune_dir: str | None = None,
         warm_buckets: bool = False,
+        metrics=None,
+        recorder=None,
+        tracer=None,
     ):
         if engine.rolling:
             raise NotImplementedError(
@@ -486,10 +520,18 @@ class ContinuousBatchingEngine:
         self.keep_results = max(int(keep_results), 1)
         self.L = L = engine.cache_len
         self._lock = threading.Lock()
+        self.metrics = metrics
+        self.recorder = recorder
+        self.tracer = tracer
+        # prefill shapes already run, least recently used first
+        self._prefill_seen: collections.OrderedDict[int, None] = collections.OrderedDict()
+        # TTFT decomposed (queue wait, first dispatch, prefill): EWMAs
+        # over finished requests
+        self._ttft_decomp: dict[str, float] = {}
 
         # per-dispatch device timing (runtime/profiling.py): events
         # recorded around each dispatch, read once complete; no sync added
-        self._timer = DispatchTimer() if device_timing else None
+        self._timer = DispatchTimer(metrics=metrics) if device_timing else None
         self.capability = capability
         # metering (runtime/ledger.py): finished-request meters, addressable
         # by rid and drainable once, both bounded
@@ -514,12 +556,13 @@ class ContinuousBatchingEngine:
 
         # warm start: the kernel-build cache, then the autotune record,
         # loaded before anything is built or captured
-        self._cc_dir = enable_compile_cache(compile_cache_dir)
+        self._cc_dir = enable_compile_cache(compile_cache_dir, recorder=recorder)
+        self._cc_entries = cache_entries(self._cc_dir) if self._cc_dir else 0
         self.autotune_warm_start_s: float | None = None
         self._autotune_key: str | None = None
         self._autotune_record: dict | None = None
         self._autotune_dropped = 0  # extras save_autotune could not serialize
-        self._autotune = AutotuneStore.resolve(autotune_dir)
+        self._autotune = AutotuneStore.resolve(autotune_dir, recorder=recorder)
         if self._autotune is not None:
             self._autotune_load()
 
@@ -675,9 +718,15 @@ class ContinuousBatchingEngine:
             return
         # (a record's paged-kernel rows have no counterpart here:
         # autotune.apply_paged_overrides says why)
-        apply_flash_overrides(rec)
+        applied = apply_flash_overrides(rec)
         self._autotune_record = rec
         self.autotune_warm_start_s = round(time.perf_counter() - t0, 4)
+        self._event(
+            "autotune.warm_start", key=self._autotune_key,
+            flash_overrides=applied, paged_overrides=0,
+            has_k_prior=bool(rec.get("k_prior")),
+            warm_start_s=self.autotune_warm_start_s,
+        )
 
     def save_autotune(self, **extra) -> str | None:
         """Persist this engine's measured knobs — the installed flash-block
@@ -702,6 +751,8 @@ class ContinuousBatchingEngine:
                 json.dumps(v)
             except (TypeError, ValueError):
                 self._autotune_dropped += 1
+                self._event("autotune.extra_dropped", "warn", key=k,
+                            type=type(v).__name__)
                 continue
             rec[k] = v
         key = self._autotune_key or store_key(
@@ -717,11 +768,14 @@ class ContinuousBatchingEngine:
         serving. Buckets run smallest first."""
         dev = self.device
         for Tp in self._autotune_buckets():
+            t0 = self._first_run(Tp)
             ids = torch.zeros((1, Tp), dtype=torch.int64, device=dev)
             pos = torch.arange(Tp, device=dev)[None, :]
             with self.engine.parallel():
                 self.engine.model(ids, caches=self._slot_caches(self._kv, 0),
                                   positions=pos, mask=None, logits=False)
+            if t0 is not None:
+                self._record_compile("prefill", t0, bucket=Tp)
         self._valid[0] = False
         self._cache_index[0] = 0
 
@@ -848,7 +902,7 @@ class ContinuousBatchingEngine:
             # not prefill into a mode already measured as a loss
             self._maybe_self_heal()
             self._check_fit(int(ids.size), max_new)
-            self._check_deadline_feasible(max_new, deadline_s)
+            self._check_deadline_feasible(max_new, deadline_s, prio)
             # expired work frees its slot and blocks before this arrival
             # competes for them
             self._expire_deadlines_locked()
@@ -870,6 +924,11 @@ class ContinuousBatchingEngine:
                 self._deadlined += 1
             self._requests[rid] = req
             self._admit_or_queue(req)
+        if self.metrics is not None:
+            self.metrics.incr("serving_requests_total")
+            self.metrics.incr(f"serving_requests_total:{_PRIO_NAMES[prio]}")
+        self._event("serving.submit", rid=rid, prompt_len=int(ids.size),
+                    priority=_PRIO_NAMES[prio])
         return rid
 
     def _bucket(self, t0: int) -> int:
@@ -889,7 +948,7 @@ class ContinuousBatchingEngine:
             )
 
     # ------------------------------------------------- admission control
-    def _check_deadline_feasible(self, max_new: int, deadline_s) -> None:
+    def _check_deadline_feasible(self, max_new: int, deadline_s, prio: int) -> None:
         """Refuse work whose deadline is provably unmeetable: ``max_new``
         tokens cost at least ``(max_new - 1) x`` measured TPOT of decode.
         With nothing measured yet, nothing is provable."""
@@ -899,6 +958,14 @@ class ContinuousBatchingEngine:
         if floor <= deadline_s:
             return
         self._deadline_misses += 1
+        if self.metrics is not None:
+            self.metrics.incr("serving_deadline_miss_total")
+            self.metrics.incr(f"serving_deadline_miss_total:{_PRIO_NAMES[prio]}")
+        self._event(
+            "serving.deadline_miss", "warn", phase="admission",
+            priority=_PRIO_NAMES[prio], deadline_s=deadline_s,
+            service_floor_s=round(floor, 4),
+        )
         raise DeadlineExceededError(
             f"deadline {deadline_s}s is provably unmeetable: {max_new} "
             f"tokens x measured TPOT {self._tpot_ewma:.5f}s/token = "
@@ -922,10 +989,20 @@ class ContinuousBatchingEngine:
         eta = tpot * ahead / max(self.slots, 1)
         return round(max(eta * self._pool_pressure_locked(), tpot), 4)
 
-    def _note_shed(self, prio: int) -> None:
+    def _note_shed(self, prio: int, reason: str, retry_after_s: float | None,
+                   rid: int | None = None) -> None:
         self._sheds += 1
         self._shed_by_prio[prio] = self._shed_by_prio.get(prio, 0) + 1
         self._last_shed_at = time.perf_counter()
+        name = _PRIO_NAMES.get(prio, "standard")
+        if self.metrics is not None:
+            # bounded: Priority is a closed three-member enum
+            self.metrics.incr("serving_shed_total")
+            self.metrics.incr(f"serving_shed_total:{name}")
+        self._event(
+            "serving.shed", "warn", rid=rid, priority=name, reason=reason,
+            retry_after_s=retry_after_s, queued=len(self._queue),
+        )
 
     def _displace_for_locked(self, prio: int) -> bool:
         """Make queue room for an arrival by shedding the newest queued
@@ -950,10 +1027,20 @@ class ContinuousBatchingEngine:
         (``result`` raises it), queue entry removed, slot (and, paged,
         device row and blocks) freed through ``_finish``."""
         req.failed = error
+        name = _PRIO_NAMES.get(req.priority, "standard")
         if isinstance(error, DeadlineExceededError):
             self._deadline_misses += 1
+            if self.metrics is not None:
+                self.metrics.incr("serving_deadline_miss_total")
+                self.metrics.incr(f"serving_deadline_miss_total:{name}")
+            self._event(
+                "serving.deadline_miss", "warn", rid=req.rid, priority=name,
+                deadline_s=req.deadline_s,
+                phase="queued" if req.slot is None else "running",
+            )
         elif isinstance(error, OverloadedError):
-            self._note_shed(req.priority)
+            self._note_shed(req.priority, error.reason, error.retry_after_s,
+                            rid=req.rid)
         else:
             self._cancelled += 1
         if req in self._queue:
@@ -1006,7 +1093,7 @@ class ContinuousBatchingEngine:
         if self._displace_for_locked(prio):
             return  # a lower-priority queued request was shed instead
         ra = self._retry_after_locked()
-        self._note_shed(prio)
+        self._note_shed(prio, "queue_full", ra)
         raise QueueFullError(
             f"{len(self._queue)} requests pending (max_queue="
             f"{self.max_queue}); retry in {ra}s",
@@ -1045,6 +1132,8 @@ class ContinuousBatchingEngine:
         t0 = int(req.ids.size)
         Tp = self._bucket(t0)
         dev = self.device
+        t_first = self._first_run(Tp)
+        req.admitted_at = time.perf_counter()
         buf = np.zeros((1, Tp), np.int64)
         buf[0, Tp - t0:] = req.ids
         ids = self._to_device(buf)
@@ -1074,8 +1163,103 @@ class ContinuousBatchingEngine:
         self._slot_base[slot] = Tp
         self._slot_ub[slot] = Tp
         self.prefill_chunks += 1
+        # admission is the prefill dispatch on this engine (the paged
+        # engine stamps the two apart)
+        req.prefill_started_at = time.perf_counter()
         req.prefill_chunks += 1
         req.first_token = self._stash_first(self._first_token(loc, slot))
+        if t_first is not None:
+            self._record_compile("prefill", t_first, bucket=Tp)
+        self._event("serving.admit", rid=req.rid, slot=slot, padded=Tp)
+
+    def _first_run(self, Tp: int) -> float | None:
+        """The reference compiles one program a prefill bucket (and keeps
+        ``_AUTOTUNE_BUCKETS_MAX`` of them). Here the first run of a shape plays
+        that part (on CUDA it loads the kernel libraries and warms the
+        allocator): returns its start time when ``Tp`` is not among the
+        shapes remembered, else None."""
+        if Tp in self._prefill_seen:
+            self._prefill_seen.move_to_end(Tp)
+            return None
+        self._prefill_seen[Tp] = None
+        while len(self._prefill_seen) > _AUTOTUNE_BUCKETS_MAX:
+            old, _ = self._prefill_seen.popitem(last=False)
+            self._event("serving.prefill_evict", bucket=old)
+        return time.perf_counter()
+
+    def _record_compile(self, program: str, t0: float, **extra) -> None:
+        """One ``serving.compile`` event and one
+        ``serving_prefill_compile_s`` observation, kept under the
+        reference's names. The port compiles no program: ``compile_s`` is
+        the host seconds of a shape's first dispatch, which on CUDA is
+        launch time (the dispatch is asynchronous) plus a kernel build only
+        where no built library was found. With a kernel-build cache the
+        event also says whether it built nothing new."""
+        compile_s = time.perf_counter() - t0
+        data = dict(program=program, compile_s=round(compile_s, 4), aot=False, **extra)
+        if self._cc_dir:
+            # the reference's rule: no new library in a non-empty cache
+            # directory is a hit
+            n = cache_entries(self._cc_dir)
+            data["compile_cache_hit"] = bool(0 < n <= self._cc_entries)
+            if self.metrics is not None:
+                self.metrics.incr("compile_cache_hits_total" if data["compile_cache_hit"]
+                                  else "compile_cache_misses_total")
+            self._cc_entries = n
+        self._event("serving.compile", **data)
+        if self.metrics is not None and program == "prefill":
+            self.metrics.observe("serving_prefill_compile_s", compile_s)
+
+    # ---------------------------------------------------------- telemetry
+    def _event(self, kind: str, severity: str = "info", **data) -> None:
+        if self.recorder is not None:
+            try:
+                self.recorder.record(kind, severity, **data)
+            except Exception:  # noqa: BLE001 — telemetry must not fail a request
+                pass
+
+    def _ewma_decomp(self, name: str, value: float) -> None:
+        old = self._ttft_decomp.get(name)
+        self._ttft_decomp[name] = round(
+            value if old is None else 0.8 * old + 0.2 * value, 6)
+
+    def _emit_request_timeline(self, req: _Request) -> None:
+        """A finished request's span tree from its host stamps: queue wait,
+        prefill and decode under one ``serving.request`` root (its own
+        trace), plus the TTFT-decomposition EWMAs ``stats()`` serves."""
+        sub, adm = req.submitted_at, req.admitted_at
+        ps, ft = req.prefill_started_at, req.first_token_at
+        if adm is not None:
+            self._ewma_decomp("queue_s", adm - sub)
+            if ps is not None:
+                self._ewma_decomp("dispatch_s", ps - adm)
+                if ft is not None:
+                    self._ewma_decomp("prefill_s", ft - ps)
+        if self.tracer is None or not req.submitted_ns:
+            return
+
+        def ns(t: float | None) -> int | None:
+            return None if t is None else req.submitted_ns + int((t - sub) * 1e9)
+
+        end = ns(req.finished_at) or req.submitted_ns
+        root = self.tracer.record_span(
+            "serving.request", req.submitted_ns, end,
+            {"rid": req.rid, "tokens": len(req.tokens),
+             "prefill_chunks": req.prefill_chunks,
+             "spec_rounds": req.spec_rounds},
+        )
+        if adm is not None:
+            self.tracer.record_span("serving.queue_wait", req.submitted_ns,
+                                    ns(adm), {"rid": req.rid}, parent=root)
+        if ps is not None and ft is not None:
+            self.tracer.record_span(
+                "serving.prefill", ns(ps), ns(ft),
+                {"rid": req.rid, "chunks": req.prefill_chunks}, parent=root)
+        if ft is not None:
+            self.tracer.record_span(
+                "serving.decode", ns(ft), end,
+                {"rid": req.rid, "tokens": len(req.tokens),
+                 "spec_rounds": req.spec_rounds}, parent=root)
 
     def _note_prefill(self, req: _Request, program: str, probe, cost) -> None:
         """Time a prefill dispatch that just returned; its handle bills
@@ -1138,6 +1322,11 @@ class ContinuousBatchingEngine:
             ttft = req.first_token_at - req.submitted_at
             self._ttft_ewma = (ttft if self._ttft_ewma is None
                                else 0.8 * self._ttft_ewma + 0.2 * ttft)
+            if self.metrics is not None:
+                self.metrics.observe_hist("serving_ttft_s", ttft)
+                self.metrics.observe_hist(
+                    f"serving_ttft_s:{_PRIO_NAMES[req.priority]}", ttft,
+                    buckets=_TTFT_CLASS_BUCKETS)
 
     def _take_first(self, req: _Request) -> None:
         """Fold the prefill's first token into the request's stream."""
@@ -1504,8 +1693,16 @@ class ContinuousBatchingEngine:
         self.spec_emitted_total += emitted
         self.spec_accepted_total += accepted
         self.spec_proposed_total += proposed
-        self.spec_fallback_total += int(out[:, K + 3].sum())
+        nfb = int(out[:, K + 3].sum())
+        self.spec_fallback_total += nfb
         self.spec_idle_draft_steps += int(out[:, K + 5, 0].sum())
+        if self.metrics is not None:
+            if accepted:
+                self.metrics.incr("spec_accepted_total", accepted)
+            if proposed - accepted:
+                self.metrics.incr("spec_rejected_total", proposed - accepted)
+            if nfb:
+                self.metrics.incr("spec_fallback_total", nfb)
         if proposed and self.spec.cfg.self_heal_accept is not None:
             # recent acceptance for the self-healing gate: the lifetime
             # totals would take long to show a draft that went bad
@@ -1543,6 +1740,9 @@ class ContinuousBatchingEngine:
             "acceptance": round(self._heal_acc, 4),
             "proposed": self._heal_proposed,
         }
+        self._event("serving.spec_self_heal", "warn", **self.spec_self_healed)
+        if self.metrics is not None:
+            self.metrics.incr("spec_self_heal_total")
         self.spec_self_heal_total += 1
         if to == "ngram":
             self.spec = SpeculativeDecoder(self.engine, None, spec.cfg)
@@ -1686,14 +1886,17 @@ class ContinuousBatchingEngine:
             else:
                 self._meter_finish(req)
         req.ids = None
+        self._emit_request_timeline(req)
         slot = req.slot
         if slot is not None and self._slot_req[slot] is req:
             self._slot_req[slot] = None
             self._free.append(slot)
         if req.deadline_at is not None:
             self._deadlined = max(self._deadlined - 1, 0)
-        # measured TPOT (deadline floor, retry-after): aborted requests
-        # are left out, their finish time is the abort's
+        # measured TPOT (deadline floor, retry-after, the per-class
+        # histograms): aborted requests are left out, their finish time
+        # is the abort's
+        tpot = None
         if req.failed is None and req.first_token_at is not None and len(req.tokens) > 1:
             tpot = (req.finished_at - req.first_token_at) / (len(req.tokens) - 1)
             self._tpot_ewma = (tpot if self._tpot_ewma is None
@@ -1705,6 +1908,18 @@ class ContinuousBatchingEngine:
         self._done_order.append(req.rid)
         while len(self._done_order) > self.keep_results:
             self._requests.pop(self._done_order.popleft(), None)
+        if self.metrics is not None:
+            self.metrics.incr("serving_tokens_total", len(req.tokens))
+            if tpot is not None:
+                self.metrics.observe_hist("serving_tpot_s", tpot)
+                self.metrics.observe_hist(
+                    f"serving_tpot_s:{_PRIO_NAMES[req.priority]}", tpot)
+            if req.spec_proposed:
+                self.metrics.observe_hist(
+                    "serving_spec_acceptance",
+                    req.spec_accepted / req.spec_proposed,
+                    buckets=_ACCEPTANCE_BUCKETS)
+        self._event("serving.finish", rid=req.rid, tokens=len(req.tokens))
 
     def _append_token(self, req: _Request, tok: int) -> None:
         if req.done:
@@ -1931,6 +2146,8 @@ class ContinuousBatchingEngine:
         dt = self._device_time_locked()
         if dt is not None:
             out["device_time"] = dt
+        if self._ttft_decomp:
+            out["ttft_decomp"] = dict(self._ttft_decomp)
         return out
 
     def _device_time_locked(self) -> dict | None:
@@ -2011,7 +2228,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             )
         self.max_blocks = MB = L // bs
         nb = self._num_blocks_arg
-        self.pool = BlockPool(S * MB if nb is None else int(nb), bs)
+        self.pool = BlockPool(S * MB if nb is None else int(nb), bs,
+                              metrics=self.metrics, recorder=self.recorder)
         self.index = PrefixIndex(bs) if self.prefix_cache else None
         if self.index is not None:
             self.pool.evict_hook = self.index.forget_block
@@ -2072,11 +2290,13 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         it points at the scratch block (its writes land there): the
         libraries build and the allocator warms."""
         C, dev = self.prefill_chunk, self.device
+        t0 = time.perf_counter()
         index = torch.zeros((1,), dtype=torch.int32, device=dev)
         self.engine.model(torch.zeros((1, C), dtype=torch.int64, device=dev),
                           caches=self._caches(index, self._block_table[:1], C),
                           positions=torch.arange(C, device=dev)[None, :],
                           mask=None, logits=False)
+        self._record_compile("prefill_chunk", t0)
 
     def _pending_prefills(self) -> int:
         return len(self._pending)
@@ -2114,7 +2334,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             if self._displace_for_locked(prio):
                 return
             ra = self._retry_after_locked()
-            self._note_shed(prio)
+            self._note_shed(prio, "pool_exhausted", ra)
             raise PoolOverloadedError(
                 f"{len(self._queue)} requests pending on KV blocks "
                 f"({self.pool.in_use}/{self.pool.num_blocks} in use, "
@@ -2199,6 +2419,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             return False
         slot = self._free.pop()
         req.slot = slot
+        req.admitted_at = time.perf_counter()
         self._slot_req[slot] = req
         self._slot_blocks[slot] = (
             hits + ([tail_bid] if tail is not None else []) + new_blocks
@@ -2213,6 +2434,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 for arr in pool.values():
                     arr[tail_bid] = arr[cow_src]
             self.cow_copies += 1
+            if self.metrics is not None:
+                self.metrics.incr("kv_cow_copies_total")
+            self._event("kvpool.cow", rid=req.rid, src=cow_src, dst=tail_bid,
+                        fill=tail[1])
         self._set_row(slot, start=nmatch)
         self._pending[slot] = {
             "ids": ids_full, "pos": nmatch, "seed": req.seed,
@@ -2221,6 +2446,11 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self.prompt_tokens_total += t0
         self.prefix_matched_tokens += nmatch
         self.prefilled_tokens += t0 - nmatch
+        if nmatch and self.metrics is not None:
+            self.metrics.incr("prefix_hits_total", nmatch)
+        self._event("serving.admit", rid=req.rid, slot=slot,
+                    prefix_hit_tokens=nmatch,
+                    blocks=len(self._slot_blocks[slot]))
         return True
 
     def _set_row(self, slot: int, start: int | None = None) -> None:
@@ -2286,6 +2516,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         # blocks the decode steps overwrite before reading
         ids_dev = self._to_device(buf)
         req = self._slot_req[slot]
+        if req.prefill_started_at is None:
+            req.prefill_started_at = time.perf_counter()
         probe = self._timer_start()
         hidden, _ = self.engine.model(
             ids_dev, caches=self._caches(index, bt, C),
@@ -2319,6 +2551,8 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self.prefill_chunks += 1
         job["pos"] = n_end
         req.prefill_chunks += 1
+        self._event("serving.prefill_chunk", rid=req.rid, slot=slot,
+                    start=pos, tokens=nreal, final=is_final)
         if is_final:
             if req.hold:
                 # the held row's table goes to the sentinel: the decode
@@ -2371,6 +2605,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         writes), then every chunk in flight drains (their tokens are
         genuine, and may finish the request), then the blocks go back."""
         req = self._slot_req[slot]
+        self._event("serving.preempt", "warn", rid=req.rid, slot=slot,
+                    tokens=len(req.tokens))
+        if self.metrics is not None:
+            self.metrics.incr("serving_preempt_total")
         self.preemptions += 1
         self._retire_row(slot)
         while self._inflight:
@@ -2641,6 +2879,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         self.disagg["exports"] += 1
         self.disagg["export_blocks"] += len(bids)
         self.disagg["export_tokens"] += t0
+        if self.metrics is not None:
+            self.metrics.incr("kv_blocks_exported_total", len(bids))
+        self._event("serving.kv_export", rid=req.rid, blocks=len(bids),
+                    tokens=t0)
         req.first_token = None
         # teardown: _finish retires the row before the blocks return to
         # the pool; the registered prefix keeps them reusable
@@ -2777,7 +3019,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self._expire_deadlines_locked()
             if not self._free:
                 ra = self._retry_after_locked()
-                self._note_shed(prio)
+                self._note_shed(prio, "no_decode_slot", ra)
                 raise OverloadedError(
                     f"no free decode slot for imported prefill; retry in {ra}s",
                     retry_after_s=ra, reason="no_decode_slot",
@@ -2786,7 +3028,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 bids = self.pool.alloc(nblk)
             except PoolExhaustedError as e:
                 ra = self._retry_after_locked()
-                self._note_shed(prio)
+                self._note_shed(prio, "pool_exhausted", ra)
                 raise PoolOverloadedError(f"{e}; retry in {ra}s",
                                           retry_after_s=ra) from e
             rid = self._next_rid
@@ -2805,6 +3047,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self._requests[rid] = req
             slot = self._free.pop()
             req.slot = slot
+            req.admitted_at = now
             self._slot_req[slot] = req
             self._slot_blocks[slot] = list(bids)
             if self.metering:
@@ -2856,6 +3099,12 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                 self._append_token(req, tok0)
             else:
                 req.first_token = (torch.tensor(tok0), None)
+        if self.metrics is not None:
+            self.metrics.incr("kv_blocks_imported_total", nblk)
+            self.metrics.incr("serving_requests_total")
+            self.metrics.incr(f"serving_requests_total:{_PRIO_NAMES[prio]}")
+        self._event("serving.kv_import", rid=rid, blocks=nblk, tokens=t0,
+                    slot=slot)
         return rid
 
     def disagg_wire_ewma_s(self) -> float:
@@ -2911,6 +3160,10 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
         drain. Returns False when fully idle."""
         busy = super()._step_locked()
         self.peak_blocks_in_use = max(self.peak_blocks_in_use, self.pool.in_use)
+        if self.metrics is not None:
+            st = self.pool.stats()
+            self.metrics.observe("kv_blocks_in_use", st["blocks_in_use"])
+            self.metrics.observe("kv_pool_utilization", st["utilization"])
         return busy
 
     def prefix_hit_rate(self) -> float:
@@ -2933,3 +3186,16 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             **({"disagg": {**self.disagg, **self._disagg_ewma}}
                if any(self.disagg.values()) or self._disagg_ewma else {}),
         }
+
+    def kv_stats(self, limit: int = 64) -> dict:
+        """Locked KV/prefix residency snapshot (the ``GET /kv`` body): the
+        scheduler lock serializes it against admission and eviction, so
+        the chains, refcounts and pool counters are one instant."""
+        with self._lock:
+            return kv_residency(self.pool, self.index, limit=limit)
+
+    def kv_stats_summary(self) -> dict:
+        """Scalar residency summary for the heartbeat (same lock as
+        :meth:`kv_stats`)."""
+        with self._lock:
+            return kv_summary(self.pool, self.index)

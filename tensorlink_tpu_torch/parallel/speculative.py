@@ -433,6 +433,7 @@ def autopair_draft(
     prompts=None,
     max_new: int = 16,
     slots: int = 2,
+    recorder=None,
 ) -> dict:
     """Measured draft pairing: a short calibration burst decides how this
     engine should speculate, from wall-clock tokens per second.
@@ -455,8 +456,10 @@ def autopair_draft(
     tokens/s}, "baseline_tokens_per_sec", "calibration_s",
     "persistable"}``; ``persistable`` is the JSON-safe summary to hand
     ``save_autotune(draft_pair=...)``. ``skipped`` lists (name, reason)
-    of candidates that were refused (the reference records them as
-    events)."""
+    of candidates that were refused; with ``recorder`` (a flight
+    recorder) each refusal is also a ``spec.autopair_skip`` event, the
+    verdict a ``spec.autopair`` event, and the burst schedulers record
+    into it, as in the reference."""
     from tensorlink_tpu_torch.parallel.serving import ContinuousBatchingEngine
 
     t_start = _clock()
@@ -472,7 +475,7 @@ def autopair_draft(
         sch = ContinuousBatchingEngine(
             engine, slots=slots, gen=gen, decode_chunk=max(cfg.k, 4),
             prefill_block=16, draft=draft_eng, speculative=spec_cfg,
-            cuda_graphs=engine.cuda_graphs,
+            cuda_graphs=engine.cuda_graphs, recorder=recorder,
         )
         try:
             sch.result(sch.submit(prompts[0], max_new=max_new))  # build + capture
@@ -487,6 +490,17 @@ def autopair_draft(
             _release(engine.device)
         return ntok / dt if dt > 0 else 0.0
 
+    def _record(kind: str, **data) -> None:
+        if recorder is not None:
+            try:
+                recorder.record(kind, **data)
+            except Exception:  # noqa: BLE001 — telemetry only
+                pass
+
+    def skip(name: str, reason: str) -> None:
+        skipped.append((name, reason))
+        _record("spec.autopair_skip", name=name, reason=reason)
+
     measured: dict[str, float] = {}
     skipped: list[tuple[str, str]] = []
     base_tps = burst(None, None)
@@ -497,14 +511,14 @@ def autopair_draft(
         d = cand() if callable(cand) else cand
         dvocab = _vocab_of(d)
         if tvocab is not None and dvocab is not None and dvocab != tvocab:
-            skipped.append((name, f"vocab {dvocab} != target {tvocab}"))
+            skip(name, f"vocab {dvocab} != target {tvocab}")
             del d
             _release(engine.device)
             continue
         try:
             tps = burst(d, cfg)
         except (ValueError, NotImplementedError) as e:
-            skipped.append((name, str(e)[:200]))
+            skip(name, str(e)[:200])
             del d
             _release(engine.device)
             continue
@@ -529,4 +543,6 @@ def autopair_draft(
         "baseline_tokens_per_sec": choice["baseline_tokens_per_sec"],
         "calibration_s": choice["calibration_s"],
     }
+    _record("spec.autopair", mode=choice["mode"], name=choice["name"],
+            measured=measured)
     return choice

@@ -40,6 +40,7 @@ import time
 from pathlib import Path
 
 from tensorlink_tpu_torch.runtime.compile_cache import runtime_fingerprint
+from tensorlink_tpu_torch.runtime.flight import default_recorder
 
 __all__ = [
     "GLOBAL_MODEL",
@@ -131,22 +132,35 @@ class AutotuneStore:
 
     resolve_failures = 0  # directories resolve could not create
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, *, recorder=None):
         self.root = Path(root).expanduser()
+        self.recorder = recorder
         self.counts = {"saved": 0, "corrupt": 0, "stale": 0}
 
     @classmethod
-    def resolve(cls, root: str | None = None) -> "AutotuneStore | None":
+    def resolve(cls, root: str | None = None, *,
+                recorder=None) -> "AutotuneStore | None":
         d = root if root is not None else os.environ.get(ENV_VAR)
         if not d:
             return None
-        store = cls(d)
+        store = cls(d, recorder=recorder)
         try:
             store.root.mkdir(parents=True, exist_ok=True)
-        except OSError:
+        except OSError as e:
             AutotuneStore.resolve_failures += 1
+            store._event("autotune.init_failed", severity="warn",
+                         dir=str(store.root), error=repr(e))
             return None
         return store
+
+    def _event(self, kind: str, severity: str = "info", **data) -> None:
+        """One flight event (the reference's): to ``recorder``, else the
+        process's default recorder; telemetry never fails a store call."""
+        rec = self.recorder if self.recorder is not None else default_recorder()
+        try:
+            rec.record(kind, severity, **data)
+        except Exception:  # noqa: BLE001 — telemetry must not tune
+            pass
 
     def path(self, key: str) -> Path:
         return self.root / f"tune-{key}.json"
@@ -164,10 +178,17 @@ class AutotuneStore:
             rec = json.loads(raw.decode("utf-8"))
         except (ValueError, UnicodeDecodeError):
             self.counts["corrupt"] += 1
+            self._event("autotune.corrupt", severity="warn", path=str(p))
             return None
-        if not isinstance(rec, dict) or rec.get("schema") != SCHEMA \
-                or rec.get("key") != key:
+        if not isinstance(rec, dict) or rec.get("schema") != SCHEMA:
             self.counts["stale"] += 1
+            self._event("autotune.stale", severity="warn", path=str(p),
+                        schema=rec.get("schema") if isinstance(rec, dict) else None)
+            return None
+        if rec.get("key") != key:
+            self.counts["stale"] += 1
+            self._event("autotune.stale", severity="warn", path=str(p),
+                        key=rec.get("key"), expected=key)
             return None
         return rec
 
@@ -196,4 +217,5 @@ class AutotuneStore:
         tmp.write_text(json.dumps(rec, sort_keys=True, indent=1))
         os.replace(tmp, p)
         self.counts["saved"] += 1
+        self._event("autotune.saved", path=str(p), key=key)
         return p

@@ -76,12 +76,19 @@ def _writable(d: Path) -> bool:
     return True
 
 
-def enable_compile_cache(cache_dir: str | None = None) -> str | None:
+def enable_compile_cache(cache_dir: str | None = None, *,
+                         recorder=None) -> str | None:
     """Point the kernel and wire-codec builds at ``cache_dir`` (or
     ``$TL_COMPILE_CACHE_DIR``); returns the active directory, or None
     when no directory is configured or the one asked for is unusable.
-    Idempotent; the first directory wins."""
+    Idempotent; the first directory wins. ``recorder`` (else the
+    process's default flight recorder) gets the reference's
+    ``compile_cache.enabled`` / ``.conflict`` / ``.init_failed``
+    events."""
     global _active_dir
+    from tensorlink_tpu_torch.runtime.flight import default_recorder
+
+    rec = recorder if recorder is not None else default_recorder()
     d = cache_dir if cache_dir is not None else os.environ.get(ENV_VAR)
     if not d:
         return _active_dir
@@ -89,9 +96,13 @@ def enable_compile_cache(cache_dir: str | None = None) -> str | None:
     if _active_dir is not None:
         if _active_dir != d:
             COUNTS["conflicts"] += 1
+            rec.record("compile_cache.conflict", severity="warn",
+                       active=_active_dir, requested=d)
         return _active_dir
     if not _writable(Path(d)):
         COUNTS["init_failed"] += 1
+        rec.record("compile_cache.init_failed", severity="warn", dir=d,
+                   error="directory is not writable")
         return None
     from tensorlink_tpu_torch import native
     from tensorlink_tpu_torch.ops import _build
@@ -99,6 +110,7 @@ def enable_compile_cache(cache_dir: str | None = None) -> str | None:
     _build.BUILD_DIR = d
     native.BUILD_DIR = d
     _active_dir = d
+    rec.record("compile_cache.enabled", dir=d, entries=cache_entries(d))
     return d
 
 

@@ -38,8 +38,10 @@ cost model.
   so the engines compute this at each dispatch and it rides the
   dispatch handle.
 
-The reference's metrics hooks (histograms per program) wait for the
-port's observability wiring.
+With ``metrics=`` the timer emits the reference's per-program series
+(``dev_<program>_busy_s`` histogram, ``dev_<program>_gap_s`` gauge), and
+with ``recorder=`` ``measure_capability`` records the reference's
+``capability.measured`` event.
 """
 
 from __future__ import annotations
@@ -418,7 +420,8 @@ class DispatchTimer:
 
     MAX_PROGRAMS = 8
 
-    def __init__(self, ewma: float = 0.1, clock=None):
+    def __init__(self, metrics=None, ewma: float = 0.1, clock=None):
+        self.metrics = metrics
         self.alpha = float(ewma)
         self._clock = clock or time.perf_counter
         self._lock = threading.Lock()
@@ -505,7 +508,7 @@ class DispatchTimer:
             self._frontier = max(self._frontier or t_ready, t_ready)
         e.probe = None  # release the events promptly
         e.busy_s = busy
-        _, rec = self._program_locked(e.program)
+        name, rec = self._program_locked(e.program)
         rec["count"] += 1
         rec["busy_s"] += busy
         rec["gap_s"] += gap
@@ -517,6 +520,14 @@ class DispatchTimer:
         if e.cost:
             rec["flops"] = rec.get("flops", 0.0) + e.cost.get("flops", 0.0)
             rec["bytes"] = rec.get("bytes", 0.0) + e.cost.get("bytes", 0.0)
+        if self.metrics is not None:
+            from tensorlink_tpu_torch.runtime.metrics import DEVICE_BUCKETS
+
+            # one histogram and one gauge per canonical program name
+            # (bounded by MAX_PROGRAMS), never a per-request label
+            self.metrics.observe_hist(f"dev_{name}_busy_s", busy,
+                                      buckets=DEVICE_BUCKETS)
+            self.metrics.observe(f"dev_{name}_gap_s", gap)
 
     # -------------------------------------------------------------- read
     def snapshot(self) -> dict:
@@ -554,6 +565,7 @@ def measure_capability(
     store=None,
     key: str | None = None,
     device=None,
+    recorder=None,
 ) -> dict:
     """Microbench of this card: peak bf16 matmul TFLOP/s (``reps``
     chained ``matmul_dim``-square products) and HBM read GB/s (a sum
@@ -568,7 +580,8 @@ def measure_capability(
     an earlier process measured on the same card at the same sizes is
     returned without running anything (``cached: True``); otherwise the
     fresh measurement is merged into the store's record, so a restart
-    skips it."""
+    skips it. ``recorder``: a flight recorder that gets a
+    ``capability.measured`` event for a fresh measurement."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda":
         raise RuntimeError("measure_capability times the CUDA card; got "
@@ -618,6 +631,15 @@ def measure_capability(
         "measure_s": round(time.perf_counter() - t_all, 4),
         "measured_at": time.time(),
     }
+    if recorder is not None:
+        try:
+            recorder.record(
+                "capability.measured", chip=cap["chip"],
+                peak_tflops=cap["peak_tflops"], hbm_gbps=cap["hbm_gbps"],
+                measure_s=cap["measure_s"],
+            )
+        except Exception:  # noqa: BLE001 — telemetry must not fail a measurement
+            pass
     if store is not None and key:
         store.update(key, {"capability": cap})
     return cap

@@ -7,7 +7,9 @@ the loss runs on a copy of every floating param cast to ``cfg.dtype``
 gradients land in f32 on the masters. Gradient accumulation runs over
 ``cfg.micro_batches`` slices of the batch. The non-finite sentinel is
 computed on the device before clipping, and no step reads the device
-from the host: ``train_step`` returns its stats as device tensors.
+from the host: ``train_step`` returns its stats as device tensors. A
+trainer built with ``tracer``/``metrics`` reads the non-finite flag once
+a step for its telemetry, as the reference's does.
 
 ``train_only="lora"`` trains the adapter leaves alone (``nn/lora.py``):
 autograd is asked for their gradients only, so the frozen weights' dW
@@ -27,6 +29,7 @@ one step's under every wrapper.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
@@ -35,6 +38,9 @@ import torch
 from tensorlink_tpu_torch import resolve_device
 from tensorlink_tpu_torch.config import TrainConfig
 from tensorlink_tpu_torch.nn.lora import is_lora_name
+from tensorlink_tpu_torch.runtime.flight import default_recorder
+from tensorlink_tpu_torch.runtime.profiling import DispatchTimer
+from tensorlink_tpu_torch.runtime.tracing import StepTelemetry
 from tensorlink_tpu_torch.train.optim import (
     Optimizer,
     apply_updates,
@@ -107,6 +113,20 @@ def _where(cond: torch.Tensor, old, new):
     return new
 
 
+def note_nonfinite(trainer, state: TrainState, stats: dict) -> None:
+    """The reference's non-finite accounting of an instrumented trainer
+    (``Trainer`` or ``ShardedTrainer``) after a poisoned step: the
+    ``train_nonfinite_total`` counter and a ``train_nonfinite`` event."""
+    if trainer.metrics is not None:
+        trainer.metrics.incr("train_nonfinite_total")
+    if trainer.flight is not None:
+        trainer.flight.record(
+            "train_nonfinite", "error", step=int(state.step),
+            loss=float(stats["loss"]),
+            skipped=trainer.cfg.skip_nonfinite_updates,
+        )
+
+
 class Trainer:
     """Train steps for a (module, loss_fn) pair on one device.
 
@@ -118,11 +138,18 @@ class Trainer:
     dtype policy and gradient accumulation.
 
     ``device``: where the state lives (CUDA unless ``device="cpu"``; no
-    silent CPU fallback). ``donate``, ``tracer``, ``metrics`` and
-    ``flight`` are accepted for the reference's signature and ignored
-    until the observability slice: no span, metric or flight event is
-    emitted. ``train_only="lora"`` trains only the adapters of a module
-    that went through ``nn.lora.lora_init`` (module docstring).
+    silent CPU fallback). ``donate`` is accepted for the reference's
+    signature (the step never updates its input state in place).
+    ``tracer``/``metrics`` turn on the reference's step telemetry: a
+    ``trainer.step`` span (``trainer.compile_step`` for the first call of
+    a batch signature) with the ``step_s`` / ``compile_s`` series, a
+    ``DispatchTimer`` on CUDA events (``device_time()``), ``data_span()``,
+    and the non-finite accounting (``train_nonfinite_total``, a
+    ``train_nonfinite`` event to ``flight``, by default the process's
+    recorder). That path reads one flag from the device a step; an
+    uninstrumented trainer reads nothing. ``train_only="lora"`` trains
+    only the adapters of a module that went through ``nn.lora.lora_init``
+    (module docstring).
     ``fsdp=True`` raises the reference's ``ValueError``: a single-device
     trainer cannot shard params and moments.
     """
@@ -163,6 +190,20 @@ class Trainer:
             moment_dtype=cfg.opt_moment_dtype,
         )
         self.compute_dtype = getattr(torch, cfg.dtype)
+        self.tracer = tracer
+        self.metrics = metrics
+        # telemetry-enabled trainers default to the process recorder: the
+        # host read the anomaly check needs is paid only then
+        if flight is None and (tracer is not None or metrics is not None):
+            flight = default_recorder()
+        self.flight = flight
+        self._telemetry = None
+        self._timer = None
+        if tracer is not None or metrics is not None:
+            self._telemetry = StepTelemetry(tracer, metrics, "trainer")
+            # the device timer rides the one read the telemetry path makes
+            # a step; an uninstrumented trainer stays asynchronous
+            self._timer = DispatchTimer(metrics=metrics)
 
     # -- state ----------------------------------------------------------
     def init_state(self, params: dict[str, torch.Tensor] | None = None) -> TrainState:
@@ -271,11 +312,48 @@ class Trainer:
         return new_state, {"loss": loss, "grad_norm": gnorm,
                            "nonfinite": nonfinite}
 
+    # -- observability ---------------------------------------------------
+    def data_span(self):
+        """Wrap the batch fetch: a ``trainer.data`` span and the ``data_s``
+        series, so input-pipeline stalls show on the step timeline."""
+        if self._telemetry is None:
+            return contextlib.nullcontext()
+        return self._telemetry.data()
+
+    def device_time(self) -> dict | None:
+        """Per-step device-busy vs host-gap attribution (None on an
+        uninstrumented trainer): ``host_gap_frac`` is the device's idle
+        share between one step's end and the next one's start."""
+        return None if self._timer is None else self._timer.snapshot()
+
     # -- public ----------------------------------------------------------
     def train_step(self, state: TrainState, batch, rng: torch.Generator | None = None):
         """One optimizer step -> (new state, {"loss", "grad_norm",
         "nonfinite"} as device tensors). ``state`` is not modified."""
-        return self._step(state, self._batch(batch), rng)
+        batch = self._batch(batch)
+        if self._telemetry is None:
+            return self._step(state, batch, rng)
+        # the first call of a signature is kept out of the device timing,
+        # as the reference keeps its compile out
+        disp = None
+        if self._telemetry.seen(batch, rng):
+            probe = None
+            if self.device.type == "cuda":
+                probe = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+                probe[0].record()
+            disp = self._timer.dispatch("train_step", probe)
+        with self._telemetry.step(batch, rng):
+            state, stats = self._step(state, batch, rng)
+        if disp is not None and disp.probe is not None:
+            disp.probe[1].record()
+        # the telemetry path's one host read (the reference's)
+        nonfinite = bool(stats["nonfinite"])
+        if disp is not None:
+            self._timer.drained(disp)  # right after the sync above
+        if nonfinite:
+            note_nonfinite(self, state, stats)
+        return state, stats
 
     def eval_loss(self, state: TrainState, batch, rng=None):
         with torch.no_grad():

@@ -15,7 +15,8 @@ held on the CPU.
   (chi-square, p > 1e-3).
 - No host read in any chunk body: the contiguous (full-width and
   blockwise) and paged serving chunks, their speculative chunks (n-gram
-  and draft, sampled, adaptive K) and ``generate``'s monotone and ring
+  and draft, sampled, adaptive K), with the engines' metrics, flight
+  recorder and tracer attached, and ``generate``'s monotone and ring
   steps run whole requests with every tensor-to-host path patched to
   raise inside the body.
 """
@@ -373,6 +374,14 @@ def _llama(window=None, moe=False):
 SAMPLED = GenerationConfig(max_new_tokens=7, temperature=0.8, top_k=20, top_p=0.9)
 
 
+def _telemetry() -> dict:
+    from tensorlink_tpu_torch.runtime.flight import FlightRecorder
+    from tensorlink_tpu_torch.runtime.metrics import Metrics
+    from tensorlink_tpu_torch.runtime.tracing import Tracer
+
+    return {"metrics": Metrics(), "recorder": FlightRecorder(), "tracer": Tracer()}
+
+
 @pytest.mark.parametrize("kind", ["contiguous", "blockwise", "paged", "paged-int8",
                                   "paged-moe", "contiguous-moe"])
 def test_serving_chunk_body_reads_nothing_back(kind, monkeypatch):
@@ -382,7 +391,8 @@ def test_serving_chunk_body_reads_nothing_back(kind, monkeypatch):
     eng = InferenceEngine(_llama(moe=kind.endswith("moe")), max_len=512 if big else 32,
                           device="cpu", cache_dtype=torch.float32,
                           param_dtype=torch.float32)
-    kw = {"slots": 2, "decode_chunk": 3, "gen": SAMPLED}
+    # the telemetry sinks attached: metrics, events and spans stay on the host
+    kw = {"slots": 2, "decode_chunk": 3, "gen": SAMPLED, **_telemetry()}
     if kind.startswith("paged"):
         sch = PagedContinuousBatchingEngine(
             eng, block_size=4, prefill_chunk=4,
@@ -466,7 +476,7 @@ def test_spec_chunk_body_reads_nothing_back(kind, mode, monkeypatch):
                                 cache_dtype=torch.float32, param_dtype=torch.float32)
     kw = {"slots": 2, "gen": SAMPLED, "draft": draft,
           "speculative": SpecConfig(k=3, rounds=2, adaptive=True,
-                                    entropy_exit=6.0)}
+                                    entropy_exit=6.0), **_telemetry()}
     if kind.startswith("paged"):
         sch = PagedContinuousBatchingEngine(eng, block_size=4, prefill_chunk=4, **kw)
     else:

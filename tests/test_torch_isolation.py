@@ -66,7 +66,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 ("parallel", "ep.py"), ("utils", "logging.py"),
                 ("runtime", "tracing.py"), ("runtime", "timeseries.py"),
                 ("runtime", "alerts.py"), ("runtime", "flight.py"),
-                ("runtime", "http_status.py")):
+                ("runtime", "http_status.py"), ("p2p", "node.py"),
+                ("p2p", "connection.py"), ("chain", "registry.py"),
+                ("roles", "jobs.py")):
         assert os.path.join(PORT, *mod) in files
     bad = [
         (os.path.relpath(p, REPO), root)
@@ -190,6 +192,13 @@ def test_importing_the_port_loads_no_jax():
         "tensorlink_tpu_torch.runtime.alerts",
         "tensorlink_tpu_torch.runtime.flight",
         "tensorlink_tpu_torch.runtime.http_status",
+        "tensorlink_tpu_torch.p2p.connection",
+        "tensorlink_tpu_torch.p2p.dht",
+        "tensorlink_tpu_torch.p2p.nat",
+        "tensorlink_tpu_torch.p2p.node",
+        "tensorlink_tpu_torch.chain",
+        "tensorlink_tpu_torch.chain.mock",
+        "tensorlink_tpu_torch.roles",
     ]
     code = (
         "import sys\n"
