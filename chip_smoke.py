@@ -108,6 +108,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    float blob, B3's decode variant on int8 pools; then float -> int8 and
    int8 -> float, teacher-forced, with the share of tokens equal to the
    importing engine's colocated run;
+6c. pipeserve (right after [slice], on its model): two started port
+   ``WorkerNode``s each attach one ``pipeline_stage`` of an
+   ``InferenceEngine`` over that model (layers [0, 16) and [16, 32),
+   ``stage_spans``' even cut; the stages hold the model's own tensors),
+   a port ``ValidatorNode`` plans, and a ``UserNode``'s
+   ``RemoteServingClient`` sends [slice]'s first 4 prompts, 32 tokens
+   each, through the head's ``PipelineCoordinator``: each stream equal
+   to [slice]'s (where one departs, its first position and the
+   teacher-forced logit margin there are printed) and every token within
+   LOGIT_GAP_TOL of the teacher-forced row max; B3 32 a tick and a
+   prefill chunk (16 a stage), B4 32 a tick; TTFT and ms a token;
+6d. roles train: a port validator, two port workers and a user train
+   BERT-base's 12 blocks split 6 + 6 (bf16, [8, 512, 768] in 2 micros,
+   5 SGD steps): step 1's loss against the blocks run in this process,
+   the loss falling, B1 48 and B2 24 a step, an honest PoL audit passing
+   by digest while an audit of a worker that computes with perturbed
+   params fails (B1 = B2 = 24 for the two); prints the step wall, the
+   wire codec's share and bytes a step, and the codec on one micro;
 7. static: the same model through ``InferenceEngine.generate`` (the
    default path of ``examples/serve_llm.py``): 4 left-padded prompts of
    700 to 2000 tokens, 64 greedy tokens, decode on the blockwise path over
@@ -167,13 +185,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    gloo, both on cuda:0 (NCCL takes one rank a device; gloo carries the
    CUDA tensors through host copies: a correctness check of tensor
    parallelism, not a deployment), each holding half of every ``Dense``
-   of Llama-3-8B at full width and 16 of its 32 layers (cut in PR 15),
+   of Llama-3-8B at full width and TP2_LAYERS (8) of its 32 layers,
    eager: [slice]'s first 4
    requests through the paged (``[tp2 paged]``) and the contiguous
    engine (``[tp2 contiguous]``) and 2 left-padded prompts through
    ``generate`` (``[tp2 static]``, profiled), 16 tokens each; each rank
-   gates its collectives (2 x 16 + 1 a model call) and launches (B3 16 a
-   paged decode step and prefill chunk, B4 16 a decode step), and the
+   gates its collectives (2 x 8 + 1 a model call) and launches (B3 8 a
+   paged decode step and prefill chunk, B4 8 a decode step), and the
    parent, on the model rebuilt from the same
    seed, every token against the world-1 teacher-forced row max (and,
    printed, its share equal to that model's world-1 paged run). In the
@@ -189,10 +207,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    token teacher-forced in the parent. Then, Llama freed, expert
    parallelism at model 2 (each rank builds the whole model in turn, a
    barrier between, and keeps its blocks): ``[ep2 mixtral paged]``,
-   [mixtral paged]'s model (Mixtral-8x7B at full width, 8 layers) with 4
+   [mixtral paged]'s model (Mixtral-8x7B at full width, 4 layers) with 4
    of the 8 experts and Hq 16 / Hkv 4 a rank, [slice]'s first 4 requests
    through the paged engine for 16 tokens, eager: the MoE layers in
-   their fallback form (17 collectives a model call, no all_to_all), B3
+   their fallback form (9 collectives a model call, no all_to_all), B3
    and B4 on the path, a rank's expert bytes half of the whole's, every
    token against the rank's own one-row paged replay (its routing
    recorded for [mixtral paged]); ``[ep2 mixtral train]``,
@@ -205,12 +223,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    at cosine >= 0.99 of world 1's or at bf16's noise floor (an f32
    world-1 step decides);
 7j. mixtral paged, once the Llama-3-8B model is freed: Mixtral-8x7B at
-   full width and 8 of its 32 layers (random bf16 weights, 23.5 GB a
-   weight pass; the reference quantizes no expert, the full depth's
-   90.2 GB of experts would not fit, and 8 layers keep the run's time
-   in budget) through the paged engine in the
-   [slice] geometry, captured then eager: B3 and B4 8 times a decode
-   step, B3's prefill variant 8 times a chunk, replays, the weight-pass
+   full width and MIX_LAYERS (4) of its 32 layers (random bf16 weights,
+   about 11.8 GB a weight pass; the reference quantizes no expert, the
+   full depth's 90.2 GB of experts would not fit, and 4 layers keep the
+   run's time in budget beside the roles legs) through the paged engine in the
+   [slice] geometry, captured then eager: B3 and B4 4 times a decode
+   step, B3's prefill variant 4 times a chunk, replays, the weight-pass
    bytes from the config; every token against two same-T replays (the
    engine's 128-token chunks, then one token a step): one row on a
    paged cache through B3 (its recorded routing: a decode drop
@@ -269,12 +287,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    telemetry]`` (the ``engine`` spans with ``{"stages", "micros"}``, as
    [train]'s), step ms, samples/s, MFU, peak memory and a profiled step
    beside [train]'s step;
-10d. sharded gpt2: GPT-2-medium at full width through
+10d. sharded gpt2: GPT-2-medium at full width and SHARD_GPT2_LAYERS
+   (12) of its 24 layers through
    ``GPT2.as_pipeline_parts`` under 1F1B (batch 8 x 1024, 4 micros,
    AdamW, bf16) on the same mesh: at dropout 0 the first step's loss
    and every gradient leaf (the tied ``wte`` included) against GPipe,
    each held against the f32 plain-attention gradient where they part,
-   then 10 steps at dropout 0.1 with a falling loss, B1 = B2 = 24 x 4 a
+   then 10 steps at dropout 0.1 with a falling loss, B1 = B2 = 12 x 4 a
    step, tokens/s, MFU, a profiled step, peak memory and
    ``measure_bubble``'s fit beside the closed form; the process group
    is destroyed after the two legs, failed or not;
@@ -287,7 +306,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    mask), each rank's o, dq, dk, dv against B1/B2 on the whole sequence
    ([flash]'s tolerances) and its launches per rank (causal ring: B1 and
    B2's delta form r + 1 times on rank r); then ``[sp2 gpt2]``:
-   GPT-2-medium at full width and depth with ``attn_impl="ring"``
+   GPT-2-medium at full width and [sharded gpt2]'s 12 layers with
+   ``attn_impl="ring"``
    through ``ShardedTrainer`` on a seq-2 mesh under 1F1B, [sharded
    gpt2]'s batch: the first step's loss and every gradient leaf against
    [sharded gpt2]'s step at seq 1 (its thresholds), B1 and B2's delta
@@ -331,6 +351,11 @@ import dataclasses
 import gc
 import json
 import os
+
+# before the first cuBLAS call: the proof-of-learning runs of [roles
+# train] ask for deterministic cuBLAS kernels, which need a fixed
+# workspace configuration
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import shutil
 import subprocess
 import sys
@@ -346,12 +371,15 @@ from torch.func import functional_call
 
 from tensorlink_tpu_torch import native
 from tensorlink_tpu_torch.config import DistributedConfig, MeshConfig, NodeConfig, TrainConfig
-from tensorlink_tpu_torch.models.bert import BertClassifier, BertConfig, bert_pipeline_parts
+from tensorlink_tpu_torch.convert import apply_dtype_policy
+from tensorlink_tpu_torch.models.bert import Bert, BertClassifier, BertConfig, bert_pipeline_parts
 from tensorlink_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
 from tensorlink_tpu_torch.nn.layers import Embedding
 from tensorlink_tpu_torch.nn.lora import lora_init, lora_merge, trainable_leaf_count
 from tensorlink_tpu_torch.nn.module import NamedSharding
+from tensorlink_tpu_torch.nn.module import Sequential as RolesSequential
+from tensorlink_tpu_torch.nn.staging import layer_param_bytes, stage_spans
 from tensorlink_tpu_torch.nn.attention import (
     DECODE_BLOCK,
     DECODE_BLOCKWISE_MIN_WINDOWLESS,
@@ -385,7 +413,7 @@ from tensorlink_tpu_torch.parallel.inference import (
 )
 from tensorlink_tpu_torch.p2p.crypto import HAVE_CRYPTOGRAPHY, Identity
 from tensorlink_tpu_torch.p2p.node import Node
-from tensorlink_tpu_torch.p2p.serialization import packed_nbytes
+from tensorlink_tpu_torch.p2p.serialization import pack_arrays, packed_nbytes, unpack_arrays
 from tensorlink_tpu_torch.parallel.kvwire import pack_kv_payload, unpack_kv_payload
 from tensorlink_tpu_torch.parallel.serving import (
     ContinuousBatchingEngine,
@@ -416,6 +444,10 @@ from tensorlink_tpu_torch.runtime import profiling
 from tensorlink_tpu_torch.runtime.flight import FlightRecorder
 from tensorlink_tpu_torch.runtime.metrics import Metrics
 from tensorlink_tpu_torch.runtime.profiling import measure_capability
+from tensorlink_tpu_torch.roles.registry import InMemoryRegistry
+from tensorlink_tpu_torch.roles.user import UserNode
+from tensorlink_tpu_torch.roles.validator import ValidatorNode
+from tensorlink_tpu_torch.roles.worker import WorkerNode
 from tensorlink_tpu_torch.runtime.tracing import Tracer
 from tensorlink_tpu_torch.train.trainer import Trainer, softmax_cross_entropy
 
@@ -465,6 +497,9 @@ CKPT_SAVE_AT, CKPT_STEPS = 2, 4  # [checkpoint]: save after 2 of 4 steps
 SHARD_MICRO = 4  # micro-batches of the sharded legs
 SHARD_BERT_STEPS = 10
 SHARD_GPT2_STEPS = 10
+# [sharded gpt2] and [sp2 gpt2]: GPT-2-medium's width at half its depth
+# (cut to pay for the [roles train] and [pipeserve] legs)
+SHARD_GPT2_LAYERS = 12
 # [sp *]: two gloo ranks on cuda:0; name -> (B, H, Hkv, whole T, D,
 # causal, mask) of [sp attention]'s cases
 SP_WORLD = 2
@@ -3284,17 +3319,19 @@ def phase_async(name_power: str, model: Llama, prompts) -> dict:
 
 
 # ------------------------------------------------ Mixtral (MoE) serving
-# [mixtral paged]: Mixtral-8x7B at full width, depth cut to 8 of 32
-# layers (its bf16 experts alone are 90.2 GB at full depth, and the
-# reference quantizes no expert; 8 layers keep the run in its time),
+# [mixtral paged]: Mixtral-8x7B at full width, depth cut to MIX_LAYERS
+# of 32 (its bf16 experts alone are 90.2 GB at full depth, and the
+# reference quantizes no expert; 4 layers keep the run
+# in its time),
 # random bf16 weights from seed 0.
 # ------------------------------------------------------ serving on a mesh
 MESH_REQUESTS = 4  # [slice]'s first requests: the mesh legs' prompts
 MESH_NEW = 16
 TP2_WORLD = 2
-# the [tp2 *] legs' model: Llama-3-8B's width at half its depth (cut in
-# PR 15 to pay for the [ep2 *] legs in the same job)
-TP2_LAYERS = 16
+# the [tp2 *] legs' model: Llama-3-8B's width at a quarter of its depth
+# (cut to pay for the [ep2 *] legs in the same job and for the [roles
+# train] and [pipeserve] legs)
+TP2_LAYERS = 8
 TP2_STATIC_ROWS = 2  # [tp2 static]: the first two prompts, left-padded
 TP2_PROFILE_STEP = 8  # [tp2 static]: decode steps 6..7 plain, 8..9 profiled
 
@@ -3860,9 +3897,10 @@ def phase_tp2(name_power: str, prompts) -> dict:
     layers, eager. Each rank holds its blocks (half of every ``Dense``)
     and serves [slice]'s first 4 requests through the paged and the
     contiguous engine and 2 left-padded prompts through ``generate``, 16
-    tokens each; each rank gates its own collectives (2 x 16 + 1 a model
-    call) and launches (B3 16 times a paged decode step and prefill
-    chunk, B4 16 times a decode step), and both ranks must emit the same
+    tokens each; each rank gates its own collectives (2 x TP2_LAYERS + 1
+    a model call) and launches (B3 TP2_LAYERS times a paged decode step
+    and prefill chunk, B4 TP2_LAYERS times a decode step), and both ranks
+    must emit the same
     tokens. Here, on the whole model rebuilt from the same seed after the
     job: every emitted token within LOGIT_GAP_TOL of the teacher-forced
     row max; printed, the greedy agreement with that model's world-1
@@ -3992,7 +4030,7 @@ def _tp2_disagg_world1(model, prompts, d: str, ranks, ref_outs, name_power: str)
     return res
 
 
-MIX_LAYERS = 8
+MIX_LAYERS = 4
 MIX_NEW = 16
 MIX_GEN_LENS = (100, 700, 310, 520, 180, 640, 260, 450)
 MIX_GEN_NEW = 16
@@ -5031,7 +5069,7 @@ def _micro_grads(trainer, state, batch, micro):
 def phase_sharded_gpt2(name_power: str, mesh) -> dict:
     """GPT-2-medium at full width through ``as_pipeline_parts`` and
     ``ShardedTrainer`` under 1F1B on the one-rank mesh."""
-    cfg = GPT2Config.medium()
+    cfg = dataclasses.replace(GPT2Config.medium(), num_layers=SHARD_GPT2_LAYERS)
     B, T, L, M = 8, 1024, cfg.num_layers, SHARD_MICRO
     tcfg = TrainConfig(batch_size=B, micro_batches=M, optimizer="adamw",
                        learning_rate=3e-4, dtype="bfloat16", pp_schedule="1f1b")
@@ -5215,7 +5253,8 @@ def _sp2_gpt2(rank: int, world: int, mesh, out_dir: str) -> dict:
     under 1F1B on the seq mesh; the first step's loss and gradients (rank
     0 saves them for the parent), then SP2_STEPS steps, the last under
     the profiler, B1 and B2's delta form counted per rank a step."""
-    cfg = dataclasses.replace(GPT2Config.medium(), dropout=0.0, attn_impl="ring")
+    cfg = dataclasses.replace(GPT2Config.medium(), num_layers=SHARD_GPT2_LAYERS,
+                              dropout=0.0, attn_impl="ring")
     B, T, L, M = 8, 1024, cfg.num_layers, SHARD_MICRO
     tcfg = TrainConfig(batch_size=B, micro_batches=M, optimizer="adamw",
                        learning_rate=3e-4, dtype="bfloat16", pp_schedule="1f1b")
@@ -5341,6 +5380,320 @@ def phase_sp(name_power: str, seq1: dict) -> dict:
 PHASE_S: dict[str, float] = {}  # seconds each phase took, in run order
 
 
+# ----------------------------------------------------- roles that touch tensors
+ROLES_BATCH = (8, 512)  # [roles train]: BERT-base activations [8, 512, 768]
+ROLES_MICRO = 2
+ROLES_STEPS = 5
+ROLES_LR = 0.1
+# step 1's loss against the 12 blocks run in one process on the same
+# micros: both sides run the same kernels in bf16 at the same shapes
+# (the stage cut passes the bf16 activation unchanged) and reduce the
+# MSE in f32, so they agree to f32 summation order
+ROLES_LOSS_REL = 1e-3
+PIPE_REQUESTS = 4  # [pipeserve]: [slice]'s first requests
+PIPE_NEW = 32
+PIPE_SPANS = ((0, 16), (16, 32))
+
+
+class _CodecTally:
+    """Wraps the wire codec names the role modules call (``pack_arrays``,
+    ``unpack_arrays``) to sum their seconds and the bytes they produce
+    or read, over every thread of the process."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+        self.lock = threading.Lock()
+        self.seconds = 0.0
+        self.bytes = 0
+        self._orig = []
+
+    def _wrap(self, fn, packs: bool):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            dt = time.perf_counter() - t0
+            with self.lock:
+                self.seconds += dt
+                if packs:
+                    self.bytes += len(out)
+            return out
+
+        return run
+
+    def __enter__(self):
+        for m in self.modules:
+            for name, packs in (("pack_arrays", True), ("unpack_arrays", False)):
+                if hasattr(m, name):
+                    self._orig.append((m, name, getattr(m, name)))
+                    setattr(m, name, self._wrap(getattr(m, name), packs))
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self._orig:
+            setattr(m, name, fn)
+
+    def take(self) -> tuple[float, int]:
+        with self.lock:
+            out = (self.seconds, self.bytes)
+            self.seconds, self.bytes = 0.0, 0
+        return out
+
+
+def _roles_fleet(loop: _NodeLoop, n_workers: int):
+    """A port validator, ``n_workers`` port workers and a user, started on
+    ``loop`` over 127.0.0.1, every device-bound role on the card."""
+    def cfg(role):
+        return NodeConfig(role=role, host="127.0.0.1", port=0, capability_bench=False)
+
+    async def up():
+        val = ValidatorNode(cfg("validator"), registry=InMemoryRegistry(), device=DEV)
+        await val.start()
+        ws = []
+        for _ in range(n_workers):
+            w = WorkerNode(cfg("worker"), device=DEV)
+            await w.start()
+            await w.connect("127.0.0.1", val.port)
+            ws.append(w)
+        user = UserNode(cfg("user"))
+        await user.start()
+        vpeer = await user.connect("127.0.0.1", val.port)
+        return val, ws, user, vpeer
+
+    return loop.run(up())
+
+
+def phase_roles_train(name_power: str) -> dict:
+    """[roles train]: a port ValidatorNode, two port WorkerNodes and a
+    UserNode train BERT-base's 12 post-LN blocks (``Bert(BertConfig.
+    base())``'s encoder, bf16 matrices, f32 norms and biases) split by
+    ``max_stage_bytes`` into 6 + 6 blocks, one stage a worker: 5 SGD steps
+    on [8, 512, 768] bf16 inputs from a seed in 2 micro-batches, an MSE
+    loss against a seeded target computed by the user with autograd.
+    Gates: step 1's loss equals the 12 blocks run in this process on the
+    same micros (ROLES_LOSS_REL); step 5's is below step 1's; B1 runs
+    2 x 12 x 2 times a step (each stage's forward and its backward's
+    recompute, a layer a micro) and B2 12 x 2; an audit of stage 0
+    passes by exact digest (worker and validator both ``torch-cuda``,
+    cuBLAS deterministic) while, at the same time, an audit of stage 1,
+    whose worker computes with perturbed params but reports the real
+    ones, fails; the two audits launch B1 = B2 = 24 (6 layers on each
+    side of each). Prints the step wall, the codec's share and the
+    bytes shipped a step, and the codec on one micro's activation."""
+    from tensorlink_tpu_torch.roles import user as user_mod
+    from tensorlink_tpu_torch.roles import worker as worker_mod
+
+    cfg = BertConfig.base()
+    bert = Bert(cfg, device=DEV, dtype=torch.float32, seed=0)
+    blocks = bert.encoder.blocks()
+    seq = RolesSequential(blocks)
+    apply_dtype_policy(seq, torch.bfloat16, torch.device(DEV))
+    params = {k: v.detach().clone() for k, v in seq.named_parameters()}
+    per_block = sum(t.numel() * t.element_size() for k, t in params.items()
+                    if k.startswith("0."))
+    g = torch.Generator().manual_seed(11)
+    B, T = ROLES_BATCH
+    x = torch.randn((B, T, cfg.dim), generator=g).to(torch.bfloat16)
+    target = torch.randn((B, T, cfg.dim), generator=g) + 1.0
+    # the same 12 blocks in this process, on the same micros
+    with torch.no_grad():
+        ref = [float(F.mse_loss(seq(xm.to(DEV)).float(), tm.to(DEV)))
+               for xm, tm in zip(torch.tensor_split(x, ROLES_MICRO),
+                                 torch.tensor_split(target, ROLES_MICRO))]
+    ref_loss = float(np.mean(ref))
+    del bert
+
+    def loss_grad(out, micro):
+        o = out.float().requires_grad_(True)
+        loss = F.mse_loss(o, torch.tensor_split(target, ROLES_MICRO)[micro])
+        (go,) = torch.autograd.grad(loss, o)
+        return float(loss.detach()), go.to(out.dtype)
+
+    loop = _NodeLoop()
+    val, ws, user, vpeer = _roles_fleet(loop, 2)
+    res = {"card": name_power}
+    try:
+        job = loop.run(user.request_job(
+            seq, params, vpeer, max_stage_bytes=6 * per_block + per_block // 2,
+            micro_batches=ROLES_MICRO,
+            train={"optimizer": "sgd", "learning_rate": ROLES_LR}), timeout=600)
+        spans = [len(job.job.stages[i].module_config["__children__"])
+                 for i in range(job.job.n_stages)]
+        check(spans == [6, 6] and len({st.peer.node_id for st in job.stages}) == 2,
+              f"roles train: stages {spans} not 6 + 6 on two workers")
+        losses, walls, codec_s, codec_b, launches = [], [], [], [], []
+        with _CodecTally(user_mod, worker_mod) as tally:
+            for _ in range(ROLES_STEPS):
+                _zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(loop.run(job.train_step(x, loss_grad), timeout=600))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                s, b = tally.take()
+                codec_s.append(s)
+                codec_b.append(b)
+                launches.append((flash_attention_fwd_lse.launches,
+                                 flash_attention_bwd.launches))
+        want = (2 * 12 * ROLES_MICRO, 12 * ROLES_MICRO)
+        res.update(losses=losses, in_process_step1_loss=ref_loss,
+                   step1_rel=abs(losses[0] - ref_loss) / abs(ref_loss),
+                   step_wall_s=walls, codec_s=codec_s,
+                   codec_share=[s / w for s, w in zip(codec_s, walls)],
+                   bytes_per_step=codec_b, launches_per_step=launches,
+                   expected_launches_per_step=want)
+        check(res["step1_rel"] <= ROLES_LOSS_REL,
+              f"roles train: step 1 loss {losses[0]} vs in-process {ref_loss}")
+        check(losses[-1] < losses[0], f"roles train: loss did not fall {losses}")
+        check(all(tuple(c) == want for c in launches),
+              f"roles train: B1/B2 launches {launches}, expected {want} a step")
+        jid = job.job.job_id
+        shape = (B // ROLES_MICRO, T, cfg.dim)
+        # stage 1's worker computes its proof with perturbed params but
+        # reports (and ships) the real ones; both audits run at once
+        holder = next(w for w in ws if w.node_id == job.stages[1].peer.node_id)
+        runner = holder.stages[(jid, 1)]
+        honest = runner.pol
+        perturbed = {k: v + 1e-2 if v.dim() == 1 else v for k, v in runner.params.items()}
+        runner.pol = lambda p, xx: honest(perturbed, xx)
+        _zero_counts()
+
+        async def audits():
+            return await asyncio.gather(val.audit_stage(jid, 0, in_shape=shape, seed=5),
+                                        val.audit_stage(jid, 1, in_shape=shape, seed=6))
+
+        rec, bad = loop.run(audits(), timeout=600)
+        runner.pol = honest
+        audit_launches = (flash_attention_fwd_lse.launches, flash_attention_bwd.launches)
+        check(rec["passed"] is True, f"roles train: honest audit failed {rec}")
+        check(bad["passed"] is False and bad["forward_ok"] is False,
+              f"roles train: perturbed audit passed {bad}")
+        check(audit_launches == (24, 24),
+              f"roles train: audit launches {audit_launches}, expected (24, 24)")
+        res.update(audit=rec["passed"], perturbed_audit=bad["passed"],
+                   audit_launches=audit_launches)
+        loop.run(job.shutdown())
+    finally:
+        for n in (user, val, *ws):
+            loop.run(n.stop())
+        loop.close()
+    # the codec alone on one micro's activation (the default codec)
+    xm = torch.tensor_split(x, ROLES_MICRO)[0]
+    t0 = time.perf_counter()
+    blob = pack_arrays({"x": xm})
+    t1 = time.perf_counter()
+    unpack_arrays(blob)
+    t2 = time.perf_counter()
+    codec = {"raw_bytes": xm.numel() * xm.element_size(), "packed_bytes": len(blob),
+             "pack_s": t1 - t0, "unpack_s": t2 - t1, "card": name_power}
+    say(f"[roles train codec] {json.dumps(codec)}")
+    say(f"[roles train] {json.dumps(res)}")
+    _free_cuda()
+    return {"launches_fwd": sum(f for f, _ in launches) + audit_launches[0],
+            "launches_bwd": sum(b for _, b in launches) + audit_launches[1]}
+
+
+def _first_departure(model, prompt, out, ref) -> dict | None:
+    """Where a stream first departs from [slice]'s tokens: the position
+    and the teacher-forced logit margin there (the model's logit of
+    [slice]'s token less that of this stream's)."""
+    diff = [i for i, (a, b) in enumerate(zip(out, ref)) if int(a) != int(b)]
+    if not diff:
+        return None
+    i = diff[0]
+    ids = np.concatenate([prompt, np.asarray(out[:i], prompt.dtype)])
+    with torch.no_grad():
+        h = model(torch.from_numpy(ids).to(DEV)[None], logits=False)
+        row = model.head(h[0, -1]).float()
+    return {"position": i, "margin": float(row[int(ref[i])] - row[int(out[i])])}
+
+
+def phase_pipeserve(name_power: str, model: Llama, prompts, slice_outs) -> dict:
+    """[pipeserve]: two port WorkerNodes each attach one ``pipeline_stage``
+    of one ``InferenceEngine`` over [slice]'s Llama-3-8B (layers [0, 16)
+    and [16, 32): the stages reference the model's tensors, nothing is
+    copied), a port ValidatorNode plans, and a UserNode's
+    ``RemoteServingClient`` submits [slice]'s first 4 prompts, 32 greedy
+    tokens each. Gates: each stream equals [slice]'s tokens or, where it
+    departs (other batches, other GEMM shapes: bf16 near-ties), every
+    token is within LOGIT_GAP_TOL of the teacher-forced row max, as the
+    [tp2 *] legs gate; B3 launches = 16 a stage a decode tick and a
+    prefill chunk, B4 = 16 a stage a tick. Prints TTFT (a one-token
+    request) and the time a token takes."""
+    prompts = prompts[:PIPE_REQUESTS]
+    refs = slice_outs[:PIPE_REQUESTS]
+    eng = InferenceEngine(model, max_len=2048, cache_dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16, device=DEV)
+    loop = _NodeLoop()
+    val, ws, user, vpeer = _roles_fleet(loop, 2)
+    kw = dict(slots=PIPE_REQUESTS, gen=GenerationConfig(max_new_tokens=PIPE_NEW),
+              block_size=16, prefill_chunk=128)
+    res = {"card": name_power}
+    try:
+        (lo0, hi0), (lo1, hi1) = PIPE_SPANS
+        check(list(PIPE_SPANS) == stage_spans(layer_param_bytes(model), [1.0, 1.0]),
+              "pipeserve: the spans are not stage_spans' even cut")
+        ws[1].pipeline_stage(eng, sid="p", stage=1, n_stages=2, lo=lo1, hi=hi1, **kw)
+        vw = loop.run(ws[0].connect("127.0.0.1", val.port))
+        ws[0].pipeline_stage(eng, sid="p", stage=0, n_stages=2, lo=lo0, hi=hi0,
+                             route=[{"node_id": ws[1].node_id, "host": "127.0.0.1",
+                                     "port": ws[1].port}], validator=vw, **kw)
+        own = {k for k, _ in model.named_parameters()}
+        shared = all(t is dict(model.named_parameters())[k]
+                     for w in ws for k, t in w._pipe_stage.params.items() if k in own)
+        check(shared, "pipeserve: a stage copied a weight")
+        for w in ws:
+            loop.run(val.ping(loop.run(val.connect("127.0.0.1", w.port))))
+        client = user.remote_serving(vpeer, pipeline=True, sid="p")
+        # TTFT: one request of one token, after a warm-up of the same
+        warm = loop.run(client.submit(prompts[0], max_new=1), timeout=300)
+        loop.run(client.result(warm), timeout=300)
+        t0 = time.perf_counter()
+        rid = loop.run(client.submit(prompts[0], max_new=1))
+        loop.run(client.result(rid), timeout=300)
+        ttft = time.perf_counter() - t0
+        coord = ws[0].serving
+        ticks0, chunks0 = coord._ticks, ws[0]._pipe_stage._steps["prefill"]
+        _zero_counts()
+        t0 = time.perf_counter()
+        rids = [loop.run(client.submit(p)) for p in prompts]
+        outs = [np.asarray(loop.run(client.result(r), timeout=600)) for r in rids]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = _counts()
+        by_variant = dict(paged_decode_attention.launches_by_variant)
+        ticks = coord._ticks - ticks0
+        chunks = ws[0]._pipe_stage._steps["prefill"] - chunks0
+        L = model.cfg.num_layers
+        want = {"paged": L * (ticks + chunks), "norm": L * ticks}
+        res.update(ttft_s=ttft, wall_s=wall, ticks=ticks, prefill_chunks=chunks,
+                   ms_per_token=(wall - ttft) / (PIPE_NEW - 1) * 1e3,
+                   launches={"paged_decode": c["paged_decode"], "fused_norm": c["fused_norm"],
+                             "by_variant": by_variant},
+                   expected=want, act_wire_bytes=coord.stats()["pipeline"]["act_wire_bytes"],
+                   stage_stats=[w._pipe_stage.stats() for w in ws])
+        check(c["paged_decode"] == want["paged"] > 0
+              and by_variant == {"general": 0, "decode": L * ticks, "prefill": L * chunks},
+              f"pipeserve: paged-decode launches {c['paged_decode']} {by_variant}, "
+              f"expected {want['paged']}")
+        check(c["fused_norm"] == want["norm"] > 0,
+              f"pipeserve: fused-norm launches {c['fused_norm']}, expected {want['norm']}")
+        check(c["flash_fwd"] == c["flash_bwd"] == 0, "pipeserve: flash ran")
+        check(all(len(o) == PIPE_NEW for o in outs), "pipeserve: a stream is short")
+        res["departures"] = [_first_departure(model, p, o, r)
+                             for p, o, r in zip(prompts, outs, refs)]
+        res["streams_equal_to_slice"] = sum(d is None for d in res["departures"])
+        tf = _teacher_forced("pipeserve", model, prompts, outs)
+        res["worst_gap"] = tf["worst_gap"]
+    finally:
+        for n in (user, val, *ws):
+            loop.run(n.stop())
+        loop.close()
+    say(f"[pipeserve] {json.dumps(res)}")
+    del eng
+    _free_cuda()
+    return {"paged": res["launches"]["paged_decode"], "norm": res["launches"]["fused_norm"]}
+
+
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its wall seconds kept under ``name``."""
     t0 = time.perf_counter()
@@ -5387,6 +5740,8 @@ def _main() -> int:
                   seed=0)
     launches = timed("slice", phase_slice, name_power, model, cap)
     prompts, slice_outs = launches["prompts"], launches["outs"]
+    pipe = timed("pipeserve", phase_pipeserve, name_power, model, prompts, slice_outs)
+    roles = timed("roles train", phase_roles_train, name_power)
     mesh = timed("mesh paged", phase_mesh_paged, name_power, model, prompts)
     disagg = timed("disagg", phase_disagg, name_power, model, prompts, slice_outs, cap)
     disagg8 = timed("disagg int8", phase_disagg_int8, name_power, model, prompts,
@@ -5438,7 +5793,8 @@ def _main() -> int:
                   "autopair bursts": pair["norm"], "chaos (2 overload runs)": chaos_k["norm"],
                   "self-heal": heal["norm"], "async": asyn["norm"],
                   "mixtral paged": mixtral["norm"], "mixtral static": mixtral["static_norm"],
-                  "ep2 mixtral paged (both ranks)": tp2["ep2_launches"]["norm"]}
+                  "ep2 mixtral paged (both ranks)": tp2["ep2_launches"]["norm"],
+                  "pipeserve (both stages)": pipe["norm"]}
     paged_paths = {"paged serving": launches["launches_paged"],
                    "mesh paged": mesh["paged"], "tp2 paged and disagg (both ranks)": tp2["paged"],
                    "spec paged (verify passes, prefill chunks)": spec["paged"],
@@ -5448,7 +5804,8 @@ def _main() -> int:
                    "chaos (2 overload runs)": chaos_k["paged"],
                    "self-heal": heal["paged"], "async": asyn["paged"],
                    "mixtral paged": mixtral["paged"],
-                   "ep2 mixtral paged (both ranks)": tp2["ep2_launches"]["paged"]}
+                   "ep2 mixtral paged (both ranks)": tp2["ep2_launches"]["paged"],
+                   "pipeserve (both stages)": pipe["paged"]}
     say(f"[launches] fused_residual_norm by path: {json.dumps(norm_paths)}")
     say(f"[launches] paged_decode_attention by path: {json.dumps(paged_paths)}")
     flash_paths = {"train": (train["launches_fwd"], train["launches_bwd"]),
@@ -5458,7 +5815,9 @@ def _main() -> int:
                    "sharded gpt2": (sh_gpt2["launches_fwd"], sh_gpt2["launches_bwd"]),
                    "sp attention + sp2 gpt2 (both ranks)": (sp_job["launches_fwd"],
                                                             sp_job["launches_bwd"]),
-                   "ep2 mixtral train (both ranks)": tp2["ep2_launches"]["flash"]}
+                   "ep2 mixtral train (both ranks)": tp2["ep2_launches"]["flash"],
+                   "roles train (steps and audits)": (roles["launches_fwd"],
+                                                      roles["launches_bwd"])}
     say(f"[launches] flash_attention fwd, bwd by path: {json.dumps(flash_paths)}")
     kernels = [
         {

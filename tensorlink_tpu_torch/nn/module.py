@@ -154,6 +154,10 @@ class Parallel(Module):
         for i, b in enumerate(branches):
             self.add_module(str(i), b)
 
+    @property
+    def branches(self) -> list[nn.Module]:
+        return list(self._modules.values())
+
     def forward(self, x, **kwargs):
         return _combine([b(x, **kwargs) for b in self._modules.values()],
                         self.combine)
@@ -352,3 +356,23 @@ def init_module(module: nn.Module, generator: torch.Generator | int | None = Non
         if p.is_floating_point():
             p.data = p.data.to(dtype)
     return module
+
+
+def param_tree(module: nn.Module, state: Mapping[str, Any] | None = None) -> dict:
+    """``module``'s parameters as the JAX package's nested param tree: one
+    dict per child module, ``{}`` for a child that holds no parameter (a
+    ``Lambda``, a ``Dropout``), leaves from ``state`` (a flat state dict;
+    default the module's own parameters). The layout a reference node
+    unflattens: ``tree_flatten_arrays`` of it gives the reference's names,
+    ``//empty`` markers included."""
+    state = dict(module.named_parameters()) if state is None else state
+
+    def walk(mod: nn.Module, prefix: str) -> dict:
+        out: dict = {}
+        for name, _ in mod.named_parameters(recurse=False):
+            out[name] = state[prefix + name]
+        for name, child in mod.named_children():
+            out[name] = walk(child, f"{prefix}{name}.")
+        return out
+
+    return walk(module, "")

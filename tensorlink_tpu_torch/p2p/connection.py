@@ -25,6 +25,8 @@ from tensorlink_tpu_torch.p2p import serialization as _ser
 from tensorlink_tpu_torch.p2p.serialization import _compress, _decompress
 
 MAX_FRAME = 1 << 31  # 2 GiB hard cap
+# frames at least this large are compressed on a worker thread
+THREAD_COMPRESS_BYTES = 1 << 20
 FLAG_NONE = 0
 FLAG_ZSTD = 1
 FLAG_ZLIB = 2
@@ -83,7 +85,14 @@ class FramedStream:
                 # fallback, and the flag says so (a zstd flag on an
                 # uncompressed payload would be garbage to the peer)
                 codec = "zlib"
-            payload = _compress(payload, codec)
+            if len(payload) >= THREAD_COMPRESS_BYTES:
+                # a large frame's compression (zlib where zstandard is
+                # missing: a second or more at its level) runs off the
+                # event loop, so the node's other peers keep being served
+                # and concurrent sends compress in parallel
+                payload = await asyncio.to_thread(_compress, payload, codec)
+            else:
+                payload = _compress(payload, codec)
         if len(payload) > MAX_FRAME:
             raise ValueError(f"frame too large: {len(payload)}")
         flag = _FLAG_BY_CODEC[codec]

@@ -169,6 +169,23 @@ def _gumbel_argmax(logp: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logp - torch.log(-torch.log(_uniform(bits))), dim=-1)
 
 
+def declared_compute_dtype(model_or_state) -> str:
+    """Declared hot-path compute dtype of a model or a state dict: the
+    dtype of its first >=2-D floating tensor (the dtype policy keeps 1-D
+    biases and norm scales f32), by the reference's name
+    (``"bfloat16"``, ``"float32"``); ``"float32"`` when it has none."""
+    if isinstance(model_or_state, nn.Module):
+        tensors = [t for _, t in sorted(model_or_state.state_dict().items())]
+    else:
+        from tensorlink_tpu_torch.utils.trees import tree_leaves
+
+        tensors = tree_leaves(model_or_state)
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.dim() >= 2 and t.is_floating_point():
+            return str(t.dtype).removeprefix("torch.")
+    return "float32"
+
+
 def sample_logits_at(logits, seed, position, temperature, top_k=0, top_p=1.0,
                      salt: int = 0):
     """[S, V] logits -> [S] token ids. Greedy (``argmax``) at temperature

@@ -312,3 +312,84 @@ def test_job_records_match_reference():
     with pytest.raises(ValueError, match="malformed"):
         jobs.validate_job_request({"author": author})
 
+
+
+# ------------------------------------------------------------ role nodes
+
+
+@pytest.mark.asyncio
+async def test_validator_node_chain_config(chain):
+    """A port ValidatorNode builds its Web3Registry from NodeConfig alone
+    and registers itself at start."""
+    from tensorlink_tpu_torch.roles.validator import ValidatorNode
+
+    node = ValidatorNode(NodeConfig(role="validator", port=0, off_chain=False,
+                                    chain_url=chain.url,
+                                    chain_contract=CONTRACT_ADDRESS),
+                         device="cpu")
+    assert isinstance(node.registry, Web3Registry)
+    await node.start()
+    try:
+        assert node.registry.is_validator(node.node_id)
+        assert node.registry.is_validator_local(node.node_id)
+    finally:
+        await node.stop()
+    with pytest.raises(ValueError):
+        ValidatorNode(NodeConfig(role="validator", off_chain=False), device="cpu")
+
+
+@pytest.mark.asyncio
+async def test_validator_node_with_web3_registry(chain):
+    from tensorlink_tpu_torch.roles.validator import ValidatorNode
+
+    reg = Web3Registry(chain.url, CONTRACT_ADDRESS, cache_ttl=0.0)
+    node = ValidatorNode(NodeConfig(role="validator", port=0), registry=reg,
+                         device="cpu")
+    await node.start()
+    try:
+        assert reg.is_validator(node.node_id)
+        assert any(e.info.node_id == node.node_id for e in reg.list_validators())
+    finally:
+        await node.stop()
+
+
+@pytest.mark.asyncio
+async def test_request_job_records_onchain(chain):
+    """request_job(chain_registry=...) records the job before placement;
+    complete_onchain closes it after an inference pass."""
+    import torch
+
+    from tensorlink_tpu_torch.models.mlp import MLP, MLPConfig
+    from tensorlink_tpu_torch.roles.user import UserNode
+    from tensorlink_tpu_torch.roles.validator import ValidatorNode
+    from tensorlink_tpu_torch.roles.worker import WorkerNode
+
+    creg = Web3Registry(chain.url, CONTRACT_ADDRESS, cache_ttl=0.0)
+    m = MLP(MLPConfig(in_dim=8, hidden_dim=16, out_dim=4, num_layers=2), device="cpu")
+
+    def cfg(role):
+        return NodeConfig(role=role, host="127.0.0.1", port=0)
+
+    validator = ValidatorNode(cfg("validator"), registry=InMemoryRegistry(), device="cpu")
+    await validator.start()
+    worker = WorkerNode(cfg("worker"), device="cpu")
+    await worker.start()
+    await worker.connect("127.0.0.1", validator.port)
+    user = UserNode(cfg("user"))
+    await user.start()
+    v_peer = await user.connect("127.0.0.1", validator.port)
+    try:
+        job = await user.request_job(m.seq, dict(m.seq.named_parameters()), v_peer,
+                                     max_stage_bytes=1e9, chain_registry=creg,
+                                     chain_payment_milli=1_500)
+        assert job.chain_job_id == 1
+        rec = creg.job_onchain(1)
+        assert rec["user_id"] == user.node_id and rec["payment_milli"] == 1_500
+        assert rec["completed"] is False
+        out = await job.forward(torch.zeros((2, 8)))
+        assert tuple(out.shape) == (2, 4)
+        await job.complete_onchain()
+        assert creg.job_onchain(1)["completed"] is True
+    finally:
+        for n in (user, validator, worker):
+            await n.stop()

@@ -68,7 +68,11 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 ("runtime", "alerts.py"), ("runtime", "flight.py"),
                 ("runtime", "http_status.py"), ("p2p", "node.py"),
                 ("p2p", "connection.py"), ("chain", "registry.py"),
-                ("roles", "jobs.py")):
+                ("roles", "jobs.py"), ("nn", "staging.py"),
+                ("parallel", "pipeserve.py"), ("roles", "pol.py"),
+                ("roles", "privacy.py"), ("roles", "worker.py"),
+                ("roles", "user.py"), ("roles", "validator.py"),
+                ("__main__.py",)):
         assert os.path.join(PORT, *mod) in files
     bad = [
         (os.path.relpath(p, REPO), root)
@@ -199,6 +203,14 @@ def test_importing_the_port_loads_no_jax():
         "tensorlink_tpu_torch.chain",
         "tensorlink_tpu_torch.chain.mock",
         "tensorlink_tpu_torch.roles",
+        "tensorlink_tpu_torch.nn.staging",
+        "tensorlink_tpu_torch.parallel.pipeserve",
+        "tensorlink_tpu_torch.roles.pol",
+        "tensorlink_tpu_torch.roles.privacy",
+        "tensorlink_tpu_torch.roles.worker",
+        "tensorlink_tpu_torch.roles.user",
+        "tensorlink_tpu_torch.roles.validator",
+        "tensorlink_tpu_torch.__main__",
     ]
     code = (
         "import sys\n"
@@ -306,3 +318,36 @@ def test_mesh_and_sharded_trainer_need_a_device_where_cuda_is_absent():
         assert tr.device.type == "cpu"
     finally:
         shutdown_distributed()
+
+
+def test_roles_need_a_device_where_cuda_is_absent():
+    """A worker, a validator, a stage runner and a pipeline stage (through
+    its engine) run on CUDA unless given the CPU: without CUDA each
+    raises instead of falling back."""
+    from tensorlink_tpu_torch.config import NodeConfig
+    from tensorlink_tpu_torch.nn.staging import StageSlice
+    from tensorlink_tpu_torch.parallel.pipeserve import PipelineStageEngine
+    from tensorlink_tpu_torch.roles.validator import ValidatorNode
+    from tensorlink_tpu_torch.roles.worker import StageRunner, WorkerNode
+    from tensorlink_tpu_torch.train.optim import make_optimizer
+
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WorkerNode(NodeConfig(role="worker", port=0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ValidatorNode(NodeConfig(role="validator", port=0))
+    assert WorkerNode(NodeConfig(role="worker", port=0), device="cpu").device.type == "cpu"
+    mlp = MLP(MLPConfig(in_dim=4, hidden_dim=4, out_dim=2), device="cpu")
+    params = dict(mlp.seq.named_parameters())
+    opt = make_optimizer("sgd", 0.1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StageRunner(job_id="j", stage_index=0, module=mlp.seq, params=params,
+                    opt=opt, opt_state=opt.init(params))
+    model = Llama(LlamaConfig.tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PipelineStageEngine(InferenceEngine(model, max_len=32), lo=0, hi=1)
+    stage = PipelineStageEngine(InferenceEngine(model, max_len=32, device="cpu"),
+                                lo=0, hi=1, block_size=4)
+    assert stage.device.type == "cpu" and stage._valid.device.type == "cpu"
+    assert StageSlice(model, 0, 2).last

@@ -548,3 +548,48 @@ async def test_node_builds_serving_with_its_telemetry():
     finally:
         await ref.stop()
         await node.stop()
+
+
+@pytest.mark.asyncio
+async def test_natted_worker_reachable_via_alt_host():
+    """A NAT'd port worker advertises its external IP, which same-host
+    peers cannot dial; the port validator's recruitment carries the
+    observed address as a fallback candidate, so the port user reaches
+    the worker and trains a step."""
+    from tensorlink_tpu_torch.models.mlp import MLP, MLPConfig
+    from tensorlink_tpu_torch.roles.registry import InMemoryRegistry
+    from tensorlink_tpu_torch.roles.user import UserNode
+    from tensorlink_tpu_torch.roles.validator import ValidatorNode
+    from tensorlink_tpu_torch.roles.worker import WorkerNode
+
+    with FakeIGD() as igd:
+        validator = ValidatorNode(NodeConfig(role="validator", port=0),
+                                  registry=InMemoryRegistry(), device="cpu")
+        await validator.start()
+        worker = WorkerNode(NodeConfig(role="worker", port=0, upnp=True,
+                                       upnp_ssdp_addr=igd.ssdp_addr), device="cpu")
+        await worker.start()
+        assert worker.info.host == "203.0.113.7"
+        assert worker.info.alt_hosts == []
+        await worker.connect("127.0.0.1", validator.port)
+        user = UserNode(NodeConfig(role="user", port=0, connect_timeout_s=1.0))
+        await user.start()
+        v_peer = await user.connect("127.0.0.1", validator.port)
+        try:
+            m = MLP(MLPConfig(in_dim=8, hidden_dim=8, out_dim=4, num_layers=1),
+                    device="cpu")
+            job = await user.request_job(
+                m.seq, dict(m.seq.named_parameters()), v_peer,
+                max_stage_bytes=1 << 30, micro_batches=1,
+                train={"optimizer": "sgd", "learning_rate": 0.1})
+            assert [st.peer.node_id for st in job.stages] == [worker.node_id]
+
+            def loss_grad(logits, micro):
+                g = logits.float()
+                return float((g ** 2).mean()), 2 * g / g.numel()
+
+            loss = await job.train_step(torch.ones((4, 8)), loss_grad)
+            assert math.isfinite(loss)
+        finally:
+            for n in (user, worker, validator):
+                await n.stop()

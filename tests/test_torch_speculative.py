@@ -50,6 +50,8 @@ from tensorlink_tpu_torch.parallel.serving import (
     SpecConfig,
 )
 
+from jax_reference import reference
+
 # ------------------------------------------------------------ spec_verify
 
 
@@ -256,7 +258,7 @@ def test_draft_vocab_and_cache_checks():
 
 
 @pytest.fixture(scope="module")
-def engines():
+def engines(tmp_path_factory):
     """Tiny Llama target and a same-architecture draft of other weights
     (near-zero acceptance, so rollback runs constantly), in both
     packages, with the JAX static engine's greedy tokens."""
@@ -272,7 +274,9 @@ def engines():
     r = np.random.default_rng(0)
     prompts = [r.integers(0, 128, (n,)) for n in (5, 3, 7)]
     gen = JGen(max_new_tokens=8)
-    refs = [np.asarray(jeng.generate(pr[None], gen))[0] for pr in prompts]
+    # the JAX static engine's tokens, computed once a session
+    refs = reference(tmp_path_factory, "speculative-engines-refs", lambda: [
+        np.asarray(jeng.generate(pr[None], gen))[0] for pr in prompts])
     return jeng, jdraft, teng, tdraft, prompts, refs
 
 
