@@ -8,13 +8,13 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: card, power limit and toolchain versions;
-2. build: compiles the three CUDA sources (paged decode, fused
-   residual+norm, flash attention; one nvcc each, sm_90a, all started
-   together), prints ptxas's register lines and the number of HGMMA
+2. build: compiles the four CUDA sources (paged decode, fused
+   residual+norm, flash attention in bf16 and in f32; one nvcc each,
+   sm_90a, all started together), prints ptxas's register lines and the number of HGMMA
    (wgmma) instructions in the flash forward's kernels, then times an
    empty kernel ("[floor]": the launch floor the norm rows print);
    the builds land in a fresh ``TL_COMPILE_CACHE_DIR`` (the kernel-build
-   cache), and "[compile cache]" has a child process load the three
+   cache), and "[compile cache]" has a child process load the four
    CUDA libraries and the g++-built wire codec from it with no compiler
    run, printing cold build s against warm load s;
 3. paged-decode kernel vs its plain PyTorch version at Llama-3-8B head
@@ -185,7 +185,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    gloo, both on cuda:0 (NCCL takes one rank a device; gloo carries the
    CUDA tensors through host copies: a correctness check of tensor
    parallelism, not a deployment), each holding half of every ``Dense``
-   of Llama-3-8B at full width and TP2_LAYERS (8) of its 32 layers,
+   of Llama-3-8B at full width and TP2_LAYERS (4) of its 32 layers,
    eager: [slice]'s first 4
    requests through the paged (``[tp2 paged]``) and the contiguous
    engine (``[tp2 contiguous]``) and 2 left-padded prompts through
@@ -306,7 +306,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    mask), each rank's o, dq, dk, dv against B1/B2 on the whole sequence
    ([flash]'s tolerances) and its launches per rank (causal ring: B1 and
    B2's delta form r + 1 times on rank r); then ``[sp2 gpt2]``:
-   GPT-2-medium at full width and [sharded gpt2]'s 12 layers with
+   GPT-2-medium at full width and [sharded gpt2]'s 8 layers with
    ``attn_impl="ring"``
    through ``ShardedTrainer`` on a seq-2 mesh under 1F1B, [sharded
    gpt2]'s batch: the first step's loss and every gradient leaf against
@@ -314,6 +314,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    form 24 x 4 x (r + 1) a step on rank r, a profiled
    step's busy share (gloo through host copies: a correctness check,
    not a speed).
+11. the model zoo (slice 19). ``[flash f32]`` (inside [flash]): B1 and
+   B2 in their f32 forms (``csrc/flash_attention_f32.cu``, FFMA) at
+   BERT-base's and Llama-3-8B's shapes against the plain f32 versions
+   (worst error relative to max |plain|: 1e-4 for o, 1e-3 for each
+   gradient), timed beside the plain version, one f32 SDPA call and the
+   bound at the f32 vector peak. ``[diag]`` (inside [slice]):
+   ``diag.scrape_cluster`` of the [node slice] node's status port, its
+   row healthy with its KV pool and the scraped /kv its ``kv_stats``.
+   ``[hf llama]`` (after the Llama-3-8B model is freed): the width at 2
+   of 32 layers written as an HF-layout BF16 ``.safetensors`` file (a
+   small writer here), read by the port's ``load_safetensors`` and mapped
+   by ``llama_params_from_hf`` (which must give back the model's state),
+   [slice]'s first 4 prompts served captured for 16 tokens, equal to an
+   engine built from the same tensors with no file in between, B3 and
+   B4 on the path. After [sp]: ``[hf bert f32]`` (BERT-base from an f32
+   HF file, 3 ``Trainer`` steps in f32 at 8 x 512, dropout off: B1 f32 and
+   B2 f32 12 a step each, step 1 within 1e-4 of plain f32 attention, the
+   loss falling), ``[vit]`` (ViT-B/16 at 224 from an HF file, 3
+   ``Trainer`` and 3 ``ShardedTrainer`` steps over ``vit_pipeline_parts``
+   on one NCCL rank at batch 32 in bf16: falling losses, first losses
+   within 1e-2, no B1 at 197 tokens), ``[t5]`` (T5-small from an HF file:
+   ``greedy_decode`` of 8 padded sources of 64-512 tokens, 32 tokens each,
+   every token within 0.5 of a teacher-forced ``decode()``'s row max; 3
+   ``Trainer`` steps falling; no kernel launch) and ``[ingest]`` (an
+   ``nn.TransformerEncoder`` at BERT-base's widths through ``from_torch``,
+   the forward at 8 x 512 within 1e-4 of the module's own).
 
 Legs 6-9, 7a, 7b, 7j and 8a run their decode as CUDA-graph replays (the engines' default)
 with ``pipeline_depth`` 2 chunks in flight on the serving engines; the
@@ -337,7 +363,8 @@ and int8) and the legs 7c-7j (the [ep2 mixtral paged] ranks' among them), B3's
 the paged leg, the captured speculative runs, both disaggregated runs
 (prefill variant on P, decode on D) and the paged legs 7c-7j; B1's and
 B2's sum legs 10, 10a, 10b, 10c, 10d and 10e and [ep2 mixtral train]
-(``[launches] flash_attention``); B2's delta form, leg 10e's ring runs. The
+(``[launches] flash_attention``); B2's delta form, leg 10e's ring runs; the
+f32 forms of B1 and B2, [hf bert f32]'s steps. The
 last lines are ``[phase seconds]`` (each phase's wall), the card's name
 and power limit, a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Nothing of JAX or ``tensorlink_tpu``
@@ -369,12 +396,24 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from tensorlink_tpu_torch import diag as tldiag
 from tensorlink_tpu_torch import native
 from tensorlink_tpu_torch.config import DistributedConfig, MeshConfig, NodeConfig, TrainConfig
 from tensorlink_tpu_torch.convert import apply_dtype_policy
 from tensorlink_tpu_torch.models.bert import Bert, BertClassifier, BertConfig, bert_pipeline_parts
 from tensorlink_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from tensorlink_tpu_torch.models.hf_import import (
+    SAFETENSORS_DTYPES,
+    bert_params_from_hf,
+    llama_params_from_hf,
+    load_safetensors,
+    t5_params_from_hf,
+    vit_params_from_hf,
+)
 from tensorlink_tpu_torch.models.llama import Llama, LlamaConfig
+from tensorlink_tpu_torch.models.t5 import T5, T5Config
+from tensorlink_tpu_torch.models.torch_ingest import from_torch
+from tensorlink_tpu_torch.models.vit import ViT, ViTClassifier, ViTConfig, vit_pipeline_parts
 from tensorlink_tpu_torch.nn.layers import Embedding
 from tensorlink_tpu_torch.nn.lora import lora_init, lora_merge, trainable_leaf_count
 from tensorlink_tpu_torch.nn.module import NamedSharding
@@ -497,9 +536,9 @@ CKPT_SAVE_AT, CKPT_STEPS = 2, 4  # [checkpoint]: save after 2 of 4 steps
 SHARD_MICRO = 4  # micro-batches of the sharded legs
 SHARD_BERT_STEPS = 10
 SHARD_GPT2_STEPS = 10
-# [sharded gpt2] and [sp2 gpt2]: GPT-2-medium's width at half its depth
-# (cut to pay for the [roles train] and [pipeserve] legs)
-SHARD_GPT2_LAYERS = 12
+# [sharded gpt2] and [sp2 gpt2]: GPT-2-medium's width at a third of its
+# depth (cut to pay for the [roles train], [pipeserve] and zoo legs)
+SHARD_GPT2_LAYERS = 8  # 12 before the zoo's legs
 # [sp *]: two gloo ranks on cuda:0; name -> (B, H, Hkv, whole T, D,
 # causal, mask) of [sp attention]'s cases
 SP_WORLD = 2
@@ -601,7 +640,8 @@ def phase_device() -> tuple[str, str]:
     return torch.cuda.get_device_name(0), name_power
 
 
-CUDA_SOURCES = ("paged_decode.cu", "decode_glue.cu", "flash_attention.cu")
+CUDA_SOURCES = ("paged_decode.cu", "decode_glue.cu", "flash_attention.cu",
+                "flash_attention_f32.cu")
 
 
 def hgmma_counts(lib_path: str) -> dict:
@@ -977,9 +1017,16 @@ FLASH_CASES = {
 }
 
 
-def _flash_inputs(g, B, H, Hkv, T, D, mask):
+# [flash f32]: B1 and B2 in their f32 forms (csrc/flash_attention_f32.cu)
+# at BERT-base's and Llama-3-8B's shapes; errors relative to max |plain|
+FLASH_F32_CASES = ("bert", "llama")
+FLASH_F32_O_REL = 1e-4
+FLASH_F32_GRAD_REL = 1e-3
+
+
+def _flash_inputs(g, B, H, Hkv, T, D, mask, dtype=torch.bfloat16):
     def rnd(*shape):
-        return torch.randn(shape, generator=g).to(DEV, torch.bfloat16)
+        return torch.randn(shape, generator=g).to(DEV, dtype)
 
     # [B, T, heads, D] storage read as [B, heads, T, D] views: the layout
     # the training path hands the kernels
@@ -1151,10 +1198,91 @@ def phase_flash(flush) -> dict:
     say(f"[flash] all cases within tolerance; worst max abs err: o {worst_f}, "
         f"gradients {worst_b}; worst o relative Frobenius {worst_rel_o}")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    f32 = _flash_f32(g, flush)
     return {
         "fwd": dict({k: rows["bert"]["fwd"][k] for k in keys}, max_abs_err=worst_f),
         "bwd": dict({k: rows["bert"]["bwd"][k] for k in keys}, max_abs_err=worst_b),
+        "fwd_f32": dict({k: f32["bert"]["fwd"][k] for k in keys},
+                        max_abs_err=max(r["fwd"]["max_abs_err"] for r in f32.values())),
+        "bwd_f32": dict({k: f32["bert"]["bwd"][k] for k in keys},
+                        max_abs_err=max(r["bwd"]["max_abs_err"] for r in f32.values())),
     }
+
+
+def _flash_f32(g, flush) -> dict:
+    """[flash f32]: B1 and B2 in their f32 forms against the plain f32
+    versions at FLASH_F32_CASES' shapes (the worst error relative to max
+    |plain|: FLASH_F32_O_REL for o, FLASH_F32_GRAD_REL for each gradient),
+    each timed beside its plain version, one F.scaled_dot_product_attention
+    call in f32 (its efficient backend) and its bound, the operations
+    reckoned at the card's f32 vector peak (F32_FLOPS). -> rows by case."""
+    rows = {}
+    for name in FLASH_F32_CASES:
+        B, H, Hkv, T, D, causal, window, mask = FLASH_CASES[name]
+        q, k, v, do, kv = _flash_inputs(g, B, H, Hkv, T, D, mask, torch.float32)
+        kw = {"causal": causal, "window": window}
+        o, lse = flash_attention_fwd_lse(q, k, v, kv, **kw)
+        ro, rlse = flash_attention_fwd_lse_reference(q, k, v, kv, **kw)
+        grads = flash_attention_bwd(q, k, v, ro, rlse, do, kv, **kw)
+        rgrads = flash_attention_bwd_reference(q, k, v, ro, rlse, do, kv, **kw)
+        torch.cuda.synchronize()
+        check(all(x.dtype == torch.float32 for x in (o, *grads)),
+              f"flash f32 {name}: outputs not f32")
+        check(all(bool(torch.isfinite(x).all()) for x in (o, lse, *grads)),
+              f"flash f32 {name}: non-finite output")
+
+        def rel_max(a, b):
+            return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+        rel_o = rel_max(o, ro)
+        live = rlse < 1e29
+        e_lse = float((lse - rlse)[live].abs().max()) if bool(live.any()) else 0.0
+        rel_g = {n: rel_max(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, rgrads)}
+        keep = _flash_keep(B, T, kv, causal, window)
+        pairs = int(keep.sum()) * H
+        el = q.element_size()
+        qo, kv_b = B * T * H * D * el, B * T * Hkv * D * el
+        m_b = 0 if kv is None else B * T
+        fwd_bytes = 2 * qo + 2 * kv_b + m_b + B * H * T * 4
+        bwd_bytes = 3 * qo + 4 * kv_b + m_b + B * H * T * 4
+        fb, fby = _bound(fwd_bytes, 4 * D * pairs, F32_FLOPS)
+        bb, bby = _bound(bwd_bytes, 10 * D * pairs, F32_FLOPS)
+        is_causal = causal and window is None and kv is None
+        lib_f, be_f = _sdpa_fn(q, k, v, do, keep, is_causal, grad=False)
+        lib_b, be_b = _sdpa_fn(q, k, v, do, keep, is_causal, grad=True)
+        row = {
+            "case": name, "dtype": "float32", "B": B, "H": H, "Hkv": Hkv, "T": T, "D": D,
+            "causal": causal, "mask": mask, "pairs": pairs,
+            "fwd": {"max_abs_err": float((o - ro).abs().max()), "rel_to_max": rel_o,
+                    "lse_max_abs_err": e_lse,
+                    **_timed("", lambda: flash_attention_fwd_lse(q, k, v, kv, **kw), flush),
+                    "plain_ms": time_ms(lambda: flash_attention_fwd_lse_reference(
+                        q, k, v, kv, **kw), flush, iters=5),
+                    **_timed("library_", lib_f, flush, iters=10), "library": be_f,
+                    "bound_ms": fb, "bound_by": fby, "bytes": fwd_bytes,
+                    "flops": 4 * D * pairs, "peak_flops": F32_FLOPS},
+            "bwd": {"max_abs_err": max(float((a - b).abs().max())
+                                       for a, b in zip(grads, rgrads)),
+                    "rel_to_max": rel_g,
+                    **_timed("", lambda: flash_attention_bwd(
+                        q, k, v, ro, rlse, do, kv, **kw), flush),
+                    "plain_ms": time_ms(lambda: flash_attention_bwd_reference(
+                        q, k, v, ro, rlse, do, kv, **kw), flush, iters=5),
+                    **_timed("library_", lib_b, flush, iters=10),
+                    "library": f"{be_b} forward+backward",
+                    "bound_ms": bb, "bound_by": bby, "bytes": bwd_bytes,
+                    "flops": 10 * D * pairs, "peak_flops": F32_FLOPS},
+        }
+        say(f"[flash f32] {json.dumps(row)}")
+        check(rel_o <= FLASH_F32_O_REL,
+              f"flash f32 {name}: o error {rel_o} of max |plain| > {FLASH_F32_O_REL}")
+        check(e_lse <= FLASH_LSE_ATOL, f"flash f32 {name}: lse err {e_lse}")
+        check(max(rel_g.values()) <= FLASH_F32_GRAD_REL,
+              f"flash f32 {name}: gradient errors {rel_g} of max |plain| > "
+              f"{FLASH_F32_GRAD_REL}")
+        rows[name] = row
+        del q, k, v, do, o, ro, grads, rgrads, lib_f, lib_b
+    return rows
 
 
 def phase_sp_kernel(flush) -> dict:
@@ -1571,6 +1699,7 @@ def phase_slice(name_power: str, model: Llama, cap: dict) -> dict:
         sch, rids, outs, wall, k = _serve_paged(model, prompts, max_new, True, cap,
                                                 node=node)
         _node_checks(loop, node, sch, outs, name_power)
+        _diag_check(loop, node, sch, name_power)
     finally:
         loop.run(node.stop())
         loop.close()
@@ -2193,8 +2322,10 @@ def _zero_counts() -> None:
     fused_residual_norm.launches = 0
     fused_residual_norm.launches_by_form = dict.fromkeys(FORMS, 0)
     flash_attention_fwd_lse.launches = 0
+    flash_attention_fwd_lse.launches_by_variant = {"bf16": 0, "f32": 0}
     flash_attention_bwd.launches = 0
     flash_attention_bwd.launches_by_form = {"own": 0, "delta": 0}
+    flash_attention_bwd.launches_by_variant = {"bf16": 0, "f32": 0}
     tp.reset_collectives()
 
 
@@ -2206,6 +2337,8 @@ def _counts() -> dict:
         "flash_fwd": flash_attention_fwd_lse.launches,
         "flash_bwd": flash_attention_bwd.launches,
         "flash_bwd_by_form": dict(flash_attention_bwd.launches_by_form),
+        "flash_fwd_by_variant": dict(flash_attention_fwd_lse.launches_by_variant),
+        "flash_bwd_by_variant": dict(flash_attention_bwd.launches_by_variant),
         "collectives": sum(tp.collective_counts().values()),
         "all_to_all": tp.all_to_all_model.collectives,
     }
@@ -2895,6 +3028,7 @@ ASYNC_NEW = 16
 _CACHE_CHILD = """
 import json, time
 t0 = time.perf_counter()
+from tensorlink_tpu_torch import diag as tldiag
 from tensorlink_tpu_torch import native
 from tensorlink_tpu_torch.ops import _build
 from tensorlink_tpu_torch.runtime.compile_cache import compile_report, enable_compile_cache
@@ -2911,10 +3045,10 @@ print(json.dumps({"dir": d, "nvcc_compiles": _build.nvcc_runs,
 
 
 def phase_compile_cache(name_power: str, build: dict) -> dict:
-    """The kernel-build cache: ``phase_build`` compiled the three CUDA
-    sources into a fresh ``TL_COMPILE_CACHE_DIR``; the wire codec's g++
-    build lands there too. A child process on the same directory then
-    loads all four libraries with no compiler run (its key still asks
+    """The kernel-build cache: ``phase_build`` compiled the CUDA sources
+    into a fresh ``TL_COMPILE_CACHE_DIR``; the wire codec's g++ build
+    lands there too. A child process on the same directory then loads
+    every library with no compiler run (its key still asks
     ``nvcc --version`` once)."""
     d = compile_cache.active_dir()
     check(d is not None and d == os.environ.get(compile_cache.ENV_VAR),
@@ -3328,10 +3462,10 @@ def phase_async(name_power: str, model: Llama, prompts) -> dict:
 MESH_REQUESTS = 4  # [slice]'s first requests: the mesh legs' prompts
 MESH_NEW = 16
 TP2_WORLD = 2
-# the [tp2 *] legs' model: Llama-3-8B's width at a quarter of its depth
-# (cut to pay for the [ep2 *] legs in the same job and for the [roles
-# train] and [pipeserve] legs)
-TP2_LAYERS = 8
+# the [tp2 *] legs' model: Llama-3-8B's width at an eighth of its depth
+# (cut to pay for the [ep2 *] legs in the same job, the [roles train] and
+# [pipeserve] legs, then the zoo's legs)
+TP2_LAYERS = 4
 TP2_STATIC_ROWS = 2  # [tp2 static]: the first two prompts, left-padded
 TP2_PROFILE_STEP = 8  # [tp2 static]: decode steps 6..7 plain, 8..9 profiled
 
@@ -5383,7 +5517,7 @@ PHASE_S: dict[str, float] = {}  # seconds each phase took, in run order
 # ----------------------------------------------------- roles that touch tensors
 ROLES_BATCH = (8, 512)  # [roles train]: BERT-base activations [8, 512, 768]
 ROLES_MICRO = 2
-ROLES_STEPS = 5
+ROLES_STEPS = 3  # 5 before the zoo's legs
 ROLES_LR = 0.1
 # step 1's loss against the 12 blocks run in one process on the same
 # micros: both sides run the same kernels in bf16 at the same shapes
@@ -5694,6 +5828,494 @@ def phase_pipeserve(name_power: str, model: Llama, prompts, slice_outs) -> dict:
     return {"paged": res["launches"]["paged_decode"], "norm": res["launches"]["fused_norm"]}
 
 
+# ----------------------------------------------- slice 19: the model zoo
+# HF-layout checkpoints are written here by a small writer of the
+# safetensors format (the package reads the format and writes none) into a
+# temporary directory under _build/, and read back by the port's
+# ``load_safetensors``.
+ST_DTYPES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+HF_LOSS_REL = 1e-4  # [hf bert f32]: step 1's loss, B1/B2 f32 vs plain f32
+HF_BERT_STEPS = 3
+HF_LLAMA_LAYERS = 2  # [hf llama]: Llama-3-8B's width at 2 of its 32 layers
+T5_LENS = (64, 512, 200, 320, 96, 448, 150, 256)  # [t5]: padded sources
+T5_NEW = 32
+T5_STEPS = 3
+VIT_BATCH = 32
+VIT_CLASSES = 10
+VIT_STEPS = 3
+VIT_LOSS_REL = 1e-2  # [vit]: Trainer vs ShardedTrainer first loss (bf16)
+INGEST_TOL = 1e-4  # [ingest]: the native forward vs the torch module's
+# the zoo legs' 3 training steps on one batch: SGD with the gradient
+# clipped to norm 1, so each step moves the weights along the gradient by
+# at most its rate (on an H100 80GB HBM3 at 700 W, Adam's first steps on
+# random weights at these widths jumped BERT-base's loss 1.19 -> 3.29 ->
+# 2.07, and SGD at 0.05 went 1.19 -> 2.11 -> 1.10: a sharp valley, so
+# BERT takes 1e-3)
+ZOO_SGD_LR = 0.05
+HF_BERT_LR = 1e-3
+
+
+def _write_safetensors(path: str, tensors: dict) -> int:
+    """{name: CPU tensor} -> a .safetensors file (8-byte little-endian
+    header length, a JSON header padded to 8 bytes, the raw bytes). ->
+    the file's size."""
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(len(h).to_bytes(8, "little") + h)
+        for t in tensors.values():
+            if t.numel():
+                f.write(t.contiguous().view(torch.uint8).numpy().data)
+    return 8 + len(h) + off
+
+
+def _hf_layout(state: dict, pairs) -> dict:
+    """A port state dict -> HF names: ``pairs`` of (HF name, port name,
+    transform or None); CPU tensors in the state's dtypes."""
+    out = {}
+    for hf, name, fn in pairs:
+        t = state[name].detach()
+        out[hf] = (t if fn is None else fn(t)).cpu().contiguous()
+    return out
+
+
+def _T(t):  # our [in, out] -> torch Linear's [out, in]
+    return t.T
+
+
+def _bert_hf_pairs(cfg) -> list:
+    pairs = [("embeddings.word_embeddings.weight", "tok_emb.table", None),
+             ("embeddings.position_embeddings.weight", "pos_emb.table", None),
+             ("embeddings.token_type_embeddings.weight", "type_emb.table", None),
+             ("embeddings.LayerNorm.weight", "emb_norm.scale", None),
+             ("embeddings.LayerNorm.bias", "emb_norm.bias", None),
+             ("pooler.dense.weight", "pooler.w", _T), ("pooler.dense.bias", "pooler.b", None)]
+    for i in range(cfg.num_layers):
+        hf, p = f"encoder.layer.{i}.", f"encoder.{i}."
+        for h, n in (("attention.self.query", "attn.q"), ("attention.self.key", "attn.k"),
+                     ("attention.self.value", "attn.v"), ("attention.output.dense", "attn.o"),
+                     ("intermediate.dense", "mlp.up"), ("output.dense", "mlp.down")):
+            pairs += [(hf + h + ".weight", p + n + ".w", _T), (hf + h + ".bias", p + n + ".b", None)]
+        for h, n in (("attention.output.LayerNorm", "norm1"), ("output.LayerNorm", "norm2")):
+            pairs += [(hf + h + ".weight", p + n + ".scale", None),
+                      (hf + h + ".bias", p + n + ".bias", None)]
+    return pairs
+
+
+def _llama_hf_pairs(cfg) -> list:
+    pairs = [("model.embed_tokens.weight", "tok_emb.table", None),
+             ("model.norm.weight", "norm_f.scale", None), ("lm_head.weight", "lm_head.w", _T)]
+    for i in range(cfg.num_layers):
+        hf, p = f"model.layers.{i}.", f"blocks.{i}."
+        pairs += [(hf + "input_layernorm.weight", p + "norm1.scale", None),
+                  (hf + "post_attention_layernorm.weight", p + "norm2.scale", None)]
+        pairs += [(hf + f"self_attn.{n}_proj.weight", p + f"attn.{n}.w", _T) for n in "qkvo"]
+        pairs += [(hf + f"mlp.{n}_proj.weight", p + f"mlp.{n}.w", _T)
+                  for n in ("up", "gate", "down")]
+    return pairs
+
+
+def _t5_hf_pairs(cfg) -> list:
+    """T5 v1.0 (the tied ReLU form T5-small ships)."""
+    pairs = [("shared.weight", "shared.table", None),
+             ("encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight",
+              "enc_rel.w", None),
+             ("decoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight",
+              "dec_rel.w", None),
+             ("encoder.final_layer_norm.weight", "enc_norm.scale", None),
+             ("decoder.final_layer_norm.weight", "dec_norm.scale", None)]
+    for side, tag in (("encoder", "enc"), ("decoder", "dec")):
+        for i in range(cfg.num_layers):
+            hf, p = f"{side}.block.{i}.layer.", f"{tag}{i}."
+            attns = [("0", "SelfAttention", "norm1", "attn")]
+            if side == "decoder":
+                attns.append(("1", "EncDecAttention", "norm_x", "xattn"))
+            for n, kind, norm, attn in attns:
+                pairs.append((hf + f"{n}.layer_norm.weight", p + norm + ".scale", None))
+                pairs += [(hf + f"{n}.{kind}.{x}.weight", p + f"{attn}.{x}.w", _T)
+                          for x in "qkvo"]
+            ff = "2" if side == "decoder" else "1"
+            pairs += [(hf + f"{ff}.layer_norm.weight", p + "norm2.scale", None),
+                      (hf + f"{ff}.DenseReluDense.wi.weight", p + "ff.up.w", _T),
+                      (hf + f"{ff}.DenseReluDense.wo.weight", p + "ff.down.w", _T)]
+    return pairs
+
+
+def _vit_hf_pairs(cfg) -> list:
+    P, C, D = cfg.patch_size, cfg.channels, cfg.dim
+
+    def conv(w):  # [P*P*C, D] (row, column, channel) -> the conv's [D, C, P, P]
+        return w.reshape(P, P, C, D).permute(3, 2, 0, 1)
+
+    pairs = [("embeddings.patch_embeddings.projection.weight", "patch.w", conv),
+             ("embeddings.patch_embeddings.projection.bias", "patch.b", None),
+             ("embeddings.cls_token", "cls_token", None),
+             ("embeddings.position_embeddings", "pos_emb", None),
+             ("layernorm.weight", "final_norm.scale", None),
+             ("layernorm.bias", "final_norm.bias", None)]
+    for i in range(cfg.num_layers):
+        hf, p = f"encoder.layer.{i}.", f"encoder.{i}."
+        for h, n in (("attention.attention.query", "attn.q"), ("attention.attention.key", "attn.k"),
+                     ("attention.attention.value", "attn.v"), ("attention.output.dense", "attn.o"),
+                     ("intermediate.dense", "mlp.up"), ("output.dense", "mlp.down")):
+            pairs += [(hf + h + ".weight", p + n + ".w", _T), (hf + h + ".bias", p + n + ".b", None)]
+        for h, n in (("layernorm_before", "norm1"), ("layernorm_after", "norm2")):
+            pairs += [(hf + h + ".weight", p + n + ".scale", None),
+                      (hf + h + ".bias", p + n + ".bias", None)]
+    return pairs
+
+
+def _hf_roundtrip(tag: str, src, pairs, to_params) -> tuple[dict, dict]:
+    """``src``'s state in HF layout -> a .safetensors file -> the port's
+    reader -> ``to_params`` (an ``*_params_from_hf``). Gates the result
+    equal to ``src``'s own state (as f32), key for key. -> (params, file
+    stats)."""
+    state = src.state_dict()
+    hf = _hf_layout(state, pairs)
+    dtypes = sorted({ST_DTYPES[t.dtype] for t in hf.values()})
+    with tempfile.TemporaryDirectory(prefix="hf-", dir=_build.BUILD_DIR) as d:
+        path = os.path.join(d, "model.safetensors")
+        t0 = time.perf_counter()
+        nbytes = _write_safetensors(path, hf)
+        t1 = time.perf_counter()
+        del hf
+        sd = load_safetensors(path)
+        t2 = time.perf_counter()
+        read_dtypes = sorted({ST_DTYPES[t.dtype] for t in sd.values()})
+        params = to_params(sd)
+        t3 = time.perf_counter()
+        del sd
+    check(read_dtypes == dtypes, f"{tag}: the reader changed dtypes {dtypes} -> {read_dtypes}")
+    check(sorted(params) == sorted(state)
+          and all(params[k].dtype == torch.float32
+                  and torch.equal(params[k], state[k].detach().float().cpu())
+                  for k in state),
+          f"{tag}: the HF file does not map back to the model's own state")
+    return params, {"file_bytes": nbytes, "file_dtypes": dtypes, "write_s": t1 - t0,
+                    "read_s": t2 - t1, "map_s": t3 - t2,
+                    "read_gb_per_s": nbytes / 1e9 / max(t2 - t1, 1e-9)}
+
+
+def phase_hf_bert_f32(name_power: str) -> dict:
+    """[hf bert f32]: BERT-base in f32 from an HF-layout f32 checkpoint (as
+    HF ships bert-base) through ``load_safetensors`` and
+    ``bert_params_from_hf``, trained 3 steps by ``Trainer(TrainConfig(
+    dtype="float32"))`` at 8 x 512, where "auto" attention runs B1 and B2
+    in their f32 forms. Gates: the file maps back to the model's state;
+    step 1's loss within HF_LOSS_REL of the plain f32 attention's on the
+    card (the same params and batch); B1 f32 and B2 f32 12 a step and no
+    bf16 launch; the loss falls. Dropout is off, so three steps on one
+    batch show the fall without dropout's noise."""
+    cfg = dataclasses.replace(BertConfig.base(), dropout=0.0)
+    B, T, L = 8, 512, cfg.num_layers
+    src = Bert(cfg, device=DEV, seed=19)
+    params, io = _hf_roundtrip("hf bert f32", src, _bert_hf_pairs(cfg),
+                               lambda sd: bert_params_from_hf(sd, cfg))
+    del src
+    model = BertClassifier(cfg, CLASSES, device=DEV, seed=0)
+    model.bert.load_state_dict(params, strict=True)
+    tcfg = TrainConfig(batch_size=B, micro_batches=1, optimizer="sgd",
+                       learning_rate=HF_BERT_LR, dtype="float32", grad_clip_norm=1.0)
+    trainer = Trainer(model, _bert_loss, tcfg, device=DEV)
+    state = trainer.init_state()
+    batch = _bert_batch(B, T, cfg.vocab_size, lens=[512, 480, 300, 129])
+    plain = Trainer(BertClassifier(dataclasses.replace(cfg, attn_impl="reference"),
+                                   CLASSES, device=DEV, seed=None),
+                    _bert_loss, tcfg, device=DEV)
+    lp, gp = plain.loss_and_grads(state.params, batch)
+    del plain
+    lk, gk = trainer.loss_and_grads(state.params, batch)
+
+    def cos(a, b):
+        a, b = a.flatten().double(), b.flatten().double()
+        return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+
+    cosines = [cos(gk[n], gp[n]) for n in gp
+               if float(gp[n].norm()) > 0 and not n.endswith("attn.k.b")]
+    del gk, gp
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    _zero_counts()
+    state, losses, secs = _timed_steps(trainer, state, batch, gen, HF_BERT_STEPS, warm=1)
+    c = _counts()
+    rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    res = {"model": "BERT-base from an HF-layout f32 file", **io, "batch": B, "seq": T,
+           "loss_step1_kernel": float(lk), "loss_step1_plain_f32": float(lp),
+           "loss_rel_diff": rel, "grad_min_cosine_vs_plain": min(cosines),
+           "losses": losses, "step_s_after_first": secs,
+           "flash_fwd_by_variant": c["flash_fwd_by_variant"],
+           "flash_bwd_by_variant": c["flash_bwd_by_variant"],
+           "expected_f32_each": L * HF_BERT_STEPS, "card": name_power}
+    say(f"[hf bert f32] {json.dumps(res)}")
+    check(all(np.isfinite(losses)), "hf bert f32: non-finite loss")
+    check(rel <= HF_LOSS_REL, f"hf bert f32: step-1 loss {float(lk)} vs plain f32 "
+          f"{float(lp)} (relative {rel} > {HF_LOSS_REL})")
+    check(losses[-1] < losses[0], f"hf bert f32: the loss did not fall: {losses}")
+    want = {"bf16": 0, "f32": L * HF_BERT_STEPS}
+    check(c["flash_fwd_by_variant"] == want and c["flash_bwd_by_variant"] == want,
+          f"hf bert f32: B1/B2 launches by form {c['flash_fwd_by_variant']} / "
+          f"{c['flash_bwd_by_variant']}, expected {want} each")
+    del trainer, model, state
+    _free_cuda()
+    return {"f32_fwd": c["flash_fwd_by_variant"]["f32"],
+            "f32_bwd": c["flash_bwd_by_variant"]["f32"]}
+
+
+def phase_hf_llama(name_power: str, prompts) -> dict:
+    """[hf llama]: Llama-3-8B's full width at HF_LLAMA_LAYERS of its 32
+    layers (random bf16 weights) written in HF layout as BF16, as Meta
+    ships it, read by the port's reader (BF16 kept) and mapped to f32 by
+    ``llama_params_from_hf``, as the reference does; served ([slice]'s
+    first 4 prompts, 16 tokens, captured paged engine) beside an engine
+    built from the same tensors with no file in between. Gates: the file
+    maps back to the model's state; equal tokens; B3 and B4 on the
+    path."""
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=HF_LLAMA_LAYERS)
+    L = cfg.num_layers
+    src = Llama(cfg, device=DEV, dtype=torch.bfloat16, seed=23)
+    params, io = _hf_roundtrip("hf llama", src, _llama_hf_pairs(cfg),
+                               lambda sd: llama_params_from_hf(sd, cfg))
+    model = Llama(cfg, device=DEV, dtype=torch.bfloat16, seed=None)
+    model.load_state_dict(params, strict=True)
+    del params
+    prompts = prompts[:MESH_REQUESTS]
+    outs = {}
+    for tag, m in (("file", model), ("direct", src)):
+        eng = InferenceEngine(m, max_len=2048, cache_dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16, device=DEV)
+        sch, outs[tag], c, by_variant = _serve_short(f"hf llama {tag}", eng, prompts,
+                                                     MESH_NEW, True)
+        if tag == "file":
+            st = sch.stats()
+            _check_paged_launches("hf llama", st, c["paged_decode"], c["fused_norm"],
+                                  by_variant, L)
+            launches = {"paged": c["paged_decode"], "norm": c["fused_norm"]}
+        del sch, eng
+    equal = all(np.array_equal(a, b) for a, b in zip(outs["file"], outs["direct"]))
+    res = {"model": f"Llama-3-8B width, {L} of 32 layers, BF16 HF file", **io,
+           "requests": len(prompts), "tokens": sum(len(o) for o in outs["file"]),
+           "tokens_equal_to_direct": equal, "decode_steps": st["decode_steps"],
+           "prefill_chunks": st["prefill_chunks"], **launches, "card": name_power}
+    say(f"[hf llama] {json.dumps(res)}")
+    check(equal, "hf llama: tokens differ from the engine built without the file")
+    del model, src
+    _free_cuda()
+    return launches
+
+
+def _t5_loss(module, params, batch, rng):
+    logits = functional_call(
+        module, params, (batch["input_ids"], batch["decoder_input_ids"]),
+        {"attention_mask": batch["attention_mask"], "rng": rng, "train": rng is not None},
+    )
+    return softmax_cross_entropy(logits, batch["labels"])
+
+
+def phase_t5(name_power: str) -> dict:
+    """[t5]: T5-small (``T5Config.small()``, its full size) from an
+    HF-layout f32 file through ``t5_params_from_hf``; ``greedy_decode`` of
+    8 right-padded sources of 64-512 tokens, T5_NEW tokens each; 3 Trainer
+    steps (f32, SGD). Gates: the file maps back to the model's state;
+    every token within LOGIT_GAP_TOL of its row max in a teacher-forced
+    ``decode()`` of the emitted prefix; the loss falls; no kernel launch
+    (T5's attention is the plain path with its bias, as in the
+    reference)."""
+    cfg = T5Config.small()
+    src = T5(cfg, device=DEV, seed=29)
+    params, io = _hf_roundtrip("t5", src, _t5_hf_pairs(cfg),
+                               lambda sd: t5_params_from_hf(sd, cfg))
+    del src
+    model = T5(cfg, device=DEV, seed=None)
+    model.load_state_dict(params, strict=True)
+    del params
+    r = np.random.default_rng(31)
+    B, S = len(T5_LENS), max(T5_LENS)
+    am = (np.arange(S)[None] < np.asarray(T5_LENS)[:, None]).astype(np.int64)
+    ids = torch.from_numpy(r.integers(2, cfg.vocab_size, (B, S)) * am).to(DEV)
+    am = torch.from_numpy(am).to(DEV)
+    _zero_counts()
+    t0 = time.perf_counter()
+    toks = model.greedy_decode(ids, attention_mask=am, max_new_tokens=T5_NEW)
+    decode_s = time.perf_counter() - t0
+    c_dec = _counts()
+    with torch.no_grad():
+        memory = model.encode(ids, attention_mask=am)
+        dec = torch.cat([torch.zeros((B, 1), dtype=torch.int64),
+                         toks[:, :-1].long()], dim=1).to(DEV)
+        logits = model.decode(dec, memory, memory_mask=am).float()
+    tok = toks.long().to(DEV)
+    gap = logits.max(dim=-1).values - logits.gather(-1, tok[..., None])[..., 0]
+    worst = float(gap.max())
+    # training: the sources, teacher-forced targets of 64 tokens
+    tcfg = TrainConfig(batch_size=B, micro_batches=1, optimizer="sgd",
+                       learning_rate=ZOO_SGD_LR, dtype="float32", grad_clip_norm=1.0)
+    trainer = Trainer(model, _t5_loss, tcfg, device=DEV)
+    labels = torch.from_numpy(r.integers(2, cfg.vocab_size, (B, 64))).to(DEV)
+    batch = {"input_ids": ids, "attention_mask": am, "labels": labels,
+             "decoder_input_ids": torch.cat([torch.zeros_like(labels[:, :1]),
+                                             labels[:, :-1]], dim=1)}
+    _zero_counts()  # no generator: dropout off, so the fall is not its noise
+    _, losses, secs = _timed_steps(trainer, trainer.init_state(), batch, None, T5_STEPS,
+                                   warm=1)
+    c_train = _counts()
+    kernels = {k: v for k, v in {**c_dec, **c_train}.items()
+               if k in ("paged_decode", "fused_norm", "flash_fwd", "flash_bwd")}
+    res = {"model": "T5-small from an HF-layout f32 file", **io, "sources": list(T5_LENS),
+           "new_tokens": T5_NEW, "greedy_decode_s": decode_s,
+           "teacher_forced_worst_gap": worst,
+           "exact_argmax": int((gap == 0).sum()), "tokens": int(gap.numel()),
+           "losses": losses, "step_s_after_first": secs,
+           "kernel_launches_decode": {k: c_dec[k] for k in kernels},
+           "kernel_launches_train": {k: c_train[k] for k in kernels},
+           "card": name_power}
+    say(f"[t5] {json.dumps(res)}")
+    check(tuple(toks.shape) == (B, T5_NEW), f"t5: tokens {tuple(toks.shape)}")
+    check(worst <= LOGIT_GAP_TOL, f"t5: teacher-forced gap {worst} > {LOGIT_GAP_TOL}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"t5: the loss did not fall: {losses}")
+    check(all(c_dec[k] == 0 == c_train[k] for k in kernels),
+          f"t5: a kernel launched on T5's plain path: {kernels}")
+    del trainer, model
+    _free_cuda()
+    return {}
+
+
+def _vit_loss(module, params, batch, rng):
+    logits = functional_call(module, params, (batch["images"],),
+                             {"rng": rng, "train": rng is not None})
+    return softmax_cross_entropy(logits, batch["labels"])
+
+
+def phase_vit(name_power: str) -> dict:
+    """[vit]: ViT-B/16 at 224 (``ViTConfig.base_16()``) as a
+    ``ViTClassifier`` of VIT_CLASSES classes, its encoder from an
+    HF-layout f32 file through ``vit_params_from_hf``; VIT_STEPS Trainer
+    steps at batch 32 in bf16, then VIT_STEPS ``ShardedTrainer`` steps
+    over ``vit_pipeline_parts`` on one NCCL rank from the same params.
+    Gates: the file maps back; the loss falls in both; their first losses
+    within VIT_LOSS_REL; B1 = B2 = 0 (197 tokens are off the kernel rule,
+    as in the reference)."""
+    cfg = ViTConfig.base_16()
+    src = ViT(cfg, device=DEV, seed=37)
+    params, io = _hf_roundtrip("vit", src, _vit_hf_pairs(cfg),
+                               lambda sd: vit_params_from_hf(sd, cfg))
+    del src
+    clf = ViTClassifier(cfg, VIT_CLASSES, device=DEV, seed=0)
+    clf.vit.load_state_dict(params, strict=True)
+    del params
+    init = {k: v.detach().clone() for k, v in clf.named_parameters()}
+    g = torch.Generator(device=DEV).manual_seed(41)
+    batch = {"images": torch.randn((VIT_BATCH, cfg.image_size, cfg.image_size,
+                                    cfg.channels), generator=g, device=DEV)
+             .to(torch.bfloat16),
+             "labels": torch.randint(0, VIT_CLASSES, (VIT_BATCH,), generator=g, device=DEV)}
+    tcfg = TrainConfig(batch_size=VIT_BATCH, micro_batches=1, optimizer="sgd",
+                       learning_rate=ZOO_SGD_LR, dtype="bfloat16", grad_clip_norm=1.0)
+    trainer = Trainer(clf, _vit_loss, tcfg, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    _zero_counts()
+    _, losses, secs = _timed_steps(trainer, trainer.init_state(), batch, gen, VIT_STEPS,
+                                   warm=1)
+    c = _counts()
+    del trainer
+    mesh = make_mesh(MeshConfig())
+    try:
+        parts = vit_pipeline_parts(clf.vit, init, num_classes_head=VIT_CLASSES)
+        tr = ShardedTrainer(mesh, tcfg, parts,
+                            lambda logits, b: softmax_cross_entropy(logits, b["labels"]))
+        _, sh_losses, sh_secs, k_sh = _sharded_steps(tr, tr.init_state(), batch,
+                                                     VIT_STEPS, warm=1)
+        del tr, parts
+    finally:
+        shutdown_distributed()
+    rel = abs(sh_losses[0] - losses[0]) / abs(losses[0])
+    res = {"model": "ViT-B/16 classifier, encoder from an HF-layout f32 file", **io,
+           "batch": VIT_BATCH, "tokens": cfg.num_patches + 1,
+           "trainer_losses": losses, "trainer_step_s_after_first": secs,
+           "sharded_losses": sh_losses, "sharded_step_s_after_first": sh_secs,
+           "first_loss_rel_diff": rel,
+           "flash_launches_trainer": [c["flash_fwd"], c["flash_bwd"]],
+           "flash_launches_sharded": list(k_sh), "card": name_power}
+    say(f"[vit] {json.dumps(res)}")
+    check(all(np.isfinite(losses + sh_losses)), "vit: non-finite loss")
+    check(losses[-1] < losses[0] and sh_losses[-1] < sh_losses[0],
+          f"vit: the loss did not fall: {losses} / {sh_losses}")
+    check(rel <= VIT_LOSS_REL, f"vit: first losses {losses[0]} / {sh_losses[0]} "
+          f"(relative {rel} > {VIT_LOSS_REL})")
+    check(c["flash_fwd"] == c["flash_bwd"] == 0 and k_sh == (0, 0),
+          "vit: B1/B2 launched at 197 tokens")
+    del clf, init, batch
+    _free_cuda()
+    return {}
+
+
+def phase_ingest(name_power: str) -> dict:
+    """[ingest]: an ``nn.TransformerEncoder`` at BERT-base's widths (768,
+    12 heads, 3072, ``batch_first``, 2 layers, a final LayerNorm) with a
+    ``Linear`` head, in f32, through ``from_torch`` onto the card. Gate:
+    the native forward at 8 x 512 within INGEST_TOL of the torch module's
+    own forward, with no kernel launched (the reference's ingested
+    attention is the plain path)."""
+    import torch.nn as tn
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(43)
+        layer = tn.TransformerEncoderLayer(768, 12, 3072, dropout=0.1, batch_first=True)
+        tm = tn.Sequential(tn.TransformerEncoder(layer, 2, norm=tn.LayerNorm(768),
+                                                 enable_nested_tensor=False),
+                           tn.Linear(768, 10))
+    tm = tm.to(DEV).eval()
+    native_model, params = from_torch(tm, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(47)
+    x = torch.randn((8, 512, 768), generator=g, device=DEV)
+    _zero_counts()
+    with torch.no_grad():
+        out = native_model(x)
+        ref = tm(x)
+    torch.cuda.synchronize()
+    c = _counts()
+    err = float((out - ref).abs().max())
+    res = {"layers": len(native_model), "params": sum(p.numel() for p in params.values()),
+           "shape": [8, 512, 768], "max_abs_err": err, "ref_max_abs": float(ref.abs().max()),
+           "flash_fwd": c["flash_fwd"], "card": name_power}
+    say(f"[ingest] {json.dumps(res)}")
+    check(bool(torch.isfinite(out).all()) and err <= INGEST_TOL,
+          f"ingest: native forward {err} from the torch module's (> {INGEST_TOL})")
+    check(c["flash_fwd"] == 0, "ingest: a kernel ran on the ingested plain path")
+    del tm, native_model, params, x, out, ref
+    _free_cuda()
+    return {}
+
+
+def _diag_check(loop: "_NodeLoop", node: Node, sch, name_power: str) -> None:
+    """[diag]: ``diag.scrape_cluster`` against the [node slice] node's
+    status port (the tldiag path an operator runs): its cluster-table row
+    healthy and showing its KV pool, the scraped /kv the engine's
+    ``kv_stats``."""
+    target = f"127.0.0.1:{node._http.bound_port}"
+    bundle = loop.run(tldiag.scrape_cluster([target], timeout=30.0))
+    rows = tldiag.cluster_table(bundle)
+    kv = bundle["nodes"][0]["routes"]["/kv"]
+    row = rows[0]
+    res = {"target": target, "healthy": row["healthy"], "flags": row["flags"],
+           "kv_pool_pct": row["kv_pool_pct"], "kv_status": kv.get("status"),
+           "kv_total_chains": (kv.get("body") or {}).get("total_chains"),
+           "card": name_power}
+    say(f"[diag] {json.dumps(res)}")
+    for ln in tldiag.render_table(rows).splitlines():
+        say(f"[diag]   {ln}")
+    check(row["healthy"] is True
+          and not {"DEAD", "UNHEALTHY"} & set(row["flags"]), f"diag: the node's row {row}")
+    check(row["kv_pool_pct"] is not None, "diag: the row shows no KV pool")
+    check(kv.get("status") == 200 and kv["body"]["pool"] == sch.kv_stats()["pool"],
+          "diag: the scraped /kv is not the engine's kv_stats")
+
+
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its wall seconds kept under ``name``."""
     t0 = time.perf_counter()
@@ -5760,6 +6382,7 @@ def _main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    hf_llama = timed("hf llama", phase_hf_llama, name_power, prompts)
     tp2 = timed("tp2", phase_tp2, name_power, prompts)
     mixtral = timed("mixtral", phase_mixtral, name_power, cap, tp2["ep2_paged"])
     contiguous = timed("contiguous", phase_contiguous, name_power)
@@ -5781,6 +6404,10 @@ def _main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sp_job = timed("sp", phase_sp, name_power, sh_gpt2.pop("seq1"))
+    hf_bert = timed("hf bert f32", phase_hf_bert_f32, name_power)
+    timed("vit", phase_vit, name_power)
+    timed("t5", phase_t5, name_power)
+    timed("ingest", phase_ingest, name_power)
     norm_paths = {"paged serving": launches["launches_norm"],
                   "mesh paged": mesh["norm"], "tp2 (both ranks, 5 legs)": tp2["norm"],
                   "static": static["launches_norm"],
@@ -5794,7 +6421,7 @@ def _main() -> int:
                   "self-heal": heal["norm"], "async": asyn["norm"],
                   "mixtral paged": mixtral["norm"], "mixtral static": mixtral["static_norm"],
                   "ep2 mixtral paged (both ranks)": tp2["ep2_launches"]["norm"],
-                  "pipeserve (both stages)": pipe["norm"]}
+                  "pipeserve (both stages)": pipe["norm"], "hf llama": hf_llama["norm"]}
     paged_paths = {"paged serving": launches["launches_paged"],
                    "mesh paged": mesh["paged"], "tp2 paged and disagg (both ranks)": tp2["paged"],
                    "spec paged (verify passes, prefill chunks)": spec["paged"],
@@ -5805,7 +6432,7 @@ def _main() -> int:
                    "self-heal": heal["paged"], "async": asyn["paged"],
                    "mixtral paged": mixtral["paged"],
                    "ep2 mixtral paged (both ranks)": tp2["ep2_launches"]["paged"],
-                   "pipeserve (both stages)": pipe["paged"]}
+                   "pipeserve (both stages)": pipe["paged"], "hf llama": hf_llama["paged"]}
     say(f"[launches] fused_residual_norm by path: {json.dumps(norm_paths)}")
     say(f"[launches] paged_decode_attention by path: {json.dumps(paged_paths)}")
     flash_paths = {"train": (train["launches_fwd"], train["launches_bwd"]),
@@ -5819,6 +6446,8 @@ def _main() -> int:
                    "roles train (steps and audits)": (roles["launches_fwd"],
                                                       roles["launches_bwd"])}
     say(f"[launches] flash_attention fwd, bwd by path: {json.dumps(flash_paths)}")
+    say(f"[launches] flash_attention f32 form fwd, bwd: "
+        f"{json.dumps({'hf bert f32': (hf_bert['f32_fwd'], hf_bert['f32_bwd'])})}")
     kernels = [
         {
             "name": "paged_decode_attention", "route": "cuda",
@@ -5837,7 +6466,7 @@ def _main() -> int:
                                     "bound_ms", "bound_by", "library_ms")},
         },
         {
-            "name": "flash_attention_fwd_lse", "route": "cuda",
+            "name": "flash_attention_fwd_lse (bf16 form)", "route": "cuda",
             "source": "tensorlink_tpu_torch/csrc/flash_attention.cu",
             "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:247",
             "launches": sum(f for f, _ in flash_paths.values()),
@@ -5845,12 +6474,28 @@ def _main() -> int:
                                             "bound_ms", "bound_by", "library_ms")},
         },
         {
-            "name": "flash_attention_bwd", "route": "cuda",
+            "name": "flash_attention_bwd (bf16 form)", "route": "cuda",
             "source": "tensorlink_tpu_torch/csrc/flash_attention.cu",
             "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:470",
             "launches": sum(b for _, b in flash_paths.values()),
             **{k: flash["bwd"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by", "library_ms")},
+        },
+        {
+            "name": "flash_attention_fwd_lse (f32 form)", "route": "cuda",
+            "source": "tensorlink_tpu_torch/csrc/flash_attention_f32.cu",
+            "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:247",
+            "launches": hf_bert["f32_fwd"],
+            **{k: flash["fwd_f32"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                "bound_ms", "bound_by", "library_ms")},
+        },
+        {
+            "name": "flash_attention_bwd (f32 form)", "route": "cuda",
+            "source": "tensorlink_tpu_torch/csrc/flash_attention_f32.cu",
+            "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:470",
+            "launches": hf_bert["f32_bwd"],
+            **{k: flash["bwd_f32"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                "bound_ms", "bound_by", "library_ms")},
         },
         {
             # the ring's backward: B2 given the whole row's delta, at one

@@ -9,18 +9,23 @@ attend), ``causal`` and a sliding ``window`` under the positional rule of
 and lse = ``LSE_MASKED``.
 
 ``flash_attention_fwd_lse`` and ``flash_attention_bwd`` are the wrappers
-``ops.flash`` calls. A CUDA tensor launches the hand-written kernels in
-``csrc/flash_attention.cu`` (built with ``nvcc`` at first use, bound with
-``ctypes``): the forward on wgmma fed by TMA, the backward on mma.sync.
+``ops.flash`` calls. A CUDA tensor launches the hand-written kernels
+(built with ``nvcc`` at first use, bound with ``ctypes``): bf16 operands
+those of ``csrc/flash_attention.cu``, the forward on wgmma fed by TMA,
+the backward on mma.sync; f32 operands those of
+``csrc/flash_attention_f32.cu``, on the CUDA cores in f32 (the reference's
+kernels compute in f32 whatever their inputs, so an f32 model keeps its
+precision). ``launches_by_variant`` counts each wrapper's launches by form
+("bf16", "f32").
 They read any [B, heads, T, D] view whose D is contiguous and whose base
 and strides are 16-byte aligned, so the caller's [B, T, H, D] tensors
 pass as transposed views, and the outputs come back as views over
 [B, T, heads, D] storage. A CPU tensor
 takes the plain PyTorch version of the same math
 (``flash_attention_fwd_lse_reference``, ``flash_attention_bwd_reference``).
-A CUDA input outside the kernels' limits (bf16, D in ``HEAD_DIMS``,
-16-byte aligned base and strides) raises: nothing routes a CUDA tensor
-to the plain version.
+A CUDA input outside the kernels' limits (bf16 or f32, D in
+``HEAD_DIMS``, 16-byte aligned base and strides) raises: nothing routes
+a CUDA tensor to the plain version.
 """
 
 from __future__ import annotations
@@ -36,8 +41,13 @@ NEG_INF = -1e30
 # so the backward's p and ds vanish exactly where the forward gave 0
 LSE_MASKED = 1e30
 
-# limits of csrc/flash_attention.cu
+# limits of csrc/flash_attention.cu and csrc/flash_attention_f32.cu
 HEAD_DIMS = (64, 128)
+# operand dtype -> (launch-count form, library source, entry suffix)
+KERNEL_FORMS = {
+    torch.bfloat16: ("bf16", "flash_attention.cu", ""),
+    torch.float32: ("f32", "flash_attention_f32.cu", "_f32"),
+}
 KERNEL_BLOCK = 64  # the kernels' query and key tile
 
 
@@ -163,6 +173,7 @@ def flash_attention_fwd_lse(q, k, v, kv_mask=None, *, causal: bool = False,
 
 
 flash_attention_fwd_lse.launches = 0
+flash_attention_fwd_lse.launches_by_variant = {"bf16": 0, "f32": 0}
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, kv_mask=None, *,
@@ -202,6 +213,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, kv_mask=None, *,
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_by_form = {"own": 0, "delta": 0}
+flash_attention_bwd.launches_by_variant = {"bf16": 0, "f32": 0}
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -220,24 +232,28 @@ def _strides(x):
 
 
 def _check_views(q, views):
-    """What the kernels can read: bf16 [B, heads, T, D] views with D
-    contiguous, all on q's card, whose base pointers and (b, h, t) strides
-    are multiples of 16 bytes: the forward reads q, k and v through TMA
-    tensor maps, which address nothing else, and the backward's 16-byte
-    copies need the same."""
+    """What the kernels can read: [B, heads, T, D] views of one dtype, bf16
+    or f32 (``KERNEL_FORMS``), with D contiguous, all on q's card, whose
+    base pointers and (b, h, t) strides are multiples of 16 bytes: the bf16
+    forward reads q, k and v through TMA tensor maps, which address nothing
+    else, and the bf16 backward's 16-byte copies need the same (the f32
+    kernels keep the rule). -> the form's ``KERNEL_FORMS`` entry."""
     D = q.shape[-1]
+    _check(q.dtype in KERNEL_FORMS,
+           f"q dtype {q.dtype} (bfloat16 or float32)")
     _check(D in HEAD_DIMS, f"head dim {D} (kernel takes {HEAD_DIMS})")
     for name, x in views.items():
         _check(x.device == q.device, f"{name} is not on {q.device}")
-        _check(x.dtype == torch.bfloat16, f"{name} dtype {x.dtype} (bfloat16)")
+        _check(x.dtype == q.dtype, f"{name} dtype {x.dtype} (q's {q.dtype})")
         _check(x.stride(3) == 1 or x.shape[3] == 1,
                f"{name} needs a contiguous head dim, strides {x.stride()}")
         _check(x.data_ptr() % 16 == 0,
                f"{name} base pointer {x.data_ptr():#x} is not 16-byte "
                f"aligned (TMA needs it)")
-        _check(all(s % 8 == 0 for s in _strides(x)),
+        _check(all(s * x.element_size() % 16 == 0 for s in _strides(x)),
                f"{name} strides {x.stride()} are not multiples of 16 "
                f"bytes (TMA needs them)")
+    return KERNEL_FORMS[q.dtype]
 
 
 def _mask_u8(kv_mask, q):
@@ -250,18 +266,19 @@ def _mask_u8(kv_mask, q):
 
 
 def _call(fn, q, ptrs, strides, dims):
-    lib = _lib()
+    _, source, suffix = KERNEL_FORMS[q.dtype]
+    lib = _lib(source)
     ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     st_arr = (ctypes.c_longlong * len(strides))(*strides)
     dim_arr = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, fn)(ptr_arr, st_arr, dim_arr, q.shape[-1] ** -0.5,
-                          stream)
+        rc = getattr(lib, fn + suffix)(ptr_arr, st_arr, dim_arr,
+                                       q.shape[-1] ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(
             f"flash-attention kernel launch failed: CUDA error {rc} "
-            f"({lib.tl_flash_error_string(rc).decode()})"
+            f"({lib.error_string(rc).decode()})"
         )
 
 
@@ -273,7 +290,7 @@ def _dims(q, k, causal, window, delta_in: bool = False):
 
 def _launch_fwd(q, k, v, kv_mask, causal, window):
     B, H, Tq, D = q.shape
-    _check_views(q, {"q": q, "k": k, "v": v})
+    form = _check_views(q, {"q": q, "k": k, "v": v})[0]
     mask = _mask_u8(kv_mask, q)
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
@@ -283,13 +300,14 @@ def _launch_fwd(q, k, v, kv_mask, causal, window):
     strides = (*_strides(q), *_strides(k), *_strides(v), *_strides(o))
     _call("tl_flash_fwd", q, ptrs, strides, _dims(q, k, causal, window))
     flash_attention_fwd_lse.launches += 1
+    flash_attention_fwd_lse.launches_by_variant[form] += 1
     return o, lse
 
 
 def _launch_bwd(q, k, v, o, lse, do, kv_mask, causal, window, given=None):
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
-    _check_views(q, {"q": q, "k": k, "v": v, "do": do, "o": o})
+    form = _check_views(q, {"q": q, "k": k, "v": v, "do": do, "o": o})[0]
     _check(lse.device == q.device and lse.dtype == torch.float32
            and lse.is_contiguous(), "lse must be contiguous float32 [B, H, Tq]")
     mask = _mask_u8(kv_mask, q)
@@ -309,20 +327,24 @@ def _launch_bwd(q, k, v, o, lse, do, kv_mask, causal, window, given=None):
           _dims(q, k, causal, window, given is not None))
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_by_form["own" if given is None else "delta"] += 1
+    flash_attention_bwd.launches_by_variant[form] += 1
     return dq, dk, dv
 
 
-def _lib() -> ctypes.CDLL:
+def _lib(source: str = "flash_attention.cu") -> ctypes.CDLL:
     from tensorlink_tpu_torch.ops._build import load
 
-    lib = load("flash_attention.cu")
+    lib = load(source)
     if not getattr(lib, "_tl_typed", False):
+        suffix = next(x for _, s, x in KERNEL_FORMS.values() if s == source)
         P = ctypes.c_void_p
-        for fn in (lib.tl_flash_fwd, lib.tl_flash_bwd):
+        for name in ("tl_flash_fwd", "tl_flash_bwd"):
+            fn = getattr(lib, name + suffix)
             # ptrs, strides, dims, scale, stream
             fn.argtypes = [P, P, P, ctypes.c_float, P]
             fn.restype = ctypes.c_int
-        lib.tl_flash_error_string.argtypes = [ctypes.c_int]
-        lib.tl_flash_error_string.restype = ctypes.c_char_p
+        lib.error_string = getattr(lib, f"tl_flash{suffix}_error_string")
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
         lib._tl_typed = True
     return lib

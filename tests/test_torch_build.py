@@ -46,7 +46,8 @@ def test_library_path_changes_with_the_source(tmp_path, monkeypatch):
 
 
 def test_each_source_of_the_package_has_its_own_library():
-    sources = ("paged_decode.cu", "flash_attention.cu", "decode_glue.cu")
+    sources = ("paged_decode.cu", "flash_attention.cu", "flash_attention_f32.cu",
+               "decode_glue.cu")
     assert all(os.path.exists(os.path.join(_build.CSRC_DIR, s)) for s in sources)
     paths = {_build.library_path(s) for s in sources}
-    assert len(paths) == 3
+    assert len(paths) == len(sources)

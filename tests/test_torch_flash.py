@@ -227,3 +227,47 @@ def test_forward_launcher_raises_on_views_tma_cannot_address(fault):
     for args in ((bad, good, good), (good, bad, good), (good, good, bad)):
         with pytest.raises(ValueError, match="TMA"):
             tfa._launch_fwd(*args, None, False, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_kernel_dtype_rule(dtype):
+    """The kernels' dtype rule: bf16 views go to csrc/flash_attention.cu,
+    f32 views to csrc/flash_attention_f32.cu (an f32 model keeps its
+    precision where the reference's kernels compute in f32), and f16 is
+    refused with its message. Checked on CPU views: nothing is built or
+    launched, and no launch is counted."""
+    B, H, T, D = 2, 4, 512, 64
+    q, k, v, do, o = (torch.zeros((B, T, H, D), dtype=dtype).transpose(1, 2)
+                      for _ in range(5))
+    views = {"q": q, "k": k, "v": v, "do": do, "o": o}
+    counts = (dict(flash_attention_fwd_lse.launches_by_variant),
+              dict(flash_attention_bwd.launches_by_variant))
+    if dtype == torch.float16:
+        with pytest.raises(ValueError, match=r"q dtype torch.float16 \(bfloat16 or float32\)"):
+            tfa._check_views(q, views)
+    else:
+        form, source, _ = tfa._check_views(q, views)
+        assert (form, source) == (("bf16", "flash_attention.cu") if dtype == torch.bfloat16
+                                  else ("f32", "flash_attention_f32.cu"))
+        # every view must share q's dtype
+        other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+        with pytest.raises(ValueError, match="k dtype"):
+            tfa._check_views(q, dict(views, k=k.to(other)))
+    assert counts == (flash_attention_fwd_lse.launches_by_variant,
+                      flash_attention_bwd.launches_by_variant)
+    assert set(counts[0]) == set(counts[1]) == {"bf16", "f32"}
+
+
+def test_f32_no_cache_attention_routes_to_the_kernel_pair(monkeypatch):
+    """The route is the reference's and the dtype plays no part in it: an
+    f32 no-cache attention at T 512 under ``attn_impl="auto"`` reaches
+    ``_FlashAttention`` (B1/B2), as a bf16 one does."""
+    calls = []
+    real = tflash._FlashAttention.apply
+    monkeypatch.setattr(tflash._FlashAttention, "apply",
+                        lambda *a: calls.append(a[0].dtype) or real(*a))
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((1, 512, 2, 64), generator=torch.Generator().manual_seed(0)).to(dtype)
+        out = tflash.flash_attention_impl(q, q, q, mask=torch.ones((1, 1, 1, 512), dtype=torch.bool))
+        assert out.dtype == dtype
+    assert calls == [torch.float32, torch.bfloat16]

@@ -32,7 +32,9 @@ FORBIDDEN = ("jax", "jaxlib", "tensorlink_tpu")
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py"),
            os.path.join(REPO, "tools", "kernel_ab.py"),
-           os.path.join(REPO, "tools", "gloo_cuda_check.py")]
+           os.path.join(REPO, "tools", "gloo_cuda_check.py"),
+           os.path.join(REPO, "tools", "flash_f32_check.py"),
+           os.path.join(REPO, "tools", "zoo_legs.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -72,7 +74,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                 ("parallel", "pipeserve.py"), ("roles", "pol.py"),
                 ("roles", "privacy.py"), ("roles", "worker.py"),
                 ("roles", "user.py"), ("roles", "validator.py"),
-                ("__main__.py",)):
+                ("__main__.py",), ("diag.py",), ("models", "vit.py"),
+                ("models", "t5.py"), ("models", "hf_import.py"),
+                ("models", "torch_ingest.py")):
         assert os.path.join(PORT, *mod) in files
     bad = [
         (os.path.relpath(p, REPO), root)
@@ -197,6 +201,12 @@ def test_importing_the_port_loads_no_jax():
         "tensorlink_tpu_torch.runtime.flight",
         "tensorlink_tpu_torch.runtime.http_status",
         "tensorlink_tpu_torch.p2p.connection",
+        "tensorlink_tpu_torch.diag",
+        "tensorlink_tpu_torch.models",
+        "tensorlink_tpu_torch.models.vit",
+        "tensorlink_tpu_torch.models.t5",
+        "tensorlink_tpu_torch.models.hf_import",
+        "tensorlink_tpu_torch.models.torch_ingest",
         "tensorlink_tpu_torch.p2p.dht",
         "tensorlink_tpu_torch.p2p.nat",
         "tensorlink_tpu_torch.p2p.node",

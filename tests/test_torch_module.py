@@ -7,7 +7,7 @@ params converted from its init, f32 on the CPU.
   (through JSON, as it crosses the wire): the same type, the same config,
   and outputs within 1e-5 of the JAX module's on its params;
 - the registries: every type and activation the JAX package registers
-  (bar ``PatchEmbed``, whose ViT is not ported yet), the activations
+  (``PatchEmbed`` among them), the activations
   within 1e-6 (``"gelu"`` is the tanh approximation in both);
 - ``MLP``'s forward (1e-5) and five Adam steps, held as
   ``test_torch_train.py`` holds the BERT trainer (losses 1e-4 relative,
@@ -31,6 +31,7 @@ from conftest import mlp_loss, toy_batch
 from tensorlink_tpu.config import TrainConfig as JTrainConfig
 from tensorlink_tpu.models.mlp import MLP as JMLP
 from tensorlink_tpu.models.mlp import MLPConfig as JMLPConfig
+from tensorlink_tpu.models.vit import PatchEmbed as JPatchEmbed
 from tensorlink_tpu.nn import module as jmodule
 from tensorlink_tpu.nn.attention import MultiHeadAttention as JMHA
 from tensorlink_tpu.nn.moe import MoEFeedForward as JMoE
@@ -40,6 +41,7 @@ from tensorlink_tpu.train.trainer import Trainer as JTrainer
 from tensorlink_tpu_torch.config import TrainConfig
 from tensorlink_tpu_torch.convert import params_from_jax
 from tensorlink_tpu_torch.models.mlp import MLP, MLPConfig
+from tensorlink_tpu_torch.models.vit import PatchEmbed  # noqa: F401  (registers it)
 from tensorlink_tpu_torch.nn import module as tmodule
 from tensorlink_tpu_torch.nn.module import (
     Lambda,
@@ -81,6 +83,7 @@ def _cases():
                                              combine="concat"), (2, 5, 8)),
         "TailMap": (jmodule.TailMap(jnn.Dense(5, 6), head_width=3), (2, 5, 8)),
         "Lambda": (jmodule.Lambda(jax.nn.gelu, "gelu"), (2, 5, 8)),
+        "PatchEmbed": (JPatchEmbed(8, 4, 3, 16), (2, 8, 8, 3)),
     }
 
 
@@ -130,8 +133,8 @@ def test_module_from_jax_config_rebuilds_an_equal_module(name):
 
 
 def test_registries_cover_the_jax_package():
-    ported = set(jmodule.MODULE_TYPES) - {"PatchEmbed"}  # ViT: not ported yet
-    assert ported <= set(tmodule.MODULE_TYPES)
+    assert "PatchEmbed" in jmodule.MODULE_TYPES
+    assert set(jmodule.MODULE_TYPES) <= set(tmodule.MODULE_TYPES)
     assert set(jmodule._ACTIVATION_FNS) == set(tmodule._ACTIVATION_FNS)
     x = _input((2, 3, 4), seed=1) * 3
     for name, jfn in jmodule._ACTIVATION_FNS.items():

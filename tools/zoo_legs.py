@@ -1,0 +1,43 @@
+#!/usr/bin/env python3
+"""Run ``chip_smoke.py``'s slice-19 legs alone on one CUDA card, from the
+repository root:
+
+    python3 tools/zoo_legs.py [flash] [llama] [bert] [vit] [t5] [ingest]
+
+After ``phase_device`` and ``phase_build`` it runs the named legs (all of
+them with no argument): ``[flash]`` (with ``[flash f32]``), ``[hf
+llama]``, ``[hf bert f32]``, ``[vit]``, ``[t5]`` and ``[ingest]``, under
+``chip_smoke.py``'s own gates, and prints ``[phase seconds]``.
+"""
+
+import sys
+
+sys.path.insert(0, ".")
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+LEGS = ("flash", "llama", "bert", "vit", "t5", "ingest")
+
+
+def main(legs) -> int:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, name_power = cs.timed("device", cs.phase_device)
+    cs.timed("build", cs.phase_build)
+    if "flash" in legs:
+        cs.timed("flash", cs.phase_flash, cs.L2Flush())
+    if "llama" in legs:
+        prompts = cs._requests(cs.LlamaConfig.llama3_8b().vocab_size)
+        cs.timed("hf llama", cs.phase_hf_llama, name_power, prompts)
+    for leg, fn in (("bert", cs.phase_hf_bert_f32), ("vit", cs.phase_vit),
+                    ("t5", cs.phase_t5), ("ingest", cs.phase_ingest)):
+        if leg in legs:
+            cs.timed(leg, fn, name_power)
+    cs._phase_line()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:] or LEGS))
