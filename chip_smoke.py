@@ -85,7 +85,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    takes while another thread steps the engine (one at every step
    boundary, some with chunks in flight, the rest racing the steps);
    ``[node slice step]`` prints the model step with the telemetry sinks
-   attached, detached and attached again on the same engine;
+   attached, detached and attached again on the same engine; then the 12
+   requests again on an eager engine, SLICE_EAGER_NEW tokens each, under
+   the same launch and teacher-forced gates;
 6c. mesh paged: [slice]'s first 4 requests (16 tokens each) through the
    paged engine over ``InferenceEngine(model, mesh=make_mesh(
    MeshConfig()))`` (one NCCL rank, captured): tokens identical to a
@@ -315,7 +317,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    step's busy share (gloo through host copies: a correctness check,
    not a speed).
 11. the model zoo (slice 19). ``[flash f32]`` (inside [flash]): B1 and
-   B2 in their f32 forms (``csrc/flash_attention_f32.cu``, FFMA) at
+   B2 in their f32 forms (``csrc/flash_attention_f32.cu``) at
    BERT-base's and Llama-3-8B's shapes against the plain f32 versions
    (worst error relative to max |plain|: 1e-4 for o, 1e-3 for each
    gradient), timed beside the plain version, one f32 SDPA call and the
@@ -340,6 +342,25 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``Trainer`` steps falling; no kernel launch) and ``[ingest]`` (an
    ``nn.TransformerEncoder`` at BERT-base's widths through ``from_torch``,
    the forward at 8 x 512 within 1e-4 of the module's own).
+12. the f16 forms. ``[flash f32]`` holds B1 and B2 in their f32 forms
+   (``csrc/flash_attention_f32.cu``, now on the tensor cores in TF32
+   with a three-product split) at the f32 gates
+   above, and their f16 forms (the same source) against the plain
+   version fed the same f16 tensors (1e-3 of max |plain| for o, 5e-3 for
+   each gradient), each row with its bound (``bound_ms``: the function's
+   operations at the 3xTF32 rate in f32, at the 16-bit tensor-core rate
+   in f16), the TF32 products the form runs at the TF32 rate
+   (``bound_ms_tf32``) and its operations at the f32 vector peak
+   (``bound_ms_vector``). ``[paged]`` adds f16 q and pools (B3's general
+   variant). ``[hf llama]`` adds an f16 sibling of its 2-layer model
+   serving 2 prompts: every token within 0.5 of the f16 model's
+   teacher-forced row max, B3's general variant 2 x (decode steps +
+   prefill chunks). After [hf bert f32], ``[bert f16]``: BERT-base, one
+   ``Trainer`` step in f16 at 8 x 512, dropout off: B1 and B2 12 f16
+   launches each and no other form, the loss finite and within 1e-3 of
+   plain f16 attention's, and each gradient leaf at cosine 0.999 with
+   plain f16 attention's, or, where plain f16 is itself off the f32
+   gradient, no farther from it than twice plain's error.
 
 Legs 6-9, 7a, 7b, 7j and 8a run their decode as CUDA-graph replays (the engines' default)
 with ``pipeline_depth`` 2 chunks in flight on the serving engines; the
@@ -364,7 +385,8 @@ the paged leg, the captured speculative runs, both disaggregated runs
 (prefill variant on P, decode on D) and the paged legs 7c-7j; B1's and
 B2's sum legs 10, 10a, 10b, 10c, 10d and 10e and [ep2 mixtral train]
 (``[launches] flash_attention``); B2's delta form, leg 10e's ring runs; the
-f32 forms of B1 and B2, [hf bert f32]'s steps. The
+f32 forms of B1 and B2, [hf bert f32]'s steps; their f16 forms, [bert
+f16]'s step. The
 last lines are ``[phase seconds]`` (each phase's wall), the card's name
 and power limit, a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``. Nothing of JAX or ``tensorlink_tpu``
@@ -493,6 +515,7 @@ from tensorlink_tpu_torch.train.trainer import Trainer, softmax_cross_entropy
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak
 PAGED_ATOL, PAGED_RTOL = 2e-2, 1e-2  # bf16 outputs, f32 accumulation both sides
 # and, per case, the relative Frobenius error of the whole output: the
 # atol alone is half a typical |o| over a long row, so a fault confined to
@@ -644,8 +667,9 @@ CUDA_SOURCES = ("paged_decode.cu", "decode_glue.cu", "flash_attention.cu",
                 "flash_attention_f32.cu")
 
 
-def hgmma_counts(lib_path: str) -> dict:
-    """{kernel: number of HGMMA instructions} in the library's SASS."""
+def sass_counts(lib_path: str, opcode: str = "HGMMA") -> dict:
+    """{kernel: number of ``opcode`` instructions} in the library's SASS
+    (HGMMA: wgmma; HMMA.1688.F32.TF32: mma.sync m16n8k8 in tf32)."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
@@ -654,7 +678,7 @@ def hgmma_counts(lib_path: str) -> dict:
         if "Function : " in ln:
             fn = ln.split("Function : ")[1].strip()
             counts[fn] = 0
-        elif fn is not None and "HGMMA" in ln:
+        elif fn is not None and opcode in ln:
             counts[fn] += 1
     return counts
 
@@ -677,12 +701,18 @@ def phase_build() -> dict:
             if any(w in ln for w in ("registers", "Compiling entry", "spill",
                                      "Performance Loss")):
                 say(f"[build]   ptxas: {ln.strip()}")
-    fwd = {k: n for k, n in hgmma_counts(built["flash_attention.cu"][1]).items()
+    fwd = {k: n for k, n in sass_counts(built["flash_attention.cu"][1]).items()
            if "flash_fwd_kernel" in k}
     for k, n in fwd.items():
         say(f"[build] HGMMA {n} in {k}")
     check(bool(fwd) and min(fwd.values()) > 0,
           f"a flash forward kernel has no HGMMA instruction: {fwd}")
+    # the f32/f16 forms' products run on the tensor cores in tf32
+    tc = sass_counts(built["flash_attention_f32.cu"][1], "HMMA.1688.F32.TF32")
+    for k, n in tc.items():
+        say(f"[build] HMMA.1688.F32.TF32 {n} in {k}")
+    check(len(tc) == 24 and min(tc.values()) > 0,
+          f"an f32/f16 flash kernel has no tf32 mma instruction: {tc}")
     return {"wall_s": wall, **{src: b[0] for src, b in built.items()}}
 
 
@@ -718,8 +748,8 @@ def phase_sampler() -> None:
 
 def _paged_inputs(g, T, case):
     """Llama-3-8B head shapes: H 32, Hkv 8, D 128, bs 16, MB 128, B 8;
-    D 64 for "d64_qmask", f32 q and pools for "f32"; one rank's heads
-    under tensor parallelism for "tp2_mask" (model 2: H 16, Hkv 4) and
+    D 64 for "d64_qmask", f32 q and pools for "f32", f16 for "f16"; one
+    rank's heads under tensor parallelism for "tp2_mask" (model 2: H 16, Hkv 4) and
     "tp8_mask" (model 8: H 4, Hkv 1), with the decode steps' mask, and
     for "tp2_chunk", a prefill chunk (one row) at model 2's heads."""
     B, H, Hkv, bs, MB = 8, 32, 8, 16, 128
@@ -727,7 +757,7 @@ def _paged_inputs(g, T, case):
         model = int(case[2])
         H, Hkv = H // model, Hkv // model
     D = 64 if case == "d64_qmask" else 128
-    dt = torch.float32 if case == "f32" else torch.bfloat16
+    dt = {"f32": torch.float32, "f16": torch.float16}.get(case, torch.bfloat16)
     NB = B * MB + 64
     dev = DEV
     if case == "full_pages":
@@ -849,9 +879,9 @@ def _paged_library_fn(args, kwargs):
 
 # (T, case, variant it must launch): the first design's ten cases, the
 # decode form over whole pages, the prefill chunk (one row) at three
-# lengths, then the variants' other branches: f32 q and pools (general),
-# D 64 with a mask per query (prefill), and 4 queries a row with a mask
-# per query (decode: T x group = 16 rows); last the speculative verify
+# lengths, then the variants' other branches: f32 and f16 q and pools
+# (general), D 64 with a mask per query (prefill), and 4 queries a row
+# with a mask per query (decode: T x group = 16 rows); last the speculative verify
 # pass at K = 3 and K = 4 (T 4 and 5, no mask), whose variant
 # ``kernel_variant`` names (None here): Llama-3-8B's group of 4 gives 16
 # and 20 query rows, so decode at T 4 and prefill at T 5; then the decode
@@ -863,7 +893,7 @@ PAGED_CASES = (
      for case in ("mixed", "mask", "window", "int8", "one_row")]
     + [(1, "full_pages", "decode"), (128, "chunk_128", "prefill"),
        (128, "chunk_1024", "prefill"), (128, "chunk_2048", "prefill"),
-       (1, "f32", "general"), (128, "d64_qmask", "prefill"),
+       (1, "f32", "general"), (1, "f16", "general"), (128, "d64_qmask", "prefill"),
        (4, "qmask", "decode"), (4, "verify", None), (5, "verify", None),
        (1, "tp2_mask", "decode"), (1, "tp8_mask", "decode"),
        (128, "tp2_chunk", "prefill")]
@@ -1022,6 +1052,11 @@ FLASH_CASES = {
 FLASH_F32_CASES = ("bert", "llama")
 FLASH_F32_O_REL = 1e-4
 FLASH_F32_GRAD_REL = 1e-3
+# and their f16 forms against the plain version fed the same f16 tensors:
+# both compute in f32 and round each output to f16 once, and one f16
+# rounding is 2^-11 ~ 4.9e-4 of the value
+FLASH_F16_O_REL = 1e-3
+FLASH_F16_GRAD_REL = 5e-3
 
 
 def _flash_inputs(g, B, H, Hkv, T, D, mask, dtype=torch.bfloat16):
@@ -1102,6 +1137,41 @@ def _bound(nbytes, flops, peak=BF16_FLOPS):
     return max(b_ms, f_ms), ("bytes" if b_ms >= f_ms else "operations")
 
 
+FLASH_FORMS = {"bf16": 2, "f16": 2, "f32": 4}  # B1/B2's forms: bytes an element
+
+
+def _flash_bounds(form: str, B, H, Hkv, T, D, kv, causal, window) -> dict:
+    """The bounds of one B1 call ("fwd") and one B2 call ("bwd") in
+    ``form`` at this shape. Bytes: each input read once and each output
+    written once (forward q, k, v and the mask in, o and f32 lse out;
+    backward q, k, v, do, lse and the mask in, dq, dk, dv out).
+    Operations: the function's products over the attended pairs, 4 D a
+    pair forward (S, P V) and 10 D backward (S, dP, dQ, dK, dV), at the
+    card's peak for the operands: bf16 and f16 at the dense 16-bit
+    tensor-core rate, f32 at the 3xTF32 rate (three TF32 products a
+    product). The f32 and f16 forms also carry ``bound_ms_tf32`` (the
+    TF32 products the form runs, ``_tf32_passes``, at TF32_FLOPS: the
+    design's own ceiling, not the function's) and ``bound_ms_vector``
+    (the operations at the f32 vector peak, the FFMA design's bound).
+    -> {"pairs", "fwd": {...}, "bwd": {...}}."""
+    pairs = int(_flash_keep(B, T, kv, causal, window).sum()) * H
+    el = FLASH_FORMS[form]
+    qo, kv_b = B * T * H * D * el, B * T * Hkv * D * el
+    m_b = 0 if kv is None else B * T
+    out = {"pairs": pairs}
+    for p, nbytes, ops in (("fwd", 2 * qo + 2 * kv_b + m_b + B * H * T * 4, 4 * D * pairs),
+                           ("bwd", 3 * qo + 4 * kv_b + m_b + B * H * T * 4, 10 * D * pairs)):
+        b, by = (_bound(nbytes, 3 * ops, TF32_FLOPS) if form == "f32"
+                 else _bound(nbytes, ops, BF16_FLOPS))
+        row = {"bound_ms": b, "bound_by": by, "bytes": nbytes, "flops": ops}
+        if form != "bf16":
+            passes = _tf32_passes(form, p == "fwd")
+            row.update(bound_ms_tf32=_bound(nbytes, 2 * D * pairs * passes, TF32_FLOPS)[0],
+                       bound_ms_vector=_bound(nbytes, ops, F32_FLOPS)[0], tf32_passes=passes)
+        out[p] = row
+    return out
+
+
 def _timed(prefix: str, fn, flush, iters: int = 20) -> dict:
     """{prefix + "ms": mean, prefix + "median_ms": median} of ``fn``."""
     mean, median = time_mean_median(fn, flush, iters)
@@ -1140,24 +1210,14 @@ def phase_flash(flush) -> dict:
                   for a, b in zip(grads, rgrads))
 
         keep = _flash_keep(B, T, kv, causal, window)
-        pairs = int(keep.sum()) * H
-        el = q.element_size()
-        qo = B * T * H * D * el  # q, o, do, dq
-        kv_b = B * T * Hkv * D * el  # k, v, dk, dv
-        m_b = 0 if kv is None else B * T
-        # forward reads q, k, v (and the mask), writes o and lse; backward
-        # reads q, k, v, do and lse (and the mask), writes dq, dk, dv
-        fwd_bytes = 2 * qo + 2 * kv_b + m_b + B * H * T * 4
-        bwd_bytes = 3 * qo + 4 * kv_b + m_b + B * H * T * 4
-        fb, fby = _bound(fwd_bytes, 4 * D * pairs)
-        bb, bby = _bound(bwd_bytes, 10 * D * pairs)
+        bounds = _flash_bounds("bf16", B, H, Hkv, T, D, kv, causal, window)
         is_causal = causal and window is None and kv is None
         lib_f, be_f = _sdpa_fn(q, k, v, do, keep, is_causal, grad=False)
         lib_b, be_b = _sdpa_fn(q, k, v, do, keep, is_causal, grad=True)
         row = {
             "case": name, "B": B, "H": H, "Hkv": Hkv, "T": T, "D": D,
             "causal": causal, "window": window, "mask": mask,
-            "pairs": pairs,
+            "pairs": bounds["pairs"],
             "fwd": {
                 "max_abs_err": float(e_o.max()), "rel_frobenius": rel_o,
                 "lse_max_abs_err": e_lse,
@@ -1167,8 +1227,7 @@ def phase_flash(flush) -> dict:
                 "plain_ms": time_ms(lambda: flash_attention_fwd_lse_reference(
                     q, k, v, kv, **kw), flush, iters=5),
                 **_timed("library_", lib_f, flush, iters=10), "library": be_f,
-                "bound_ms": fb, "bound_by": fby,
-                "bytes": fwd_bytes, "flops": 4 * D * pairs,
+                **bounds["fwd"],
             },
             "bwd": {
                 "max_abs_err": e_g, "rel_frobenius": rel,
@@ -1179,8 +1238,7 @@ def phase_flash(flush) -> dict:
                 "first_design_mean_ms": B2_FIRST_DESIGN_MS.get(name),
                 **_timed("library_", lib_b, flush, iters=10),
                 "library": f"{be_b} forward+backward",
-                "bound_ms": bb, "bound_by": bby,
-                "bytes": bwd_bytes, "flops": 10 * D * pairs,
+                **bounds["bwd"],
             },
         }
         say(f"[flash] {json.dumps(row)}")
@@ -1198,90 +1256,100 @@ def phase_flash(flush) -> dict:
     say(f"[flash] all cases within tolerance; worst max abs err: o {worst_f}, "
         f"gradients {worst_b}; worst o relative Frobenius {worst_rel_o}")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    f32 = _flash_f32(g, flush)
-    return {
+    tc = _flash_f32(g, flush)
+    out = {
         "fwd": dict({k: rows["bert"]["fwd"][k] for k in keys}, max_abs_err=worst_f),
         "bwd": dict({k: rows["bert"]["bwd"][k] for k in keys}, max_abs_err=worst_b),
-        "fwd_f32": dict({k: f32["bert"]["fwd"][k] for k in keys},
-                        max_abs_err=max(r["fwd"]["max_abs_err"] for r in f32.values())),
-        "bwd_f32": dict({k: f32["bert"]["bwd"][k] for k in keys},
-                        max_abs_err=max(r["bwd"]["max_abs_err"] for r in f32.values())),
     }
+    for form in ("f32", "f16"):
+        for p in ("fwd", "bwd"):
+            out[f"{p}_{form}"] = dict(
+                {k: tc[form, "bert"][p][k] for k in keys},
+                max_abs_err=max(r[p]["max_abs_err"] for (f, _), r in tc.items() if f == form))
+    return out
+
+
+def _tf32_passes(form: str, fwd: bool) -> int:
+    """TF32 products the f32/f16 kernels run for one attended pair's
+    products, in units of a D-long dot: 3 a product in f32 (the 3xTF32
+    split); in f16, where a raw operand has no lo, 1 for QK^T and dO V^T
+    and 2 for P V, dS K, P^T dO and dS^T Q. Forward: S, P V; backward:
+    S, dP, dQ, dK, dV (the recomputations of S and dP not counted)."""
+    if form == "f32":
+        return 3 * (2 if fwd else 5)
+    return 1 + 2 if fwd else 1 + 1 + 3 * 2
 
 
 def _flash_f32(g, flush) -> dict:
-    """[flash f32]: B1 and B2 in their f32 forms against the plain f32
-    versions at FLASH_F32_CASES' shapes (the worst error relative to max
-    |plain|: FLASH_F32_O_REL for o, FLASH_F32_GRAD_REL for each gradient),
-    each timed beside its plain version, one F.scaled_dot_product_attention
-    call in f32 (its efficient backend) and its bound, the operations
-    reckoned at the card's f32 vector peak (F32_FLOPS). -> rows by case."""
+    """[flash f32]: B1 and B2 in their f32 and f16 forms
+    (csrc/flash_attention_f32.cu) against the plain versions fed the same
+    tensors at FLASH_F32_CASES' shapes (the worst error relative to max
+    |plain|: FLASH_F32_O_REL / FLASH_F32_GRAD_REL in f32,
+    FLASH_F16_O_REL / FLASH_F16_GRAD_REL in f16), each timed beside its
+    plain version, one F.scaled_dot_product_attention call in the same
+    dtype (the first backend that takes it) and its bounds
+    (``_flash_bounds``). -> rows by (form, case)."""
     rows = {}
-    for name in FLASH_F32_CASES:
-        B, H, Hkv, T, D, causal, window, mask = FLASH_CASES[name]
-        q, k, v, do, kv = _flash_inputs(g, B, H, Hkv, T, D, mask, torch.float32)
-        kw = {"causal": causal, "window": window}
-        o, lse = flash_attention_fwd_lse(q, k, v, kv, **kw)
-        ro, rlse = flash_attention_fwd_lse_reference(q, k, v, kv, **kw)
-        grads = flash_attention_bwd(q, k, v, ro, rlse, do, kv, **kw)
-        rgrads = flash_attention_bwd_reference(q, k, v, ro, rlse, do, kv, **kw)
-        torch.cuda.synchronize()
-        check(all(x.dtype == torch.float32 for x in (o, *grads)),
-              f"flash f32 {name}: outputs not f32")
-        check(all(bool(torch.isfinite(x).all()) for x in (o, lse, *grads)),
-              f"flash f32 {name}: non-finite output")
+    for form, dtype, o_tol, g_tol in (
+            ("f32", torch.float32, FLASH_F32_O_REL, FLASH_F32_GRAD_REL),
+            ("f16", torch.float16, FLASH_F16_O_REL, FLASH_F16_GRAD_REL)):
+        for name in FLASH_F32_CASES:
+            B, H, Hkv, T, D, causal, window, mask = FLASH_CASES[name]
+            q, k, v, do, kv = _flash_inputs(g, B, H, Hkv, T, D, mask, dtype)
+            kw = {"causal": causal, "window": window}
+            o, lse = flash_attention_fwd_lse(q, k, v, kv, **kw)
+            ro, rlse = flash_attention_fwd_lse_reference(q, k, v, kv, **kw)
+            grads = flash_attention_bwd(q, k, v, ro, rlse, do, kv, **kw)
+            rgrads = flash_attention_bwd_reference(q, k, v, ro, rlse, do, kv, **kw)
+            torch.cuda.synchronize()
+            check(all(x.dtype == dtype for x in (o, *grads)),
+                  f"flash {form} {name}: outputs not {dtype}")
+            check(all(bool(torch.isfinite(x.float()).all()) for x in (o, lse, *grads)),
+                  f"flash {form} {name}: non-finite output")
 
-        def rel_max(a, b):
-            return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            def rel_max(a, b):
+                a, b = a.float(), b.float()
+                return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
-        rel_o = rel_max(o, ro)
-        live = rlse < 1e29
-        e_lse = float((lse - rlse)[live].abs().max()) if bool(live.any()) else 0.0
-        rel_g = {n: rel_max(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, rgrads)}
-        keep = _flash_keep(B, T, kv, causal, window)
-        pairs = int(keep.sum()) * H
-        el = q.element_size()
-        qo, kv_b = B * T * H * D * el, B * T * Hkv * D * el
-        m_b = 0 if kv is None else B * T
-        fwd_bytes = 2 * qo + 2 * kv_b + m_b + B * H * T * 4
-        bwd_bytes = 3 * qo + 4 * kv_b + m_b + B * H * T * 4
-        fb, fby = _bound(fwd_bytes, 4 * D * pairs, F32_FLOPS)
-        bb, bby = _bound(bwd_bytes, 10 * D * pairs, F32_FLOPS)
-        is_causal = causal and window is None and kv is None
-        lib_f, be_f = _sdpa_fn(q, k, v, do, keep, is_causal, grad=False)
-        lib_b, be_b = _sdpa_fn(q, k, v, do, keep, is_causal, grad=True)
-        row = {
-            "case": name, "dtype": "float32", "B": B, "H": H, "Hkv": Hkv, "T": T, "D": D,
-            "causal": causal, "mask": mask, "pairs": pairs,
-            "fwd": {"max_abs_err": float((o - ro).abs().max()), "rel_to_max": rel_o,
-                    "lse_max_abs_err": e_lse,
-                    **_timed("", lambda: flash_attention_fwd_lse(q, k, v, kv, **kw), flush),
-                    "plain_ms": time_ms(lambda: flash_attention_fwd_lse_reference(
-                        q, k, v, kv, **kw), flush, iters=5),
-                    **_timed("library_", lib_f, flush, iters=10), "library": be_f,
-                    "bound_ms": fb, "bound_by": fby, "bytes": fwd_bytes,
-                    "flops": 4 * D * pairs, "peak_flops": F32_FLOPS},
-            "bwd": {"max_abs_err": max(float((a - b).abs().max())
-                                       for a, b in zip(grads, rgrads)),
-                    "rel_to_max": rel_g,
-                    **_timed("", lambda: flash_attention_bwd(
-                        q, k, v, ro, rlse, do, kv, **kw), flush),
-                    "plain_ms": time_ms(lambda: flash_attention_bwd_reference(
-                        q, k, v, ro, rlse, do, kv, **kw), flush, iters=5),
-                    **_timed("library_", lib_b, flush, iters=10),
-                    "library": f"{be_b} forward+backward",
-                    "bound_ms": bb, "bound_by": bby, "bytes": bwd_bytes,
-                    "flops": 10 * D * pairs, "peak_flops": F32_FLOPS},
-        }
-        say(f"[flash f32] {json.dumps(row)}")
-        check(rel_o <= FLASH_F32_O_REL,
-              f"flash f32 {name}: o error {rel_o} of max |plain| > {FLASH_F32_O_REL}")
-        check(e_lse <= FLASH_LSE_ATOL, f"flash f32 {name}: lse err {e_lse}")
-        check(max(rel_g.values()) <= FLASH_F32_GRAD_REL,
-              f"flash f32 {name}: gradient errors {rel_g} of max |plain| > "
-              f"{FLASH_F32_GRAD_REL}")
-        rows[name] = row
-        del q, k, v, do, o, ro, grads, rgrads, lib_f, lib_b
+            rel_o = rel_max(o, ro)
+            live = rlse < 1e29
+            e_lse = float((lse - rlse)[live].abs().max()) if bool(live.any()) else 0.0
+            rel_g = {n: rel_max(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, rgrads)}
+            keep = _flash_keep(B, T, kv, causal, window)
+            bounds = _flash_bounds(form, B, H, Hkv, T, D, kv, causal, window)
+            is_causal = causal and window is None and kv is None
+            lib_f, be_f = _sdpa_fn(q, k, v, do, keep, is_causal, grad=False)
+            lib_b, be_b = _sdpa_fn(q, k, v, do, keep, is_causal, grad=True)
+            row = {
+                "case": name, "dtype": str(dtype).split(".")[1], "B": B, "H": H,
+                "Hkv": Hkv, "T": T, "D": D, "causal": causal, "mask": mask,
+                "pairs": bounds["pairs"],
+                "fwd": {"max_abs_err": float((o.float() - ro.float()).abs().max()),
+                        "rel_to_max": rel_o, "lse_max_abs_err": e_lse,
+                        **_timed("", lambda: flash_attention_fwd_lse(q, k, v, kv, **kw), flush),
+                        "plain_ms": time_ms(lambda: flash_attention_fwd_lse_reference(
+                            q, k, v, kv, **kw), flush, iters=5),
+                        **_timed("library_", lib_f, flush, iters=10), "library": be_f,
+                        **bounds["fwd"]},
+                "bwd": {"max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                           for a, b in zip(grads, rgrads)),
+                        "rel_to_max": rel_g,
+                        **_timed("", lambda: flash_attention_bwd(
+                            q, k, v, ro, rlse, do, kv, **kw), flush),
+                        "plain_ms": time_ms(lambda: flash_attention_bwd_reference(
+                            q, k, v, ro, rlse, do, kv, **kw), flush, iters=5),
+                        **_timed("library_", lib_b, flush, iters=10),
+                        "library": f"{be_b} forward+backward",
+                        **bounds["bwd"]},
+            }
+            say(f"[flash f32] {json.dumps(row)}")
+            check(rel_o <= o_tol,
+                  f"flash {form} {name}: o error {rel_o} of max |plain| > {o_tol}")
+            check(e_lse <= FLASH_LSE_ATOL, f"flash {form} {name}: lse err {e_lse}")
+            check(max(rel_g.values()) <= g_tol,
+                  f"flash {form} {name}: gradient errors {rel_g} of max |plain| > {g_tol}")
+            rows[form, name] = row
+            del q, k, v, do, o, ro, grads, rgrads, lib_f, lib_b
     return rows
 
 
@@ -1605,6 +1673,10 @@ def _http_json(port: int, path: str):
 # the [slice] model step PERF.md §6 records from before the telemetry
 # was attached (captured paged decode, another host: printed for reference)
 SLICE_STEP_RECORDED_MS = 9.17
+# [slice]'s eager run: the first tokens of each request (32 until the f16
+# legs were added; eager decode steps cost about 55 ms each, the captured
+# run's gates are unchanged)
+SLICE_EAGER_NEW = 16
 
 
 def _plain_step_ms(sch, vocab: int) -> float:
@@ -1739,9 +1811,9 @@ def phase_slice(name_power: str, model: Llama, cap: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    esch, _, eouts, ewall, _ = _serve_paged(model, prompts, max_new, False)
+    esch, _, eouts, ewall, _ = _serve_paged(model, prompts, SLICE_EAGER_NEW, False)
     tf_e = _teacher_forced("slice eager", model, prompts, eouts)
-    _agreement("slice", outs, eouts, tf, tf_e)
+    _agreement("slice", [o[:SLICE_EAGER_NEW] for o in outs], eouts, tf, tf_e)
     _step_line("slice", prof, None, wall, ewall)
     step = {"traced_profiled_ms": prof["model_step_ms"], **untraced,
             "recorded_ms": SLICE_STEP_RECORDED_MS, "card": name_power}
@@ -2322,10 +2394,10 @@ def _zero_counts() -> None:
     fused_residual_norm.launches = 0
     fused_residual_norm.launches_by_form = dict.fromkeys(FORMS, 0)
     flash_attention_fwd_lse.launches = 0
-    flash_attention_fwd_lse.launches_by_variant = {"bf16": 0, "f32": 0}
+    flash_attention_fwd_lse.launches_by_variant = {"bf16": 0, "f32": 0, "f16": 0}
     flash_attention_bwd.launches = 0
     flash_attention_bwd.launches_by_form = {"own": 0, "delta": 0}
-    flash_attention_bwd.launches_by_variant = {"bf16": 0, "f32": 0}
+    flash_attention_bwd.launches_by_variant = {"bf16": 0, "f32": 0, "f16": 0}
     tp.reset_collectives()
 
 
@@ -4670,8 +4742,9 @@ def _profile_step(trainer, state, batch, gen) -> dict:
     }
 
 
-def _grad_agreement(kernel, plain, f32) -> dict:
-    """Per-leaf agreement of (loss, grads) triples; see TRAIN_* above."""
+def _grad_agreement(kernel, plain, f32, direct_min: float = TRAIN_COSINE_MIN) -> dict:
+    """Per-leaf agreement of (loss, grads) triples; see TRAIN_* above
+    (``direct_min`` in place of TRAIN_COSINE_MIN)."""
     (lk, gk), (lp, gp), (lf, gf) = kernel, plain, f32
 
     def cos(a, b):
@@ -4688,7 +4761,7 @@ def _grad_agreement(kernel, plain, f32) -> dict:
         if float(g.norm()) == 0:
             continue
         c = cos(gk[name], g)
-        if c >= TRAIN_COSINE_MIN:
+        if c >= direct_min:
             direct[name] = c
             continue
         e_k = float((gk[name].double() - gf[name].double()).norm())
@@ -4700,7 +4773,7 @@ def _grad_agreement(kernel, plain, f32) -> dict:
     return {
         "loss_kernel": float(lk), "loss_plain": float(lp), "loss_f32": float(lf),
         "leaves": len(direct) + len(floor),
-        "cosine_ge_0.99": len(direct),
+        f"cosine_ge_{direct_min}": len(direct),
         "min_cosine_direct": min(direct.values()) if direct else None,
         "near_noise_floor": floor,
         "min_cos_kernel_f32": min(cos(gk[n], gf[n]) for n in direct),
@@ -5600,11 +5673,11 @@ def phase_roles_train(name_power: str) -> dict:
     """[roles train]: a port ValidatorNode, two port WorkerNodes and a
     UserNode train BERT-base's 12 post-LN blocks (``Bert(BertConfig.
     base())``'s encoder, bf16 matrices, f32 norms and biases) split by
-    ``max_stage_bytes`` into 6 + 6 blocks, one stage a worker: 5 SGD steps
+    ``max_stage_bytes`` into 6 + 6 blocks, one stage a worker: ROLES_STEPS SGD steps
     on [8, 512, 768] bf16 inputs from a seed in 2 micro-batches, an MSE
     loss against a seeded target computed by the user with autograd.
     Gates: step 1's loss equals the 12 blocks run in this process on the
-    same micros (ROLES_LOSS_REL); step 5's is below step 1's; B1 runs
+    same micros (ROLES_LOSS_REL); the last step's is below step 1's; B1 runs
     2 x 12 x 2 times a step (each stage's forward and its backward's
     recompute, a layer a micro) and B2 12 x 2; an audit of stage 0
     passes by exact digest (worker and validator both ``torch-cuda``,
@@ -5836,7 +5909,18 @@ def phase_pipeserve(name_power: str, model: Llama, prompts, slice_outs) -> dict:
 ST_DTYPES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
 HF_LOSS_REL = 1e-4  # [hf bert f32]: step 1's loss, B1/B2 f32 vs plain f32
 HF_BERT_STEPS = 3
+BERT_F16_LOSS_REL = 1e-3  # [bert f16]: the loss, B1/B2 f16 vs plain f16
+# ... and its gradients, by [train]'s rule (``_grad_agreement``) with a
+# direct cosine of 0.999 with plain f16 attention's (an error of e of a
+# leaf's norm costs about e^2 / 2 of cosine: 0.999 admits 4.5%). Below
+# it, a leaf passes only where plain f16 attention is itself off the f32
+# gradient (cosine < TRAIN_SIGNAL_COSINE) and the kernels are no farther
+# from it than TRAIN_NOISE_RATIO times plain's: plain attention rounds its
+# scores, probabilities and dP to f16, which leaves the q and k gradients
+# of the deeper layers near f16's noise, where the kernels keep them in f32
+BERT_F16_GRAD_COS = 0.999
 HF_LLAMA_LAYERS = 2  # [hf llama]: Llama-3-8B's width at 2 of its 32 layers
+HF_LLAMA_F16_REQUESTS = 2  # and its f16 sibling's prompts (of [slice]'s)
 T5_LENS = (64, 512, 200, 320, 96, 448, 150, 256)  # [t5]: padded sources
 T5_NEW = 32
 T5_STEPS = 3
@@ -6056,7 +6140,7 @@ def phase_hf_bert_f32(name_power: str) -> dict:
     check(rel <= HF_LOSS_REL, f"hf bert f32: step-1 loss {float(lk)} vs plain f32 "
           f"{float(lp)} (relative {rel} > {HF_LOSS_REL})")
     check(losses[-1] < losses[0], f"hf bert f32: the loss did not fall: {losses}")
-    want = {"bf16": 0, "f32": L * HF_BERT_STEPS}
+    want = {"bf16": 0, "f32": L * HF_BERT_STEPS, "f16": 0}
     check(c["flash_fwd_by_variant"] == want and c["flash_bwd_by_variant"] == want,
           f"hf bert f32: B1/B2 launches by form {c['flash_fwd_by_variant']} / "
           f"{c['flash_bwd_by_variant']}, expected {want} each")
@@ -6066,15 +6150,71 @@ def phase_hf_bert_f32(name_power: str) -> dict:
             "f32_bwd": c["flash_bwd_by_variant"]["f32"]}
 
 
+def phase_bert_f16(name_power: str) -> dict:
+    """[bert f16]: BERT-base (random weights, dropout off) trained one step
+    by ``Trainer(TrainConfig(dtype="float16"))`` at 8 x 512, where "auto"
+    attention runs B1 and B2 in their f16 forms (fault C8: they had
+    none). Gates: B1/B2 launches by form exactly 12 f16 each and nothing
+    else; a finite loss within BERT_F16_LOSS_REL of the plain f16
+    attention's loss on the same params and batch; each gradient leaf
+    held to plain f16 attention's and the plain f32 gradient by
+    BERT_F16_GRAD_COS' rule."""
+    cfg = dataclasses.replace(BertConfig.base(), dropout=0.0)
+    B, T, L = 8, 512, cfg.num_layers
+    model = BertClassifier(cfg, CLASSES, device=DEV, seed=20)
+    tcfg = TrainConfig(batch_size=B, micro_batches=1, optimizer="sgd",
+                       learning_rate=HF_BERT_LR, dtype="float16", grad_clip_norm=1.0)
+    trainer = Trainer(model, _bert_loss, tcfg, device=DEV)
+    state = trainer.init_state()
+    batch = _bert_batch(B, T, cfg.vocab_size, lens=[512, 480, 300, 129])
+    grads = {"kernel": trainer.loss_and_grads(state.params, batch)}
+    for tag, dtype in (("plain", "float16"), ("f32", "float32")):
+        plain = Trainer(BertClassifier(dataclasses.replace(cfg, attn_impl="reference"),
+                                       CLASSES, device=DEV, seed=None),
+                        _bert_loss, dataclasses.replace(tcfg, dtype=dtype), device=DEV)
+        grads[tag] = plain.loss_and_grads(state.params, batch)
+        del plain
+    lp = float(grads["plain"][0])
+    gres = _grad_agreement(*(grads[t] for t in ("kernel", "plain", "f32")),
+                           direct_min=BERT_F16_GRAD_COS)
+    del grads
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    _zero_counts()
+    state, losses, secs = _timed_steps(trainer, state, batch, gen, 1, warm=0)
+    c = _counts()
+    rel = abs(losses[0] - lp) / abs(lp)
+    res = {"model": "BERT-base, f16 compute", "batch": B, "seq": T,
+           "loss_kernel": losses[0], "loss_plain_f16": lp, "loss_rel_diff": rel,
+           "grads_vs_plain_f16_and_f32": gres, "step_s": secs,
+           "flash_fwd_by_variant": c["flash_fwd_by_variant"],
+           "flash_bwd_by_variant": c["flash_bwd_by_variant"], "card": name_power}
+    say(f"[bert f16] {json.dumps(res)}")
+    check(bool(np.isfinite(losses[0])), f"bert f16: non-finite loss {losses[0]}")
+    check(rel <= BERT_F16_LOSS_REL, f"bert f16: loss {losses[0]} vs plain f16 {lp} "
+          f"(relative {rel} > {BERT_F16_LOSS_REL})")
+    check(not gres["failed"], f"bert f16: gradient disagreement: {gres['failed']}")
+    want = {"bf16": 0, "f32": 0, "f16": L}
+    check(c["flash_fwd_by_variant"] == want and c["flash_bwd_by_variant"] == want,
+          f"bert f16: B1/B2 launches by form {c['flash_fwd_by_variant']} / "
+          f"{c['flash_bwd_by_variant']}, expected {want} each")
+    del trainer, model, state
+    _free_cuda()
+    return {"f16_fwd": c["flash_fwd_by_variant"]["f16"],
+            "f16_bwd": c["flash_bwd_by_variant"]["f16"]}
+
+
 def phase_hf_llama(name_power: str, prompts) -> dict:
     """[hf llama]: Llama-3-8B's full width at HF_LLAMA_LAYERS of its 32
     layers (random bf16 weights) written in HF layout as BF16, as Meta
     ships it, read by the port's reader (BF16 kept) and mapped to f32 by
     ``llama_params_from_hf``, as the reference does; served ([slice]'s
     first 4 prompts, 16 tokens, captured paged engine) beside an engine
-    built from the same tensors with no file in between. Gates: the file
-    maps back to the model's state; equal tokens; B3 and B4 on the
-    path."""
+    built from the same tensors with no file in between; then an f16
+    sibling of the same params serves the first HF_LLAMA_F16_REQUESTS
+    prompts. Gates: the file maps back to the model's state; equal
+    tokens; B3 and B4 on the path; the f16 tokens within LOGIT_GAP_TOL of
+    the f16 model's teacher-forced row max, every f16 paged read on B3's
+    general variant."""
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=HF_LLAMA_LAYERS)
     L = cfg.num_layers
     src = Llama(cfg, device=DEV, dtype=torch.bfloat16, seed=23)
@@ -6103,8 +6243,33 @@ def phase_hf_llama(name_power: str, prompts) -> dict:
            "prefill_chunks": st["prefill_chunks"], **launches, "card": name_power}
     say(f"[hf llama] {json.dumps(res)}")
     check(equal, "hf llama: tokens differ from the engine built without the file")
-    del model, src
+    del src
+    # the f16 sibling (fault C9: B3 had no f16 form): the same params in
+    # f16, the first HF_LLAMA_F16_REQUESTS prompts, every paged read (each
+    # layer's decode steps and prefill chunks) on B3's general variant
+    m16 = Llama(cfg, device=DEV, dtype=torch.float16, seed=None)
+    m16.load_state_dict(model.state_dict(), strict=True)
+    del model
+    eng16 = InferenceEngine(m16, max_len=2048, cache_dtype=torch.float16,
+                            param_dtype=torch.float16, device=DEV)
+    p16 = prompts[:HF_LLAMA_F16_REQUESTS]
+    sch, outs16, c16, by16 = _serve_short("hf llama f16", eng16, p16, MESH_NEW, True)
+    st16 = sch.stats()
+    del sch, eng16
+    want16 = {"general": L * (st16["decode_steps"] + st16["prefill_chunks"]),
+              "decode": 0, "prefill": 0}
+    tf16 = _teacher_forced("hf llama f16", m16, p16, outs16)
+    res16 = {"requests": len(p16), "tokens": tf16["tokens"],
+             "worst_gap": tf16["worst_gap"], "decode_steps": st16["decode_steps"],
+             "prefill_chunks": st16["prefill_chunks"], "paged_by_variant": by16,
+             "expected": want16, "card": name_power}
+    say(f"[hf llama f16] {json.dumps(res16)}")
+    check(by16 == want16 and want16["general"] > 0,
+          f"hf llama f16: B3 launches by variant {by16}, expected {want16}")
+    del m16
     _free_cuda()
+    launches["paged"] += c16["paged_decode"]
+    launches["norm"] += c16["fused_norm"]
     return launches
 
 
@@ -6405,6 +6570,7 @@ def _main() -> int:
     torch.cuda.empty_cache()
     sp_job = timed("sp", phase_sp, name_power, sh_gpt2.pop("seq1"))
     hf_bert = timed("hf bert f32", phase_hf_bert_f32, name_power)
+    bert16 = timed("bert f16", phase_bert_f16, name_power)
     timed("vit", phase_vit, name_power)
     timed("t5", phase_t5, name_power)
     timed("ingest", phase_ingest, name_power)
@@ -6448,6 +6614,8 @@ def _main() -> int:
     say(f"[launches] flash_attention fwd, bwd by path: {json.dumps(flash_paths)}")
     say(f"[launches] flash_attention f32 form fwd, bwd: "
         f"{json.dumps({'hf bert f32': (hf_bert['f32_fwd'], hf_bert['f32_bwd'])})}")
+    say(f"[launches] flash_attention f16 form fwd, bwd: "
+        f"{json.dumps({'bert f16': (bert16['f16_fwd'], bert16['f16_bwd'])})}")
     kernels = [
         {
             "name": "paged_decode_attention", "route": "cuda",
@@ -6495,6 +6663,22 @@ def _main() -> int:
             "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:470",
             "launches": hf_bert["f32_bwd"],
             **{k: flash["bwd_f32"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                "bound_ms", "bound_by", "library_ms")},
+        },
+        {
+            "name": "flash_attention_fwd_lse (f16 form)", "route": "cuda",
+            "source": "tensorlink_tpu_torch/csrc/flash_attention_f32.cu",
+            "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:247",
+            "launches": bert16["f16_fwd"],
+            **{k: flash["fwd_f16"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                "bound_ms", "bound_by", "library_ms")},
+        },
+        {
+            "name": "flash_attention_bwd (f16 form)", "route": "cuda",
+            "source": "tensorlink_tpu_torch/csrc/flash_attention_f32.cu",
+            "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:470",
+            "launches": bert16["f16_bwd"],
+            **{k: flash["bwd_f16"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                                 "bound_ms", "bound_by", "library_ms")},
         },
         {

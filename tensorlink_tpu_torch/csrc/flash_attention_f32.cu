@@ -1,41 +1,77 @@
-// Flash attention forward (B1) and backward (B2) in float32, on the CUDA
-// cores (FFMA), for sm_90a.
+// Flash attention forward (B1) and backward (B2) for f32 and f16 operands,
+// on the tensor cores in TF32 with a three-product split (3xTF32), for
+// sm_90a.
 //
-// The f32 forms of the kernels in flash_attention.cu: the same function
-// (tensorlink_tpu/ops/pallas/flash_attention.py's flash_attention_fwd_lse
-// and flash_attention_bwd, which compute in f32 whatever their inputs) on
-// f32 q, k, v and do, with f32 o, lse, dq, dk and dv. Nothing is rounded to
-// bf16 and no TF32 tensor core is used: either would drift from an f32
-// model's plain attention by more than the port's f32 tolerance. Operands
-// are [B, heads, T, D] views read through their strides (D contiguous);
-// GQA reads the unrepeated K/V (query head h uses kv head h / (H / Hkv)).
-// A key is attended iff kv_mask[b, k] != 0 (when a mask is given), k < Tk,
-// and the positional band holds (k <= q under causal; k > q - window, and
+// Replaces, for f32 and f16 inputs, the TPU kernels of
+// tensorlink_tpu/ops/pallas/flash_attention.py: flash_attention_fwd_lse and
+// flash_attention_bwd, which compute in f32 whatever their inputs (the bf16
+// forms are in flash_attention.cu). f32 or f16 q, k, v and do give o, dq,
+// dk and dv of the same type and f32 lse; every sum is f32. Operands are
+// [B, heads, T, D] views read through their strides (D contiguous); GQA
+// reads the unrepeated K/V (query head h uses kv head h / (H / Hkv)). A key
+// is attended iff kv_mask[b, k] != 0 (when a mask is given), k < Tk, and
+// the positional band holds (k <= q under causal; k > q - window, and
 // k < q + window when not causal, under a window). A query row with no
 // attended key gives o = 0 and lse = 1e30, so the backward's p is 0 there.
 //
-// Design: one block of 256 threads per 64-row tile, four threads a row.
-// Tiles live in shared memory as [64][D + 1] f32 rows (the odd pitch keeps
-// the row-parallel reads on distinct banks). Every product is one of two
-// forms: a tile of 64 x 64 row dot products (S = Q K^T, dP = dO V^T; a
-// thread owns 16 columns of its row), or a [64 x 64] x [64 x D] product
-// into D / 4 accumulators a thread (O += P V, dQ += dS K, dV += P^T dO,
-// dK += dS^T Q).
+// What bounds it: the operations. At the training shapes (BERT-base
+// 8 x 12 x 512 x 64 with padding, Llama-3-8B 32/8 heads x 2048 x 128
+// causal) an attended (query, key) pair costs 4 D flops forward and 8 D
+// backward (S, dP, dQ, dK, dV; 10 D with the recomputed S in dkv) against
+// a few bytes of q, k, v a pair. f32 on the CUDA cores tops out at
+// 67 TFLOP/s. A TF32 mma runs at 495 TFLOP/s but keeps 11 significant
+// bits, ~5e-4 relative a product: one TF32 pass would put an f32 model's
+// attention outside the port's f32 gates (1e-4 of max |o|). So each f32
+// operand splits as it is read, x = hi + lo with hi = rna_tf32(x) and
+// lo = x - hi (see split), and a b ~= a_hi b_hi + a_hi b_lo + a_lo b_hi in
+// the f32 accumulators: within ~2^-21 of the f32 product (the dropped
+// a_lo b_lo is below 2^-22 |a b|), at three products, 165 TFLOP/s. An f16
+// value is exact in TF32 (11 significant bits, a wider exponent), so in
+// the f16 form a raw operand has no lo and its products are skipped:
+// QK^T and dO V^T take one product, P V, dS K, P^T dO and dS^T Q two.
+//
+// Design: blocks of 4 warps; warp w owns a 16-row strip of the block's 64
+// rows (queries; keys in the dkv kernel) and keeps its S and dP strips
+// (16 x 64, or 16 x 32 at D 128 in the backward) and its output rows in
+// f32 registers. Products are mma.sync m16n8k8 tf32 (csrc/mma_common.cuh).
+// Operand fragments are read from tiles in shared memory in the storage
+// type, rows padded by 16 bytes: with that pitch the row reads of an A or
+// K^T-like operand (lanes at row g, column t) and the column reads of a
+// V-like operand (rows 2t, 2t + 1, column g) fall on distinct banks. A
+// score accumulator becomes the A operand of the next product with its k
+// order permuted (a thread's C columns 2t, 2t + 1 are A columns t, t + 4;
+// the B operand reads rows 2t, 2t + 1 to match), so P and dS never pass
+// through shared memory. Tiles arrive by 16-byte cp.async, one buffer per
+// operand, each copy in its own commit group and issued as soon as the
+// operand's last reader is done, so it lands under the other operand's
+// product: forward, V(i) under S = Q K(i)^T and K(i + 1) under O += P V(i).
 // - Forward: one block per (head, 64-query tile, batch row); online
-//   softmax over the key tiles of the block's band, exp in f32.
-// - Backward, dq kernel (one block per query tile): a first pass over the
-//   key tiles forms delta = rowsum(p dp) from the kernel's own p and dp
-//   (the port's delta convention, as in flash_attention.cu) and publishes
-//   it for the dkv kernel; a second pass forms dS = p (dp - delta) scale
-//   and dQ. A caller's delta (delta_in, the ring's backward) replaces the
-//   first pass, and nothing is published.
+//   softmax in f32 on the accumulators, in the log2 domain (exp2f of scores
+//   pre-scaled by log2 e).
+// - Backward, dq kernel (one block per query tile, one pass over the key
+//   tiles, 32 keys a tile at D 128 for the register file): with
+//   p = exp(s - lse), dp = dO V^T and the row's delta = sum_k p dp (the
+//   port's delta convention, taken from the kernel's own p and dp), it
+//   centres dp on d~ = rowsum(dO o) and sums A = sum_k p (dp - d~) k,
+//   C = sum_k p k and delta, then dQ = scale (A - (delta - d~) C): exact for
+//   any d~ (flash_attention.cu's dq does the same). delta - d~ is dO times
+//   the forward's rounding of o, so C takes one TF32 product (P_hi K_hi):
+//   its 2^-11 error lands that far below a term that is itself at o's
+//   rounding. delta is published for the dkv kernel. With a caller's delta
+//   (delta_in, the ring's backward) d~ is that delta, C is not formed, and
+//   nothing is published.
 // - Backward, dkv kernel (one block per (kv head, 64-key tile, batch row)):
 //   walks the (query head of its GQA group, query tile) units its band
-//   reaches, forming S^T and dP^T, and sums dK and dV of the whole group in
-//   registers.
-// Key tiles whose keys are all masked are skipped. This is the simple
-// first design; it is not tuned (PERF.md has its times against its bound
-// at the card's f32 vector peak).
+//   reaches (32 queries a unit at D 128), forming S^T and dP^T, and sums dK
+//   and dV of the whole group in registers.
+// Key tiles whose keys are all masked, and a warp's strips that the band
+// leaves empty, are skipped. Every kernel takes 2 blocks an SM (f32 at
+// D 128: 99 KB of tiles each). wgmma is not used: its tf32 form reads only
+// K-major operands from shared memory, and V, dO and the transposed
+// products of B2 are not K-major; it would also need hi and lo copies of
+// every tile (192 KB for Q, K and V^T at D 128).
+
+#include <cuda_fp16.h>
 
 #include "mma_common.cuh"
 
@@ -43,19 +79,38 @@ namespace {
 
 using namespace tlk;
 
-constexpr int kThreads = 256;   // four threads a row of a 64-row tile
-constexpr int kRows = 64;       // rows a block (queries; keys in dkv)
-constexpr int kCols = 64;       // columns a tile (keys; queries in dkv)
-constexpr int kLdS = kCols + 1; // pitch of a 64 x 64 score tile
+constexpr int kThreads = 128;  // 4 warps, a 16-row strip each
+constexpr int kRows = 64;      // rows a block (queries; keys in dkv)
 constexpr float kLseMasked = 1e30f;
 
-struct View {  // a [B, heads, T, D] f32 operand; strides in elements
-  const float* p;
+template <typename T>
+struct Store;
+template <>
+struct Store<float> {
+  static constexpr bool kExact = false;  // needs hi and lo
+  __device__ static float get(const float* p) { return *p; }
+  __device__ static void put2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+};
+template <>
+struct Store<__half> {
+  static constexpr bool kExact = true;  // every f16 value is a tf32 value
+  __device__ static float get(const __half* p) { return __half2float(*p); }
+  __device__ static void put2(__half* p, float a, float b) {
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+  }
+};
+
+template <typename T>
+struct View {  // a [B, heads, T, D] operand; strides in elements
+  const T* p;
   long long sb, sh, st;
 };
 
+template <typename T>
 struct OutView {
-  float* p;
+  T* p;
   long long sb, sh, st;
 };
 
@@ -72,6 +127,13 @@ __device__ __forceinline__ bool band_keep(int q, int k, int causal,
   if (window > 0 && (k <= q - window || (!causal && k >= q + window)))
     return false;
   return true;
+}
+
+// no (query, key) pair of [qa, qb] x [ka, kb] is inside the band
+__device__ __forceinline__ bool band_empty(int qa, int qb, int ka, int kb,
+                                           int causal, int window) {
+  return (causal && ka > qb) ||
+         (window > 0 && (kb <= qa - window || (!causal && ka >= qb + window)));
 }
 
 // keys [lo, hi) that some query of [q0, q1] can attend
@@ -104,259 +166,598 @@ __device__ __forceinline__ bool key_kept(const Shape& s, int b, int k) {
          (s.kv_mask == nullptr || s.kv_mask[(long long)b * s.Tk + k] != 0);
 }
 
-// rows [t0, t0 + 64) of (batch b, head h) into a [64][D + 1] tile; rows
-// past T are zeros
-template <int D>
-__device__ __forceinline__ void load_tile(float* tile, const View& x, int b,
-                                          int h, int t0, int T) {
-  const float* base = x.p + b * x.sb + h * x.sh;
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = i / D, d = i % D, t = t0 + r;
-    tile[r * (D + 1) + d] = t < T ? base[(long long)t * x.st + d] : 0.f;
+// the kept keys of [k0, k0 + KT) as bits (KT 32 or 64), from every lane
+template <int KT>
+__device__ __forceinline__ void key_bits(uint32_t (&bits)[2], const Shape& s,
+                                         int b, int k0, int lane) {
+  bits[0] = __ballot_sync(0xffffffffu, key_kept(s, b, k0 + lane));
+  bits[1] = KT > 32
+                ? __ballot_sync(0xffffffffu, key_kept(s, b, k0 + 32 + lane))
+                : 0u;
+}
+
+// rows [r0, r0 + ROWS) of a [T, D] slab into a tile of pitch LD with
+// 16-byte cp.async copies; rows at or past n are zero-filled
+template <typename T, int D, int ROWS, int LD>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, long long st,
+                                          int r0, int n) {
+  constexpr int EPC = 16 / sizeof(T), CH = D / EPC;
+  for (int i = threadIdx.x; i < ROWS * CH; i += kThreads) {
+    const int r = i / CH, c = (i % CH) * EPC;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + r * LD + c, ok ? src + (long long)(r0 + r) * st + c : src,
+               ok ? 16 : 0);
   }
 }
 
-// acc[i] = A[r] . B[sub + 4 i] over D: 16 columns of row r of A B^T
-template <int D>
-__device__ __forceinline__ void row_dots(float (&acc)[16], const float* A,
-                                         const float* Bm, int r, int sub) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
-  const float* a = A + r * (D + 1);
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    const float x = a[d];
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      acc[i] = fmaf(x, Bm[(sub + 4 * i) * (D + 1) + d], acc[i]);
+// ------------------------------------------------- 3xTF32 fragments
+template <int N>
+struct Frag {  // an operand fragment: tf32 hi and, unless exact, lo
+  uint32_t hi[N], lo[N];
+};
+
+// x = hi + lo: hi = x rounded to tf32 (to nearest, ties away from zero:
+// the bits of cvt.rna.tf32.f32, here an integer add and mask, which
+// measured 1.3-1.5x faster on the kernels); lo = x - hi (exact), whose
+// low 13 bits the mma drops (|error| <= 2^-21 |x|)
+template <bool EXACT>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (EXACT) {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  } else {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
   }
 }
 
-// acc[i] += sum_j P[r][j] M[j][sub + 4 i]: this thread's D / 4 columns of
-// row r of P M
-template <int D>
-__device__ __forceinline__ void row_accum(float (&acc)[D / 4], const float* P,
-                                          const float* M, int r, int sub) {
-  const float* p = P + r * kLdS;
-#pragma unroll 2
-  for (int j = 0; j < kCols; ++j) {
-    const float x = p[j];
-    const float* m = M + j * (D + 1) + sub;
-#pragma unroll
-    for (int i = 0; i < D / 4; ++i) acc[i] = fmaf(x, m[4 * i], acc[i]);
-  }
+// c += a b: a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms first; an
+// exact operand's lo product is skipped
+template <bool EA, bool EB>
+__device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
+                                     const Frag<2>& b) {
+  if constexpr (!EA) mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  if constexpr (!EB) mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
 }
 
-template <int D>
-constexpr size_t tile_bytes() {
-  return sizeof(float) * kRows * (D + 1);
+// A operand from a row-major tile: rows r0 + (g, g + 8), columns
+// c0 + (t, t + 4)
+template <bool EX, int LD, typename T>
+__device__ __forceinline__ void frag_a(Frag<4>& f, const T* s, int r0, int c0,
+                                       int g, int t) {
+  const T* p = s + (r0 + g) * LD + c0 + t;
+  split<EX>(Store<T>::get(p), f.hi[0], f.lo[0]);
+  split<EX>(Store<T>::get(p + 8 * LD), f.hi[1], f.lo[1]);
+  split<EX>(Store<T>::get(p + 4), f.hi[2], f.lo[2]);
+  split<EX>(Store<T>::get(p + 8 * LD + 4), f.hi[3], f.lo[3]);
 }
-constexpr size_t kScoreBytes = sizeof(float) * kRows * kLdS;
+
+// B operand X^T of a row-major [n][k] tile X (K in Q K^T): row n0 + g,
+// columns c0 + (t, t + 4)
+template <bool EX, int LD, typename T>
+__device__ __forceinline__ void frag_bt(Frag<2>& f, const T* s, int n0,
+                                        int c0, int g, int t) {
+  const T* p = s + (n0 + g) * LD + c0 + t;
+  split<EX>(Store<T>::get(p), f.hi[0], f.lo[0]);
+  split<EX>(Store<T>::get(p + 4), f.hi[1], f.lo[1]);
+}
+
+// B operand X of a row-major [k][n] tile X (V in P V), k in the permuted
+// order of frag_c: rows k0 + 2t, k0 + 2t + 1, column n0 + g
+template <bool EX, int LD, typename T>
+__device__ __forceinline__ void frag_bn(Frag<2>& f, const T* s, int k0,
+                                        int n0, int g, int t) {
+  const T* p = s + (k0 + 2 * t) * LD + n0 + g;
+  split<EX>(Store<T>::get(p), f.hi[0], f.lo[0]);
+  split<EX>(Store<T>::get(p + LD), f.hi[1], f.lo[1]);
+}
+
+// A operand from the f32 accumulators of one n-tile (P or dS), k permuted:
+// C (g, 2t) -> A (g, t), C (g, 2t + 1) -> A (g, t + 4)
+__device__ __forceinline__ void frag_c(Frag<4>& f, const float (&c)[4]) {
+  split<false>(c[0], f.hi[0], f.lo[0]);
+  split<false>(c[2], f.hi[1], f.lo[1]);
+  split<false>(c[1], f.hi[2], f.lo[2]);
+  split<false>(c[3], f.hi[3], f.lo[3]);
+}
+
+// a tile row, padded by 16 bytes
+template <typename T, int D>
+__host__ __device__ constexpr int pitch() {
+  return D + 16 / static_cast<int>(sizeof(T));
+}
 
 // ---------------------------------------------------------------- forward
-template <int D, bool BAND>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel_f32(View q, View k, View v, OutView o,
-                         float* __restrict__ lse, Shape s) {
-  extern __shared__ float sm[];
-  float* sq = sm;
-  float* sk = sq + kRows * (D + 1);
-  float* sv = sk + kCols * (D + 1);
-  float* sp = sv + kCols * (D + 1);
-  __shared__ uint8_t kept[kCols];
-  const int h = blockIdx.x, q0 = blockIdx.y * kRows, b = blockIdx.z;
+template <typename T, int D, bool BAND>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_fwd_tc_kernel(View<T> q, View<T> k, View<T> v, OutView<T> o,
+                        float* __restrict__ lse, Shape s) {
+  constexpr int LD = pitch<T, D>(), KS = D / 8, NT = kRows / 8;
+  constexpr bool EX = Store<T>::kExact;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = qs + kRows * LD;
+  T* vs = ks + kRows * LD;
+
+  // causal: the last query tiles see the most keys, so they launch first
+  const int tile = s.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int h = blockIdx.x, q0 = tile * kRows, b = blockIdx.z;
   const int hk = h / (s.H / s.Hkv);
-  const int tid = threadIdx.x, r = tid >> 2, sub = tid & 3, qi = q0 + r;
-  load_tile<D>(sq, q, b, h, q0, s.Tq);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int qr[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const float sl2 = s.scale * kLog2e;  // scores in the log2 domain
+  const T* kb = k.p + b * k.sb + hk * k.sh;
+  const T* vb = v.p + b * v.sb + hk * v.sh;
+
   int lo, hi;
   key_range(q0, min(q0 + kRows, s.Tq) - 1, s.Tk, s.causal, s.window, lo, hi);
-  float m = kNegInf, l = 0.f, acc[D / 4];
+  const int kt0 = lo - lo % kRows;
+  const int n = hi > kt0 ? (hi - kt0 + kRows - 1) / kRows : 0;
+
+  load_tile<T, D, kRows, LD>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
+  if (n > 0) load_tile<T, D, kRows, LD>(ks, kb, k.st, kt0, s.Tk);
+  cp_async_commit();
+
+  float acc[D / 8][4];  // O: this warp's 16 rows x D
 #pragma unroll
-  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
-  for (int k0 = lo - lo % kCols; k0 < hi; k0 += kCols) {
-    __syncthreads();  // the last tile's readers are done
-    int any = 0;
-    if (tid < kCols) any = kept[tid] = key_kept(s, b, k0 + tid);
-    if (!__syncthreads_or(any)) continue;
-    load_tile<D>(sk, k, b, hk, k0, s.Tk);
-    load_tile<D>(sv, v, b, hk, k0, s.Tk);
-    __syncthreads();
-    float sc[16];
-    row_dots<D>(sc, sq, sk, r, sub);
-    float mx = m;
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int c = sub + 4 * i;
-      const bool keep =
-          kept[c] && (!BAND || band_keep(qi, k0 + c, s.causal, s.window));
-      sc[i] = keep ? sc[i] * s.scale : kNegInf;
-      mx = fmaxf(mx, sc[i]);
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n; ++i) {
+    const int k0 = kt0 + i * kRows;
+    cp_async_wait<0>();
+    __syncthreads();  // K(i) has landed; every warp is done with V(i - 1)
+    load_tile<T, D, kRows, LD>(vs, vb, v.st, k0, s.Tk);
+    cp_async_commit();
+    uint32_t kbits[2];
+    key_bits<kRows>(kbits, s, b, k0, lane);
+    const bool live =
+        (kbits[0] | kbits[1]) &&
+        !(BAND && band_empty(q0 + r0, q0 + r0 + 15, k0, k0 + kRows - 1,
+                             s.causal, s.window));
+    float sc[NT][4];  // S, then P: this warp's 16 rows x 64 keys
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        Frag<4> a;
+        frag_a<EX, LD>(a, qs, r0, 8 * kk, g, t);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          Frag<2> bb;
+          frag_bt<EX, LD>(bb, ks, 8 * j, 8 * kk, g, t);
+          mma3<EX, EX>(sc[j], a, bb);
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, kl = 8 * j + 2 * t + (e & 1);
+          bool keep = (kbits[kl >> 5] >> (kl & 31)) & 1u;
+          if (BAND)
+            keep = keep && band_keep(qr[r], k0 + kl, s.causal, s.window);
+          sc[j][e] = keep ? sc[j][e] * sl2 : kNegInf;
+          mx[r] = fmaxf(mx[r], sc[j][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        alpha[r] = exp2f(m[r] - mx[r]);  // both -1e30: 1, on zero sums
+        l[r] *= alpha[r];
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = sc[j][e] == kNegInf ? 0.f : exp2f(sc[j][e] - m[r]);
+          sc[j][e] = p;
+          l[r] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e >> 1];
     }
-    mx = quad_max(mx);
-    const float alpha = expf(m - mx);  // both -1e30: 1, on zero sums
-    l *= alpha;
+    cp_async_wait<0>();
+    __syncthreads();  // V(i) has landed; every warp is done with K(i)
+    if (i + 1 < n)
+      load_tile<T, D, kRows, LD>(ks, kb, k.st, k0 + kRows, s.Tk);
+    cp_async_commit();
+    if (live) {  // O += P V
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) acc[i] *= alpha;
+      for (int j = 0; j < NT; ++j) {
+        Frag<4> a;
+        frag_c(a, sc[j]);
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const float p = sc[i] == kNegInf ? 0.f : expf(sc[i] - mx);
-      sp[r * kLdS + sub + 4 * i] = p;
-      l += p;
+        for (int dn = 0; dn < D / 8; ++dn) {
+          Frag<2> bb;
+          frag_bn<EX, LD>(bb, vs, 8 * j, 8 * dn, g, t);
+          mma3<false, EX>(acc[dn], a, bb);
+        }
+      }
     }
-    m = mx;
-    __syncthreads();
-    row_accum<D>(acc, sp, sv, r, sub);
   }
-  l = quad_sum(l);
-  if (qi < s.Tq) {
-    const float l_safe = l == 0.f ? 1.f : l;
-    float* out = o.p + b * o.sb + h * o.sh + (long long)qi * o.st + sub;
+  cp_async_wait<0>();
+
+  T* ob = o.p + b * o.sb + h * o.sh;
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) out[4 * i] = acc[i] / l_safe;
-    if (sub == 0)
-      lse[((long long)b * s.H + h) * s.Tq + qi] =
-          l > 0.f ? m + logf(l) : kLseMasked;
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    if (qr[r] >= s.Tq) continue;
+    const float inv = lr > 0.f ? 1.f / lr : 0.f;
+    T* row = ob + (long long)qr[r] * o.st;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      Store<T>::put2(row + 8 * dn + 2 * t, acc[dn][2 * r] * inv,
+                     acc[dn][2 * r + 1] * inv);
+    if (t == 0)
+      lse[((long long)b * s.H + h) * s.Tq + qr[r]] =
+          lr > 0.f ? (m[r] + log2f(lr)) * kLn2 : kLseMasked;
   }
 }
 
 // ------------------------------------------------------- backward: dq
-template <int D, bool BAND>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_f32_kernel(View q, View k, View v, View dout,
-                            const float* __restrict__ lse,
-                            float* __restrict__ delta, OutView dq, Shape s) {
-  extern __shared__ float sm[];
-  float* sq = sm;
-  float* sdo = sq + kRows * (D + 1);
-  float* sk = sdo + kRows * (D + 1);
-  float* sv = sk + kCols * (D + 1);
-  float* sds = sv + kCols * (D + 1);
-  __shared__ uint8_t kept[kCols];
-  const int h = blockIdx.x, q0 = blockIdx.y * kRows, b = blockIdx.z;
+// keys a tile: the [16, D] A and C sums fill the register file at D 128
+template <int D>
+__host__ __device__ constexpr int dq_keys() {
+  return D == 128 ? 32 : 64;
+}
+
+template <typename T, int D, bool BAND>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_dq_tc_kernel(View<T> q, View<T> k, View<T> v, View<T> o,
+                           View<T> dout, const float* __restrict__ lse,
+                           float* __restrict__ delta, OutView<T> dq,
+                           Shape s) {
+  constexpr int KT = dq_keys<D>(), LD = pitch<T, D>(), KS = D / 8,
+                NT = KT / 8;
+  constexpr bool EX = Store<T>::kExact;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = qs + kRows * LD;
+  T* ks = dos + kRows * LD;
+  T* vs = ks + KT * LD;
+
+  const int tile = s.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int h = blockIdx.x, q0 = tile * kRows, b = blockIdx.z;
   const int hk = h / (s.H / s.Hkv);
-  const int tid = threadIdx.x, r = tid >> 2, sub = tid & 3, qi = q0 + r;
-  const long long row = ((long long)b * s.H + h) * s.Tq + qi;
-  load_tile<D>(sq, q, b, h, q0, s.Tq);
-  load_tile<D>(sdo, dout, b, h, q0, s.Tq);
-  const float lse_r = qi < s.Tq ? lse[row] : kLseMasked;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int qr[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const float sl2 = s.scale * kLog2e;
+  const bool own = !s.delta_in;
+  const T* kb = k.p + b * k.sb + hk * k.sh;
+  const T* vb = v.p + b * v.sb + hk * v.sh;
+  const long long rowbase = ((long long)b * s.H + h) * s.Tq;
+
   int lo, hi;
   key_range(q0, min(q0 + kRows, s.Tq) - 1, s.Tk, s.causal, s.window, lo, hi);
-  const int first = lo - lo % kCols;
-  float dl = 0.f;
-  if (s.delta_in) {
-    if (qi < s.Tq) dl = delta[row];
+  const int kt0 = lo - lo % KT;
+  const int n = hi > kt0 ? (hi - kt0 + KT - 1) / KT : 0;
+
+  load_tile<T, D, kRows, LD>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
+  load_tile<T, D, kRows, LD>(dos, dout.p + b * dout.sb + h * dout.sh,
+                             dout.st, q0, s.Tq);
+  if (n > 0) load_tile<T, D, KT, LD>(vs, vb, v.st, kt0, s.Tk);
+  cp_async_commit();
+  if (n > 0) load_tile<T, D, KT, LD>(ks, kb, k.st, kt0, s.Tk);
+  cp_async_commit();
+
+  // d~ of this thread's two rows (each lane of the quad dots a quarter),
+  // or the caller's delta; and lse in the log2 domain
+  float dt[2], lse2[2], dl[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = qr[r] < s.Tq;
+    lse2[r] = in ? lse[rowbase + qr[r]] * kLog2e : kLseMasked;
+    if (!own) {
+      dt[r] = in ? delta[rowbase + qr[r]] : 0.f;
+      continue;
+    }
+    float acc = 0.f;
+    if (in) {
+      const T* orow = o.p + b * o.sb + h * o.sh + (long long)qr[r] * o.st;
+      const T* grow =
+          dout.p + b * dout.sb + h * dout.sh + (long long)qr[r] * dout.st;
+#pragma unroll 8
+      for (int c = t * (D / 4); c < (t + 1) * (D / 4); ++c)
+        acc = fmaf(Store<T>::get(orow + c), Store<T>::get(grow + c), acc);
+    }
+    dt[r] = quad_sum(acc);
   }
-  // pass 0 (own delta only): delta = rowsum(p dp); pass 1: dS and dQ
-  float acc[D / 4];
+
+  float acc_a[D / 8][4], acc_c[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
-  for (int pass = s.delta_in ? 1 : 0; pass < 2; ++pass) {
-    for (int k0 = first; k0 < hi; k0 += kCols) {
-      __syncthreads();
-      int any = 0;
-      if (tid < kCols) any = kept[tid] = key_kept(s, b, k0 + tid);
-      if (!__syncthreads_or(any)) continue;
-      load_tile<D>(sk, k, b, hk, k0, s.Tk);
-      load_tile<D>(sv, v, b, hk, k0, s.Tk);
-      __syncthreads();
-      float sc[16], dp[16];
-      row_dots<D>(sc, sq, sk, r, sub);
-      row_dots<D>(dp, sdo, sv, r, sub);
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int c = sub + 4 * i;
-        const bool keep =
-            kept[c] && (!BAND || band_keep(qi, k0 + c, s.causal, s.window));
-        const float p = keep ? expf(sc[i] * s.scale - lse_r) : 0.f;
-        if (pass == 0)
-          dl += p * dp[i];
-        else
-          sds[r * kLdS + c] = p * (dp[i] - dl) * s.scale;
-      }
-      if (pass == 1) {
-        __syncthreads();
-        row_accum<D>(acc, sds, sk, r, sub);
+    for (int e = 0; e < 4; ++e) acc_a[i][e] = acc_c[i][e] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    const int k0 = kt0 + i * KT;
+    cp_async_wait<1>();
+    __syncthreads();  // V(i) (and Q, dO) has landed
+    uint32_t kbits[2];
+    key_bits<KT>(kbits, s, b, k0, lane);
+    const bool live =
+        (kbits[0] | kbits[1]) &&
+        !(BAND && band_empty(q0 + r0, q0 + r0 + 15, k0, k0 + KT - 1,
+                             s.causal, s.window));
+    float sc[NT][4], dp[NT][4];
+    if (live) {  // dP = dO V^T
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        Frag<4> a;
+        frag_a<EX, LD>(a, dos, r0, 8 * kk, g, t);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          Frag<2> bb;
+          frag_bt<EX, LD>(bb, vs, 8 * j, 8 * kk, g, t);
+          mma3<EX, EX>(dp[j], a, bb);
+        }
       }
     }
-    if (pass == 0) {
-      dl = quad_sum(dl);
-      if (qi < s.Tq && sub == 0) delta[row] = dl;
-    }
-  }
-  if (qi < s.Tq) {
-    float* out = dq.p + b * dq.sb + h * dq.sh + (long long)qi * dq.st + sub;
+    cp_async_wait<0>();
+    __syncthreads();  // K(i) has landed; every warp is done with V(i)
+    if (i + 1 < n) load_tile<T, D, KT, LD>(vs, vb, v.st, k0 + KT, s.Tk);
+    cp_async_commit();
+    if (live) {
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) out[4 * i] = acc[i];
+      for (int kk = 0; kk < KS; ++kk) {  // S = Q K^T
+        Frag<4> a;
+        frag_a<EX, LD>(a, qs, r0, 8 * kk, g, t);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          Frag<2> bb;
+          frag_bt<EX, LD>(bb, ks, 8 * j, 8 * kk, g, t);
+          mma3<EX, EX>(sc[j], a, bb);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, kl = 8 * j + 2 * t + (e & 1);
+          bool keep = (kbits[kl >> 5] >> (kl & 31)) & 1u;
+          if (BAND)
+            keep = keep && band_keep(qr[r], k0 + kl, s.causal, s.window);
+          const float p = keep ? exp2f(sc[j][e] * sl2 - lse2[r]) : 0.f;
+          dl[r] += p * dp[j][e];
+          sc[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dt[r]);
+        }
+      // A += (P o (dP - d~)) K, C += P K (K read down its rows: keys are k)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        Frag<4> ad, ap;
+        frag_c(ad, dp[j]);
+        frag_c(ap, sc[j]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          Frag<2> bb;
+          frag_bn<EX, LD>(bb, ks, 8 * j, 8 * dn, g, t);
+          mma3<false, EX>(acc_a[dn], ad, bb);
+          if (own) mma_tf32(acc_c[dn], ap.hi, bb.hi[0], bb.hi[1]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with K(i)
+    if (i + 1 < n) load_tile<T, D, KT, LD>(ks, kb, k.st, k0 + KT, s.Tk);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  T* out = dq.p + b * dq.sb + h * dq.sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dl[r] = quad_sum(dl[r]);
+    if (qr[r] >= s.Tq) continue;
+    if (!own)
+      dl[r] = dt[r];  // the whole row's delta, whatever keys this call saw
+    else if (t == 0)
+      delta[rowbase + qr[r]] = dl[r];
+    const float c = dl[r] - dt[r];
+    T* row = out + (long long)qr[r] * dq.st;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      Store<T>::put2(row + 8 * dn + 2 * t,
+                     s.scale * (acc_a[dn][2 * r] - c * acc_c[dn][2 * r]),
+                     s.scale * (acc_a[dn][2 * r + 1] - c * acc_c[dn][2 * r + 1]));
   }
 }
 
 // ------------------------------------------------------ backward: dk, dv
-template <int D, bool BAND>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_f32_kernel(View q, View k, View v, View dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta, OutView dk,
-                             OutView dv, Shape s) {
-  extern __shared__ float sm[];
-  float* sk = sm;
-  float* sv = sk + kRows * (D + 1);
-  float* sq = sv + kRows * (D + 1);
-  float* sdo = sq + kCols * (D + 1);
-  float* spt = sdo + kCols * (D + 1);
-  float* sdst = spt + kRows * kLdS;
-  __shared__ float slse[kCols], sdelta[kCols];
+// queries a unit: the [16, D] dK and dV sums fill the register file at
+// D 128
+template <int D>
+__host__ __device__ constexpr int dkv_queries() {
+  return D == 128 ? 32 : 64;
+}
+
+template <typename T, int D, bool BAND>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_bwd_dkv_tc_kernel(View<T> q, View<T> k, View<T> v, View<T> dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta, OutView<T> dk,
+                            OutView<T> dv, Shape s) {
+  constexpr int QT = dkv_queries<D>(), LD = pitch<T, D>(), KS = D / 8,
+                NQ = QT / 8;
+  constexpr bool EX = Store<T>::kExact;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + kRows * LD;
+  T* qs = vs + kRows * LD;
+  T* dos = qs + QT * LD;
+  float* lse_s = reinterpret_cast<float*>(dos + QT * LD);  // [QT]
+  float* dl_s = lse_s + QT;                                // [QT]
+
   const int hk = blockIdx.x, k0 = blockIdx.y * kRows, b = blockIdx.z;
   const int G = s.H / s.Hkv;
-  const int tid = threadIdx.x, r = tid >> 2, sub = tid & 3, kj = k0 + r;
-  const bool kkeep = key_kept(s, b, kj);
-  float ak[D / 4], av[D / 4];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int kr[2] = {k0 + r0 + g, k0 + r0 + g + 8};
+  const bool kkeep[2] = {key_kept(s, b, kr[0]), key_kept(s, b, kr[1])};
+  const float sl2 = s.scale * kLog2e;
+
+  int lo, hi;
+  query_range(k0, min(k0 + kRows, s.Tk) - 1, s.Tq, s.causal, s.window, lo,
+              hi);
+  const int qt0 = lo - lo % QT;
+  const int nqt = hi > qt0 ? (hi - qt0 + QT - 1) / QT : 0;
+  // a key tile whose keys are all masked (padding) has zero gradients
+  const bool any_key = __syncthreads_or(kkeep[0] || kkeep[1]);
+  const bool warp_keys = __any_sync(0xffffffffu, kkeep[0] || kkeep[1]);
+  const int nu = any_key ? G * nqt : 0;  // (query head, query tile) units
+
+  auto issue_q = [&](int u) {  // Q rows, lse and delta of unit u
+    const int h = hk * G + u / nqt, q0 = qt0 + (u % nqt) * QT;
+    load_tile<T, D, QT, LD>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
+    if (threadIdx.x < QT) {
+      const int qq = q0 + threadIdx.x;
+      const bool in = qq < s.Tq;
+      const long long at = ((long long)b * s.H + h) * s.Tq + (in ? qq : 0);
+      cp_async4(lse_s + threadIdx.x, lse + at, in ? 4 : 0);
+      cp_async4(dl_s + threadIdx.x, delta + at, in ? 4 : 0);
+    }
+  };
+  auto issue_do = [&](int u) {
+    const int h = hk * G + u / nqt, q0 = qt0 + (u % nqt) * QT;
+    load_tile<T, D, QT, LD>(dos, dout.p + b * dout.sb + h * dout.sh, dout.st,
+                            q0, s.Tq);
+  };
+
+  load_tile<T, D, kRows, LD>(ks, k.p + b * k.sb + hk * k.sh, k.st, k0, s.Tk);
+  load_tile<T, D, kRows, LD>(vs, v.p + b * v.sb + hk * v.sh, v.st, k0, s.Tk);
+  if (nu > 0) issue_q(0);
+  cp_async_commit();
+  if (nu > 0) issue_do(0);
+  cp_async_commit();
+
+  float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 4; ++i) ak[i] = av[i] = 0.f;
-  if (__syncthreads_or(kkeep)) {
-    load_tile<D>(sk, k, b, hk, k0, s.Tk);
-    load_tile<D>(sv, v, b, hk, k0, s.Tk);
-    int lo, hi;
-    query_range(k0, min(k0 + kRows, s.Tk) - 1, s.Tq, s.causal, s.window, lo,
-                hi);
-    for (int g = 0; g < G; ++g) {
-      const int h = hk * G + g;
-      for (int q0 = lo - lo % kCols; q0 < hi; q0 += kCols) {
-        __syncthreads();
-        load_tile<D>(sq, q, b, h, q0, s.Tq);
-        load_tile<D>(sdo, dout, b, h, q0, s.Tq);
-        if (tid < kCols) {
-          const int qi = q0 + tid;
-          const long long row = ((long long)b * s.H + h) * s.Tq + qi;
-          slse[tid] = qi < s.Tq ? lse[row] : kLseMasked;
-          sdelta[tid] = qi < s.Tq ? delta[row] : 0.f;
-        }
-        __syncthreads();
-        float st[16], dpt[16];
-        row_dots<D>(st, sk, sq, r, sub);
-        row_dots<D>(dpt, sv, sdo, r, sub);
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const int c = sub + 4 * i, qi = q0 + c;
-          const bool keep = kkeep && qi < s.Tq &&
-                            (!BAND || band_keep(qi, kj, s.causal, s.window));
-          const float p = keep ? expf(st[i] * s.scale - slse[c]) : 0.f;
-          spt[r * kLdS + c] = p;
-          sdst[r * kLdS + c] = p * (dpt[i] - sdelta[c]) * s.scale;
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+  for (int u = 0; u < nu; ++u) {
+    const int q0 = qt0 + (u % nqt) * QT;
+    cp_async_wait<1>();
+    __syncthreads();  // Q(u), lse and delta (and K, V) have landed
+    const bool live =
+        warp_keys && !(BAND && band_empty(q0, q0 + QT - 1, k0 + r0,
+                                          k0 + r0 + 15, s.causal, s.window));
+    // rows are keys, columns are queries: S^T then P^T, dP^T then dS^T
+    float st[NQ][4], dpt[NQ][4];
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {  // S^T = K Q^T
+        Frag<4> a;
+        frag_a<EX, LD>(a, ks, r0, 8 * kk, g, t);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          Frag<2> bb;
+          frag_bt<EX, LD>(bb, qs, 8 * j, 8 * kk, g, t);
+          mma3<EX, EX>(st[j], a, bb);
         }
-        __syncthreads();
-        row_accum<D>(av, spt, sdo, r, sub);
-        row_accum<D>(ak, sdst, sq, r, sub);
+      }
+      // a query past Tq needs no test: its zero-filled q, dO, lse and
+      // delta make its p finite and its dS and P^T dO zero
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, ql = 8 * j + 2 * t + (e & 1);
+          bool keep = kkeep[r];
+          if (BAND)
+            keep = keep && band_keep(q0 + ql, kr[r], s.causal, s.window);
+          st[j][e] = keep ? exp2f(st[j][e] * sl2 - lse_s[ql] * kLog2e) : 0.f;
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // dO(u) has landed
+    if (live) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {  // dP^T = V dO^T
+        Frag<4> a;
+        frag_a<EX, LD>(a, vs, r0, 8 * kk, g, t);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          Frag<2> bb;
+          frag_bt<EX, LD>(bb, dos, 8 * j, 8 * kk, g, t);
+          mma3<EX, EX>(dpt[j], a, bb);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = 8 * j + 2 * t + (e & 1);
+          dpt[j][e] = st[j][e] * (dpt[j][e] - dl_s[ql]) * s.scale;
+        }
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {  // dK += dS^T Q
+        Frag<4> a;
+        frag_c(a, dpt[j]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          Frag<2> bb;
+          frag_bn<EX, LD>(bb, qs, 8 * j, 8 * dn, g, t);
+          mma3<false, EX>(dka[dn], a, bb);
+        }
       }
     }
-  }
-  if (kj < s.Tk) {
-    const long long t = (long long)kj;
-    float* ok = dk.p + b * dk.sb + hk * dk.sh + t * dk.st + sub;
-    float* ov = dv.p + b * dv.sb + hk * dv.sh + t * dv.st + sub;
+    __syncthreads();  // every warp is done with Q(u), lse and delta
+    if (u + 1 < nu) issue_q(u + 1);
+    cp_async_commit();
+    if (live) {
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) {
-      ok[4 * i] = ak[i];
-      ov[4 * i] = av[i];
+      for (int j = 0; j < NQ; ++j) {  // dV += P^T dO
+        Frag<4> a;
+        frag_c(a, st[j]);
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          Frag<2> bb;
+          frag_bn<EX, LD>(bb, dos, 8 * j, 8 * dn, g, t);
+          mma3<false, EX>(dva[dn], a, bb);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with dO(u)
+    if (u + 1 < nu) issue_do(u + 1);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  T* kout = dk.p + b * dk.sb + hk * dk.sh;
+  T* vout = dv.p + b * dv.sb + hk * dv.sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kr[r] >= s.Tk) continue;
+    T* krow = kout + (long long)kr[r] * dk.st;
+    T* vrow = vout + (long long)kr[r] * dv.st;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      Store<T>::put2(krow + 8 * dn + 2 * t, dka[dn][2 * r], dka[dn][2 * r + 1]);
+      Store<T>::put2(vrow + 8 * dn + 2 * t, dva[dn][2 * r], dva[dn][2 * r + 1]);
     }
   }
 }
@@ -369,39 +770,47 @@ cudaError_t allow_smem(K kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int D, bool BAND>
-int launch_fwd(View q, View k, View v, OutView o, float* lse, Shape s,
-               cudaStream_t stream) {
-  const size_t smem = 3 * tile_bytes<D>() + kScoreBytes;
-  cudaError_t err = allow_smem(flash_fwd_kernel_f32<D, BAND>, smem);
+template <typename T, int D>
+constexpr size_t tile_bytes(int rows) {
+  return sizeof(T) * rows * pitch<T, D>();
+}
+
+template <typename T, int D, bool BAND>
+int launch_fwd(View<T> q, View<T> k, View<T> v, OutView<T> o, float* lse,
+               Shape s, cudaStream_t stream) {
+  const size_t smem = 3 * tile_bytes<T, D>(kRows);
+  cudaError_t err = allow_smem(flash_fwd_tc_kernel<T, D, BAND>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(s.H, (s.Tq + kRows - 1) / kRows, s.B);
-  flash_fwd_kernel_f32<D, BAND><<<grid, kThreads, smem, stream>>>(q, k, v, o,
-                                                                  lse, s);
+  flash_fwd_tc_kernel<T, D, BAND><<<grid, kThreads, smem, stream>>>(q, k, v,
+                                                                    o, lse, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool BAND>
-int launch_bwd(View q, View k, View v, View dout, const float* lse,
-               float* delta, OutView dq, OutView dk, OutView dv, Shape s,
-               cudaStream_t stream) {
+template <typename T, int D, bool BAND>
+int launch_bwd(View<T> q, View<T> k, View<T> v, View<T> o, View<T> dout,
+               const float* lse, float* delta, OutView<T> dq, OutView<T> dk,
+               OutView<T> dv, Shape s, cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
   if (s.Tq > 0) {  // dq first: it writes the delta the dkv kernel reads
-    const size_t smem = 4 * tile_bytes<D>() + kScoreBytes;
-    err = allow_smem(flash_bwd_dq_f32_kernel<D, BAND>, smem);
+    const size_t smem =
+        2 * tile_bytes<T, D>(kRows) + 2 * tile_bytes<T, D>(dq_keys<D>());
+    err = allow_smem(flash_bwd_dq_tc_kernel<T, D, BAND>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(s.H, (s.Tq + kRows - 1) / kRows, s.B);
-    flash_bwd_dq_f32_kernel<D, BAND><<<grid, kThreads, smem, stream>>>(
-        q, k, v, dout, lse, delta, dq, s);
+    flash_bwd_dq_tc_kernel<T, D, BAND><<<grid, kThreads, smem, stream>>>(
+        q, k, v, o, dout, lse, delta, dq, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (s.Tk > 0) {
-    const size_t smem = 4 * tile_bytes<D>() + 2 * kScoreBytes;
-    err = allow_smem(flash_bwd_dkv_f32_kernel<D, BAND>, smem);
+    const size_t smem = 2 * tile_bytes<T, D>(kRows) +
+                        2 * tile_bytes<T, D>(dkv_queries<D>()) +
+                        2 * sizeof(float) * dkv_queries<D>();
+    err = allow_smem(flash_bwd_dkv_tc_kernel<T, D, BAND>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(s.Hkv, (s.Tk + kRows - 1) / kRows, s.B);
-    flash_bwd_dkv_f32_kernel<D, BAND><<<grid, kThreads, smem, stream>>>(
+    flash_bwd_dkv_tc_kernel<T, D, BAND><<<grid, kThreads, smem, stream>>>(
         q, k, v, dout, lse, delta, dk, dv, s);
     err = cudaGetLastError();
   }
@@ -412,19 +821,23 @@ bool aligned(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// strides of n views: each a multiple of 4 elements (16-byte rows)
+// strides of n views: each a multiple of 16 bytes
+template <typename T>
 bool strides_ok(const long long* st, int n) {
   for (int i = 0; i < 3 * n; ++i)
-    if (st[i] % 4 != 0) return false;
+    if (st[i] * static_cast<long long>(sizeof(T)) % 16 != 0) return false;
   return true;
 }
 
-View view(const void* p, const long long* st) {
-  return View{static_cast<const float*>(p), st[0], st[1], st[2]};
+template <typename T>
+View<T> view(const void* p, const long long* st) {
+  return View<T>{static_cast<const T*>(p), st[0], st[1], st[2]};
 }
 
-OutView out_view(void* p, const long long* st) {
-  return OutView{static_cast<float*>(p), st[0], st[1], st[2]};
+template <typename T>
+OutView<T> out_view(const void* p, const long long* st) {
+  return OutView<T>{static_cast<T*>(const_cast<void*>(p)), st[0], st[1],
+                    st[2]};
 }
 
 bool shape_ok(const int* dims) {
@@ -440,71 +853,105 @@ Shape make_shape(const int* dims, float scale, const void* kv_mask) {
                static_cast<const uint8_t*>(kv_mask)};
 }
 
-}  // namespace
-
-extern "C" {
-
-// Forward, f32. The arguments are tl_flash_fwd's (flash_attention.cu):
-// ptrs = {q, k, v, kv_mask (or null), o, lse}; strides = (b, h, t) element
-// strides of the views q, k, v, o (12 values); dims = {B, H, Hkv, Tq, Tk, D,
-// causal, window (<= 0: none), delta_in (0 here)}. f32 q/k/v/o, f32 lse
-// [B, H, Tq] contiguous, uint8 kv_mask [B, Tk] contiguous; 16-byte aligned
-// base pointers and strides. Returns a cudaError_t (0 = launched).
-int tl_flash_fwd_f32(const void* const* ptrs, const long long* strides,
-                     const int* dims, float scale, void* stream) {
-  if (!shape_ok(dims) || !strides_ok(strides, 4)) return cudaErrorInvalidValue;
+template <typename T>
+int fwd_entry(const void* const* ptrs, const long long* strides,
+              const int* dims, float scale, void* stream) {
+  if (!shape_ok(dims) || !strides_ok<T>(strides, 4))
+    return cudaErrorInvalidValue;
   const int dense[] = {0, 1, 2, 4};
   for (int i : dense)
     if (!aligned(ptrs[i])) return cudaErrorMisalignedAddress;
   const Shape s = make_shape(dims, scale, ptrs[3]);
   if (s.B == 0 || s.Tq == 0) return 0;
-  const View q = view(ptrs[0], strides), k = view(ptrs[1], strides + 3),
-             v = view(ptrs[2], strides + 6);
-  const OutView o = out_view(const_cast<void*>(ptrs[4]), strides + 9);
+  const View<T> q = view<T>(ptrs[0], strides),
+                k = view<T>(ptrs[1], strides + 3),
+                v = view<T>(ptrs[2], strides + 6);
+  const OutView<T> o = out_view<T>(ptrs[4], strides + 9);
   float* lse = static_cast<float*>(const_cast<void*>(ptrs[5]));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool band = s.causal || s.window > 0;
   if (dims[5] == 64)
-    return band ? launch_fwd<64, true>(q, k, v, o, lse, s, st)
-                : launch_fwd<64, false>(q, k, v, o, lse, s, st);
-  return band ? launch_fwd<128, true>(q, k, v, o, lse, s, st)
-              : launch_fwd<128, false>(q, k, v, o, lse, s, st);
+    return band ? launch_fwd<T, 64, true>(q, k, v, o, lse, s, st)
+                : launch_fwd<T, 64, false>(q, k, v, o, lse, s, st);
+  return band ? launch_fwd<T, 128, true>(q, k, v, o, lse, s, st)
+              : launch_fwd<T, 128, false>(q, k, v, o, lse, s, st);
 }
 
-// Backward, f32. The arguments are tl_flash_bwd's: ptrs = {q, k, v, do,
-// lse, kv_mask (or null), delta (f32 [B, H, Tq] contiguous), dq, dk, dv, o};
-// strides of q, k, v, do, dq, dk, dv, o (24 values); dims as for the
-// forward. delta_in 0: delta is a workspace the dq kernel fills with
-// rowsum(p dp); 1: the caller's delta, read by both kernels. o is not read.
-int tl_flash_bwd_f32(const void* const* ptrs, const long long* strides,
-                     const int* dims, float scale, void* stream) {
-  if (!shape_ok(dims) || !strides_ok(strides, 8)) return cudaErrorInvalidValue;
-  const int dense[] = {0, 1, 2, 3, 7, 8, 9};
+template <typename T>
+int bwd_entry(const void* const* ptrs, const long long* strides,
+              const int* dims, float scale, void* stream) {
+  if (!shape_ok(dims) || !strides_ok<T>(strides, 8))
+    return cudaErrorInvalidValue;
+  const int dense[] = {0, 1, 2, 3, 7, 8, 9, 10};
   for (int i : dense)
     if (!aligned(ptrs[i])) return cudaErrorMisalignedAddress;
   const Shape s = make_shape(dims, scale, ptrs[5]);
   if (s.B == 0) return 0;
-  const View q = view(ptrs[0], strides), k = view(ptrs[1], strides + 3),
-             v = view(ptrs[2], strides + 6), dout = view(ptrs[3], strides + 9);
-  const OutView dq = out_view(const_cast<void*>(ptrs[7]), strides + 12),
-                dk = out_view(const_cast<void*>(ptrs[8]), strides + 15),
-                dv = out_view(const_cast<void*>(ptrs[9]), strides + 18);
+  const View<T> q = view<T>(ptrs[0], strides),
+                k = view<T>(ptrs[1], strides + 3),
+                v = view<T>(ptrs[2], strides + 6),
+                dout = view<T>(ptrs[3], strides + 9),
+                o = view<T>(ptrs[10], strides + 21);
+  const OutView<T> dq = out_view<T>(ptrs[7], strides + 12),
+                   dk = out_view<T>(ptrs[8], strides + 15),
+                   dv = out_view<T>(ptrs[9], strides + 18);
   const float* lse = static_cast<const float*>(ptrs[4]);
   float* delta = static_cast<float*>(const_cast<void*>(ptrs[6]));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool band = s.causal || s.window > 0;
   if (dims[5] == 64)
-    return band ? launch_bwd<64, true>(q, k, v, dout, lse, delta, dq, dk, dv,
-                                       s, st)
-                : launch_bwd<64, false>(q, k, v, dout, lse, delta, dq, dk, dv,
-                                        s, st);
-  return band ? launch_bwd<128, true>(q, k, v, dout, lse, delta, dq, dk, dv,
-                                      s, st)
-              : launch_bwd<128, false>(q, k, v, dout, lse, delta, dq, dk, dv,
-                                       s, st);
+    return band ? launch_bwd<T, 64, true>(q, k, v, o, dout, lse, delta, dq,
+                                          dk, dv, s, st)
+                : launch_bwd<T, 64, false>(q, k, v, o, dout, lse, delta, dq,
+                                           dk, dv, s, st);
+  return band ? launch_bwd<T, 128, true>(q, k, v, o, dout, lse, delta, dq, dk,
+                                         dv, s, st)
+              : launch_bwd<T, 128, false>(q, k, v, o, dout, lse, delta, dq,
+                                          dk, dv, s, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Forward. The arguments are tl_flash_fwd's (flash_attention.cu): ptrs =
+// {q, k, v, kv_mask (or null), o, lse}; strides = (b, h, t) element strides
+// of the views q, k, v, o (12 values); dims = {B, H, Hkv, Tq, Tk, D, causal,
+// window (<= 0: none), delta_in (0 here)}. q/k/v/o of the entry's type (f32
+// or f16), f32 lse [B, H, Tq] contiguous, uint8 kv_mask [B, Tk]
+// contiguous; 16-byte aligned base pointers and strides. Returns a
+// cudaError_t (0 = launched).
+int tl_flash_fwd_f32(const void* const* ptrs, const long long* strides,
+                     const int* dims, float scale, void* stream) {
+  return fwd_entry<float>(ptrs, strides, dims, scale, stream);
+}
+
+int tl_flash_fwd_f16(const void* const* ptrs, const long long* strides,
+                     const int* dims, float scale, void* stream) {
+  return fwd_entry<__half>(ptrs, strides, dims, scale, stream);
+}
+
+// Backward. The arguments are tl_flash_bwd's: ptrs = {q, k, v, do, lse,
+// kv_mask (or null), delta (f32 [B, H, Tq] contiguous), dq, dk, dv, o};
+// strides of q, k, v, do, dq, dk, dv, o (24 values); dims as for the
+// forward. delta_in 0: delta is a workspace the dq kernel fills with
+// rowsum(p dp), and o centres its one-pass sums; 1: the caller's delta,
+// read by both kernels (o is then not read).
+int tl_flash_bwd_f32(const void* const* ptrs, const long long* strides,
+                     const int* dims, float scale, void* stream) {
+  return bwd_entry<float>(ptrs, strides, dims, scale, stream);
+}
+
+int tl_flash_bwd_f16(const void* const* ptrs, const long long* strides,
+                     const int* dims, float scale, void* stream) {
+  return bwd_entry<__half>(ptrs, strides, dims, scale, stream);
 }
 
 const char* tl_flash_f32_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+const char* tl_flash_f16_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

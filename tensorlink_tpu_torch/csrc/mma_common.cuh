@@ -1,11 +1,12 @@
 // Tensor-core and async-copy helpers shared by the port's attention
-// kernels (flash_attention.cu, paged_decode.cu), for sm_90a.
+// kernels (flash_attention.cu, flash_attention_f32.cu, paged_decode.cu),
+// for sm_90a.
 //
 // mma.sync m16n8k16 (bf16 in, f32 accumulate) with operand fragments read
-// from row-major shared tiles by ldmatrix, and 16- or 4-byte cp.async
-// copies from device memory into shared memory (a source size of 0 fills
-// the destination with zeros, which is how ragged edges and unmapped
-// pages are padded without a branch around the copy).
+// from row-major shared tiles by ldmatrix, mma.sync m16n8k8 in tf32, and
+// 16- or 4-byte cp.async copies from device memory into shared memory (a
+// source size of 0 fills the destination with zeros, which is how ragged
+// edges and unmapped pages are padded without a branch around the copy).
 
 #pragma once
 
@@ -47,6 +48,20 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[16x8] += a[16x8] * b[8x8]; tf32 inputs (the mma reads the upper 19
+// bits of each register: sign, exponent and 10 mantissa bits), f32
+// accumulators. Fragments: a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); b0 (row t, col g), b1 (t + 4, g); c as for mma above
+// (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

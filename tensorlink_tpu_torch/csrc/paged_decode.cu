@@ -58,8 +58,8 @@
 //   as one wave of the card holds, and the same merge kernel combines
 //   them; here the split follows the live range, read on the device, so
 //   every block has work whatever the row's length.
-// general (anything else: f32 q or pools, other head dims, a mask whose
-//   width is not a multiple of 16): the first, scalar design. One block of
+// general (anything else: f32 or f16 q or pools, other head dims, a mask
+//   whose width is not a multiple of 16): the first, scalar design. One block of
 //   8 warps per (query tile, kv head, row, split); K/V chunks of 32 keys
 //   dequantized into shared memory as f32, lane j scores key j, splits of
 //   the live range combined by the same merge kernel.
@@ -68,6 +68,8 @@
 // and the bytes bound the kernel; at the prefill chunk wgmma (with TMA
 // staging of whole pages) would lift the tensor-core rate above what
 // mma.sync reaches, which is work for a later version.
+
+#include <cuda_fp16.h>
 
 #include "mma_common.cuh"
 
@@ -89,6 +91,7 @@ constexpr int kDPerLane = kMaxD / kWarp;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(int8_t x) {
   return static_cast<float>(x);
 }
@@ -100,6 +103,10 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -379,6 +386,11 @@ int launch_general_kv(int kv_dtype, const void* q, const void* k,
                                        stream);
     case 2:
       return launch_general<QT, int8_t>(q, k, v, ks, vsc, bt, lengths, mask,
+                                         out, part, nsplit, B, T, H, Hkv, D,
+                                         NB, bs, MB, mask_T, window, scale,
+                                         stream);
+    case 3:
+      return launch_general<QT, __half>(q, k, v, ks, vsc, bt, lengths, mask,
                                          out, part, nsplit, B, T, H, Hkv, D,
                                          NB, bs, MB, mask_T, window, scale,
                                          stream);
@@ -829,8 +841,9 @@ bool aligned16(const void* p) {
 extern "C" {
 
 // variant: 0 = general, 1 = decode, 2 = prefill (ops/paged_decode.py
-// picks it). dtype codes: q 0 = float32, 1 = bfloat16; kv 0 = float32,
-// 1 = bfloat16, 2 = int8 (then k_scale/v_scale must be given). Pointers
+// picks it). dtype codes: q 0 = float32, 1 = bfloat16, 2 = float16; kv
+// 0 = float32, 1 = bfloat16, 2 = int8 (then k_scale/v_scale must be
+// given), 3 = float16. float16 goes to the general variant only. Pointers
 // are device pointers to contiguous arrays; mask may be null, else
 // [B, 1, mask_T, MB*bs] bytes; window <= 0 means none. nsplit > 1 needs
 // part, a float32 workspace of B * T * H * nsplit * (D + 2) elements. The
@@ -867,6 +880,11 @@ int tl_paged_decode(const void* q, const void* k, const void* v,
                                        block_table, lengths, mask, out, part,
                                        nsplit, B, T, H, Hkv, D, NB, bs, MB,
                                        mask_T, window, scale, s);
+      case 2:
+        return launch_general_kv<__half>(kv_dtype, q, k, v, k_scale, v_scale,
+                                         block_table, lengths, mask, out,
+                                         part, nsplit, B, T, H, Hkv, D, NB,
+                                         bs, MB, mask_T, window, scale, s);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }

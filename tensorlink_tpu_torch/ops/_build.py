@@ -31,6 +31,10 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# compile a source's kernels on every core: the templated attention
+# sources hold 24 or more kernels each, and one ptxas thread took 46-53 s
+# on the largest where this takes 23-28 s (NVIDIA H100 host, 8 cores)
+PARALLEL_FLAGS = ["--split-compile=0"]
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -103,7 +107,7 @@ def build(source: str, *, verbose: bool = False) -> tuple[str, str, bool]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out_path}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [
-        nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+        nvcc_path(), *ARCH_FLAGS, *PARALLEL_FLAGS, "-std=c++17", "-O3", "-shared",
         "-Xcompiler", "-fPIC", "-I", CSRC_DIR, "-o", tmp,
         os.path.join(CSRC_DIR, source),
     ]

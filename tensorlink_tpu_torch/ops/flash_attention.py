@@ -12,18 +12,19 @@ and lse = ``LSE_MASKED``.
 ``ops.flash`` calls. A CUDA tensor launches the hand-written kernels
 (built with ``nvcc`` at first use, bound with ``ctypes``): bf16 operands
 those of ``csrc/flash_attention.cu``, the forward on wgmma fed by TMA,
-the backward on mma.sync; f32 operands those of
-``csrc/flash_attention_f32.cu``, on the CUDA cores in f32 (the reference's
-kernels compute in f32 whatever their inputs, so an f32 model keeps its
-precision). ``launches_by_variant`` counts each wrapper's launches by form
-("bf16", "f32").
+the backward on mma.sync; f32 and f16 operands those of
+``csrc/flash_attention_f32.cu``, on the tensor cores in TF32 with a
+three-product split that keeps f32 precision (the reference's kernels
+compute in f32 whatever their inputs, so an f32 or f16 model keeps its
+precision). ``launches_by_variant`` counts each wrapper's launches by
+form ("bf16", "f32", "f16").
 They read any [B, heads, T, D] view whose D is contiguous and whose base
 and strides are 16-byte aligned, so the caller's [B, T, H, D] tensors
 pass as transposed views, and the outputs come back as views over
 [B, T, heads, D] storage. A CPU tensor
 takes the plain PyTorch version of the same math
 (``flash_attention_fwd_lse_reference``, ``flash_attention_bwd_reference``).
-A CUDA input outside the kernels' limits (bf16 or f32, D in
+A CUDA input outside the kernels' limits (bf16, f32 or f16, D in
 ``HEAD_DIMS``, 16-byte aligned base and strides) raises: nothing routes
 a CUDA tensor to the plain version.
 """
@@ -47,6 +48,7 @@ HEAD_DIMS = (64, 128)
 KERNEL_FORMS = {
     torch.bfloat16: ("bf16", "flash_attention.cu", ""),
     torch.float32: ("f32", "flash_attention_f32.cu", "_f32"),
+    torch.float16: ("f16", "flash_attention_f32.cu", "_f16"),
 }
 KERNEL_BLOCK = 64  # the kernels' query and key tile
 
@@ -173,7 +175,7 @@ def flash_attention_fwd_lse(q, k, v, kv_mask=None, *, causal: bool = False,
 
 
 flash_attention_fwd_lse.launches = 0
-flash_attention_fwd_lse.launches_by_variant = {"bf16": 0, "f32": 0}
+flash_attention_fwd_lse.launches_by_variant = {"bf16": 0, "f32": 0, "f16": 0}
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, kv_mask=None, *,
@@ -213,7 +215,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, kv_mask=None, *,
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_by_form = {"own": 0, "delta": 0}
-flash_attention_bwd.launches_by_variant = {"bf16": 0, "f32": 0}
+flash_attention_bwd.launches_by_variant = {"bf16": 0, "f32": 0, "f16": 0}
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -232,15 +234,15 @@ def _strides(x):
 
 
 def _check_views(q, views):
-    """What the kernels can read: [B, heads, T, D] views of one dtype, bf16
-    or f32 (``KERNEL_FORMS``), with D contiguous, all on q's card, whose
+    """What the kernels can read: [B, heads, T, D] views of one dtype, bf16,
+    f32 or f16 (``KERNEL_FORMS``), with D contiguous, all on q's card, whose
     base pointers and (b, h, t) strides are multiples of 16 bytes: the bf16
     forward reads q, k and v through TMA tensor maps, which address nothing
     else, and the bf16 backward's 16-byte copies need the same (the f32
     kernels keep the rule). -> the form's ``KERNEL_FORMS`` entry."""
     D = q.shape[-1]
     _check(q.dtype in KERNEL_FORMS,
-           f"q dtype {q.dtype} (bfloat16 or float32)")
+           f"q dtype {q.dtype} (bfloat16, float32 or float16)")
     _check(D in HEAD_DIMS, f"head dim {D} (kernel takes {HEAD_DIMS})")
     for name, x in views.items():
         _check(x.device == q.device, f"{name} is not on {q.device}")
@@ -276,9 +278,9 @@ def _call(fn, q, ptrs, strides, dims):
         rc = getattr(lib, fn + suffix)(ptr_arr, st_arr, dim_arr,
                                        q.shape[-1] ** -0.5, stream)
     if rc != 0:
+        err = getattr(lib, f"tl_flash{suffix}_error_string")(rc).decode()
         raise RuntimeError(
-            f"flash-attention kernel launch failed: CUDA error {rc} "
-            f"({lib.error_string(rc).decode()})"
+            f"flash-attention kernel launch failed: CUDA error {rc} ({err})"
         )
 
 
@@ -336,15 +338,15 @@ def _lib(source: str = "flash_attention.cu") -> ctypes.CDLL:
 
     lib = load(source)
     if not getattr(lib, "_tl_typed", False):
-        suffix = next(x for _, s, x in KERNEL_FORMS.values() if s == source)
         P = ctypes.c_void_p
-        for name in ("tl_flash_fwd", "tl_flash_bwd"):
-            fn = getattr(lib, name + suffix)
-            # ptrs, strides, dims, scale, stream
-            fn.argtypes = [P, P, P, ctypes.c_float, P]
-            fn.restype = ctypes.c_int
-        lib.error_string = getattr(lib, f"tl_flash{suffix}_error_string")
-        lib.error_string.argtypes = [ctypes.c_int]
-        lib.error_string.restype = ctypes.c_char_p
+        for suffix in {x for _, s, x in KERNEL_FORMS.values() if s == source}:
+            for name in ("tl_flash_fwd", "tl_flash_bwd"):
+                fn = getattr(lib, name + suffix)
+                # ptrs, strides, dims, scale, stream
+                fn.argtypes = [P, P, P, ctypes.c_float, P]
+                fn.restype = ctypes.c_int
+            err = getattr(lib, f"tl_flash{suffix}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
         lib._tl_typed = True
     return lib

@@ -11,11 +11,12 @@ switch that routes CUDA tensors to the plain version.
 
 The kernel has three variants, chosen from dtypes and shapes alone by
 ``kernel_variant`` (the engine's bf16 decode steps take "decode", its
-prefill chunks "prefill"; f32 tensors, other head dims and masks whose
-width is not a multiple of 16 take "general"). ``partition_plan`` says
-how many blocks share each row's keys (fixed partitions of the view at
-decode, even shares of each tile's live range at prefill), from shapes
-alone, so the host never reads ``lengths``. Each variant counts its own
+prefill chunks "prefill"; f32 and f16 tensors, other head dims and
+masks whose width is not a multiple of 16 take "general").
+``partition_plan`` says how many blocks share each row's keys (fixed
+partitions of the view at decode, even shares of each tile's live range
+at prefill), from shapes alone, so the host never reads ``lengths``.
+Each variant counts its own
 launches in ``paged_decode_attention.launches_by_variant``; the total
 stays in ``paged_decode_attention.launches``.
 """
@@ -47,8 +48,9 @@ GENERAL_TARGET_BLOCKS = 4 * SMS
 GENERAL_CHUNK = 32
 
 VARIANTS = ("general", "decode", "prefill")
-_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+             torch.float16: 3}
 
 
 def kernel_variant(q_dtype, kv_dtype, T: int, H: int, Hkv: int, D: int,
@@ -56,9 +58,11 @@ def kernel_variant(q_dtype, kv_dtype, T: int, H: int, Hkv: int, D: int,
     """Which kernel variant takes a call: "decode" for bf16 q over bf16
     or int8 pools with D in ``MMA_HEAD_DIMS`` and at most
     ``DECODE_ROWS`` query rows (T x GQA group) per kv head; "prefill"
-    for the same types with more rows; "general" for everything else, including a mask whose width ``Lv``
-    is not a multiple of 16 (the fast variants copy mask rows 16 bytes
-    at a time)."""
+    for the same types with more rows; "general" for everything else,
+    including a mask whose width ``Lv`` is not a multiple of 16 (the
+    fast variants copy mask rows 16 bytes at a time). The decode and
+    prefill variants are bf16 only: f32 and f16 q, over any pool, take
+    "general", which computes in f32 whatever the storage types."""
     group = H // Hkv
     fast = (
         q_dtype == torch.bfloat16
@@ -213,7 +217,7 @@ def _launch(q, k, v, block_table, lengths, k_scale, v_scale, mask, window):
         all(t is None or t.is_contiguous() for t in args),
         "tensors must be contiguous",
     )
-    _check(q.dtype in _Q_CODES, f"q dtype {q.dtype} (float32 or bfloat16)")
+    _check(q.dtype in _Q_CODES, f"q dtype {q.dtype} (float32, bfloat16 or float16)")
     _check(k.dtype == v.dtype and k.dtype in _KV_CODES,
            f"pool dtypes {k.dtype}/{v.dtype}")
     _check(tuple(k.shape) == (NB, bs, Hkv, D) and v.shape == k.shape,

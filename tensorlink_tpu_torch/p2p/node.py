@@ -277,7 +277,10 @@ class Node:
                 if serving is not None and hasattr(
                     serving, "kv_stats_summary"
                 ):
-                    kv = serving.kv_stats_summary()
+                    # off the loop: the summary takes the engine's lock,
+                    # which a step holds for its whole run (seconds at a
+                    # graph capture), and the loop must keep serving
+                    kv = await asyncio.to_thread(serving.kv_stats_summary)
                     for k in ("occupancy", "fragmentation", "chains"):
                         if k in kv:
                             self.timeseries.record(
@@ -1560,8 +1563,10 @@ class Node:
             out["timeseries_delta"] = self.timeseries.delta(since)
             serving = getattr(self, "serving", None)
             if serving is not None and hasattr(serving, "kv_stats_summary"):
-                try:
-                    out["kv"] = serving.kv_stats_summary()
+                try:  # off the loop: it takes the engine's lock
+                    out["kv"] = await asyncio.to_thread(
+                        serving.kv_stats_summary
+                    )
                 except Exception:  # noqa: BLE001
                     pass
         # work-receipt piggyback (runtime/ledger.py): signed finished-

@@ -164,8 +164,10 @@ class StatusServer:
                 # locked residency snapshot: pool occupancy/fragmentation
                 # plus the resident prefix chains (digest, blocks, refs,
                 # priority class, last-hit age) — ROADMAP-1(a) groundwork
+                # (a coroutine off the loop: it takes the engine's lock,
+                # which a step holds for its whole run)
                 limit = int(q.get("limit", 64))
-                return serving.kv_stats(limit=limit)
+                return asyncio.to_thread(serving.kv_stats, limit=limit)
 
             routes["/kv"] = kv_route
         fleet_series = getattr(node, "fleet_series", None)

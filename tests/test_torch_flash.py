@@ -5,7 +5,10 @@ the JAX package on the same seeded inputs (f32, CPU).
   what ``chip_smoke.py`` holds the CUDA kernels against) against the
   Pallas kernels in interpret mode, blocks of 64 so every case spans
   several blocks: o and lse within atol/rtol 2e-5, dq/dk/dv within 1e-4
-  (f32 sums of up to 256 terms, taken in another order);
+  (f32 sums of up to 256 terms, taken in another order); and, fed the same
+  f16 tensors (``:f16`` cases), o within 1e-3 and dq/dk/dv within 5e-3 of
+  max |Pallas| (both compute in f32 and round each output to f16 once,
+  2^-11 ~ 4.9e-4 of it, at points the two sums reach in another order);
 - ``flash_attention``'s autograd gradients against ``jax.grad`` of the JAX
   ``flash_attention(..., interpret=True)`` (1e-4);
 - the fully-masked-row rule of ``_fallback_attn`` (exact zeros);
@@ -37,6 +40,7 @@ from tensorlink_tpu_torch.ops.flash_attention import (
 
 FWD_TOL = 2e-5
 GRAD_TOL = 1e-4
+F16_O_REL, F16_GRAD_REL = 1e-3, 5e-3  # of max |Pallas|, f16 outputs
 
 # name: (B, H, Hkv, T, D, causal, window, mask)
 CASES = {
@@ -46,7 +50,11 @@ CASES = {
     "causal_window": (1, 2, 2, 256, 64, True, 70, "rows"),
     "gqa": (1, 4, 2, 128, 64, True, None, "rows"),
     "d128": (1, 2, 2, 128, 128, False, None, "rows"),
+    "gqa_d128_window": (1, 4, 2, 192, 128, True, 50, None),
 }
+# the f16 cases: every key of a B 1 "rows" case is masked (o and the
+# gradients are exact zeros in any dtype), so these hold live rows
+F16_CASES = ("plain", "kv_mask_masked_row", "causal", "gqa_d128_window")
 
 
 def _inputs(B, H, Hkv, T, D, mask, seed=0):
@@ -72,23 +80,40 @@ def _j(a):
     return None if a is None else jnp.asarray(a)
 
 
-@pytest.mark.parametrize("name", list(CASES))
+def _rel_to_max(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+@pytest.mark.parametrize(
+    "name", list(CASES) + [f"{n}:f16" for n in F16_CASES])
 def test_plain_kernels_match_pallas_interpret(name):
+    name, _, form = name.partition(":")
     B, H, Hkv, T, D, causal, window, mask = CASES[name]
     q, k, v, do, kv = _inputs(B, H, Hkv, T, D, mask)
+    if form == "f16":  # the same f16 tensors into both
+        q, k, v, do = (x.astype(np.float16) for x in (q, k, v, do))
     kw = {"causal": causal, "window": window}
     jo, jlse = j_fwd(_j(q), _j(k), _j(v), _j(kv), block_q=64, block_k=64,
                      interpret=True, **kw)
     to, tlse = flash_attention_fwd_lse(_t(q), _t(k), _t(v), _t(kv), **kw)
-    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=FWD_TOL, rtol=FWD_TOL)
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=FWD_TOL, rtol=FWD_TOL)
+    if form == "f16":
+        assert to.dtype == torch.float16 and jo.dtype == jnp.float16
+        assert _rel_to_max(to.numpy(), jo) <= F16_O_REL
+    else:
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=FWD_TOL, rtol=FWD_TOL)
 
     jg = j_bwd(_j(q), _j(k), _j(v), jo, jlse, _j(do), _j(kv), block_q=64,
                block_k=64, interpret=True, **kw)
     tg = flash_attention_bwd(_t(q), _t(k), _t(v), to, tlse, _t(do), _t(kv), **kw)
     for name_, a, b in zip(("dq", "dk", "dv"), tg, jg):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_TOL,
-                                   rtol=GRAD_TOL, err_msg=name_)
+        if form == "f16":
+            assert a.dtype == torch.float16, name_
+            assert _rel_to_max(a.numpy(), b) <= F16_GRAD_REL, name_
+        else:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_TOL,
+                                       rtol=GRAD_TOL, err_msg=name_)
 
 
 def test_flash_attention_grads_match_jax_grad():
@@ -232,30 +257,34 @@ def test_forward_launcher_raises_on_views_tma_cannot_address(fault):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 def test_kernel_dtype_rule(dtype):
     """The kernels' dtype rule: bf16 views go to csrc/flash_attention.cu,
-    f32 views to csrc/flash_attention_f32.cu (an f32 model keeps its
-    precision where the reference's kernels compute in f32), and f16 is
-    refused with its message. Checked on CPU views: nothing is built or
-    launched, and no launch is counted."""
+    f32 and f16 views to csrc/flash_attention_f32.cu's "f32" and "f16"
+    forms (an f32 or f16 model keeps the precision the reference's
+    kernels give it: they compute in f32 whatever their inputs), and any
+    other dtype is refused with its message. Checked on CPU views:
+    nothing is built or launched, and no launch is counted."""
     B, H, T, D = 2, 4, 512, 64
     q, k, v, do, o = (torch.zeros((B, T, H, D), dtype=dtype).transpose(1, 2)
                       for _ in range(5))
     views = {"q": q, "k": k, "v": v, "do": do, "o": o}
     counts = (dict(flash_attention_fwd_lse.launches_by_variant),
               dict(flash_attention_bwd.launches_by_variant))
-    if dtype == torch.float16:
-        with pytest.raises(ValueError, match=r"q dtype torch.float16 \(bfloat16 or float32\)"):
-            tfa._check_views(q, views)
-    else:
-        form, source, _ = tfa._check_views(q, views)
-        assert (form, source) == (("bf16", "flash_attention.cu") if dtype == torch.bfloat16
-                                  else ("f32", "flash_attention_f32.cu"))
-        # every view must share q's dtype
-        other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
-        with pytest.raises(ValueError, match="k dtype"):
-            tfa._check_views(q, dict(views, k=k.to(other)))
+    form, source, suffix = tfa._check_views(q, views)
+    assert (form, source, suffix) == {
+        torch.bfloat16: ("bf16", "flash_attention.cu", ""),
+        torch.float32: ("f32", "flash_attention_f32.cu", "_f32"),
+        torch.float16: ("f16", "flash_attention_f32.cu", "_f16"),
+    }[dtype]
+    # every view must share q's dtype
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(ValueError, match="k dtype"):
+        tfa._check_views(q, dict(views, k=k.to(other)))
+    f64 = {n: x.double() for n, x in views.items()}
+    with pytest.raises(ValueError,
+                       match=r"q dtype torch.float64 \(bfloat16, float32 or float16\)"):
+        tfa._check_views(f64["q"], f64)
     assert counts == (flash_attention_fwd_lse.launches_by_variant,
                       flash_attention_bwd.launches_by_variant)
-    assert set(counts[0]) == set(counts[1]) == {"bf16", "f32"}
+    assert set(counts[0]) == set(counts[1]) == {"bf16", "f32", "f16"}
 
 
 def test_f32_no_cache_attention_routes_to_the_kernel_pair(monkeypatch):

@@ -25,6 +25,7 @@ import asyncio
 import json
 import math
 import socket
+import threading
 import urllib.request
 
 import msgpack
@@ -547,6 +548,55 @@ async def test_node_builds_serving_with_its_telemetry():
         assert met["counters"]["serving_tokens_total"] == 8
     finally:
         await ref.stop()
+        await node.stop()
+
+
+class _LockedServing:
+    """A serving engine's KV surface behind its step lock."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+
+    def kv_stats_summary(self):
+        with self._lock:
+            return {"occupancy": 0.25, "fragmentation": 0.0, "chains": 1}
+
+    def kv_stats(self, limit=64):
+        with self._lock:
+            return {"pool": {"blocks_in_use": 1}, "chains": []}
+
+
+@pytest.mark.asyncio
+async def test_node_loop_does_not_wait_on_the_serving_lock():
+    """The engine's lock is held for a whole step (seconds at a graph
+    capture on the card): the node's timeseries tick, a PING with
+    ``ts_since`` and ``GET /kv`` wait for it off the event loop, which
+    keeps running (a loop that waited showed as event-loop lag > 1 s and
+    an unhealthy node), and they answer once the step lets go."""
+    node = Node(_cfg("worker", http_status_port=0, timeseries_interval_s=0.05))
+    other = Node(_cfg("validator"))
+    await _start(node, other)
+    serving = node.serving = _LockedServing()
+    try:
+        peer = await other.connect("127.0.0.1", node.port)
+        serving._lock.acquire()  # a step in flight, for 1 s
+        threading.Timer(1.0, serving._lock.release).start()
+        loop = asyncio.get_running_loop()
+        gaps, last = [], loop.time()
+        port = node._http.bound_port
+        kv = asyncio.ensure_future(asyncio.to_thread(_http_get, port, "/kv"))
+        pong = asyncio.ensure_future(other.request(peer, {"type": "PING", "ts_since": 0}))
+        for _ in range(30):  # 0.6 s of beats while the step runs
+            await asyncio.sleep(0.02)
+            gaps.append(loop.time() - last)
+            last = loop.time()
+        assert max(gaps) < 0.3, max(gaps)
+        assert not pong.done() and not kv.done()  # both wait on the step
+        assert (await pong)["kv"] == serving.kv_stats_summary()
+        assert (await kv)["pool"] == {"blocks_in_use": 1}
+        assert node.timeseries.kind("kv_occupancy") == "gauge"
+    finally:
+        await other.stop()
         await node.stop()
 
 

@@ -92,6 +92,35 @@ def test_reference_matches_jax(T, heads, window, masked, int8):
         assert not out[1].any()  # the fully masked row
 
 
+@pytest.mark.parametrize("pool", ["f16", "int8"])
+@pytest.mark.parametrize("T,masked,window", [(1, True, None), (5, False, 3)])
+def test_reference_matches_jax_f16(T, masked, window, pool):
+    """The f16 form (the card's general variant): f16 q over an f16 or
+    int8 pool, the same tensors into both, within 1e-3 of max |JAX| (both
+    compute in f32 and round the output to f16 once, 2^-11 ~ 4.9e-4)."""
+    q, k, v, bt, lengths, ks, vs, mask = _inputs(T, 4, 2, masked, pool == "int8")
+    q = q.astype(np.float16)
+    if pool == "f16":
+        k, v = k.astype(np.float16), v.astype(np.float16)
+    ref = np.asarray(jax_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt),
+        jnp.asarray(lengths),
+        k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs),
+        mask=None if mask is None else jnp.asarray(mask), window=window,
+    ))
+    out = paged_decode_reference(
+        _torch(q), _torch(k), _torch(v), _torch(bt), _torch(lengths),
+        k_scale=_torch(ks), v_scale=_torch(vs), mask=_torch(mask),
+        window=window,
+    )
+    assert out.dtype == torch.float16 and ref.dtype == np.float16
+    out, ref = out.float().numpy(), ref.astype(np.float32)
+    assert np.abs(out - ref).max() <= 1e-3 * np.abs(ref).max()
+    if masked:
+        assert not out[1].any()  # the fully masked row
+
+
 def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
     q, k, v, bt, lengths, ks, vs, mask = _inputs(5, 4, 2, True, True)
     args = (_torch(q), _torch(k), _torch(v), _torch(bt), _torch(lengths))
@@ -189,6 +218,13 @@ def test_prefill_form_matches_jax(T, length, window, int8):
         (torch.bfloat16, torch.bfloat16, 1, 4, 2, 8, 16, False, "general"),
         (torch.bfloat16, torch.bfloat16, 1, 32, 8, 128, 2040, True, "general"),
         (torch.bfloat16, torch.bfloat16, 1, 32, 8, 128, 2040, False, "decode"),
+        # f16 q over any pool takes the general variant, which computes in
+        # f32 (the decode and prefill variants are bf16 only)
+        (torch.float16, torch.float16, 1, 32, 8, 128, 2048, True, "general"),
+        (torch.float16, torch.float16, 128, 32, 8, 128, 2048, False, "general"),
+        (torch.float16, torch.int8, 1, 32, 8, 128, 2048, False, "general"),
+        (torch.float16, torch.bfloat16, 4, 32, 8, 64, 2048, True, "general"),
+        (torch.bfloat16, torch.float16, 1, 32, 8, 128, 2048, True, "general"),
     ],
 )
 def test_kernel_variant(q_dtype, kv_dtype, T, H, Hkv, D, Lv, masked, want):
