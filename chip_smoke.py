@@ -361,6 +361,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    plain f16 attention's, and each gradient leaf at cosine 0.999 with
    plain f16 attention's, or, where plain f16 is itself off the f32
    gradient, no farther from it than twice plain's error.
+13. the f16 forms on the 16-bit tensor cores, and other head dims.
+   B1/B2's f16 forms run on ``csrc/flash_attention.cu`` (bf16's source,
+   instantiated on f16: wgmma forward, mma.sync m16n8k16 backward with
+   each row of dS scaled by a power of two against underflow);
+   ``[build]`` counts HGMMA in every forward kernel of both 16-bit forms,
+   16-bit HMMA (``HMMA.16816.F32``, no ``.BF16``) in every f16 backward
+   kernel, and finds no f16 kernel or entry in ``flash_attention_f32.cu``.
+   ``[flash f32]``'s f16 rows carry the fraction of the bound the kernel
+   reaches, and B2 again with dO scaled by 2^-16 and 2^-24
+   (``F16_DO_SCALES``, gated by ``_f16_grad_ok``). ``[flash d]``: head
+   dims 96 and 80 (zero-padded to 128 by the wrappers) in bf16, f32 and
+   f16, B1, B2 and B2's delta form against their plain versions at each
+   form's tolerances; ``[sp attention]`` runs the ring and Ulysses once
+   at D 96 (``SP_CASES["d96"]``).
 
 Legs 6-9, 7a, 7b, 7j and 8a run their decode as CUDA-graph replays (the engines' default)
 with ``pipeline_depth`` 2 chunks in flight on the serving engines; the
@@ -396,6 +410,7 @@ is imported.
 import asyncio
 import collections
 import concurrent.futures
+import ctypes
 import dataclasses
 import gc
 import json
@@ -568,6 +583,8 @@ SP_WORLD = 2
 SP_CASES = {
     "llama": (1, 32, 8, 8192, 128, True, None),
     "bert": (8, 12, 12, 512, 64, False, "bert"),
+    # a head dim the wrappers zero-pad (to 128)
+    "d96": (1, 8, 8, 2048, 96, True, None),
 }
 SP2_STEPS = 1
 DEV = "cuda"
@@ -667,9 +684,13 @@ CUDA_SOURCES = ("paged_decode.cu", "decode_glue.cu", "flash_attention.cu",
                 "flash_attention_f32.cu")
 
 
-def sass_counts(lib_path: str, opcode: str = "HGMMA") -> dict:
+def sass_counts(lib_path: str, opcode: str = "HGMMA", unless: str | None = None) -> dict:
     """{kernel: number of ``opcode`` instructions} in the library's SASS
-    (HGMMA: wgmma; HMMA.1688.F32.TF32: mma.sync m16n8k8 in tf32)."""
+    (HGMMA: wgmma; HMMA.16816.F32: mma.sync m16n8k16, in bf16 with
+    ``.BF16`` after it, so ``unless=".BF16"`` counts the f16 ones;
+    HMMA.1688.F32.TF32: mma.sync m16n8k8 in tf32). Kernel names are
+    mangled: the f16 instantiations carry ``__half``, the bf16 ones
+    ``__nv_bfloat16``."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
@@ -678,7 +699,7 @@ def sass_counts(lib_path: str, opcode: str = "HGMMA") -> dict:
         if "Function : " in ln:
             fn = ln.split("Function : ")[1].strip()
             counts[fn] = 0
-        elif fn is not None and opcode in ln:
+        elif fn is not None and opcode in ln and (unless is None or unless not in ln):
             counts[fn] += 1
     return counts
 
@@ -701,18 +722,32 @@ def phase_build() -> dict:
             if any(w in ln for w in ("registers", "Compiling entry", "spill",
                                      "Performance Loss")):
                 say(f"[build]   ptxas: {ln.strip()}")
-    fwd = {k: n for k, n in sass_counts(built["flash_attention.cu"][1]).items()
-           if "flash_fwd_kernel" in k}
+    lib16 = built["flash_attention.cu"][1]
+    # every forward kernel of both 16-bit forms (2 D x band or not) on wgmma
+    fwd = {k: n for k, n in sass_counts(lib16).items() if "flash_fwd_kernel" in k}
     for k, n in fwd.items():
         say(f"[build] HGMMA {n} in {k}")
-    check(bool(fwd) and min(fwd.values()) > 0,
+    check(len(fwd) == 8 and min(fwd.values()) > 0
+          and sum("__half" in k for k in fwd) == 4,
           f"a flash forward kernel has no HGMMA instruction: {fwd}")
-    # the f32/f16 forms' products run on the tensor cores in tf32
-    tc = sass_counts(built["flash_attention_f32.cu"][1], "HMMA.1688.F32.TF32")
+    # the f16 backward kernels' products on the 16-bit mma (not bf16's)
+    hm = {k: n for k, n in sass_counts(lib16, "HMMA.16816.F32", ".BF16").items()
+          if "flash_bwd" in k and "__half" in k}
+    for k, n in hm.items():
+        say(f"[build] HMMA.16816.F32 (f16) {n} in {k}")
+    check(len(hm) == 12 and min(hm.values()) > 0,
+          f"an f16 flash backward kernel has no f16 mma instruction: {hm}")
+    # the f32 form's products run on the tensor cores in tf32; no f16 there
+    lib32 = built["flash_attention_f32.cu"][1]
+    tc = sass_counts(lib32, "HMMA.1688.F32.TF32")
     for k, n in tc.items():
         say(f"[build] HMMA.1688.F32.TF32 {n} in {k}")
-    check(len(tc) == 24 and min(tc.values()) > 0,
-          f"an f32/f16 flash kernel has no tf32 mma instruction: {tc}")
+    check(len(tc) == 12 and min(tc.values()) > 0,
+          f"an f32 flash kernel has no tf32 mma instruction: {tc}")
+    f16_left = [k for k in tc if "__half" in k] + [
+        e for e in ("tl_flash_fwd_f16", "tl_flash_bwd_f16")
+        if hasattr(ctypes.CDLL(lib32), e)]
+    check(not f16_left, f"flash_attention_f32.cu still holds an f16 form: {f16_left}")
     return {"wall_s": wall, **{src: b[0] for src, b in built.items()}}
 
 
@@ -1057,6 +1092,21 @@ FLASH_F32_GRAD_REL = 1e-3
 # rounding is 2^-11 ~ 4.9e-4 of the value
 FLASH_F16_O_REL = 1e-3
 FLASH_F16_GRAD_REL = 5e-3
+# each form's (o, gradient) tolerance: bf16 relative Frobenius, f32 and
+# f16 relative to max |plain|
+FLASH_TOLS = {"bf16": (FLASH_O_REL, FLASH_GRAD_REL),
+              "f32": (FLASH_F32_O_REL, FLASH_F32_GRAD_REL),
+              "f16": (FLASH_F16_O_REL, FLASH_F16_GRAD_REL)}
+# [flash f32]'s f16 B2 rows again with dO scaled down (an f16 model's small
+# gradients): the kernels scale dS against f16's underflow
+F16_DO_SCALES = (2.0 ** -16, 2.0 ** -24)
+F16_STEP = 2.0 ** -24  # f16's least step: its spacing below 2^-14
+# [flash d]: head dims the kernels are not built for, zero-padded to 128
+# by the wrappers; name -> (B, H, Hkv, T, D, causal, window, mask)
+FLASH_D_CASES = {
+    "d96": (2, 8, 8, 512, 96, True, None, None),
+    "d80": (2, 12, 4, 300, 80, False, None, "ragged"),
+}
 
 
 def _flash_inputs(g, B, H, Hkv, T, D, mask, dtype=torch.bfloat16):
@@ -1149,10 +1199,10 @@ def _flash_bounds(form: str, B, H, Hkv, T, D, kv, causal, window) -> dict:
     pair forward (S, P V) and 10 D backward (S, dP, dQ, dK, dV), at the
     card's peak for the operands: bf16 and f16 at the dense 16-bit
     tensor-core rate, f32 at the 3xTF32 rate (three TF32 products a
-    product). The f32 and f16 forms also carry ``bound_ms_tf32`` (the
-    TF32 products the form runs, ``_tf32_passes``, at TF32_FLOPS: the
-    design's own ceiling, not the function's) and ``bound_ms_vector``
-    (the operations at the f32 vector peak, the FFMA design's bound).
+    product). The f32 form also carries ``bound_ms_tf32`` (the TF32
+    products it runs, ``_tf32_passes``, at TF32_FLOPS: the design's own
+    ceiling, not the function's) and ``bound_ms_vector`` (the operations
+    at the f32 vector peak, the FFMA design's bound).
     -> {"pairs", "fwd": {...}, "bwd": {...}}."""
     pairs = int(_flash_keep(B, T, kv, causal, window).sum()) * H
     el = FLASH_FORMS[form]
@@ -1164,8 +1214,8 @@ def _flash_bounds(form: str, B, H, Hkv, T, D, kv, causal, window) -> dict:
         b, by = (_bound(nbytes, 3 * ops, TF32_FLOPS) if form == "f32"
                  else _bound(nbytes, ops, BF16_FLOPS))
         row = {"bound_ms": b, "bound_by": by, "bytes": nbytes, "flops": ops}
-        if form != "bf16":
-            passes = _tf32_passes(form, p == "fwd")
+        if form == "f32":
+            passes = _tf32_passes(p == "fwd")
             row.update(bound_ms_tf32=_bound(nbytes, 2 * D * pairs * passes, TF32_FLOPS)[0],
                        bound_ms_vector=_bound(nbytes, ops, F32_FLOPS)[0], tf32_passes=passes)
         out[p] = row
@@ -1181,6 +1231,28 @@ def _timed(prefix: str, fn, flush, iters: int = 20) -> dict:
 def _rel(a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _rel_max(a, b) -> float:
+    """The worst error of a against b, relative to max |b|."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _f16_grad_ok(a, b, tol: float = FLASH_F16_GRAD_REL) -> dict:
+    """One f16 gradient ``a`` against the plain version's ``b`` from the
+    same f16 inputs: its worst error relative to max |b|, the same in
+    units of f16's least step, and whether it is within ``tol`` x max |b|
+    plus one least step. A dO scaled down by 2^-16 or 2^-24 puts the
+    gradients below f16's normal range, where both versions round their
+    f32 sums to steps of 2^-24, a few to tens of steps per max |b|: the
+    two roundings of sums that agree to 1e-4 still part by one step, which
+    no kernel can avoid, so the step is allowed beside the relative gate
+    (a kernel whose dS underflowed would be off by max |b| itself)."""
+    a, b = a.float(), b.float()
+    err, top = float((a - b).abs().max()), float(b.abs().max())
+    return {"rel_to_max": err / max(top, 1e-30), "steps": err / F16_STEP,
+            "max_steps": top / F16_STEP, "ok": err <= tol * top + F16_STEP}
 
 
 def phase_flash(flush) -> dict:
@@ -1256,6 +1328,7 @@ def phase_flash(flush) -> dict:
     say(f"[flash] all cases within tolerance; worst max abs err: o {worst_f}, "
         f"gradients {worst_b}; worst o relative Frobenius {worst_rel_o}")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    _flash_head_dims(g)
     tc = _flash_f32(g, flush)
     out = {
         "fwd": dict({k: rows["bert"]["fwd"][k] for k in keys}, max_abs_err=worst_f),
@@ -1269,26 +1342,63 @@ def phase_flash(flush) -> dict:
     return out
 
 
-def _tf32_passes(form: str, fwd: bool) -> int:
-    """TF32 products the f32/f16 kernels run for one attended pair's
-    products, in units of a D-long dot: 3 a product in f32 (the 3xTF32
-    split); in f16, where a raw operand has no lo, 1 for QK^T and dO V^T
-    and 2 for P V, dS K, P^T dO and dS^T Q. Forward: S, P V; backward:
-    S, dP, dQ, dK, dV (the recomputations of S and dP not counted)."""
-    if form == "f32":
-        return 3 * (2 if fwd else 5)
-    return 1 + 2 if fwd else 1 + 1 + 3 * 2
+def _tf32_passes(fwd: bool) -> int:
+    """TF32 products the f32 kernels run for one attended pair's
+    products, in units of a D-long dot: 3 a product (the 3xTF32 split).
+    Forward: S, P V; backward: S, dP, dQ, dK, dV (the recomputations of S
+    and dP not counted)."""
+    return 3 * (2 if fwd else 5)
+
+
+def _flash_head_dims(g) -> None:
+    """[flash d]: B1, B2 and B2's delta form at FLASH_D_CASES' head dims
+    (zero-padded to 128 by the wrappers, run at the true D's scale) in
+    bf16, f32 and f16, against the plain versions fed the same tensors at
+    each form's tolerances (``FLASH_TOLS``); each output D wide."""
+    for form, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32),
+                        ("f16", torch.float16)):
+        o_tol, g_tol = FLASH_TOLS[form]
+        err = _rel if form == "bf16" else _rel_max
+        for name, (B, H, Hkv, T, D, causal, window, mask) in FLASH_D_CASES.items():
+            q, k, v, do, kv = _flash_inputs(g, B, H, Hkv, T, D, mask, dtype)
+            kw = {"causal": causal, "window": window}
+            o, lse = flash_attention_fwd_lse(q, k, v, kv, **kw)
+            ro, rlse = flash_attention_fwd_lse_reference(q, k, v, kv, **kw)
+            delta = (do.float() * ro.float()).sum(dim=-1)
+            grads = flash_attention_bwd(q, k, v, ro, rlse, do, kv, **kw)
+            rgrads = flash_attention_bwd_reference(q, k, v, ro, rlse, do, kv, **kw)
+            dgrads = flash_attention_bwd(q, k, v, ro, rlse, do, kv, delta=delta, **kw)
+            rdgrads = flash_attention_bwd_reference(q, k, v, ro, rlse, do, kv,
+                                                    delta=delta, **kw)
+            torch.cuda.synchronize()
+            live = rlse < 1e29
+            row = {"case": name, "form": form, "B": B, "H": H, "Hkv": Hkv, "T": T,
+                   "D": D, "o": err(o, ro),
+                   "lse": float((lse - rlse)[live].abs().max()) if bool(live.any()) else 0.0,
+                   **{n: err(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, rgrads)},
+                   **{f"delta_{n}": err(a, b)
+                      for n, a, b in zip(("dq", "dk", "dv"), dgrads, rdgrads)}}
+            say(f"[flash d] {json.dumps(row)}")
+            check(all(x.shape[-1] == D and x.dtype == dtype for x in (o, *grads, *dgrads)),
+                  f"flash d {form} {name}: outputs not {dtype} of head dim {D}")
+            check(row["o"] <= o_tol and row["lse"] <= FLASH_LSE_ATOL,
+                  f"flash d {form} {name}: o / lse beyond {o_tol} / {FLASH_LSE_ATOL}: {row}")
+            check(max(row[n] for n in row if n.startswith(("dq", "dk", "dv", "delta_")))
+                  <= g_tol, f"flash d {form} {name}: gradients beyond {g_tol}: {row}")
+            del q, k, v, do, o, ro, grads, rgrads, dgrads, rdgrads
 
 
 def _flash_f32(g, flush) -> dict:
-    """[flash f32]: B1 and B2 in their f32 and f16 forms
-    (csrc/flash_attention_f32.cu) against the plain versions fed the same
-    tensors at FLASH_F32_CASES' shapes (the worst error relative to max
-    |plain|: FLASH_F32_O_REL / FLASH_F32_GRAD_REL in f32,
-    FLASH_F16_O_REL / FLASH_F16_GRAD_REL in f16), each timed beside its
-    plain version, one F.scaled_dot_product_attention call in the same
-    dtype (the first backend that takes it) and its bounds
-    (``_flash_bounds``). -> rows by (form, case)."""
+    """[flash f32]: B1 and B2 in their f32 form
+    (csrc/flash_attention_f32.cu) and their f16 form (csrc/flash_attention.cu)
+    against the plain versions fed the same tensors at FLASH_F32_CASES'
+    shapes (the worst error relative to max |plain|: FLASH_F32_O_REL /
+    FLASH_F32_GRAD_REL in f32, FLASH_F16_O_REL / FLASH_F16_GRAD_REL in
+    f16, and in f16 B2 again at each of F16_DO_SCALES, ``_f16_grad_ok``),
+    each timed beside its plain version, one F.scaled_dot_product_attention
+    call in the same dtype (the first backend that takes it) and its
+    bounds (``_flash_bounds``, with the fraction of the bound reached).
+    -> rows by (form, case)."""
     rows = {}
     for form, dtype, o_tol, g_tol in (
             ("f32", torch.float32, FLASH_F32_O_REL, FLASH_F32_GRAD_REL),
@@ -1307,14 +1417,19 @@ def _flash_f32(g, flush) -> dict:
             check(all(bool(torch.isfinite(x.float()).all()) for x in (o, lse, *grads)),
                   f"flash {form} {name}: non-finite output")
 
-            def rel_max(a, b):
-                a, b = a.float(), b.float()
-                return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-
-            rel_o = rel_max(o, ro)
+            rel_o = _rel_max(o, ro)
+            scaled = {}
+            if form == "f16":
+                for sc in F16_DO_SCALES:
+                    dos = (do.float() * sc).to(dtype)
+                    sg = flash_attention_bwd(q, k, v, ro, rlse, dos, kv, **kw)
+                    rsg = flash_attention_bwd_reference(q, k, v, ro, rlse, dos, kv, **kw)
+                    scaled[f"{sc:g}"] = {n: _f16_grad_ok(a, b) for n, a, b in
+                                         zip(("dq", "dk", "dv"), sg, rsg)}
+                    del dos, sg, rsg
             live = rlse < 1e29
             e_lse = float((lse - rlse)[live].abs().max()) if bool(live.any()) else 0.0
-            rel_g = {n: rel_max(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, rgrads)}
+            rel_g = {n: _rel_max(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, rgrads)}
             keep = _flash_keep(B, T, kv, causal, window)
             bounds = _flash_bounds(form, B, H, Hkv, T, D, kv, causal, window)
             is_causal = causal and window is None and kv is None
@@ -1340,14 +1455,19 @@ def _flash_f32(g, flush) -> dict:
                             q, k, v, ro, rlse, do, kv, **kw), flush, iters=5),
                         **_timed("library_", lib_b, flush, iters=10),
                         "library": f"{be_b} forward+backward",
-                        **bounds["bwd"]},
+                        **bounds["bwd"], "do_scaled": scaled},
             }
+            for p in ("fwd", "bwd"):
+                row[p]["frac"] = row[p]["bound_ms"] / row[p]["ms"]
             say(f"[flash f32] {json.dumps(row)}")
             check(rel_o <= o_tol,
                   f"flash {form} {name}: o error {rel_o} of max |plain| > {o_tol}")
             check(e_lse <= FLASH_LSE_ATOL, f"flash {form} {name}: lse err {e_lse}")
             check(max(rel_g.values()) <= g_tol,
                   f"flash {form} {name}: gradient errors {rel_g} of max |plain| > {g_tol}")
+            check(all(r["ok"] for by in scaled.values() for r in by.values()),
+                  f"flash {form} {name}: B2 with dO scaled down beyond {g_tol} of max "
+                  f"|plain| and one f16 step: {scaled}")
             rows[form, name] = row
             del q, k, v, do, o, ro, grads, rgrads, lib_f, lib_b
     return rows
@@ -6667,7 +6787,7 @@ def _main() -> int:
         },
         {
             "name": "flash_attention_fwd_lse (f16 form)", "route": "cuda",
-            "source": "tensorlink_tpu_torch/csrc/flash_attention_f32.cu",
+            "source": "tensorlink_tpu_torch/csrc/flash_attention.cu",
             "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:247",
             "launches": bert16["f16_fwd"],
             **{k: flash["fwd_f16"][k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -6675,7 +6795,7 @@ def _main() -> int:
         },
         {
             "name": "flash_attention_bwd (f16 form)", "route": "cuda",
-            "source": "tensorlink_tpu_torch/csrc/flash_attention_f32.cu",
+            "source": "tensorlink_tpu_torch/csrc/flash_attention.cu",
             "replaces": "tensorlink_tpu/ops/pallas/flash_attention.py:470",
             "launches": bert16["f16_bwd"],
             **{k: flash["bwd_f16"][k] for k in ("max_abs_err", "ms", "plain_ms",

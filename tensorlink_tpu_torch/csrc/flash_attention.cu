@@ -1,4 +1,5 @@
-// Flash attention forward (B1) and backward (B2) on tensor cores (sm_90a).
+// Flash attention forward (B1) and backward (B2) on 16-bit tensor cores
+// (sm_90a), for bf16 and f16 operands (one source, two instantiations).
 //
 // Replaces the TPU kernels of tensorlink_tpu/ops/pallas/flash_attention.py:
 // flash_attention_fwd_lse (kernel _flash_fwd_kernel) and flash_attention_bwd
@@ -27,7 +28,7 @@
 //   only under a band and run only on the tiles its edge crosses, and
 //   causal grids launch their heaviest query tiles first. PTX by hand
 //   (wgmma_common.cuh), no CUTLASS.
-// - The backward (B2) runs on mma.sync m16n8k16 (bf16 in, f32 accumulate),
+// - The backward (B2) runs on mma.sync m16n8k16 (16-bit in, f32 accumulate),
 //   with operand fragments read from padded shared-memory tiles by
 //   ldmatrix (mma_common.cuh); the softmax state and every accumulator stay
 //   in registers in f32.
@@ -35,9 +36,10 @@
 //   key tiles, where the first design walked them twice (a pass just for
 //   delta = rowsum(p * dp)). It recomputes S and dP = dO V^T on the tensor
 //   cores and p = exp(s - lse), and accumulates the exact delta, C = P K and
-//   A = (P o (dP - d~)) K, where d~ = rowsum(dO o O) from the forward's bf16
-//   O is only an estimate of delta; then dQ = scale (A - (delta - d~) C),
-//   exact for any d~ (see the kernel's note for why d~ is there). delta
+//   A = (P o (dP - d~)) K, where d~ = rowsum(dO o O) from the forward's
+//   16-bit O is only an estimate of delta; then
+//   dQ = scale (A - (delta - d~) C), exact for any d~ (see the kernel's
+//   note for why d~ is there). delta
 //   must come from the kernel's own p and dp: the TPU kernels' rowsum(dO o
 //   O) from the bf16-rounded O is off by ~2^-9 |dO||O|, which swamps ds
 //   where attention is near uniform and wrecked BERT's upper-layer q/k
@@ -63,7 +65,28 @@
 //   accumulators need the room); chip_smoke.py's [build] lines print the
 //   register and spill report, and the forward's HGMMA count.
 // Ragged edges (T not a multiple of a tile) are zero-filled in shared
-// memory and masked; D is 64 or 128; the type is bf16.
+// memory and masked; D is 64 or 128 (the wrapper zero-pads any other
+// D <= 128 and passes the true D's scale).
+//
+// The storage type T is bf16 or f16 (tl_flash_* and tl_flash_*_f16). Both
+// run at the card's 16-bit tensor rate; only the mma/wgmma type string,
+// the TMA element type and the packing of f32 values differ (mma<T> and
+// pack2<T> in mma_common.cuh, the wgmma forms in wgmma_common.cuh). Every
+// sum is f32, as in the Pallas kernels, which keep p, dp and ds in f32.
+// f16 has more precision than bf16 (11 significant bits against 8) but
+// not its range: below 2^-14 it loses bits and below 2^-24 it is zero. P
+// is in [0, 1] and is packed as bf16's is (about 2^-12 relative, under
+// o's own rounding). The backward's packed dS-like operands (P o (dP -
+// d~) in the dq kernel, dS in the dkv kernel) scale with dO and shrink
+// where attention is near uniform, so in f16 they would fall below 2^-14
+// and lose bits, or underflow: each row of such an operand (a query row
+// in dq, a key row in dkv, the rows of the accumulator it feeds) is
+// multiplied by a power of two before it is rounded, chosen from the
+// tile's own values so that the row's largest lands in [2^14, 2^15), and
+// the row's f32 accumulator is divided by it at the end. When a later
+// tile's values are larger, the row's factor shrinks and its accumulator
+// is scaled by the ratio first (exact: powers of two), as the online
+// softmax rescales O. No host read and no pass before the kernel.
 //
 // What bounds it on this card: 4 D flops per attended (query, key) pair
 // forward and at least 10 D backward (this backward does 16 D: S and dP are
@@ -88,13 +111,15 @@ constexpr int kBK = 64;        // key rows per tile (dkv: per block)
 constexpr int kBQd = 64;       // dkv: query rows per staged tile
 constexpr float kLseMasked = 1e30f;
 
+template <typename T>
 struct View {  // a [B, heads, T, D] operand; strides in elements, D contiguous
-  const bf16* p;
+  const T* p;
   long long sb, sh, st;
 };
 
+template <typename T>
 struct OutView {
-  bf16* p;
+  T* p;
   long long sb, sh, st;
 };
 
@@ -104,6 +129,55 @@ struct Shape {
   float scale;
   const uint8_t* kv_mask;  // [B, Tk], nonzero = attend; null = all keys
 };
+
+// f16's operand scale (see the note at the top): the power of two that
+// takes a row's largest magnitude m into [2^14, 2^15); kNoScale (2^126,
+// also the bound of any scale) when m is 0, below f32's normal range or
+// not finite, so that a row's first live tile sets it
+constexpr float kNoScale = 0x1p126f;
+__device__ __forceinline__ float f16_scale(float m) {
+  const int e = (__float_as_int(m) >> 23) & 0xff;
+  if (e == 0 || e == 255) return kNoScale;
+  return __int_as_float(min(max(268 - e, 1), 253) << 23);
+}
+
+// f16: scales the rows of an operand tile x (the C layout of NT n-tiles:
+// rows e / 2 of each 4) in place by the rows' factors f. A factor only
+// shrinks: where the tile's largest value in a row would reach 2^15, the
+// row's factor is set from it and the row of the f32 accumulator acc is
+// scaled by the ratio. That test is one vote for the warp; the quad's
+// maximum (the row is spread over a quad) is taken only when it fires.
+template <int NT, int DT>
+__device__ __forceinline__ void f16_scale_rows(float (&x)[NT][4],
+                                               float (&f)[2],
+                                               float (&acc)[DT][4]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mx[e >> 1] = fmaxf(mx[e >> 1], fabsf(x[j][e]));
+  if (__any_sync(0xffffffffu,
+                 !(mx[0] * f[0] < 0x1p15f && mx[1] * f[1] < 0x1p15f))) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float nf = f16_scale(quad_max(mx[r]));
+      if (nf < f[r]) {
+        const float ratio = nf / f[r];
+#pragma unroll
+        for (int i = 0; i < DT; ++i) {
+          acc[i][2 * r] *= ratio;
+          acc[i][2 * r + 1] *= ratio;
+        }
+        f[r] = nf;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] *= f[e >> 1];
+}
 
 __device__ __forceinline__ bool band_keep(int q, int k, int causal,
                                           int window) {
@@ -248,11 +322,11 @@ __device__ __forceinline__ void fwd_softmax(float (&sc)[32], uint64_t bits,
   }
 }
 
-template <int D, bool BAND>
+template <typename T, int D, bool BAND>
 __global__ void __launch_bounds__(256, 2)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv, OutView o,
+                     const __grid_constant__ CUtensorMap tv, OutView<T> o,
                      float* __restrict__ lse, Shape s) {
   using L = FwdLayout<D>;
   constexpr int DR = D / 64;  // 128-byte column regions of a tile
@@ -368,7 +442,7 @@ __global__ void __launch_bounds__(256, 2)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_m64n64k16(
+        wgmma_ss_m64n64k16<T>(
             sc,
             desc_sw128(q_addr + (kk / 4) * kFwdRows * 128 + (kk % 4) * 32,
                        16, 1024),
@@ -387,19 +461,19 @@ __global__ void __launch_bounds__(256, 2)
       uint32_t pa[4][4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        pa[j][0] = pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
-        pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
-        pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
-        pa[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+        pa[j][0] = pack2<T>(sc[8 * j + 0], sc[8 * j + 1]);
+        pa[j][1] = pack2<T>(sc[8 * j + 2], sc[8 * j + 3]);
+        pa[j][2] = pack2<T>(sc[8 * j + 4], sc[8 * j + 5]);
+        pa[j][3] = pack2<T>(sc[8 * j + 6], sc[8 * j + 7]);
       }
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const uint64_t dv = desc_sw128(v_addr + j * 2048, kFwdBK * 128, 1024);
         if constexpr (D == 64)
-          wgmma_rs_m64n64k16_tb(acc, pa[j], dv, 1);
+          wgmma_rs_m64n64k16_tb<T>(acc, pa[j], dv, 1);
         else
-          wgmma_rs_m64n128k16_tb(acc, pa[j], dv, 1);
+          wgmma_rs_m64n128k16_tb<T>(acc, pa[j], dv, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -410,18 +484,17 @@ __global__ void __launch_bounds__(256, 2)
     if (lane == 0) mbar_arrive(empty + st);  // the stage may be refilled
   }
 
-  bf16* ob = o.p + b * o.sb + h * o.sh;
+  T* ob = o.p + b * o.sb + h * o.sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float lr = quad_sum(l[r]);
     if (qr[r] >= s.Tq) continue;
     const float inv = lr > 0.f ? 1.f / lr : 0.f;
-    bf16* row = ob + static_cast<long long>(qr[r]) * o.st;
+    T* row = ob + static_cast<long long>(qr[r]) * o.st;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + 2 * tig) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
-                                acc[4 * j + 2 * r + 1] * inv);
+      *reinterpret_cast<uint32_t*>(row + j * 8 + 2 * tig) =
+          pack2<T>(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
     if (tig == 0)
       lse[(static_cast<long long>(b) * s.H + h) * s.Tq + qr[r]] =
           lr > 0.f ? (m[r] + log2f(lr)) * kLn2 : kLseMasked;
@@ -431,13 +504,13 @@ __global__ void __launch_bounds__(256, 2)
 // -------------------------------------------------------------- backward
 // rows r0..r0+ROWS-1 of a [T, D] slab into a padded tile with cp.async;
 // rows at or past T are zero-filled
-template <int D, int ROWS, int NTH = kThreads>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
-                                                long long st, int r0, int T) {
+template <int D, int ROWS, int NTH = kThreads, typename T>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
+                                                long long st, int r0, int n) {
   constexpr int LD = D + 8, CH = D / 8;
   for (int i = threadIdx.x; i < ROWS * CH; i += NTH) {
     const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = r0 + r < T;
+    const bool ok = r0 + r < n;
     cp_async16(dst + r * LD + c,
                ok ? src + static_cast<long long>(r0 + r) * st + c : src,
                ok ? 16 : 0);
@@ -456,12 +529,13 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
 // cancel, and it made BERT's upper-layer q gradients 4.6x noisier than
 // the plain path's. delta is published for the dkv kernel. BAND (causal or
 // a window) compiles the positional test in; without it a key's keep is
-// one bit of the tile's mask.
-template <int D, bool BAND>
+// one bit of the tile's mask. In f16 each row's operand P o (dP - d~) is
+// scaled by its factor fr (f16_scale_rows) and A divided by it at the end.
+template <typename T, int D, bool BAND>
 __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
-    flash_bwd_dq_kernel(View q, View k, View v, View o, View dout,
-                        const float* __restrict__ lse,
-                        float* __restrict__ delta, OutView dq, Shape s) {
+    flash_bwd_dq_kernel(View<T> q, View<T> k, View<T> v, View<T> o,
+                        View<T> dout, const float* __restrict__ lse,
+                        float* __restrict__ delta, OutView<T> dq, Shape s) {
   constexpr int LD = D + 8, KS = D / 16, DT = D / 8;
   // keys scored at a time: at D 128 half a tile keeps the two [16, D]
   // accumulators and the score fragments inside the register file; at
@@ -470,9 +544,9 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   constexpr int NT = KSUB / 8;
   constexpr int STAGE = 2 * kBK * LD;  // K and V tiles
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + kBQ * LD;
-  bf16* ring = dos + kBQ * LD;  // [2][K tile, V tile]
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = qs + kBQ * LD;
+  T* ring = dos + kBQ * LD;  // [2][K tile, V tile]
   uint8_t* keep_ring = reinterpret_cast<uint8_t*>(ring + 2 * STAGE);
 
   // causal: the last query tiles see the most keys, so they launch first
@@ -482,8 +556,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   const int hk = h / (s.H / s.Hkv);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const bf16* kb = k.p + b * k.sb + hk * k.sh;
-  const bf16* vb = v.p + b * v.sb + hk * v.sh;
+  const T* kb = k.p + b * k.sb + hk * k.sh;
+  const T* vb = v.p + b * v.sb + hk * v.sh;
   const uint8_t* km =
       s.kv_mask ? s.kv_mask + static_cast<long long>(b) * s.Tk : nullptr;
   const int qr[2] = {q0 + warp * 16 + gid, q0 + warp * 16 + gid + 8};
@@ -506,19 +580,19 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
     float acc = 0.f;
     if (qr[r] < s.Tq) {
       const long long off = qr[r];
-      const bf16* orow = o.p + b * o.sb + h * o.sh + off * o.st + tig * (D / 4);
-      const bf16* grow =
+      const T* orow = o.p + b * o.sb + h * o.sh + off * o.st + tig * (D / 4);
+      const T* grow =
           dout.p + b * dout.sb + h * dout.sh + off * dout.st + tig * (D / 4);
 #pragma unroll
       for (int c = 0; c < D / 4; c += 8) {
         const uint4 ov = __ldg(reinterpret_cast<const uint4*>(orow + c));
         const uint4 gv = __ldg(reinterpret_cast<const uint4*>(grow + c));
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+        const uint32_t o4[4] = {ov.x, ov.y, ov.z, ov.w};
+        const uint32_t g4[4] = {gv.x, gv.y, gv.z, gv.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float2 of = __bfloat1622float2(o2[i]);
-          const float2 gf = __bfloat1622float2(g2[i]);
+          const float2 of = unpack2<T>(o4[i]);
+          const float2 gf = unpack2<T>(g4[i]);
           acc = fmaf(of.x, gf.x, fmaf(of.y, gf.y, acc));
         }
       }
@@ -533,7 +607,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   const int kt0 = (klo / kBK) * kBK;
   const int n = khi > kt0 ? (khi - kt0 + kBK - 1) / kBK : 0;
   auto issue = [&](int i) {
-    bf16* ks = ring + (i & 1) * STAGE;
+    T* ks = ring + (i & 1) * STAGE;
     const int k0 = kt0 + i * kBK;
     load_tile_async<D, kBK>(ks, kb, k.st, k0, s.Tk);
     load_tile_async<D, kBK>(ks + kBK * LD, vb, v.st, k0, s.Tk);
@@ -549,6 +623,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   for (int i = 0; i < DT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_a[i][e] = acc_c[i][e] = 0.f;
+  float fr[2] = {kNoScale, kNoScale};  // f16: the rows' operand factors
 
   if (n > 0) issue(0);
   cp_async_commit();  // with the Q and dO tiles
@@ -557,8 +632,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
     cp_async_commit();
     cp_async_wait<1>();  // tile i (and Q, dO) has landed
     __syncthreads();
-    const bf16* ks = ring + (i & 1) * STAGE;
-    const bf16* vs = ks + kBK * LD;
+    const T* ks = ring + (i & 1) * STAGE;
+    const T* vs = ks + kBK * LD;
     const uint8_t* keep_s = keep_ring + (i & 1) * kBK;
     const int k0 = kt0 + i * kBK;
     // the tile's key mask as bits; a tile whose keys are all masked
@@ -581,11 +656,11 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
         for (int np = 0; np < NT / 2; ++np) {
           uint32_t bb[4];
           ldsm_x4(bb, frag_b<LD>(ks, c0 + np * 16, kk * 16, lane));
-          mma(sc[2 * np], a, bb[0], bb[1]);
-          mma(sc[2 * np + 1], a, bb[2], bb[3]);
+          mma<T>(sc[2 * np], a, bb[0], bb[1]);
+          mma<T>(sc[2 * np + 1], a, bb[2], bb[3]);
           ldsm_x4(bb, frag_b<LD>(vs, c0 + np * 16, kk * 16, lane));
-          mma(dp[2 * np], ad, bb[0], bb[1]);
-          mma(dp[2 * np + 1], ad, bb[2], bb[3]);
+          mma<T>(dp[2 * np], ad, bb[0], bb[1]);
+          mma<T>(dp[2 * np + 1], ad, bb[2], bb[3]);
         }
       }
 #pragma unroll
@@ -600,20 +675,21 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
           sc[j][e] = p;
           dp[j][e] = p * (dp[j][e] - dt[r]);
         }
+      if constexpr (kIsF16<T>) f16_scale_rows(dp, fr, acc_a);
       // C += P K, A += (P o (dP - d~)) K (K read transposed: k-rows are keys)
 #pragma unroll
       for (int j = 0; j < KSUB / 16; ++j) {
         uint32_t pc[4], pd[4];
-        pack_a(pc, sc[2 * j], sc[2 * j + 1]);
-        pack_a(pd, dp[2 * j], dp[2 * j + 1]);
+        pack_a<T>(pc, sc[2 * j], sc[2 * j + 1]);
+        pack_a<T>(pd, dp[2 * j], dp[2 * j + 1]);
 #pragma unroll
         for (int dd = 0; dd < DT / 2; ++dd) {
           uint32_t bb[4];
           ldsm_x4_t(bb, frag_a<LD>(ks, c0 + j * 16, dd * 16, lane));
-          mma(acc_c[2 * dd], pc, bb[0], bb[1]);
-          mma(acc_c[2 * dd + 1], pc, bb[2], bb[3]);
-          mma(acc_a[2 * dd], pd, bb[0], bb[1]);
-          mma(acc_a[2 * dd + 1], pd, bb[2], bb[3]);
+          mma<T>(acc_c[2 * dd], pc, bb[0], bb[1]);
+          mma<T>(acc_c[2 * dd + 1], pc, bb[2], bb[3]);
+          mma<T>(acc_a[2 * dd], pd, bb[0], bb[1]);
+          mma<T>(acc_a[2 * dd + 1], pd, bb[2], bb[3]);
         }
       }
     }
@@ -621,7 +697,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   }
   cp_async_wait<0>();
 
-  bf16* out = dq.p + b * dq.sb + h * dq.sh;
+  T* out = dq.p + b * dq.sb + h * dq.sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     dl[r] = quad_sum(dl[r]);
@@ -630,14 +706,14 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
       dl[r] = dt[r];  // the whole row's delta, whatever keys this call saw
     else if (tig == 0)
       delta[rowbase + qr[r]] = dl[r];
-    bf16* row = out + static_cast<long long>(qr[r]) * dq.st;
+    const float ia = kIsF16<T> ? 1.f / fr[r] : 1.f;  // a power of two: exact
+    T* row = out + static_cast<long long>(qr[r]) * dq.st;
 #pragma unroll
     for (int i = 0; i < DT; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(row + i * 8 + 2 * tig) =
-          __floats2bfloat162_rn(
-              s.scale * (acc_a[i][2 * r] - (dl[r] - dt[r]) * acc_c[i][2 * r]),
-              s.scale *
-                  (acc_a[i][2 * r + 1] - (dl[r] - dt[r]) * acc_c[i][2 * r + 1]));
+      *reinterpret_cast<uint32_t*>(row + i * 8 + 2 * tig) = pack2<T>(
+          s.scale * (acc_a[i][2 * r] * ia - (dl[r] - dt[r]) * acc_c[i][2 * r]),
+          s.scale * (acc_a[i][2 * r + 1] * ia -
+                     (dl[r] - dt[r]) * acc_c[i][2 * r + 1]));
   }
 }
 
@@ -647,14 +723,16 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
 // causal GQA band runs two units at a time; each warp owns 16 key rows and
 // the two quads' sums of the same rows are added through shared memory at
 // the end. With QUADS = 1 (few units a block) one quad walks them all and
-// two (D 128) or three (D 64) blocks share an SM.
-template <int D, int QUADS, bool BAND>
+// two (D 128) or three (D 64) blocks share an SM. In f16 each key row of
+// dS is scaled by its factor fk (f16_scale_rows) and dK divided by it at
+// the end (each quad keeps its own factors).
+template <typename T, int D, int QUADS, bool BAND>
 __global__ void __launch_bounds__(128 * QUADS,
                                     QUADS == 2 ? 1 : (D == 64 ? 3 : 2))
-    flash_bwd_dkv_kernel(View q, View k, View v, View dout,
+    flash_bwd_dkv_kernel(View<T> q, View<T> k, View<T> v, View<T> dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta, OutView dk,
-                         OutView dv, Shape s) {
+                         const float* __restrict__ delta, OutView<T> dk,
+                         OutView<T> dv, Shape s) {
   constexpr int LD = D + 8, KS = D / 16, DT = D / 8;
   // queries scored at a time: half a unit's tile, for the register file's
   // sake (dK and dV accumulators are [16, D] each)
@@ -662,10 +740,10 @@ __global__ void __launch_bounds__(128 * QUADS,
   constexpr int NQ = QSUB / 8;
   constexpr int TILE = 2 * kBQd * LD;  // Q and dO rows of one unit
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kBK * LD;
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + kBK * LD;
   constexpr int NTH = 128 * QUADS;
-  bf16* ring = vs + kBK * LD;  // [2 stages][QUADS][Q tile, dO tile]
+  T* ring = vs + kBK * LD;  // [2 stages][QUADS][Q tile, dO tile]
   float* lse_ring =
       reinterpret_cast<float*>(ring + 2 * QUADS * TILE);  // [2][QUADS][kBQd]
   float* dl_ring = lse_ring + 2 * QUADS * kBQd;         // [2][QUADS][kBQd]
@@ -706,7 +784,7 @@ __global__ void __launch_bounds__(128 * QUADS,
       if (u >= n) break;
       const int h = hk * group + u / nqt, q0 = qt0 + (u % nqt) * kBQd;
       const int slot = (p & 1) * QUADS + g;
-      bf16* qs = ring + slot * TILE;
+      T* qs = ring + slot * TILE;
       load_tile_async<D, kBQd, NTH>(
           qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
       load_tile_async<D, kBQd, NTH>(
@@ -728,6 +806,7 @@ __global__ void __launch_bounds__(128 * QUADS,
   for (int i = 0; i < DT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+  float fk[2] = {kNoScale, kNoScale};  // f16: the key rows' dS factors
 
   if (npairs > 0) issue(0);
   cp_async_commit();  // with the K and V tiles
@@ -739,8 +818,8 @@ __global__ void __launch_bounds__(128 * QUADS,
     const int u = QUADS * p + quad;
     if (u < n) {  // quad-uniform
       const int slot = (p & 1) * QUADS + quad;
-      const bf16* qs = ring + slot * TILE;
-      const bf16* dos = qs + kBQd * LD;
+      const T* qs = ring + slot * TILE;
+      const T* dos = qs + kBQd * LD;
       const float* lse_s = lse_ring + slot * kBQd;
       const float* dl_s = dl_ring + slot * kBQd;
       const int q0 = qt0 + (u % nqt) * kBQd;
@@ -760,11 +839,11 @@ __global__ void __launch_bounds__(128 * QUADS,
           for (int np = 0; np < NQ / 2; ++np) {
             uint32_t bb[4];
             ldsm_x4(bb, frag_b<LD>(qs, c0 + np * 16, kk * 16, lane));
-            mma(sc[2 * np], a, bb[0], bb[1]);
-            mma(sc[2 * np + 1], a, bb[2], bb[3]);
+            mma<T>(sc[2 * np], a, bb[0], bb[1]);
+            mma<T>(sc[2 * np + 1], a, bb[2], bb[3]);
             ldsm_x4(bb, frag_b<LD>(dos, c0 + np * 16, kk * 16, lane));
-            mma(dp[2 * np], av, bb[0], bb[1]);
-            mma(dp[2 * np + 1], av, bb[2], bb[3]);
+            mma<T>(dp[2 * np], av, bb[0], bb[1]);
+            mma<T>(dp[2 * np + 1], av, bb[2], bb[3]);
           }
         }
         // rows are keys, columns are queries: p^T and ds^T
@@ -783,21 +862,22 @@ __global__ void __launch_bounds__(128 * QUADS,
             sc[j][e] = pv;
             dp[j][e] = pv * (dp[j][e] - dl_s[ql]) * s.scale;
           }
+        if constexpr (kIsF16<T>) f16_scale_rows(dp, fk, dka);
         // dV += P^T dO, dK += dS^T Q (dO and Q read transposed)
 #pragma unroll
         for (int j = 0; j < QSUB / 16; ++j) {
           uint32_t ap[4], ad[4];
-          pack_a(ap, sc[2 * j], sc[2 * j + 1]);
-          pack_a(ad, dp[2 * j], dp[2 * j + 1]);
+          pack_a<T>(ap, sc[2 * j], sc[2 * j + 1]);
+          pack_a<T>(ad, dp[2 * j], dp[2 * j + 1]);
 #pragma unroll
           for (int dd = 0; dd < DT / 2; ++dd) {
             uint32_t bb[4];
             ldsm_x4_t(bb, frag_a<LD>(dos, c0 + j * 16, dd * 16, lane));
-            mma(dva[2 * dd], ap, bb[0], bb[1]);
-            mma(dva[2 * dd + 1], ap, bb[2], bb[3]);
+            mma<T>(dva[2 * dd], ap, bb[0], bb[1]);
+            mma<T>(dva[2 * dd + 1], ap, bb[2], bb[3]);
             ldsm_x4_t(bb, frag_a<LD>(qs, c0 + j * 16, dd * 16, lane));
-            mma(dka[2 * dd], ad, bb[0], bb[1]);
-            mma(dka[2 * dd + 1], ad, bb[2], bb[3]);
+            mma<T>(dka[2 * dd], ad, bb[0], bb[1]);
+            mma<T>(dka[2 * dd + 1], ad, bb[2], bb[3]);
           }
         }
       }
@@ -807,6 +887,10 @@ __global__ void __launch_bounds__(128 * QUADS,
   cp_async_wait<0>();
   __syncthreads();
 
+  // dK unscaled (f16: a power of two, exact)
+  float ik[2] = {1.f, 1.f};
+  if constexpr (kIsF16<T>)
+    for (int r = 0; r < 2; ++r) ik[r] = 1.f / fk[r];
   // quad 1 hands its sums to quad 0 through the (now idle) ring
   float* red = reinterpret_cast<float*>(ring);  // [2][kBK][D]: dk, dv
   if (QUADS == 2 && quad == 1) {
@@ -817,8 +901,8 @@ __global__ void __launch_bounds__(128 * QUADS,
       for (int i = 0; i < DT; ++i) {
         float* pk = red + row * D + i * 8 + 2 * tig;
         float* pv = pk + kBK * D;
-        pk[0] = dka[i][2 * r];
-        pk[1] = dka[i][2 * r + 1];
+        pk[0] = dka[i][2 * r] * ik[r];
+        pk[1] = dka[i][2 * r + 1] * ik[r];
         pv[0] = dva[i][2 * r];
         pv[1] = dva[i][2 * r + 1];
       }
@@ -827,24 +911,24 @@ __global__ void __launch_bounds__(128 * QUADS,
   __syncthreads();
   if (quad == 1) return;
   const bool add = QUADS == 2;
-  bf16* kout = dk.p + b * dk.sb + hk * dk.sh;
-  bf16* vout = dv.p + b * dv.sb + hk * dv.sh;
+  T* kout = dk.p + b * dk.sb + hk * dk.sh;
+  T* vout = dv.p + b * dv.sb + hk * dv.sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (kr[r] >= s.Tk) continue;
     const int row = qw * 16 + gid + 8 * r;
-    bf16* krow = kout + static_cast<long long>(kr[r]) * dk.st;
-    bf16* vrow = vout + static_cast<long long>(kr[r]) * dv.st;
+    T* krow = kout + static_cast<long long>(kr[r]) * dk.st;
+    T* vrow = vout + static_cast<long long>(kr[r]) * dv.st;
 #pragma unroll
     for (int i = 0; i < DT; ++i) {
       const float* pk = red + row * D + i * 8 + 2 * tig;
       const float* pv = pk + kBK * D;
-      *reinterpret_cast<__nv_bfloat162*>(krow + i * 8 + 2 * tig) =
-          __floats2bfloat162_rn(dka[i][2 * r] + (add ? pk[0] : 0.f),
-                                dka[i][2 * r + 1] + (add ? pk[1] : 0.f));
-      *reinterpret_cast<__nv_bfloat162*>(vrow + i * 8 + 2 * tig) =
-          __floats2bfloat162_rn(dva[i][2 * r] + (add ? pv[0] : 0.f),
-                                dva[i][2 * r + 1] + (add ? pv[1] : 0.f));
+      *reinterpret_cast<uint32_t*>(krow + i * 8 + 2 * tig) =
+          pack2<T>(dka[i][2 * r] * ik[r] + (add ? pk[0] : 0.f),
+                   dka[i][2 * r + 1] * ik[r] + (add ? pk[1] : 0.f));
+      *reinterpret_cast<uint32_t*>(vrow + i * 8 + 2 * tig) =
+          pack2<T>(dva[i][2 * r] + (add ? pv[0] : 0.f),
+                   dva[i][2 * r + 1] + (add ? pv[1] : 0.f));
     }
   }
 }
@@ -878,15 +962,16 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a [B, heads, T, D] bf16 view (element strides sb, sh, st; D contiguous)
+// a [B, heads, T, D] view of T (element strides sb, sh, st; D contiguous)
 // as the 4-d tensor map {D, T, heads, B}, read in boxes of 64 columns x
 // `rows` rows, 128-byte swizzled; rows past T arrive as zeros
+template <typename T>
 bool make_map(CUtensorMap* map, const void* p, const long long* st3, int D,
-              int T, int heads, int B, int rows) {
+              int T_, int heads, int B, int rows) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(T_),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st3[2]) * 2,
@@ -894,63 +979,68 @@ bool make_map(CUtensorMap* map, const void* p, const long long* st3, int D,
                                  static_cast<cuuint64_t>(st3[0]) * 2};
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t es[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
-             dims, strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return enc(map,
+             kIsF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             4, const_cast<void*>(p), dims, strides, box, es,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool BAND>
+template <typename T, int D, bool BAND>
 int launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk,
-               const CUtensorMap& tv, OutView o, float* lse, Shape s,
+               const CUtensorMap& tv, OutView<T> o, float* lse, Shape s,
                cudaStream_t stream) {
   using L = FwdLayout<D>;
-  cudaError_t err = allow_smem(flash_fwd_kernel<D, BAND>, L::kSmem);
+  cudaError_t err = allow_smem(flash_fwd_kernel<T, D, BAND>, L::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(s.H, (s.Tq + kFwdRows - 1) / kFwdRows, s.B);
-  flash_fwd_kernel<D, BAND><<<grid, 256, L::kSmem, stream>>>(tq, tk, tv, o,
-                                                             lse, s);
+  flash_fwd_kernel<T, D, BAND><<<grid, 256, L::kSmem, stream>>>(tq, tk, tv,
+                                                                o, lse, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <typename T, int D>
 int launch_fwd_band(const CUtensorMap& tq, const CUtensorMap& tk,
-                    const CUtensorMap& tv, OutView o, float* lse, Shape s,
+                    const CUtensorMap& tv, OutView<T> o, float* lse, Shape s,
                     cudaStream_t stream) {
   return s.causal || s.window > 0
-             ? launch_fwd<D, true>(tq, tk, tv, o, lse, s, stream)
-             : launch_fwd<D, false>(tq, tk, tv, o, lse, s, stream);
+             ? launch_fwd<T, D, true>(tq, tk, tv, o, lse, s, stream)
+             : launch_fwd<T, D, false>(tq, tk, tv, o, lse, s, stream);
 }
 
 constexpr int kDkvTwoQuadUnits = 16;
 
-template <int D, int QUADS, bool BAND>
-cudaError_t launch_dkv(View q, View k, View v, View dout, const float* lse,
-                       const float* delta, OutView dk, OutView dv, Shape s,
-                       cudaStream_t stream) {
+template <typename T, int D, int QUADS, bool BAND>
+cudaError_t launch_dkv(View<T> q, View<T> k, View<T> v, View<T> dout,
+                       const float* lse, const float* delta, OutView<T> dk,
+                       OutView<T> dv, Shape s, cudaStream_t stream) {
   constexpr int LD = D + 8;
-  const size_t smem = sizeof(bf16) * (2 * kBK + 4 * QUADS * kBQd) * LD +
+  const size_t smem = sizeof(T) * (2 * kBK + 4 * QUADS * kBQd) * LD +
                       sizeof(float) * 4 * QUADS * kBQd;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, QUADS, BAND>, smem);
+  cudaError_t err =
+      allow_smem(flash_bwd_dkv_kernel<T, D, QUADS, BAND>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(s.Hkv, (s.Tk + kBK - 1) / kBK, s.B);
-  flash_bwd_dkv_kernel<D, QUADS, BAND><<<grid, 128 * QUADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, s);
+  flash_bwd_dkv_kernel<T, D, QUADS, BAND>
+      <<<grid, 128 * QUADS, smem, stream>>>(q, k, v, dout, lse, delta, dk,
+                                            dv, s);
   return cudaGetLastError();
 }
 
-template <int D, bool BAND>
-int launch_bwd(View q, View k, View v, View o, View dout, const float* lse,
-               float* delta, OutView dq, OutView dk, OutView dv, Shape s,
-               cudaStream_t stream) {
+template <typename T, int D, bool BAND>
+int launch_bwd(View<T> q, View<T> k, View<T> v, View<T> o, View<T> dout,
+               const float* lse, float* delta, OutView<T> dq, OutView<T> dk,
+               OutView<T> dv, Shape s, cudaStream_t stream) {
   constexpr int LD = D + 8;
   cudaError_t err = cudaSuccess;
   if (s.Tq > 0) {  // dq first: it writes the delta the dkv kernel reads
-    const size_t smem = sizeof(bf16) * (2 * kBQ + 4 * kBK) * LD + 2 * kBK;
-    err = allow_smem(flash_bwd_dq_kernel<D, BAND>, smem);
+    const size_t smem = sizeof(T) * (2 * kBQ + 4 * kBK) * LD + 2 * kBK;
+    err = allow_smem(flash_bwd_dq_kernel<T, D, BAND>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(s.H, (s.Tq + kBQ - 1) / kBQ, s.B);
-    flash_bwd_dq_kernel<D, BAND><<<grid, kThreads, smem, stream>>>(
+    flash_bwd_dq_kernel<T, D, BAND><<<grid, kThreads, smem, stream>>>(
         q, k, v, o, dout, lse, delta, dq, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -961,10 +1051,10 @@ int launch_bwd(View q, View k, View v, View o, View dout, const float* lse,
     // would set the kernel's time
     const int units = (s.H / s.Hkv) * ((s.Tq + kBQd - 1) / kBQd);
     err = units >= kDkvTwoQuadUnits
-              ? launch_dkv<D, 2, BAND>(q, k, v, dout, lse, delta, dk, dv, s,
-                                       stream)
-              : launch_dkv<D, 1, BAND>(q, k, v, dout, lse, delta, dk, dv, s,
-                                       stream);
+              ? launch_dkv<T, D, 2, BAND>(q, k, v, dout, lse, delta, dk, dv,
+                                          s, stream)
+              : launch_dkv<T, D, 1, BAND>(q, k, v, dout, lse, delta, dk, dv,
+                                          s, stream);
   }
   return static_cast<int>(err);
 }
@@ -980,12 +1070,14 @@ bool strides_ok(const long long* st, int n) {
   return true;
 }
 
-View view(const void* p, const long long* st) {
-  return View{static_cast<const bf16*>(p), st[0], st[1], st[2]};
+template <typename T>
+View<T> view(const void* p, const long long* st) {
+  return View<T>{static_cast<const T*>(p), st[0], st[1], st[2]};
 }
 
-OutView out_view(void* p, const long long* st) {
-  return OutView{static_cast<bf16*>(p), st[0], st[1], st[2]};
+template <typename T>
+OutView<T> out_view(void* p, const long long* st) {
+  return OutView<T>{static_cast<T*>(p), st[0], st[1], st[2]};
 }
 
 bool shape_ok(const int* dims) {
@@ -1001,19 +1093,9 @@ Shape make_shape(const int* dims, float scale, const void* kv_mask) {
                static_cast<const uint8_t*>(kv_mask)};
 }
 
-}  // namespace
-
-extern "C" {
-
-// Forward. ptrs = {q, k, v, kv_mask (or null), o, lse}; strides = (b, h, t)
-// element strides of the [B, heads, T, D] views q, k, v, o (12 values);
-// dims = {B, H, Hkv, Tq, Tk, D, causal, window (<= 0: none), delta_in (0
-// here)}. bf16 q/k/v/o, f32 lse
-// [B, H, Tq] contiguous, uint8 kv_mask [B, Tk] contiguous. q, k and v are
-// read by TMA: 16-byte aligned base pointers and strides. Returns a
-// cudaError_t (0 = launched).
-int tl_flash_fwd(const void* const* ptrs, const long long* strides,
-                 const int* dims, float scale, void* stream) {
+template <typename T>
+int fwd_entry(const void* const* ptrs, const long long* strides,
+              const int* dims, float scale, void* stream) {
   if (!shape_ok(dims) || !strides_ok(strides, 4)) return cudaErrorInvalidValue;
   const int dense[] = {0, 1, 2, 4};
   for (int i : dense)
@@ -1025,56 +1107,97 @@ int tl_flash_fwd(const void* const* ptrs, const long long* strides,
   // be valid, so they are made over q
   const bool keys = s.Tk > 0;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, ptrs[0], strides, D, s.Tq, s.H, s.B, kFwdRows) ||
-      !make_map(&tk, keys ? ptrs[1] : ptrs[0], keys ? strides + 3 : strides,
-                D, keys ? s.Tk : s.Tq, keys ? s.Hkv : s.H, s.B, kFwdBK) ||
-      !make_map(&tv, keys ? ptrs[2] : ptrs[0], keys ? strides + 6 : strides,
-                D, keys ? s.Tk : s.Tq, keys ? s.Hkv : s.H, s.B, kFwdBK))
+  if (!make_map<T>(&tq, ptrs[0], strides, D, s.Tq, s.H, s.B, kFwdRows) ||
+      !make_map<T>(&tk, keys ? ptrs[1] : ptrs[0],
+                   keys ? strides + 3 : strides, D, keys ? s.Tk : s.Tq,
+                   keys ? s.Hkv : s.H, s.B, kFwdBK) ||
+      !make_map<T>(&tv, keys ? ptrs[2] : ptrs[0],
+                   keys ? strides + 6 : strides, D, keys ? s.Tk : s.Tq,
+                   keys ? s.Hkv : s.H, s.B, kFwdBK))
     return cudaErrorInvalidValue;
-  const OutView o = out_view(const_cast<void*>(ptrs[4]), strides + 9);
+  const OutView<T> o = out_view<T>(const_cast<void*>(ptrs[4]), strides + 9);
   float* lse = static_cast<float*>(const_cast<void*>(ptrs[5]));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_fwd_band<64>(tq, tk, tv, o, lse, s, st)
-                 : launch_fwd_band<128>(tq, tk, tv, o, lse, s, st);
+  return D == 64 ? launch_fwd_band<T, 64>(tq, tk, tv, o, lse, s, st)
+                 : launch_fwd_band<T, 128>(tq, tk, tv, o, lse, s, st);
 }
 
-// Backward. ptrs = {q, k, v, do, lse, kv_mask (or null), delta (f32
-// [B, H, Tq] contiguous), dq, dk, dv, o (the forward's output)}; strides of
-// the views q, k, v, do, dq, dk, dv, o (24 values); dims as for the
-// forward. delta_in 0: delta is a workspace the dq kernel fills with its
-// own rowsum(p dp); 1: delta holds the caller's rowsum(dO o O) of the
-// whole row (a ring's merged output, whose keys this call sees only in
-// part), which both kernels read and neither writes.
-int tl_flash_bwd(const void* const* ptrs, const long long* strides,
-                 const int* dims, float scale, void* stream) {
+template <typename T>
+int bwd_entry(const void* const* ptrs, const long long* strides,
+              const int* dims, float scale, void* stream) {
   if (!shape_ok(dims) || !strides_ok(strides, 8)) return cudaErrorInvalidValue;
   const int dense[] = {0, 1, 2, 3, 7, 8, 9, 10};
   for (int i : dense)
     if (!aligned(ptrs[i])) return cudaErrorMisalignedAddress;
   const Shape s = make_shape(dims, scale, ptrs[5]);
   if (s.B == 0) return 0;
-  const View q = view(ptrs[0], strides), k = view(ptrs[1], strides + 3),
-             v = view(ptrs[2], strides + 6), dout = view(ptrs[3], strides + 9),
-             o = view(ptrs[10], strides + 21);
-  const OutView dq = out_view(const_cast<void*>(ptrs[7]), strides + 12),
-                dk = out_view(const_cast<void*>(ptrs[8]), strides + 15),
-                dv = out_view(const_cast<void*>(ptrs[9]), strides + 18);
+  const View<T> q = view<T>(ptrs[0], strides),
+                k = view<T>(ptrs[1], strides + 3),
+                v = view<T>(ptrs[2], strides + 6),
+                dout = view<T>(ptrs[3], strides + 9),
+                o = view<T>(ptrs[10], strides + 21);
+  const OutView<T> dq = out_view<T>(const_cast<void*>(ptrs[7]), strides + 12),
+                   dk = out_view<T>(const_cast<void*>(ptrs[8]), strides + 15),
+                   dv = out_view<T>(const_cast<void*>(ptrs[9]), strides + 18);
   const float* lse = static_cast<const float*>(ptrs[4]);
   float* delta = static_cast<float*>(const_cast<void*>(ptrs[6]));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool band = s.causal || s.window > 0;
   if (dims[5] == 64)
-    return band ? launch_bwd<64, true>(q, k, v, o, dout, lse, delta, dq, dk,
-                                       dv, s, st)
-                : launch_bwd<64, false>(q, k, v, o, dout, lse, delta, dq, dk,
-                                        dv, s, st);
-  return band ? launch_bwd<128, true>(q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, s, st)
-              : launch_bwd<128, false>(q, k, v, o, dout, lse, delta, dq, dk,
-                                       dv, s, st);
+    return band ? launch_bwd<T, 64, true>(q, k, v, o, dout, lse, delta, dq,
+                                          dk, dv, s, st)
+                : launch_bwd<T, 64, false>(q, k, v, o, dout, lse, delta, dq,
+                                           dk, dv, s, st);
+  return band ? launch_bwd<T, 128, true>(q, k, v, o, dout, lse, delta, dq, dk,
+                                         dv, s, st)
+              : launch_bwd<T, 128, false>(q, k, v, o, dout, lse, delta, dq,
+                                          dk, dv, s, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Forward. ptrs = {q, k, v, kv_mask (or null), o, lse}; strides = (b, h, t)
+// element strides of the [B, heads, T, D] views q, k, v, o (12 values);
+// dims = {B, H, Hkv, Tq, Tk, D, causal, window (<= 0: none), delta_in (0
+// here)}. q/k/v/o of the entry's type (bf16, or f16 for the _f16 entry),
+// f32 lse [B, H, Tq] contiguous, uint8 kv_mask [B, Tk] contiguous. q, k
+// and v are read by TMA: 16-byte aligned base pointers and strides.
+// Returns a cudaError_t (0 = launched).
+int tl_flash_fwd(const void* const* ptrs, const long long* strides,
+                 const int* dims, float scale, void* stream) {
+  return fwd_entry<bf16>(ptrs, strides, dims, scale, stream);
+}
+
+int tl_flash_fwd_f16(const void* const* ptrs, const long long* strides,
+                     const int* dims, float scale, void* stream) {
+  return fwd_entry<f16>(ptrs, strides, dims, scale, stream);
+}
+
+// Backward. ptrs = {q, k, v, do, lse, kv_mask (or null), delta (f32
+// [B, H, Tq] contiguous), dq, dk, dv, o (the forward's output)}; strides
+// of the views q, k, v, do, dq, dk, dv, o (24 values); dims as for the
+// forward. delta_in 0:
+// delta is a workspace the dq kernel fills with its own rowsum(p dp); 1:
+// delta holds the caller's rowsum(dO o O) of the whole row (a ring's
+// merged output, whose keys this call sees only in part), which both
+// kernels read and neither writes.
+int tl_flash_bwd(const void* const* ptrs, const long long* strides,
+                 const int* dims, float scale, void* stream) {
+  return bwd_entry<bf16>(ptrs, strides, dims, scale, stream);
+}
+
+int tl_flash_bwd_f16(const void* const* ptrs, const long long* strides,
+                     const int* dims, float scale, void* stream) {
+  return bwd_entry<f16>(ptrs, strides, dims, scale, stream);
 }
 
 const char* tl_flash_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+const char* tl_flash_f16_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -1,12 +1,11 @@
-// Flash attention forward (B1) and backward (B2) for f32 and f16 operands,
-// on the tensor cores in TF32 with a three-product split (3xTF32), for
-// sm_90a.
+// Flash attention forward (B1) and backward (B2) for f32 operands, on the
+// tensor cores in TF32 with a three-product split (3xTF32), for sm_90a.
 //
-// Replaces, for f32 and f16 inputs, the TPU kernels of
+// Replaces, for f32 inputs, the TPU kernels of
 // tensorlink_tpu/ops/pallas/flash_attention.py: flash_attention_fwd_lse and
 // flash_attention_bwd, which compute in f32 whatever their inputs (the bf16
-// forms are in flash_attention.cu). f32 or f16 q, k, v and do give o, dq,
-// dk and dv of the same type and f32 lse; every sum is f32. Operands are
+// and f16 forms are in flash_attention.cu). f32 q, k, v and do give f32 o,
+// dq, dk, dv and lse; every sum is f32. Operands are
 // [B, heads, T, D] views read through their strides (D contiguous); GQA
 // reads the unrepeated K/V (query head h uses kv head h / (H / Hkv)). A key
 // is attended iff kv_mask[b, k] != 0 (when a mask is given), k < Tk, and
@@ -25,17 +24,14 @@
 // operand splits as it is read, x = hi + lo with hi = rna_tf32(x) and
 // lo = x - hi (see split), and a b ~= a_hi b_hi + a_hi b_lo + a_lo b_hi in
 // the f32 accumulators: within ~2^-21 of the f32 product (the dropped
-// a_lo b_lo is below 2^-22 |a b|), at three products, 165 TFLOP/s. An f16
-// value is exact in TF32 (11 significant bits, a wider exponent), so in
-// the f16 form a raw operand has no lo and its products are skipped:
-// QK^T and dO V^T take one product, P V, dS K, P^T dO and dS^T Q two.
+// a_lo b_lo is below 2^-22 |a b|), at three products, 165 TFLOP/s.
 //
 // Design: blocks of 4 warps; warp w owns a 16-row strip of the block's 64
 // rows (queries; keys in the dkv kernel) and keeps its S and dP strips
 // (16 x 64, or 16 x 32 at D 128 in the backward) and its output rows in
 // f32 registers. Products are mma.sync m16n8k8 tf32 (csrc/mma_common.cuh).
-// Operand fragments are read from tiles in shared memory in the storage
-// type, rows padded by 16 bytes: with that pitch the row reads of an A or
+// Operand fragments are read from f32 tiles in shared memory, rows padded
+// by 16 bytes: with that pitch the row reads of an A or
 // K^T-like operand (lanes at row g, column t) and the column reads of a
 // V-like operand (rows 2t, 2t + 1, column g) fall on distinct banks. A
 // score accumulator becomes the A operand of the next product with its k
@@ -71,8 +67,6 @@
 // products of B2 are not K-major; it would also need hi and lo copies of
 // every tile (192 KB for Q, K and V^T at D 128).
 
-#include <cuda_fp16.h>
-
 #include "mma_common.cuh"
 
 namespace {
@@ -83,34 +77,17 @@ constexpr int kThreads = 128;  // 4 warps, a 16-row strip each
 constexpr int kRows = 64;      // rows a block (queries; keys in dkv)
 constexpr float kLseMasked = 1e30f;
 
-template <typename T>
-struct Store;
-template <>
-struct Store<float> {
-  static constexpr bool kExact = false;  // needs hi and lo
-  __device__ static float get(const float* p) { return *p; }
-  __device__ static void put2(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-};
-template <>
-struct Store<__half> {
-  static constexpr bool kExact = true;  // every f16 value is a tf32 value
-  __device__ static float get(const __half* p) { return __half2float(*p); }
-  __device__ static void put2(__half* p, float a, float b) {
-    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
-  }
-};
+__device__ __forceinline__ void put2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
 
-template <typename T>
 struct View {  // a [B, heads, T, D] operand; strides in elements
-  const T* p;
+  const float* p;
   long long sb, sh, st;
 };
 
-template <typename T>
 struct OutView {
-  T* p;
+  float* p;
   long long sb, sh, st;
 };
 
@@ -178,10 +155,10 @@ __device__ __forceinline__ void key_bits(uint32_t (&bits)[2], const Shape& s,
 
 // rows [r0, r0 + ROWS) of a [T, D] slab into a tile of pitch LD with
 // 16-byte cp.async copies; rows at or past n are zero-filled
-template <typename T, int D, int ROWS, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long st,
-                                          int r0, int n) {
-  constexpr int EPC = 16 / sizeof(T), CH = D / EPC;
+template <int D, int ROWS, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long st, int r0, int n) {
+  constexpr int EPC = 4, CH = D / EPC;
   for (int i = threadIdx.x; i < ROWS * CH; i += kThreads) {
     const int r = i / CH, c = (i % CH) * EPC;
     const bool ok = r0 + r < n;
@@ -192,7 +169,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long st,
 
 // ------------------------------------------------- 3xTF32 fragments
 template <int N>
-struct Frag {  // an operand fragment: tf32 hi and, unless exact, lo
+struct Frag {  // an operand fragment: tf32 hi and lo
   uint32_t hi[N], lo[N];
 };
 
@@ -200,85 +177,76 @@ struct Frag {  // an operand fragment: tf32 hi and, unless exact, lo
 // the bits of cvt.rna.tf32.f32, here an integer add and mask, which
 // measured 1.3-1.5x faster on the kernels); lo = x - hi (exact), whose
 // low 13 bits the mma drops (|error| <= 2^-21 |x|)
-template <bool EXACT>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  if constexpr (EXACT) {
-    hi = __float_as_uint(x);
-    lo = 0u;
-  } else {
-    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-    lo = __float_as_uint(x - __uint_as_float(hi));
-  }
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// c += a b: a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms first; an
-// exact operand's lo product is skipped
-template <bool EA, bool EB>
+// c += a b: a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms first
 __device__ __forceinline__ void mma3(float (&c)[4], const Frag<4>& a,
                                      const Frag<2>& b) {
-  if constexpr (!EA) mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
-  if constexpr (!EB) mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
   mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
 }
 
 // A operand from a row-major tile: rows r0 + (g, g + 8), columns
 // c0 + (t, t + 4)
-template <bool EX, int LD, typename T>
-__device__ __forceinline__ void frag_a(Frag<4>& f, const T* s, int r0, int c0,
-                                       int g, int t) {
-  const T* p = s + (r0 + g) * LD + c0 + t;
-  split<EX>(Store<T>::get(p), f.hi[0], f.lo[0]);
-  split<EX>(Store<T>::get(p + 8 * LD), f.hi[1], f.lo[1]);
-  split<EX>(Store<T>::get(p + 4), f.hi[2], f.lo[2]);
-  split<EX>(Store<T>::get(p + 8 * LD + 4), f.hi[3], f.lo[3]);
+template <int LD>
+__device__ __forceinline__ void frag_a(Frag<4>& f, const float* s, int r0,
+                                       int c0, int g, int t) {
+  const float* p = s + (r0 + g) * LD + c0 + t;
+  split(*p, f.hi[0], f.lo[0]);
+  split(p[8 * LD], f.hi[1], f.lo[1]);
+  split(p[4], f.hi[2], f.lo[2]);
+  split(p[8 * LD + 4], f.hi[3], f.lo[3]);
 }
 
 // B operand X^T of a row-major [n][k] tile X (K in Q K^T): row n0 + g,
 // columns c0 + (t, t + 4)
-template <bool EX, int LD, typename T>
-__device__ __forceinline__ void frag_bt(Frag<2>& f, const T* s, int n0,
+template <int LD>
+__device__ __forceinline__ void frag_bt(Frag<2>& f, const float* s, int n0,
                                         int c0, int g, int t) {
-  const T* p = s + (n0 + g) * LD + c0 + t;
-  split<EX>(Store<T>::get(p), f.hi[0], f.lo[0]);
-  split<EX>(Store<T>::get(p + 4), f.hi[1], f.lo[1]);
+  const float* p = s + (n0 + g) * LD + c0 + t;
+  split(*p, f.hi[0], f.lo[0]);
+  split(p[4], f.hi[1], f.lo[1]);
 }
 
 // B operand X of a row-major [k][n] tile X (V in P V), k in the permuted
 // order of frag_c: rows k0 + 2t, k0 + 2t + 1, column n0 + g
-template <bool EX, int LD, typename T>
-__device__ __forceinline__ void frag_bn(Frag<2>& f, const T* s, int k0,
+template <int LD>
+__device__ __forceinline__ void frag_bn(Frag<2>& f, const float* s, int k0,
                                         int n0, int g, int t) {
-  const T* p = s + (k0 + 2 * t) * LD + n0 + g;
-  split<EX>(Store<T>::get(p), f.hi[0], f.lo[0]);
-  split<EX>(Store<T>::get(p + LD), f.hi[1], f.lo[1]);
+  const float* p = s + (k0 + 2 * t) * LD + n0 + g;
+  split(*p, f.hi[0], f.lo[0]);
+  split(p[LD], f.hi[1], f.lo[1]);
 }
 
 // A operand from the f32 accumulators of one n-tile (P or dS), k permuted:
 // C (g, 2t) -> A (g, t), C (g, 2t + 1) -> A (g, t + 4)
 __device__ __forceinline__ void frag_c(Frag<4>& f, const float (&c)[4]) {
-  split<false>(c[0], f.hi[0], f.lo[0]);
-  split<false>(c[2], f.hi[1], f.lo[1]);
-  split<false>(c[1], f.hi[2], f.lo[2]);
-  split<false>(c[3], f.hi[3], f.lo[3]);
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
 }
 
 // a tile row, padded by 16 bytes
-template <typename T, int D>
+template <int D>
 __host__ __device__ constexpr int pitch() {
-  return D + 16 / static_cast<int>(sizeof(T));
+  return D + 4;
 }
 
 // ---------------------------------------------------------------- forward
-template <typename T, int D, bool BAND>
+template <int D, bool BAND>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_fwd_tc_kernel(View<T> q, View<T> k, View<T> v, OutView<T> o,
+    flash_fwd_tc_kernel(View q, View k, View v, OutView o,
                         float* __restrict__ lse, Shape s) {
-  constexpr int LD = pitch<T, D>(), KS = D / 8, NT = kRows / 8;
-  constexpr bool EX = Store<T>::kExact;
+  constexpr int LD = pitch<D>(), KS = D / 8, NT = kRows / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* ks = qs + kRows * LD;
-  T* vs = ks + kRows * LD;
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ks = qs + kRows * LD;
+  float* vs = ks + kRows * LD;
 
   // causal: the last query tiles see the most keys, so they launch first
   const int tile = s.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -288,16 +256,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
   const int qr[2] = {q0 + r0 + g, q0 + r0 + g + 8};
   const float sl2 = s.scale * kLog2e;  // scores in the log2 domain
-  const T* kb = k.p + b * k.sb + hk * k.sh;
-  const T* vb = v.p + b * v.sb + hk * v.sh;
+  const float* kb = k.p + b * k.sb + hk * k.sh;
+  const float* vb = v.p + b * v.sb + hk * v.sh;
 
   int lo, hi;
   key_range(q0, min(q0 + kRows, s.Tq) - 1, s.Tk, s.causal, s.window, lo, hi);
   const int kt0 = lo - lo % kRows;
   const int n = hi > kt0 ? (hi - kt0 + kRows - 1) / kRows : 0;
 
-  load_tile<T, D, kRows, LD>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
-  if (n > 0) load_tile<T, D, kRows, LD>(ks, kb, k.st, kt0, s.Tk);
+  load_tile<D, kRows, LD>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
+  if (n > 0) load_tile<D, kRows, LD>(ks, kb, k.st, kt0, s.Tk);
   cp_async_commit();
 
   float acc[D / 8][4];  // O: this warp's 16 rows x D
@@ -311,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int k0 = kt0 + i * kRows;
     cp_async_wait<0>();
     __syncthreads();  // K(i) has landed; every warp is done with V(i - 1)
-    load_tile<T, D, kRows, LD>(vs, vb, v.st, k0, s.Tk);
+    load_tile<D, kRows, LD>(vs, vb, v.st, k0, s.Tk);
     cp_async_commit();
     uint32_t kbits[2];
     key_bits<kRows>(kbits, s, b, k0, lane);
@@ -328,12 +296,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         Frag<4> a;
-        frag_a<EX, LD>(a, qs, r0, 8 * kk, g, t);
+        frag_a<LD>(a, qs, r0, 8 * kk, g, t);
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           Frag<2> bb;
-          frag_bt<EX, LD>(bb, ks, 8 * j, 8 * kk, g, t);
-          mma3<EX, EX>(sc[j], a, bb);
+          frag_bt<LD>(bb, ks, 8 * j, 8 * kk, g, t);
+          mma3(sc[j], a, bb);
         }
       }
       float mx[2] = {m[0], m[1]};
@@ -373,7 +341,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_wait<0>();
     __syncthreads();  // V(i) has landed; every warp is done with K(i)
     if (i + 1 < n)
-      load_tile<T, D, kRows, LD>(ks, kb, k.st, k0 + kRows, s.Tk);
+      load_tile<D, kRows, LD>(ks, kb, k.st, k0 + kRows, s.Tk);
     cp_async_commit();
     if (live) {  // O += P V
 #pragma unroll
@@ -383,24 +351,24 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int dn = 0; dn < D / 8; ++dn) {
           Frag<2> bb;
-          frag_bn<EX, LD>(bb, vs, 8 * j, 8 * dn, g, t);
-          mma3<false, EX>(acc[dn], a, bb);
+          frag_bn<LD>(bb, vs, 8 * j, 8 * dn, g, t);
+          mma3(acc[dn], a, bb);
         }
       }
     }
   }
   cp_async_wait<0>();
 
-  T* ob = o.p + b * o.sb + h * o.sh;
+  float* ob = o.p + b * o.sb + h * o.sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float lr = quad_sum(l[r]);
     if (qr[r] >= s.Tq) continue;
     const float inv = lr > 0.f ? 1.f / lr : 0.f;
-    T* row = ob + (long long)qr[r] * o.st;
+    float* row = ob + (long long)qr[r] * o.st;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
-      Store<T>::put2(row + 8 * dn + 2 * t, acc[dn][2 * r] * inv,
+      put2(row + 8 * dn + 2 * t, acc[dn][2 * r] * inv,
                      acc[dn][2 * r + 1] * inv);
     if (t == 0)
       lse[((long long)b * s.H + h) * s.Tq + qr[r]] =
@@ -415,20 +383,19 @@ __host__ __device__ constexpr int dq_keys() {
   return D == 128 ? 32 : 64;
 }
 
-template <typename T, int D, bool BAND>
+template <int D, bool BAND>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_bwd_dq_tc_kernel(View<T> q, View<T> k, View<T> v, View<T> o,
-                           View<T> dout, const float* __restrict__ lse,
-                           float* __restrict__ delta, OutView<T> dq,
+    flash_bwd_dq_tc_kernel(View q, View k, View v, View o,
+                           View dout, const float* __restrict__ lse,
+                           float* __restrict__ delta, OutView dq,
                            Shape s) {
-  constexpr int KT = dq_keys<D>(), LD = pitch<T, D>(), KS = D / 8,
+  constexpr int KT = dq_keys<D>(), LD = pitch<D>(), KS = D / 8,
                 NT = KT / 8;
-  constexpr bool EX = Store<T>::kExact;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* dos = qs + kRows * LD;
-  T* ks = dos + kRows * LD;
-  T* vs = ks + KT * LD;
+  float* qs = reinterpret_cast<float*>(smem);
+  float* dos = qs + kRows * LD;
+  float* ks = dos + kRows * LD;
+  float* vs = ks + KT * LD;
 
   const int tile = s.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int h = blockIdx.x, q0 = tile * kRows, b = blockIdx.z;
@@ -438,8 +405,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int qr[2] = {q0 + r0 + g, q0 + r0 + g + 8};
   const float sl2 = s.scale * kLog2e;
   const bool own = !s.delta_in;
-  const T* kb = k.p + b * k.sb + hk * k.sh;
-  const T* vb = v.p + b * v.sb + hk * v.sh;
+  const float* kb = k.p + b * k.sb + hk * k.sh;
+  const float* vb = v.p + b * v.sb + hk * v.sh;
   const long long rowbase = ((long long)b * s.H + h) * s.Tq;
 
   int lo, hi;
@@ -447,12 +414,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int kt0 = lo - lo % KT;
   const int n = hi > kt0 ? (hi - kt0 + KT - 1) / KT : 0;
 
-  load_tile<T, D, kRows, LD>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
-  load_tile<T, D, kRows, LD>(dos, dout.p + b * dout.sb + h * dout.sh,
+  load_tile<D, kRows, LD>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
+  load_tile<D, kRows, LD>(dos, dout.p + b * dout.sb + h * dout.sh,
                              dout.st, q0, s.Tq);
-  if (n > 0) load_tile<T, D, KT, LD>(vs, vb, v.st, kt0, s.Tk);
+  if (n > 0) load_tile<D, KT, LD>(vs, vb, v.st, kt0, s.Tk);
   cp_async_commit();
-  if (n > 0) load_tile<T, D, KT, LD>(ks, kb, k.st, kt0, s.Tk);
+  if (n > 0) load_tile<D, KT, LD>(ks, kb, k.st, kt0, s.Tk);
   cp_async_commit();
 
   // d~ of this thread's two rows (each lane of the quad dots a quarter),
@@ -468,12 +435,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     float acc = 0.f;
     if (in) {
-      const T* orow = o.p + b * o.sb + h * o.sh + (long long)qr[r] * o.st;
-      const T* grow =
+      const float* orow = o.p + b * o.sb + h * o.sh + (long long)qr[r] * o.st;
+      const float* grow =
           dout.p + b * dout.sb + h * dout.sh + (long long)qr[r] * dout.st;
 #pragma unroll 8
       for (int c = t * (D / 4); c < (t + 1) * (D / 4); ++c)
-        acc = fmaf(Store<T>::get(orow + c), Store<T>::get(grow + c), acc);
+        acc = fmaf(orow[c], grow[c], acc);
     }
     dt[r] = quad_sum(acc);
   }
@@ -503,29 +470,29 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         Frag<4> a;
-        frag_a<EX, LD>(a, dos, r0, 8 * kk, g, t);
+        frag_a<LD>(a, dos, r0, 8 * kk, g, t);
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           Frag<2> bb;
-          frag_bt<EX, LD>(bb, vs, 8 * j, 8 * kk, g, t);
-          mma3<EX, EX>(dp[j], a, bb);
+          frag_bt<LD>(bb, vs, 8 * j, 8 * kk, g, t);
+          mma3(dp[j], a, bb);
         }
       }
     }
     cp_async_wait<0>();
     __syncthreads();  // K(i) has landed; every warp is done with V(i)
-    if (i + 1 < n) load_tile<T, D, KT, LD>(vs, vb, v.st, k0 + KT, s.Tk);
+    if (i + 1 < n) load_tile<D, KT, LD>(vs, vb, v.st, k0 + KT, s.Tk);
     cp_async_commit();
     if (live) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {  // S = Q K^T
         Frag<4> a;
-        frag_a<EX, LD>(a, qs, r0, 8 * kk, g, t);
+        frag_a<LD>(a, qs, r0, 8 * kk, g, t);
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           Frag<2> bb;
-          frag_bt<EX, LD>(bb, ks, 8 * j, 8 * kk, g, t);
-          mma3<EX, EX>(sc[j], a, bb);
+          frag_bt<LD>(bb, ks, 8 * j, 8 * kk, g, t);
+          mma3(sc[j], a, bb);
         }
       }
 #pragma unroll
@@ -550,19 +517,19 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int dn = 0; dn < D / 8; ++dn) {
           Frag<2> bb;
-          frag_bn<EX, LD>(bb, ks, 8 * j, 8 * dn, g, t);
-          mma3<false, EX>(acc_a[dn], ad, bb);
+          frag_bn<LD>(bb, ks, 8 * j, 8 * dn, g, t);
+          mma3(acc_a[dn], ad, bb);
           if (own) mma_tf32(acc_c[dn], ap.hi, bb.hi[0], bb.hi[1]);
         }
       }
     }
     __syncthreads();  // every warp is done with K(i)
-    if (i + 1 < n) load_tile<T, D, KT, LD>(ks, kb, k.st, k0 + KT, s.Tk);
+    if (i + 1 < n) load_tile<D, KT, LD>(ks, kb, k.st, k0 + KT, s.Tk);
     cp_async_commit();
   }
   cp_async_wait<0>();
 
-  T* out = dq.p + b * dq.sb + h * dq.sh;
+  float* out = dq.p + b * dq.sb + h * dq.sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     dl[r] = quad_sum(dl[r]);
@@ -572,10 +539,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     else if (t == 0)
       delta[rowbase + qr[r]] = dl[r];
     const float c = dl[r] - dt[r];
-    T* row = out + (long long)qr[r] * dq.st;
+    float* row = out + (long long)qr[r] * dq.st;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn)
-      Store<T>::put2(row + 8 * dn + 2 * t,
+      put2(row + 8 * dn + 2 * t,
                      s.scale * (acc_a[dn][2 * r] - c * acc_c[dn][2 * r]),
                      s.scale * (acc_a[dn][2 * r + 1] - c * acc_c[dn][2 * r + 1]));
   }
@@ -589,20 +556,19 @@ __host__ __device__ constexpr int dkv_queries() {
   return D == 128 ? 32 : 64;
 }
 
-template <typename T, int D, bool BAND>
+template <int D, bool BAND>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_bwd_dkv_tc_kernel(View<T> q, View<T> k, View<T> v, View<T> dout,
+    flash_bwd_dkv_tc_kernel(View q, View k, View v, View dout,
                             const float* __restrict__ lse,
-                            const float* __restrict__ delta, OutView<T> dk,
-                            OutView<T> dv, Shape s) {
-  constexpr int QT = dkv_queries<D>(), LD = pitch<T, D>(), KS = D / 8,
+                            const float* __restrict__ delta, OutView dk,
+                            OutView dv, Shape s) {
+  constexpr int QT = dkv_queries<D>(), LD = pitch<D>(), KS = D / 8,
                 NQ = QT / 8;
-  constexpr bool EX = Store<T>::kExact;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kRows * LD;
-  T* qs = vs + kRows * LD;
-  T* dos = qs + QT * LD;
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + kRows * LD;
+  float* qs = vs + kRows * LD;
+  float* dos = qs + QT * LD;
   float* lse_s = reinterpret_cast<float*>(dos + QT * LD);  // [QT]
   float* dl_s = lse_s + QT;                                // [QT]
 
@@ -626,7 +592,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   auto issue_q = [&](int u) {  // Q rows, lse and delta of unit u
     const int h = hk * G + u / nqt, q0 = qt0 + (u % nqt) * QT;
-    load_tile<T, D, QT, LD>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
+    load_tile<D, QT, LD>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
     if (threadIdx.x < QT) {
       const int qq = q0 + threadIdx.x;
       const bool in = qq < s.Tq;
@@ -637,12 +603,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   };
   auto issue_do = [&](int u) {
     const int h = hk * G + u / nqt, q0 = qt0 + (u % nqt) * QT;
-    load_tile<T, D, QT, LD>(dos, dout.p + b * dout.sb + h * dout.sh, dout.st,
+    load_tile<D, QT, LD>(dos, dout.p + b * dout.sb + h * dout.sh, dout.st,
                             q0, s.Tq);
   };
 
-  load_tile<T, D, kRows, LD>(ks, k.p + b * k.sb + hk * k.sh, k.st, k0, s.Tk);
-  load_tile<T, D, kRows, LD>(vs, v.p + b * v.sb + hk * v.sh, v.st, k0, s.Tk);
+  load_tile<D, kRows, LD>(ks, k.p + b * k.sb + hk * k.sh, k.st, k0, s.Tk);
+  load_tile<D, kRows, LD>(vs, v.p + b * v.sb + hk * v.sh, v.st, k0, s.Tk);
   if (nu > 0) issue_q(0);
   cp_async_commit();
   if (nu > 0) issue_do(0);
@@ -671,12 +637,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {  // S^T = K Q^T
         Frag<4> a;
-        frag_a<EX, LD>(a, ks, r0, 8 * kk, g, t);
+        frag_a<LD>(a, ks, r0, 8 * kk, g, t);
 #pragma unroll
         for (int j = 0; j < NQ; ++j) {
           Frag<2> bb;
-          frag_bt<EX, LD>(bb, qs, 8 * j, 8 * kk, g, t);
-          mma3<EX, EX>(st[j], a, bb);
+          frag_bt<LD>(bb, qs, 8 * j, 8 * kk, g, t);
+          mma3(st[j], a, bb);
         }
       }
       // a query past Tq needs no test: its zero-filled q, dO, lse and
@@ -698,12 +664,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {  // dP^T = V dO^T
         Frag<4> a;
-        frag_a<EX, LD>(a, vs, r0, 8 * kk, g, t);
+        frag_a<LD>(a, vs, r0, 8 * kk, g, t);
 #pragma unroll
         for (int j = 0; j < NQ; ++j) {
           Frag<2> bb;
-          frag_bt<EX, LD>(bb, dos, 8 * j, 8 * kk, g, t);
-          mma3<EX, EX>(dpt[j], a, bb);
+          frag_bt<LD>(bb, dos, 8 * j, 8 * kk, g, t);
+          mma3(dpt[j], a, bb);
         }
       }
 #pragma unroll
@@ -720,8 +686,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int dn = 0; dn < D / 8; ++dn) {
           Frag<2> bb;
-          frag_bn<EX, LD>(bb, qs, 8 * j, 8 * dn, g, t);
-          mma3<false, EX>(dka[dn], a, bb);
+          frag_bn<LD>(bb, qs, 8 * j, 8 * dn, g, t);
+          mma3(dka[dn], a, bb);
         }
       }
     }
@@ -736,8 +702,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int dn = 0; dn < D / 8; ++dn) {
           Frag<2> bb;
-          frag_bn<EX, LD>(bb, dos, 8 * j, 8 * dn, g, t);
-          mma3<false, EX>(dva[dn], a, bb);
+          frag_bn<LD>(bb, dos, 8 * j, 8 * dn, g, t);
+          mma3(dva[dn], a, bb);
         }
       }
     }
@@ -747,17 +713,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   cp_async_wait<0>();
 
-  T* kout = dk.p + b * dk.sb + hk * dk.sh;
-  T* vout = dv.p + b * dv.sb + hk * dv.sh;
+  float* kout = dk.p + b * dk.sb + hk * dk.sh;
+  float* vout = dv.p + b * dv.sb + hk * dv.sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (kr[r] >= s.Tk) continue;
-    T* krow = kout + (long long)kr[r] * dk.st;
-    T* vrow = vout + (long long)kr[r] * dv.st;
+    float* krow = kout + (long long)kr[r] * dk.st;
+    float* vrow = vout + (long long)kr[r] * dv.st;
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn) {
-      Store<T>::put2(krow + 8 * dn + 2 * t, dka[dn][2 * r], dka[dn][2 * r + 1]);
-      Store<T>::put2(vrow + 8 * dn + 2 * t, dva[dn][2 * r], dva[dn][2 * r + 1]);
+      put2(krow + 8 * dn + 2 * t, dka[dn][2 * r], dka[dn][2 * r + 1]);
+      put2(vrow + 8 * dn + 2 * t, dva[dn][2 * r], dva[dn][2 * r + 1]);
     }
   }
 }
@@ -770,47 +736,47 @@ cudaError_t allow_smem(K kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D>
+template <int D>
 constexpr size_t tile_bytes(int rows) {
-  return sizeof(T) * rows * pitch<T, D>();
+  return sizeof(float) * rows * pitch<D>();
 }
 
-template <typename T, int D, bool BAND>
-int launch_fwd(View<T> q, View<T> k, View<T> v, OutView<T> o, float* lse,
+template <int D, bool BAND>
+int launch_fwd(View q, View k, View v, OutView o, float* lse,
                Shape s, cudaStream_t stream) {
-  const size_t smem = 3 * tile_bytes<T, D>(kRows);
-  cudaError_t err = allow_smem(flash_fwd_tc_kernel<T, D, BAND>, smem);
+  const size_t smem = 3 * tile_bytes<D>(kRows);
+  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D, BAND>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(s.H, (s.Tq + kRows - 1) / kRows, s.B);
-  flash_fwd_tc_kernel<T, D, BAND><<<grid, kThreads, smem, stream>>>(q, k, v,
+  flash_fwd_tc_kernel<D, BAND><<<grid, kThreads, smem, stream>>>(q, k, v,
                                                                     o, lse, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, bool BAND>
-int launch_bwd(View<T> q, View<T> k, View<T> v, View<T> o, View<T> dout,
-               const float* lse, float* delta, OutView<T> dq, OutView<T> dk,
-               OutView<T> dv, Shape s, cudaStream_t stream) {
+template <int D, bool BAND>
+int launch_bwd(View q, View k, View v, View o, View dout,
+               const float* lse, float* delta, OutView dq, OutView dk,
+               OutView dv, Shape s, cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
   if (s.Tq > 0) {  // dq first: it writes the delta the dkv kernel reads
     const size_t smem =
-        2 * tile_bytes<T, D>(kRows) + 2 * tile_bytes<T, D>(dq_keys<D>());
-    err = allow_smem(flash_bwd_dq_tc_kernel<T, D, BAND>, smem);
+        2 * tile_bytes<D>(kRows) + 2 * tile_bytes<D>(dq_keys<D>());
+    err = allow_smem(flash_bwd_dq_tc_kernel<D, BAND>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(s.H, (s.Tq + kRows - 1) / kRows, s.B);
-    flash_bwd_dq_tc_kernel<T, D, BAND><<<grid, kThreads, smem, stream>>>(
+    flash_bwd_dq_tc_kernel<D, BAND><<<grid, kThreads, smem, stream>>>(
         q, k, v, o, dout, lse, delta, dq, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (s.Tk > 0) {
-    const size_t smem = 2 * tile_bytes<T, D>(kRows) +
-                        2 * tile_bytes<T, D>(dkv_queries<D>()) +
+    const size_t smem = 2 * tile_bytes<D>(kRows) +
+                        2 * tile_bytes<D>(dkv_queries<D>()) +
                         2 * sizeof(float) * dkv_queries<D>();
-    err = allow_smem(flash_bwd_dkv_tc_kernel<T, D, BAND>, smem);
+    err = allow_smem(flash_bwd_dkv_tc_kernel<D, BAND>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(s.Hkv, (s.Tk + kRows - 1) / kRows, s.B);
-    flash_bwd_dkv_tc_kernel<T, D, BAND><<<grid, kThreads, smem, stream>>>(
+    flash_bwd_dkv_tc_kernel<D, BAND><<<grid, kThreads, smem, stream>>>(
         q, k, v, dout, lse, delta, dk, dv, s);
     err = cudaGetLastError();
   }
@@ -822,22 +788,19 @@ bool aligned(const void* p) {
 }
 
 // strides of n views: each a multiple of 16 bytes
-template <typename T>
 bool strides_ok(const long long* st, int n) {
   for (int i = 0; i < 3 * n; ++i)
-    if (st[i] * static_cast<long long>(sizeof(T)) % 16 != 0) return false;
+    if (st[i] * static_cast<long long>(sizeof(float)) % 16 != 0) return false;
   return true;
 }
 
-template <typename T>
-View<T> view(const void* p, const long long* st) {
-  return View<T>{static_cast<const T*>(p), st[0], st[1], st[2]};
+View view(const void* p, const long long* st) {
+  return View{static_cast<const float*>(p), st[0], st[1], st[2]};
 }
 
-template <typename T>
-OutView<T> out_view(const void* p, const long long* st) {
-  return OutView<T>{static_cast<T*>(const_cast<void*>(p)), st[0], st[1],
-                    st[2]};
+OutView out_view(const void* p, const long long* st) {
+  return OutView{static_cast<float*>(const_cast<void*>(p)), st[0], st[1],
+                 st[2]};
 }
 
 bool shape_ok(const int* dims) {
@@ -853,60 +816,58 @@ Shape make_shape(const int* dims, float scale, const void* kv_mask) {
                static_cast<const uint8_t*>(kv_mask)};
 }
 
-template <typename T>
 int fwd_entry(const void* const* ptrs, const long long* strides,
               const int* dims, float scale, void* stream) {
-  if (!shape_ok(dims) || !strides_ok<T>(strides, 4))
+  if (!shape_ok(dims) || !strides_ok(strides, 4))
     return cudaErrorInvalidValue;
   const int dense[] = {0, 1, 2, 4};
   for (int i : dense)
     if (!aligned(ptrs[i])) return cudaErrorMisalignedAddress;
   const Shape s = make_shape(dims, scale, ptrs[3]);
   if (s.B == 0 || s.Tq == 0) return 0;
-  const View<T> q = view<T>(ptrs[0], strides),
-                k = view<T>(ptrs[1], strides + 3),
-                v = view<T>(ptrs[2], strides + 6);
-  const OutView<T> o = out_view<T>(ptrs[4], strides + 9);
+  const View q = view(ptrs[0], strides),
+                k = view(ptrs[1], strides + 3),
+                v = view(ptrs[2], strides + 6);
+  const OutView o = out_view(ptrs[4], strides + 9);
   float* lse = static_cast<float*>(const_cast<void*>(ptrs[5]));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool band = s.causal || s.window > 0;
   if (dims[5] == 64)
-    return band ? launch_fwd<T, 64, true>(q, k, v, o, lse, s, st)
-                : launch_fwd<T, 64, false>(q, k, v, o, lse, s, st);
-  return band ? launch_fwd<T, 128, true>(q, k, v, o, lse, s, st)
-              : launch_fwd<T, 128, false>(q, k, v, o, lse, s, st);
+    return band ? launch_fwd<64, true>(q, k, v, o, lse, s, st)
+                : launch_fwd<64, false>(q, k, v, o, lse, s, st);
+  return band ? launch_fwd<128, true>(q, k, v, o, lse, s, st)
+              : launch_fwd<128, false>(q, k, v, o, lse, s, st);
 }
 
-template <typename T>
 int bwd_entry(const void* const* ptrs, const long long* strides,
               const int* dims, float scale, void* stream) {
-  if (!shape_ok(dims) || !strides_ok<T>(strides, 8))
+  if (!shape_ok(dims) || !strides_ok(strides, 8))
     return cudaErrorInvalidValue;
   const int dense[] = {0, 1, 2, 3, 7, 8, 9, 10};
   for (int i : dense)
     if (!aligned(ptrs[i])) return cudaErrorMisalignedAddress;
   const Shape s = make_shape(dims, scale, ptrs[5]);
   if (s.B == 0) return 0;
-  const View<T> q = view<T>(ptrs[0], strides),
-                k = view<T>(ptrs[1], strides + 3),
-                v = view<T>(ptrs[2], strides + 6),
-                dout = view<T>(ptrs[3], strides + 9),
-                o = view<T>(ptrs[10], strides + 21);
-  const OutView<T> dq = out_view<T>(ptrs[7], strides + 12),
-                   dk = out_view<T>(ptrs[8], strides + 15),
-                   dv = out_view<T>(ptrs[9], strides + 18);
+  const View q = view(ptrs[0], strides),
+                k = view(ptrs[1], strides + 3),
+                v = view(ptrs[2], strides + 6),
+                dout = view(ptrs[3], strides + 9),
+                o = view(ptrs[10], strides + 21);
+  const OutView dq = out_view(ptrs[7], strides + 12),
+                   dk = out_view(ptrs[8], strides + 15),
+                   dv = out_view(ptrs[9], strides + 18);
   const float* lse = static_cast<const float*>(ptrs[4]);
   float* delta = static_cast<float*>(const_cast<void*>(ptrs[6]));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool band = s.causal || s.window > 0;
   if (dims[5] == 64)
-    return band ? launch_bwd<T, 64, true>(q, k, v, o, dout, lse, delta, dq,
+    return band ? launch_bwd<64, true>(q, k, v, o, dout, lse, delta, dq,
                                           dk, dv, s, st)
-                : launch_bwd<T, 64, false>(q, k, v, o, dout, lse, delta, dq,
+                : launch_bwd<64, false>(q, k, v, o, dout, lse, delta, dq,
                                            dk, dv, s, st);
-  return band ? launch_bwd<T, 128, true>(q, k, v, o, dout, lse, delta, dq, dk,
+  return band ? launch_bwd<128, true>(q, k, v, o, dout, lse, delta, dq, dk,
                                          dv, s, st)
-              : launch_bwd<T, 128, false>(q, k, v, o, dout, lse, delta, dq,
+              : launch_bwd<128, false>(q, k, v, o, dout, lse, delta, dq,
                                           dk, dv, s, st);
 }
 
@@ -917,18 +878,12 @@ extern "C" {
 // Forward. The arguments are tl_flash_fwd's (flash_attention.cu): ptrs =
 // {q, k, v, kv_mask (or null), o, lse}; strides = (b, h, t) element strides
 // of the views q, k, v, o (12 values); dims = {B, H, Hkv, Tq, Tk, D, causal,
-// window (<= 0: none), delta_in (0 here)}. q/k/v/o of the entry's type (f32
-// or f16), f32 lse [B, H, Tq] contiguous, uint8 kv_mask [B, Tk]
-// contiguous; 16-byte aligned base pointers and strides. Returns a
-// cudaError_t (0 = launched).
+// window (<= 0: none), delta_in (0 here)}. f32 q/k/v/o and lse [B, H, Tq]
+// contiguous, uint8 kv_mask [B, Tk] contiguous; 16-byte aligned base
+// pointers and strides. Returns a cudaError_t (0 = launched).
 int tl_flash_fwd_f32(const void* const* ptrs, const long long* strides,
                      const int* dims, float scale, void* stream) {
-  return fwd_entry<float>(ptrs, strides, dims, scale, stream);
-}
-
-int tl_flash_fwd_f16(const void* const* ptrs, const long long* strides,
-                     const int* dims, float scale, void* stream) {
-  return fwd_entry<__half>(ptrs, strides, dims, scale, stream);
+  return fwd_entry(ptrs, strides, dims, scale, stream);
 }
 
 // Backward. The arguments are tl_flash_bwd's: ptrs = {q, k, v, do, lse,
@@ -939,19 +894,10 @@ int tl_flash_fwd_f16(const void* const* ptrs, const long long* strides,
 // read by both kernels (o is then not read).
 int tl_flash_bwd_f32(const void* const* ptrs, const long long* strides,
                      const int* dims, float scale, void* stream) {
-  return bwd_entry<float>(ptrs, strides, dims, scale, stream);
-}
-
-int tl_flash_bwd_f16(const void* const* ptrs, const long long* strides,
-                     const int* dims, float scale, void* stream) {
-  return bwd_entry<__half>(ptrs, strides, dims, scale, stream);
+  return bwd_entry(ptrs, strides, dims, scale, stream);
 }
 
 const char* tl_flash_f32_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-const char* tl_flash_f16_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -2,8 +2,9 @@
 // kernels (flash_attention.cu, flash_attention_f32.cu, paged_decode.cu),
 // for sm_90a.
 //
-// mma.sync m16n8k16 (bf16 in, f32 accumulate) with operand fragments read
-// from row-major shared tiles by ldmatrix, mma.sync m16n8k8 in tf32, and
+// mma.sync m16n8k16 (bf16 or f16 in, f32 accumulate) with operand
+// fragments read from row-major shared tiles by ldmatrix, mma.sync m16n8k8
+// in tf32, and
 // 16- or 4-byte cp.async copies from device memory into shared memory (a
 // source size of 0 fills the destination with zeros, which is how ragged
 // edges and unmapped pages are padded without a branch around the copy).
@@ -11,12 +12,23 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace tlk {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+// the 16-bit storage types of the tensor-core kernels: bf16 (the default
+// of every template below, which paged_decode.cu uses) and f16. ldmatrix,
+// cp.async and the tile layouts do not depend on which; the mma's type
+// string and the packing of f32 values do.
+template <typename T>
+constexpr bool kIsF16 = std::is_same<T, f16>::value;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -27,7 +39,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // four 8x8 b16 matrices; lane l supplies the row address of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -35,7 +47,7 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
       : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -43,14 +55,22 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       : "memory");
 }
 
-// c[16x8] += a[16x16] * b[16x8]; bf16 inputs, f32 accumulators
+// c[16x8] += a[16x16] * b[16x8]; T (bf16 or f16) inputs, f32 accumulators
+template <typename T = bf16>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (kIsF16<T>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // c[16x8] += a[16x8] * b[8x8]; tf32 inputs (the mma reads the upper 19
@@ -72,32 +92,54 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// two f32 values rounded to nearest T, low half first
+template <typename T = bf16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsF16<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
+// the two T values of a packed register as f32, low half first
+template <typename T = bf16>
+__device__ __forceinline__ float2 unpack2(uint32_t x) {
+  if constexpr (kIsF16<T>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&x));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+}
+
 // Fragment addresses inside a row-major shared tile with leading dim LD.
 // A operand (16 rows from r0, 16 columns from c0), and the B operand of
 // two n-tiles read transposed (16 k-rows from r0, 16 n-columns from c0):
 // both use the same per-lane row addresses.
-template <int LD>
-__device__ __forceinline__ const bf16* frag_a(const bf16* s, int r0, int c0,
-                                              int lane) {
+template <int LD, typename T>
+__device__ __forceinline__ const T* frag_a(const T* s, int r0, int c0,
+                                           int lane) {
   return s + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
 }
 
 // B operand of two n-tiles (n rows n0..n0+15 of a [n][k] tile, k from c0)
-template <int LD>
-__device__ __forceinline__ const bf16* frag_b(const bf16* s, int n0, int c0,
-                                              int lane) {
+template <int LD, typename T>
+__device__ __forceinline__ const T* frag_b(const T* s, int n0, int c0,
+                                           int lane) {
   return s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 +
          ((lane >> 3) & 1) * 8;
 }
 
 // A (score) fragment of k-step j from the f32 accumulators of n-tiles
-// 2j and 2j + 1 (the C layout of one mma is the A layout of the next)
+// 2j and 2j + 1 (the C layout of one mma is the A layout of the next),
+// rounded to T
+template <typename T = bf16>
 __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
                                        const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+  a[0] = pack2<T>(c0[0], c0[1]);
+  a[1] = pack2<T>(c0[2], c0[3]);
+  a[2] = pack2<T>(c1[0], c1[1]);
+  a[3] = pack2<T>(c1[2], c1[3]);
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -4,12 +4,12 @@
 // wgmma (warpgroup matrix multiply) on shared-memory descriptors of
 // 128-byte-swizzled tiles, written as PTX by hand (no CUTLASS/CuTe).
 //
-// Tile layout. A bf16 tile of R rows x 64 columns (128 bytes a row) is
-// what one TMA box with CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 128
-// bytes in groups of 8 (1024 bytes), the 16-byte chunks of row r XORed
-// with r % 8. A tile 128 columns wide is two such regions, one after the
-// other. Regions start 1024-byte aligned, so the swizzle that TMA applies
-// and the one wgmma reads agree.
+// Tile layout. A 16-bit (bf16 or f16) tile of R rows x 64 columns (128
+// bytes a row) is what one TMA box with CU_TENSOR_MAP_SWIZZLE_128B
+// writes: rows of 128 bytes in groups of 8 (1024 bytes), the 16-byte
+// chunks of row r XORed with r % 8. A tile 128 columns wide is two such
+// regions, one after the other. Regions start 1024-byte aligned, so the
+// swizzle that TMA applies and the one wgmma reads agree.
 // - K-major operand (rows are M or N, the reduction dimension K runs
 //   along the row: Q and K in S = Q K^T): SBO = 1024 (8 rows), LBO unused
 //   (1); k-step kk of 16 columns starts kk % 4 * 32 bytes into region
@@ -142,91 +142,106 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// The wgmma forms below take their operand type T (bf16 or f16) as a
+// template argument; only the instruction's type string differs, so each
+// asm statement is written once, as a macro of that string.
+#define TLK_ACC32                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),      \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+      "+f"(d[30]), "+f"(d[31])
+#define TLK_ACC64                                                      \
+  TLK_ACC32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define TLK_REGS32                                   \
+  "%0, %1, %2, %3, %4, %5, %6, %7,"                  \
+  "%8, %9, %10, %11, %12, %13, %14, %15,"            \
+  "%16, %17, %18, %19, %20, %21, %22, %23,"          \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+#define TLK_REGS64                                   \
+  TLK_REGS32 ","                                     \
+  "%32, %33, %34, %35, %36, %37, %38, %39,"          \
+  "%40, %41, %42, %43, %44, %45, %46, %47,"          \
+  "%48, %49, %50, %51, %52, %53, %54, %55,"          \
+  "%56, %57, %58, %59, %60, %61, %62, %63"
+
+#define TLK_WGMMA_SS_64(TY)                                             \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\n"                                              \
+      "setp.ne.b32 p, %34, 0;\n"                                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"      \
+      TLK_REGS32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                     \
+      : TLK_ACC32                                                       \
+      : "l"(da), "l"(db), "r"(scale_d))
+#define TLK_WGMMA_RS_64(TY)                                             \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\n"                                              \
+      "setp.ne.b32 p, %37, 0;\n"                                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"      \
+      TLK_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"       \
+      : TLK_ACC32                                                       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),            \
+        "r"(scale_d))
+#define TLK_WGMMA_RS_128(TY)                                            \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\n"                                              \
+      "setp.ne.b32 p, %69, 0;\n"                                        \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"     \
+      TLK_REGS64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"       \
+      : TLK_ACC64                                                       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),            \
+        "r"(scale_d))
+
 // d[32] (+)= A[64, 16] B[16, 64], A and B K-major in shared memory
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+                                                   uint64_t db, int scale_d) {
+  if constexpr (kIsF16<T>)
+    TLK_WGMMA_SS_64("f16");
+  else
+    TLK_WGMMA_SS_64("bf16");
 }
 
 // d[32] += A[64, 16] B[16, 64], A from registers (the mma.sync A fragment
 // of each warp's 16 rows), B MN-major in shared memory (transposed)
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32],
-                                                   const uint32_t (&a)[4],
-                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db,
+                                                      int scale_d) {
+  if constexpr (kIsF16<T>)
+    TLK_WGMMA_RS_64("f16");
+  else
+    TLK_WGMMA_RS_64("bf16");
 }
 
 // d[64] += A[64, 16] B[16, 128], A from registers (the mma.sync A fragment
 // of each warp's 16 rows), B MN-major in shared memory (transposed)
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64],
-                                                   const uint32_t (&a)[4],
-                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t db,
+                                                       int scale_d) {
+  if constexpr (kIsF16<T>)
+    TLK_WGMMA_RS_128("f16");
+  else
+    TLK_WGMMA_RS_128("bf16");
 }
+
+#undef TLK_WGMMA_SS_64
+#undef TLK_WGMMA_RS_64
+#undef TLK_WGMMA_RS_128
+#undef TLK_REGS32
+#undef TLK_REGS64
+#undef TLK_ACC32
+#undef TLK_ACC64
 
 }  // namespace tlk

@@ -10,23 +10,29 @@ and lse = ``LSE_MASKED``.
 
 ``flash_attention_fwd_lse`` and ``flash_attention_bwd`` are the wrappers
 ``ops.flash`` calls. A CUDA tensor launches the hand-written kernels
-(built with ``nvcc`` at first use, bound with ``ctypes``): bf16 operands
-those of ``csrc/flash_attention.cu``, the forward on wgmma fed by TMA,
-the backward on mma.sync; f32 and f16 operands those of
-``csrc/flash_attention_f32.cu``, on the tensor cores in TF32 with a
-three-product split that keeps f32 precision (the reference's kernels
-compute in f32 whatever their inputs, so an f32 or f16 model keeps its
-precision). ``launches_by_variant`` counts each wrapper's launches by
-form ("bf16", "f32", "f16").
+(built with ``nvcc`` at first use, bound with ``ctypes``): bf16 and f16
+operands those of ``csrc/flash_attention.cu`` (one source, two
+instantiations on the 16-bit tensor cores: the forward on wgmma fed by
+TMA, the backward on mma.sync, every sum f32; in f16 each row of the
+backward's dS operands is scaled by a power of two against underflow);
+f32 operands those of ``csrc/flash_attention_f32.cu``, on the tensor
+cores in TF32 with a three-product split that keeps f32 precision (the
+reference's kernels compute in f32 whatever their inputs, so an f32 or
+f16 model keeps its precision). ``launches_by_variant`` counts each
+wrapper's launches by form ("bf16", "f32", "f16").
 They read any [B, heads, T, D] view whose D is contiguous and whose base
 and strides are 16-byte aligned, so the caller's [B, T, H, D] tensors
 pass as transposed views, and the outputs come back as views over
-[B, T, heads, D] storage. A CPU tensor
-takes the plain PyTorch version of the same math
+[B, T, heads, D] storage. The kernels are built for D 64 and 128; any
+other D up to ``MAX_HEAD_DIM`` is zero-padded to the next of them
+(``_padded``: the zero columns add nothing to QK^T or dO V^T, and the
+padded columns of o, dq, dk and dv are zero), run at the true D's scale,
+and sliced back (``_sliced``), so such outputs are views of padded
+storage. A CPU tensor takes the plain PyTorch version of the same math
 (``flash_attention_fwd_lse_reference``, ``flash_attention_bwd_reference``).
-A CUDA input outside the kernels' limits (bf16, f32 or f16, D in
-``HEAD_DIMS``, 16-byte aligned base and strides) raises: nothing routes
-a CUDA tensor to the plain version.
+A CUDA input outside the kernels' limits (bf16, f32 or f16, D up to
+``MAX_HEAD_DIM``, 16-byte aligned base and strides) raises: nothing
+routes a CUDA tensor to the plain version.
 """
 
 from __future__ import annotations
@@ -42,13 +48,15 @@ NEG_INF = -1e30
 # so the backward's p and ds vanish exactly where the forward gave 0
 LSE_MASKED = 1e30
 
-# limits of csrc/flash_attention.cu and csrc/flash_attention_f32.cu
+# the head dims csrc/flash_attention.cu and csrc/flash_attention_f32.cu
+# are built for; any other D up to MAX_HEAD_DIM is zero-padded to the next
 HEAD_DIMS = (64, 128)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 # operand dtype -> (launch-count form, library source, entry suffix)
 KERNEL_FORMS = {
     torch.bfloat16: ("bf16", "flash_attention.cu", ""),
     torch.float32: ("f32", "flash_attention_f32.cu", "_f32"),
-    torch.float16: ("f16", "flash_attention_f32.cu", "_f16"),
+    torch.float16: ("f16", "flash_attention.cu", "_f16"),
 }
 KERNEL_BLOCK = 64  # the kernels' query and key tile
 
@@ -92,14 +100,15 @@ def _repeat_kv(x, H):
 
 def flash_attention_fwd_lse_reference(q, k, v, kv_mask=None, *,
                                       causal: bool = False,
-                                      window: int | None = None):
+                                      window: int | None = None,
+                                      scale: float | None = None):
     """The plain home of B1's math: full f32 scores, masked softmax with
-    the zero-normalizer guard. -> (o [B, H, Tq, D] in q's dtype, lse
-    [B, H, Tq] f32)."""
+    the zero-normalizer guard. ``scale`` multiplies the scores (None:
+    D ** -0.5). -> (o [B, H, Tq, D] in q's dtype, lse [B, H, Tq] f32)."""
     B, H, Hkv, Tq, Tk, D = _check_shapes(q, k, v, kv_mask)
     s = torch.einsum(
         "bhqd,bhkd->bhqk", q.float(), _repeat_kv(k, H).float()
-    ) * (D ** -0.5)
+    ) * (D ** -0.5 if scale is None else scale)
     keep = _keep(kv_mask, Tq, Tk, causal, window, q.device)
     if keep is not None:
         s = torch.where(keep, s, NEG_INF)
@@ -116,7 +125,8 @@ def flash_attention_fwd_lse_reference(q, k, v, kv_mask=None, *,
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, kv_mask=None, *,
                                   causal: bool = False,
-                                  window: int | None = None, delta=None):
+                                  window: int | None = None, delta=None,
+                                  scale: float | None = None):
     """The plain home of B2's math: p = exp(s - lse) with the forward's
     masks, dp = do v^T, delta = rowsum(p * dp), ds = p (dp - delta) scale;
     dk and dv summed over each GQA group. -> (dq, dk, dv) in the inputs'
@@ -132,9 +142,10 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, kv_mask=None, *,
     ``delta`` (f32 [B, H, Tq]) replaces that row sum: a caller whose k
     and v are one block of the row's keys (the ring, ``parallel/sp.py``)
     passes rowsum(do * o) of the whole row's output, since the sum over
-    this block's p and dp would be a partial one."""
+    this block's p and dp would be a partial one. ``scale`` is the
+    forward's (None: D ** -0.5)."""
     B, H, Hkv, Tq, Tk, D = _check_shapes(q, k, v, kv_mask)
-    scale = D ** -0.5
+    scale = D ** -0.5 if scale is None else scale
     qf, dof = q.float(), do.float()
     kf, vf = _repeat_kv(k, H).float(), _repeat_kv(v, H).float()
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
@@ -235,11 +246,12 @@ def _strides(x):
 
 def _check_views(q, views):
     """What the kernels can read: [B, heads, T, D] views of one dtype, bf16,
-    f32 or f16 (``KERNEL_FORMS``), with D contiguous, all on q's card, whose
-    base pointers and (b, h, t) strides are multiples of 16 bytes: the bf16
-    forward reads q, k and v through TMA tensor maps, which address nothing
-    else, and the bf16 backward's 16-byte copies need the same (the f32
-    kernels keep the rule). -> the form's ``KERNEL_FORMS`` entry."""
+    f32 or f16 (``KERNEL_FORMS``), D one of ``HEAD_DIMS`` and contiguous,
+    all on q's card, whose base pointers and (b, h, t) strides are
+    multiples of 16 bytes: the 16-bit forward reads q, k and v through TMA
+    tensor maps, which address nothing else, and the backward's 16-byte
+    copies need the same (the f32 kernels keep the rule). -> the form's
+    ``KERNEL_FORMS`` entry."""
     D = q.shape[-1]
     _check(q.dtype in KERNEL_FORMS,
            f"q dtype {q.dtype} (bfloat16, float32 or float16)")
@@ -267,7 +279,34 @@ def _mask_u8(kv_mask, q):
     return (kv_mask != 0).to(torch.uint8).contiguous()
 
 
-def _call(fn, q, ptrs, strides, dims):
+def _kernel_dim(D: int) -> int:
+    """The head dim the kernels run a D at: the least of ``HEAD_DIMS`` that
+    holds it; D above ``MAX_HEAD_DIM`` is refused."""
+    _check(0 < D <= MAX_HEAD_DIM,
+           f"head dim {D} (kernels take D <= {MAX_HEAD_DIM}: {HEAD_DIMS}, "
+           f"other D zero-padded to the next)")
+    return next(d for d in HEAD_DIMS if D <= d)
+
+
+def _padded(x, Dk: int):
+    """x [B, heads, T, D] as the kernels read it at head dim Dk: x itself
+    at D == Dk, else a copy with Dk - D zero columns appended (contiguous,
+    so its base and strides meet ``_check_views``' rules)."""
+    D = x.shape[-1]
+    return x if D == Dk else torch.nn.functional.pad(x, (0, Dk - D))
+
+
+def _sliced(B: int, T: int, heads: int, D: int, Dk: int, dtype, device):
+    """An output [B, heads, T, D] view of fresh [B, T, heads, Dk] storage
+    -> (the view the kernel writes, the first D columns of it that the
+    caller gets). Both meet ``_check_views``' rules, so an output can be
+    fed back to a kernel (the ring passes o and do to B2)."""
+    full = torch.empty((B, T, heads, Dk), dtype=dtype,
+                       device=device).transpose(1, 2)
+    return full, full[..., :D]
+
+
+def _call(fn, q, ptrs, strides, dims, scale: float):
     _, source, suffix = KERNEL_FORMS[q.dtype]
     lib = _lib(source)
     ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -275,8 +314,8 @@ def _call(fn, q, ptrs, strides, dims):
     dim_arr = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, fn + suffix)(ptr_arr, st_arr, dim_arr,
-                                       q.shape[-1] ** -0.5, stream)
+        rc = getattr(lib, fn + suffix)(ptr_arr, st_arr, dim_arr, scale,
+                                       stream)
     if rc != 0:
         err = getattr(lib, f"tl_flash{suffix}_error_string")(rc).decode()
         raise RuntimeError(
@@ -292,32 +331,37 @@ def _dims(q, k, causal, window, delta_in: bool = False):
 
 def _launch_fwd(q, k, v, kv_mask, causal, window):
     B, H, Tq, D = q.shape
+    Dk = _kernel_dim(D)
+    q, k, v = (_padded(x, Dk) for x in (q, k, v))
     form = _check_views(q, {"q": q, "k": k, "v": v})[0]
     mask = _mask_u8(kv_mask, q)
-    o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    o, o_out = _sliced(B, Tq, H, D, Dk, q.dtype, q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), o.data_ptr(),
             lse.data_ptr()]
     strides = (*_strides(q), *_strides(k), *_strides(v), *_strides(o))
-    _call("tl_flash_fwd", q, ptrs, strides, _dims(q, k, causal, window))
+    _call("tl_flash_fwd", q, ptrs, strides, _dims(q, k, causal, window),
+          D ** -0.5)
     flash_attention_fwd_lse.launches += 1
     flash_attention_fwd_lse.launches_by_variant[form] += 1
-    return o, lse
+    return o_out, lse
 
 
 def _launch_bwd(q, k, v, o, lse, do, kv_mask, causal, window, given=None):
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
+    Dk = _kernel_dim(D)
+    q, k, v, o, do = (_padded(x, Dk) for x in (q, k, v, o, do))
     form = _check_views(q, {"q": q, "k": k, "v": v, "do": do, "o": o})[0]
     _check(lse.device == q.device and lse.dtype == torch.float32
            and lse.is_contiguous(), "lse must be contiguous float32 [B, H, Tq]")
     mask = _mask_u8(kv_mask, q)
     delta = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
              if given is None else given.contiguous())
-    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
-    dk = torch.empty((B, Tk, Hkv, D), dtype=k.dtype, device=q.device).transpose(1, 2)
-    dv = torch.empty((B, Tk, Hkv, D), dtype=v.dtype, device=q.device).transpose(1, 2)
+    (dq, dq_out), (dk, dk_out), (dv, dv_out) = (
+        _sliced(B, T, heads, D, Dk, q.dtype, q.device)
+        for T, heads in ((Tq, H), (Tk, Hkv), (Tk, Hkv)))
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), None if mask is None else mask.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -326,11 +370,11 @@ def _launch_bwd(q, k, v, o, lse, do, kv_mask, causal, window, given=None):
         s for x in (q, k, v, do, dq, dk, dv, o) for s in _strides(x)
     )
     _call("tl_flash_bwd", q, ptrs, strides,
-          _dims(q, k, causal, window, given is not None))
+          _dims(q, k, causal, window, given is not None), D ** -0.5)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_by_form["own" if given is None else "delta"] += 1
     flash_attention_bwd.launches_by_variant[form] += 1
-    return dq, dk, dv
+    return dq_out, dk_out, dv_out
 
 
 def _lib(source: str = "flash_attention.cu") -> ctypes.CDLL:

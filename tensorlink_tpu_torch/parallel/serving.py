@@ -2046,15 +2046,18 @@ class ContinuousBatchingEngine:
 
     def timings(self, rid: int) -> dict:
         """Host-clock seconds from submit to the first token and to the
-        last, for a finished (or running) request."""
-        req = self._requests[rid]
-        t0 = req.submitted_at
-        return {
-            "ttft_s": None if req.first_token_at is None else req.first_token_at - t0,
-            "total_s": None if req.finished_at is None else req.finished_at - t0,
-            "tokens": len(req.tokens),
-            "prefill_chunks": req.prefill_chunks,
-        }
+        last, for a finished (or running) request. Read under the lock:
+        ``submit`` and eviction write ``_requests``, and a step writes the
+        request's stamps and tokens."""
+        with self._lock:
+            req = self._requests[rid]
+            t0 = req.submitted_at
+            return {
+                "ttft_s": None if req.first_token_at is None else req.first_token_at - t0,
+                "total_s": None if req.finished_at is None else req.finished_at - t0,
+                "tokens": len(req.tokens),
+                "prefill_chunks": req.prefill_chunks,
+            }
 
     def _spec_stats(self) -> dict:
         """Speculation counters under the reference's keys. A weight pass
@@ -2708,7 +2711,9 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
     _GRAFT_WIDTH = 8
 
     def _disagg_guard(self) -> None:
-        if self.spec is not None and self.spec.mode == "draft":
+        with self._lock:  # a self-heal may swap self.spec
+            spec = self.spec
+        if spec is not None and spec.mode == "draft":
             raise NotImplementedError(
                 "disaggregated serving with a draft model would need "
                 "the draft's prefill cache shipped beside the target's "
@@ -3166,10 +3171,17 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             self.metrics.observe("kv_pool_utilization", st["utilization"])
         return busy
 
-    def prefix_hit_rate(self) -> float:
+    def _prefix_hit_rate_locked(self) -> float:
         if not self.prompt_tokens_total:
             return 0.0
         return self.prefix_matched_tokens / self.prompt_tokens_total
+
+    def prefix_hit_rate(self) -> float:
+        """Fraction of submitted prompt tokens served from resident
+        prefix blocks (never re-prefilled), read under the lock that
+        admission writes both counters under."""
+        with self._lock:
+            return self._prefix_hit_rate_locked()
 
     def _stats_locked(self) -> dict:
         return {
@@ -3180,7 +3192,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
             "prompt_tokens_total": self.prompt_tokens_total,
             "prefix_matched_tokens": self.prefix_matched_tokens,
             "prefilled_tokens": self.prefilled_tokens,
-            "prefix_cache_hit_rate": round(self.prefix_hit_rate(), 4),
+            "prefix_cache_hit_rate": round(self._prefix_hit_rate_locked(), 4),
             "cow_copies": self.cow_copies,
             "preemptions": self.preemptions,
             **({"disagg": {**self.disagg, **self._disagg_ewma}}

@@ -1437,6 +1437,15 @@ class WorkerNode(Node):
 
     def _install_stage(self, meta: dict, module, params, peer) -> dict:
         """Build + register the StageRunner; returns the LOADED ack."""
+        runner = self._build_stage(meta, module, params, peer)
+        if isinstance(runner, dict):  # refused: the ERROR reply
+            return runner
+        return self._publish_stage(runner, params)
+
+    def _build_stage(self, meta: dict, module, params, peer):
+        """The StageRunner of a shipped stage (its optimizer state made on
+        the worker's device), or the ERROR reply that refuses it. Touches
+        no state the event loop reads, so it may run off the loop."""
         train = meta.get("train", {})
         opt = make_optimizer(
             train.get("optimizer", "adam"),
@@ -1489,6 +1498,11 @@ class WorkerNode(Node):
             )
         except ValueError as e:  # several local devices: refused
             return {"type": "ERROR", "error": str(e)}
+        return runner
+
+    def _publish_stage(self, runner: StageRunner, params) -> dict:
+        """Register a built runner (``self.stages``, ``self.training``,
+        the pre-dials, the flight record) -> the LOADED ack."""
         self.stages[(runner.job_id, runner.stage_index)] = runner
         self.training = True
         if runner.replica_peers:
@@ -1578,16 +1592,20 @@ class WorkerNode(Node):
 
         def build():
             # heavy: decompress + device transfer + opt init, off the
-            # event loop so PINGs keep answering
+            # event loop so PINGs keep answering (no CUDA call on the
+            # node's event-loop thread); it touches no state the loop reads
             flat = unpack_arrays(msg["weights"])
             params = self._to_stage(tree_unflatten_arrays(flat))
-            return self._stage_module(msg["module_config"]), params
+            module = self._stage_module(msg["module_config"])
+            return self._build_stage(msg, module, params, peer), params
 
-        # the install (device transfer, optimizer init) runs off the loop
-        # too: no CUDA call on the node's event-loop thread
-        return await asyncio.to_thread(
-            lambda: self._install_stage(msg, *build(), peer)
-        )
+        # the runner is published on the loop, after the await: the loop's
+        # readers of self.stages (STATS, capability records) never see it
+        # change under them
+        runner, params = await asyncio.to_thread(build)
+        if isinstance(runner, dict):  # refused: the ERROR reply
+            return runner
+        return self._publish_stage(runner, params)
 
     async def _stream_module_spec(self, peer, meta, manifest):
         """Stream-kind factory: a stage too large for one frame arrives

@@ -256,12 +256,14 @@ def test_forward_launcher_raises_on_views_tma_cannot_address(fault):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
 def test_kernel_dtype_rule(dtype):
-    """The kernels' dtype rule: bf16 views go to csrc/flash_attention.cu,
-    f32 and f16 views to csrc/flash_attention_f32.cu's "f32" and "f16"
-    forms (an f32 or f16 model keeps the precision the reference's
-    kernels give it: they compute in f32 whatever their inputs), and any
-    other dtype is refused with its message. Checked on CPU views:
-    nothing is built or launched, and no launch is counted."""
+    """The kernels' dtype rule: bf16 and f16 views go to
+    csrc/flash_attention.cu (its "bf16" and "f16" instantiations, both on
+    the 16-bit tensor cores with f32 sums), f32 views to
+    csrc/flash_attention_f32.cu's "f32" form (an f32 or f16 model keeps
+    the precision the reference's kernels give it: they compute in f32
+    whatever their inputs), and any other dtype is refused with its
+    message. Checked on CPU views: nothing is built or launched, and no
+    launch is counted."""
     B, H, T, D = 2, 4, 512, 64
     q, k, v, do, o = (torch.zeros((B, T, H, D), dtype=dtype).transpose(1, 2)
                       for _ in range(5))
@@ -272,7 +274,7 @@ def test_kernel_dtype_rule(dtype):
     assert (form, source, suffix) == {
         torch.bfloat16: ("bf16", "flash_attention.cu", ""),
         torch.float32: ("f32", "flash_attention_f32.cu", "_f32"),
-        torch.float16: ("f16", "flash_attention_f32.cu", "_f16"),
+        torch.float16: ("f16", "flash_attention.cu", "_f16"),
     }[dtype]
     # every view must share q's dtype
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16

@@ -33,7 +33,7 @@ def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py"),
            os.path.join(REPO, "tools", "kernel_ab.py"),
            os.path.join(REPO, "tools", "gloo_cuda_check.py"),
-           os.path.join(REPO, "tools", "flash_f32_check.py"),
+           os.path.join(REPO, "tools", "flash_check.py"),
            os.path.join(REPO, "tools", "zoo_legs.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]

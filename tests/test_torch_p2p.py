@@ -551,6 +551,10 @@ async def test_node_builds_serving_with_its_telemetry():
         await node.stop()
 
 
+# a loop that waits on the serving lock is freed only by this backstop
+LOCK_BACKSTOP_S = 10.0
+
+
 class _LockedServing:
     """A serving engine's KV surface behind its step lock."""
 
@@ -572,30 +576,54 @@ async def test_node_loop_does_not_wait_on_the_serving_lock():
     capture on the card): the node's timeseries tick, a PING with
     ``ts_since`` and ``GET /kv`` wait for it off the event loop, which
     keeps running (a loop that waited showed as event-loop lag > 1 s and
-    an unhealthy node), and they answer once the step lets go."""
+    an unhealthy node), and they answer once the step lets go.
+
+    The test holds the lock itself while the loop beats 30 times and
+    lets go only after it has seen both requests still pending. A loop
+    that waited on the lock could never beat again: only a backstop
+    thread, which lets go after LOCK_BACKSTOP_S, would free it, and the
+    test fails if the backstop had to. So the result hangs on no timer
+    racing the loop and on no bound of the loop's lag."""
     node = Node(_cfg("worker", http_status_port=0, timeseries_interval_s=0.05))
     other = Node(_cfg("validator"))
     await _start(node, other)
     serving = node.serving = _LockedServing()
+    guard, rescued, done = threading.Lock(), threading.Event(), []
+
+    def backstop():
+        with guard:
+            if not done:
+                rescued.set()
+                serving._lock.release()
+
+    def let_go():
+        with guard:
+            done.append(True)
+            if not rescued.is_set():
+                serving._lock.release()
+
+    timer = threading.Timer(LOCK_BACKSTOP_S, backstop)
     try:
         peer = await other.connect("127.0.0.1", node.port)
-        serving._lock.acquire()  # a step in flight, for 1 s
-        threading.Timer(1.0, serving._lock.release).start()
-        loop = asyncio.get_running_loop()
-        gaps, last = [], loop.time()
+        serving._lock.acquire()  # a step in flight, until the test lets go
+        timer.start()
         port = node._http.bound_port
         kv = asyncio.ensure_future(asyncio.to_thread(_http_get, port, "/kv"))
         pong = asyncio.ensure_future(other.request(peer, {"type": "PING", "ts_since": 0}))
-        for _ in range(30):  # 0.6 s of beats while the step runs
+        beats = 0
+        for _ in range(30):  # the loop's beats while the step runs
             await asyncio.sleep(0.02)
-            gaps.append(loop.time() - last)
-            last = loop.time()
-        assert max(gaps) < 0.3, max(gaps)
+            beats += 1
+        assert beats == 30 and not rescued.is_set(), "the loop waited on the lock"
         assert not pong.done() and not kv.done()  # both wait on the step
+        let_go()
         assert (await pong)["kv"] == serving.kv_stats_summary()
         assert (await kv)["pool"] == {"blocks_in_use": 1}
         assert node.timeseries.kind("kv_occupancy") == "gauge"
     finally:
+        timer.cancel()
+        if not done and serving._lock.locked():
+            let_go()
         await other.stop()
         await node.stop()
 

@@ -570,3 +570,64 @@ def test_validate_train_meta_and_lora_refusal():
     assert err is not None and "sgd" in err["error"]
     err = WorkerNode._validate_train_meta({"train": {"train_only": "all"}})
     assert err is not None and "train_only" in err["error"]
+
+
+class _WriteLog(dict):
+    """A dict that records the thread of every write into it."""
+
+    def __init__(self):
+        super().__init__()
+        self.writers = set()
+
+    def __setitem__(self, key, value):
+        import threading
+
+        self.writers.add(threading.get_ident())
+        super().__setitem__(key, value)
+
+
+@pytest.mark.asyncio
+async def test_stage_installs_publish_on_the_loop_under_stats(mlp):
+    """C13: a one-shot MODULE_SPEC builds its runner (device transfer,
+    optimizer state) off the event loop, but registers it on the loop:
+    ``self.stages`` and ``self.training``, which STATS iterates and reads
+    there, are written by the loop's thread only. A scraper hammers
+    STATS_REQUEST while eight stages install at once; every reply is a
+    STATS and every install a LOADED."""
+    import threading
+
+    from tensorlink_tpu_torch.p2p.serialization import pack_arrays
+
+    _jm, _jp, tm, tp = mlp
+    w = WorkerNode(_cfg("worker"), device="cpu")
+    u, scraper = UserNode(_cfg("user")), UserNode(_cfg("user"))
+    for n in (w, u, scraper):
+        await n.start()
+    w.stages = _WriteLog()
+    loop_thread = threading.get_ident()
+    try:
+        peer = await u.connect("127.0.0.1", w.port)
+        speer = await scraper.connect("127.0.0.1", w.port)
+        (seq0, _), _ = partition_sequential(tm.seq, tp, TWO_STAGES)
+        weights = pack_arrays({k: v for k, v in tp.items() if k.startswith("0.")})
+        stop, replies = asyncio.Event(), []
+
+        async def scrape():
+            while not stop.is_set():
+                replies.append(await scraper.request(speer, {"type": "STATS_REQUEST"}))
+
+        task = asyncio.ensure_future(scrape())
+        acks = await asyncio.gather(*(
+            u.request(peer, {"type": "MODULE_SPEC", "job_id": f"job-{i}", "stage": 0,
+                             "module_config": seq0.config(), "weights": weights,
+                             "train": SGD})
+            for i in range(8)))
+        stop.set()
+        await task
+        assert [a["type"] for a in acks] == ["LOADED"] * 8, acks
+        assert len(w.stages) == 8 and w.training
+        assert w.stages.writers == {loop_thread}
+        assert replies and all(r["type"] == "STATS" for r in replies), replies[-1]
+        assert (await scraper.request(speer, {"type": "STATS_REQUEST"}))["stages_loaded"] == 8
+    finally:
+        await _stop(u, scraper, w)

@@ -319,3 +319,79 @@ def test_contiguous_rejections_and_bounded_results(engines):
     full.submit(np.arange(4))  # queued behind the busy slot
     with pytest.raises(QueueFullError):
         full.submit(np.arange(4))
+
+
+def test_stats_and_readers_lock_safe_under_concurrent_stepping(engines):
+    """The reference's TL601 regression, on the port's paged engine:
+    ``stats()``, ``prefix_hit_rate()`` and ``timings()`` take the
+    scheduler lock, so a scraper thread racing the step loop sees
+    consistent snapshots (matched prompt tokens never above submitted,
+    counters never going backwards) and never crashes; the final
+    counters account for every prompt."""
+    import threading
+
+    _, teng = engines
+    sch = PagedContinuousBatchingEngine(
+        teng, gen=GenerationConfig(max_new_tokens=4),
+        **{**KW, "decode_chunk": 2},
+    )
+    a, b, rest = _traffic(3)
+    prompts = [a, b, *rest]
+    errors, seen, rids = [], [], []
+    stop = threading.Event()
+
+    def scrape():
+        try:
+            while not stop.is_set():
+                s = sch.stats()
+                assert s["prefix_matched_tokens"] <= s["prompt_tokens_total"]
+                seen.append(s["prompt_tokens_total"])
+                assert 0.0 <= sch.prefix_hit_rate() <= 1.0
+                for rid in list(rids):
+                    assert sch.timings(rid)["tokens"] <= 4
+        except BaseException as e:  # noqa: BLE001 - surfaced below
+            errors.append(e)
+
+    t = threading.Thread(target=scrape)
+    t.start()
+    try:
+        for pr in prompts:
+            rids.append(sch.submit(pr))
+        for rid in rids:
+            assert len(sch.result(rid)) > 0
+    finally:
+        stop.set()
+        t.join(timeout=30)
+    assert not errors, errors
+    assert all(x <= y for x, y in zip(seen, seen[1:]))
+    assert sch.stats()["prompt_tokens_total"] == sum(len(p) for p in prompts)
+
+
+@pytest.mark.parametrize("reader", ["prefix_hit_rate", "timings", "disagg_guard"])
+def test_readers_wait_for_the_step_lock(engines, reader):
+    """C12: ``prefix_hit_rate`` (the two counters admission writes),
+    ``timings`` (``_requests``, which submit and eviction write) and the
+    disaggregation guard (``spec``, which a self-heal swaps) read under
+    the engine's lock, as the reference's do: held by a step, the lock
+    keeps a reader waiting until the step lets go, and the reader then
+    answers."""
+    import threading
+
+    _, teng = engines
+    sch = PagedContinuousBatchingEngine(
+        teng, gen=GenerationConfig(max_new_tokens=2), **KW)
+    rid = sch.submit(np.arange(5))
+    sch.run_until_idle()
+    call = {"prefix_hit_rate": sch.prefix_hit_rate,
+            "timings": lambda: sch.timings(rid),
+            "disagg_guard": sch._disagg_guard}[reader]
+    out = []
+    t = threading.Thread(target=lambda: out.append(call()))
+    with sch._lock:  # a step in flight
+        t.start()
+        t.join(timeout=0.3)
+        assert t.is_alive() and not out, f"{reader} read without the lock"
+    t.join(timeout=30)
+    assert not t.is_alive() and len(out) == 1
+    if reader == "timings":
+        assert out[0]["tokens"] == 2
