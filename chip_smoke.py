@@ -375,6 +375,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    f16, B1, B2 and B2's delta form against their plain versions at each
    form's tolerances; ``[sp attention]`` runs the ring and Ulysses once
    at D 96 (``SP_CASES["d96"]``).
+14. head dims up to 256 and B3's f16 form on the tensor cores.
+   ``[build]`` finds HGMMA in the D 256 forward kernels, 16-bit HMMA in
+   the D 256 backward kernels (f16's and bf16's) and TF32 HMMA in the
+   f32 library's D 256 kernels, and prints each D 256 flash kernel's
+   registers and spill bytes (ptxas) beside its D 128 twin's.
+   ``[flash d]`` adds D 256 (Gemma-7B's 16 heads at a causal 2048) and
+   D 160 (zero-padded to 256) in every form, each row timed beside the
+   kernels at D 128 and SDPA at its own D and dtype. ``[paged]``'s f16 q
+   runs the decode variant (over f16 pools, with and without the
+   decode steps' mask, and over int8 pools, once with V of absmax near
+   1e-4) and the prefill variant (the chunk's one row); f16 q over bf16
+   pools keeps the general variant. ``[hf llama f16]`` counts every
+   decode step's paged read on "decode" and every prefill chunk's on
+   "prefill", none on "general".
 
 Legs 6-9, 7a, 7b, 7j and 8a run their decode as CUDA-graph replays (the engines' default)
 with ``pipeline_depth`` 2 chunks in flight on the serving engines; the
@@ -704,6 +718,39 @@ def sass_counts(lib_path: str, opcode: str = "HGMMA", unless: str | None = None)
     return counts
 
 
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel: {"registers", "spill_stores", "spill_loads"}} from
+    ``nvcc -Xptxas -v``'s output (each entry's "Compiling entry", then its
+    "N bytes spill stores, M bytes spill loads" and "Used R registers")."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+            out[fn] = {}
+        elif fn is not None and "spill stores" in ln:
+            words = ln.replace(",", " ").split()
+            at = [i for i, w in enumerate(words) if w == "spill"]
+            out[fn]["spill_stores"] = int(words[at[0] - 2])
+            out[fn]["spill_loads"] = int(words[at[1] - 2])
+        elif fn is not None and "Used" in ln and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            out[fn]["registers"] = int(words[words.index("Used") + 1])
+    return out
+
+
+def _flash_d_report(report: dict) -> dict:
+    """[build]'s D 256 lines: for every flash kernel instantiated at D 256
+    (mangled ``Li256E``), its registers and spill bytes beside the D 128
+    instantiation of the same kernel, form and band (``Li128E``)."""
+    rows = {}
+    for name, r in report.items():
+        if "Li256E" not in name or "flash_" not in name:
+            continue
+        twin = report.get(name.replace("Li256E", "Li128E"), {})
+        rows[name] = {"d256": r, "d128": twin}
+    return rows
+
+
 def phase_build() -> dict:
     def build_cuda(source):
         t0 = time.perf_counter()
@@ -723,32 +770,50 @@ def phase_build() -> dict:
                                      "Performance Loss")):
                 say(f"[build]   ptxas: {ln.strip()}")
     lib16 = built["flash_attention.cu"][1]
-    # every forward kernel of both 16-bit forms (2 D x band or not) on wgmma
+    # every forward kernel of both 16-bit forms (3 D x band or not) on wgmma
     fwd = {k: n for k, n in sass_counts(lib16).items() if "flash_fwd_kernel" in k}
     for k, n in fwd.items():
         say(f"[build] HGMMA {n} in {k}")
-    check(len(fwd) == 8 and min(fwd.values()) > 0
-          and sum("__half" in k for k in fwd) == 4,
+    check(len(fwd) == 12 and min(fwd.values()) > 0
+          and sum("__half" in k for k in fwd) == 6
+          and sum("Li256E" in k for k in fwd) == 4,
           f"a flash forward kernel has no HGMMA instruction: {fwd}")
-    # the f16 backward kernels' products on the 16-bit mma (not bf16's)
+    # the backward kernels' products on the 16-bit mma: f16's without
+    # .BF16, bf16's with it (D 64 and 128: dq 2 bands, dkv 2 quads x 2
+    # bands; D 256: dq and dkv (one quad) x 2 bands)
     hm = {k: n for k, n in sass_counts(lib16, "HMMA.16816.F32", ".BF16").items()
           if "flash_bwd" in k and "__half" in k}
     for k, n in hm.items():
         say(f"[build] HMMA.16816.F32 (f16) {n} in {k}")
-    check(len(hm) == 12 and min(hm.values()) > 0,
+    check(len(hm) == 16 and min(hm.values()) > 0,
           f"an f16 flash backward kernel has no f16 mma instruction: {hm}")
+    hb = {k: n for k, n in sass_counts(lib16, "HMMA.16816.F32.BF16").items()
+          if "flash_bwd" in k and "Li256E" in k and "__nv_bfloat16" in k}
+    for k, n in hb.items():
+        say(f"[build] HMMA.16816.F32.BF16 {n} in {k}")
+    check(len(hb) == 4 and min(hb.values()) > 0,
+          f"a bf16 D 256 flash backward kernel has no bf16 mma instruction: {hb}")
     # the f32 form's products run on the tensor cores in tf32; no f16 there
     lib32 = built["flash_attention_f32.cu"][1]
     tc = sass_counts(lib32, "HMMA.1688.F32.TF32")
     for k, n in tc.items():
         say(f"[build] HMMA.1688.F32.TF32 {n} in {k}")
-    check(len(tc) == 12 and min(tc.values()) > 0,
+    check(len(tc) == 18 and min(tc.values()) > 0
+          and sum("Li256E" in k for k in tc) == 6,
           f"an f32 flash kernel has no tf32 mma instruction: {tc}")
+    # D 256 beside D 128: registers and spill bytes (ptxas -v)
+    dreport = {}
+    for src in ("flash_attention.cu", "flash_attention_f32.cu"):
+        dreport.update(_flash_d_report(ptxas_report(built[src][2])))
+    for k, r in dreport.items():
+        say(f"[build] D 256 vs D 128 {k}: {json.dumps(r)}")
+    check(len(dreport) == 18,
+          f"[build] expected 18 flash kernels at D 256 in ptxas's report, got {len(dreport)}")
     f16_left = [k for k in tc if "__half" in k] + [
         e for e in ("tl_flash_fwd_f16", "tl_flash_bwd_f16")
         if hasattr(ctypes.CDLL(lib32), e)]
     check(not f16_left, f"flash_attention_f32.cu still holds an f16 form: {f16_left}")
-    return {"wall_s": wall, **{src: b[0] for src, b in built.items()}}
+    return {"wall_s": wall, "d256": dreport, **{src: b[0] for src, b in built.items()}}
 
 
 def phase_floor(flush) -> float:
@@ -783,7 +848,11 @@ def phase_sampler() -> None:
 
 def _paged_inputs(g, T, case):
     """Llama-3-8B head shapes: H 32, Hkv 8, D 128, bs 16, MB 128, B 8;
-    D 64 for "d64_qmask", f32 q and pools for "f32", f16 for "f16"; one
+    D 64 for "d64_qmask", f32 q and pools for "f32"; f16 q for the cases
+    named "f16...", over f16 pools, int8 pools ("f16_int8", and
+    "f16_int8_small_v" whose V has absmax near 1e-4) or bf16 pools
+    ("f16_over_bf16"), "f16_mask" with the decode steps' mask and
+    "f16_one_row" a prefill chunk; one
     rank's heads under tensor parallelism for "tp2_mask" (model 2: H 16, Hkv 4) and
     "tp8_mask" (model 8: H 4, Hkv 1), with the decode steps' mask, and
     for "tp2_chunk", a prefill chunk (one row) at model 2's heads."""
@@ -792,7 +861,9 @@ def _paged_inputs(g, T, case):
         model = int(case[2])
         H, Hkv = H // model, Hkv // model
     D = 64 if case == "d64_qmask" else 128
-    dt = {"f32": torch.float32, "f16": torch.float16}.get(case, torch.bfloat16)
+    dt = (torch.float32 if case == "f32" else
+          torch.float16 if case.startswith("f16") else torch.bfloat16)
+    kv_dt = torch.bfloat16 if case == "f16_over_bf16" else dt
     NB = B * MB + 64
     dev = DEV
     if case == "full_pages":
@@ -818,17 +889,21 @@ def _paged_inputs(g, T, case):
     mask = None
     window = None
     k_scale = v_scale = None
-    if case == "int8":
+    if case in ("int8", "f16_int8", "f16_int8_small_v"):
         k = torch.randint(-127, 128, (NB, bs, Hkv, D), generator=g,
                           dtype=torch.int8).to(dev)
         v = torch.randint(-127, 128, (NB, bs, Hkv, D), generator=g,
                           dtype=torch.int8).to(dev)
         k_scale = (torch.rand((NB, bs, Hkv), generator=g) / 64).to(dev)
         v_scale = (torch.rand((NB, bs, Hkv), generator=g) / 64).to(dev)
+        if case == "f16_int8_small_v":
+            # V of absmax near 1e-4: scales absmax / 127 near 8e-7, where
+            # p v_scale sinks below f16's normal range
+            v_scale = (1e-4 / 127) * (0.5 + v_scale * 32)
     else:
-        k = torch.randn((NB, bs, Hkv, D), generator=g).to(dev, dt)
-        v = torch.randn((NB, bs, Hkv, D), generator=g).to(dev, dt)
-    if case in ("mask", "tp2_mask", "tp8_mask"):
+        k = torch.randn((NB, bs, Hkv, D), generator=g).to(dev, kv_dt)
+        v = torch.randn((NB, bs, Hkv, D), generator=g).to(dev, kv_dt)
+    if case in ("mask", "tp2_mask", "tp8_mask", "f16_mask"):
         # validity mask over the view (the decode steps' form), with
         # holes, and row 0 retired: sentinel table, nothing valid
         kpos = torch.arange(MB * bs)
@@ -849,7 +924,7 @@ def _paged_inputs(g, T, case):
         mask = valid[:, None].to(dev)
     if case == "window":
         window = 100
-    if case in ("one_row", "tp2_chunk") or case.startswith("chunk_"):
+    if case in ("one_row", "tp2_chunk", "f16_one_row") or case.startswith("chunk_"):
         # the engine's prefill-chunk form: one row (here 1503 tokens, or
         # the chunk's own length)
         q, bt, lengths = q[5:6].contiguous(), bt[5:6], lengths[5:6]
@@ -914,8 +989,11 @@ def _paged_library_fn(args, kwargs):
 
 # (T, case, variant it must launch): the first design's ten cases, the
 # decode form over whole pages, the prefill chunk (one row) at three
-# lengths, then the variants' other branches: f32 and f16 q and pools
-# (general), D 64 with a mask per query (prefill), and 4 queries a row
+# lengths, then the variants' other branches: f32 q and pools (general),
+# f16 q over f16 pools (decode, with and without the decode steps' mask;
+# the prefill chunk), over int8 pools (decode; again with V of absmax
+# near 1e-4) and over bf16 pools (general), D 64 with a mask per query
+# (prefill), and 4 queries a row
 # with a mask per query (decode: T x group = 16 rows); last the speculative verify
 # pass at K = 3 and K = 4 (T 4 and 5, no mask), whose variant
 # ``kernel_variant`` names (None here): Llama-3-8B's group of 4 gives 16
@@ -928,7 +1006,10 @@ PAGED_CASES = (
      for case in ("mixed", "mask", "window", "int8", "one_row")]
     + [(1, "full_pages", "decode"), (128, "chunk_128", "prefill"),
        (128, "chunk_1024", "prefill"), (128, "chunk_2048", "prefill"),
-       (1, "f32", "general"), (1, "f16", "general"), (128, "d64_qmask", "prefill"),
+       (1, "f32", "general"), (1, "f16", "decode"), (1, "f16_mask", "decode"),
+       (128, "f16_one_row", "prefill"), (1, "f16_int8", "decode"),
+       (1, "f16_int8_small_v", "decode"), (1, "f16_over_bf16", "general"),
+       (128, "d64_qmask", "prefill"),
        (4, "qmask", "decode"), (4, "verify", None), (5, "verify", None),
        (1, "tp2_mask", "decode"), (1, "tp8_mask", "decode"),
        (128, "tp2_chunk", "prefill")]
@@ -939,7 +1020,7 @@ def phase_paged(flush) -> dict:
     g = torch.Generator().manual_seed(1)
     worst = worst_rel = 0.0
     main = None
-    verify, local = {}, {}
+    verify, local, f16 = {}, {}, {}
     for T, case, want in PAGED_CASES:
         args, kwargs = _paged_inputs(g, T, case)
         if want is None:
@@ -986,7 +1067,9 @@ def phase_paged(flush) -> dict:
             verify[T] = row
         if case.startswith("tp"):
             local[case] = row
-    main = dict(main, max_abs_err=worst, verify=verify, local_heads=local)
+        if case.startswith("f16"):
+            f16[case] = row
+    main = dict(main, max_abs_err=worst, verify=verify, local_heads=local, f16=f16)
     say(f"[paged] all cases within atol {PAGED_ATOL} + rtol {PAGED_RTOL} and "
         f"relative Frobenius error {PAGED_REL}; worst max abs err {worst}, "
         f"worst relative {worst_rel}")
@@ -1101,11 +1184,15 @@ FLASH_TOLS = {"bf16": (FLASH_O_REL, FLASH_GRAD_REL),
 # gradients): the kernels scale dS against f16's underflow
 F16_DO_SCALES = (2.0 ** -16, 2.0 ** -24)
 F16_STEP = 2.0 ** -24  # f16's least step: its spacing below 2^-14
-# [flash d]: head dims the kernels are not built for, zero-padded to 128
-# by the wrappers; name -> (B, H, Hkv, T, D, causal, window, mask)
+# [flash d]: head dims other than 64 and 128: 96 and 80 (zero-padded to
+# 128 by the wrappers), 256 (built for: Gemma-7B's heads, 16 x 256, at a
+# causal 2048) and 160 (zero-padded to 256, GQA 4 with a ragged mask);
+# name -> (B, H, Hkv, T, D, causal, window, mask)
 FLASH_D_CASES = {
     "d96": (2, 8, 8, 512, 96, True, None, None),
     "d80": (2, 12, 4, 300, 80, False, None, "ragged"),
+    "d256": (1, 16, 16, 2048, 256, True, None, None),
+    "d160": (2, 8, 2, 384, 160, False, None, "ragged"),
 }
 
 
@@ -1328,7 +1415,7 @@ def phase_flash(flush) -> dict:
     say(f"[flash] all cases within tolerance; worst max abs err: o {worst_f}, "
         f"gradients {worst_b}; worst o relative Frobenius {worst_rel_o}")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    _flash_head_dims(g)
+    _flash_head_dims(g, flush)
     tc = _flash_f32(g, flush)
     out = {
         "fwd": dict({k: rows["bert"]["fwd"][k] for k in keys}, max_abs_err=worst_f),
@@ -1350,11 +1437,53 @@ def _tf32_passes(fwd: bool) -> int:
     return 3 * (2 if fwd else 5)
 
 
-def _flash_head_dims(g) -> None:
+def _flash_d_times(form, dtype, case, flush, g) -> dict:
+    """The times of a [flash d] row whose D is above 128: B1 and B2 at the
+    case's shape (mean and median ms of 10 launches after an L2 flush),
+    their plain versions, the kernels at the same shape with D 128 (fresh
+    inputs), one F.scaled_dot_product_attention call at the case's D and
+    dtype (forward, and forward with backward; the first backend that
+    takes it) and the bounds at the true D (``_flash_bounds``)."""
+    B, H, Hkv, T, D, causal, window, mask = case
+    kw = {"causal": causal, "window": window}
+    out = {}
+    for tag, d in (("", D), ("d128_", 128)):
+        q, k, v, do, kv = _flash_inputs(g, B, H, Hkv, T, d, mask, dtype)
+        o, lse = flash_attention_fwd_lse(q, k, v, kv, **kw)
+        out.update(_timed(f"{tag}fwd_", lambda: flash_attention_fwd_lse(
+            q, k, v, kv, **kw), flush, iters=10))
+        out.update(_timed(f"{tag}bwd_", lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, kv, **kw), flush, iters=10))
+        if tag:
+            continue
+        out["fwd_plain_ms"] = time_ms(lambda: flash_attention_fwd_lse_reference(
+            q, k, v, kv, **kw), flush, iters=3)
+        out["bwd_plain_ms"] = time_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, o, lse, do, kv, **kw), flush, iters=3)
+        keep = _flash_keep(B, T, kv, causal, window)
+        is_causal = causal and window is None and kv is None
+        lib_f, be_f = _sdpa_fn(q, k, v, do, keep, is_causal, grad=False)
+        lib_b, be_b = _sdpa_fn(q, k, v, do, keep, is_causal, grad=True)
+        out.update(_timed("fwd_library_", lib_f, flush, iters=10),
+                   fwd_library=be_f)
+        out.update(_timed("bwd_library_", lib_b, flush, iters=10),
+                   bwd_library=f"{be_b} forward+backward")
+        bounds = _flash_bounds(form, B, H, Hkv, T, D, kv, causal, window)
+        out.update(fwd_bound_ms=bounds["fwd"]["bound_ms"],
+                   fwd_bound_by=bounds["fwd"]["bound_by"],
+                   bwd_bound_ms=bounds["bwd"]["bound_ms"],
+                   bwd_bound_by=bounds["bwd"]["bound_by"])
+        del keep, lib_f, lib_b
+    return out
+
+
+def _flash_head_dims(g, flush) -> None:
     """[flash d]: B1, B2 and B2's delta form at FLASH_D_CASES' head dims
-    (zero-padded to 128 by the wrappers, run at the true D's scale) in
-    bf16, f32 and f16, against the plain versions fed the same tensors at
-    each form's tolerances (``FLASH_TOLS``); each output D wide."""
+    (D 256 as built; any other zero-padded by the wrappers to the next of
+    128 and 256 and run at the true D's scale) in bf16, f32 and f16,
+    against the plain versions fed the same tensors at each form's
+    tolerances (``FLASH_TOLS``); each output D wide. A row whose D is
+    above 128 also carries its times (``_flash_d_times``)."""
     for form, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32),
                         ("f16", torch.float16)):
         o_tol, g_tol = FLASH_TOLS[form]
@@ -1378,14 +1507,16 @@ def _flash_head_dims(g) -> None:
                    **{n: err(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, rgrads)},
                    **{f"delta_{n}": err(a, b)
                       for n, a, b in zip(("dq", "dk", "dv"), dgrads, rdgrads)}}
+            kept = all(x.shape[-1] == D and x.dtype == dtype for x in (o, *grads, *dgrads))
+            del q, k, v, do, o, ro, grads, rgrads, dgrads, rdgrads
+            if D > 128:
+                row.update(_flash_d_times(form, dtype, FLASH_D_CASES[name], flush, g))
             say(f"[flash d] {json.dumps(row)}")
-            check(all(x.shape[-1] == D and x.dtype == dtype for x in (o, *grads, *dgrads)),
-                  f"flash d {form} {name}: outputs not {dtype} of head dim {D}")
+            check(kept, f"flash d {form} {name}: outputs not {dtype} of head dim {D}")
             check(row["o"] <= o_tol and row["lse"] <= FLASH_LSE_ATOL,
                   f"flash d {form} {name}: o / lse beyond {o_tol} / {FLASH_LSE_ATOL}: {row}")
-            check(max(row[n] for n in row if n.startswith(("dq", "dk", "dv", "delta_")))
+            check(max(row[n] for n in ("dq", "dk", "dv", "delta_dq", "delta_dk", "delta_dv"))
                   <= g_tol, f"flash d {form} {name}: gradients beyond {g_tol}: {row}")
-            del q, k, v, do, o, ro, grads, rgrads, dgrads, rdgrads
 
 
 def _flash_f32(g, flush) -> dict:
@@ -6334,7 +6465,8 @@ def phase_hf_llama(name_power: str, prompts) -> dict:
     prompts. Gates: the file maps back to the model's state; equal
     tokens; B3 and B4 on the path; the f16 tokens within LOGIT_GAP_TOL of
     the f16 model's teacher-forced row max, every f16 paged read on B3's
-    general variant."""
+    tensor-core variants (decode steps on "decode", prefill chunks on
+    "prefill", none on "general")."""
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), num_layers=HF_LLAMA_LAYERS)
     L = cfg.num_layers
     src = Llama(cfg, device=DEV, dtype=torch.bfloat16, seed=23)
@@ -6365,8 +6497,9 @@ def phase_hf_llama(name_power: str, prompts) -> dict:
     check(equal, "hf llama: tokens differ from the engine built without the file")
     del src
     # the f16 sibling (fault C9: B3 had no f16 form): the same params in
-    # f16, the first HF_LLAMA_F16_REQUESTS prompts, every paged read (each
-    # layer's decode steps and prefill chunks) on B3's general variant
+    # f16, the first HF_LLAMA_F16_REQUESTS prompts, every paged read on
+    # B3's tensor-core variants: each layer's decode steps on "decode",
+    # its prefill chunks on "prefill"
     m16 = Llama(cfg, device=DEV, dtype=torch.float16, seed=None)
     m16.load_state_dict(model.state_dict(), strict=True)
     del model
@@ -6376,20 +6509,21 @@ def phase_hf_llama(name_power: str, prompts) -> dict:
     sch, outs16, c16, by16 = _serve_short("hf llama f16", eng16, p16, MESH_NEW, True)
     st16 = sch.stats()
     del sch, eng16
-    want16 = {"general": L * (st16["decode_steps"] + st16["prefill_chunks"]),
-              "decode": 0, "prefill": 0}
+    want16 = {"general": 0, "decode": L * st16["decode_steps"],
+              "prefill": L * st16["prefill_chunks"]}
     tf16 = _teacher_forced("hf llama f16", m16, p16, outs16)
     res16 = {"requests": len(p16), "tokens": tf16["tokens"],
              "worst_gap": tf16["worst_gap"], "decode_steps": st16["decode_steps"],
              "prefill_chunks": st16["prefill_chunks"], "paged_by_variant": by16,
              "expected": want16, "card": name_power}
     say(f"[hf llama f16] {json.dumps(res16)}")
-    check(by16 == want16 and want16["general"] > 0,
+    check(by16 == want16 and min(want16["decode"], want16["prefill"]) > 0,
           f"hf llama f16: B3 launches by variant {by16}, expected {want16}")
     del m16
     _free_cuda()
     launches["paged"] += c16["paged_decode"]
     launches["norm"] += c16["fused_norm"]
+    launches["paged_f16"] = c16["paged_decode"]
     return launches
 
 
@@ -6744,6 +6878,16 @@ def _main() -> int:
             "launches": sum(paged_paths.values()),
             **{k: paged[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
+        },
+        {
+            # B3's f16 form (f16 q over f16 pools on the tensor-core
+            # variants): the decode steps' form; launches: [hf llama f16]
+            "name": "paged_decode_attention (f16 form)", "route": "cuda",
+            "source": "tensorlink_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "tensorlink_tpu/ops/pallas/paged_decode.py:285",
+            "launches": hf_llama["paged_f16"],
+            **{k: paged["f16"]["f16_mask"][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         },
         {
             "name": "fused_residual_norm", "route": "cuda",

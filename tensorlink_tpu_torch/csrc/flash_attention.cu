@@ -22,12 +22,16 @@
 //   ring of 128-byte-swizzled shared memory, with full/empty mbarriers;
 //   setmaxnreg hands its registers to the consumer warpgroup, which owns
 //   the 64 query rows: S = Q K^T and O += P V run on wgmma (m64n64k16
-//   from shared memory; P from registers, V read MN-major), the online
+//   from shared memory; P from registers, V read MN-major, n128 twice at
+//   D 256), the online
 //   softmax in registers between them. TMA zero-fills rows past T. Key tiles whose keys are all masked
 //   are neither loaded nor multiplied, the positional test is compiled in
 //   only under a band and run only on the tiles its edge crosses, and
 //   causal grids launch their heaviest query tiles first. PTX by hand
-//   (wgmma_common.cuh), no CUTLASS.
+//   (wgmma_common.cuh), no CUTLASS. At D 256 the consumer's O tile is
+//   128 f32 registers a thread, so a block takes the SM alone (two
+//   stages, 160 KB of tiles, up to 255 registers a thread, no
+//   setmaxnreg hand-over).
 // - The backward (B2) runs on mma.sync m16n8k16 (16-bit in, f32 accumulate),
 //   with operand fragments read from padded shared-memory tiles by
 //   ldmatrix (mma_common.cuh); the softmax state and every accumulator stay
@@ -64,9 +68,18 @@
 //   D 128 and three at D 64 (scoring half a tile at a time where the
 //   accumulators need the room); chip_smoke.py's [build] lines print the
 //   register and spill report, and the forward's HGMMA count.
+// - D 256 in the backward: a warp's two [16, D] accumulators would be 256
+//   f32 registers a thread, beyond the 255 a thread can hold. So blocks
+//   take 8 warps, two to each 16-row strip (queries in dq, keys in dkv):
+//   both warps of a pair form the strip's whole S and dP (full-D dot
+//   products, the same values in both), and each accumulates the outputs
+//   (A and C, or dK and dV) of one half of D's columns. That repeats S and
+//   dP (6 products a tile pair where D <= 128 does 4) for a register plan
+//   that fits; one block an SM (about 200 KB of tiles). The dkv kernel
+//   keeps one quad of units at D 256.
 // Ragged edges (T not a multiple of a tile) are zero-filled in shared
-// memory and masked; D is 64 or 128 (the wrapper zero-pads any other
-// D <= 128 and passes the true D's scale).
+// memory and masked; D is 64, 128 or 256 (the wrapper zero-pads any other
+// D <= 256 to the next of them and passes the true D's scale).
 //
 // The storage type T is bf16 or f16 (tl_flash_* and tl_flash_*_f16). Both
 // run at the card's 16-bit tensor rate; only the mma/wgmma type string,
@@ -130,55 +143,6 @@ struct Shape {
   const uint8_t* kv_mask;  // [B, Tk], nonzero = attend; null = all keys
 };
 
-// f16's operand scale (see the note at the top): the power of two that
-// takes a row's largest magnitude m into [2^14, 2^15); kNoScale (2^126,
-// also the bound of any scale) when m is 0, below f32's normal range or
-// not finite, so that a row's first live tile sets it
-constexpr float kNoScale = 0x1p126f;
-__device__ __forceinline__ float f16_scale(float m) {
-  const int e = (__float_as_int(m) >> 23) & 0xff;
-  if (e == 0 || e == 255) return kNoScale;
-  return __int_as_float(min(max(268 - e, 1), 253) << 23);
-}
-
-// f16: scales the rows of an operand tile x (the C layout of NT n-tiles:
-// rows e / 2 of each 4) in place by the rows' factors f. A factor only
-// shrinks: where the tile's largest value in a row would reach 2^15, the
-// row's factor is set from it and the row of the f32 accumulator acc is
-// scaled by the ratio. That test is one vote for the warp; the quad's
-// maximum (the row is spread over a quad) is taken only when it fires.
-template <int NT, int DT>
-__device__ __forceinline__ void f16_scale_rows(float (&x)[NT][4],
-                                               float (&f)[2],
-                                               float (&acc)[DT][4]) {
-  float mx[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      mx[e >> 1] = fmaxf(mx[e >> 1], fabsf(x[j][e]));
-  if (__any_sync(0xffffffffu,
-                 !(mx[0] * f[0] < 0x1p15f && mx[1] * f[1] < 0x1p15f))) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float nf = f16_scale(quad_max(mx[r]));
-      if (nf < f[r]) {
-        const float ratio = nf / f[r];
-#pragma unroll
-        for (int i = 0; i < DT; ++i) {
-          acc[i][2 * r] *= ratio;
-          acc[i][2 * r + 1] *= ratio;
-        }
-        f[r] = nf;
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[j][e] *= f[e >> 1];
-}
-
 __device__ __forceinline__ bool band_keep(int q, int k, int causal,
                                           int window) {
   if (causal && k > q) return false;
@@ -240,8 +204,9 @@ template <int D>
 struct FwdLayout {
   static constexpr int kQBytes = kFwdRows * D * 2;    // Q tile
   static constexpr int kKVBytes = kFwdBK * D * 2;     // one K or V tile
-  // two blocks an SM: three stages fit at D 64, two at D 128
-  static constexpr int kStages = D == 128 ? 2 : 3;
+  // two blocks an SM: three stages fit at D 64, two at D 128; at D 256
+  // one block an SM with two stages (Q and the ring: 160 KB)
+  static constexpr int kStages = D == 64 ? 3 : 2;
   static constexpr int kRing = kStages * 2 * kKVBytes;
   static constexpr int kBars = 1 + 2 * kStages;  // q_full, full[], empty[]
   // 1024 bytes of slack to align the tiles to the swizzle atom
@@ -323,7 +288,7 @@ __device__ __forceinline__ void fwd_softmax(float (&sc)[32], uint64_t bits,
 }
 
 template <typename T, int D, bool BAND>
-__global__ void __launch_bounds__(256, 2)
+__global__ void __launch_bounds__(256, blocks_per_sm<D>())
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, OutView<T> o,
@@ -363,7 +328,8 @@ __global__ void __launch_bounds__(256, 2)
   const int wg = threadIdx.x >> 7;
   if (wg == 0) {
     // ------------------------------------------------------- producer
-    setmaxnreg_dec<40>();
+    // (at D 256 one block holds the SM: every thread keeps its share)
+    if constexpr (blocks_per_sm<D>() == 2) setmaxnreg_dec<40>();
     if (threadIdx.x >= 32) return;
     const int lane = threadIdx.x;
     const int hk = h / (s.H / s.Hkv);
@@ -408,7 +374,7 @@ __global__ void __launch_bounds__(256, 2)
 
   // ----------------------------------------------------------- consumers
   // the producer's 128 - 40 registers a thread go to the consumer
-  setmaxnreg_inc<216>();
+  if constexpr (blocks_per_sm<D>() == 2) setmaxnreg_inc<216>();
   const int t = threadIdx.x & 127;
   const int warp = t >> 5, lane = t & 31, gid = lane >> 2, tig = lane & 3;
   const int qr[2] = {q0 + warp * 16 + gid, q0 + warp * 16 + gid + 8};
@@ -470,10 +436,20 @@ __global__ void __launch_bounds__(256, 2)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const uint64_t dv = desc_sw128(v_addr + j * 2048, kFwdBK * 128, 1024);
-        if constexpr (D == 64)
+        if constexpr (D == 64) {
           wgmma_rs_m64n64k16_tb<T>(acc, pa[j], dv, 1);
-        else
+        } else if constexpr (D == 128) {
           wgmma_rs_m64n128k16_tb<T>(acc, pa[j], dv, 1);
+        } else {  // D 256: columns 0-127 (regions 0, 1), then 128-255
+          using Half = float[64];
+          wgmma_rs_m64n128k16_tb<T>(*reinterpret_cast<Half*>(acc), pa[j],
+                                    dv, 1);
+          wgmma_rs_m64n128k16_tb<T>(
+              *reinterpret_cast<Half*>(acc + 64), pa[j],
+              desc_sw128(v_addr + 2 * kFwdBK * 128 + j * 2048, kFwdBK * 128,
+                         1024),
+              1);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -531,16 +507,22 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* src,
 // a window) compiles the positional test in; without it a key's keep is
 // one bit of the tile's mask. In f16 each row's operand P o (dP - d~) is
 // scaled by its factor fr (f16_scale_rows) and A divided by it at the end.
+// At D 256 the two warps of a query strip each keep A and C for half of
+// D's columns (bwd_halves); the first of them publishes delta.
 template <typename T, int D, bool BAND>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
+__global__ void __launch_bounds__(kThreads * bwd_halves<D>(),
+                                  D == 64 ? 3 : (D == 128 ? 2 : 1))
     flash_bwd_dq_kernel(View<T> q, View<T> k, View<T> v, View<T> o,
                         View<T> dout, const float* __restrict__ lse,
                         float* __restrict__ delta, OutView<T> dq, Shape s) {
-  constexpr int LD = D + 8, KS = D / 16, DT = D / 8;
-  // keys scored at a time: at D 128 half a tile keeps the two [16, D]
-  // accumulators and the score fragments inside the register file; at
-  // D 64 three blocks share an SM (ptxas caps registers at 168)
-  constexpr int KSUB = D == 128 ? 32 : 64;
+  constexpr int LD = D + 8, KS = D / 16;
+  constexpr int NTH = kThreads * bwd_halves<D>();
+  constexpr int DH = D / bwd_halves<D>();  // output columns a warp holds
+  constexpr int DT = DH / 8;
+  // keys scored at a time: at D 128 (and 256) half a tile keeps the two
+  // [16, DH] accumulators and the score fragments inside the register
+  // file; at D 64 three blocks share an SM (ptxas caps registers at 168)
+  constexpr int KSUB = D == 64 ? 64 : 32;
   constexpr int NT = KSUB / 8;
   constexpr int STAGE = 2 * kBK * LD;  // K and V tiles
   extern __shared__ __align__(16) unsigned char smem[];
@@ -560,7 +542,9 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   const T* vb = v.p + b * v.sb + hk * v.sh;
   const uint8_t* km =
       s.kv_mask ? s.kv_mask + static_cast<long long>(b) * s.Tk : nullptr;
-  const int qr[2] = {q0 + warp * 16 + gid, q0 + warp * 16 + gid + 8};
+  // the warp's query strip, and the half of D's columns it accumulates
+  const int rw = warp & 3, half = warp >> 2, dc0 = half * DH;
+  const int qr[2] = {q0 + rw * 16 + gid, q0 + rw * 16 + gid + 8};
   const float sl2 = s.scale * kLog2e;
   const long long rowbase = (static_cast<long long>(b) * s.H + h) * s.Tq;
   float lse2[2], dl[2] = {0.f, 0.f};
@@ -568,7 +552,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   for (int r = 0; r < 2; ++r)
     lse2[r] = qr[r] < s.Tq ? lse[rowbase + qr[r]] * kLog2e : kLseMasked;
 
-  load_tile_async<D, kBQ>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
+  load_tile_async<D, kBQ, NTH>(qs, q.p + b * q.sb + h * q.sh, q.st, q0,
+                               s.Tq);
   // d~ of this thread's two rows: each lane of the quad dots a quarter
   float dt[2];
 #pragma unroll
@@ -599,8 +584,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
     }
     dt[r] = quad_sum(acc);
   }
-  load_tile_async<D, kBQ>(dos, dout.p + b * dout.sb + h * dout.sh, dout.st,
-                          q0, s.Tq);
+  load_tile_async<D, kBQ, NTH>(dos, dout.p + b * dout.sb + h * dout.sh,
+                               dout.st, q0, s.Tq);
 
   int klo, khi;
   key_range(q0, q0 + kBQ - 1, s.Tk, s.causal, s.window, klo, khi);
@@ -609,8 +594,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
   auto issue = [&](int i) {
     T* ks = ring + (i & 1) * STAGE;
     const int k0 = kt0 + i * kBK;
-    load_tile_async<D, kBK>(ks, kb, k.st, k0, s.Tk);
-    load_tile_async<D, kBK>(ks + kBK * LD, vb, v.st, k0, s.Tk);
+    load_tile_async<D, kBK, NTH>(ks, kb, k.st, k0, s.Tk);
+    load_tile_async<D, kBK, NTH>(ks + kBK * LD, vb, v.st, k0, s.Tk);
     if (threadIdx.x < kBK) {
       const int kk = k0 + threadIdx.x;
       keep_ring[(i & 1) * kBK + threadIdx.x] =
@@ -650,8 +635,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         uint32_t a[4], ad[4];
-        ldsm_x4(a, frag_a<LD>(qs, warp * 16, kk * 16, lane));
-        ldsm_x4(ad, frag_a<LD>(dos, warp * 16, kk * 16, lane));
+        ldsm_x4(a, frag_a<LD>(qs, rw * 16, kk * 16, lane));
+        ldsm_x4(ad, frag_a<LD>(dos, rw * 16, kk * 16, lane));
 #pragma unroll
         for (int np = 0; np < NT / 2; ++np) {
           uint32_t bb[4];
@@ -685,7 +670,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
 #pragma unroll
         for (int dd = 0; dd < DT / 2; ++dd) {
           uint32_t bb[4];
-          ldsm_x4_t(bb, frag_a<LD>(ks, c0 + j * 16, dd * 16, lane));
+          ldsm_x4_t(bb, frag_a<LD>(ks, c0 + j * 16, dc0 + dd * 16, lane));
           mma<T>(acc_c[2 * dd], pc, bb[0], bb[1]);
           mma<T>(acc_c[2 * dd + 1], pc, bb[2], bb[3]);
           mma<T>(acc_a[2 * dd], pd, bb[0], bb[1]);
@@ -704,10 +689,10 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
     if (qr[r] >= s.Tq) continue;
     if (s.delta_in)
       dl[r] = dt[r];  // the whole row's delta, whatever keys this call saw
-    else if (tig == 0)
+    else if (tig == 0 && half == 0)
       delta[rowbase + qr[r]] = dl[r];
     const float ia = kIsF16<T> ? 1.f / fr[r] : 1.f;  // a power of two: exact
-    T* row = out + static_cast<long long>(qr[r]) * dq.st;
+    T* row = out + static_cast<long long>(qr[r]) * dq.st + dc0;
 #pragma unroll
     for (int i = 0; i < DT; ++i)
       *reinterpret_cast<uint32_t*>(row + i * 8 + 2 * tig) = pack2<T>(
@@ -725,15 +710,21 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
 // the end. With QUADS = 1 (few units a block) one quad walks them all and
 // two (D 128) or three (D 64) blocks share an SM. In f16 each key row of
 // dS is scaled by its factor fk (f16_scale_rows) and dK divided by it at
-// the end (each quad keeps its own factors).
+// the end (each quad keeps its own factors). At D 256 (one quad) the two
+// warps of a key strip each keep dK and dV for half of D's columns.
 template <typename T, int D, int QUADS, bool BAND>
-__global__ void __launch_bounds__(128 * QUADS,
-                                    QUADS == 2 ? 1 : (D == 64 ? 3 : 2))
+__global__ void __launch_bounds__(
+    128 * QUADS * bwd_halves<D>(),
+    QUADS == 2 ? 1 : (D == 64 ? 3 : (D == 128 ? 2 : 1)))
     flash_bwd_dkv_kernel(View<T> q, View<T> k, View<T> v, View<T> dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, OutView<T> dk,
                          OutView<T> dv, Shape s) {
-  constexpr int LD = D + 8, KS = D / 16, DT = D / 8;
+  static_assert(QUADS == 1 || bwd_halves<D>() == 1,
+                "two quads of units or two halves of D, not both");
+  constexpr int LD = D + 8, KS = D / 16;
+  constexpr int DH = D / bwd_halves<D>();  // output columns a warp holds
+  constexpr int DT = DH / 8;
   // queries scored at a time: half a unit's tile, for the register file's
   // sake (dK and dV accumulators are [16, D] each)
   constexpr int QSUB = 32;
@@ -742,7 +733,7 @@ __global__ void __launch_bounds__(128 * QUADS,
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);
   T* vs = ks + kBK * LD;
-  constexpr int NTH = 128 * QUADS;
+  constexpr int NTH = 128 * QUADS * bwd_halves<D>();
   T* ring = vs + kBK * LD;  // [2 stages][QUADS][Q tile, dO tile]
   float* lse_ring =
       reinterpret_cast<float*>(ring + 2 * QUADS * TILE);  // [2][QUADS][kBQd]
@@ -754,6 +745,7 @@ __global__ void __launch_bounds__(128 * QUADS,
   const int group = s.H / s.Hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int quad = QUADS == 1 ? 0 : warp >> 2, qw = warp & 3;
+  const int dc0 = bwd_halves<D>() == 1 ? 0 : (warp >> 2) * DH;
   const int gid = lane >> 2, tig = lane & 3;
   const int kr[2] = {k0 + qw * 16 + gid, k0 + qw * 16 + gid + 8};
   bool kkeep[2];
@@ -872,10 +864,10 @@ __global__ void __launch_bounds__(128 * QUADS,
 #pragma unroll
           for (int dd = 0; dd < DT / 2; ++dd) {
             uint32_t bb[4];
-            ldsm_x4_t(bb, frag_a<LD>(dos, c0 + j * 16, dd * 16, lane));
+            ldsm_x4_t(bb, frag_a<LD>(dos, c0 + j * 16, dc0 + dd * 16, lane));
             mma<T>(dva[2 * dd], ap, bb[0], bb[1]);
             mma<T>(dva[2 * dd + 1], ap, bb[2], bb[3]);
-            ldsm_x4_t(bb, frag_a<LD>(qs, c0 + j * 16, dd * 16, lane));
+            ldsm_x4_t(bb, frag_a<LD>(qs, c0 + j * 16, dc0 + dd * 16, lane));
             mma<T>(dka[2 * dd], ad, bb[0], bb[1]);
             mma<T>(dka[2 * dd + 1], ad, bb[2], bb[3]);
           }
@@ -917,8 +909,8 @@ __global__ void __launch_bounds__(128 * QUADS,
   for (int r = 0; r < 2; ++r) {
     if (kr[r] >= s.Tk) continue;
     const int row = qw * 16 + gid + 8 * r;
-    T* krow = kout + static_cast<long long>(kr[r]) * dk.st;
-    T* vrow = vout + static_cast<long long>(kr[r]) * dv.st;
+    T* krow = kout + static_cast<long long>(kr[r]) * dk.st + dc0;
+    T* vrow = vout + static_cast<long long>(kr[r]) * dv.st + dc0;
 #pragma unroll
     for (int i = 0; i < DT; ++i) {
       const float* pk = red + row * D + i * 8 + 2 * tig;
@@ -1024,8 +1016,8 @@ cudaError_t launch_dkv(View<T> q, View<T> k, View<T> v, View<T> dout,
   if (err != cudaSuccess) return err;
   const dim3 grid(s.Hkv, (s.Tk + kBK - 1) / kBK, s.B);
   flash_bwd_dkv_kernel<T, D, QUADS, BAND>
-      <<<grid, 128 * QUADS, smem, stream>>>(q, k, v, dout, lse, delta, dk,
-                                            dv, s);
+      <<<grid, 128 * QUADS * bwd_halves<D>(), smem, stream>>>(
+          q, k, v, dout, lse, delta, dk, dv, s);
   return cudaGetLastError();
 }
 
@@ -1040,21 +1032,27 @@ int launch_bwd(View<T> q, View<T> k, View<T> v, View<T> o, View<T> dout,
     err = allow_smem(flash_bwd_dq_kernel<T, D, BAND>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(s.H, (s.Tq + kBQ - 1) / kBQ, s.B);
-    flash_bwd_dq_kernel<T, D, BAND><<<grid, kThreads, smem, stream>>>(
-        q, k, v, o, dout, lse, delta, dq, s);
+    flash_bwd_dq_kernel<T, D, BAND>
+        <<<grid, kThreads * bwd_halves<D>(), smem, stream>>>(
+            q, k, v, o, dout, lse, delta, dq, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (s.Tk > 0) {
     // two quads per block when a key tile has many (query head, query
     // tile) units to walk: a long GQA band, where one quad's serial walk
-    // would set the kernel's time
+    // would set the kernel's time (at D <= 128: D 256's block is already
+    // two halves of 4 warps)
     const int units = (s.H / s.Hkv) * ((s.Tq + kBQd - 1) / kBQd);
-    err = units >= kDkvTwoQuadUnits
-              ? launch_dkv<T, D, 2, BAND>(q, k, v, dout, lse, delta, dk, dv,
-                                          s, stream)
-              : launch_dkv<T, D, 1, BAND>(q, k, v, dout, lse, delta, dk, dv,
-                                          s, stream);
+    if constexpr (bwd_halves<D>() == 1)
+      err = units >= kDkvTwoQuadUnits
+                ? launch_dkv<T, D, 2, BAND>(q, k, v, dout, lse, delta, dk,
+                                            dv, s, stream)
+                : launch_dkv<T, D, 1, BAND>(q, k, v, dout, lse, delta, dk,
+                                            dv, s, stream);
+    else
+      err = launch_dkv<T, D, 1, BAND>(q, k, v, dout, lse, delta, dk, dv, s,
+                                      stream);
   }
   return static_cast<int>(err);
 }
@@ -1084,7 +1082,7 @@ bool shape_ok(const int* dims) {
   const int B = dims[0], H = dims[1], Hkv = dims[2], Tq = dims[3],
             Tk = dims[4], D = dims[5];
   return B >= 0 && Tq >= 0 && Tk >= 0 && H > 0 && Hkv > 0 && H % Hkv == 0 &&
-         H <= 65535 && B <= 65535 && (D == 64 || D == 128);
+         H <= 65535 && B <= 65535 && (D == 64 || D == 128 || D == 256);
 }
 
 Shape make_shape(const int* dims, float scale, const void* kv_mask) {
@@ -1118,8 +1116,14 @@ int fwd_entry(const void* const* ptrs, const long long* strides,
   const OutView<T> o = out_view<T>(const_cast<void*>(ptrs[4]), strides + 9);
   float* lse = static_cast<float*>(const_cast<void*>(ptrs[5]));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_fwd_band<T, 64>(tq, tk, tv, o, lse, s, st)
-                 : launch_fwd_band<T, 128>(tq, tk, tv, o, lse, s, st);
+  switch (D) {
+    case 64:
+      return launch_fwd_band<T, 64>(tq, tk, tv, o, lse, s, st);
+    case 128:
+      return launch_fwd_band<T, 128>(tq, tk, tv, o, lse, s, st);
+    default:
+      return launch_fwd_band<T, 256>(tq, tk, tv, o, lse, s, st);
+  }
 }
 
 template <typename T>
@@ -1143,15 +1147,23 @@ int bwd_entry(const void* const* ptrs, const long long* strides,
   float* delta = static_cast<float*>(const_cast<void*>(ptrs[6]));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool band = s.causal || s.window > 0;
-  if (dims[5] == 64)
-    return band ? launch_bwd<T, 64, true>(q, k, v, o, dout, lse, delta, dq,
-                                          dk, dv, s, st)
-                : launch_bwd<T, 64, false>(q, k, v, o, dout, lse, delta, dq,
-                                           dk, dv, s, st);
-  return band ? launch_bwd<T, 128, true>(q, k, v, o, dout, lse, delta, dq, dk,
-                                         dv, s, st)
-              : launch_bwd<T, 128, false>(q, k, v, o, dout, lse, delta, dq,
-                                          dk, dv, s, st);
+  switch (dims[5]) {
+    case 64:
+      return band ? launch_bwd<T, 64, true>(q, k, v, o, dout, lse, delta, dq,
+                                            dk, dv, s, st)
+                  : launch_bwd<T, 64, false>(q, k, v, o, dout, lse, delta,
+                                             dq, dk, dv, s, st);
+    case 128:
+      return band ? launch_bwd<T, 128, true>(q, k, v, o, dout, lse, delta,
+                                             dq, dk, dv, s, st)
+                  : launch_bwd<T, 128, false>(q, k, v, o, dout, lse, delta,
+                                              dq, dk, dv, s, st);
+    default:
+      return band ? launch_bwd<T, 256, true>(q, k, v, o, dout, lse, delta,
+                                             dq, dk, dv, s, st)
+                  : launch_bwd<T, 256, false>(q, k, v, o, dout, lse, delta,
+                                              dq, dk, dv, s, st);
+  }
 }
 
 }  // namespace

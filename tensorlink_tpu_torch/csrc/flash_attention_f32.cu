@@ -62,7 +62,12 @@
 //   and dV of the whole group in registers.
 // Key tiles whose keys are all masked, and a warp's strips that the band
 // leaves empty, are skipped. Every kernel takes 2 blocks an SM (f32 at
-// D 128: 99 KB of tiles each). wgmma is not used: its tf32 form reads only
+// D 128: 99 KB of tiles each). At D 256 every kernel takes the SM alone
+// (195 KB of tiles): the forward keeps its 4 warps (O is 128 f32
+// registers a thread); in the backward a warp's two [16, D] sums would be
+// 256 registers, so its blocks take 8 warps, two to each 16-row strip,
+// which both form the strip's whole S and dP and each sum the outputs
+// (A and C, or dK and dV) of one half of D's columns. wgmma is not used: its tf32 form reads only
 // K-major operands from shared memory, and V, dO and the transposed
 // products of B2 are not K-major; it would also need hi and lo copies of
 // every tile (192 KB for Q, K and V^T at D 128).
@@ -154,12 +159,13 @@ __device__ __forceinline__ void key_bits(uint32_t (&bits)[2], const Shape& s,
 }
 
 // rows [r0, r0 + ROWS) of a [T, D] slab into a tile of pitch LD with
-// 16-byte cp.async copies; rows at or past n are zero-filled
-template <int D, int ROWS, int LD>
+// 16-byte cp.async copies by the block's NTH threads; rows at or past n
+// are zero-filled
+template <int D, int ROWS, int LD, int NTH = kThreads>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long st, int r0, int n) {
   constexpr int EPC = 4, CH = D / EPC;
-  for (int i = threadIdx.x; i < ROWS * CH; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * CH; i += NTH) {
     const int r = i / CH, c = (i % CH) * EPC;
     const bool ok = r0 + r < n;
     cp_async16(dst + r * LD + c, ok ? src + (long long)(r0 + r) * st + c : src,
@@ -239,7 +245,7 @@ __host__ __device__ constexpr int pitch() {
 
 // ---------------------------------------------------------------- forward
 template <int D, bool BAND>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, blocks_per_sm<D>())
     flash_fwd_tc_kernel(View q, View k, View v, OutView o,
                         float* __restrict__ lse, Shape s) {
   constexpr int LD = pitch<D>(), KS = D / 8, NT = kRows / 8;
@@ -378,19 +384,23 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // ------------------------------------------------------- backward: dq
 // keys a tile: the [16, D] A and C sums fill the register file at D 128
+// (and half of D's columns at D 256)
 template <int D>
 __host__ __device__ constexpr int dq_keys() {
-  return D == 128 ? 32 : 64;
+  return D == 64 ? 64 : 32;
 }
 
 template <int D, bool BAND>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads * bwd_halves<D>(),
+                                  blocks_per_sm<D>())
     flash_bwd_dq_tc_kernel(View q, View k, View v, View o,
                            View dout, const float* __restrict__ lse,
                            float* __restrict__ delta, OutView dq,
                            Shape s) {
   constexpr int KT = dq_keys<D>(), LD = pitch<D>(), KS = D / 8,
                 NT = KT / 8;
+  constexpr int NTH = kThreads * bwd_halves<D>();
+  constexpr int DN = D / bwd_halves<D>() / 8;  // n-tiles of a warp's outputs
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* dos = qs + kRows * LD;
@@ -401,7 +411,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int h = blockIdx.x, q0 = tile * kRows, b = blockIdx.z;
   const int hk = h / (s.H / s.Hkv);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int g = lane >> 2, t = lane & 3, r0 = (warp & 3) * 16;
+  const int half = warp >> 2, dc0 = half * DN * 8;  // this warp's columns
   const int qr[2] = {q0 + r0 + g, q0 + r0 + g + 8};
   const float sl2 = s.scale * kLog2e;
   const bool own = !s.delta_in;
@@ -414,12 +425,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int kt0 = lo - lo % KT;
   const int n = hi > kt0 ? (hi - kt0 + KT - 1) / KT : 0;
 
-  load_tile<D, kRows, LD>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
-  load_tile<D, kRows, LD>(dos, dout.p + b * dout.sb + h * dout.sh,
-                             dout.st, q0, s.Tq);
-  if (n > 0) load_tile<D, KT, LD>(vs, vb, v.st, kt0, s.Tk);
+  load_tile<D, kRows, LD, NTH>(qs, q.p + b * q.sb + h * q.sh, q.st, q0,
+                               s.Tq);
+  load_tile<D, kRows, LD, NTH>(dos, dout.p + b * dout.sb + h * dout.sh,
+                               dout.st, q0, s.Tq);
+  if (n > 0) load_tile<D, KT, LD, NTH>(vs, vb, v.st, kt0, s.Tk);
   cp_async_commit();
-  if (n > 0) load_tile<D, KT, LD>(ks, kb, k.st, kt0, s.Tk);
+  if (n > 0) load_tile<D, KT, LD, NTH>(ks, kb, k.st, kt0, s.Tk);
   cp_async_commit();
 
   // d~ of this thread's two rows (each lane of the quad dots a quarter),
@@ -445,9 +457,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     dt[r] = quad_sum(acc);
   }
 
-  float acc_a[D / 8][4], acc_c[D / 8][4];
+  float acc_a[DN][4], acc_c[DN][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < DN; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_a[i][e] = acc_c[i][e] = 0.f;
 
@@ -481,7 +493,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     cp_async_wait<0>();
     __syncthreads();  // K(i) has landed; every warp is done with V(i)
-    if (i + 1 < n) load_tile<D, KT, LD>(vs, vb, v.st, k0 + KT, s.Tk);
+    if (i + 1 < n) load_tile<D, KT, LD, NTH>(vs, vb, v.st, k0 + KT, s.Tk);
     cp_async_commit();
     if (live) {
 #pragma unroll
@@ -515,16 +527,16 @@ __global__ void __launch_bounds__(kThreads, 2)
         frag_c(ad, dp[j]);
         frag_c(ap, sc[j]);
 #pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
+        for (int dn = 0; dn < DN; ++dn) {
           Frag<2> bb;
-          frag_bn<LD>(bb, ks, 8 * j, 8 * dn, g, t);
+          frag_bn<LD>(bb, ks, 8 * j, dc0 + 8 * dn, g, t);
           mma3(acc_a[dn], ad, bb);
           if (own) mma_tf32(acc_c[dn], ap.hi, bb.hi[0], bb.hi[1]);
         }
       }
     }
     __syncthreads();  // every warp is done with K(i)
-    if (i + 1 < n) load_tile<D, KT, LD>(ks, kb, k.st, k0 + KT, s.Tk);
+    if (i + 1 < n) load_tile<D, KT, LD, NTH>(ks, kb, k.st, k0 + KT, s.Tk);
     cp_async_commit();
   }
   cp_async_wait<0>();
@@ -536,12 +548,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (qr[r] >= s.Tq) continue;
     if (!own)
       dl[r] = dt[r];  // the whole row's delta, whatever keys this call saw
-    else if (t == 0)
+    else if (t == 0 && half == 0)
       delta[rowbase + qr[r]] = dl[r];
     const float c = dl[r] - dt[r];
-    float* row = out + (long long)qr[r] * dq.st;
+    float* row = out + (long long)qr[r] * dq.st + dc0;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
+    for (int dn = 0; dn < DN; ++dn)
       put2(row + 8 * dn + 2 * t,
                      s.scale * (acc_a[dn][2 * r] - c * acc_c[dn][2 * r]),
                      s.scale * (acc_a[dn][2 * r + 1] - c * acc_c[dn][2 * r + 1]));
@@ -550,20 +562,23 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // ------------------------------------------------------ backward: dk, dv
 // queries a unit: the [16, D] dK and dV sums fill the register file at
-// D 128
+// D 128 (and half of D's columns at D 256)
 template <int D>
 __host__ __device__ constexpr int dkv_queries() {
-  return D == 128 ? 32 : 64;
+  return D == 64 ? 64 : 32;
 }
 
 template <int D, bool BAND>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads * bwd_halves<D>(),
+                                  blocks_per_sm<D>())
     flash_bwd_dkv_tc_kernel(View q, View k, View v, View dout,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta, OutView dk,
                             OutView dv, Shape s) {
   constexpr int QT = dkv_queries<D>(), LD = pitch<D>(), KS = D / 8,
                 NQ = QT / 8;
+  constexpr int NTH = kThreads * bwd_halves<D>();
+  constexpr int DN = D / bwd_halves<D>() / 8;  // n-tiles of a warp's outputs
   extern __shared__ __align__(16) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
   float* vs = ks + kRows * LD;
@@ -575,7 +590,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int hk = blockIdx.x, k0 = blockIdx.y * kRows, b = blockIdx.z;
   const int G = s.H / s.Hkv;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int g = lane >> 2, t = lane & 3, r0 = (warp & 3) * 16;
+  const int dc0 = (warp >> 2) * DN * 8;  // this warp's output columns
   const int kr[2] = {k0 + r0 + g, k0 + r0 + g + 8};
   const bool kkeep[2] = {key_kept(s, b, kr[0]), key_kept(s, b, kr[1])};
   const float sl2 = s.scale * kLog2e;
@@ -592,7 +608,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   auto issue_q = [&](int u) {  // Q rows, lse and delta of unit u
     const int h = hk * G + u / nqt, q0 = qt0 + (u % nqt) * QT;
-    load_tile<D, QT, LD>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
+    load_tile<D, QT, LD, NTH>(qs, q.p + b * q.sb + h * q.sh, q.st, q0, s.Tq);
     if (threadIdx.x < QT) {
       const int qq = q0 + threadIdx.x;
       const bool in = qq < s.Tq;
@@ -603,20 +619,22 @@ __global__ void __launch_bounds__(kThreads, 2)
   };
   auto issue_do = [&](int u) {
     const int h = hk * G + u / nqt, q0 = qt0 + (u % nqt) * QT;
-    load_tile<D, QT, LD>(dos, dout.p + b * dout.sb + h * dout.sh, dout.st,
-                            q0, s.Tq);
+    load_tile<D, QT, LD, NTH>(dos, dout.p + b * dout.sb + h * dout.sh,
+                              dout.st, q0, s.Tq);
   };
 
-  load_tile<D, kRows, LD>(ks, k.p + b * k.sb + hk * k.sh, k.st, k0, s.Tk);
-  load_tile<D, kRows, LD>(vs, v.p + b * v.sb + hk * v.sh, v.st, k0, s.Tk);
+  load_tile<D, kRows, LD, NTH>(ks, k.p + b * k.sb + hk * k.sh, k.st, k0,
+                               s.Tk);
+  load_tile<D, kRows, LD, NTH>(vs, v.p + b * v.sb + hk * v.sh, v.st, k0,
+                               s.Tk);
   if (nu > 0) issue_q(0);
   cp_async_commit();
   if (nu > 0) issue_do(0);
   cp_async_commit();
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[DN][4], dva[DN][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < DN; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
 
@@ -684,9 +702,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         Frag<4> a;
         frag_c(a, dpt[j]);
 #pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
+        for (int dn = 0; dn < DN; ++dn) {
           Frag<2> bb;
-          frag_bn<LD>(bb, qs, 8 * j, 8 * dn, g, t);
+          frag_bn<LD>(bb, qs, 8 * j, dc0 + 8 * dn, g, t);
           mma3(dka[dn], a, bb);
         }
       }
@@ -700,9 +718,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         Frag<4> a;
         frag_c(a, st[j]);
 #pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
+        for (int dn = 0; dn < DN; ++dn) {
           Frag<2> bb;
-          frag_bn<LD>(bb, dos, 8 * j, 8 * dn, g, t);
+          frag_bn<LD>(bb, dos, 8 * j, dc0 + 8 * dn, g, t);
           mma3(dva[dn], a, bb);
         }
       }
@@ -718,10 +736,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (kr[r] >= s.Tk) continue;
-    float* krow = kout + (long long)kr[r] * dk.st;
-    float* vrow = vout + (long long)kr[r] * dv.st;
+    float* krow = kout + (long long)kr[r] * dk.st + dc0;
+    float* vrow = vout + (long long)kr[r] * dv.st + dc0;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
+    for (int dn = 0; dn < DN; ++dn) {
       put2(krow + 8 * dn + 2 * t, dka[dn][2 * r], dka[dn][2 * r + 1]);
       put2(vrow + 8 * dn + 2 * t, dva[dn][2 * r], dva[dn][2 * r + 1]);
     }
@@ -764,8 +782,9 @@ int launch_bwd(View q, View k, View v, View o, View dout,
     err = allow_smem(flash_bwd_dq_tc_kernel<D, BAND>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(s.H, (s.Tq + kRows - 1) / kRows, s.B);
-    flash_bwd_dq_tc_kernel<D, BAND><<<grid, kThreads, smem, stream>>>(
-        q, k, v, o, dout, lse, delta, dq, s);
+    flash_bwd_dq_tc_kernel<D, BAND>
+        <<<grid, kThreads * bwd_halves<D>(), smem, stream>>>(
+            q, k, v, o, dout, lse, delta, dq, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -776,8 +795,9 @@ int launch_bwd(View q, View k, View v, View o, View dout,
     err = allow_smem(flash_bwd_dkv_tc_kernel<D, BAND>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(s.Hkv, (s.Tk + kRows - 1) / kRows, s.B);
-    flash_bwd_dkv_tc_kernel<D, BAND><<<grid, kThreads, smem, stream>>>(
-        q, k, v, dout, lse, delta, dk, dv, s);
+    flash_bwd_dkv_tc_kernel<D, BAND>
+        <<<grid, kThreads * bwd_halves<D>(), smem, stream>>>(
+            q, k, v, dout, lse, delta, dk, dv, s);
     err = cudaGetLastError();
   }
   return static_cast<int>(err);
@@ -807,7 +827,7 @@ bool shape_ok(const int* dims) {
   const int B = dims[0], H = dims[1], Hkv = dims[2], Tq = dims[3],
             Tk = dims[4], D = dims[5];
   return B >= 0 && Tq >= 0 && Tk >= 0 && H > 0 && Hkv > 0 && H % Hkv == 0 &&
-         H <= 65535 && B <= 65535 && (D == 64 || D == 128);
+         H <= 65535 && B <= 65535 && (D == 64 || D == 128 || D == 256);
 }
 
 Shape make_shape(const int* dims, float scale, const void* kv_mask) {
@@ -832,11 +852,17 @@ int fwd_entry(const void* const* ptrs, const long long* strides,
   float* lse = static_cast<float*>(const_cast<void*>(ptrs[5]));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool band = s.causal || s.window > 0;
-  if (dims[5] == 64)
-    return band ? launch_fwd<64, true>(q, k, v, o, lse, s, st)
-                : launch_fwd<64, false>(q, k, v, o, lse, s, st);
-  return band ? launch_fwd<128, true>(q, k, v, o, lse, s, st)
-              : launch_fwd<128, false>(q, k, v, o, lse, s, st);
+  switch (dims[5]) {
+    case 64:
+      return band ? launch_fwd<64, true>(q, k, v, o, lse, s, st)
+                  : launch_fwd<64, false>(q, k, v, o, lse, s, st);
+    case 128:
+      return band ? launch_fwd<128, true>(q, k, v, o, lse, s, st)
+                  : launch_fwd<128, false>(q, k, v, o, lse, s, st);
+    default:
+      return band ? launch_fwd<256, true>(q, k, v, o, lse, s, st)
+                  : launch_fwd<256, false>(q, k, v, o, lse, s, st);
+  }
 }
 
 int bwd_entry(const void* const* ptrs, const long long* strides,
@@ -860,15 +886,23 @@ int bwd_entry(const void* const* ptrs, const long long* strides,
   float* delta = static_cast<float*>(const_cast<void*>(ptrs[6]));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool band = s.causal || s.window > 0;
-  if (dims[5] == 64)
-    return band ? launch_bwd<64, true>(q, k, v, o, dout, lse, delta, dq,
-                                          dk, dv, s, st)
-                : launch_bwd<64, false>(q, k, v, o, dout, lse, delta, dq,
-                                           dk, dv, s, st);
-  return band ? launch_bwd<128, true>(q, k, v, o, dout, lse, delta, dq, dk,
-                                         dv, s, st)
-              : launch_bwd<128, false>(q, k, v, o, dout, lse, delta, dq,
+  switch (dims[5]) {
+    case 64:
+      return band ? launch_bwd<64, true>(q, k, v, o, dout, lse, delta, dq,
+                                         dk, dv, s, st)
+                  : launch_bwd<64, false>(q, k, v, o, dout, lse, delta, dq,
                                           dk, dv, s, st);
+    case 128:
+      return band ? launch_bwd<128, true>(q, k, v, o, dout, lse, delta, dq,
+                                          dk, dv, s, st)
+                  : launch_bwd<128, false>(q, k, v, o, dout, lse, delta, dq,
+                                           dk, dv, s, st);
+    default:
+      return band ? launch_bwd<256, true>(q, k, v, o, dout, lse, delta, dq,
+                                          dk, dv, s, st)
+                  : launch_bwd<256, false>(q, k, v, o, dout, lse, delta, dq,
+                                           dk, dv, s, st);
+  }
 }
 
 }  // namespace

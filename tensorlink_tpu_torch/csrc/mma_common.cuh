@@ -152,6 +152,60 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// f16's operand scale. f16 keeps 11 significant bits down to 2^-14, fewer
+// below, none below 2^-24, so an f32 operand that is about to be rounded
+// to f16 and may be small (flash_attention.cu's dS-like operands,
+// paged_decode.cu's P v_scale over int8 V) is first multiplied, row by
+// row, by a power of two: the one that takes the row's largest magnitude
+// m into [2^14, 2^15). kNoScale (2^126, also the bound of any scale) when
+// m is 0, below f32's normal range or not finite, so that a row's first
+// live tile sets it.
+constexpr float kNoScale = 0x1p126f;
+__device__ __forceinline__ float f16_scale(float m) {
+  const int e = (__float_as_int(m) >> 23) & 0xff;
+  if (e == 0 || e == 255) return kNoScale;
+  return __int_as_float(min(max(268 - e, 1), 253) << 23);
+}
+
+// f16: scales the rows of an operand tile x (the C layout of NT n-tiles:
+// rows e / 2 of each 4) in place by the rows' factors f. A factor only
+// shrinks: where the tile's largest value in a row would reach 2^15, the
+// row's factor is set from it and the row of the f32 accumulator acc is
+// scaled by the ratio. That test is one vote for the warp (every lane
+// must call); the quad's maximum (the row is spread over a quad) is taken
+// only when it fires. The caller divides acc's rows by f at the end.
+template <int NT, int DT>
+__device__ __forceinline__ void f16_scale_rows(float (&x)[NT][4],
+                                               float (&f)[2],
+                                               float (&acc)[DT][4]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mx[e >> 1] = fmaxf(mx[e >> 1], fabsf(x[j][e]));
+  if (__any_sync(0xffffffffu,
+                 !(mx[0] * f[0] < 0x1p15f && mx[1] * f[1] < 0x1p15f))) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float nf = f16_scale(quad_max(mx[r]));
+      if (nf < f[r]) {
+        const float ratio = nf / f[r];
+#pragma unroll
+        for (int i = 0; i < DT; ++i) {
+          acc[i][2 * r] *= ratio;
+          acc[i][2 * r + 1] *= ratio;
+        }
+        f[r] = nf;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] *= f[e >> 1];
+}
+
 // 16 bytes device -> shared; src_bytes 0 writes 16 zero bytes (src is
 // then not read but must still be a valid address expression)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -180,10 +234,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// two int8 values (low byte first) -> the bf16x2 register of an mma
-// operand; |x| <= 128 is exact in bf16
-__device__ __forceinline__ uint32_t i8x2_to_bf16x2(int8_t lo, int8_t hi) {
-  return pack_bf16(static_cast<float>(lo), static_cast<float>(hi));
+// two int8 values (low byte first) -> the T-typed (bf16 or f16) x2
+// register of an mma operand; |x| <= 128 is exact in both
+template <typename T = bf16>
+__device__ __forceinline__ uint32_t i8x2_to(int8_t lo, int8_t hi) {
+  return pack2<T>(static_cast<float>(lo), static_cast<float>(hi));
+}
+
+// The flash kernels' plan by head dim (flash_attention.cu in bf16 and f16,
+// flash_attention_f32.cu in f32): the blocks an SM each kernel is built
+// for, two at D <= 128 and one at D 256, and the warps that share a 16-row
+// strip in the backward, each summing the outputs of D / bwd_halves
+// columns, two at D 256 so that the [16, D] accumulators fit.
+template <int D>
+__host__ __device__ constexpr int blocks_per_sm() {
+  return D == 256 ? 1 : 2;
+}
+template <int D>
+__host__ __device__ constexpr int bwd_halves() {
+  return D == 256 ? 2 : 1;
 }
 
 }  // namespace tlk

@@ -16,9 +16,10 @@
 // Three variants; the wrapper (ops/paged_decode.py) picks one from the
 // dtypes and shapes alone:
 //
-// decode (bf16 q; bf16 or int8 pools; D 64 or 128; T * group <= 16 query
-//   rows per kv head). What bounds it: the bytes of the live KV pages
-//   (2 * live keys * D * sizeof(kv) per (row, kv head)); the flops are
+// decode (bf16 q over bf16 or int8 pools, or f16 q over f16 or int8 pools;
+//   D 64 or 128; T * group <= 16 query rows per kv head). What bounds
+//   it: the bytes of the live KV pages (2 * live keys * D * sizeof(kv)
+//   per (row, kv head)); the flops are
 //   ~8 per byte read. Design: one block of 4 warps per (kv head, row, key
 //   partition of 256 keys, DECODE_PARTITION in ops/paged_decode.py).
 //   Partitions are fixed slices of
@@ -29,7 +30,7 @@
 //   entries into shared memory up front, then streams stages of 64 keys
 //   (4 pages of 16) through a ring of 3 shared-memory stages with 16-byte
 //   cp.async copies, so two stages are in flight while one is scored; K/V
-//   stay in their working type in shared memory (bf16, or int8). The
+//   stay in their working type in shared memory (bf16 or f16, or int8). The
 //   GQA group's query rows (T * group, padded to 16) are one mma.sync
 //   m16n8k16 A tile held in registers; warp w scores keys 16w..16w+15 of
 //   each stage against all 16 rows on the tensor cores (S = Q K^T, then
@@ -39,10 +40,19 @@
 //   does 16 rows x 8 keys x 16 dims in one instruction where a dot-product
 //   warp would spend ~32 FMAs and a shuffle tree per (row, key), and the
 //   16-row tile costs nothing extra when the group fills 4 of its rows.
-//   int8 pages are read as int8 and widened to bf16 in registers while the
-//   fragments are built (|x| <= 127 is exact in bf16); K's scale multiplies
-//   the score of its key, V's scale multiplies p before P is rounded to
-//   bf16, so dequantization costs no extra pass over the page.
+//   int8 pages are read as int8 and widened to q's 16-bit type in
+//   registers while the fragments are built (|x| <= 127 is exact in bf16
+//   and f16); K's scale multiplies the score of its key, V's scale
+//   multiplies p before P is rounded to 16 bits, so dequantization costs
+//   no extra pass over the page. In f16 that product can sink below f16's
+//   normal range (v_scale is absmax / 127: V of absmax 1e-4 gives p v_scale
+//   near 1e-6, where f16 keeps a few bits, and below 2^-24 nothing), so
+//   each row of P v_scale is multiplied by a power of two that puts the
+//   row's largest value in [2^14, 2^15) before it is rounded
+//   (tlk::f16_scale_rows, flash_attention.cu's guard of dS): a later stage
+//   with larger values shrinks the factor and scales the row's f32
+//   accumulator by the ratio, and the accumulator is divided by the factor
+//   at the end (powers of two: exact). The scores and O stay f32.
 // prefill (the same types; T * group > 16, group <= 64): B1's tile loop
 //   (flash_attention.cu) over the paged view. One block of 4 warps per
 //   (64-row query tile of (t, head) pairs of one GQA group, kv head, row,
@@ -58,8 +68,9 @@
 //   as one wave of the card holds, and the same merge kernel combines
 //   them; here the split follows the live range, read on the device, so
 //   every block has work whatever the row's length.
-// general (anything else: f32 or f16 q or pools, other head dims, a mask
-//   whose width is not a multiple of 16): the first, scalar design. One block of
+// general (anything else: f32 q or pools, mixed 16-bit types (f16 q over
+//   bf16 pools, bf16 q over f16 pools), other head dims, a mask whose
+//   width is not a multiple of 16): the first, scalar design. One block of
 //   8 warps per (query tile, kv head, row, split); K/V chunks of 32 keys
 //   dequantized into shared memory as f32, lane j scores key j, splits of
 //   the live range combined by the same merge kernel.
@@ -68,6 +79,10 @@
 // and the bytes bound the kernel; at the prefill chunk wgmma (with TMA
 // staging of whole pages) would lift the tensor-core rate above what
 // mma.sync reaches, which is work for a later version.
+//
+// The decode and prefill variants are one template on q's 16-bit type QT
+// (bf16 or f16; a pool is QT or int8): the type enters through
+// tlk::mma<QT>, pack2<QT>, pack_a<QT> and the int8 widening i8x2_to<QT>.
 
 #include <cuda_fp16.h>
 
@@ -76,6 +91,7 @@
 namespace {
 
 using tlk::bf16;
+using tlk::f16;
 using tlk::kLog2e;
 using tlk::kNegInf;
 
@@ -405,16 +421,17 @@ constexpr int kStageKeys = 64;  // keys per pipeline stage (4 pages of 16)
 constexpr int kDecodeRows = 16;
 constexpr int kPrefillRows = 64;
 
+template <typename QT>
 struct PagedArgs {
-  const bf16* q;
-  const void* k;
+  const QT* q;
+  const void* k;  // QT, or int8
   const void* v;
   const float* k_scale;  // int8 pools only
   const float* v_scale;
   const int* block_table;
   const int* lengths;
   const uint8_t* mask;  // null: none
-  bf16* out;
+  QT* out;
   float* part;  // [B * T * H, nsplit, D + 2] when nsplit > 1
   int T, H, Hkv, NB, bs, MB, mask_T, window, kp, nsplit;
   float scale;
@@ -422,7 +439,7 @@ struct PagedArgs {
 
 __host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
-// bytes of one key row of a K or V stage in shared memory (bf16 rows
+// bytes of one key row of a K or V stage in shared memory (16-bit rows
 // padded by 16 bytes so ldmatrix's 8 row addresses hit distinct banks)
 template <int D, bool INT8>
 __host__ __device__ constexpr int kv_row_bytes() {
@@ -445,17 +462,18 @@ __host__ __device__ constexpr size_t head_bytes(int kp, int bs) {
                  static_cast<size_t>((kp - 1) / bs + 2) * 4);
 }
 
-// c += a * (the K^T fragment of one n-tile of an int8 [key][d] tile);
-// kr points at K[n][k0 + 2 tig] of this lane's key n
+// c += a * (the K^T fragment of one n-tile of an int8 [key][d] tile,
+// widened to QT); kr points at K[n][k0 + 2 tig] of this lane's key n
+template <typename QT>
 __device__ __forceinline__ void mma_i8(float (&c)[4], const uint32_t (&a)[4],
                                        const int8_t* kr) {
-  tlk::mma(c, a, tlk::i8x2_to_bf16x2(kr[0], kr[1]),
-           tlk::i8x2_to_bf16x2(kr[8], kr[9]));
+  tlk::mma<QT>(c, a, tlk::i8x2_to<QT>(kr[0], kr[1]),
+              tlk::i8x2_to<QT>(kr[8], kr[9]));
 }
 
-template <int D, bool INT8, bool DECODE>
+template <typename QT, int D, bool INT8, bool DECODE>
 __global__ void __launch_bounds__(kMThreads)
-    paged_mma_kernel(const PagedArgs a) {
+    paged_mma_kernel(const PagedArgs<QT> a) {
   constexpr int ROWS = DECODE ? kDecodeRows : kPrefillRows;
   constexpr int NST = DECODE ? 3 : 2;    // ring stages
   constexpr int NK = DECODE ? 16 : 64;   // keys a warp scores per stage
@@ -476,7 +494,7 @@ __global__ void __launch_bounds__(kMThreads)
   const int mrows = a.mask == nullptr ? 0 : (a.mask_T == 1 ? 1 : TQ);
   const size_t sbytes = stage_bytes<D, INT8>(mrows);
 
-  bf16* qs = reinterpret_cast<bf16*>(smem);  // [ROWS][LDQ]
+  QT* qs = reinterpret_cast<QT*>(smem);  // [ROWS][LDQ]
   int* bt_s = reinterpret_cast<int*>(qs + ROWS * LDQ);
   unsigned char* ring = smem + head_bytes<D, DECODE>(a.kp, a.bs);
 
@@ -513,7 +531,7 @@ __global__ void __launch_bounds__(kMThreads)
     const int r = c / (D / 8), part = c % (D / 8);
     const bool ok = r < nrows;
     const int t = t0 + r / group, h = hkv * group + r % group;
-    const bf16* src =
+    const QT* src =
         a.q + (ok ? ((static_cast<size_t>(b) * a.T + t) * a.H + h) * D +
                         part * 8
                   : 0);
@@ -596,6 +614,9 @@ __global__ void __launch_bounds__(kMThreads)
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const float sl2 = a.scale * kLog2e;  // scores in the log2 domain
+  // f16 over int8: the rows' factors on P v_scale (tlk::f16_scale_rows)
+  constexpr bool kScaleP = tlk::kIsF16<QT> && INT8;
+  float fp[2] = {tlk::kNoScale, tlk::kNoScale};
 
 #pragma unroll
   for (int i = 0; i < NST - 1; ++i) {
@@ -637,14 +658,14 @@ __global__ void __launch_bounds__(kMThreads)
               const int8_t* kr = reinterpret_cast<const int8_t*>(st) +
                                  (kw + np * 16 + hf * 8 + gid) * KROW +
                                  kk * 16 + 2 * tig;
-              mma_i8(sc[2 * np + hf], qa[kk], kr);
+              mma_i8<QT>(sc[2 * np + hf], qa[kk], kr);
             }
           } else {
             uint32_t bb[4];
-            tlk::ldsm_x4(bb, tlk::frag_b<D + 8>(reinterpret_cast<const bf16*>(st),
+            tlk::ldsm_x4(bb, tlk::frag_b<D + 8>(reinterpret_cast<const QT*>(st),
                                                kw + np * 16, kk * 16, lane));
-            tlk::mma(sc[2 * np], qa[kk], bb[0], bb[1]);
-            tlk::mma(sc[2 * np + 1], qa[kk], bb[2], bb[3]);
+            tlk::mma<QT>(sc[2 * np], qa[kk], bb[0], bb[1]);
+            tlk::mma<QT>(sc[2 * np + 1], qa[kk], bb[2], bb[3]);
           }
         }
       }
@@ -688,11 +709,12 @@ __global__ void __launch_bounds__(kMThreads)
         acc[i][2] *= alpha[1];
         acc[i][3] *= alpha[1];
       }
+      if constexpr (kScaleP) tlk::f16_scale_rows(sc, fp, acc);
       // O += P V
 #pragma unroll
       for (int j = 0; j < NK / 16; ++j) {
         uint32_t pa[4];
-        tlk::pack_a(pa, sc[2 * j], sc[2 * j + 1]);
+        tlk::pack_a<QT>(pa, sc[2 * j], sc[2 * j + 1]);
 #pragma unroll
         for (int dp = 0; dp < DT / 2; ++dp) {
           if constexpr (INT8) {
@@ -701,17 +723,17 @@ __global__ void __launch_bounds__(kMThreads)
               const int8_t* vc = reinterpret_cast<const int8_t*>(vst) +
                                  (kw + j * 16 + 2 * tig) * KROW + dp * 16 +
                                  hf * 8 + gid;
-              tlk::mma(acc[2 * dp + hf], pa,
-                       tlk::i8x2_to_bf16x2(vc[0], vc[KROW]),
-                       tlk::i8x2_to_bf16x2(vc[8 * KROW], vc[9 * KROW]));
+              tlk::mma<QT>(acc[2 * dp + hf], pa,
+                          tlk::i8x2_to<QT>(vc[0], vc[KROW]),
+                          tlk::i8x2_to<QT>(vc[8 * KROW], vc[9 * KROW]));
             }
           } else {
             uint32_t bb[4];
             tlk::ldsm_x4_t(bb, tlk::frag_a<D + 8>(
-                                   reinterpret_cast<const bf16*>(vst),
+                                   reinterpret_cast<const QT*>(vst),
                                    kw + j * 16, dp * 16, lane));
-            tlk::mma(acc[2 * dp], pa, bb[0], bb[1]);
-            tlk::mma(acc[2 * dp + 1], pa, bb[2], bb[3]);
+            tlk::mma<QT>(acc[2 * dp], pa, bb[0], bb[1]);
+            tlk::mma<QT>(acc[2 * dp + 1], pa, bb[2], bb[3]);
           }
         }
       }
@@ -721,6 +743,17 @@ __global__ void __launch_bounds__(kMThreads)
   tlk::cp_async_wait<0>();
   __syncthreads();
 
+  if constexpr (kScaleP) {  // the rows' P factors out of O (exact)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float inv = 1.f / fp[r];
+#pragma unroll
+      for (int i = 0; i < DT; ++i) {
+        acc[i][2 * r] *= inv;
+        acc[i][2 * r + 1] *= inv;
+      }
+    }
+  }
   const float lsum[2] = {tlk::quad_sum(l[0]), tlk::quad_sum(l[1])};
   // (row of the tile, d) -> output or partial state; mx in the log2 domain
   auto row_id = [&](int row) {
@@ -759,7 +792,7 @@ __global__ void __launch_bounds__(kMThreads)
       }
       const size_t id = row_id(row);
       if (a.nsplit == 1) {
-        a.out[id * D + d] = __float2bfloat16(L > 0.f ? O / L : 0.f);
+        a.out[id * D + d] = from_f<QT>(L > 0.f ? O / L : 0.f);
       } else {
         float* pp = a.part + (id * a.nsplit + split) * (D + 2);
         if (d == 0) {
@@ -777,12 +810,11 @@ __global__ void __launch_bounds__(kMThreads)
       const size_t id = row_id(row);
       if (a.nsplit == 1) {
         const float inv = lsum[r] > 0.f ? 1.f / lsum[r] : 0.f;
-        bf16* o = a.out + id * D;
+        QT* o = a.out + id * D;
 #pragma unroll
         for (int i = 0; i < DT; ++i)
-          *reinterpret_cast<__nv_bfloat162*>(o + i * 8 + 2 * tig) =
-              __floats2bfloat162_rn(acc[i][2 * r] * inv,
-                                    acc[i][2 * r + 1] * inv);
+          *reinterpret_cast<uint32_t*>(o + i * 8 + 2 * tig) = tlk::pack2<QT>(
+              acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
       } else {
         float* pp = a.part + (id * a.nsplit + split) * (D + 2);
         if (tig == 0) {
@@ -799,8 +831,8 @@ __global__ void __launch_bounds__(kMThreads)
   }
 }
 
-template <int D, bool INT8, bool DECODE>
-int launch_mma(const PagedArgs& a, int B, cudaStream_t stream) {
+template <typename QT, int D, bool INT8, bool DECODE>
+int launch_mma(const PagedArgs<QT>& a, int B, cudaStream_t stream) {
   constexpr int NST = DECODE ? 3 : 2;
   const int group = a.H / a.Hkv;
   const int TQ = DECODE ? a.T : kPrefillRows / group;
@@ -811,7 +843,7 @@ int launch_mma(const PagedArgs& a, int B, cudaStream_t stream) {
     ring = ring > red ? ring : red;
   }
   const size_t smem = head_bytes<D, DECODE>(a.kp, a.bs) + ring;
-  auto kern = paged_mma_kernel<D, INT8, DECODE>;
+  auto kern = paged_mma_kernel<QT, D, INT8, DECODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -820,16 +852,35 @@ int launch_mma(const PagedArgs& a, int B, cudaStream_t stream) {
   kern<<<grid, kMThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.nsplit == 1) return static_cast<int>(err);
-  return launch_merge<bf16>(a.part, a.lengths, a.out, B, a.T, a.H, D,
-                            a.MB * a.bs, a.window, a.kp, a.nsplit, DECODE,
-                            stream);
+  return launch_merge<QT>(a.part, a.lengths, a.out, B, a.T, a.H, D,
+                         a.MB * a.bs, a.window, a.kp, a.nsplit, DECODE,
+                         stream);
 }
 
-template <int D, bool DECODE>
-int launch_mma_kv(const PagedArgs& a, int kv_dtype, int B,
+template <typename QT, int D, bool DECODE>
+int launch_mma_kv(const PagedArgs<QT>& a, int kv_dtype, int B,
                   cudaStream_t stream) {
-  return kv_dtype == 2 ? launch_mma<D, true, DECODE>(a, B, stream)
-                       : launch_mma<D, false, DECODE>(a, B, stream);
+  return kv_dtype == 2 ? launch_mma<QT, D, true, DECODE>(a, B, stream)
+                       : launch_mma<QT, D, false, DECODE>(a, B, stream);
+}
+
+template <typename QT>
+int launch_fast(const void* q, const void* k, const void* v,
+                const float* k_scale, const float* v_scale,
+                const int* block_table, const int* lengths,
+                const uint8_t* mask, void* out, float* part, bool decode,
+                int kp, int nsplit, int B, int T_, int H, int Hkv, int D,
+                int NB, int bs, int MB, int mask_T, int window, float scale,
+                int kv_dtype, cudaStream_t s) {
+  const PagedArgs<QT> a{static_cast<const QT*>(q), k, v, k_scale, v_scale,
+                       block_table, lengths, mask, static_cast<QT*>(out),
+                       part, T_, H, Hkv, NB, bs, MB, mask_T, window, kp,
+                       nsplit, scale};
+  if (D == 64)
+    return decode ? launch_mma_kv<QT, 64, true>(a, kv_dtype, B, s)
+                  : launch_mma_kv<QT, 64, false>(a, kv_dtype, B, s);
+  return decode ? launch_mma_kv<QT, 128, true>(a, kv_dtype, B, s)
+                : launch_mma_kv<QT, 128, false>(a, kv_dtype, B, s);
 }
 
 bool aligned16(const void* p) {
@@ -843,7 +894,9 @@ extern "C" {
 // variant: 0 = general, 1 = decode, 2 = prefill (ops/paged_decode.py
 // picks it). dtype codes: q 0 = float32, 1 = bfloat16, 2 = float16; kv
 // 0 = float32, 1 = bfloat16, 2 = int8 (then k_scale/v_scale must be
-// given), 3 = float16. float16 goes to the general variant only. Pointers
+// given), 3 = float16. The decode and prefill variants take bfloat16 q
+// over bfloat16 or int8 pools and float16 q over float16 or int8 pools;
+// the general variant any pair. Pointers
 // are device pointers to contiguous arrays; mask may be null, else
 // [B, 1, mask_T, MB*bs] bytes; window <= 0 means none. nsplit > 1 needs
 // part, a float32 workspace of B * T * H * nsplit * (D + 2) elements. The
@@ -890,8 +943,10 @@ int tl_paged_decode(const void* q, const void* k, const void* v,
     }
   }
   const bool decode = variant == 1;
-  if ((variant != 1 && variant != 2) || q_dtype != 1 ||
-      (kv_dtype != 1 && kv_dtype != 2) || (D != 64 && D != 128) ||
+  // q's own 16-bit pool code: bf16 (1) over bf16 (1), f16 (2) over f16 (3)
+  const int own_kv = q_dtype == 1 ? 1 : 3;
+  if ((variant != 1 && variant != 2) || (q_dtype != 1 && q_dtype != 2) ||
+      (kv_dtype != own_kv && kv_dtype != 2) || (D != 64 && D != 128) ||
       kp < kStageKeys || kp % kStageKeys != 0 ||
       nsplit != (Lv + kp - 1) / kp ||
       (decode ? T * group > kDecodeRows : group > kPrefillRows) ||
@@ -899,15 +954,15 @@ int tl_paged_decode(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const PagedArgs a{static_cast<const bf16*>(q), k, v, k_scale, v_scale,
-                    block_table, lengths, mask, static_cast<bf16*>(out),
-                    part, T, H, Hkv, NB, bs, MB, mask_T, window, kp, nsplit,
-                    scale};
-  if (D == 64)
-    return decode ? launch_mma_kv<64, true>(a, kv_dtype, B, s)
-                  : launch_mma_kv<64, false>(a, kv_dtype, B, s);
-  return decode ? launch_mma_kv<128, true>(a, kv_dtype, B, s)
-                : launch_mma_kv<128, false>(a, kv_dtype, B, s);
+  return q_dtype == 1
+             ? launch_fast<bf16>(q, k, v, k_scale, v_scale, block_table,
+                                 lengths, mask, out, part, decode, kp, nsplit,
+                                 B, T, H, Hkv, D, NB, bs, MB, mask_T, window,
+                                 scale, kv_dtype, s)
+             : launch_fast<f16>(q, k, v, k_scale, v_scale, block_table,
+                                lengths, mask, out, part, decode, kp, nsplit,
+                                B, T, H, Hkv, D, NB, bs, MB, mask_T, window,
+                                scale, kv_dtype, s);
 }
 
 const char* tl_cuda_error_string(int err) {

@@ -23,8 +23,8 @@ wrapper's launches by form ("bf16", "f32", "f16").
 They read any [B, heads, T, D] view whose D is contiguous and whose base
 and strides are 16-byte aligned, so the caller's [B, T, H, D] tensors
 pass as transposed views, and the outputs come back as views over
-[B, T, heads, D] storage. The kernels are built for D 64 and 128; any
-other D up to ``MAX_HEAD_DIM`` is zero-padded to the next of them
+[B, T, heads, D] storage. The kernels are built for D 64, 128 and 256;
+any other D up to ``MAX_HEAD_DIM`` is zero-padded to the next of them
 (``_padded``: the zero columns add nothing to QK^T or dO V^T, and the
 padded columns of o, dq, dk and dv are zero), run at the true D's scale,
 and sliced back (``_sliced``), so such outputs are views of padded
@@ -50,7 +50,8 @@ LSE_MASKED = 1e30
 
 # the head dims csrc/flash_attention.cu and csrc/flash_attention_f32.cu
 # are built for; any other D up to MAX_HEAD_DIM is zero-padded to the next
-HEAD_DIMS = (64, 128)
+# (the paged kernel, ops/paged_decode.py, stops at 256 too)
+HEAD_DIMS = (64, 128, 256)
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 # operand dtype -> (launch-count form, library source, entry suffix)
 KERNEL_FORMS = {

@@ -10,9 +10,10 @@ PyTorch version of the same math. Anything else raises: there is no
 switch that routes CUDA tensors to the plain version.
 
 The kernel has three variants, chosen from dtypes and shapes alone by
-``kernel_variant`` (the engine's bf16 decode steps take "decode", its
-prefill chunks "prefill"; f32 and f16 tensors, other head dims and
-masks whose width is not a multiple of 16 take "general").
+``kernel_variant`` (the engine's bf16 and f16 decode steps take
+"decode", its prefill chunks "prefill"; f32 tensors, mixed 16-bit
+types, other head dims and masks whose width is not a multiple of 16
+take "general").
 ``partition_plan`` says how many blocks share each row's keys (fixed
 partitions of the view at decode, even shares of each tile's live range
 at prefill), from shapes alone, so the host never reads ``lengths``.
@@ -35,6 +36,9 @@ NEG_INF = -1e30  # finite: exp underflows to 0.0, NaN-free
 MAX_HEAD_DIM = 256  # general variant (kMaxD)
 MAX_GROUP = 32  # general variant (kMaxRows)
 MMA_HEAD_DIMS = (64, 128)  # decode and prefill variants
+# q dtype -> the pool dtypes the decode and prefill variants take with it
+MMA_POOLS = {torch.bfloat16: (torch.bfloat16, torch.int8),
+             torch.float16: (torch.float16, torch.int8)}
 STAGE_KEYS = 64  # keys per pipeline stage (kStageKeys)
 DECODE_ROWS = 16  # T * group query rows of a decode block (kDecodeRows)
 PREFILL_ROWS = 64  # query rows of a prefill tile (kPrefillRows)
@@ -55,18 +59,18 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 
 def kernel_variant(q_dtype, kv_dtype, T: int, H: int, Hkv: int, D: int,
                    Lv: int, masked: bool) -> str:
-    """Which kernel variant takes a call: "decode" for bf16 q over bf16
-    or int8 pools with D in ``MMA_HEAD_DIMS`` and at most
+    """Which kernel variant takes a call: "decode" for a 16-bit q over
+    pools of its own type or int8 (``MMA_POOLS``: bf16 over bf16 or
+    int8, f16 over f16 or int8) with D in ``MMA_HEAD_DIMS`` and at most
     ``DECODE_ROWS`` query rows (T x GQA group) per kv head; "prefill"
     for the same types with more rows; "general" for everything else,
     including a mask whose width ``Lv`` is not a multiple of 16 (the
-    fast variants copy mask rows 16 bytes at a time). The decode and
-    prefill variants are bf16 only: f32 and f16 q, over any pool, take
-    "general", which computes in f32 whatever the storage types."""
+    fast variants copy mask rows 16 bytes at a time): f32 q or pools and
+    mixed 16-bit pairs (f16 q over bf16 pools, bf16 q over f16 pools),
+    which it computes in f32 whatever the storage types."""
     group = H // Hkv
     fast = (
-        q_dtype == torch.bfloat16
-        and kv_dtype in (torch.bfloat16, torch.int8)
+        kv_dtype in MMA_POOLS.get(q_dtype, ())
         and D in MMA_HEAD_DIMS
         and not (masked and Lv % 16)
     )

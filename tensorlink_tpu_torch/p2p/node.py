@@ -103,6 +103,9 @@ class Node:
         self._streams: dict[str, dict] = {}  # sid -> assembly state
         self._pending: dict[str, asyncio.Future] = {}
         self._pending_peer: dict[str, str] = {}  # msg id -> peer node_id
+        # dials in flight by the node id they expect (connect_candidates):
+        # a second caller joins the first dial instead of opening another
+        self._dials: dict[str, asyncio.Task] = {}
         self._server: asyncio.AbstractServer | None = None
         self._loop: asyncio.AbstractEventLoop | None = None
         self._tasks: set[asyncio.Task] = set()
@@ -484,7 +487,36 @@ class Node:
         NATs the same (ip, port) can route to an unrelated peer, and the
         mutual-auth handshake only proves the peer owns *some* key, not
         the one the placement names. Raises the LAST error when every
-        candidate fails."""
+        candidate fails.
+
+        Dials with the same expect_id are single-flight: a caller that
+        arrives while one is in flight awaits its result. Two dials to one
+        node (say, two relay hops that found no peer at once) would
+        register twice, and the second registration closes the first
+        stream: a request in flight on it would lose its reply and ride
+        out its whole timeout. The shared dial runs as a task of its own,
+        so a caller that is cancelled leaves the others' dial running."""
+        if expect_id is None:
+            return await self._dial_candidates(host, port, alt_hosts, None)
+        dial = self._dials.get(expect_id)
+        if dial is None:
+            dial = self._spawn(
+                self._dial_candidates(host, port, alt_hosts, expect_id))
+            self._dials[expect_id] = dial
+            dial.add_done_callback(
+                lambda t, k=expect_id: self._dial_done(k, t))
+        return await asyncio.shield(dial)
+
+    def _dial_done(self, expect_id: str, dial: asyncio.Task) -> None:
+        if self._dials.get(expect_id) is dial:
+            del self._dials[expect_id]
+        if not dial.cancelled():
+            dial.exception()  # retrieved: a dial whose callers all left is no leak
+
+    async def _dial_candidates(
+        self, host: str, port: int, alt_hosts: Sequence[str],
+        expect_id: str | None,
+    ) -> Peer:
         last: Exception | None = None
         for h in [host, *alt_hosts]:
             try:

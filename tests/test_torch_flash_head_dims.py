@@ -2,22 +2,22 @@
 (``ops/flash_attention.py``), against the JAX package on the same seeded
 inputs (f32, CPU).
 
-The CUDA kernels are built for D 64 and 128; their launchers zero-pad any
-other D up to 128 to the next of them, run the kernel at the true D's
-scale and slice the outputs back. These tests hold the pieces of that on
-the CPU, where nothing is built or launched:
+The CUDA kernels are built for D 64, 128 and 256; their launchers
+zero-pad any other D up to 256 to the next of them, run the kernel at the
+true D's scale and slice the outputs back. These tests hold the pieces of
+that on the CPU, where nothing is built or launched:
 
 - the port's plain B1 and B2 (own delta, and a given delta =
-  rowsum(do o), the ring's form) at D 32, 80 and 96 against the Pallas
-  kernels in interpret mode, blocks of 64 (o and lse within 2e-5,
-  gradients within 1e-4, as ``test_torch_flash.py``);
+  rowsum(do o), the ring's form) at D 32, 80, 96, 160 and 256 against
+  the Pallas kernels in interpret mode, blocks of 64 (o and lse within
+  2e-5, gradients within 1e-4, as ``test_torch_flash.py``);
 - "zero-pad, plain at the true scale, slice" equal to the plain version
   at D for o, lse, dq, dk and dv (the padded columns of every output
   exactly zero): the exactness the launchers rely on;
 - the launchers' pad and slice helpers give views ``_check_views``
   accepts, also when a sliced output is fed back (the ring passes o and
   do to B2);
-- D above 128 is refused with its message before anything is built.
+- D above 256 is refused with its message before anything is built.
 """
 
 import jax.numpy as jnp
@@ -46,7 +46,11 @@ CASES = {
     "d32": (2, 2, 2, 128, 32, False, None, "rows"),
     "d80_gqa_window": (1, 4, 2, 192, 80, True, 50, None),
     "d96": (2, 4, 4, 128, 96, True, None, "rows"),
+    "d160_gqa": (1, 4, 2, 128, 160, False, None, "rows"),
+    "d256": (1, 2, 2, 128, 256, True, None, None),
 }
+# the cases whose D the kernels are not built for: zero-padded
+PADDED = [n for n, c in CASES.items() if c[4] not in tfa.HEAD_DIMS]
 
 
 def _inputs(B, H, Hkv, T, D, mask, seed=0):
@@ -92,7 +96,7 @@ def test_plain_kernels_match_pallas_interpret_at_head_dim(name):
                                        rtol=GRAD_TOL, err_msg=n)
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", PADDED)
 def test_zero_padded_plain_at_true_scale_equals_plain(name):
     B, H, Hkv, T, D, causal, window, mask = CASES[name]
     q, k, v, do, kv = (_t(x) for x in _inputs(B, H, Hkv, T, D, mask, seed=1))
@@ -119,7 +123,7 @@ def test_zero_padded_plain_at_true_scale_equals_plain(name):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
-@pytest.mark.parametrize("D", [32, 80, 96, 64, 128])
+@pytest.mark.parametrize("D", [32, 80, 96, 64, 128, 160, 256])
 def test_pad_and_slice_keep_the_kernel_view_rules(D, dtype):
     """The launchers' inputs (``_padded``) and outputs (``_sliced``) are
     views the kernels read and write (``_check_views``), and a sliced
@@ -142,11 +146,21 @@ def test_pad_and_slice_keep_the_kernel_view_rules(D, dtype):
     assert torch.equal(again[..., :D], x)
 
 
-@pytest.mark.parametrize("D", [160, 256])
-def test_head_dims_above_128_refused(D):
-    """D above 128 needs a register plan of its own: the launchers refuse
-    it with its message before they build or launch anything."""
-    with pytest.raises(ValueError, match=f"head dim {D} \\(kernels take D <= 128"):
+def test_kernel_dims_above_128():
+    """D in (128, 256] runs on the D 256 kernels: 256 as built, any other
+    zero-padded to it; D up to 128 keeps the kernels it had."""
+    assert tfa.MAX_HEAD_DIM == 256 and tfa.HEAD_DIMS == (64, 128, 256)
+    assert tfa._kernel_dim(160) == 256 and tfa._kernel_dim(256) == 256
+    assert tfa._kernel_dim(129) == 256 and tfa._kernel_dim(128) == 128
+    assert tfa._kernel_dim(96) == 128 and tfa._kernel_dim(64) == 64
+
+
+@pytest.mark.parametrize("D", [257, 320])
+def test_head_dims_above_256_refused(D):
+    """D above 256 has no kernel (the paged kernel stops there too): the
+    launchers refuse it with its message before they build or launch
+    anything."""
+    with pytest.raises(ValueError, match=f"head dim {D} \\(kernels take D <= 256"):
         tfa._kernel_dim(D)
     B, H, T = 1, 2, 64
     q = torch.zeros((B, H, T, D), dtype=torch.bfloat16)

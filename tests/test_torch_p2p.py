@@ -402,6 +402,70 @@ async def test_handshake_ping_ghosts_and_discovery():
 
 
 @pytest.mark.asyncio
+async def test_concurrent_dials_to_one_node_share_one_connection():
+    """Two dials to one node at once (two relay hops that both found no
+    peer, as a pipeline stage relaying two prompts' prefill chunks does)
+    share one connection: a second registration would close the first
+    stream under the request in flight on it, whose reply is then lost
+    and which rides out its whole timeout."""
+    a, b = await _start(Node(_cfg()), Node(_cfg()))
+    try:
+        p1, p2 = await asyncio.gather(*(
+            a.connect_candidates("127.0.0.1", b.port, expect_id=b.node_id)
+            for _ in range(2)))
+        assert p1 is p2 and a.peers[b.node_id] is p1 and not a._dials
+        r1, r2 = await asyncio.gather(
+            a.request(p1, {"type": "PING"}, timeout=10.0),
+            a.request(p2, {"type": "PING"}, timeout=10.0))
+        assert r1["type"] == r2["type"] == "PONG"
+        joined = [e for e in b.flight.events() if e.get("kind") == "peer_joined"]
+        assert len(joined) == 1
+        # a dial that fails is shared too, and leaves nothing behind
+        results = await asyncio.gather(*(
+            a.connect_candidates("127.0.0.1", b.port, expect_id="f" * 64)
+            for _ in range(2)), return_exceptions=True)
+        assert all(isinstance(r, ConnectionError) for r in results)
+        assert not a._dials and a.peers.get(b.node_id) is p1
+    finally:
+        for n in (a, b):
+            await n.stop()
+
+
+@pytest.mark.asyncio
+async def test_cancelled_dial_caller_leaves_joined_dial_running():
+    """A caller cancelled while another has joined its dial (a node's
+    stop, or an outer deadline, reaching one relay hop) does not cancel
+    the dial under the other: the joined caller still gets the peer."""
+    a, b = await _start(Node(_cfg()), Node(_cfg()))
+    gate, connect = asyncio.Event(), a.connect
+
+    async def held_connect(*args, **kw):
+        await gate.wait()
+        return await connect(*args, **kw)
+
+    a.connect = held_connect
+    try:
+        dial = lambda: asyncio.ensure_future(a.connect_candidates(  # noqa: E731
+            "127.0.0.1", b.port, expect_id=b.node_id))
+        first = dial()
+        await asyncio.sleep(0)
+        assert b.node_id in a._dials
+        second = dial()
+        await asyncio.sleep(0)
+        first.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await first
+        gate.set()
+        peer = await asyncio.wait_for(second, 10.0)
+        assert a.peers[b.node_id] is peer and not a._dials
+        assert (await a.request(peer, {"type": "PING"}, timeout=10.0))["type"] == "PONG"
+    finally:
+        gate.set()
+        for n in (a, b):
+            await n.stop()
+
+
+@pytest.mark.asyncio
 async def test_dht_across_nodes_and_request_timeout():
     a, b, c = await _start(Node(_cfg("validator")), Node(_cfg("validator")), Node(_cfg("user")))
     try:

@@ -95,9 +95,10 @@ def test_reference_matches_jax(T, heads, window, masked, int8):
 @pytest.mark.parametrize("pool", ["f16", "int8"])
 @pytest.mark.parametrize("T,masked,window", [(1, True, None), (5, False, 3)])
 def test_reference_matches_jax_f16(T, masked, window, pool):
-    """The f16 form (the card's general variant): f16 q over an f16 or
-    int8 pool, the same tensors into both, within 1e-3 of max |JAX| (both
-    compute in f32 and round the output to f16 once, 2^-11 ~ 4.9e-4)."""
+    """The f16 form (the card's decode and prefill variants): f16 q over
+    an f16 or int8 pool, the same tensors into both, within 1e-3 of max
+    |JAX| (both compute in f32 and round the output to f16 once, 2^-11 ~
+    4.9e-4)."""
     q, k, v, bt, lengths, ks, vs, mask = _inputs(T, 4, 2, masked, pool == "int8")
     q = q.astype(np.float16)
     if pool == "f16":
@@ -119,6 +120,34 @@ def test_reference_matches_jax_f16(T, masked, window, pool):
     assert np.abs(out - ref).max() <= 1e-3 * np.abs(ref).max()
     if masked:
         assert not out[1].any()  # the fully masked row
+
+
+@pytest.mark.parametrize("T", [1, 5])
+def test_f16_over_int8_small_v_matches_jax(T):
+    """f16 q over int8 pools whose V has absmax near 1e-4 (v_scale =
+    absmax / 127 near 8e-7, where p v_scale sinks below f16's normal
+    range: the card's kernel scales P's rows against it): the plain
+    version against the JAX reference on the same numpy inputs, within
+    1e-3 of max |JAX| (f32 math both sides, one f16 rounding of an output
+    near 1e-4), and not flushed to zero."""
+    q, k, v, bt, lengths, ks, vs, mask = _inputs(T, 4, 2, True, True, seed=3)
+    q = q.astype(np.float16)
+    vs = ((1e-4 / 127) * (0.5 + vs * 25)).astype(np.float32)
+    assert 5e-5 < 127 * vs.max() <= 1e-4
+    ref = np.asarray(jax_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt),
+        jnp.asarray(lengths), k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+        mask=jnp.asarray(mask),
+    ))
+    out = paged_decode_attention(
+        _torch(q), _torch(k), _torch(v), _torch(bt), _torch(lengths),
+        k_scale=_torch(ks), v_scale=_torch(vs), mask=_torch(mask),
+    )
+    assert out.dtype == torch.float16 and ref.dtype == np.float16
+    out, ref = out.float().numpy(), ref.astype(np.float32)
+    assert 1e-6 < np.abs(ref).max() <= 1e-4
+    assert np.abs(out - ref).max() <= 1e-3 * np.abs(ref).max()
+    assert not out[1].any()  # the fully masked row
 
 
 def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
@@ -218,13 +247,18 @@ def test_prefill_form_matches_jax(T, length, window, int8):
         (torch.bfloat16, torch.bfloat16, 1, 4, 2, 8, 16, False, "general"),
         (torch.bfloat16, torch.bfloat16, 1, 32, 8, 128, 2040, True, "general"),
         (torch.bfloat16, torch.bfloat16, 1, 32, 8, 128, 2040, False, "decode"),
-        # f16 q over any pool takes the general variant, which computes in
-        # f32 (the decode and prefill variants are bf16 only)
-        (torch.float16, torch.float16, 1, 32, 8, 128, 2048, True, "general"),
-        (torch.float16, torch.float16, 128, 32, 8, 128, 2048, False, "general"),
-        (torch.float16, torch.int8, 1, 32, 8, 128, 2048, False, "general"),
+        # f16 q over f16 or int8 pools takes the tensor-core variants as
+        # bf16 does; mixed 16-bit pairs and other head dims stay general
+        (torch.float16, torch.float16, 1, 32, 8, 128, 2048, True, "decode"),
+        (torch.float16, torch.float16, 128, 32, 8, 128, 2048, False, "prefill"),
+        (torch.float16, torch.int8, 1, 32, 8, 128, 2048, False, "decode"),
+        (torch.float16, torch.int8, 128, 32, 8, 128, 2048, True, "prefill"),
+        (torch.float16, torch.float16, 5, 32, 8, 128, 2048, True, "prefill"),
+        (torch.float16, torch.float16, 1, 32, 8, 96, 2048, True, "general"),
+        (torch.float16, torch.float16, 1, 32, 8, 128, 2040, True, "general"),
         (torch.float16, torch.bfloat16, 4, 32, 8, 64, 2048, True, "general"),
         (torch.bfloat16, torch.float16, 1, 32, 8, 128, 2048, True, "general"),
+        (torch.float16, torch.float32, 1, 32, 8, 128, 2048, True, "general"),
     ],
 )
 def test_kernel_variant(q_dtype, kv_dtype, T, H, Hkv, D, Lv, masked, want):

@@ -8,8 +8,10 @@ plain version on one CUDA card.
 Prints ptxas's register and spill lines, then for each form (all three
 when none is named) and case (BERT-base's training shape with a padding
 mask, Llama-3-8B's causal GQA shape, a causal window, a ragged length
-with a fully masked row, a non-causal window at GQA 4, and head dims 96
-and 80, which the wrappers zero-pad to 128) the worst error of o, lse,
+with a fully masked row, a non-causal window at GQA 4, and
+``chip_smoke.FLASH_D_CASES``' head dims: 96 and 80, which the wrappers
+zero-pad to 128, 256, which the kernels are built for, and 160, padded
+to 256) the worst error of o, lse,
 dq, dk and dv (and of the gradients of the ``delta_in`` form) against
 the plain version fed the same tensors, and the mean ms of 10
 back-to-back launches of each kernel (no L2 flush: ``chip_smoke.py``'s

@@ -5,9 +5,9 @@ from the repository root:
     python3 tools/zoo_legs.py [paged] [flash] [llama] [bert] [bert16] [vit] [t5] [ingest]
 
 After ``phase_device`` and ``phase_build`` it runs the named legs (all of
-them with no argument): ``[paged]`` (with its f16 case), ``[flash]``
-(with ``[flash f32]``'s f32 and f16 rows), ``[hf llama]`` (with its f16
-sibling), ``[hf bert f32]``, ``[bert f16]``, ``[vit]``, ``[t5]`` and
+them with no argument): ``[paged]`` (with its f16 cases), ``[flash]``
+(with ``[flash d]``'s head dims, D 256 and 160 timed, and ``[flash
+f32]``'s f32 and f16 rows), ``[hf llama]`` (with its f16 sibling), ``[hf bert f32]``, ``[bert f16]``, ``[vit]``, ``[t5]`` and
 ``[ingest]``, under ``chip_smoke.py``'s own gates, and prints ``[phase
 seconds]``.
 """
